@@ -1,0 +1,160 @@
+"""Port kernels' plain versions against the JAX reference on the CPU.
+
+The same numpy inputs (fixed seeds) go through the reference function and
+its counterpart in ``seldon_core_tpu_torch``.  Where the reference reaches a
+Pallas kernel it runs in interpret mode, as the JAX package's own tests run
+it on the CPU.  Tolerances are stated per check.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from seldon_core_tpu.ops import attention as jattn
+from seldon_core_tpu.ops import quant as jquant
+from seldon_core_tpu.runtime import paged as jpaged
+from seldon_core_tpu_torch.ops import attention as tattn
+from seldon_core_tpu_torch.ops import quant as tquant
+from seldon_core_tpu_torch.runtime import paged as tpaged
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+class TestInt8:
+    def test_quantize_int8_exact(self):
+        w = np.random.default_rng(0).normal(size=(64, 48)).astype(np.float32)
+        w[:, 3] = 0.0  # an all-zero column takes scale 1
+        j = jquant.quantize_int8(jnp.asarray(w))
+        t = tquant.quantize_int8(_t(w))
+        np.testing.assert_array_equal(np.asarray(j.values), t.values.numpy())
+        np.testing.assert_array_equal(np.asarray(j.scales), t.scales.numpy())
+
+    # (M 8, N 128) and (M 16, N 256) tile into the reference's Pallas
+    # kernel (interpret mode); (M 5, N 64) takes its shape fallback.  The
+    # port's plain version equals the reference's fallback math EXACTLY in
+    # float32 (the product is integer, xs a true division).  The reference's
+    # interpret-mode kernel computes xs as absmax * (1/127) (XLA rewrites the
+    # division), so against it the outputs may differ by up to 2 float32
+    # ulps: one ulp of xs carried through two multiplies.
+    @pytest.mark.parametrize("M,K,N", [(8, 64, 128), (5, 64, 64),
+                                       (16, 128, 256)])
+    def test_int8_matmul_f32(self, M, K, N):
+        rng = np.random.default_rng(M * 1000 + N)
+        x = rng.normal(size=(M, K)).astype(np.float32)
+        x[1] = 0.0  # a zero row takes xs = 1
+        w = rng.normal(size=(K, N)).astype(np.float32)
+        jq = jquant.quantize_int8(jnp.asarray(w))
+        # block_n=96 never tiles N, so this is the reference's fallback path
+        fallback = jquant.int8_matmul(jnp.asarray(x), jq, block_n=96,
+                                      interpret=True)
+        kernel = jquant.int8_matmul(jnp.asarray(x), jq, interpret=True)
+        tq = tquant.quantize_int8(_t(w))
+        out = tquant.int8_matmul(_t(x), tq)
+        assert out.dtype == torch.float32
+        np.testing.assert_array_equal(np.asarray(fallback), out.numpy())
+        np.testing.assert_array_max_ulp(np.asarray(kernel), out.numpy(),
+                                        maxulp=2)
+
+    def test_int8_matmul_bf16_exact(self):
+        """bf16 activations in and out: the same float32 arithmetic, then
+        one round-to-nearest-even cast on both sides (exact equality)."""
+        rng = np.random.default_rng(3)
+        x = rng.normal(size=(8, 64)).astype(np.float32)
+        w = rng.normal(size=(64, 128)).astype(np.float32)
+        xb = jnp.asarray(x, jnp.bfloat16)
+        ref = jquant.int8_matmul(xb, jquant.quantize_int8(jnp.asarray(w)),
+                                 block_n=96, interpret=True)
+        out = tquant.int8_matmul(_t(x).to(torch.bfloat16),
+                                 tquant.quantize_int8(_t(w)))
+        np.testing.assert_array_equal(
+            np.asarray(ref.astype(jnp.float32)), out.float().numpy())
+
+    def test_leading_dims_and_out_dtype(self):
+        rng = np.random.default_rng(4)
+        x = rng.normal(size=(2, 3, 32)).astype(np.float32)
+        w = rng.normal(size=(32, 16)).astype(np.float32)
+        ref = jquant.int8_matmul(jnp.asarray(x),
+                                 jquant.quantize_int8(jnp.asarray(w)),
+                                 interpret=True)  # M 6: the fallback path
+        out = tquant.int8_matmul(_t(x), tquant.quantize_int8(_t(w)))
+        assert tuple(out.shape) == (2, 3, 16)
+        np.testing.assert_array_equal(np.asarray(ref), out.numpy())
+
+    def test_cuda_wrapper_refuses_cpu_tensors(self):
+        q = tquant.quantize_int8(torch.ones(8, 8))
+        with pytest.raises(ValueError, match="on the card"):
+            tquant.int8_matmul_cuda(torch.ones(4, 8), q.values, q.scales,
+                                    torch.float32)
+
+
+class TestFlash:
+    # float32 end to end; the two differ only in summation order (online
+    # softmax vs dense), so atol 1e-5 at unit-variance inputs
+    @pytest.mark.parametrize("L", [16, 24])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_flash_ref_matches_reference_kernel(self, L, causal):
+        rng = np.random.default_rng(L + causal)
+        q, k, v = (rng.normal(size=(2, L, 4, 16)).astype(np.float32)
+                   for _ in range(3))
+        ref = jattn.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal,
+                                    block_q=8, block_k=8, interpret=True)
+        out = tattn.flash_attention_ref(_t(q), _t(k), _t(v), causal=causal)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                                   rtol=0)
+
+    def test_gqa_unexpanded_kv_equals_expanded(self):
+        """The port passes K/V at kv_heads (the kernel reads head h // g);
+        the reference repeats them first.  Same numbers (atol 1e-5)."""
+        rng = np.random.default_rng(7)
+        q = rng.normal(size=(1, 16, 4, 8)).astype(np.float32)
+        k, v = (rng.normal(size=(1, 16, 2, 8)).astype(np.float32)
+                for _ in range(2))
+        ref = jattn.flash_attention(
+            jnp.asarray(q), jnp.repeat(jnp.asarray(k), 2, axis=2),
+            jnp.repeat(jnp.asarray(v), 2, axis=2), causal=True, block_q=8,
+            block_k=8, interpret=True)
+        out = tattn.flash_attention(_t(q), _t(k), _t(v), causal=True)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                                   rtol=0)
+
+    @pytest.mark.parametrize("L,want", [(8320, 512), (24, 512), (7, 512),
+                                        (256, 16)])
+    def test_fit_block_matches_reference(self, L, want):
+        assert tattn._fit_block(L, want) == jattn._fit_block(L, want)
+
+
+class TestPagedRef:
+    def test_paged_attention_ref_matches_reference(self):
+        """Lengths include 0 (inactive slot), a partial page and exactly a
+        full page.  Only active rows are compared (an inactive slot's value
+        is unread); float32, atol 1e-6 (same contractions)."""
+        rng = np.random.default_rng(11)
+        S, H, Hkv, Dh, P, ps, pp = 4, 4, 2, 8, 9, 4, 3
+        q = rng.normal(size=(S, H, Dh)).astype(np.float32)
+        kp, vp = (rng.normal(size=(Hkv, P, ps, Dh)).astype(np.float32)
+                  for _ in range(2))
+        lengths = np.array([0, 3, 4, 11], np.int32)
+        tables = np.array([[0, 0, 0], [5, 0, 0], [2, 0, 0], [1, 7, 3]],
+                          np.int32)
+        ref = jpaged.paged_attention_ref(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(lengths), jnp.asarray(tables))
+        out = tpaged.paged_attention(_t(q), _t(kp), _t(vp), _t(lengths),
+                                     _t(tables))
+        assert out.dtype == torch.float32
+        assert torch.isfinite(out).all()
+        active = lengths > 0
+        np.testing.assert_allclose(out.numpy()[active],
+                                   np.asarray(ref)[active], atol=1e-6,
+                                   rtol=0)
+
+    def test_cuda_wrapper_refuses_cpu_tensors(self):
+        z = torch.zeros(2, 2, 4, 8)
+        with pytest.raises(ValueError, match="on the card"):
+            tpaged.paged_attention_cuda(
+                torch.zeros(1, 2, 8), z, z, torch.ones(1, dtype=torch.int32),
+                torch.zeros(1, 1, dtype=torch.int32))
