@@ -9,12 +9,18 @@ Prints one JSON object per line:
    it (also printed raw on a line of its own); every later line carries it
    as ``card`` beside its times.
 2. ``build``: builds the three kernels from ``seldon_core_tpu_torch/csrc``
-   (one ``nvcc`` per source, in parallel) and reports the seconds.
+   (one ``nvcc`` per source, in parallel) and reports the seconds; then
+   ``ptxas``: registers, spills and static shared memory of every kernel
+   function, from the build's ``-Xptxas -v`` log.
 3. ``kernel``: each kernel against its plain PyTorch version on the same
-   inputs on the card, at the 7B-class shapes and at ``llm.json``'s, with
-   the max abs error and its tolerance, and (at the main-path shapes) the
+   inputs on the card, at the 7B-class shapes (K1 at decode, M = 8, and at
+   the prefill buckets 32 and 128, for every projection), at ragged edge
+   shapes and at ``llm.json``'s, with the variant the wrapper chose, the
+   max abs error and its tolerance, and (7B-class and ``llm.json``) the
    kernel's, the plain version's and a PyTorch yardstick call's times over
-   cold L2 (CUDA events), beside the least time the card could take.
+   cold L2 (CUDA events), beside the least time the card could take.  K1
+   also times ``torch._int_mm`` on the same int8 operands (``int_mm_ms``,
+   the int8 product alone; M > 16 only).
 4. ``llm_json``: boots the local runner on the port's copy of
    ``examples/graphs/llm.json`` in process, POSTs three concurrent greedy
    requests and holds their ids to the same engine run on the CPU.
@@ -26,7 +32,8 @@ Prints one JSON object per line:
    device memory, and the kernels' launch counts during the run.
 6. ``parity_7b``: the same width at 2 layers, the kernel path on the card
    against the plain path (the same weights on the CPU): prefill and 4
-   decode ticks of logits, and how many greedy ids agree (all must).
+   decode ticks of logits, and how many greedy ids agree (all must; an
+   exact tie in the CPU logits admits each tied id).
 7. ``{"kernels": [...]}``: one entry per kernel with its launches in
    ``serve_7b``, its error, times and bound.
 8. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
@@ -41,6 +48,7 @@ from __future__ import annotations
 import asyncio
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -68,32 +76,6 @@ def bound(bytes_moved: float, ops: float, kind: str) -> tuple[float, str]:
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-class Timer:
-    """CUDA-event timing of single launches over a cold L2 (a 256 MB
-    buffer is written between launches), median over ``reps``."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.flush_buf = torch.empty(64 << 20, dtype=torch.float32,
-                                     device="cuda")
-
-    def __call__(self, fn, reps: int = 20, warmup: int = 2) -> float:
-        torch = self.torch
-        for _ in range(warmup):
-            fn()
-        times = []
-        for _ in range(reps):
-            self.flush_buf.zero_()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
-
 # ----------------------------------------------------------------------
 # kernels against their plain versions
 # ----------------------------------------------------------------------
@@ -108,15 +90,33 @@ def kernel_phase(torch, timer) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
     # K1 ------------------------------------------------------------------
-    # 7B decode (M = 8 slots) over every projection shape of a layer plus
-    # the lm_head, one prefill bucket, and llm.json's shapes (d64, f32)
-    k1_cases = [
-        ("7b_decode_w1", 8, 4096, 16384, torch.bfloat16, True),
-        ("7b_decode_wq_wo", 8, 4096, 4096, torch.bfloat16, False),
-        ("7b_decode_wk_wv", 8, 4096, 1024, torch.bfloat16, False),
-        ("7b_decode_w2", 8, 16384, 4096, torch.bfloat16, False),
-        ("7b_decode_lm_head", 8, 4096, 32000, torch.bfloat16, False),
-        ("7b_prefill128_w1", 128, 4096, 16384, torch.bfloat16, False),
+    # 7B decode (M = 8 slots) and the prefill buckets 32 and 128 over every
+    # projection shape of a layer plus the lm_head, and llm.json's shapes
+    # (d64, f32)
+    proj_7b = [("wq_wo", 4096, 4096), ("wk_wv", 4096, 1024),
+               ("w1", 4096, 16384), ("w2", 16384, 4096),
+               ("lm_head", 4096, 32000)]
+    k1_cases = [(f"7b_{stage}_{pn}", M, K, N, torch.bfloat16,
+                 (stage, pn) == ("decode", "w1"))
+                for stage, M in (("decode", 8), ("prefill32", 32),
+                                 ("prefill128", 128))
+                for pn, K, N in proj_7b]
+    k1_cases += [
+        # ragged edges: M not a multiple of 8 or 64, N not of 16 or 64, K
+        # not of 64 or 128 (a partial chunk / k-tile), 9-16 rows (two
+        # 8-token tiles of the decode schedule), one row
+        ("edge_m1", 1, 4096, 4096, torch.bfloat16, False),
+        ("edge_m13_n1000_k4112", 13, 4112, 1000, torch.bfloat16, False),
+        ("edge_m16_k4112", 16, 4112, 4096, torch.float32, False),
+        ("edge_m17_n1000_k4112", 17, 4112, 1000, torch.bfloat16, False),
+        ("edge_m200_n48_k80", 200, 80, 48, torch.float32, False),
+        # split-K with an empty split and a partial k-tile (9 k-tiles over
+        # 4 splits) at 128- and 64-row tiles (M 128 and 64, the largest of
+        # each), 32-row tiles on a ragged M, an odd N (single stores)
+        ("edge_m128_n4096_k1040", 128, 1040, 4096, torch.bfloat16, False),
+        ("edge_m64_n4096_k1040", 64, 1040, 4096, torch.float32, False),
+        ("edge_m100_n1000_k4112", 100, 4112, 1000, torch.float32, False),
+        ("edge_m65_n999_k2064", 65, 2064, 999, torch.bfloat16, False),
         ("llm_json_wq", 4, 64, 64, torch.float32, False),
         ("llm_json_wk", 4, 64, 32, torch.float32, False),
         ("llm_json_w1", 4, 64, 128, torch.float32, False),
@@ -125,6 +125,7 @@ def kernel_phase(torch, timer) -> dict:
         ("llm_json_prefill_w1", 64, 64, 128, torch.float32, False),
     ]
     errs = []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name, M, K, N, dt, main in k1_cases:
         x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
         w = quant.quantize_int8(
@@ -135,7 +136,12 @@ def kernel_phase(torch, timer) -> dict:
         err = (out.float() - ref.float()).abs().max().item()
         bitwise = torch.equal(out, ref)
         errs.append(err)
+        variant = quant.int8_variant(M)
+        if variant == "mma_gemm":
+            plan = quant.gemm_plan(M, K, N, sms)
+            variant += f" {plan.bm}x128 tiles, K split {plan.splits}"
         line = {"phase": "kernel", "kernel": "int8_matmul", "case": name,
+                "variant": variant,
                 "shape": [M, K, N], "dtype": str(dt).split(".")[-1],
                 "max_abs_err": err, "tolerance": "bitwise equal",
                 "bitwise_equal": bitwise, "card": CARD}
@@ -143,22 +149,27 @@ def kernel_phase(torch, timer) -> dict:
             emit(line)
             raise AssertionError(f"int8_matmul {name}: not bitwise equal "
                                  f"to its plain version (max err {err})")
-        if main or name.startswith("7b_decode") or name.startswith("llm"):
+        if name.startswith("7b") or name.startswith("llm"):
             itemsize = x.element_size()
             nbytes = M * K * itemsize + K * N + N * 4 + M * N * itemsize
             b_ms, b_by = bound(nbytes, 2.0 * M * N * K, "int8")
             wd = (w.values.to(dt) * w.scales.to(dt))  # dequantized, once
+            # second yardstick: the int8 product alone (cuBLASLt; M > 16)
+            xq = quant.quantize_rows(x)[0].to(torch.int8)
             line.update(
                 ms=timer(lambda: quant.int8_matmul_cuda(x, w.values,
                                                         w.scales, dt)),
                 plain_ms=timer(lambda: quant.int8_matmul_ref(
                     x, w.values, w.scales, dt), reps=5),
                 library_ms=timer(lambda: torch.matmul(x, wd)),
+                int_mm_ms=(timer(lambda: torch._int_mm(xq, w.values))
+                           if M > 16 else None),
                 bound_ms=b_ms, bound_by=b_by)
+            del wd, xq
             if main:
                 summary["int8_matmul"] = {
                     k: line[k] for k in ("ms", "plain_ms", "library_ms",
-                                         "bound_ms", "bound_by")}
+                                         "bound_ms", "bound_by", "variant")}
                 summary["int8_matmul"]["shape"] = f"{name} {M}x{K}x{N}"
         emit(line)
         del x, w
@@ -250,25 +261,27 @@ def kernel_phase(torch, timer) -> dict:
     # tolerance: bf16 output atol 2e-2 at unit-variance inputs, one bf16
     # ulp (the two sum in another order and each rounds once to bf16);
     # float32 output atol 1e-5 (summation order only)
-    def flash_case(name, B, L, H, Hkv, D, dt, main):
+    def flash_case(name, B, L, H, Hkv, D, dt, main, causal=True):
         q = torch.randn((B, L, H, D), generator=gen, device="cuda").to(dt)
         k = torch.randn((B, L, Hkv, D), generator=gen, device="cuda").to(dt)
         v = torch.randn((B, L, Hkv, D), generator=gen, device="cuda").to(dt)
-        out = attention.flash_attention_cuda(q, k, v, causal=True)
-        ref = attention.flash_attention_ref(q, k, v, causal=True)
+        out = attention.flash_attention_cuda(q, k, v, causal=causal)
+        ref = attention.flash_attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         tol = 2e-2 if dt == torch.bfloat16 else 1e-5
         line = {"phase": "kernel", "kernel": "flash_attention", "case": name,
+                "variant": attention.flash_variant(dt, D), "causal": causal,
                 "shape": [B, L, H, Hkv, D], "dtype": str(dt).split(".")[-1],
                 "max_abs_err": err, "tolerance": f"atol {tol}", "card": CARD}
         if not err <= tol:
             emit(line)
             raise AssertionError(f"flash_attention {name}: error {err}")
-        if main or name.startswith("llm"):
+        if name.startswith("7b") or name.startswith("llm"):
             isz = q.element_size()
             nbytes = (2 * q.numel() + 2 * k.numel()) * isz
-            ops = 4.0 * B * H * D * L * (L + 1) / 2  # causal pairs
+            pairs = L * (L + 1) / 2 if causal else L * L
+            ops = 4.0 * B * H * D * pairs
             b_ms, b_by = bound(nbytes, ops,
                                "bf16" if dt == torch.bfloat16 else "f32")
             g = H // Hkv
@@ -276,17 +289,19 @@ def kernel_phase(torch, timer) -> dict:
             kt = k.repeat_interleave(g, 2).transpose(1, 2)
             vt = v.repeat_interleave(g, 2).transpose(1, 2)
             line.update(
-                ms=timer(lambda: attention.flash_attention_cuda(q, k, v)),
-                plain_ms=timer(lambda: attention.flash_attention_ref(q, k, v),
-                               reps=5),
+                ms=timer(lambda: attention.flash_attention_cuda(
+                    q, k, v, causal=causal)),
+                plain_ms=timer(lambda: attention.flash_attention_ref(
+                    q, k, v, causal=causal), reps=5),
                 library_ms=timer(
                     lambda: torch.nn.functional.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True)),
+                        qt, kt, vt, is_causal=causal)),
                 bound_ms=b_ms, bound_by=b_by)
             if main:
                 summary["flash_attention"] = {
                     k_: line[k_] for k_ in ("ms", "plain_ms", "library_ms",
-                                            "bound_ms", "bound_by")}
+                                            "bound_ms", "bound_by",
+                                            "variant")}
                 summary["flash_attention"]["shape"] = (
                     f"{name} B{B} L{L} H{H}/{Hkv} D{D}")
         emit(line)
@@ -298,6 +313,18 @@ def kernel_phase(torch, timer) -> dict:
         flash_case("7b_prefill256", 1, 256, 32, 8, 128, torch.bfloat16,
                    False),
         flash_case("7b_ragged_100", 2, 100, 32, 8, 128, torch.bfloat16,
+                   False),
+        flash_case("7b_prefill1024", 1, 1024, 32, 8, 128, torch.bfloat16,
+                   False),
+        flash_case("7b_ragged_777_b2", 2, 777, 32, 8, 128, torch.bfloat16,
+                   False),
+        flash_case("7b_full_ragged_300", 1, 300, 32, 8, 128, torch.bfloat16,
+                   False, causal=False),
+        flash_case("d64_ragged_200", 2, 200, 8, 2, 64, torch.bfloat16,
+                   False),
+        flash_case("d32_mha_ragged_50", 1, 50, 4, 4, 32, torch.bfloat16,
+                   False),
+        flash_case("7b_prefill128_f32", 1, 128, 32, 8, 128, torch.float32,
                    False),
         flash_case("llm_json_prefill16", 1, 16, 4, 2, 16, torch.float32,
                    False),
@@ -504,7 +531,14 @@ def parity_7b_phase(torch) -> None:
     sum float32 terms in another order, so an attention output may round to
     the neighbouring bf16 value (relative 2^-8), and int8 activation
     quantization can turn that into a step of absmax/127 for the element it
-    moves; through 2 layers this stays well inside 0.25."""
+    moves; through 2 layers this stays well inside 0.25.
+
+    Greedy ids: the logits are bf16, so the CPU path's top two logits are
+    sometimes exactly equal (3 of the 10 rows here).  There every id that
+    attains the CPU maximum is its greedy id, and which one the card picks
+    is decided by differences far below the logit tolerance.  An id agrees
+    when the CPU logit at the card's id equals the CPU maximum; all 10 must.
+    The strict count (same index) is printed beside it."""
     from seldon_core_tpu_torch.models.transformer import (
         init_params_int8,
         prefill,
@@ -544,10 +578,23 @@ def parity_7b_phase(torch) -> None:
                 insert_rows(cache, small, rows.to(device), true_len=len(p))
         return torch.cat(first), cache
 
+    def gap(logits):  # top-1 minus top-2 logit per row
+        top = logits.topk(2, dim=-1).values
+        return (top[:, 0] - top[:, 1]).tolist()
+
+    def agree_count(card, cpu):  # card's greedy id attains the CPU maximum
+        at = cpu.gather(-1, card.argmax(-1)[:, None])[:, 0]
+        return int((at == cpu.max(-1).values).sum())
+
+    def equal_count(card, cpu):
+        return int((card.argmax(-1) == cpu.argmax(-1)).sum())
+
     g_first, g_cache = run(gpu_params, "cuda")
     c_first, c_cache = run(cpu_params, "cpu")
     errs = [(g_first - c_first).abs().max().item()]
-    agree = [int((g_first.argmax(-1) == c_first.argmax(-1)).sum())]
+    agree = [agree_count(g_first, c_first)]
+    equal = [equal_count(g_first, c_first)]
+    gaps = [gap(c_first)]
     tok = g_first.argmax(-1)
     pos = torch.tensor(lens, dtype=torch.int32)
     with torch.no_grad():
@@ -559,7 +606,9 @@ def parity_7b_phase(torch) -> None:
                                             tok, cfg, paged)
             gl = gl.float().cpu()
             errs.append((gl - cl).abs().max().item())
-            agree.append(int((gl.argmax(-1) == cl.argmax(-1)).sum()))
+            agree.append(agree_count(gl, cl))
+            equal.append(equal_count(gl, cl))
+            gaps.append(gap(cl))
             tok = gl.argmax(-1)  # both paths take the card's ids next
             pos = pos + 1
     scale = c_first.abs().max().item()
@@ -569,6 +618,8 @@ def parity_7b_phase(torch) -> None:
           "max_abs_err_prefill": errs[0], "max_abs_err_ticks": errs[1:],
           "tolerance": "atol 0.25", "max_abs_logit": scale,
           "greedy_ids_agree": sum(agree), "greedy_ids_total": 2 * 5,
+          "agree_per_step": agree, "greedy_ids_equal_index": sum(equal),
+          "cpu_top2_gap_per_step": gaps,
           "card": CARD})
     if max(errs) > 0.25:
         raise AssertionError(f"parity_7b: logits differ by {max(errs)}")
@@ -577,6 +628,39 @@ def parity_7b_phase(torch) -> None:
 
 
 # ----------------------------------------------------------------------
+
+def ptxas_report(log: str) -> list:
+    """Registers, spills and shared memory per kernel from the build's
+    ``-Xptxas -v`` output, names demangled where ``c++filt`` exists."""
+    rows, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = {"function": m.group(1)}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"] = int(m.group(1))
+            cur["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    try:
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(r["function"] for r in rows),
+            capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r["function"] = n
+    except OSError:
+        pass  # mangled names then
+    return rows
+
 
 _SUMMARY_META = {
     "int8_matmul": ("seldon_core_tpu_torch/csrc/int8_matmul.cu",
@@ -624,8 +708,11 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_s,
           "compiled": stats.get("compiled"), "library": stats.get("library"),
           "log": str(log)})
+    emit({"phase": "ptxas", "kernels": ptxas_report(stats.get("log", ""))})
 
-    summary = kernel_phase(torch, Timer(torch))
+    from seldon_core_tpu_torch.cuda_timer import ColdTimer
+
+    summary = kernel_phase(torch, ColdTimer())
     llm_json_phase(torch)
     launches = serve_7b_phase(torch)
     parity_7b_phase(torch)
@@ -639,7 +726,7 @@ def main() -> int:
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
-            "shape": s["shape"], "card": CARD})
+            "shape": s["shape"], "variant": s.get("variant"), "card": CARD})
     emit({"kernels": entries})
     for e in entries:
         if not (e["launches"] > 0 and math.isfinite(e["ms"])):

@@ -5,7 +5,9 @@ nested dict of numpy arrays, float leaves or ``{"values", "scales"}``
 quantized leaves, with tuples of per-layer arrays) into the port's params
 on a given device, with the same layout and orientation: ``wq`` (D, H, Dh)
 or int8 ``(D, H*Dh)``, int8 ``wo`` ``(H*Dh, D)``, ``w1`` (D, F), ``lm_head``
-(D, V).  Tuples become Python lists.  It takes host arrays only (call
+(D, V).  Tuples become Python lists.  The int8 ``values`` keep their (K, N)
+shape but are stored K-major (``ops.quant.k_major``), the layout the int8
+kernel reads.  It takes host arrays only (call
 ``jax.tree.map(np.asarray, params)`` first), so it needs no jax itself.
 """
 
@@ -13,6 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from seldon_core_tpu_torch.ops.quant import k_major
 
 __all__ = ["params_from_jax", "to_torch"]
 
@@ -31,7 +35,12 @@ def to_torch(a, device=None) -> torch.Tensor:
 
 def params_from_jax(tree, device=None):
     if isinstance(tree, dict):
-        return {k: params_from_jax(v, device) for k, v in tree.items()}
+        out = {k: params_from_jax(v, device) for k, v in tree.items()}
+        if "values" in out and "scales" in out:  # an int8 leaf
+            vals = out["values"]
+            out["values"] = ([k_major(v) for v in vals]
+                             if isinstance(vals, list) else k_major(vals))
+        return out
     if isinstance(tree, (tuple, list)):
         return [params_from_jax(v, device) for v in tree]
     return to_torch(tree, device)

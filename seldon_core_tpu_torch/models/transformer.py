@@ -12,6 +12,9 @@ Same parameter layout as the reference, so converted params
   tensor per layer (Python lists where the reference keeps unstacked tuples,
   ``models/transformer.py:215-220``): q/k/v flattened ``(D, heads*Dh)``,
   ``wo`` ``(H*Dh, D)``, ``w1`` (D, F), ``w2`` (F, D), ``lm_head`` (D, V).
+  Each ``values`` tensor has that (K, N) shape but is stored K-major (the
+  ``.t()`` view of a contiguous (N, K) buffer, ``ops.quant.k_major``), as
+  every int8 weight this module makes is (through ``quantize_int8``).
 
 Numerics copied from the reference: rmsnorm in float32 (eps 1e-6, then the
 scale, then the cast); rotary embedding on concatenated (not interleaved)

@@ -44,16 +44,18 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of csrc/*.cu (extern "C"); every function returns cudaError_t
 _SIGNATURES = {
-    # x, w, ws, xq scratch, xs scratch, out, M, K, N, x dtype, out dtype,
+    # x, w (the (N, K) buffer), ws, xq scratch, xs scratch, out, M, K, N,
+    # x dtype, out dtype, variant, tile rows, K splits, split-K scratch,
     # stream
-    "sck_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "sck_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _P, _P],
     # q, k_pages, v_pages, lengths, tables, out, S, H, Hkv, n_pages,
     # page_size, D, pages_per_slot, scale, dtype, stream
     "sck_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _F, _I, _P],
-    # q, k, v, out, B, L, H, Hkv, D, causal, scale, dtype, stream
+    # q, k, v, out, B, L, H, Hkv, D, causal, scale, dtype, variant, stream
     "sck_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
-                            _P],
+                            _I, _P],
 }
 
 #: head dims the attention kernels (K2, K3) are instantiated for

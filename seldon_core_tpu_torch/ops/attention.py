@@ -27,7 +27,7 @@ from seldon_core_tpu_torch.ops import _build
 from seldon_core_tpu_torch.parallel.ring_attention import dense_attention
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_cuda",
-           "NEG_INF"]
+           "flash_variant", "MMA_HEAD_DIMS", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -44,6 +44,20 @@ def flash_attention_ref(q, k, v, causal: bool = True,
     H = q.shape[2]
     return dense_attention(q, _expand(k, H), _expand(v, H), causal=causal,
                            scale=scale)
+
+
+#: head dims K3's tensor-core variant is instantiated for
+MMA_HEAD_DIMS = (64, 128)
+_VARIANT_CODES = {"simt": 0, "mma": 1}  # csrc/flash_attention.cu
+
+
+def flash_variant(dtype: torch.dtype, D: int) -> str:
+    """K3's variant for inputs of ``dtype`` and head dim ``D``: ``"mma"``
+    (tensor cores) for bfloat16 at D in :data:`MMA_HEAD_DIMS`, else
+    ``"simt"`` (float32 FMA, every D of ``_build.HEAD_DIMS``)."""
+    if dtype == torch.bfloat16 and D in MMA_HEAD_DIMS:
+        return "mma"
+    return "simt"
 
 
 def flash_attention_cuda(q, k, v, causal: bool = True,
@@ -76,7 +90,7 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
     err = _build.load().sck_flash_attention(
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         B, L, H, Hkv, D, int(bool(causal)), float(scale), code,
-        _build.stream_of(q),
+        _VARIANT_CODES[flash_variant(q.dtype, D)], _build.stream_of(q),
     )
     _build.check(err, what)
     flash_attention_cuda.launches += 1

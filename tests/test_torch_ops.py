@@ -14,6 +14,7 @@ import torch
 from seldon_core_tpu.ops import attention as jattn
 from seldon_core_tpu.ops import quant as jquant
 from seldon_core_tpu.runtime import paged as jpaged
+from seldon_core_tpu_torch.ops import _build
 from seldon_core_tpu_torch.ops import attention as tattn
 from seldon_core_tpu_torch.ops import quant as tquant
 from seldon_core_tpu_torch.runtime import paged as tpaged
@@ -89,6 +90,75 @@ class TestInt8:
             tquant.int8_matmul_cuda(torch.ones(4, 8), q.values, q.scales,
                                     torch.float32)
 
+    @pytest.mark.parametrize("K,N", [(64, 48), (16, 8), (128, 256)])
+    def test_quantize_int8_is_k_major(self, K, N):
+        """values keep the reference's (K, N) shape, stored K-major: the
+        .t() view of a contiguous (N, K) buffer, strides (1, K)."""
+        w = np.random.default_rng(K + N).normal(size=(K, N)).astype(
+            np.float32)
+        q = tquant.quantize_int8(_t(w))
+        assert tuple(q.values.shape) == (K, N)
+        assert q.values.stride() == (1, K)
+        assert q.values.t().is_contiguous()
+        assert tquant.is_k_major(q.values)
+        np.testing.assert_array_equal(
+            q.values.numpy(), np.asarray(jquant.quantize_int8(
+                jnp.asarray(w)).values))
+
+    def test_k_major_helpers(self):
+        rowmajor = torch.arange(96, dtype=torch.int8).reshape(8, 12)
+        assert not tquant.is_k_major(rowmajor)
+        km = tquant.k_major(rowmajor)
+        assert tquant.is_k_major(km) and torch.equal(km, rowmajor)
+
+    # The port's plain version on the K-major view against the reference's
+    # fallback (block_n=96 never tiles N): bit for bit, float32 and bf16
+    # activations (bf16: the same float32 arithmetic, one rounding)
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("M,K,N", [(8, 64, 128), (33, 128, 48)])
+    def test_int8_matmul_ref_on_k_major_equals_fallback(self, dtype, M, K,
+                                                        N):
+        rng = np.random.default_rng(M + K + N)
+        x = rng.normal(size=(M, K)).astype(np.float32)
+        x[2] = 0.0
+        w = rng.normal(size=(K, N)).astype(np.float32)
+        tq = tquant.quantize_int8(_t(w))
+        assert tq.values.stride() == (1, K)
+        jx = jnp.asarray(x, getattr(jnp, dtype))
+        ref = jquant.int8_matmul(jx, jquant.quantize_int8(jnp.asarray(w)),
+                                 block_n=96, interpret=True)
+        tdt = getattr(torch, dtype)
+        out = tquant.int8_matmul_ref(_t(x).to(tdt), tq.values, tq.scales,
+                                     tdt)
+        assert out.dtype == tdt
+        np.testing.assert_array_equal(np.asarray(ref.astype(jnp.float32)),
+                                      out.float().numpy())
+
+    @pytest.mark.parametrize("M,variant", [(1, "mma_gemv"), (8, "mma_gemv"),
+                                           (16, "mma_gemv"),
+                                           (17, "mma_gemm"),
+                                           (128, "mma_gemm")])
+    def test_int8_variant_rule(self, M, variant):
+        assert tquant.int8_variant(M) == variant
+
+    # "mma_gemm" plan on a 132-SM card at the 7B prefill shapes and ragged
+    # ones: (tile rows, K splits); splits fill at most one block per SM and
+    # keep at least two 128-byte k-tiles each; fewer tile rows where the
+    # tiles, split at most 4 ways, would leave half the SMs idle
+    @pytest.mark.parametrize("M,K,N,plan", [
+        (128, 4096, 16384, (128, 1)), (128, 16384, 4096, (128, 4)),
+        (128, 4096, 4096, (128, 4)), (128, 4096, 1024, (32, 4)),
+        (128, 4096, 32000, (128, 1)), (32, 4096, 1024, (32, 16)),
+        (32, 16384, 4096, (32, 4)), (64, 1040, 4096, (64, 4)),
+        (128, 1040, 4096, (128, 4)), (17, 4112, 1000, (32, 16)),
+        (65, 2064, 999, (32, 4)), (200, 80, 48, (32, 1))])
+    def test_gemm_plan(self, M, K, N, plan):
+        got = tquant.gemm_plan(M, K, N, 132)
+        assert (got.bm, got.splits) == plan
+        bm, splits = plan
+        tiles = -(-M // bm) * -(-N // 128)
+        assert splits == 1 or tiles * splits <= 132
+
 
 class TestFlash:
     # float32 end to end; the two differ only in summation order (online
@@ -120,6 +190,16 @@ class TestFlash:
         out = tattn.flash_attention(_t(q), _t(k), _t(v), causal=True)
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
                                    rtol=0)
+
+    @pytest.mark.parametrize("dtype,D,variant", [
+        (torch.bfloat16, 128, "mma"), (torch.bfloat16, 64, "mma"),
+        (torch.bfloat16, 32, "simt"), (torch.bfloat16, 256, "simt"),
+        (torch.float32, 128, "simt"), (torch.float32, 16, "simt")])
+    def test_flash_variant_rule(self, dtype, D, variant):
+        """The tensor-core variant takes bf16 at its head dims; every other
+        case keeps the float32 kernel, which covers all of HEAD_DIMS."""
+        assert tattn.flash_variant(dtype, D) == variant
+        assert set(tattn.MMA_HEAD_DIMS) <= set(_build.HEAD_DIMS)
 
     @pytest.mark.parametrize("L,want", [(8320, 512), (24, 512), (7, 512),
                                         (256, 16)])

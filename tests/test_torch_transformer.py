@@ -87,6 +87,42 @@ def test_param_layout_matches_reference():
                                tp["blocks"][name]["values"][i])
 
 
+def _int8_values(params):
+    """Every int8 ``values`` tensor of a param tree."""
+    found = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            if "values" in t and "scales" in t:
+                v = t["values"]
+                found.extend(v if isinstance(v, list) else [v])
+            else:
+                for x in t.values():
+                    walk(x)
+
+    walk(params)
+    return found
+
+
+@pytest.mark.parametrize("source", ["init_params_int8", "params_from_jax",
+                                    "quantize_attn_ffn"])
+def test_int8_values_are_k_major(source):
+    """Every way of making int8 weights stores them K-major: shape (K, N),
+    strides (1, K), the layout the int8 kernel reads."""
+    if source == "init_params_int8":
+        p = ttf.init_params_int8(torch.Generator().manual_seed(0), TCFG)
+    elif source == "params_from_jax":
+        p = _both("full")[1]
+    else:
+        p = ttf.quantize_attn_params(ttf.quantize_ffn_params(
+            ttf.init_params(torch.Generator().manual_seed(0), TCFG)))
+    vals = _int8_values(p)
+    assert len(vals) == 6 * TCFG.n_layers + 1  # q k v o w1 w2 + lm_head
+    for v in vals:
+        assert v.dtype == torch.int8
+        assert v.stride() == (1, v.shape[0]), (tuple(v.shape), v.stride())
+
+
 def test_init_params_int8_layout_and_forward():
     """The layer-by-layer int8 init (used for 7B-class models) gives the
     layout of quantize_attn_params(quantize_ffn_params(init_params())),
