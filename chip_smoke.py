@@ -20,7 +20,11 @@ Prints one JSON object per line:
    kernel's, the plain version's and a PyTorch yardstick call's times over
    cold L2 (CUDA events), beside the least time the card could take.  K1
    also times ``torch._int_mm`` on the same int8 operands (``int_mm_ms``,
-   the int8 product alone; M > 16 only).
+   the int8 product alone; M > 16 only).  K2's cases are
+   ``seldon_core_tpu_torch/time_paged_attention.py`` ``CASES``: the 7B
+   decode tick, long contexts (8 slots of 512..4096 tokens, one slot of
+   8192), all slots inactive (the kernel's floor), g = 16, MHA at D64,
+   float32 D256 and partition edges; each line names the split plan.
 4. ``llm_json``: boots the local runner on the port's copy of
    ``examples/graphs/llm.json`` in process, POSTs three concurrent greedy
    requests and holds their ids to the same engine run on the CPU.
@@ -35,7 +39,8 @@ Prints one JSON object per line:
    decode ticks of logits, and how many greedy ids agree (all must; an
    exact tie in the CPU logits admits each tied id).
 7. ``{"kernels": [...]}``: one entry per kernel with its launches in
-   ``serve_7b``, its error, times and bound.
+   ``serve_7b``, its error, times and bound (K2 also at its two long
+   cases).
 8. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
@@ -176,86 +181,76 @@ def kernel_phase(torch, timer) -> dict:
     summary["int8_matmul"]["max_abs_err"] = max(errs)
 
     # K2 ------------------------------------------------------------------
-    # tolerance 1e-3 (float32 output): the kernel and the plain version
-    # sum the same float32 terms in another order (online softmax)
-    def paged_case(name, S, H, Hkv, D, n_pages, ps, lengths, dt, main):
-        pp = max(1, max(-(-n // ps) for n in lengths))
-        perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
-        tables = torch.zeros((S, pp), dtype=torch.int32, device="cuda")
-        used = 0
-        for s, n in enumerate(lengths):
-            k = -(-n // ps)
-            tables[s, :k] = perm[used:used + k]
-            used += k
-        q = torch.randn((S, H, D), generator=gen, device="cuda").to(dt)
-        kp = torch.randn((Hkv, n_pages, ps, D), generator=gen,
-                         device="cuda").to(dt)
-        vp = torch.randn((Hkv, n_pages, ps, D), generator=gen,
-                         device="cuda").to(dt)
-        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    # the cases of seldon_core_tpu_torch/time_paged_attention.py.  Tolerance
+    # atol 1e-3, rtol 1e-3 on active rows (float32 output): the kernel and
+    # the plain version sum the same float32 terms in another order (per
+    # page partition, then a rescaled merge); an inactive slot's row is
+    # unread and only has to be finite.
+    from seldon_core_tpu_torch import time_paged_attention as k2cases
+
+    def paged_case(case):
+        q, kp, vp, lens, tables = k2cases.make_inputs(case, gen)
+        plan = paged.kernel_split_plan(
+            case.S, case.H, case.Hkv, case.D, case.page_size,
+            tables.shape[1], q.element_size(), sms)
         out = paged.paged_attention_cuda(q, kp, vp, lens, tables)
         ref = paged.paged_attention_ref(q, kp, vp, lens, tables)
         torch.cuda.synchronize()
         active = lens > 0
         if not torch.isfinite(out).all():
-            raise AssertionError(f"paged_attention {name}: non-finite output")
-        err = (out[active] - ref[active]).abs().max().item()
+            raise AssertionError(f"paged_attention {case.name}: non-finite "
+                                 "output")
+        err = ((out[active] - ref[active]).abs().max().item()
+               if active.any() else 0.0)
         ok = torch.allclose(out[active], ref[active], atol=1e-3, rtol=1e-3)
-        line = {"phase": "kernel", "kernel": "paged_attention", "case": name,
-                "shape": {"S": S, "H": H, "Hkv": Hkv, "D": D,
-                          "pages": n_pages, "page_size": ps,
-                          "lengths": lengths},
-                "dtype": str(dt).split(".")[-1], "max_abs_err": err,
+        line = {"phase": "kernel", "kernel": "paged_attention",
+                "case": case.name,
+                "variant": f"split {plan.n_split} x {plan.pages} pages",
+                "n_split": plan.n_split, "pages_per_split": plan.pages,
+                "shape": {"S": case.S, "H": case.H, "Hkv": case.Hkv,
+                          "D": case.D, "pages": case.n_pages,
+                          "page_size": case.page_size,
+                          "lengths": list(case.lengths),
+                          "pages_per_slot": tables.shape[1]},
+                "dtype": case.dtype, "max_abs_err": err,
                 "tolerance": "atol 1e-3, rtol 1e-3", "card": CARD}
         if not ok:
             emit(line)
-            raise AssertionError(f"paged_attention {name}: error {err}")
-        if main or name.startswith("llm"):
-            isz = q.element_size()
-            live = sum(lengths)
-            nbytes = (q.numel() * isz + 2 * live * Hkv * D * isz
-                      + 4 * S + 4 * S * pp + out.numel() * 4)
-            ops = 4.0 * H * D * live
-            b_ms, b_by = bound(nbytes, ops,
-                               "bf16" if dt == torch.bfloat16 else "f32")
-            g = H // Hkv
-            T = pp * ps
-            # yardstick: gather the slot's pages, then SDPA with the mask
-            mask = (torch.arange(T, device="cuda")[None, :]
-                    < lens[:, None])[:, None, None, :]
-
-            def library():
-                kg = kp[:, tables].reshape(Hkv, S, T, D).transpose(0, 1)
-                vg = vp[:, tables].reshape(Hkv, S, T, D).transpose(0, 1)
-                return torch.nn.functional.scaled_dot_product_attention(
-                    q[:, :, None, :], kg.repeat_interleave(g, 1),
-                    vg.repeat_interleave(g, 1), attn_mask=mask)
-
-            line.update(
-                ms=timer(lambda: paged.paged_attention_cuda(q, kp, vp, lens,
-                                                            tables)),
-                plain_ms=timer(lambda: paged.paged_attention_ref(
-                    q, kp, vp, lens, tables), reps=5),
-                library_ms=timer(library), bound_ms=b_ms, bound_by=b_by)
-            if main:
-                summary["paged_attention"] = {
-                    k: line[k] for k in ("ms", "plain_ms", "library_ms",
-                                         "bound_ms", "bound_by")}
-                summary["paged_attention"]["shape"] = (
-                    f"{name} S{S} H{H}/{Hkv} D{D} tokens {live}")
+            raise AssertionError(f"paged_attention {case.name}: error {err}")
+        if case.timed:
+            nbytes, ops = k2cases.work(case)
+            b_ms, b_by = bound(nbytes, ops, "bf16" if case.dtype == "bfloat16"
+                               else "f32")
+            line.update(ms=timer(lambda: paged.paged_attention_cuda(
+                q, kp, vp, lens, tables)), bound_ms=b_ms, bound_by=b_by)
+            if active.any():  # the all-inactive case times the kernel only
+                line.update(
+                    plain_ms=timer(lambda: paged.paged_attention_ref(
+                        q, kp, vp, lens, tables), reps=5),
+                    library_ms=timer(k2cases.yardstick(q, kp, vp, lens,
+                                                       tables)))
         emit(line)
-        return err
+        del q, kp, vp, out, ref
+        return line
 
-    serve_lengths = [6, 21, 36, 51, 66, 81, 96, 121]  # prompts 5..120, +1
-    perrs = [
-        paged_case("7b_decode", 8, 32, 8, 128, 96, 16, serve_lengths,
-                   torch.bfloat16, True),
-        paged_case("7b_decode_inactive_and_full_page", 8, 32, 8, 128, 96,
-                   16, [0, 16, 32, 1, 17, 0, 200, 5], torch.bfloat16, False),
-        paged_case("llm_json_decode", 4, 4, 2, 16, 65, 16, [9, 16, 40, 0],
-                   torch.float32, False),
-    ]
-    summary["paged_attention"]["max_abs_err"] = max(perrs)
+    lines = {c.name: paged_case(c) for c in k2cases.CASES}
+    edges = lines["partition_edges"]
+    part = edges["pages_per_split"] * edges["shape"]["page_size"]
+    if not {part, part + 1} <= set(edges["shape"]["lengths"]):
+        raise AssertionError(f"partition_edges: its lengths miss the "
+                             f"{part}-token partition boundary")
+    at_main = lines["7b_decode"]
+    live = sum(at_main["shape"]["lengths"])
+    summary["paged_attention"] = {
+        k: at_main[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by", "variant")}
+    summary["paged_attention"].update(
+        shape=f"7b_decode S8 H32/8 D128 tokens {live}",
+        max_abs_err=max(ln["max_abs_err"] for ln in lines.values()),
+        long_ms=lines["7b_decode_long"]["ms"],
+        long_bound_ms=lines["7b_decode_long"]["bound_ms"],
+        one_long_ms=lines["7b_decode_one_long"]["ms"],
+        one_long_bound_ms=lines["7b_decode_one_long"]["bound_ms"])
 
     # K3 ------------------------------------------------------------------
     # tolerance: bf16 output atol 2e-2 at unit-variance inputs, one bf16
@@ -726,7 +721,9 @@ def main() -> int:
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
-            "shape": s["shape"], "variant": s.get("variant"), "card": CARD})
+            "shape": s["shape"], "variant": s.get("variant"), "card": CARD,
+            **{k: s[k] for k in ("long_ms", "long_bound_ms", "one_long_ms",
+                                 "one_long_bound_ms") if k in s}})
     emit({"kernels": entries})
     for e in entries:
         if not (e["launches"] > 0 and math.isfinite(e["ms"])):

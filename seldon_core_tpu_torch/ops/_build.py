@@ -33,8 +33,8 @@ from typing import Optional
 import torch
 
 __all__ = ["build", "load", "check", "ptr", "stream_of", "dtype_code",
-           "check_head_dim", "HEAD_DIMS", "BUILD_DIR", "SOURCE_DIR",
-           "build_stats"]
+           "check_head_dim", "sm_count", "HEAD_DIMS", "BUILD_DIR",
+           "SOURCE_DIR", "build_stats"]
 
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -49,10 +49,11 @@ _SIGNATURES = {
     # stream
     "sck_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _P, _P],
-    # q, k_pages, v_pages, lengths, tables, out, S, H, Hkv, n_pages,
-    # page_size, D, pages_per_slot, scale, dtype, stream
-    "sck_paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _F, _I, _P],
+    # q, k_pages, v_pages, lengths, tables, out, partials scratch, arrival
+    # counters, S, H, Hkv, n_pages, page_size, D, pages_per_slot, n_split,
+    # pages per split, scale, dtype, stream
+    "sck_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _F, _I, _P],
     # q, k, v, out, B, L, H, Hkv, D, causal, scale, dtype, variant, stream
     "sck_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                             _I, _P],
@@ -167,6 +168,17 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+_SM_COUNTS: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count (the kernels' plans depend on it), read once."""
+    if device not in _SM_COUNTS:
+        _SM_COUNTS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SM_COUNTS[device]
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

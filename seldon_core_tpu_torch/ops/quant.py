@@ -135,16 +135,6 @@ def _gemm_scratch_ints(M: int, N: int, plan: GemmPlan) -> int:
     return -(-tiles // 4) * 4 + tiles * plan.bm * _GEMM_BN
 
 
-_SM_COUNTS: dict = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    if device not in _SM_COUNTS:
-        _SM_COUNTS[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _SM_COUNTS[device]
-
-
 def int8_matmul_ref(x2: torch.Tensor, values: torch.Tensor,
                     scales: torch.Tensor, out_dtype: torch.dtype
                     ) -> torch.Tensor:
@@ -201,7 +191,7 @@ def int8_matmul_cuda(x2: torch.Tensor, values: torch.Tensor,
     xs = torch.empty((M,), dtype=torch.float32, device=dev)
     variant = int8_variant(M)
     if plan is None and variant == "mma_gemm":
-        plan = gemm_plan(M, K, N, _sm_count(dev))
+        plan = gemm_plan(M, K, N, _build.sm_count(dev))
     if plan is None:
         plan = GemmPlan(0, 1)  # unused by "mma_gemv"
     scratch = None

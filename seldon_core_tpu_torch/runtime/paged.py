@@ -17,12 +17,15 @@ saves a copy of the pool per tick.
 
 Decode attention (:func:`paged_attention`) dispatches on the device: a CUDA
 tensor launches kernel K2 (``csrc/paged_attention.cu``) or raises, a CPU
-tensor takes :func:`paged_attention_ref`.
+tensor takes :func:`paged_attention_ref`.  K2 splits each slot's pages over
+several blocks (flash-decoding); :func:`paged_split_plan` says how, from
+static shapes only.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -47,9 +50,58 @@ __all__ = [
     "paged_attention_cuda",
     "paged_decode_step",
     "insert_rows",
+    "SplitPlan",
+    "paged_split_plan",
+    "kernel_split_plan",
 ]
 
-_KERNEL_GMAX = 8
+# csrc/paged_attention.cu: query heads per block, bytes and tokens of a chunk
+_KERNEL_HEADS = 8
+_CHUNK_BYTES = 16384
+_MAX_CHUNK = 128
+#: blocks per SM that the split plan aims for, and the most chunks a block
+#: streams (fitted to ``time_paged_attention --sweep`` on an H100: PERF.md)
+SPLIT_BLOCKS_PER_SM = 2
+SPLIT_MAX_CHUNKS = 4
+
+
+class SplitPlan(NamedTuple):
+    """How K2 covers a table of ``pp`` pages: ``n_split`` blocks per (slot,
+    KV head, head group), block z taking pages ``[z * pages, (z + 1) *
+    pages)``; the last partition may be short."""
+
+    n_split: int
+    pages: int
+
+    def partitions(self, pp: int) -> list:
+        """The ``(first, end)`` page range of each block."""
+        return [(z * self.pages, min(pp, (z + 1) * self.pages))
+                for z in range(self.n_split)]
+
+
+def paged_split_plan(pp: int, pairs: int, sms: int,
+                     max_pages: int) -> SplitPlan:
+    """Split plan of K2 over ``pairs`` (slot, KV head, head group) blocks'
+    worth of work on a card with ``sms`` SMs.  Static shapes only (never
+    the lengths, which would cost a device sync): the table's ``pp`` pages
+    go to as many blocks per pair as make about ``SPLIT_BLOCKS_PER_SM``
+    blocks per SM, each with at least one page and at most ``max_pages``.
+    Blocks past a slot's length return at once on the card."""
+    want = max(1, -(-(SPLIT_BLOCKS_PER_SM * sms) // max(1, pairs)))
+    pages = min(max(1, max_pages), -(-pp // min(want, pp)))
+    return SplitPlan(-(-pp // pages), pages)
+
+
+def kernel_split_plan(S: int, H: int, Hkv: int, D: int, page_size: int,
+                      pp: int, itemsize: int, sms: int) -> SplitPlan:
+    """The plan :func:`paged_attention_cuda` launches with: the pairs count
+    head groups of up to 8 query heads, and a partition holds at most
+    ``SPLIT_MAX_CHUNKS`` chunks of the kernel (a chunk: 16 KB of K rows, at
+    most 128 tokens), so that the slots' blocks stay of a size."""
+    groups = -(-(H // Hkv) // _KERNEL_HEADS)
+    chunk = min(_MAX_CHUNK, _CHUNK_BYTES // (D * itemsize))
+    return paged_split_plan(pp, S * Hkv * groups, sms,
+                            max(1, SPLIT_MAX_CHUNKS * chunk // page_size))
 
 
 @dataclass(frozen=True)
@@ -123,42 +175,78 @@ def paged_attention_ref(q, k_pages, v_pages, lengths, page_indices):
                             (lengths.long() - 1)[:, None])[:, 0]
 
 
-def paged_attention_cuda(q, k_pages, v_pages, lengths, page_indices):
+_ARRIVALS: dict = {}
+
+
+def _arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    """int32 counters of K2's merge, allocated at zero once per device (and
+    again only to grow); each launch leaves them at zero.  Calls on one
+    device share them, so they must run in one stream order, as the
+    engine's single worker does."""
+    buf = _ARRIVALS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros((max(n, 64),), dtype=torch.int32, device=device)
+        _ARRIVALS[device] = buf
+    return buf
+
+
+def paged_attention_cuda(q, k_pages, v_pages, lengths, page_indices,
+                         plan: Optional[SplitPlan] = None):
     """Launch K2.  ``q`` (S, H, Dh) and the pages share a dtype (float32 or
-    bfloat16); lengths and tables are int32; all contiguous on one card.
-    Returns (S, H, Dh) float32 (the reference's output dtype)."""
+    bfloat16); lengths and tables are int32; all contiguous on one card,
+    the pages 16-byte aligned.  Returns (S, H, Dh) float32 (the reference's
+    output dtype).  ``plan`` replaces :func:`kernel_split_plan`'s
+    (measurement only).  Reads no device value on the host."""
     what = "paged_attention"
     ts = (q, k_pages, v_pages, lengths, page_indices)
-    if not all(t.is_cuda for t in ts):
-        raise ValueError(f"{what}: every operand must be on the card")
     if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"{what}: want q (S, H, Dh) and pages (Hkv, P, ps, "
                          "Dh)")
     S, H, D = q.shape
     Hkv, n_pages, ps, D2 = k_pages.shape
-    if D2 != D or H % Hkv or H // Hkv > _KERNEL_GMAX:
+    if D2 != D or Hkv == 0 or H % Hkv:
         raise ValueError(f"{what}: q {tuple(q.shape)} vs pages "
                          f"{tuple(k_pages.shape)}")
     _build.check_head_dim(D, what)
     if page_indices.dim() != 2 or page_indices.shape[0] != S or \
-            lengths.shape != (S,):
-        raise ValueError(f"{what}: lengths (S,) and tables (S, pp) expected")
+            page_indices.shape[1] == 0 or lengths.shape != (S,):
+        raise ValueError(f"{what}: lengths (S,) and tables (S, pp >= 1) "
+                         "expected")
     if lengths.dtype != torch.int32 or page_indices.dtype != torch.int32:
         raise TypeError(f"{what}: lengths and tables must be int32")
     if not (q.dtype == k_pages.dtype == v_pages.dtype):
         raise TypeError(f"{what}: q and page dtypes differ")
+    code = _build.dtype_code(q.dtype, what)
+    if not all(t.is_cuda for t in ts):
+        raise ValueError(f"{what}: every operand must be on the card")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"{what}: operands on different devices")
     for name, t in zip(("q", "k_pages", "v_pages", "lengths", "tables"), ts):
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-    code = _build.dtype_code(q.dtype, what)
-    out = torch.empty((S, H, D), dtype=torch.float32, device=q.device)
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError(f"{what}: pages must start 16-byte aligned")
+    dev = q.device
+    out = torch.empty((S, H, D), dtype=torch.float32, device=dev)
     if S == 0:
         return out
+    pp = page_indices.shape[1]
+    if plan is None:
+        plan = kernel_split_plan(S, H, Hkv, D, ps, pp, q.element_size(),
+                                 _build.sm_count(dev))
+    part = arrivals = None
+    if plan.n_split > 1:  # partial outputs, then their (max, sum)
+        pairs = S * Hkv * -(-(H // Hkv) // _KERNEL_HEADS)
+        part = torch.empty((pairs * plan.n_split * _KERNEL_HEADS * (D + 2),),
+                           dtype=torch.float32, device=dev)
+        arrivals = _arrival_counters(dev, pairs)
     err = _build.load().sck_paged_attention(
         _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
         _build.ptr(lengths), _build.ptr(page_indices), _build.ptr(out),
-        S, H, Hkv, n_pages, ps, D, page_indices.shape[1], float(D ** -0.5),
-        code, _build.stream_of(q),
+        None if part is None else _build.ptr(part),
+        None if arrivals is None else _build.ptr(arrivals), S, H, Hkv,
+        n_pages, ps, D, pp, plan.n_split, plan.pages, float(D ** -0.5), code,
+        _build.stream_of(q),
     )
     _build.check(err, what)
     paged_attention_cuda.launches += 1

@@ -238,3 +238,136 @@ class TestPagedRef:
             tpaged.paged_attention_cuda(
                 torch.zeros(1, 2, 8), z, z, torch.ones(1, dtype=torch.int32),
                 torch.zeros(1, 1, dtype=torch.int32))
+
+    def test_cuda_wrapper_shape_checks_accept_g16(self):
+        """H 32 over Hkv 2 (g = 16, above the old cap of 8) passes every
+        shape and dtype check and stops only at the device check."""
+        z = torch.zeros(2, 3, 16, 128, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="on the card"):
+            tpaged.paged_attention_cuda(
+                torch.zeros(2, 32, 128, dtype=torch.bfloat16), z, z,
+                torch.ones(2, dtype=torch.int32),
+                torch.ones(2, 2, dtype=torch.int32))
+        with pytest.raises(ValueError, match="vs pages"):  # H % Hkv != 0
+            tpaged.paged_attention_cuda(
+                torch.zeros(2, 31, 128, dtype=torch.bfloat16), z, z,
+                torch.ones(2, dtype=torch.int32),
+                torch.ones(2, 2, dtype=torch.int32))
+
+
+def _split_merge_emulation(q, kp, vp, lengths, tables, plan):
+    """K2's algorithm in float32, test-local: per (slot, KV head) and page
+    partition of ``plan``, a partial (max, sum, unnormalised output) over
+    the partition's live tokens; then the merge rescales each partial by
+    exp(its max - the largest max) and divides by the rescaled sum.  A slot
+    whose tokens fit one partition is normalised directly, and one with no
+    token (inactive) gives zeros, as the kernel does."""
+    S, H, D = q.shape
+    Hkv, _, ps, _ = kp.shape
+    pp = tables.shape[1]
+    g = H // Hkv
+    out = torch.zeros(S, H, D)
+    for s in range(S):
+        n = min(max(int(lengths[s]), 0), pp * ps)
+        for kvh in range(Hkv):
+            qh = q[s, kvh * g:(kvh + 1) * g].float()
+            parts = []
+            for first, end in plan.partitions(pp):
+                if first * ps >= n:
+                    continue  # the block returns at once
+                t = torch.arange(first * ps, min(n, end * ps))
+                rows = tables[s, t // ps].long() * ps + t % ps
+                k = kp[kvh].reshape(-1, D)[rows].float()
+                v = vp[kvh].reshape(-1, D)[rows].float()
+                sc = (qh @ k.T) * D ** -0.5
+                m = sc.max(-1).values
+                p = torch.exp(sc - m[:, None])
+                parts.append((m, p.sum(-1), p @ v))
+            if not parts:
+                continue
+            if len(parts) == 1:
+                m, l, acc = parts[0]
+                o = acc / l[:, None]
+            else:
+                ms = torch.stack([p[0] for p in parts])  # (parts, g)
+                w = torch.exp(ms - ms.max(0).values)
+                l = (torch.stack([p[1] for p in parts]) * w).sum(0)
+                acc = (torch.stack([p[2] for p in parts]) * w[..., None])
+                o = acc.sum(0) / l[:, None]
+            out[s, kvh * g:(kvh + 1) * g] = o
+    return out
+
+
+class TestPagedSplit:
+    # S 5 slots of a 6-page table (page size 4), Hkv 2, D 8, float32: the
+    # SM count is chosen so that the wrapper's plan has 1, 2 or 6 blocks per
+    # (slot, KV head) (6 = every page, more than any slot's live pages)
+    S, Hkv, D, ps, pp = 5, 2, 8, 4, 6
+
+    @pytest.mark.parametrize("g", [1, 4, 16])
+    @pytest.mark.parametrize("want,n_split", [(1, 1), (2, 2), (64, 6)])
+    def test_emulation_matches_reference(self, g, want, n_split):
+        """Lengths 0 (inactive), one token, a full page, a full partition
+        and one token past it; float32, atol 1e-6 on active rows (the two
+        sum the same terms in another order)."""
+        S, Hkv, D, ps, pp = self.S, self.Hkv, self.D, self.ps, self.pp
+        H = Hkv * g
+        pairs = S * Hkv * -(-g // 8)
+        sms = max(1, want * pairs // tpaged.SPLIT_BLOCKS_PER_SM)
+        plan = tpaged.kernel_split_plan(S, H, Hkv, D, ps, pp, 4, sms)
+        assert plan.n_split == n_split
+        part = plan.pages * ps
+        lengths = np.array([0, 1, ps, min(part, pp * ps),
+                            min(part + 1, pp * ps)], np.int32)
+        rng = np.random.default_rng(100 * g + n_split)
+        n_pages = 1 + S * pp
+        tables = rng.permutation(np.arange(1, n_pages)).reshape(S, pp)
+        tables = tables.astype(np.int32)
+        tables[0] = 0  # the inactive slot's row points at the trash page
+        q = rng.normal(size=(S, H, D)).astype(np.float32)
+        kp, vp = (rng.normal(size=(Hkv, n_pages, ps, D)).astype(np.float32)
+                  for _ in range(2))
+        ref = np.asarray(jpaged.paged_attention_ref(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(lengths), jnp.asarray(tables)))
+        out = _split_merge_emulation(_t(q), _t(kp), _t(vp), _t(lengths),
+                                     _t(tables), plan)
+        assert torch.isfinite(out).all()
+        assert (out[0] == 0).all()
+        active = lengths > 0
+        np.testing.assert_allclose(out.numpy()[active], ref[active],
+                                   atol=1e-6, rtol=0)
+
+    @pytest.mark.parametrize("pp,pairs,sms,max_pages", [
+        (8, 64, 132, 8), (16, 64, 132, 8), (256, 64, 132, 8),
+        (512, 8, 132, 8), (1, 1, 132, 8), (7, 3, 1, 100), (100, 1, 132, 3),
+        (13, 8, 132, 64), (64, 64, 132, 8)])
+    def test_paged_split_plan_covers_the_table(self, pp, pairs, sms,
+                                               max_pages):
+        """A function of static shapes only (ints in, the same plan out),
+        whose partitions cover the table's pages exactly once, each at
+        least one page and at most ``max_pages``."""
+        plan = tpaged.paged_split_plan(pp, pairs, sms, max_pages)
+        assert plan == tpaged.paged_split_plan(pp, pairs, sms, max_pages)
+        parts = plan.partitions(pp)
+        assert len(parts) == plan.n_split >= 1
+        covered = [p for first, end in parts for p in range(first, end)]
+        assert covered == list(range(pp))
+        assert all(1 <= end - first <= min(plan.pages, max_pages)
+                   for first, end in parts)
+
+    # the plans of chip_smoke.py's K2 cases on a 132-SM card: (S, H, Hkv,
+    # D, page size, pp, itemsize) -> (n_split, pages)
+    @pytest.mark.parametrize("shape,plan", [
+        ((8, 32, 8, 128, 16, 8, 2), (4, 2)),      # 7b_decode
+        ((8, 32, 8, 128, 16, 16, 2), (4, 4)),     # serve_7b (max_len 256)
+        ((8, 32, 8, 128, 16, 256, 2), (16, 16)),  # 7b_decode_long
+        ((1, 32, 8, 128, 16, 512, 2), (32, 16)),  # 7b_decode_one_long
+        ((8, 32, 8, 128, 16, 64, 2), (5, 13)),    # partition_edges
+        ((8, 32, 2, 128, 16, 16, 2), (8, 2)),     # g16: two head groups
+        ((8, 8, 8, 64, 16, 13, 2), (5, 3)),       # mha_g1_d64
+        ((4, 4, 2, 16, 16, 3, 4), (3, 1)),        # llm_json_decode
+        # d256_f32: 16-token chunks, so a 64-row page is four of them
+        ((4, 8, 2, 256, 64, 5, 4), (5, 1))])
+    def test_kernel_split_plan_at_the_chip_cases(self, shape, plan):
+        assert tuple(tpaged.kernel_split_plan(*shape, 132)) == plan
