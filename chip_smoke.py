@@ -38,10 +38,36 @@ Prints one JSON object per line:
    against the plain path (the same weights on the CPU): prefill and 4
    decode ticks of logits, and how many greedy ids agree (all must; an
    exact tie in the CPU logits admits each tied id).
-7. ``{"kernels": [...]}``: one entry per kernel with its launches in
-   ``serve_7b``, its error, times and bound (K2 also at its two long
-   cases).
-8. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+7. ``resnet50``: full ResNet50 (3, 4, 6, 3), 224x224, 1000 classes, bf16,
+   seeded weights with random BatchNorm statistics, as ``ResNet50Model``
+   (cuDNN convs) and ``Int8ResNet50Model`` (1x1 convs and head on K1):
+   in-process forwards at batch 1, 8 and 64 (ms, images/s, K1 launches
+   per forward: 37 int8, 0 float; peak device memory; the profiler's
+   kernel times at batch 64 and K1's quantize/product split and share),
+   parity with the same weights on the CPU at batch 4 (atol on every
+   probability and rtol on the CPU path's top five, per dtype:
+   ``RESNET_PARITY_TOL``; every top-1 id agreeing), and REST: the port's
+   ``resnet50-int8.json`` and ``resnet50.json`` booted through the local
+   runner with their batching annotations (boot seconds with the runner's
+   warm-up of every bucket, whose K1 launches must be 37 per bucket for
+   int8), then 16 concurrent single-image requests as the
+   first traffic (p50 / p95 ms; batches, rows, pad rows, sheds and K1
+   launches of those 16 alone), each answer's top-1 equal to the
+   in-process forward's.  The ``kernel`` phase also
+   holds K1 at every ResNet50 1x1 shape at batch 64 and at the head
+   (batch 8 and 64), with ``torch._int_mm`` beside it and, at the
+   largest-M shapes, the quantize/product split.
+8. ``graphs``: the port's iris, mnist, epsilon-greedy-mab (router
+   seeded; feedback over REST must move its routing), ensemble and
+   iris-with-outlier graphs served on the card over REST, each answer
+   held to the same graph on the CPU with the card's weights: status,
+   names and meta (requestPath, routing, outlier scores) equal, ids equal,
+   probabilities within atol 1e-5.
+9. ``seconds``: wall time of every phase.
+10. ``{"kernels": [...]}``: one entry per kernel with its launches in
+    ``serve_7b`` (K1 also ``resnet50_launches``: the int8 REST run), its
+    error, times and bound (K2 also at its two long cases).
+11. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
@@ -51,6 +77,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import asyncio
+import concurrent.futures
 import json
 import math
 import re
@@ -178,6 +205,7 @@ def kernel_phase(torch, timer) -> dict:
                 summary["int8_matmul"]["shape"] = f"{name} {M}x{K}x{N}"
         emit(line)
         del x, w
+    errs += resnet_k1_cases(torch, timer, gen, sms)
     summary["int8_matmul"]["max_abs_err"] = max(errs)
 
     # K2 ------------------------------------------------------------------
@@ -330,6 +358,104 @@ def kernel_phase(torch, timer) -> dict:
     return summary
 
 
+# ResNet50's 1x1 convs as K1 products, per image: (rows, K, N); the batch
+# multiplies the rows.  The head is (B, 2048, 1000) on float32 rows.
+RESNET_1X1 = [(3136, 64, 64), (3136, 64, 256), (3136, 256, 64),
+              (3136, 256, 128), (784, 128, 512), (784, 256, 512),
+              (784, 512, 128), (784, 512, 256), (196, 256, 1024),
+              (196, 512, 1024), (196, 1024, 256), (196, 1024, 512),
+              (49, 512, 2048), (49, 1024, 2048), (49, 2048, 512)]
+
+
+def _device_ms_by_kernel(torch, fn, reps: int) -> dict:
+    """Device ms per call of each kernel name ``fn`` launches, from
+    torch.profiler over ``reps`` calls (empty if it sees no device
+    event)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / reps)
+    return by_name
+
+
+def _k1_split(by_name: dict) -> dict:
+    """K1's quantize pass and product (ms per call) in a by-kernel map."""
+    quant = sum(ms for n, ms in by_name.items() if "quant_rows" in n)
+    prod = sum(ms for n, ms in by_name.items()
+               if "int8_gemm" in n or "int8_gemv" in n)
+    return {"quantize_ms": quant, "product_ms": prod}
+
+
+def resnet_k1_cases(torch, timer, gen, sms) -> list:
+    """K1 at every ResNet50 1x1 shape at batch 64 (bf16 rows) and at the
+    head at batch 8 and 64 (float32 rows): bitwise against the plain
+    version, timed beside its bound, ``torch._int_mm`` on the same int8
+    operands and the dequantized bf16 ``torch.matmul``.  At the largest-M
+    shapes the profiler splits the time into the quantize pass and the
+    product."""
+    from seldon_core_tpu_torch.ops import quant
+
+    cases = [(f"resnet_b64_{r}x{k}x{n}", 64 * r, k, n, torch.bfloat16)
+             for r, k, n in RESNET_1X1]
+    cases += [("resnet_head_b8", 8, 2048, 1000, torch.float32),
+              ("resnet_head_b64", 64, 2048, 1000, torch.float32)]
+    errs = []
+    for name, M, K, N, dt in cases:
+        x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+        w = quant.quantize_int8(
+            torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5)
+        out = quant.int8_matmul_cuda(x, w.values, w.scales, dt)
+        ref = quant.int8_matmul_ref(x, w.values, w.scales, dt)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        bitwise = torch.equal(out, ref)
+        errs.append(err)
+        variant = quant.int8_variant(M)
+        if variant == "mma_gemm":
+            plan = quant.gemm_plan(M, K, N, sms)
+            variant += f" {plan.bm}x128 tiles, K split {plan.splits}"
+        line = {"phase": "kernel", "kernel": "int8_matmul", "case": name,
+                "variant": variant, "shape": [M, K, N],
+                "dtype": str(dt).split(".")[-1], "max_abs_err": err,
+                "tolerance": "bitwise equal", "bitwise_equal": bitwise,
+                "card": CARD}
+        if not bitwise:
+            emit(line)
+            raise AssertionError(f"int8_matmul {name}: not bitwise equal "
+                                 f"to its plain version (max err {err})")
+        del out, ref
+        isz = x.element_size()
+        b_ms, b_by = bound(M * K * isz + K * N + N * 4 + M * N * isz,
+                           2.0 * M * N * K, "int8")
+        wd = w.values.to(dt) * w.scales.to(dt)  # dequantized, once
+        xq = quant.quantize_rows(x)[0].to(torch.int8)
+        line.update(
+            ms=timer(lambda: quant.int8_matmul_cuda(x, w.values, w.scales,
+                                                    dt)),
+            plain_ms=timer(lambda: quant.int8_matmul_ref(
+                x, w.values, w.scales, dt), reps=5),
+            library_ms=timer(lambda: torch.matmul(x, wd)),
+            int_mm_ms=(timer(lambda: torch._int_mm(xq, w.values))
+                       if M > 16 else None),
+            bound_ms=b_ms, bound_by=b_by)
+        if M == 64 * 3136:
+            line.update(_k1_split(_device_ms_by_kernel(
+                torch, lambda: quant.int8_matmul_cuda(x, w.values, w.scales,
+                                                      dt), 10)))
+        emit(line)
+        del x, w, wd, xq
+    return errs
+
+
 # ----------------------------------------------------------------------
 # serving phases
 # ----------------------------------------------------------------------
@@ -346,9 +472,18 @@ def _post(port: int, body: dict) -> tuple[int, dict]:
         return e.code, json.loads(e.read())
 
 
+async def _in_threads(fn, argsets: list) -> list:
+    """``fn(*args)`` for every ``args``, each in a thread of a pool of its
+    own: the loop's default executor also makes the server's host copies,
+    and clients blocked in it would starve them."""
+    loop = asyncio.get_running_loop()
+    with concurrent.futures.ThreadPoolExecutor(len(argsets)) as pool:
+        return await asyncio.gather(*(loop.run_in_executor(pool, fn, *a)
+                                      for a in argsets))
+
+
 async def _post_all(port: int, bodies: list) -> list:
-    return await asyncio.gather(*(asyncio.to_thread(_post, port, b)
-                                  for b in bodies))
+    return await _in_threads(_post, [(port, b) for b in bodies])
 
 
 def _counters():
@@ -390,7 +525,7 @@ def llm_json_phase(torch) -> None:
             await server.stop()
 
     answers, dt, launches, local = asyncio.run(run())
-    engine = local.component.engine
+    engine = local.engine.node_impl("llm").user.engine
     for (code, body), p in zip(answers, prompts):
         if code != 200:
             raise AssertionError(f"llm_json: HTTP {code}: {body}")
@@ -426,10 +561,14 @@ def llm_json_phase(torch) -> None:
 
 
 def _to_device(tree, device):
+    """A tree of dicts, lists and (named) tuples of tensors on ``device``;
+    ``.to`` keeps a tensor's strides (the K-major int8 weights)."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to_device(v, device) for v in tree]
+    if isinstance(tree, tuple):
+        return type(tree)(*(_to_device(v, device) for v in tree))
     return tree.to(device)
 
 
@@ -623,6 +762,343 @@ def parity_7b_phase(torch) -> None:
 
 
 # ----------------------------------------------------------------------
+# the BASELINE graphs
+# ----------------------------------------------------------------------
+
+def _post_timed(port: int, body: dict, path: str = "/api/v0.1/predictions"
+                ) -> tuple[int, dict, float]:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, out = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, out = e.code, json.loads(e.read())
+    return code, out, time.perf_counter() - t0
+
+
+def _randomize_resnet(torch, module, seed: int) -> None:
+    """Random BN scale, bias, mean and var (var > 0) from a numpy seed, and
+    the head scaled so the 1000 logits spread over a few units (std about
+    3.6 on 0-255 images) instead of saturating the softmax.  A seeded
+    ResNet's last BN of each bottleneck has scale 0: its c3 branch, and 16
+    of the 37 K1 launches, would be exactly zero and prove nothing."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.models.resnet import _BatchNorm
+
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, _BatchNorm):
+                c = m.scale.shape[0]
+                for name, a in (("scale", rng.uniform(0.5, 1.5, c)),
+                                ("bias", rng.normal(0.0, 0.2, c)),
+                                ("mean", rng.normal(0.0, 0.2, c)),
+                                ("var", rng.uniform(0.5, 2.0, c))):
+                    getattr(m, name).copy_(torch.from_numpy(a))
+        module.head_w.mul_(0.02)
+
+
+# ResNet50 card vs CPU at batch 4: (atol on every probability, rtol on the
+# CPU path's five largest), per dtype
+RESNET_PARITY_TOL = {"bf16": (0.005, 0.05), "int8": (0.01, 0.1)}
+
+
+def _agree(card, cpu) -> tuple[int, int]:
+    """Top-1 ids that agree (the card's id attains the CPU maximum, so an
+    exact tie admits each tied id) and that are equal by index."""
+    at = cpu.gather(-1, card.argmax(-1)[:, None])[:, 0]
+    return (int((at == cpu.max(-1).values).sum()),
+            int((card.argmax(-1) == cpu.argmax(-1)).sum()))
+
+
+def resnet50_phase(torch) -> int:
+    """Full ResNet50, float (bf16 convs on cuDNN) and int8 (1x1 convs and
+    head on K1): in-process forwards, parity with the CPU plain path, and
+    REST through the batcher.  Returns K1's launches in the int8 REST
+    run."""
+    import copy
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.models import resnet, resnet_int8
+    from seldon_core_tpu_torch.operator.local import serve
+
+    fm = resnet.ResNet50Model(seed=0)
+    _randomize_resnet(torch, fm.module, seed=5)
+    qm = resnet_int8.Int8ResNet50Model(source=fm)
+    models = {"bf16": fm.module,
+              "int8": lambda x: resnet_int8.forward(qm.weights, x)}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    # 1. in-process forwards on a device tensor
+    out = {"phase": "resnet50",
+           "model": "ResNet50 (3, 4, 6, 3), 224x224x3, 1000 classes, bf16; "
+                    "int8: BN folded, 1x1 convs and head on K1",
+           "card": CARD}
+    for label, fwd in models.items():
+        per = {}
+        for B in (1, 8, 64):
+            x = torch.rand((B, 224, 224, 3), generator=gen,
+                           device="cuda") * 255
+            with torch.inference_mode():
+                fwd(x)
+                torch.cuda.synchronize()
+                reset_launches()
+                y = fwd(x)
+                torch.cuda.synchronize()
+                k1 = read_launches()["int8_matmul"]
+                torch.cuda.reset_peak_memory_stats()
+                times = []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    fwd(x)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                peak = torch.cuda.max_memory_allocated()
+            ms = statistics.median(times)
+            ok = (tuple(y.shape) == (B, 1000) and bool(torch.isfinite(y).all())
+                  and abs(y.sum(-1) - 1).max().item() < 1e-3)
+            per[B] = {"ms_per_batch": ms, "images_per_s": B / ms * 1e3,
+                      "k1_launches_per_forward": k1,
+                      "peak_device_bytes": peak, "output_ok": ok}
+            want = 37 if label == "int8" else 0
+            if k1 != want or not ok:
+                emit({**out, label: per})
+                raise AssertionError(f"resnet50 {label} B{B}: K1 launches "
+                                     f"{k1} (want {want}), output ok {ok}")
+        out[label] = per
+        # where the device time of one batch-64 forward goes
+        with torch.inference_mode():
+            by_name = _device_ms_by_kernel(torch, lambda: fwd(x), 3)
+        total = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        out[label]["b64_device_ms"] = total
+        out[label]["b64_top_kernels"] = [{"name": n[:100], "ms": v}
+                                         for n, v in top]
+        if label == "int8" and total:
+            split = _k1_split(by_name)
+            out[label]["b64_k1"] = {**split, "share": (
+                split["quantize_ms"] + split["product_ms"]) / total}
+        del x, y
+
+    # 2. parity: the card against the same weights on the CPU
+    x = (torch.rand((4, 224, 224, 3), generator=torch.Generator()
+                    .manual_seed(3)) * 255).round()
+    cpu_float = copy.deepcopy(fm.module).to("cpu")
+    cpu_int8 = _to_device(qm.weights, "cpu")
+    parity = {}
+    with torch.inference_mode():
+        pairs = {"bf16": (fm.module(x.cuda()), cpu_float(x)),
+                 "int8": (models["int8"](x.cuda()),
+                          resnet_int8.forward(cpu_int8, x))}
+    for label, (card, cpu) in pairs.items():
+        card = card.float().cpu()
+        agree, equal = _agree(card, cpu)
+        top5 = cpu.topk(5, dim=-1)
+        rel = ((card.gather(-1, top5.indices) - top5.values).abs()
+               / top5.values)
+        parity[label] = {"max_abs_err": (card - cpu).abs().max().item(),
+                         "top5_max_rel_err": rel.max().item(),
+                         "top1_agree": agree, "top1_equal_index": equal,
+                         "cpu_top2_prob_gap": (top5.values[:, 0]
+                                               - top5.values[:, 1]).tolist(),
+                         "tolerance": RESNET_PARITY_TOL[label]}
+    out["parity"] = {"batch": 4,
+                     "compare": "card vs CPU plain path, same weights",
+                     **parity}
+    emit(out)
+    for label, p in parity.items():
+        atol, rtol = RESNET_PARITY_TOL[label]
+        if (p["max_abs_err"] > atol or p["top5_max_rel_err"] > rtol
+                or p["top1_agree"] != 4):
+            raise AssertionError(f"resnet50 parity {label}: {p}")
+
+    # 3. REST: 16 concurrent single-image requests per graph
+    imgs = np.random.default_rng(7).integers(0, 256, (16, 224, 224, 3))
+    bodies = [{"data": {"ndarray": imgs[i:i + 1].tolist()}}
+              for i in range(16)]
+    rest, k1_rest = {}, 0
+    for name in ("resnet50-int8", "resnet50"):
+        graph = ROOT / "seldon_core_tpu_torch" / "examples" / f"{name}.json"
+
+        async def run():
+            # the runner's boot (weights, every bucket warmed on the card),
+            # then the burst is the first traffic the server sees
+            reset_launches()
+            t0 = time.perf_counter()
+            server, local = await serve(str(graph), port=0, host="127.0.0.1")
+            boot = time.perf_counter() - t0
+            try:
+                batched = local.engine.node_impl(name)
+                # the warm-up ran every bucket on the card: 37 K1 launches
+                # per bucket for the int8 model
+                boot_k1 = read_launches()["int8_matmul"]
+                want = 37 * len(batched._batcher.buckets) if "int8" in name \
+                    else 0
+                if boot_k1 != want:
+                    raise AssertionError(f"{name} boot: K1 launches "
+                                         f"{boot_k1}, want {want}")
+                comp = batched.handle
+                if name == "resnet50":  # the weights of the phases above
+                    comp.user.module = fm.module
+                else:
+                    comp.user.weights = qm.weights
+                reset_launches()
+                before = dict(batched._batcher.stats)
+                t0 = time.perf_counter()
+                answers = await _in_threads(
+                    _post_timed, [(server.port, b) for b in bodies])
+                wall = time.perf_counter() - t0
+                k1 = read_launches()["int8_matmul"]
+                stats = {k: v - before[k]
+                         for k, v in batched._batcher.stats.items()}
+                ref = comp.predict(SeldonMessage.from_ndarray(imgs)
+                                   ).data.float().cpu()
+                return answers, (boot, boot_k1), wall, k1, stats, ref
+            finally:
+                await server.stop()
+
+        answers, (boot, boot_k1), wall, k1, stats, ref = asyncio.run(run())
+        lat = sorted(a[2] * 1e3 for a in answers)
+        bad = [a for a in answers if a[0] != 200]
+        if bad:
+            raise AssertionError(f"{name}: {len(bad)} of 16 failed, HTTP "
+                                 f"{bad[0][0]}: {bad[0][1]}")
+        ids = [int(np.argmax(a[1]["data"]["ndarray"][0])) for a in answers]
+        same = sum(i == int(r) for i, r in zip(ids, ref.argmax(-1)))
+        rest[name] = {"requests": 16, "boot_s": boot,
+                      "boot_k1_launches": boot_k1, "wall_s": wall,
+                      "p50_ms": statistics.median(lat),
+                      "p95_ms": lat[int(0.95 * (len(lat) - 1) + 0.5)],
+                      "batches": stats["batches"], "rows": stats["rows"],
+                      "pad_rows": stats["pad_rows"], "shed": stats["shed"],
+                      "k1_launches": k1,
+                      "top1_equal_in_process": same}
+        if name == "resnet50-int8":
+            k1_rest = k1
+        emit({"phase": "resnet50_rest", "graph": name, **rest[name],
+              "card": CARD})
+    for name, r in rest.items():
+        if r["top1_equal_in_process"] != 16:
+            raise AssertionError(f"resnet50 REST {name}: top-1 {r}")
+    if k1_rest <= 0 or k1_rest % 37:
+        raise AssertionError(f"resnet50-int8 REST: K1 launches {k1_rest}")
+    return k1_rest
+
+
+GRAPHS = ["iris", "mnist", "epsilon-greedy-mab", "ensemble",
+          "iris-with-outlier"]
+
+
+def _graph_requests(name: str) -> list:
+    import numpy as np
+
+    rng = np.random.default_rng(len(name))
+    if name.startswith("iris"):
+        rows = [rng.normal([5.8, 3.0, 3.8, 1.2], 0.8, (n, 4))
+                for n in (3, 1, 4, 2, 6, 1)]
+        rows.append(np.full((1, 4), 30.0))  # an outlier
+    else:
+        rows = [rng.normal(size=(n, 784)) for n in (2, 1, 3, 8)]
+    return [{"data": {"ndarray": r.tolist()}} for r in rows]
+
+
+def graphs_phase(torch) -> None:
+    """Each BASELINE graph served on the card over REST, held to the same
+    graph on the CPU with the card's weights: status, names and meta
+    (requestPath, routing, tags with the outlier scores) equal, argmax ids
+    equal, probabilities within atol 1e-5 (float32 on both)."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.graph.spec import load_deployment
+    from seldon_core_tpu_torch.messages import Feedback, SeldonMessage
+    from seldon_core_tpu_torch.operator.local import LocalDeployment, serve
+
+    def compare(t: dict, c: dict) -> float:
+        tm, cm = dict(t["meta"]), dict(c["meta"])
+        tm.pop("puid"), cm.pop("puid")
+        if t["status"] != c["status"] or tm != cm or \
+                t["data"]["names"] != c["data"]["names"]:
+            raise AssertionError(f"graphs: card {t['meta']} / {t['status']}"
+                                 f" vs CPU {c['meta']} / {c['status']}")
+        tv = np.asarray(t["data"]["ndarray"], np.float64)
+        cv = np.asarray(c["data"]["ndarray"], np.float64)
+        if tv.shape != cv.shape or not (tv.argmax(-1) == cv.argmax(-1)).all():
+            raise AssertionError(f"graphs: ids differ {tv.shape} {cv.shape}")
+        return float(np.abs(tv - cv).max())
+
+    for name in GRAPHS:
+        d = json.loads((ROOT / "seldon_core_tpu_torch" / "examples"
+                        / f"{name}.json").read_text())
+        if name == "epsilon-greedy-mab":
+            d["spec"]["predictors"][0]["graph"]["parameters"].append(
+                {"name": "seed", "value": "11", "type": "INT"})
+
+        async def run():
+            server, card = await serve(d, port=0, host="127.0.0.1")
+            cpu = LocalDeployment(load_deployment(d), device="cpu")
+            try:
+                for unit in card.spec.graph.walk():
+                    if unit.resolved_type == "MODEL":
+                        cpu.engine.node_impl(unit.name).user.params = \
+                            _to_device(card.engine.node_impl(unit.name)
+                                       .user.params, "cpu")
+                errs, lat, routes = [], [], []
+
+                async def both(body):
+                    code, t, dt = await asyncio.to_thread(_post_timed,
+                                                          server.port, body)
+                    if code != 200:
+                        raise AssertionError(f"{name}: HTTP {code}: {t}")
+                    c = (await cpu.predict(SeldonMessage.from_dict(body))
+                         ).to_dict()
+                    errs.append(compare(t, c))
+                    lat.append(dt * 1e3)
+                    return t
+
+                for body in _graph_requests(name):
+                    t = await both(body)
+                moved = None
+                if name == "epsilon-greedy-mab":
+                    taken = t["meta"]["routing"]["eg-router"]
+                    fb = {"response": {"meta": {"routing": {
+                        "eg-router": 1 - taken}}}, "reward": 1.0}
+                    for _ in range(3):
+                        code, res, _ = await asyncio.to_thread(
+                            _post_timed, server.port, fb,
+                            "/api/v0.1/feedback")
+                        if code != 200:
+                            raise AssertionError(f"feedback: {code} {res}")
+                        await cpu.send_feedback(Feedback.from_dict(fb))
+                    for body in _graph_requests(name):
+                        t = await both(body)
+                        routes.append(t["meta"]["routing"]["eg-router"])
+                    moved = routes.count(1 - taken)
+                    if moved < len(routes) // 2:
+                        raise AssertionError(f"mab: routing did not move "
+                                             f"{routes}")
+                return errs, lat, moved
+            finally:
+                await server.stop()
+
+        errs, lat, moved = asyncio.run(run())
+        line = {"phase": "graphs", "graph": name, "requests": len(errs),
+                "meta_ids_equal_cpu": True, "max_abs_err": max(errs),
+                "tolerance": "atol 1e-5", "p50_ms": statistics.median(lat),
+                "card": CARD}
+        if moved is not None:
+            line["routed_to_rewarded_branch"] = moved
+        emit(line)
+        if max(errs) > 1e-5:
+            raise AssertionError(f"graphs {name}: error {max(errs)}")
+
+
+# ----------------------------------------------------------------------
 
 def ptxas_report(log: str) -> list:
     """Registers, spills and shared memory per kernel from the build's
@@ -707,10 +1183,21 @@ def main() -> int:
 
     from seldon_core_tpu_torch.cuda_timer import ColdTimer
 
-    summary = kernel_phase(torch, ColdTimer())
-    llm_json_phase(torch)
-    launches = serve_7b_phase(torch)
-    parity_7b_phase(torch)
+    seconds = {}
+
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        seconds[label] = time.perf_counter() - t
+        return res
+
+    summary = timed("kernel", kernel_phase, torch, ColdTimer())
+    timed("llm_json", llm_json_phase, torch)
+    launches = timed("serve_7b", serve_7b_phase, torch)
+    timed("parity_7b", parity_7b_phase, torch)
+    resnet_k1 = timed("resnet50", resnet50_phase, torch)
+    timed("graphs", graphs_phase, torch)
+    emit({"phase": "seconds", "build": build_s, **seconds})
 
     entries = []
     for name, (src, replaces) in _SUMMARY_META.items():
@@ -723,7 +1210,9 @@ def main() -> int:
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             "shape": s["shape"], "variant": s.get("variant"), "card": CARD,
             **{k: s[k] for k in ("long_ms", "long_bound_ms", "one_long_ms",
-                                 "one_long_bound_ms") if k in s}})
+                                 "one_long_bound_ms") if k in s},
+            **({"resnet50_launches": resnet_k1} if name == "int8_matmul"
+               else {})})
     emit({"kernels": entries})
     for e in entries:
         if not (e["launches"] > 0 and math.isfinite(e["ms"])):

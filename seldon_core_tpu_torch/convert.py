@@ -1,4 +1,5 @@
-"""Reference params to port params.
+"""Reference params to port params.  Every function takes host arrays only
+(call ``jax.tree.map(np.asarray, params)`` first), so it needs no jax.
 
 :func:`params_from_jax` turns the JAX package's transformer params (a
 nested dict of numpy arrays, float leaves or ``{"values", "scales"}``
@@ -7,8 +8,14 @@ on a given device, with the same layout and orientation: ``wq`` (D, H, Dh)
 or int8 ``(D, H*Dh)``, int8 ``wo`` ``(H*Dh, D)``, ``w1`` (D, F), ``lm_head``
 (D, V).  Tuples become Python lists.  The int8 ``values`` keep their (K, N)
 shape but are stored K-major (``ops.quant.k_major``), the layout the int8
-kernel reads.  It takes host arrays only (call
-``jax.tree.map(np.asarray, params)`` first), so it needs no jax itself.
+kernel reads.  The MLP's list of ``{"w", "b"}`` and the iris classifier's
+``{"w", "b"}`` have the port's layout already, so it converts them too.
+
+:func:`resnet_from_jax` loads the reference's flax ResNet variables
+(``params`` and ``batch_stats``) into a port ``ResNet``, and
+:func:`resnet_int8_from_jax` turns the reference's folded int8 ResNet
+weights (``models/resnet_int8.py convert_params``) into the port's.  Conv
+kernels go from flax's HWIO to torch's OIHW, stored channels_last.
 """
 
 from __future__ import annotations
@@ -16,9 +23,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from seldon_core_tpu_torch.ops.quant import k_major
+from seldon_core_tpu_torch.ops.quant import QuantizedLinear, k_major
 
-__all__ = ["params_from_jax", "to_torch"]
+__all__ = ["params_from_jax", "to_torch", "resnet_from_jax",
+           "resnet_int8_from_jax"]
 
 
 def to_torch(a, device=None) -> torch.Tensor:
@@ -44,3 +52,66 @@ def params_from_jax(tree, device=None):
     if isinstance(tree, (tuple, list)):
         return [params_from_jax(v, device) for v in tree]
     return to_torch(tree, device)
+
+
+def _oihw(kernel, device=None) -> torch.Tensor:
+    """A flax HWIO conv kernel as an OIHW tensor, channels_last."""
+    return to_torch(kernel, device).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+
+
+def resnet_from_jax(variables, module):
+    """Copy the flax ResNet ``variables`` into the port ``module`` (a
+    ``models.resnet.ResNet`` of the same ``stage_sizes`` and classes), in
+    place; each tensor takes the dtype the module keeps it in."""
+    p, stats = variables["params"], variables["batch_stats"]
+
+    def conv(dst, src):
+        dst.weight.copy_(_oihw(src["kernel"]))
+
+    def bn(dst, src, src_stats):
+        for name, a in (("scale", src["scale"]), ("bias", src["bias"]),
+                        ("mean", src_stats["mean"]),
+                        ("var", src_stats["var"])):
+            getattr(dst, name).copy_(to_torch(a))
+
+    with torch.no_grad():
+        conv(module.stem, p["Conv_0"])
+        bn(module.stem_bn, p["BatchNorm_0"], stats["BatchNorm_0"])
+        for i, blk in enumerate(module.blocks):
+            bp, bs = p[f"Bottleneck_{i}"], stats[f"Bottleneck_{i}"]
+            for j, (c, n) in enumerate(((blk.conv0, blk.bn0),
+                                        (blk.conv1, blk.bn1),
+                                        (blk.conv2, blk.bn2))):
+                conv(c, bp[f"Conv_{j}"])
+                bn(n, bp[f"BatchNorm_{j}"], bs[f"BatchNorm_{j}"])
+            if blk.proj is not None:
+                conv(blk.proj, bp["proj"])
+                bn(blk.proj_bn, bp["proj_bn"], bs["proj_bn"])
+        module.head_w.copy_(to_torch(p["Dense_0"]["kernel"]))
+        module.head_b.copy_(to_torch(p["Dense_0"]["bias"]))
+    return module
+
+
+def resnet_int8_from_jax(weights, device=None) -> dict:
+    """The reference's folded int8 ResNet weights (``{"stem", "blocks",
+    "head"}``, int8 leaves as ``(values, scales)``) in the port's layout."""
+    def quantized(d):
+        values, scales = d["q"]
+        return {"q": QuantizedLinear(k_major(to_torch(values, device)),
+                                     to_torch(scales, device)),
+                "bias": to_torch(d["bias"], device)}
+
+    def spatial(d):
+        return {"kernel": _oihw(d["kernel"], device),
+                "bias": to_torch(d["bias"], device)}
+
+    blocks = []
+    for b in weights["blocks"]:
+        blk = {"c1": quantized(b["c1"]), "c2": spatial(b["c2"]),
+               "c3": quantized(b["c3"])}
+        if "proj" in b:
+            blk["proj"] = quantized(b["proj"])
+        blocks.append(blk)
+    return {"stem": spatial(weights["stem"]), "blocks": blocks,
+            "head": quantized(weights["head"])}

@@ -1,20 +1,30 @@
-"""SeldonDeployment graph spec (port of the parts of
-``seldon_core_tpu/graph/spec.py`` this slice needs).
+"""Inference-graph spec: the ``PredictiveUnit`` tree of the SeldonDeployment
+CRD (port of ``seldon_core_tpu/graph/spec.py`` and of the parts of
+``seldon_core_tpu/operator/spec.py`` the local runner reads).
 
-Parses the reference's JSON layout: the first predictor's graph, one MODEL
-node with typed ``parameters[]`` (INT, FLOAT/DOUBLE, STRING, BOOL).  A
-graph with more than one node raises until slice 2 of the port.
+Parses the reference's JSON layout: ``PredictiveUnit{name, children[],
+type, implementation, parameters[]{name, value, type}}`` (a remote node's
+``endpoint`` and ``methods`` wait for slice 4), with typed parameters
+(INT, FLOAT/DOUBLE, STRING, BOOL; any other type stays a string, as in the
+reference).  :func:`load_deployment` takes the
+first predictor's graph and the deployment's ``seldon.io/*`` annotations
+(metadata, then spec, then the predictor's own, the later winning).
 """
 
 from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Optional
 
-__all__ = ["GraphValidationError", "PredictiveUnit", "Deployment",
+__all__ = ["UNIT_TYPES", "BUILTIN_IMPLEMENTATIONS", "GraphValidationError",
+           "PredictiveUnit", "parse_graph", "validate_graph", "Deployment",
            "load_deployment"]
 
+UNIT_TYPES = ("MODEL", "ROUTER", "COMBINER", "TRANSFORMER",
+              "OUTPUT_TRANSFORMER")
+BUILTIN_IMPLEMENTATIONS = ("SIMPLE_MODEL", "SIMPLE_ROUTER", "RANDOM_ABTEST",
+                           "AVERAGE_COMBINER", "EPSILON_GREEDY")
 PARAM_TYPES = {"STRING": str, "INT": int, "FLOAT": float, "DOUBLE": float}
 _BOOL_TRUE = ("1", "true", "yes")
 _BOOL_FALSE = ("0", "false", "no")
@@ -33,9 +43,7 @@ def _coerce_param(value, ptype: str, unit: str, param: str) -> Any:
         if s in _BOOL_FALSE:
             return False
         raise GraphValidationError(f"{where}: invalid BOOL value {value!r}")
-    conv = PARAM_TYPES.get(ptype)
-    if conv is None:
-        raise GraphValidationError(f"{where}: unknown type {ptype!r}")
+    conv = PARAM_TYPES.get(ptype, str)
     try:
         return conv(value)
     except (TypeError, ValueError):
@@ -46,36 +54,82 @@ def _coerce_param(value, ptype: str, unit: str, param: str) -> Any:
 @dataclass
 class PredictiveUnit:
     name: str
-    type: str = "MODEL"
-    implementation: str = ""
+    type: Optional[str] = None  # inferred from implementation when absent
+    implementation: Optional[str] = None
+    children: list["PredictiveUnit"] = field(default_factory=list)
     parameters: dict[str, Any] = field(default_factory=dict)
 
     @classmethod
-    def from_dict(cls, d: dict) -> "PredictiveUnit":
-        name = d.get("name", "") or "<root>"
-        if d.get("children"):
-            raise NotImplementedError(
-                f"graph {name!r} has more than one node; multi-node graphs "
-                "come with slice 2 of the port")
-        utype = d.get("type", "MODEL")
-        if utype != "MODEL":
-            raise NotImplementedError(
-                f"node {name!r} is a {utype}; only MODEL nodes are served in "
-                "this slice")
+    def from_dict(cls, d: dict, path: str = "") -> "PredictiveUnit":
+        name = d.get("name", "")
+        # full name path from the root, for error messages ("root/a/b")
+        path = f"{path}/{name}" if path else (name or "<root>")
         params = {
             p["name"]: _coerce_param(p.get("value"), p.get("type", "STRING"),
-                                     name, p["name"])
+                                     path, p["name"])
             for p in d.get("parameters", []) or []
         }
-        return cls(name=name, type=utype,
-                   implementation=d.get("implementation", "") or "",
-                   parameters=params)
+        return cls(
+            name=name, type=d.get("type"),
+            implementation=d.get("implementation"),
+            children=[cls.from_dict(c, path)
+                      for c in d.get("children", []) or []],
+            parameters=params,
+        )
+
+    def walk(self):
+        yield self
+        for c in self.children:
+            yield from c.walk()
+
+    @property
+    def resolved_type(self) -> str:
+        """The type, inferred from a built-in implementation when absent."""
+        if self.type:
+            return self.type
+        impl = self.implementation or ""
+        if impl in ("SIMPLE_ROUTER", "RANDOM_ABTEST", "EPSILON_GREEDY"):
+            return "ROUTER"
+        if impl == "AVERAGE_COMBINER":
+            return "COMBINER"
+        return "MODEL"
+
+
+def parse_graph(spec: Any) -> PredictiveUnit:
+    if isinstance(spec, PredictiveUnit):
+        return spec
+    if isinstance(spec, (str, bytes)):
+        spec = json.loads(spec)
+    return PredictiveUnit.from_dict(spec)
+
+
+def validate_graph(root: PredictiveUnit) -> None:
+    """Unique non-empty names, known types and implementations, and
+    children under every COMBINER and ROUTER."""
+    seen: set[str] = set()
+    for unit in root.walk():
+        if not unit.name:
+            raise GraphValidationError("graph node with empty name")
+        if unit.name in seen:
+            raise GraphValidationError(f"duplicate node name {unit.name!r}")
+        seen.add(unit.name)
+        t = unit.resolved_type
+        if t not in UNIT_TYPES:
+            raise GraphValidationError(f"{unit.name}: unknown type {t!r}")
+        if (unit.implementation
+                and unit.implementation not in BUILTIN_IMPLEMENTATIONS):
+            raise GraphValidationError(
+                f"{unit.name}: unknown implementation "
+                f"{unit.implementation!r}")
+        if t in ("COMBINER", "ROUTER") and not unit.children:
+            raise GraphValidationError(f"{unit.name}: {t} requires children")
 
 
 @dataclass
 class Deployment:
     name: str
     graph: PredictiveUnit
+    annotations: dict[str, str] = field(default_factory=dict)
 
 
 def load_deployment(src) -> Deployment:
@@ -87,11 +141,17 @@ def load_deployment(src) -> Deployment:
     else:
         with open(src) as f:
             d = json.load(f)
+    meta = d.get("metadata", {})
     spec = d.get("spec", d)
     preds = spec.get("predictors") or []
     if not preds:
         raise GraphValidationError("deployment has no predictors")
+    graph = parse_graph(preds[0].get("graph", {}))
+    validate_graph(graph)
     return Deployment(
-        name=spec.get("name") or d.get("metadata", {}).get("name", ""),
-        graph=PredictiveUnit.from_dict(preds[0]["graph"]),
+        name=spec.get("name") or meta.get("name", ""),
+        graph=graph,
+        annotations={**meta.get("annotations", {}),
+                     **spec.get("annotations", {}),
+                     **preds[0].get("annotations", {})},
     )

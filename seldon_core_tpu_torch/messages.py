@@ -3,8 +3,8 @@
 The JSON matches the reference's wire format for what this slice serves:
 ``jsonData``, ``data.ndarray`` / ``data.tensor``, ``strData``, ``binData``,
 ``meta`` (``puid``, ``tags``, ``routing``, ``requestPath``, ``metrics``) and
-``status``.  ``data`` may hold a numpy array or a torch tensor; it reaches
-the host only when the message is serialized.
+``status``, and the reward ``Feedback``.  ``data`` may hold a numpy array or
+a torch tensor; it reaches the host only when the message is serialized.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from typing import Any, Optional, Union
 import numpy as np
 
 __all__ = ["MetricType", "Metric", "Meta", "Status", "SeldonMessage",
-           "new_puid"]
+           "Feedback", "new_puid"]
 
 
 def new_puid() -> str:
@@ -143,6 +143,10 @@ class SeldonMessage:
     status: Optional[Status] = None
     encoding: str = "ndarray"  # "ndarray" | "tensor"
 
+    @classmethod
+    def from_ndarray(cls, arr, names=(), **kw) -> "SeldonMessage":
+        return cls(data=arr, names=list(names), **kw)
+
     def host_data(self) -> Optional[np.ndarray]:
         return None if self.data is None else _to_numpy(self.data)
 
@@ -204,3 +208,21 @@ class SeldonMessage:
     @classmethod
     def from_json(cls, s: Union[str, bytes]) -> "SeldonMessage":
         return cls.from_dict(json.loads(s))
+
+
+@dataclass
+class Feedback:
+    """Reward feedback (reference ``messages.py`` ``Feedback``)."""
+
+    request: Optional[SeldonMessage] = None
+    response: Optional[SeldonMessage] = None
+    reward: float = 0.0
+    truth: Optional[SeldonMessage] = None
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Feedback":
+        def msg(key):
+            return SeldonMessage.from_dict(d[key]) if key in d else None
+
+        return cls(request=msg("request"), response=msg("response"),
+                   reward=float(d.get("reward", 0.0)), truth=msg("truth"))

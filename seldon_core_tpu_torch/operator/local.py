@@ -1,15 +1,22 @@
 """Local runner: boot a SeldonDeployment's graph in process and serve it
-over REST (port of the single-node path of
-``seldon_core_tpu/operator/local.py``).
+over REST (port of the walk path of ``seldon_core_tpu/operator/local.py``).
 
     python -m seldon_core_tpu_torch.operator.local \\
-        --graph seldon_core_tpu_torch/examples/llm.json --port 8000 \\
+        --graph seldon_core_tpu_torch/examples/iris.json --port 8000 \\
         [--device cpu]
 
-The graph's MODEL node names its class with the ``model_class`` parameter
-(``pkg.module:Class``); the class is built from the node's typed parameters
-and ``device``.  Responses carry the reference engine's meta: a ``puid``,
-``requestPath`` ``{node: class}``, and the component's tags and metrics.
+The first predictor's graph runs on a :class:`GraphEngine`.  Built-in
+nodes (``implementation``) are the engine's; every other node names its
+class with the ``model_class`` parameter (``pkg.module:Class``), built from
+the node's other typed parameters and ``device``.  A ``service_type``
+parameter refines the node's type (an OUTLIER_DETECTOR behind a TRANSFORMER
+node).  A MODEL node is wrapped in the dynamic batcher unless the
+``seldon.io/batching`` annotation is ``"false"``, with the knobs of
+``seldon.io/batch-{max-size, max-delay-ms, shed-after-ms, max-inflight,
+materialize, max-queue-rows}``.  On the card, a batched model that states
+the shape of one input row (``input_shape``) runs every bucket once at boot,
+so each batch shape's first-use costs (cuDNN's choice of algorithm, the
+allocator's first blocks) are paid before traffic.
 """
 
 from __future__ import annotations
@@ -19,54 +26,77 @@ import asyncio
 import signal
 from typing import Optional
 
-from seldon_core_tpu_torch.device import resolve_device
-from seldon_core_tpu_torch.graph.spec import Deployment, load_deployment
-from seldon_core_tpu_torch.messages import SeldonMessage, Status, new_puid
-from seldon_core_tpu_torch.runtime.component import (
-    SeldonComponentError,
-    load_component,
-)
+import numpy as np
 
-__all__ = ["LocalDeployment", "serve", "engine_main"]
+from seldon_core_tpu_torch.device import resolve_device
+from seldon_core_tpu_torch.graph.engine import GraphEngine
+from seldon_core_tpu_torch.graph.spec import (
+    Deployment,
+    PredictiveUnit,
+    load_deployment,
+)
+from seldon_core_tpu_torch.messages import Feedback, SeldonMessage
+from seldon_core_tpu_torch.runtime.batcher import BatchedModel, BatcherConfig
+from seldon_core_tpu_torch.runtime.component import load_component
+
+__all__ = ["resolve_component", "LocalDeployment", "serve", "engine_main"]
+
+
+def _batching_enabled(ann: dict) -> bool:
+    return ann.get("seldon.io/batching", "true").lower() != "false"
+
+
+def _batcher_config(ann: dict) -> BatcherConfig:
+    cfg = BatcherConfig(
+        max_batch_size=int(ann.get("seldon.io/batch-max-size", "64")),
+        max_delay_ms=float(ann.get("seldon.io/batch-max-delay-ms", "2.0")),
+        shed_after_ms=float(ann.get("seldon.io/batch-shed-after-ms", "0")),
+        max_inflight=int(ann.get("seldon.io/batch-max-inflight", "4")),
+        materialize=ann.get("seldon.io/batch-materialize", "host"),
+    )
+    if "seldon.io/batch-max-queue-rows" in ann:
+        cfg.max_queue_rows = int(ann["seldon.io/batch-max-queue-rows"])
+    return cfg
+
+
+def resolve_component(unit: PredictiveUnit, annotations: dict, device: str):
+    """The implementation of one non-built-in node."""
+    model_class = unit.parameters.get("model_class")
+    if not model_class:
+        raise NotImplementedError(
+            f"node {unit.name!r} has no model_class: remote endpoints "
+            "(REST/gRPC component clients) come with slice 4 of the port")
+    params = {k: v for k, v in unit.parameters.items()
+              if k not in ("model_class", "service_type")}
+    handle = load_component(
+        model_class, params,
+        service_type=unit.parameters.get("service_type", unit.resolved_type),
+        device=device)
+    handle.name = unit.name
+    if unit.resolved_type == "MODEL" and _batching_enabled(annotations):
+        batched = BatchedModel(handle, _batcher_config(annotations))
+        shape = getattr(handle.user, "input_shape", None)
+        if shape is not None and handle.device.type == "cuda":
+            batched.warmup(np.zeros(shape, np.float32))
+        return batched
+    return handle
 
 
 class LocalDeployment:
-    """One predictor graph (a single MODEL node) with its live component."""
+    """The first predictor's graph with its live components."""
 
     def __init__(self, dep: Deployment, device: Optional[str] = None):
-        unit = dep.graph
-        model_class = unit.parameters.get("model_class")
-        if not model_class:
-            raise ValueError(f"node {unit.name!r}: no model_class parameter")
-        params = {k: v for k, v in unit.parameters.items()
-                  if k not in ("model_class", "service_type")}
-        dev = resolve_device(device)
+        dev = str(resolve_device(device))
         self.spec = dep
-        self.unit = unit
-        self.component = load_component(model_class, params, device=str(dev))
+        self.engine = GraphEngine(
+            dep.graph, name=dep.name,
+            resolver=lambda u: resolve_component(u, dep.annotations, dev))
 
     async def predict(self, msg: SeldonMessage) -> SeldonMessage:
-        meta = msg.meta.copy()
-        if not meta.puid:
-            meta.puid = new_puid()
-        meta.request_path[self.unit.name] = (
-            self.unit.implementation or type(self.component).__name__)
-        try:
-            out = await self.component.predict(msg)
-        except SeldonComponentError as e:
-            return SeldonMessage(
-                status=Status.failure(e.status_code, str(e), e.reason),
-                meta=meta)
-        except Exception as e:
-            return SeldonMessage(
-                status=Status.failure(500, f"{type(e).__name__}: {e}",
-                                      "INTERNAL"),
-                meta=meta)
-        meta.merge(out.meta)
-        out.meta = meta
-        if out.status is None:
-            out.status = Status()
-        return out
+        return await self.engine.predict(msg)
+
+    async def send_feedback(self, fb: Feedback) -> SeldonMessage:
+        return await self.engine.send_feedback(fb)
 
 
 async def serve(graph, port: int = 8000, host: str = "0.0.0.0",

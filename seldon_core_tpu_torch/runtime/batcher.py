@@ -1,0 +1,344 @@
+"""Server-side dynamic batching (port of the plain path of
+``seldon_core_tpu/runtime/batcher.py``).
+
+Queue, pad to a bucket, one device call per batch, split:
+
+- Requests are grouped into lanes by (trailing shape, dtype); a lane packs
+  the rows of many requests along axis 0, pads them up to a bucket of the
+  ladder (powers of two up to ``max_batch_size``, :func:`default_buckets`)
+  with rows of zeros, and hands every caller its own rows.  A lane
+  flushes when it holds ``max_batch_size`` rows or ``max_delay_ms`` after
+  its first request.
+- ``materialize="host"``: one device-to-host copy per batch, in an executor
+  thread, and callers get numpy views of their rows; at most
+  ``max_inflight`` batches are between dispatch and that copy.
+  ``materialize="device"``: callers get slices of the output tensor where
+  it lies (an ensemble's members feeding a combiner on the card).
+- Backpressure: more than ``max_queue_rows`` rows pending in a lane raise
+  :class:`QueueFullError` (429); requests queued longer than
+  ``shed_after_ms`` are shed at flush time with
+  :class:`DeadlineExceededError` (504).
+
+``fn(batch)`` returns ``(batch_out, aux)``, ``batch_out`` row-aligned with
+``batch``; every caller gets ``(rows, aux)`` of its own batch.  It runs on the
+event loop; on the card it returns as soon as the kernels are queued.  Not in this slice: the QoS deadlines (earliest-deadline
+queueing and the budget check at dequeue) and the trace links.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from seldon_core_tpu_torch.messages import SeldonMessage
+from seldon_core_tpu_torch.runtime.component import SeldonComponentError
+
+__all__ = ["QueueFullError", "DeadlineExceededError", "default_buckets",
+           "BatcherConfig", "DynamicBatcher", "BatchedModel"]
+
+
+class QueueFullError(SeldonComponentError):
+    """Batcher queue at capacity: shed with HTTP 429."""
+
+    def __init__(self, message: str):
+        super().__init__(message, status_code=429, reason="QUEUE_FULL")
+
+
+class DeadlineExceededError(SeldonComponentError):
+    """Request aged out of the batch queue: shed with HTTP 504."""
+
+    def __init__(self, message: str):
+        super().__init__(message, status_code=504, reason="DEADLINE_EXCEEDED")
+
+
+def default_buckets(max_batch: int) -> list[int]:
+    out, b = [], 1
+    while b < max_batch:
+        out.append(b)
+        b *= 2
+    out.append(max_batch)
+    return out
+
+
+@dataclass
+class BatcherConfig:
+    max_batch_size: int = 64
+    max_delay_ms: float = 2.0     # the longest the first request waits
+    name: str = "batcher"
+    materialize: str = "host"     # "host" | "device"
+    # pending-row cap per lane; None -> 32 * max_batch_size; 0 -> unbounded
+    max_queue_rows: Optional[int] = None
+    shed_after_ms: float = 0.0    # 0 -> never
+    max_inflight: int = 4         # host mode only; 0 -> unbounded
+
+
+@dataclass
+class _Pending:
+    array: Any
+    nrows: int
+    future: asyncio.Future = field(compare=False, default=None)
+    t_enqueue: float = 0.0
+
+
+class _Lane:
+    """One (trailing shape, dtype) lane with its own queue."""
+
+    def __init__(self):
+        self.pending: list[_Pending] = []
+        self.pending_rows = 0
+        self.flush_handle: Optional[asyncio.Handle] = None
+
+
+def _fetch_host(out: Any) -> np.ndarray:
+    if isinstance(out, torch.Tensor):
+        return out.detach().cpu().numpy()
+    return np.asarray(out)
+
+
+class DynamicBatcher:
+    """Coalesces concurrent ``await batcher(X)`` calls into batched
+    ``fn(batch) -> (batch_out, aux)`` calls; each caller gets ``(rows, aux)``."""
+
+    max_lanes = 64
+
+    def __init__(self, fn: Callable[[Any], tuple[Any, Any]],
+                 config: Optional[BatcherConfig] = None):
+        self.fn = fn
+        self.config = config or BatcherConfig()
+        self.buckets = default_buckets(self.config.max_batch_size)
+        if self.config.materialize not in ("host", "device"):
+            raise ValueError(f"materialize must be 'host' or 'device', got "
+                             f"{self.config.materialize!r}")
+        self.max_queue_rows = (32 * self.config.max_batch_size
+                               if self.config.max_queue_rows is None
+                               else self.config.max_queue_rows)
+        self._lanes: dict[tuple, _Lane] = {}
+        self._inflight = 0
+        self._slot_waiters: list[asyncio.Future] = []
+        # what went through: batches dispatched, real rows, pad rows, sheds
+        self.stats = {"batches": 0, "rows": 0, "pad_rows": 0, "shed": 0}
+
+    def bucket_for(self, rows: int) -> int:
+        for b in self.buckets:
+            if rows <= b:
+                return b
+        return self.buckets[-1]
+
+    def warmup(self, example_row: Any) -> None:
+        """Run ``fn`` once at every bucket size and wait for it, so the
+        first-use costs of each batch shape (on the card: cuDNN's choice of
+        algorithm, the allocator's first blocks) come before traffic."""
+        row = np.asarray(example_row)
+        for b in self.buckets:
+            out, _ = self.fn(np.array(np.broadcast_to(row, (b,) + row.shape)))
+            _fetch_host(out)
+
+    async def __call__(self, X: Any) -> Any:
+        arr = X if hasattr(X, "shape") else np.asarray(X)
+        if arr.ndim == 0:
+            arr = arr.reshape(1)
+        nrows = int(arr.shape[0])
+        loop = asyncio.get_running_loop()
+        if nrows > self.config.max_batch_size:
+            # an oversized request runs alone, unbatched, but still takes an
+            # in-flight slot
+            acquired = await self._acquire_slot()
+            try:
+                out, aux = self.fn(arr)
+                if self.config.materialize == "device":
+                    return out, aux
+                return await loop.run_in_executor(None, _fetch_host,
+                                                  out), aux
+            finally:
+                if acquired:
+                    self._release_slot()
+        key = (tuple(arr.shape[1:]), str(arr.dtype),
+               str(arr.device) if isinstance(arr, torch.Tensor) else "host")
+        lane = self._lanes.get(key)
+        if lane is None:
+            if len(self._lanes) >= self.max_lanes:
+                # evict an idle lane so varied shapes cannot grow the table
+                for k, ln in list(self._lanes.items()):
+                    if not ln.pending and ln.flush_handle is None:
+                        del self._lanes[k]
+                        break
+            lane = self._lanes[key] = _Lane()
+        if (self.max_queue_rows
+                and lane.pending_rows + nrows > self.max_queue_rows):
+            self.stats["shed"] += 1
+            raise QueueFullError(
+                f"batcher {self.config.name!r} queue full "
+                f"({lane.pending_rows} rows pending, cap "
+                f"{self.max_queue_rows})")
+        fut: asyncio.Future = loop.create_future()
+        lane.pending.append(_Pending(arr, nrows, fut, t_enqueue=loop.time()))
+        lane.pending_rows += nrows
+        if lane.pending_rows >= self.config.max_batch_size:
+            self._flush(lane)
+        elif lane.flush_handle is None:
+            lane.flush_handle = loop.call_later(
+                self.config.max_delay_ms / 1000.0, self._flush, lane)
+        return await fut
+
+    # ------------------------------------------------------------------
+    def _flush(self, lane: _Lane) -> None:
+        if lane.flush_handle is not None:
+            lane.flush_handle.cancel()
+            lane.flush_handle = None
+        loop = asyncio.get_running_loop()
+        if self.config.shed_after_ms > 0:
+            cutoff = loop.time() - self.config.shed_after_ms / 1000.0
+            keep = []
+            for p in lane.pending:
+                if p.t_enqueue < cutoff:
+                    lane.pending_rows -= p.nrows
+                    self.stats["shed"] += 1
+                    if not p.future.done():
+                        p.future.set_exception(DeadlineExceededError(
+                            f"batcher {self.config.name!r}: request queued "
+                            f"longer than {self.config.shed_after_ms}ms"))
+                else:
+                    keep.append(p)
+            lane.pending = keep
+        if (self.config.materialize == "host" and self.config.max_inflight
+                and self._inflight >= self.config.max_inflight):
+            return  # the device queue is full: _release_slot re-flushes
+        items, rows = [], 0
+        while lane.pending and (rows + lane.pending[0].nrows
+                                <= self.config.max_batch_size):
+            p = lane.pending.pop(0)
+            rows += p.nrows
+            items.append(p)
+        lane.pending_rows -= rows
+        if not items:
+            return
+        if lane.pending:  # leftovers: flush again at once
+            lane.flush_handle = loop.call_soon(self._flush, lane)
+        try:
+            self._run_batch(items, rows)
+        except Exception as e:
+            for p in items:
+                if not p.future.done():
+                    p.future.set_exception(e)
+
+    def _assemble(self, items: list[_Pending], bucket: int) -> Any:
+        """The rows of ``items`` in one array of ``bucket`` rows, pad rows
+        last (a tensor where the requests hold tensors)."""
+        first = items[0].array
+        if len(items) == 1 and items[0].nrows == bucket:
+            return first
+        shape = (bucket,) + tuple(first.shape[1:])
+        if isinstance(first, torch.Tensor):
+            batch = torch.zeros(shape, dtype=first.dtype, device=first.device)
+        else:
+            batch = np.zeros(shape, dtype=first.dtype)
+        off = 0
+        for p in items:
+            batch[off:off + p.nrows] = p.array
+            off += p.nrows
+        return batch
+
+    def _run_batch(self, items: list[_Pending], rows: int) -> None:
+        bucket = self.bucket_for(rows)
+        batch = self._assemble(items, bucket)
+        self.stats["batches"] += 1
+        self.stats["rows"] += rows
+        self.stats["pad_rows"] += bucket - rows
+        # on the card: returns once the work is queued
+        out, aux = self.fn(batch)
+        if self.config.materialize == "host" and not isinstance(out,
+                                                                 np.ndarray):
+            # ONE device-to-host copy for the whole batch, off the loop
+            self._inflight += 1
+            try:
+                fetch = asyncio.get_running_loop().run_in_executor(
+                    None, _fetch_host, out)
+                fetch.add_done_callback(
+                    lambda f: self._on_batch_done(f, items, aux))
+            except BaseException:
+                self._release_slot()
+                raise
+            return
+        self._deliver(out, items, aux)
+
+    def _deliver(self, out: Any, items: list[_Pending], aux: Any) -> None:
+        off = 0
+        for p in items:
+            rows = out[off:off + p.nrows]
+            if not p.future.done():
+                p.future.set_result((rows, aux))
+            off += p.nrows
+
+    def _on_batch_done(self, fetch: asyncio.Future, items, aux) -> None:
+        try:
+            try:
+                host = fetch.result()
+            except Exception as e:
+                for p in items:
+                    if not p.future.done():
+                        p.future.set_exception(e)
+            else:
+                self._deliver(host, items, aux)
+        finally:
+            self._release_slot()
+
+    async def _acquire_slot(self) -> bool:
+        cap = self.config.max_inflight
+        if not cap or self.config.materialize != "host":
+            return False
+        while self._inflight >= cap:
+            waiter = asyncio.get_running_loop().create_future()
+            self._slot_waiters.append(waiter)
+            await waiter
+        self._inflight += 1
+        return True
+
+    def _release_slot(self) -> None:
+        self._inflight -= 1
+        waiters, self._slot_waiters = self._slot_waiters, []
+        for w in waiters:
+            if not w.done():
+                w.set_result(None)
+        loop = asyncio.get_running_loop()
+        for lane in self._lanes.values():  # lanes held at the in-flight cap
+            if lane.pending and lane.flush_handle is None:
+                lane.flush_handle = loop.call_soon(self._flush, lane)
+
+
+class BatchedModel:
+    """A MODEL handle whose ``predict`` goes through a
+    :class:`DynamicBatcher`.  Non-tensor payloads (jsonData, strData,
+    binData) bypass it.  The component sees the batch, so per-request
+    feature names are not passed on."""
+
+    def __init__(self, handle, config: Optional[BatcherConfig] = None):
+        self.handle = handle
+        self.name = handle.name
+        cfg = (dataclasses.replace(config) if config is not None
+               else BatcherConfig())
+        cfg.name = self.name
+        self._batcher = DynamicBatcher(self._predict_array, cfg)
+
+    def warmup(self, example_row: Any) -> None:
+        self._batcher.warmup(example_row)
+
+    def _predict_array(self, batch):
+        out = self.handle.predict(SeldonMessage(data=batch))
+        return out.data, (out.meta, out.names)
+
+    def has(self, method: str) -> bool:
+        return self.handle.has(method)
+
+    async def predict(self, msg: SeldonMessage) -> SeldonMessage:
+        if msg.data is None:
+            return self.handle.predict(msg)
+        Y, (meta, names) = await self._batcher(msg.data)
+        return SeldonMessage(data=Y, names=list(names), meta=meta.copy())
+
+    def __getattr__(self, item):
+        return getattr(self.handle, item)

@@ -7,9 +7,13 @@ A small HTTP/1.1 server on ``asyncio.start_server`` (keep-alive,
 - ``POST /api/v0.1/predictions`` (and ``/api/v1.0/predictions``): a
   SeldonMessage JSON in, the engine's SeldonMessage JSON out, with the
   FAILURE status code as the HTTP status;
+- ``POST /api/v0.1/feedback``: a Feedback JSON (``request``,
+  ``response``, ``reward``, ``truth``) in, a SeldonMessage with the status
+  out;
 - ``GET /ready`` and ``GET /live``.
 
 ``engine`` is anything with ``async predict(SeldonMessage) ->
+SeldonMessage`` and, for feedback, ``async send_feedback(Feedback) ->
 SeldonMessage``.
 """
 
@@ -18,9 +22,10 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
-from seldon_core_tpu_torch.messages import SeldonMessage, Status
+from seldon_core_tpu_torch.messages import Feedback, SeldonMessage, Status
 
 __all__ = ["RestServer"]
 
@@ -31,6 +36,10 @@ _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
             500: "Internal Server Error", 503: "Service Unavailable",
             504: "Gateway Timeout"}
 _MAX_BODY = 64 << 20
+
+
+def _decode(kind, body: bytes):
+    return kind.from_dict(json.loads(body))
 
 
 def _err_json(code: int, info: str, reason: str = "") -> bytes:
@@ -45,6 +54,7 @@ class RestServer:
         self._port = port
         self._server: Optional[asyncio.base_events.Server] = None
         self._writers: set = set()  # open connections, closed by stop()
+        self._decoder: Optional[ThreadPoolExecutor] = None  # JSON bodies
 
     @property
     def port(self) -> int:
@@ -54,6 +64,7 @@ class RestServer:
         return self._port
 
     async def start(self) -> "RestServer":
+        self._decoder = ThreadPoolExecutor(1, thread_name_prefix="rest-json")
         self._server = await asyncio.start_server(self._serve, self.host,
                                                   self._port)
         return self
@@ -65,6 +76,9 @@ class RestServer:
                 w.close()
             await self._server.wait_closed()
             self._server = None
+        if self._decoder is not None:
+            self._decoder.shutdown(wait=False)
+            self._decoder = None
 
     async def _serve(self, reader: asyncio.StreamReader,
                      writer: asyncio.StreamWriter) -> None:
@@ -112,7 +126,11 @@ class RestServer:
         if path in ("/api/v0.1/predictions", "/api/v1.0/predictions"):
             if method != "POST":
                 return 405, _err_json(405, "POST only"), "application/json"
-            return await self._predictions(body)
+            return await self._call(body, SeldonMessage, self.engine.predict)
+        if path == "/api/v0.1/feedback":
+            if method != "POST":
+                return 405, _err_json(405, "POST only"), "application/json"
+            return await self._call(body, Feedback, self.engine.send_feedback)
         if path == "/ready" and method == "GET":
             return 200, b"ready", "text/plain"
         if path == "/live" and method == "GET":
@@ -120,19 +138,26 @@ class RestServer:
         return 404, _err_json(404, f"no route {method} {path}"), \
             "application/json"
 
-    async def _predictions(self, body: bytes):
+    async def _call(self, body: bytes, kind, method):
+        """Parse ``body`` as ``kind`` (SeldonMessage or Feedback), await
+        ``method`` on it and answer its message."""
         if not body:
             return 400, _err_json(400, "empty request body"), \
                 "application/json"
         try:
-            msg = SeldonMessage.from_dict(json.loads(body))
+            # off the event loop: a large body (an image is 150,528 numbers)
+            # takes tens of ms to decode, and connections whose bodies
+            # arrive together would decode back to back in one pass of the
+            # loop, holding the batcher's flush timers until all are done
+            msg = await asyncio.get_running_loop().run_in_executor(
+                self._decoder, _decode, kind, body)
         except Exception as e:
-            return 400, _err_json(400, f"bad SeldonMessage: {e}"), \
+            return 400, _err_json(400, f"bad {kind.__name__}: {e}"), \
                 "application/json"
         try:
-            out = await self.engine.predict(msg)
+            out = await method(msg)
         except Exception as e:
-            logger.exception("predict failed")
+            logger.exception("%s failed", method.__name__)
             return 500, _err_json(500, f"{type(e).__name__}: {e}",
                                   "INTERNAL"), "application/json"
         code = 200

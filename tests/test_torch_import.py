@@ -51,6 +51,14 @@ def test_port_imports_without_jax_or_the_jax_package():
         "seldon_core_tpu_torch.graph.spec",
         "seldon_core_tpu_torch.serving.rest",
         "seldon_core_tpu_torch.operator.local",
+        "seldon_core_tpu_torch.graph.builtins",
+        "seldon_core_tpu_torch.graph.engine",
+        "seldon_core_tpu_torch.runtime.batcher",
+        "seldon_core_tpu_torch.models.iris",
+        "seldon_core_tpu_torch.models.mlp",
+        "seldon_core_tpu_torch.models.outlier",
+        "seldon_core_tpu_torch.models.resnet",
+        "seldon_core_tpu_torch.models.resnet_int8",
     }
     assert expected <= set(res["modules"])
 

@@ -9,6 +9,7 @@ import os
 import subprocess
 import sys
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax
@@ -16,12 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from seldon_core_tpu.messages import Feedback as JFeedback
 from seldon_core_tpu.messages import SeldonMessage as JMessage
 from seldon_core_tpu.models.llm_demo import DemoLLM as JDemoLLM
 from seldon_core_tpu.operator.local import (
     LocalDeployment as JLocalDeployment,
     load_deployment_file,
 )
+from seldon_core_tpu.operator.spec import SeldonDeployment
 from seldon_core_tpu_torch import convert
 from seldon_core_tpu_torch.graph.spec import load_deployment
 from seldon_core_tpu_torch.messages import SeldonMessage
@@ -185,5 +188,181 @@ async def test_rest_errors_and_keep_alive():
         # for a component ValueError, 500 INTERNAL
         assert code == 500 and body["status"]["reason"] == "INTERNAL"
         assert "exceeds max_len" in body["status"]["info"]
+    finally:
+        await server.stop()
+
+
+# ---- the BASELINE graphs -------------------------------------------------
+
+BASELINE = ["iris", "mnist", "epsilon-greedy-mab", "ensemble",
+            "iris-with-outlier"]
+
+
+def _graph(name: str, root: Path, seed_router: bool) -> dict:
+    d = json.loads((root / f"{name}.json").read_text())
+    if seed_router and name == "epsilon-greedy-mab":
+        # unseeded, the router explores from OS entropy: seed both copies
+        d["spec"]["predictors"][0]["graph"]["parameters"].append(
+            {"name": "seed", "value": "11", "type": "INT"})
+    return d
+
+
+def _share_weights(jlocal, tlocal) -> None:
+    """Give every port model the reference's weights."""
+    jengine = jlocal.predictors[0].engine
+    for unit in tlocal.spec.graph.walk():
+        if unit.resolved_type == "MODEL" and "model_class" in unit.parameters:
+            params = jengine.node_impl(unit.name).user.params
+            tlocal.engine.node_impl(unit.name).user.params = \
+                convert.params_from_jax(jax.tree.map(np.asarray, params))
+
+
+def _post_to(port: int, path: str, body: dict):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _requests(name: str) -> list:
+    rng = np.random.default_rng(len(name))
+    if name.startswith("iris"):
+        rows = [rng.normal([5.8, 3.0, 3.8, 1.2], 0.8, (n, 4))
+                for n in (3, 1, 4, 2)]
+        rows.append(np.full((1, 4), 30.0))  # an outlier
+    else:
+        rows = [rng.normal(size=(n, 784)) for n in (2, 1, 3)]
+    return [{"data": {"ndarray": r.tolist()}} for r in rows]
+
+
+def _same_answer(t: dict, j: dict) -> None:
+    assert t["status"] == j["status"]
+    tm, jm = dict(t["meta"]), dict(j["meta"])
+    assert len(tm.pop("puid")) == len(jm.pop("puid"))
+    assert tm == jm  # requestPath, routing, tags (outlier scores) exactly
+    td, jd = t["data"], j["data"]
+    assert td["names"] == jd["names"]
+    tv, jv = np.asarray(td["ndarray"]), np.asarray(jd["ndarray"])
+    assert tv.shape == jv.shape
+    np.testing.assert_allclose(tv, jv, atol=1e-6)  # float32 probabilities
+    np.testing.assert_array_equal(tv.argmax(-1), jv.argmax(-1))
+
+
+@pytest.mark.parametrize("name", BASELINE)
+async def test_local_runner_serves_each_baseline_graph_like_the_reference(
+        name):
+    """The port's copy of each graph over REST on the CPU, on the
+    reference's weights, against the reference's LocalDeployment."""
+    jlocal = JLocalDeployment(SeldonDeployment.from_dict(
+        _graph(name, REF_GRAPH.parent, True)))
+    server, tlocal = await serve(
+        _graph(name, PORT_GRAPH.parent, True), port=0, host="127.0.0.1",
+        device="cpu")
+    try:
+        _share_weights(jlocal, tlocal)
+        for body in _requests(name):
+            code, t = await asyncio.to_thread(
+                _post_to, server.port, "/api/v0.1/predictions", body)
+            j = (await jlocal.predict(JMessage.from_dict(body))).to_dict()
+            assert code == 200
+            _same_answer(t, j)
+        if name == "epsilon-greedy-mab":
+            # reward the branch the router did not take, through the wire
+            taken = t["meta"]["routing"]["eg-router"]
+            fb = {"request": _requests(name)[0],
+                  "response": {"meta": {"routing":
+                                        {"eg-router": 1 - taken}}},
+                  "reward": 1.0}
+            for _ in range(3):
+                code, out = await asyncio.to_thread(
+                    _post_to, server.port, "/api/v0.1/feedback", fb)
+                assert code == 200 and out["status"]["status"] == "SUCCESS"
+                await jlocal.send_feedback(JFeedback.from_dict(fb))
+            routes = []
+            for body in _requests(name):
+                code, t = await asyncio.to_thread(
+                    _post_to, server.port, "/api/v0.1/predictions", body)
+                j = (await jlocal.predict(JMessage.from_dict(body))).to_dict()
+                _same_answer(t, j)
+                routes.append(t["meta"]["routing"]["eg-router"])
+            # exploitation now picks the rewarded branch (epsilon 0.1)
+            assert routes.count(1 - taken) >= 2
+    finally:
+        await server.stop()
+
+
+@pytest.mark.parametrize("name", ["resnet50", "resnet50-int8"])
+async def test_local_runner_serves_resnet50_graphs(name):
+    """Full ResNet50 (224 x 224, 1000 classes, bf16) behind the batcher:
+    concurrent single-image requests coalesce, and every answer is the
+    in-process forward's (the same component; pad rows change no row)."""
+    server, local = await serve(str(PORT_GRAPH.parent / f"{name}.json"),
+                                port=0, host="127.0.0.1", device="cpu")
+    try:
+        x = np.random.default_rng(4).uniform(0, 255, (4, 224, 224, 3))
+        x = np.round(x)  # JSON pixels are integers
+        bodies = [{"data": {"ndarray": x[i:i + 1].tolist()}}
+                  for i in range(4)]
+        answers = await asyncio.gather(*(asyncio.to_thread(
+            _post_to, server.port, "/api/v0.1/predictions", b)
+            for b in bodies))
+        handle = local.engine.node_impl(name).handle
+        alone = handle.predict(SeldonMessage.from_ndarray(x)).host_data()
+        for i, (code, body) in enumerate(answers):
+            assert code == 200, body
+            probs = np.asarray(body["data"]["ndarray"])
+            assert probs.shape == (1, 1000)
+            assert body["data"]["names"][:2] == ["class:0", "class:1"]
+            assert body["meta"]["requestPath"] == {
+                name: "ResNet50Model" if name == "resnet50"
+                else "Int8ResNet50Model"}
+            np.testing.assert_allclose(probs[0], alone[i], atol=1e-3)
+            assert probs[0].argmax() == alone[i].argmax()
+        stats = local.engine.node_impl(name)._batcher.stats
+        assert stats["rows"] == 4 and stats["batches"] < 4
+    finally:
+        await server.stop()
+
+
+async def test_feedback_route_errors():
+    server, _ = await serve(str(PORT_GRAPH.parent / "iris.json"), port=0,
+                            host="127.0.0.1", device="cpu")
+    try:
+        code, body = await asyncio.to_thread(
+            _post_to, server.port, "/api/v0.1/feedback", {"reward": "x"})
+        assert code == 400 and "bad Feedback" in body["status"]["info"]
+        code, body = await asyncio.to_thread(
+            _post_to, server.port, "/api/v0.1/feedback", {"reward": 0.5})
+        assert code == 200 and body["status"]["status"] == "SUCCESS"
+    finally:
+        await server.stop()
+
+
+async def test_large_bodies_do_not_starve_the_batcher():
+    """Bodies that arrive together are decoded off the event loop, so the
+    batcher's flush timers run between them: no request waits in the queue
+    past ``shed_after_ms`` while others are still being decoded.  A body
+    takes about 20 ms to decode, so 32 decoded back to back hold the first
+    request for over 600 ms, while one decode ahead of it stays far below
+    the 300 ms limit even on a loaded host."""
+    d = json.loads((PORT_GRAPH.parent / "mnist.json").read_text())
+    d["spec"]["annotations"].update({"seldon.io/batch-max-size": "4096",
+                                     "seldon.io/batch-shed-after-ms": "300"})
+    server, local = await serve(d, port=0, host="127.0.0.1", device="cpu")
+    try:
+        rng = np.random.default_rng(0)
+        bodies = [{"data": {"ndarray": rng.normal(size=(64, 784)).tolist()}}
+                  for _ in range(32)]
+        loop = asyncio.get_running_loop()
+        with ThreadPoolExecutor(32) as pool:  # not the server's executor
+            answers = await asyncio.gather(*(loop.run_in_executor(
+                pool, _post_to, server.port, "/api/v0.1/predictions", b)
+                for b in bodies))
+        assert [code for code, _ in answers] == [200] * 32
+        assert local.engine.node_impl("mnist")._batcher.stats["shed"] == 0
     finally:
         await server.stop()
