@@ -13,32 +13,54 @@ Prints one JSON object per line:
    ``ptxas``: registers, spills and static shared memory of every kernel
    function, from the build's ``-Xptxas -v`` log.
 3. ``kernel``: each kernel against its plain PyTorch version on the same
-   inputs on the card, at the 7B-class shapes (K1 at decode, M = 8, and at
-   the prefill buckets 32 and 128, for every projection), at ragged edge
-   shapes and at ``llm.json``'s, with the variant the wrapper chose, the
-   max abs error and its tolerance, and (7B-class and ``llm.json``) the
-   kernel's, the plain version's and a PyTorch yardstick call's times over
-   cold L2 (CUDA events), beside the least time the card could take.  K1
-   also times ``torch._int_mm`` on the same int8 operands (``int_mm_ms``,
-   the int8 product alone; M > 16 only).  K2's cases are
+   inputs on the card, at the 7B-class shapes (K1 at decode, M = 8, at a
+   64-token extend chunk and at the prefill buckets 32 and 128, for every
+   projection; K3 at B 1 over L 8..1024 and in batched admission prefill,
+   B 8 x L 128 and B 4 x L 256), at ragged edge shapes and at
+   ``llm.json``'s, with the variant the wrapper chose, the max abs error
+   and its tolerance, and (7B-class and ``llm.json``) the kernel's, the
+   plain version's and a PyTorch yardstick call's times over cold L2 (CUDA
+   events), beside the least time the card could take.  K1 also times
+   ``torch._int_mm`` on the same int8 operands (``int_mm_ms``, the int8
+   product alone; M > 16 only).  K2's cases are
    ``seldon_core_tpu_torch/time_paged_attention.py`` ``CASES``: the 7B
    decode tick, long contexts (8 slots of 512..4096 tokens, one slot of
-   8192), all slots inactive (the kernel's floor), g = 16, MHA at D64,
+   8192), 8 slots whose tables share their first 12 pages (an aliased
+   prefix), all slots inactive (the kernel's floor), g = 16, MHA at D64,
    float32 D256 and partition edges; each line names the split plan.
 4. ``llm_json``: boots the local runner on the port's copy of
-   ``examples/graphs/llm.json`` in process, POSTs three concurrent greedy
-   requests and holds their ids to the same engine run on the CPU.
+   ``examples/graphs/llm.json`` (automatic prefix caching on) in process,
+   POSTs two waves of three greedy requests, the second sharing 32-token
+   prefixes with the first, and holds their ids to the same engine and
+   knobs on the CPU (at least 3 automatic hits); then boots
+   ``llm-slab.json`` (the slab engine) and holds its ids to the paged
+   graph's.
 5. ``serve_7b``: the 7B-class int8 model (L32 d4096 H32/Hkv8 ff16384
    V32000, bf16, flash prefill) at full depth, weights made on the card
    layer by layer from a seeded generator, served by ``PagedLLMEngine``
    (96 pages of 16, 8 slots, max_len 256) through ``LLMComponent`` behind
    the port's REST server: 8 concurrent requests, TTFT/TPOT medians, peak
    device memory, and the kernels' launch counts during the run.
-6. ``parity_7b``: the same width at 2 layers, the kernel path on the card
+6. ``features_7b``: the same weights behind REST with 192 pages, 8
+   slots, max_len 512, automatic prefixes, ``chunk_prefill`` 64 and a
+   5 ms batching window: automatic and registered (page-aliased) prefix
+   hits with their TTFT and peak pages, the largest token gap of 4
+   streams while a 448-token prompt admits (chunked and not), a burst of 8
+   prompts with the window on and off, and priority preemption (every
+   request answered, ``resumed`` = ``preempted`` >= 1, every slot and page
+   back).
+7. ``parity_7b``: the same width at 2 layers, the kernel path on the card
    against the plain path (the same weights on the CPU): prefill and 4
    decode ticks of logits, and how many greedy ids agree (all must; an
    exact tie in the CPU logits admits each tied id).
-7. ``resnet50``: full ResNet50 (3, 4, 6, 3), 224x224, 1000 classes, bf16,
+8. ``parity_features_7b``: the same comparison for a prefix-hit extend,
+   a chunked prefill's last logits, an 8-row batched prefill and 4 slab
+   ticks.
+9. ``checkpoint_7b``: 2 layers at full width saved as bf16 by the port's
+   checkpoint writer, booted through the local runner as ``DemoLLM
+   (model_uri=..., int8="full")``; its ids must equal an engine's built in
+   process from the same weights.
+10. ``resnet50``: full ResNet50 (3, 4, 6, 3), 224x224, 1000 classes, bf16,
    seeded weights with random BatchNorm statistics, as ``ResNet50Model``
    (cuDNN convs) and ``Int8ResNet50Model`` (1x1 convs and head on K1):
    in-process forwards at batch 1, 8 and 64 (ms, images/s, K1 launches
@@ -57,17 +79,21 @@ Prints one JSON object per line:
    holds K1 at every ResNet50 1x1 shape at batch 64 and at the head
    (batch 8 and 64), with ``torch._int_mm`` beside it and, at the
    largest-M shapes, the quantize/product split.
-8. ``graphs``: the port's iris, mnist, epsilon-greedy-mab (router
+11. ``graphs``: the port's iris, mnist, epsilon-greedy-mab (router
    seeded; feedback over REST must move its routing), ensemble and
    iris-with-outlier graphs served on the card over REST, each answer
    held to the same graph on the CPU with the card's weights: status,
    names and meta (requestPath, routing, outlier scores) equal, ids equal,
    probabilities within atol 1e-5.
-9. ``seconds``: wall time of every phase.
-10. ``{"kernels": [...]}``: one entry per kernel with its launches in
-    ``serve_7b`` (K1 also ``resnet50_launches``: the int8 REST run), its
-    error, times and bound (K2 also at its two long cases).
-11. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+12. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
+    phases of prefix caching, batched and chunked prefill, preemption and
+    checkpoints together).
+13. ``{"kernels": [...]}``: one entry per kernel with its launches in the
+    runs through entry points (``llm_json``, ``serve_7b``,
+    ``features_7b``, ``checkpoint_7b``; K1 also ``resnet50_launches``: the
+    int8 REST run), each phase's count beside, its error, times and bound
+    (K2 also at its two long cases and the shared-prefix case).
+14. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
@@ -122,16 +148,16 @@ def kernel_phase(torch, timer) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
     # K1 ------------------------------------------------------------------
-    # 7B decode (M = 8 slots) and the prefill buckets 32 and 128 over every
-    # projection shape of a layer plus the lm_head, and llm.json's shapes
-    # (d64, f32)
+    # 7B decode (M = 8 slots), the prefill buckets 32 and 128 and a
+    # 64-token extend chunk (chunk_prefill 64) over every projection shape
+    # of a layer plus the lm_head, and llm.json's shapes (d64, f32)
     proj_7b = [("wq_wo", 4096, 4096), ("wk_wv", 4096, 1024),
                ("w1", 4096, 16384), ("w2", 16384, 4096),
                ("lm_head", 4096, 32000)]
     k1_cases = [(f"7b_{stage}_{pn}", M, K, N, torch.bfloat16,
                  (stage, pn) == ("decode", "w1"))
                 for stage, M in (("decode", 8), ("prefill32", 32),
-                                 ("prefill128", 128))
+                                 ("extend64", 64), ("prefill128", 128))
                 for pn, K, N in proj_7b]
     k1_cases += [
         # ragged edges: M not a multiple of 8 or 64, N not of 16 or 64, K
@@ -278,7 +304,9 @@ def kernel_phase(torch, timer) -> dict:
         long_ms=lines["7b_decode_long"]["ms"],
         long_bound_ms=lines["7b_decode_long"]["bound_ms"],
         one_long_ms=lines["7b_decode_one_long"]["ms"],
-        one_long_bound_ms=lines["7b_decode_one_long"]["bound_ms"])
+        one_long_bound_ms=lines["7b_decode_one_long"]["bound_ms"],
+        shared_prefix_ms=lines["7b_decode_shared_prefix"]["ms"],
+        shared_prefix_bound_ms=lines["7b_decode_shared_prefix"]["bound_ms"])
 
     # K3 ------------------------------------------------------------------
     # tolerance: bf16 output atol 2e-2 at unit-variance inputs, one bf16
@@ -338,6 +366,11 @@ def kernel_phase(torch, timer) -> dict:
         flash_case("7b_ragged_100", 2, 100, 32, 8, 128, torch.bfloat16,
                    False),
         flash_case("7b_prefill1024", 1, 1024, 32, 8, 128, torch.bfloat16,
+                   False),
+        # batched admission prefill: 8 and 4 rows in one launch
+        flash_case("7b_batch8_l128", 8, 128, 32, 8, 128, torch.bfloat16,
+                   False),
+        flash_case("7b_batch4_l256", 4, 256, 32, 8, 128, torch.bfloat16,
                    False),
         flash_case("7b_ragged_777_b2", 2, 777, 32, 8, 128, torch.bfloat16,
                    False),
@@ -504,60 +537,105 @@ def read_launches() -> dict:
     return {k: fn.launches for k, fn in _counters().items()}
 
 
-def llm_json_phase(torch) -> None:
+def llm_json_phase(torch) -> dict:
+    """The port's ``llm.json`` (automatic prefix caching on, as the
+    reference's) over REST: two waves of three greedy requests, the second
+    wave sharing 32-token prefixes with the first, held to the same engine
+    and knobs on the CPU; then ``llm-slab.json`` (the slab engine) on the
+    same waves, held to the paged graph's ids.  Returns both runs'
+    launches."""
+    import random
+
     from seldon_core_tpu_torch.operator.local import serve
     from seldon_core_tpu_torch.runtime.llm import PagedLLMEngine
 
-    graph = ROOT / "seldon_core_tpu_torch" / "examples" / "llm.json"
-    prompts = [[int(t) % 256 for t in range(3, 3 + n)] for n in (3, 17, 40)]
-    bodies = [{"jsonData": {"prompt_ids": p, "n_new": 8}} for p in prompts]
+    examples = ROOT / "seldon_core_tpu_torch" / "examples"
+    rng = random.Random(5)
+    wave1 = [[rng.randrange(1, 256) for _ in range(n)] for n in (40, 45, 50)]
+    wave2 = [p[:32] + [rng.randrange(1, 256) for _ in range(6)]
+             for p in wave1]
+    waves = [wave1, wave2]
 
-    async def run():
-        server, local = await serve(str(graph), port=0, host="127.0.0.1")
+    async def run(graph):
+        server, local = await serve(str(examples / graph), port=0,
+                                    host="127.0.0.1")
         try:
             reset_launches()
             t0 = time.perf_counter()
-            answers = await _post_all(server.port, bodies)
-            dt = time.perf_counter() - t0
-            launches = read_launches()
-            return answers, dt, launches, local
+            answers = []
+            for w in waves:
+                answers += await _post_all(server.port, [
+                    {"jsonData": {"prompt_ids": p, "n_new": 8}} for p in w])
+            return answers, time.perf_counter() - t0, read_launches(), local
         finally:
             await server.stop()
 
-    answers, dt, launches, local = asyncio.run(run())
+    prompts = wave1 + wave2
+
+    def ids_of(answers, what):
+        out = []
+        for (code, body), p in zip(answers, prompts):
+            if code != 200:
+                raise AssertionError(f"{what}: HTTP {code}: {body}")
+            ids = body["jsonData"]["ids"]
+            if len(ids) != len(p) + 8 or ids[:len(p)] != p or \
+                    not all(0 <= t < 256 for t in ids):
+                raise AssertionError(f"{what}: bad ids {ids}")
+            out.append(ids)
+        return out
+
+    answers, dt, launches, local = asyncio.run(run("llm.json"))
     engine = local.engine.node_impl("llm").user.engine
-    for (code, body), p in zip(answers, prompts):
-        if code != 200:
-            raise AssertionError(f"llm_json: HTTP {code}: {body}")
-        ids = body["jsonData"]["ids"]
-        if len(ids) != len(p) + 8 or ids[:len(p)] != p:
-            raise AssertionError(f"llm_json: bad ids {ids}")
-        if not all(0 <= t < 256 for t in ids):
-            raise AssertionError(f"llm_json: ids out of vocab {ids}")
+    got = ids_of(answers, "llm_json")
     if engine.free_pages != engine.paged_cfg.n_pages - 1:
         raise AssertionError(f"llm_json: pages not returned "
                              f"({engine.free_pages} free)")
-    # reference: the same weights and engine on the CPU (plain versions)
-    cpu_params = _to_device(engine.params, "cpu")
-    cpu = PagedLLMEngine(cpu_params, engine.cfg, engine.paged_cfg,
-                         max_slots=engine.max_slots)
+    stats = dict(engine.prefix_stats)
+    # reference: the same weights, engine and knobs on the CPU (plain path)
+    cpu = PagedLLMEngine(_to_device(engine.params, "cpu"), engine.cfg,
+                         engine.paged_cfg, max_slots=engine.max_slots,
+                         auto_prefix_tokens=engine._auto_budget)
 
     async def ref():
-        return await asyncio.gather(*(cpu.generate(p, 8) for p in prompts))
+        out = []
+        for w in waves:
+            out += await asyncio.gather(*(cpu.generate(p, 8) for p in w))
+        return out
 
-    refs = asyncio.run(ref())
+    refs = [r[0].tolist() for r in asyncio.run(ref())]
     cpu.close()
     engine.close()
-    same = [a[1]["jsonData"]["ids"] == r[0].tolist()
-            for a, r in zip(answers, refs)]
-    emit({"phase": "llm_json", "requests": len(bodies),
+    same = [a == r for a, r in zip(got, refs)]
+    s_answers, s_dt, s_launches, s_local = asyncio.run(run("llm-slab.json"))
+    s_engine = s_local.engine.node_impl("llm").user.engine
+    s_got = ids_of(s_answers, "llm_slab_json")
+    s_engine.close()
+    slab_same = [a == b for a, b in zip(s_got, got)]
+    emit({"phase": "llm_json", "requests": len(prompts),
           "prompt_lens": [len(p) for p in prompts], "n_new": 8,
-          "seconds": dt, "launches": launches,
-          "ids_equal_cpu_plain_path": same, "card": CARD})
+          "shared_prefix": 32, "seconds": dt, "launches": launches,
+          "auto_prefix_tokens": engine._auto_budget,
+          "auto_hits": stats["auto_hits"],
+          "auto_tokens_reused": stats["auto_tokens_reused"],
+          "cpu_auto_hits": cpu.prefix_stats["auto_hits"],
+          "ids_equal_cpu_plain_path": same,
+          "slab_graph": {"seconds": s_dt, "launches": s_launches,
+                         "auto_hits": s_engine.prefix_stats["auto_hits"],
+                         "ids_equal_paged_graph": slab_same},
+          "card": CARD})
     if not all(same):
         raise AssertionError("llm_json: card ids differ from the CPU path")
+    if stats["auto_hits"] < 3:
+        raise AssertionError(f"llm_json: {stats['auto_hits']} automatic "
+                             "prefix hits, want >= 3")
+    if not all(slab_same):
+        raise AssertionError("llm_json: the slab graph's ids differ from "
+                             "the paged graph's")
     if launches["int8_matmul"] == 0 or launches["paged_attention"] == 0:
         raise AssertionError(f"llm_json: kernels not launched {launches}")
+    if s_launches["int8_matmul"] == 0:
+        raise AssertionError(f"llm_slab_json: K1 not launched {s_launches}")
+    return {k: launches[k] + s_launches[k] for k in launches}
 
 
 def _to_device(tree, device):
@@ -583,7 +661,7 @@ def _cfg_7b(n_layers: int):
         use_flash=True)
 
 
-def serve_7b_phase(torch) -> dict:
+def serve_7b_phase(torch) -> tuple:
     from seldon_core_tpu_torch.models.transformer import init_params_int8
     from seldon_core_tpu_torch.runtime.llm import LLMComponent, PagedLLMEngine
     from seldon_core_tpu_torch.runtime.paged import PagedConfig
@@ -654,8 +732,7 @@ def serve_7b_phase(torch) -> dict:
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"serve_7b: {k} was not launched")
-    del params
-    return launches
+    return launches, params
 
 
 def parity_7b_phase(torch) -> None:
@@ -759,6 +836,470 @@ def parity_7b_phase(torch) -> None:
         raise AssertionError(f"parity_7b: logits differ by {max(errs)}")
     if sum(agree) != 2 * 5:
         raise AssertionError(f"parity_7b: greedy ids agree {sum(agree)}/10")
+
+
+# ----------------------------------------------------------------------
+# slice 3a: prefix caching, chunked and batched prefill, preemption,
+# the slab engine and checkpoints at 7B width
+# ----------------------------------------------------------------------
+
+def _rand_ids(torch, rng, n: int) -> list:
+    return torch.randint(1, 32000, (n,), generator=rng).tolist()
+
+
+def _max_gap_ms(times: list) -> float:
+    return max((b - a for a, b in zip(times, times[1:])), default=0.0) * 1e3
+
+
+def features_7b_phase(torch, params) -> dict:
+    """The 7B-class int8 model at full depth (``serve_7b``'s weights)
+    served by ``PagedLLMEngine`` with 192 pages of 16, 8 slots, max_len
+    512, ``auto_prefix_tokens`` 2048, ``chunk_prefill`` 64 and
+    ``batch_prefill_ms`` 5 behind the REST server.  Traffic: (a) a
+    192-token prefix, then 8 concurrent requests sharing it (automatic
+    hits); (b) the same after ``register_prefix`` (aliased pages); (c) 4
+    streams decoding while a 448-token prompt admits, chunked and not; (d)
+    8 concurrent 16-128-token prompts with the batching window on and off
+    (chunking off, so every prompt is a window candidate); (e) 8
+    priority-0 requests fill the slots, 2 priority-1 requests preempt.
+    Every request must answer 200 and every slot and unpinned page come
+    back; ``resumed`` must equal ``preempted`` >= 1.  Greedy agreement of
+    (a) with the same prompts on an engine with every feature off is
+    reported, not held (bf16 extend attention and K3 round differently).
+    Returns the kernels' launches over the phase."""
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.runtime.llm import LLMComponent, PagedLLMEngine
+    from seldon_core_tpu_torch.runtime.paged import PagedConfig
+    from seldon_core_tpu_torch.serving.rest import RestServer
+
+    cfg = _cfg_7b(32)
+    paged = PagedConfig(n_pages=192, page_size=16)
+    engine = PagedLLMEngine(params, cfg, paged, max_slots=8, max_len=512,
+                            auto_prefix_tokens=2048, chunk_prefill=64,
+                            batch_prefill_ms=5.0)
+    comp = LLMComponent(engine, n_new=16)
+    usable = paged.n_pages - 1
+    rng = torch.Generator().manual_seed(11)
+    prefix = _rand_ids(torch, rng, 192)
+    first = prefix + _rand_ids(torch, rng, 8)
+    suffix_lens = [8 + (40 * i) // 7 for i in range(8)]  # 8 .. 48
+    hits = [prefix + _rand_ids(torch, rng, n) for n in suffix_lens]
+    hits_b = [prefix + _rand_ids(torch, rng, n) for n in suffix_lens]
+    out: dict = {"phase": "features_7b",
+                 "engine": "PagedLLMEngine 192x16 pages, 8 slots, max_len "
+                           "512, auto 2048, chunk 64, window 5 ms",
+                 "card": CARD}
+
+    def body(p, n_new=16, **kw):
+        return {"jsonData": {"prompt_ids": p, "n_new": n_new, **kw}}
+
+    def check(answers, prompts, n_new, what):
+        ids = []
+        for (code, b), p in zip(answers, prompts):
+            if code != 200:
+                raise AssertionError(f"features_7b {what}: HTTP {code}: {b}")
+            got = b["jsonData"]["ids"]
+            if got[:len(p)] != p or len(got) != len(p) + n_new:
+                raise AssertionError(f"features_7b {what}: bad ids")
+            ids.append(got)
+        return ids
+
+    def returned(what):
+        if len(engine._free) != 8 or engine._slots or \
+                engine.free_pages != usable - engine._pinned_pages:
+            raise AssertionError(
+                f"features_7b {what}: slots {len(engine._free)} free, pages "
+                f"{engine.free_pages} free, {engine._pinned_pages} pinned")
+
+    async def run():
+        server = await RestServer(comp, host="127.0.0.1", port=0).start()
+        peak = {"pages": 0}
+
+        async def watch():
+            while True:
+                peak["pages"] = max(peak["pages"], usable - engine.free_pages)
+                await asyncio.sleep(0.0005)
+
+        watcher = asyncio.get_running_loop().create_task(watch())
+        port = server.port
+        try:
+            reset_launches()
+            t_phase = time.perf_counter()
+            # (a) automatic prefix hits
+            engine.latency_log.clear()
+            a0 = check(await _post_all(port, [body(first)]), [first], 16,
+                       "a")
+            ttft_first = engine.latency_log[-1]["ttft_s"]
+            engine.latency_log.clear()
+            s0 = dict(engine.prefix_stats)
+            peak["pages"] = 0
+            a_ids = check(await _post_all(port, [body(p) for p in hits]),
+                          hits, 16, "a")
+            out["a"] = {
+                "prompt_lens": [len(first)] + [len(p) for p in hits],
+                "auto_hits": engine.prefix_stats["auto_hits"]
+                - s0["auto_hits"],
+                "auto_tokens_reused": engine.prefix_stats[
+                    "auto_tokens_reused"] - s0["auto_tokens_reused"],
+                "ttft_ms_first": ttft_first * 1e3,
+                "ttft_ms_median_hits": statistics.median(
+                    x["ttft_s"] for x in engine.latency_log) * 1e3,
+                "peak_pages_in_use": peak["pages"]}
+            returned("a")
+            # (b) a registered prefix: its 12 full pages aliased
+            engine.clear_prefixes()
+            engine.register_prefix(prefix)
+            engine.latency_log.clear()
+            peak["pages"] = 0
+            s0 = dict(engine.prefix_stats)
+            check(await _post_all(port, [body(p) for p in hits_b]), hits_b,
+                  16, "b")
+            out["b"] = {
+                "pinned_pages": engine._pinned_pages,
+                "alias_hits": engine.prefix_stats["alias_hits"]
+                - s0["alias_hits"],
+                "peak_pages_in_use": peak["pages"],
+                "peak_pages_in_use_a": out["a"]["peak_pages_in_use"],
+                "ttft_ms_median": statistics.median(
+                    x["ttft_s"] for x in engine.latency_log) * 1e3}
+            returned("b")
+            # (c) decode streams while a long prompt admits
+            out["c"] = {}
+            for chunk in (64, 0):
+                engine.chunk_prefill = chunk
+                streams = [_rand_ids(torch, rng, 32) for _ in range(4)]
+                long_p = _rand_ids(torch, rng, 448)
+                times = [[] for _ in streams]
+                started = [asyncio.Event() for _ in streams]
+
+                async def consume(i, p):
+                    msg = SeldonMessage(json_data={"prompt_ids": p,
+                                                   "n_new": 64})
+                    async for ev in comp.stream(msg):
+                        if "token" in ev:
+                            times[i].append(time.perf_counter())
+                            started[i].set()
+
+                tasks = [asyncio.get_running_loop().create_task(
+                    consume(i, p)) for i, p in enumerate(streams)]
+                for ev in started:
+                    await ev.wait()
+                t_long = time.perf_counter()
+                check(await _post_all(port, [body(long_p)]), [long_p], 16,
+                      "c")
+                t_done = time.perf_counter()
+                await asyncio.gather(*tasks)
+                # gaps of the streams while the long prompt was in flight
+                gaps = [_max_gap_ms(
+                    [max([t for t in ts if t < t_long], default=t_long)]
+                    + [t for t in ts if t_long <= t <= t_done]
+                    + [min([t for t in ts if t > t_done], default=t_done)])
+                    for ts in times]
+                out["c"][f"chunk_{chunk}"] = {
+                    "max_gap_ms": max(gaps),
+                    "long_request_ms": (t_done - t_long) * 1e3,
+                    "stream_tokens": [len(ts) for ts in times]}
+                returned("c")
+            engine.chunk_prefill = 64
+            # (d) a burst of 8 dense admissions, window on and off
+            out["d"] = {}
+            engine.chunk_prefill = 0
+            for window in (5.0, 0.0):
+                engine.batch_prefill_ms = window
+                burst = [_rand_ids(torch, rng, 16 + (112 * i) // 7)
+                         for i in range(8)]
+                s0 = dict(engine.prefill_batch_stats)
+                engine.latency_log.clear()
+                check(await _post_all(port, [body(p) for p in burst]),
+                      burst, 16, "d")
+                out["d"][f"window_{window:g}ms"] = {
+                    "groups": engine.prefill_batch_stats["groups"]
+                    - s0["groups"],
+                    "requests": engine.prefill_batch_stats["requests"]
+                    - s0["requests"],
+                    "ttft_ms_median": statistics.median(
+                        x["ttft_s"] for x in engine.latency_log) * 1e3}
+                returned("d")
+            engine.chunk_prefill, engine.batch_prefill_ms = 64, 5.0
+            # (e) priority preemption
+            lows = [_rand_ids(torch, rng, 32) for _ in range(8)]
+            highs = [_rand_ids(torch, rng, 32) for _ in range(2)]
+            s0 = dict(engine.preempt_stats)
+            engine.latency_log.clear()
+            low_task = asyncio.get_running_loop().create_task(
+                _post_all(port, [body(p, 64) for p in lows]))
+            t_fill = time.perf_counter()
+            while len(engine._slots) < 8:
+                if low_task.done() or time.perf_counter() - t_fill > 30:
+                    err = (low_task.exception() if low_task.done()
+                           else "30 s passed")
+                    raise RuntimeError(
+                        f"features_7b (e): {len(engine._slots)} of 8 slots "
+                        f"filled, waiters {len(engine._slot_waiters)}, "
+                        f"preempt_stats {engine.preempt_stats}: {err!r}")
+                await asyncio.sleep(0.001)
+            high_ans = await _post_all(port, [body(p, 16, priority=1)
+                                              for p in highs])
+            check(high_ans, highs, 16, "e")
+            check(await low_task, lows, 64, "e")
+            pre = engine.preempt_stats["preempted"] - s0["preempted"]
+            res = engine.preempt_stats["resumed"] - s0["resumed"]
+            out["e"] = {
+                "preempted": pre, "resumed": res,
+                "ttft_ms_priority1": [x["ttft_s"] * 1e3
+                                      for x in engine.latency_log
+                                      if x["tokens"] == 16],
+                "ttft_ms_median_priority0": statistics.median(
+                    x["ttft_s"] for x in engine.latency_log
+                    if x["tokens"] == 64) * 1e3}
+            returned("e")
+            out["seconds"] = time.perf_counter() - t_phase
+            out["launches"] = read_launches()
+            return a0 + a_ids
+        finally:
+            watcher.cancel()
+            await server.stop()
+
+    a_ids = asyncio.run(run())
+    engine.clear_prefixes()
+    if engine.free_pages != usable:
+        raise AssertionError(f"features_7b: {engine.free_pages} pages free "
+                             "after clearing the prefixes")
+    engine.close()
+    # (a)'s prompts on an engine with every feature off
+    plain = PagedLLMEngine(params, cfg, paged, max_slots=8, max_len=512)
+
+    async def ref():
+        return await asyncio.gather(*(plain.generate(p, 16)
+                                      for p in [first] + hits))
+
+    refs = [r[0].tolist() for r in asyncio.run(ref())]
+    plain.close()
+    agree = [sum(int(x == y) for x, y in zip(a[len(p):], r[len(p):]))
+             for a, r, p in zip(a_ids, refs, [first] + hits)]
+    out["a"]["greedy_tokens_equal_features_off"] = agree
+    out["a"]["greedy_tokens_total"] = 16 * len(agree)
+    emit(out)
+    launches = out["launches"]
+    e = out["e"]
+    if not (e["preempted"] >= 1 and e["resumed"] == e["preempted"]):
+        raise AssertionError(f"features_7b (e): {e}")
+    if out["a"]["auto_hits"] != 8 or out["b"]["alias_hits"] != 8:
+        raise AssertionError(f"features_7b: prefix hits {out['a']} "
+                             f"{out['b']}")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"features_7b: {k} was not launched")
+    return launches
+
+
+def parity_features_7b_phase(torch) -> None:
+    """The engine's new device paths at full width, 2 layers, card against
+    the same weights on the CPU (plain path): a prefix-hit extend (192
+    cached rows, a 24-token suffix chunk), the last logits of a chunked
+    prefill (200 tokens in 64-token chunks), the rows of an 8-row batched
+    prefill (K3 at B = 8), and 4 slab ticks of those 8 rows.  Tolerance
+    and tie rule as ``parity_7b``: atol 0.25 on logits, and a greedy id
+    agrees when the CPU logit at the card's id equals the CPU maximum."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.models.transformer import (
+        decode_step,
+        init_params_int8,
+    )
+    from seldon_core_tpu_torch.runtime.llm import LLMEngine
+
+    cfg = _cfg_7b(2)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    gpu_params = init_params_int8(gen, cfg)
+    engines = {"cuda": LLMEngine(gpu_params, cfg, max_slots=8, max_len=256),
+               "cpu": LLMEngine(_to_device(gpu_params, "cpu"), cfg,
+                                max_slots=8, max_len=256)}
+    rng = torch.Generator().manual_seed(6)
+    prefix = np.asarray(_rand_ids(torch, rng, 192), np.int64)
+    suffix = np.asarray(_rand_ids(torch, rng, 24), np.int64)
+    longp = np.asarray(_rand_ids(torch, rng, 200), np.int64)
+    lens = [16 + (48 * i) // 7 for i in range(8)]  # 16 .. 64
+    rows = np.zeros((8, 64), np.int64)
+    for b, n in enumerate(lens):
+        rows[b, :n] = _rand_ids(torch, rng, n)
+
+    def padded(ids, bucket):
+        out = np.zeros((1, bucket), np.int64)
+        out[0, :len(ids)] = ids
+        return out
+
+    def paths(eng):
+        with torch.no_grad():
+            res = {}
+            _, small = eng._prefill_rows(padded(prefix, 256), 191)
+            lg, _ = eng._extend_job(small, padded(suffix, 32), 192, 23)
+            res["extend"] = lg.float().cpu()
+            lg, small = eng._prefill_rows(padded(longp[:64], 64), 63)
+            done = 64
+            while done < 200:
+                n = min(64, 200 - done)
+                lg, small = eng._extend_job(
+                    small, padded(longp[done:done + n], 64 if n > 32 else 8),
+                    done, n - 1)
+                done += n
+            res["chunked"] = lg.float().cpu()
+            lg, small = eng._prefill_rows(rows, np.asarray(lens) - 1)
+            res["batched"] = lg.float().cpu()
+            for b, n in enumerate(lens):
+                eng._insert_slab({"k": small["k"][:, b:b + 1],
+                                  "v": small["v"][:, b:b + 1]}, b, n)
+            return res
+
+    got = {dev: paths(eng) for dev, eng in engines.items()}
+
+    def agree(card, cpu):
+        at = cpu.gather(-1, card.argmax(-1)[:, None])[:, 0]
+        return int((at == cpu.max(-1).values).sum())
+
+    line = {"phase": "parity_features_7b", "layers": 2,
+            "compare": "card kernel path vs CPU plain path, same weights",
+            "tolerance": "atol 0.25", "card": CARD}
+    errs, n_agree, n_total = [], 0, 0
+    for k in ("extend", "chunked", "batched"):
+        c, g = got["cpu"][k], got["cuda"][k]
+        errs.append((g - c).abs().max().item())
+        a = agree(g, c)
+        line[k] = {"max_abs_err": errs[-1], "greedy_ids_agree": a,
+                   "rows": c.shape[0],
+                   "greedy_ids_equal_index": int(
+                       (g.argmax(-1) == c.argmax(-1)).sum())}
+        n_agree += a
+        n_total += c.shape[0]
+    tok = got["cuda"]["batched"].argmax(-1)
+    pos = torch.tensor(lens, dtype=torch.int32)
+    ticks = []
+    with torch.no_grad():
+        for _ in range(4):
+            lg = {}
+            for dev, eng in engines.items():
+                eng.cache["pos"] = pos.to(dev)
+                out, eng.cache = decode_step(eng.params, eng.cache,
+                                             tok.to(dev), cfg)
+                lg[dev] = out.float().cpu()
+            errs.append((lg["cuda"] - lg["cpu"]).abs().max().item())
+            a = agree(lg["cuda"], lg["cpu"])
+            ticks.append({"max_abs_err": errs[-1], "greedy_ids_agree": a})
+            n_agree += a
+            n_total += 8
+            tok = lg["cuda"].argmax(-1)
+            pos = pos + 1
+    for eng in engines.values():
+        eng.close()
+    line.update(slab_ticks=ticks, greedy_ids_agree=n_agree,
+                greedy_ids_total=n_total, max_abs_err=max(errs))
+    emit(line)
+    if max(errs) > 0.25:
+        raise AssertionError(f"parity_features_7b: logits differ by "
+                             f"{max(errs)}")
+    if n_agree != n_total:
+        raise AssertionError(f"parity_features_7b: greedy ids agree "
+                             f"{n_agree}/{n_total}")
+
+
+def checkpoint_7b_phase(torch) -> dict:
+    """Full width, 2 layers: canonical bf16 weights saved by the port's
+    checkpoint writer under ``build/``, then booted through the local
+    runner as ``DemoLLM(model_uri=..., int8="full", paged_pages=96)``;
+    three concurrent requests' ids must EQUAL those of an engine built on
+    the card from the same weights quantized in process.  Reports the
+    save and load seconds and the file's bytes.  Returns the runner's
+    launches."""
+    import shutil
+
+    from seldon_core_tpu_torch.models.transformer import (
+        init_params,
+        quantize_attn_params,
+        quantize_ffn_params,
+    )
+    from seldon_core_tpu_torch.operator.local import serve
+    from seldon_core_tpu_torch.runtime.checkpoint import save_transformer
+    from seldon_core_tpu_torch.runtime.llm import PagedLLMEngine
+    from seldon_core_tpu_torch.runtime.paged import PagedConfig
+
+    cfg = _cfg_7b(2)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    params = init_params(gen, cfg)
+    params = {k: ({n: w.to(torch.bfloat16) for n, w in v.items()}
+                  if isinstance(v, dict) else v.to(torch.bfloat16))
+              for k, v in params.items()}
+    path = ROOT / "build" / "checkpoint_7b"
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_transformer(str(path), params, cfg)
+        save_s = time.perf_counter() - t0
+        nbytes = (path / "model.safetensors").stat().st_size
+        graph = {"metadata": {"name": "llm-checkpoint-7b"}, "spec": {
+            "name": "llm-checkpoint-7b",
+            "annotations": {"seldon.io/batching": "false"},
+            "predictors": [{"name": "main", "graph": {
+                "name": "llm", "type": "MODEL", "parameters": [
+                    {"name": "model_class", "type": "STRING",
+                     "value": "seldon_core_tpu_torch.models.llm_demo:DemoLLM"},
+                    {"name": "model_uri", "type": "STRING",
+                     "value": f"file://{path}"},
+                    {"name": "int8", "type": "STRING", "value": "full"},
+                    {"name": "paged_pages", "type": "INT", "value": "96"},
+                    {"name": "page_size", "type": "INT", "value": "16"},
+                    {"name": "max_slots", "type": "INT", "value": "4"},
+                    {"name": "n_new", "type": "INT", "value": "12"}]}}]}}
+        rng = torch.Generator().manual_seed(4)
+        prompts = [_rand_ids(torch, rng, n) for n in (7, 60, 130)]
+        bodies = [{"jsonData": {"prompt_ids": p}} for p in prompts]
+
+        async def run():
+            t1 = time.perf_counter()
+            server, local = await serve(graph, port=0, host="127.0.0.1")
+            torch.cuda.synchronize()
+            boot = time.perf_counter() - t1
+            try:
+                reset_launches()
+                answers = await _post_all(server.port, bodies)
+                return answers, boot, read_launches(), local
+            finally:
+                await server.stop()
+
+        answers, load_s, launches, local = asyncio.run(run())
+        served = local.engine.node_impl("llm").user.engine
+        served.close()
+        del served, local
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    q = quantize_attn_params(quantize_ffn_params(params))
+    direct = PagedLLMEngine(q, cfg, PagedConfig(96, 16), max_slots=4,
+                            auto_prefix_tokens=4 * cfg.max_seq)
+
+    async def ref():
+        return await asyncio.gather(*(direct.generate(p, 12)
+                                      for p in prompts))
+
+    refs = [r[0].tolist() for r in asyncio.run(ref())]
+    direct.close()
+    same = []
+    for (code, body), r in zip(answers, refs):
+        if code != 200:
+            raise AssertionError(f"checkpoint_7b: HTTP {code}: {body}")
+        same.append(body["jsonData"]["ids"] == r)
+    emit({"phase": "checkpoint_7b", "layers": 2, "dtype": "bfloat16",
+          "file_bytes": nbytes, "save_s": save_s,
+          "boot_with_load_and_quantize_s": load_s,
+          "prompt_lens": [len(p) for p in prompts], "n_new": 12,
+          "ids_equal_in_process_engine": same, "launches": launches,
+          "card": CARD})
+    if not all(same):
+        raise AssertionError("checkpoint_7b: ids differ from the engine "
+                             "built in process")
+    if launches["int8_matmul"] == 0 or launches["paged_attention"] == 0:
+        raise AssertionError(f"checkpoint_7b: kernels not launched "
+                             f"{launches}")
+    return launches
 
 
 # ----------------------------------------------------------------------
@@ -1192,12 +1733,26 @@ def main() -> int:
         return res
 
     summary = timed("kernel", kernel_phase, torch, ColdTimer())
-    timed("llm_json", llm_json_phase, torch)
-    launches = timed("serve_7b", serve_7b_phase, torch)
+    # the main path's launches: every phase that drives an entry point
+    runs = {"llm_json": timed("llm_json", llm_json_phase, torch)}
+    runs["serve_7b"], params_7b = timed("serve_7b", serve_7b_phase, torch)
+    runs["features_7b"] = timed("features_7b", features_7b_phase, torch,
+                                params_7b)
+    del params_7b
+    torch.cuda.empty_cache()
     timed("parity_7b", parity_7b_phase, torch)
+    timed("parity_features_7b", parity_features_7b_phase, torch)
+    runs["checkpoint_7b"] = timed("checkpoint_7b", checkpoint_7b_phase,
+                                  torch)
     resnet_k1 = timed("resnet50", resnet50_phase, torch)
     timed("graphs", graphs_phase, torch)
-    emit({"phase": "seconds", "build": build_s, **seconds})
+    slice_3a = sum(seconds[k] for k in ("features_7b", "parity_features_7b",
+                                        "checkpoint_7b"))
+    emit({"phase": "seconds", "build": build_s, **seconds,
+          "slice_3a_phases": slice_3a,
+          "total": time.perf_counter() - t0})
+    launches = {k: sum(r[k] for r in runs.values())
+                for k in runs["serve_7b"]}
 
     entries = []
     for name, (src, replaces) in _SUMMARY_META.items():
@@ -1205,12 +1760,14 @@ def main() -> int:
         entries.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
+            "launches_by_phase": {ph: r[name] for ph, r in runs.items()},
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             "shape": s["shape"], "variant": s.get("variant"), "card": CARD,
             **{k: s[k] for k in ("long_ms", "long_bound_ms", "one_long_ms",
-                                 "one_long_bound_ms") if k in s},
+                                 "one_long_bound_ms", "shared_prefix_ms",
+                                 "shared_prefix_bound_ms") if k in s},
             **({"resnet50_launches": resnet_k1} if name == "int8_matmul"
                else {})})
     emit({"kernels": entries})

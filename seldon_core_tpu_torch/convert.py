@@ -30,8 +30,10 @@ __all__ = ["params_from_jax", "to_torch", "resnet_from_jax",
 
 
 def to_torch(a, device=None) -> torch.Tensor:
-    """One host array to a tensor; bfloat16 (``ml_dtypes``) arrays keep
-    their bits."""
+    """One host array (or a tensor, as a checkpoint loads) to a tensor;
+    bfloat16 (``ml_dtypes``) arrays keep their bits."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(

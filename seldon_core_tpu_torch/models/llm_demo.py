@@ -1,6 +1,7 @@
 """Deployable demo LLM (port of ``seldon_core_tpu/models/llm_demo.py``):
-the paged continuous-batching engine behind the graph's ``model_class``
-boot path, sized by plain JSON parameters (see ``examples/llm.json``)."""
+the continuous-batching engine behind the graph's ``model_class`` boot
+path, sized by plain JSON parameters (see ``examples/llm.json``) or booted
+from a checkpoint (``model_uri``, see ``examples/llm-checkpoint.json``)."""
 
 from __future__ import annotations
 
@@ -13,29 +14,35 @@ from seldon_core_tpu_torch.models.transformer import (
     quantize_attn_params,
     quantize_ffn_params,
 )
-from seldon_core_tpu_torch.runtime.llm import LLMComponent, PagedLLMEngine
+from seldon_core_tpu_torch.runtime.checkpoint import (
+    load_transformer,
+    resolve_model_uri,
+)
+from seldon_core_tpu_torch.runtime.llm import (
+    LLMComponent,
+    LLMEngine,
+    PagedLLMEngine,
+)
 from seldon_core_tpu_torch.runtime.paged import PagedConfig
 
 __all__ = ["DemoLLM"]
 
 
 class DemoLLM(LLMComponent):
-    """Seeded transformer served with continuous batching over a paged KV
-    cache.
+    """Transformer served with continuous batching: the slab engine, or the
+    paged one when ``paged_pages`` > 0.
 
-    Parameters are the reference's (``models/llm_demo.py:42-67``) plus
-    ``device`` (``cuda`` unless ``cpu`` is asked for).  Weights come from a
-    ``torch.Generator`` on the device seeded with ``seed``; they cannot
-    equal the reference's ``jax.random`` draws for the same seed, so the
-    port and the reference serve different ids for one seed (the tests
-    convert the reference's params to compare like with like).
-
-    Not in this slice: ``model_uri`` checkpoints (slice 3), ``tp > 1``
-    (slice 6), the slab engine ``paged_pages=0`` (slice 3), and the other
-    slice-3 engine features (chunked / ring / batched prefill, automatic
-    prefix caching).  ``auto_prefix_tokens=-1``, the reference's "on by
-    default", maps to off here; the reference promises byte-identical ids
-    either way.
+    Parameters are the reference's (``models/llm_demo.py:42-67``), with its
+    defaults, plus ``device`` (``cuda`` unless ``cpu`` is asked for).
+    ``model_uri`` loads a checkpoint (:mod:`..runtime.checkpoint`); the
+    shape parameters then come from the artifact, and ``int8`` quantizes at
+    load.  Otherwise weights come from a ``torch.Generator`` on the device
+    seeded with ``seed``: they cannot equal the reference's ``jax.random``
+    draws, so the port and the reference serve different ids for one seed
+    (the tests convert the reference's params to compare like with like).
+    ``auto_prefix_tokens`` < 0 means ``4 * max_seq`` (automatic prefix
+    caching on, as in the reference).  ``ring_prefill`` prefills dense at
+    tp = 1; ``tp > 1`` comes with slice 6 of the port.
     """
 
     def __init__(
@@ -65,38 +72,43 @@ class DemoLLM(LLMComponent):
         max_priority: int = -1,
         device: str = "cuda",
     ):
-        if model_uri:
-            raise NotImplementedError(
-                "model_uri checkpoints come with slice 3 of the port")
         if tp > 1:
             raise NotImplementedError(
                 "tensor-parallel serving (tp > 1) comes with slice 6 of the "
                 "port")
-        if paged_pages <= 0:
-            raise NotImplementedError(
-                "the slab engine (paged_pages=0) comes with slice 3 of the "
-                "port; set paged_pages")
         if int8 not in ("none", "ffn", "full"):
             raise ValueError(f"int8 must be none, ffn or full, not {int8!r}")
         dev = resolve_device(device)
-        cfg = TransformerConfig(
-            vocab_size=vocab_size, d_model=d_model, n_layers=n_layers,
-            n_heads=n_heads, n_kv_heads=n_kv_heads or None, d_ff=d_ff,
-            max_seq=max_seq, dtype=getattr(torch, dtype),
-        )
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
-        params = init_params(gen, cfg, device=dev)
-        if int8 in ("ffn", "full"):
-            params = quantize_ffn_params(params)
-        if int8 == "full":
-            params = quantize_attn_params(params)
-        engine = PagedLLMEngine(
-            params, cfg, PagedConfig(n_pages=paged_pages, page_size=page_size),
-            max_slots=max_slots, chunk_prefill=chunk_prefill,
-            auto_prefix_tokens=max(auto_prefix_tokens, 0),
-            ring_prefill=ring_prefill, batch_prefill_ms=batch_prefill_ms,
-        )
+        if model_uri:
+            params, cfg = load_transformer(resolve_model_uri(model_uri),
+                                           int8=int8, device=dev)
+        else:
+            cfg = TransformerConfig(
+                vocab_size=vocab_size, d_model=d_model, n_layers=n_layers,
+                n_heads=n_heads, n_kv_heads=n_kv_heads or None, d_ff=d_ff,
+                max_seq=max_seq, dtype=getattr(torch, dtype),
+            )
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(seed))
+            params = init_params(gen, cfg, device=dev)
+            if int8 in ("ffn", "full"):
+                params = quantize_ffn_params(params)
+            if int8 == "full":
+                params = quantize_attn_params(params)
+        if auto_prefix_tokens < 0:
+            # on by default, sized by the served model's sequence length
+            auto_prefix_tokens = 4 * cfg.max_seq
+        common = dict(max_slots=max_slots, chunk_prefill=chunk_prefill,
+                      auto_prefix_tokens=auto_prefix_tokens,
+                      ring_prefill=ring_prefill,
+                      batch_prefill_ms=batch_prefill_ms)
+        if paged_pages > 0:
+            engine = PagedLLMEngine(
+                params, cfg,
+                PagedConfig(n_pages=paged_pages, page_size=page_size),
+                **common)
+        else:
+            engine = LLMEngine(params, cfg, **common)
         super().__init__(
             engine, n_new=n_new, priority=priority,
             admit_timeout_ms=admit_timeout_ms or None,
@@ -106,3 +118,8 @@ class DemoLLM(LLMComponent):
 
     def tags(self):
         return {"model": "demo-llm", "engine": "continuous-batching"}
+
+    def save_checkpoint(self, path: str) -> str:
+        """Export the served weights as a ``model_uri`` checkpoint (refused
+        for int8 engines: see ``LLMEngine.save_checkpoint``)."""
+        return self.engine.save_checkpoint(path)

@@ -4,7 +4,8 @@ hidden/2 -> 10, ReLU, softmax.
 Seeded weights come from a ``torch.Generator`` on the model's device
 (``randn / sqrt(fan_in)``, zero biases), so for one seed they differ from
 the reference's ``jax.random`` draw; ``params=`` takes given weights (a
-list of ``{"w": (m, n), "b": (n,)}``, the reference's layout).
+list of ``{"w": (m, n), "b": (n,)}``, the reference's layout), and
+``model_uri`` a checkpoint of them (``runtime/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -47,11 +48,18 @@ class MNISTMLP:
 
     def __init__(self, seed: int = 0, hidden: int = 512, model_uri: str = "",
                  params: Optional[list] = None, device: str = "cuda"):
-        if model_uri:
-            raise NotImplementedError(
-                "model_uri checkpoints come with slice 3 of the port")
         self.device = resolve_device(device)
-        if params is None:
+        if model_uri:
+            from seldon_core_tpu_torch.runtime.checkpoint import (
+                load_checkpoint,
+                resolve_model_uri,
+            )
+
+            params, meta = load_checkpoint(resolve_model_uri(model_uri))
+            if meta.get("family") not in (None, "mlp"):
+                raise ValueError(f"model_uri holds {meta.get('family')!r},"
+                                 " not mlp weights")
+        elif params is None:
             gen = torch.Generator(device=self.device).manual_seed(int(seed))
             params = init_mlp_params(gen, (784, hidden, hidden // 2, 10),
                                      device=self.device)

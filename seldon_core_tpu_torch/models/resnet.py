@@ -185,11 +185,25 @@ class ResNet50Model:
                  image_size: int = 224, dtype: str = "bfloat16",
                  model_uri: str = "", device: str = "cuda",
                  module: Optional[ResNet] = None):
-        if model_uri:
-            raise NotImplementedError(
-                "model_uri checkpoints come with slice 3 of the port")
         self.device = resolve_device(device)
-        if module is None:
+        if model_uri:
+            # the reference's flax variables (params + batch_stats); each
+            # tensor takes the dtype the module keeps it in, as the
+            # reference's storage cast does
+            from seldon_core_tpu_torch.convert import resnet_from_jax
+            from seldon_core_tpu_torch.runtime.checkpoint import (
+                load_checkpoint,
+                resolve_model_uri,
+            )
+
+            variables, meta = load_checkpoint(resolve_model_uri(model_uri))
+            if meta.get("family") not in (None, "resnet"):
+                raise ValueError(f"model_uri holds {meta.get('family')!r},"
+                                 " not resnet weights")
+            module = resnet_from_jax(
+                variables, ResNet(num_classes=num_classes,
+                                  dtype=getattr(torch, dtype)))
+        elif module is None:
             module = ResNet(num_classes=num_classes,
                             dtype=getattr(torch, dtype)).to(self.device)
             gen = torch.Generator(device=self.device).manual_seed(int(seed))

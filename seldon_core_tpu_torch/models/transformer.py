@@ -23,6 +23,8 @@ default); masked scores -1e30; attention scores and softmax in float32.
 
 This slice covers one device: no mesh, MoE, ring attention or pipeline
 (those come with the multi-device slice), and no training step.
+:func:`decode_step` decodes against a slab cache (:func:`init_cache`),
+one token or a K-token chunk per row, writing the new K/V rows in place.
 """
 
 from __future__ import annotations
@@ -44,7 +46,8 @@ from seldon_core_tpu_torch.parallel.ring_attention import dense_attention
 __all__ = [
     "TransformerConfig", "init_params", "init_params_int8",
     "quantize_ffn_params", "quantize_attn_params", "rmsnorm", "rope",
-    "attention_block", "ffn_block", "prefill",
+    "attention_block", "ffn_block", "prefill", "has_quantized_params",
+    "init_cache", "decode_step",
 ]
 
 # float32 products on the card must stay float32, as the reference's do
@@ -197,6 +200,13 @@ def _is_q8(w) -> bool:
     return isinstance(w, dict) and "values" in w and "scales" in w
 
 
+def has_quantized_params(params: dict) -> bool:
+    """Whether a param tree carries int8 leaves (in its blocks or the
+    lm_head): the checkpoint export refusal and the verbatim load path."""
+    return (any(_is_q8(v) for v in params.get("blocks", {}).values())
+            or _is_q8(params.get("lm_head")))
+
+
 def _layer_params(blocks: dict, i: int) -> dict:
     """Layer ``i``: stacked leaves sliced on the layer dim, int8 per-layer
     lists indexed."""
@@ -285,6 +295,29 @@ def attention_block(p, x, positions, cfg: TransformerConfig,
     return out
 
 
+def _chunk_attention(q, kg, vg, positions):
+    """Grouped causal attention of K queries per row against a (B, T, Hkv,
+    Dh) K/V cache, the reference's contractions and mask, straight against
+    the compact cache (no expanded copy): query j of row b sits at
+    ``positions[b, j]`` and sees keys t <= it.  Scores, softmax and P.V in
+    float32.  All-masked rows (inactive slots) give uniform attention;
+    nobody reads them."""
+    S, K, H, Dh = q.shape
+    T, Hkv = kg.shape[1], kg.shape[2]
+    g = H // Hkv
+    qg = q.reshape(S, K, Hkv, g, Dh)
+    s = torch.einsum("blhgk,bmhk->bhglm", qg.float(), kg.float()) * (
+        Dh ** -0.5)
+    valid = (
+        torch.arange(T, device=q.device)[None, None, :]
+        <= positions[:, :, None]
+    )[:, None, None, :, :]  # (S,1,1,K,T)
+    s = torch.where(valid, s, -1e30)
+    a = torch.softmax(s, dim=-1)
+    attn = torch.einsum("bhglm,bmhk->blhgk", a, vg.float())
+    return attn.reshape(S, K, H, Dh)
+
+
 def ffn_block(p, x, cfg: TransformerConfig):
     """Dense FFN with tanh GELU; int8 weights take the int8 kernel.  (The
     reference also returns a MoE aux loss; this slice has no MoE.)"""
@@ -353,3 +386,62 @@ def prefill(params, input_ids, cfg: TransformerConfig, max_len: int,
         "pos": torch.full((B,), L, dtype=torch.int32, device=x.device),
     }
     return logits, cache
+
+
+# ----------------------------------------------------------------------
+# decode against a slab KV cache
+# ----------------------------------------------------------------------
+
+def init_cache(cfg: TransformerConfig, batch: int,
+               max_len: Optional[int] = None, device=None) -> dict:
+    """Slab KV cache ``{"k", "v": (layers, B, T, kv_heads, d_head), "pos":
+    (B,) int32}``; GQA keeps it at ``kv_heads``."""
+    max_len = max_len or cfg.max_seq
+    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def decode_step(params, cache, token_ids, cfg: TransformerConfig):
+    """Incremental decode against a slab cache.  ``token_ids`` (B,) gives
+    logits (B, V); (B, K) runs a K-token chunk in one pass and gives (B, K,
+    V).  Query j of row b sits at ``pos[b] + j`` and sees the cache rows
+    up to it (a position mask over the whole cache, as the reference).
+
+    Unlike the reference, the new K/V rows are written INTO ``cache`` at
+    ``pos .. pos + K - 1`` (in place); the returned cache is the same
+    tensors with ``pos + K``.  Rows past ``pos`` are masked and later
+    overwritten, so rewinding is setting ``pos`` lower.  The caller keeps
+    ``pos + K <= T``."""
+    single = token_ids.dim() == 1
+    if single:
+        token_ids = token_ids[:, None]
+    B, K = token_ids.shape
+    T = cache["k"].shape[2]
+    if K > T:
+        raise ValueError(f"chunk of {K} tokens exceeds cache length {T}")
+    pos = cache["pos"].to(token_ids.device).long()
+    x = _embed(params, token_ids, cfg)  # (B, K, D)
+    positions = pos[:, None] + torch.arange(K, device=x.device)[None, :]
+    rows = torch.arange(B, device=x.device)[:, None]
+    Hkv, Dh = cfg.kv_heads, cfg.d_head
+    for i in range(cfg.n_layers):
+        p = _layer_params(params["blocks"], i)
+        h = rmsnorm(x, p["ln1"])
+        q = _attn_proj(h, p["wq"], cfg.n_heads, Dh, x.dtype)
+        k = _attn_proj(h, p["wk"], Hkv, Dh, x.dtype)
+        v = _attn_proj(h, p["wv"], Hkv, Dh, x.dtype)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        kc, vc = cache["k"][i], cache["v"][i]  # (B, T, Hkv, Dh) views
+        kc[rows, positions] = k.to(kc.dtype)
+        vc[rows, positions] = v.to(vc.dtype)
+        attn = _chunk_attention(q, kc, vc, positions)
+        x = x + _attn_out(attn, p["wo"], x.dtype)
+        x = ffn_block(p, x, cfg)
+    x = rmsnorm(x, params["ln_f"])
+    logits = _vocab_proj(x, params["lm_head"], cfg).float()
+    out = {"k": cache["k"], "v": cache["v"],
+           "pos": (pos + K).to(torch.int32)}
+    return (logits[:, 0, :] if single else logits), out

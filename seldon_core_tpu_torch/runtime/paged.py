@@ -32,6 +32,7 @@ import torch
 from seldon_core_tpu_torch.models.transformer import (
     TransformerConfig,
     _attn_out,
+    _chunk_attention,
     _attn_proj,
     _embed,
     _layer_params,
@@ -135,28 +136,6 @@ def _gather_pages(pages, page_indices):
     S, pp = page_indices.shape
     g = pages[:, page_indices.long()]  # (Hkv, S, pp, ps, Dh)
     return g.reshape(Hkv, S, pp * ps, Dh).movedim(0, 2)
-
-
-def _chunk_attention(q, kg, vg, positions):
-    """Grouped causal attention of K queries per slot against a gathered
-    (S, T, Hkv, Dh) K/V view, the reference's contractions and mask: query
-    j of slot s sits at ``positions[s, j]`` and sees keys t <= it.  Scores,
-    softmax and P.V in float32.  All-masked rows (inactive slots) give
-    uniform attention; nobody reads them."""
-    S, K, H, Dh = q.shape
-    T, Hkv = kg.shape[1], kg.shape[2]
-    g = H // Hkv
-    qg = q.reshape(S, K, Hkv, g, Dh)
-    s = torch.einsum("blhgk,bmhk->bhglm", qg.float(), kg.float()) * (
-        Dh ** -0.5)
-    valid = (
-        torch.arange(T, device=q.device)[None, None, :]
-        <= positions[:, :, None]
-    )[:, None, None, :, :]  # (S,1,1,K,T)
-    s = torch.where(valid, s, -1e30)
-    a = torch.softmax(s, dim=-1)
-    attn = torch.einsum("bhglm,bmhk->blhgk", a, vg.float())
-    return attn.reshape(S, K, H, Dh)
 
 
 def paged_attention_ref(q, k_pages, v_pages, lengths, page_indices):

@@ -42,6 +42,7 @@ class Case(NamedTuple):
     dtype: str          # "bfloat16" or "float32"
     trash: tuple = ()   # slots whose pages after the first are page 0
     timed: bool = False  # chip_smoke.py times it beside its yardsticks
+    shared: int = 0     # leading pages every slot's table shares (a prefix)
 
 
 # serve_7b's live slots at its first decode tick: prompts 5..120, +1
@@ -75,24 +76,31 @@ CASES = (
     # the trash page
     Case("partition_edges", 8, 32, 8, 128, 192, 16,
          (208, 209, 416, 417, 1, 207, 1024, 100), "bfloat16", trash=(7,)),
+    # a registered 192-token prefix aliased by 8 slots: the same 12 page
+    # ids lead every table, each slot's own pages after them
+    Case("7b_decode_shared_prefix", 8, 32, 8, 128, 96, 16,
+         (200, 208, 215, 224, 231, 240, 193, 256), "bfloat16", timed=True,
+         shared=12),
 )
 
 
 def make_inputs(case: Case, gen: torch.Generator) -> tuple:
     """(q, k_pages, v_pages, lengths, tables) on the card: each slot's
-    pages drawn without repeats from the pool's pages 1.., the rest of its
-    table row the trash page 0; unit-variance q, K and V."""
+    pages drawn without repeats from the pool's pages 1.. (the first
+    ``case.shared`` of them the same for every slot), the rest of its table
+    row the trash page 0; unit-variance q, K and V."""
     dt = getattr(torch, case.dtype)
     S, ps = case.S, case.page_size
     pp = max(1, max(-(-n // ps) for n in case.lengths))
     perm = torch.randperm(case.n_pages - 1, generator=gen,
                           device="cuda") + 1
     tables = torch.zeros((S, pp), dtype=torch.int32, device="cuda")
-    used = 0
+    used = case.shared
     for s, n in enumerate(case.lengths):
         k = min(1, n) if s in case.trash else -(-n // ps)
-        tables[s, :k] = perm[used:used + k]
-        used += k
+        tables[s, :case.shared] = perm[:case.shared]
+        tables[s, case.shared:k] = perm[used:used + k - case.shared]
+        used += k - case.shared
     q = torch.randn((S, case.H, case.D), generator=gen, device="cuda").to(dt)
     shape = (case.Hkv, case.n_pages, ps, case.D)
     kp = torch.randn(shape, generator=gen, device="cuda").to(dt)
@@ -124,13 +132,15 @@ def yardstick(q, kp, vp, lens, tables):
 
 def work(case: Case) -> tuple:
     """(bytes, operations) the function needs at this case: q, the live
-    K/V rows, lengths, tables and the float32 output once each; 4 flops per
-    query head and live K/V element."""
+    K/V rows (a shared page's once), lengths, tables and the float32 output
+    once each; 4 flops per query head and live K/V element."""
     isz = 2 if case.dtype == "bfloat16" else 4
     pp = max(1, max(-(-n // case.page_size) for n in case.lengths))
     live = sum(min(n, pp * case.page_size) for n in case.lengths)
+    shared_rows = case.shared * case.page_size
+    distinct = live - (case.S - 1) * shared_rows
     nbytes = (case.S * case.H * case.D * isz
-              + 2 * live * case.Hkv * case.D * isz
+              + 2 * distinct * case.Hkv * case.D * isz
               + 4 * case.S + 4 * case.S * pp + case.S * case.H * case.D * 4)
     return nbytes, 4.0 * case.H * case.D * live
 

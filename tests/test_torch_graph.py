@@ -182,9 +182,8 @@ def _no_tpu(ann: dict) -> dict:
                                   if _port_copy(p).exists()],
                          ids=lambda p: p.stem)
 def test_port_graph_copies_differ_only_in_model_class(path):
-    """Each port copy (resnet50-v5e8 as resnet50; llm-checkpoint waits for
-    slice 3) keeps the reference's tree, parameters and batching
-    annotations; TPU annotations may go."""
+    """Each port copy (resnet50-v5e8 as resnet50) keeps the reference's
+    tree, parameters and batching annotations; TPU annotations may go."""
     name = _port_copy(path).name
     ref = tspec.load_deployment(str(path))
     port = tspec.load_deployment(str(PORT_GRAPHS / name))

@@ -1,4 +1,6 @@
-"""The port imports neither jax nor anything of the JAX package.
+"""The port imports neither jax, nor anything of the JAX package, nor
+``safetensors`` (the card's machine has none; the port reads and writes
+the format itself).
 
 This runs in a subprocess: the test process itself has jax imported (the
 conftest pins its platform), so only a fresh interpreter with
@@ -15,6 +17,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PROBE = r"""
 import importlib, json, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["safetensors"] = None
 import seldon_core_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -25,7 +28,17 @@ ref = sorted(m for m in sys.modules
 jaxish = sorted(m for m in sys.modules
                 if (m == "jax" or m.startswith(("jax.", "jaxlib")))
                 and sys.modules[m] is not None)
-print(json.dumps({"modules": names, "ref": ref, "jax": jaxish}))
+# a checkpoint written and read back without the package
+import tempfile, torch
+from seldon_core_tpu_torch.runtime import checkpoint
+d = tempfile.mkdtemp()
+checkpoint.save_checkpoint(d, {"w": torch.ones(2)}, {"family": "x"})
+tree, meta = checkpoint.load_checkpoint(d)
+assert tree["w"].tolist() == [1.0, 1.0] and meta == {"family": "x"}
+st = sorted(m for m in sys.modules
+            if m.split(".")[0] == "safetensors" and sys.modules[m] is not None)
+print(json.dumps({"modules": names, "ref": ref, "jax": jaxish,
+                  "safetensors": st}))
 """
 
 
@@ -38,6 +51,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["ref"] == [], res["ref"]
     assert res["jax"] == [], res["jax"]
+    assert res["safetensors"] == [], res["safetensors"]
     expected = {
         "seldon_core_tpu_torch.device", "seldon_core_tpu_torch.convert",
         "seldon_core_tpu_torch.messages", "seldon_core_tpu_torch.ops._build",
@@ -47,6 +61,7 @@ def test_port_imports_without_jax_or_the_jax_package():
         "seldon_core_tpu_torch.models.llm_demo",
         "seldon_core_tpu_torch.runtime.paged",
         "seldon_core_tpu_torch.runtime.llm",
+        "seldon_core_tpu_torch.runtime.checkpoint",
         "seldon_core_tpu_torch.runtime.component",
         "seldon_core_tpu_torch.graph.spec",
         "seldon_core_tpu_torch.serving.rest",

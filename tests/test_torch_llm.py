@@ -193,11 +193,16 @@ def test_seeded_sampling_is_reproducible_and_in_vocab():
 
 
 def test_later_slice_knobs_raise():
+    """Every engine knob of the reference serves at tp = 1; only
+    speculative decoding (slice 3b) and a mesh (slice 6) raise."""
     _, tp = _params("none")
     paged = tpaged.PagedConfig(17, 4)
     for kw in ({"chunk_prefill": 8}, {"auto_prefix_tokens": 64},
                {"ring_prefill": 16}, {"batch_prefill_ms": 2.0}):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            tllm.PagedLLMEngine(tp, TCFG, paged, max_len=32, **kw)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tllm.LLMEngine(tp, TCFG, max_len=32)
+        tllm.PagedLLMEngine(tp, TCFG, paged, max_len=32, **kw).close()
+        tllm.LLMEngine(tp, TCFG, max_len=32, **kw).close()
+    for cls, args in ((tllm.LLMEngine, ()), (tllm.PagedLLMEngine, (paged,))):
+        with pytest.raises(NotImplementedError, match="slice 3b"):
+            cls(tp, TCFG, *args, max_len=32, draft_params=tp, draft_cfg=TCFG)
+        with pytest.raises(NotImplementedError, match="slice 6"):
+            cls(tp, TCFG, *args, max_len=32, mesh=object())

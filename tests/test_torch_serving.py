@@ -111,9 +111,9 @@ def test_local_runner_cli_answers_reference_json_shape(reference_answer):
     assert len(body["meta"]["puid"]) == len(ref["meta"]["puid"])
     port_keys = {m["key"] for m in body["meta"]["metrics"]}
     ref_keys = {m["key"] for m in ref["meta"]["metrics"]}
-    # the reference adds its prefix-cache hit rate (auto prefix caching is
-    # on in its DemoLLM; it comes to the port in slice 3)
-    assert port_keys == ref_keys - {"seldon_llm_prefix_hit_rate"}
+    # both serve with automatic prefix caching on, so both report its hit
+    # rate
+    assert port_keys == ref_keys
 
 
 def test_same_weights_same_answer():
