@@ -14,9 +14,10 @@ Prints one JSON object per line:
    function, from the build's ``-Xptxas -v`` log.
 3. ``kernel``: each kernel against its plain PyTorch version on the same
    inputs on the card, at the 7B-class shapes (K1 at decode, M = 8, at a
-   64-token extend chunk and at the prefill buckets 32 and 128, for every
-   projection; K3 at B 1 over L 8..1024 and in batched admission prefill,
-   B 8 x L 128 and B 4 x L 256), at ragged edge shapes and at
+   speculative verify chunk, M = 8 slots x 5 = 40, at a 64-token extend
+   chunk and at the prefill buckets 32 and 128, for every projection; K3
+   at B 1 over L 8..1024 and in batched admission prefill, B 8 x L 128
+   and B 4 x L 256), at ragged edge shapes and at
    ``llm.json``'s, with the variant the wrapper chose, the max abs error
    and its tolerance, and (7B-class and ``llm.json``) the kernel's, the
    plain version's and a PyTorch yardstick call's times over cold L2 (CUDA
@@ -56,11 +57,28 @@ Prints one JSON object per line:
 8. ``parity_features_7b``: the same comparison for a prefix-hit extend,
    a chunked prefill's last logits, an 8-row batched prefill and 4 slab
    ticks.
-9. ``checkpoint_7b``: 2 layers at full width saved as bf16 by the port's
+9. ``spec_7b``: speculative decoding with ``serve_7b``'s weights at 32
+   layers on ``PagedLLMEngine`` (k_draft 4, 8 slots, max_len 256, 161
+   pages of 16) behind REST: 8 requests of 16 new tokens, half through
+   ``/api/v0.1/predictions`` and half through ``/api/v0.1/stream``, half
+   greedy and half sampled, with (a) the target as its own draft, (b) a
+   small seeded bf16 draft (2 layers, d 1024), and the plain engine beside
+   them; every answer 200, every slot and page back, each stream's ids
+   equal to its request's ``/predictions`` ids, greedy ids equal to the
+   plain engine's up to a near-tie of the plain path (top-2 gap <= 0.25,
+   counted); acceptance rate, TTFT/TPOT medians, tokens/s, peak memory
+   and launches per engine.
+10. ``parity_spec_7b``: 2 layers at full width, the card against the same
+   weights on the CPU: one ``paged_chunk_step`` verify chunk (logits atol
+   0.25) and the speculative engine's generated ids, teacher-forced
+   through the CPU plain path; greedy ids counted under ``parity_7b``'s
+   exact-tie rule, and any other must lie within 0.25 of the CPU maximum
+   (its deficit printed).
+11. ``checkpoint_7b``: 2 layers at full width saved as bf16 by the port's
    checkpoint writer, booted through the local runner as ``DemoLLM
    (model_uri=..., int8="full")``; its ids must equal an engine's built in
    process from the same weights.
-10. ``resnet50``: full ResNet50 (3, 4, 6, 3), 224x224, 1000 classes, bf16,
+12. ``resnet50``: full ResNet50 (3, 4, 6, 3), 224x224, 1000 classes, bf16,
    seeded weights with random BatchNorm statistics, as ``ResNet50Model``
    (cuDNN convs) and ``Int8ResNet50Model`` (1x1 convs and head on K1):
    in-process forwards at batch 1, 8 and 64 (ms, images/s, K1 launches
@@ -79,21 +97,26 @@ Prints one JSON object per line:
    holds K1 at every ResNet50 1x1 shape at batch 64 and at the head
    (batch 8 and 64), with ``torch._int_mm`` beside it and, at the
    largest-M shapes, the quantize/product split.
-11. ``graphs``: the port's iris, mnist, epsilon-greedy-mab (router
+13. ``graphs``: the port's iris, mnist, epsilon-greedy-mab (router
    seeded; feedback over REST must move its routing), ensemble and
    iris-with-outlier graphs served on the card over REST, each answer
    held to the same graph on the CPU with the card's weights: status,
    names and meta (requestPath, routing, outlier scores) equal, ids equal,
-   probabilities within atol 1e-5.
-12. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
+   probabilities within atol 1e-5; then a persistence round trip: the MAB
+   router (epsilon 0) and the outlier detector take traffic and feedback,
+   ``PersistenceManager`` pushes their state to a ``FileStateStore``, and
+   a fresh runner that restores it answers the same probes equally.
+14. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
     phases of prefix caching, batched and chunked prefill, preemption and
-    checkpoints together).
-13. ``{"kernels": [...]}``: one entry per kernel with its launches in the
+    checkpoints together; ``slice_3b_phases``: ``spec_7b`` and
+    ``parity_spec_7b``).
+15. ``{"kernels": [...]}``: one entry per kernel with its launches in the
     runs through entry points (``llm_json``, ``serve_7b``,
-    ``features_7b``, ``checkpoint_7b``; K1 also ``resnet50_launches``: the
-    int8 REST run), each phase's count beside, its error, times and bound
-    (K2 also at its two long cases and the shared-prefix case).
-14. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+    ``features_7b``, ``spec_7b``, ``checkpoint_7b``; K1 also
+    ``resnet50_launches``: the int8 REST run), each phase's count beside,
+    its error, times and bound (K2 also at its two long cases and the
+    shared-prefix case).
+16. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
@@ -148,7 +171,8 @@ def kernel_phase(torch, timer) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
     # K1 ------------------------------------------------------------------
-    # 7B decode (M = 8 slots), the prefill buckets 32 and 128 and a
+    # 7B decode (M = 8 slots), the prefill buckets 32 and 128, a
+    # speculative verify chunk (8 slots x (k_draft 4 + 1) = 40 rows) and a
     # 64-token extend chunk (chunk_prefill 64) over every projection shape
     # of a layer plus the lm_head, and llm.json's shapes (d64, f32)
     proj_7b = [("wq_wo", 4096, 4096), ("wk_wv", 4096, 1024),
@@ -157,7 +181,8 @@ def kernel_phase(torch, timer) -> dict:
     k1_cases = [(f"7b_{stage}_{pn}", M, K, N, torch.bfloat16,
                  (stage, pn) == ("decode", "w1"))
                 for stage, M in (("decode", 8), ("prefill32", 32),
-                                 ("extend64", 64), ("prefill128", 128))
+                                 ("verify40", 40), ("extend64", 64),
+                                 ("prefill128", 128))
                 for pn, K, N in proj_7b]
     k1_cases += [
         # ragged edges: M not a multiple of 8 or 64, N not of 16 or 64, K
@@ -1303,6 +1328,333 @@ def checkpoint_7b_phase(torch) -> dict:
 
 
 # ----------------------------------------------------------------------
+# slice 3b: speculative decoding, the token stream, state persistence
+# ----------------------------------------------------------------------
+
+def _sse_post(port: int, body: dict) -> tuple[int, dict]:
+    """POST to the stream route; ``(status, the done event)``, the token
+    events checked against the done event's ids."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/api/v0.1/stream",
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            events = [json.loads(ln[6:]) for ln in r.read().decode().split(
+                "\n\n") if ln.startswith("data: ")]
+            code = r.status
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+    done = events[-1] if events else {}
+    toks = [e.get("token") for e in events[:-1]]
+    if not done.get("done") or toks != done["ids"][done["prompt_len"]:]:
+        raise AssertionError(f"stream: bad events {events}")
+    return code, done
+
+
+def _draft_small(torch):
+    """Case (b)'s draft: 2 layers at d 1024 (8 heads of 128), vocab 32000,
+    bf16 weights from a seeded generator on the card, flash prefill."""
+    from seldon_core_tpu_torch.models.transformer import (
+        TransformerConfig,
+        init_params,
+    )
+
+    cfg = TransformerConfig(
+        vocab_size=32000, d_model=1024, n_layers=2, n_heads=8, n_kv_heads=8,
+        d_ff=4096, max_seq=512, dtype=torch.bfloat16, use_flash=True)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    params = init_params(gen, cfg)
+    return {k: ({n: w.to(torch.bfloat16) for n, w in v.items()}
+                if isinstance(v, dict) else v.to(torch.bfloat16))
+            for k, v in params.items()}, cfg
+
+
+SPEC_TIE_ATOL = 0.25  # parity_7b's logit tolerance
+SPEC_MIN_PERFECT_ACCEPT = 0.8  # the target as its own draft
+
+
+def spec_7b_phase(torch, params) -> dict:
+    """Speculative decoding at full width: the 7B-class int8 model at 32
+    layers (``serve_7b``'s weights) on ``PagedLLMEngine`` with
+    ``k_draft`` 4, 8 slots, max_len 256 and 161 pages of 16 (17 pages a
+    slot with the 5 rows of headroom), behind the REST server.  8 requests
+    (prompts of 5..120 tokens, 16 new tokens), half through
+    ``/api/v0.1/predictions`` and half through ``/api/v0.1/stream``, half
+    greedy and half sampled (temperature 0.8, top-k 50, a seed each), run
+    on three engines in turn: (a) the target as its own draft (its tensors
+    shared: every draft verifies, the bonus token and the draft's extra
+    KV row are exercised), (b) a small seeded bf16 draft (2 layers, d 1024:
+    rejections and residual draws), and the plain engine.
+
+    Gates: every answer 200; every slot and page back, the headroom
+    included; each stream's ids equal the same request's ``/predictions``
+    ids, sent again after the burst (a slot's rows do not depend on the
+    others', so even its sampled ids repeat); and each greedy request's ids
+    equal the plain engine's up to their first difference, where the plain
+    path's top two logits must lie within ``SPEC_TIE_ATOL`` (0.25, the
+    parity tolerance): the verify chunk and K2 round differently in bf16,
+    so a near-tie may resolve either way, and after it the contexts
+    differ.  A teacher-forced forward over the plain engine's ids (prompt
+    and generated, one prefill) gives those logits; the count of such
+    positions is printed.  Prints each engine's acceptance rate, TTFT and
+    TPOT medians, tokens/s, peak device memory and launches per kernel;
+    the perfect draft's acceptance must reach ``SPEC_MIN_PERFECT_ACCEPT``.
+    Returns the launches of the three runs."""
+    from seldon_core_tpu_torch.models.transformer import prefill
+    from seldon_core_tpu_torch.runtime.llm import LLMComponent, PagedLLMEngine
+    from seldon_core_tpu_torch.runtime.paged import PagedConfig
+    from seldon_core_tpu_torch.serving.rest import RestServer
+
+    cfg = _cfg_7b(32)
+    paged = PagedConfig(n_pages=161, page_size=16)
+    n_new = 16
+    rng = torch.Generator().manual_seed(13)
+    lens = [5 + (115 * i) // 7 for i in range(8)]  # 5 .. 120
+    prompts = [_rand_ids(torch, rng, n) for n in lens]
+    bodies, routes = [], []
+    for i, p in enumerate(prompts):
+        kw = ({"temperature": 0.8, "top_k": 50, "seed": 100 + i} if i % 2
+              else {})
+        bodies.append({"jsonData": {"prompt_ids": p, "n_new": n_new, **kw}})
+        routes.append("stream" if (i // 2) % 2 else "predictions")
+    d_params, d_cfg = _draft_small(torch)
+    drafts = {"a_perfect_draft": (params, cfg),
+              "b_small_draft": (d_params, d_cfg), "plain": (None, None)}
+
+    def call(port, body, route):
+        if route == "stream":
+            code, done = _sse_post(port, body)
+            return code, done.get("ids", done)
+        code, out = _post(port, body)
+        return code, out["jsonData"]["ids"] if code == 200 else out
+
+    out = {"phase": "spec_7b",
+           "model": "L32 d4096 H32/Hkv8 ff16384 V32000 bf16 int8-full flash",
+           "engine": "PagedLLMEngine 161x16 pages, 8 slots, max_len 256, "
+                     "k_draft 4",
+           "prompt_lens": lens, "n_new": n_new, "routes": routes,
+           "sampled": [bool(i % 2) for i in range(8)], "card": CARD}
+    ids_by = {}
+    total = {}
+    for name, (dp, dc) in drafts.items():
+        engine = PagedLLMEngine(params, cfg, paged, max_slots=8, max_len=256,
+                                draft_params=dp, draft_cfg=dc, k_draft=4)
+        comp = LLMComponent(engine, n_new=n_new)
+
+        async def run():
+            server = await RestServer(comp, host="127.0.0.1", port=0).start()
+            try:
+                for route in ("predictions", "stream"):  # first-use costs
+                    code, res = await asyncio.to_thread(
+                        call, server.port,
+                        {"jsonData": {"prompt_ids": [1, 2, 3], "n_new": 2}},
+                        route)
+                    if code != 200:
+                        raise AssertionError(f"spec_7b warm-up: {res}")
+                engine.latency_log.clear()
+                s0 = dict(engine.spec_stats)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                t0 = time.perf_counter()
+                answers = await _in_threads(call, [
+                    (server.port, b, r) for b, r in zip(bodies, routes)])
+                wall = time.perf_counter() - t0
+                launches = read_launches()
+                peak = torch.cuda.max_memory_allocated()
+                stats = {k: engine.spec_stats[k] - s0[k] for k in s0}
+                again = await _in_threads(call, [
+                    (server.port, b, "predictions")
+                    for b, r in zip(bodies, routes) if r == "stream"])
+                return answers, again, wall, launches, peak, stats
+            finally:
+                await server.stop()
+
+        answers, again, wall, launches, peak, stats = asyncio.run(run())
+        for code, res in answers + again:
+            if code != 200:
+                raise AssertionError(f"spec_7b {name}: HTTP {code}: {res}")
+        if engine.free_pages != paged.n_pages - 1 or len(engine._free) != 8 \
+                or engine._slots:
+            raise AssertionError(f"spec_7b {name}: {engine.free_pages} pages"
+                                 f" and {len(engine._free)} slots free")
+        ids = [res for _, res in answers]
+        streamed = [x for x, r in zip(ids, routes) if r == "stream"]
+        if streamed != [res for _, res in again]:
+            raise AssertionError(f"spec_7b {name}: stream ids differ from "
+                                 "the same requests' /predictions ids")
+        for x, p in zip(ids, prompts):
+            if len(x) != len(p) + n_new or x[:len(p)] != p or \
+                    not all(0 <= t < 32000 for t in x):
+                raise AssertionError(f"spec_7b {name}: bad ids {x}")
+        log = list(engine.latency_log)
+        engine.close()
+        ids_by[name] = ids
+        total[name] = launches
+        out[name] = {
+            "accept_rate": (stats["accepted"] / stats["drafted"]
+                            if stats["drafted"] else None),
+            "spec_stats": stats, "wall_s": wall,
+            "ttft_ms_median": statistics.median(
+                x["ttft_s"] for x in log) * 1e3,
+            "tpot_ms_median": statistics.median(
+                x["tpot_s"] for x in log if x["tpot_s"] is not None) * 1e3,
+            "tokens_per_s": n_new * len(bodies) / wall,
+            "peak_device_bytes": peak, "launches": launches}
+    del d_params
+    # greedy agreement with the plain engine, up to a near-tie
+    near_ties, agree = [], {}
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            if i % 2:
+                continue
+            plain = ids_by["plain"][i]
+            ids = torch.tensor([plain], device="cuda")
+            logits, _ = prefill(params, ids, cfg, max_len=len(plain))
+            top = logits[0].topk(2, dim=-1).values.float().cpu()
+            for name in ("a_perfect_draft", "b_small_draft"):
+                spec = ids_by[name][i]
+                diff = [j for j in range(len(p), len(plain))
+                        if spec[j] != plain[j]]
+                agree.setdefault(name, []).append(
+                    (diff[0] if diff else len(plain)) - len(p))
+                if diff:
+                    gap = float(top[diff[0] - 1, 0] - top[diff[0] - 1, 1])
+                    near_ties.append({"draft": name, "request": i,
+                                      "position": diff[0] - len(p),
+                                      "plain_top2_gap": gap})
+                    if gap > SPEC_TIE_ATOL:
+                        emit({**out, "near_ties": near_ties})
+                        raise AssertionError(
+                            f"spec_7b {name}: greedy request {i} leaves the "
+                            f"plain ids at {diff[0] - len(p)} with a top-2 "
+                            f"gap of {gap} > {SPEC_TIE_ATOL}")
+    out.update(greedy_tokens_equal_plain_before_first_difference=agree,
+               near_ties=near_ties, near_tie_count=len(near_ties),
+               tie_rule=f"plain top-2 gap <= {SPEC_TIE_ATOL}")
+    emit(out)
+    # the perfect draft's rejections are bf16 near-ties between its slab
+    # step and the paged verify chunk (a per-draft acceptance of 0.955
+    # gives 0.90 over k = 4); a draft KV hole would fall far below
+    a = out["a_perfect_draft"]["accept_rate"]
+    if a is None or a < SPEC_MIN_PERFECT_ACCEPT:
+        raise AssertionError(f"spec_7b: the perfect draft accepted {a}")
+    for name in ("a_perfect_draft", "b_small_draft"):
+        lz = total[name]
+        if lz["int8_matmul"] == 0 or lz["flash_attention"] == 0:
+            raise AssertionError(f"spec_7b {name}: kernels not launched {lz}")
+    if total["plain"]["paged_attention"] == 0:
+        raise AssertionError("spec_7b plain: K2 not launched")
+    return {k: sum(t[k] for t in total.values()) for k in total["plain"]}
+
+
+def parity_spec_7b_phase(torch) -> None:
+    """The speculative path at full width, 2 layers, card against the same
+    weights on the CPU (plain path).  (1) One verify chunk against pages
+    (``paged_chunk_step``): 8 slots of 12..54 prompt tokens, 5 tokens
+    each, logits within atol 0.25.  (2) The card's speculative engine (the
+    target as its own draft, k_draft 4) generates 12 tokens for the first 4
+    prompts;
+    a CPU prefill over each prompt and the card's ids gives the plain
+    path's logits.
+
+    Greedy ids, chunk rows and generated positions alike: the count that
+    agrees under ``parity_7b``'s rule (the CPU logit at the card's id
+    equals the CPU maximum) is printed, and every other id must be a
+    near-tie, its CPU logit within ``SPEC_TIE_ATOL`` (the logit tolerance)
+    of the CPU maximum; its deficit is printed.  The exact rule alone does
+    not hold over this many positions: the paths' float32 attention sums
+    differ in order, a bf16 activation then rounds the other way now and
+    then, and a top-2 gap under 0.1 is common at vocab 32000 (the first
+    run read 38/40 and 47/48)."""
+    from seldon_core_tpu_torch.models.transformer import (
+        init_params_int8,
+        prefill,
+    )
+    from seldon_core_tpu_torch.runtime.llm import PagedLLMEngine
+    from seldon_core_tpu_torch.runtime.paged import (
+        PagedConfig,
+        init_paged_cache,
+        insert_rows,
+        paged_chunk_step,
+    )
+
+    cfg = _cfg_7b(2)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    gpu_params = init_params_int8(gen, cfg)
+    cpu_params = _to_device(gpu_params, "cpu")
+    paged = PagedConfig(n_pages=33, page_size=16)
+    rng = torch.Generator().manual_seed(12)
+    lens = [12 + 6 * i for i in range(8)]  # 12 .. 54
+    prompts = [torch.randint(1, 32000, (n,), generator=rng) for n in lens]
+    tables = torch.arange(1, 33, dtype=torch.int32).reshape(8, 4)
+    toks = torch.randint(1, 32000, (8, 5), generator=rng)
+    pos = torch.tensor(lens, dtype=torch.int32)
+
+    def deficits(card_ids, cpu):
+        """CPU maximum minus the CPU logit at each card id."""
+        at = cpu.gather(-1, card_ids[:, None])[:, 0]
+        return (cpu.max(-1).values - at).tolist()
+
+    def chunk(params, device):
+        cache = init_paged_cache(cfg, paged, device=device)
+        with torch.no_grad():
+            for s, p in enumerate(prompts):
+                ids = torch.zeros((1, 64), dtype=torch.long)
+                ids[0, :len(p)] = p
+                _, small = prefill(params, ids.to(device), cfg, max_len=64,
+                                   logit_pos=len(p) - 1)
+                idx = torch.arange(len(p))
+                rows = tables[s][idx // 16].long() * 16 + idx % 16
+                insert_rows(cache, small, rows.to(device), true_len=len(p))
+            logits, _ = paged_chunk_step(params, cache, tables.to(device),
+                                         pos.to(device), toks.to(device),
+                                         cfg, paged)
+        return logits.float().cpu().reshape(40, -1)
+
+    g, c = chunk(gpu_params, "cuda"), chunk(cpu_params, "cpu")
+    err = (g - c).abs().max().item()
+    chunk_def = deficits(g.argmax(-1), c)
+    eng = PagedLLMEngine(gpu_params, cfg, PagedConfig(24, 16), max_slots=4,
+                         max_len=64, draft_params=gpu_params, draft_cfg=cfg,
+                         k_draft=4)
+    spec_prompts = [p.tolist() for p in prompts[:4]]
+
+    async def run():
+        return await asyncio.gather(*(eng.generate(p, 12)
+                                      for p in spec_prompts))
+
+    outs = [o[0].tolist() for o in asyncio.run(run())]
+    stats = dict(eng.spec_stats)
+    eng.close()
+    gen_def = []
+    with torch.no_grad():
+        for p, o in zip(spec_prompts, outs):
+            logits, _ = prefill(cpu_params, torch.tensor([o[:-1]]), cfg,
+                                max_len=len(o) - 1)
+            gen_def += deficits(torch.tensor(o[len(p):]),
+                                logits[0, len(p) - 1:].float())
+    near = [d for d in chunk_def + gen_def if d > 0]
+    line = {"phase": "parity_spec_7b", "layers": 2,
+            "compare": "card speculative path vs CPU plain path, same "
+                       "weights",
+            "tolerance": "atol 0.25", "chunk_max_abs_err": err,
+            "chunk_greedy_ids_agree": chunk_def.count(0.0), "chunk_rows": 40,
+            "engine_greedy_ids_agree": gen_def.count(0.0),
+            "engine_greedy_ids_total": len(gen_def),
+            "near_tie_deficits": near,
+            "tie_rule": f"exact, or within {SPEC_TIE_ATOL} of the CPU "
+                        "maximum", "spec_stats": stats, "card": CARD}
+    emit(line)
+    if err > 0.25:
+        raise AssertionError(f"parity_spec_7b: chunk logits differ by {err}")
+    if any(d > SPEC_TIE_ATOL for d in near):
+        raise AssertionError(f"parity_spec_7b: a greedy id is {max(near)} "
+                             "below the CPU maximum")
+
+
+# ----------------------------------------------------------------------
 # the BASELINE graphs
 # ----------------------------------------------------------------------
 
@@ -1637,6 +1989,98 @@ def graphs_phase(torch) -> None:
         emit(line)
         if max(errs) > 1e-5:
             raise AssertionError(f"graphs {name}: error {max(errs)}")
+    persistence_round_trip()
+
+
+def persistence_round_trip() -> None:
+    """The MAB router (epsilon 0: its routing is then a function of its
+    state) and the outlier detector served on the card take traffic (and
+    the router REST feedback rewarding branch 1); ``PersistenceManager``
+    pushes their state to a ``FileStateStore`` in a temporary directory; a
+    fresh runner restores it and answers the same probe requests as the
+    first: routing and outlier scores equal, outputs within atol 1e-5."""
+    import tempfile
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.operator.local import serve
+    from seldon_core_tpu_torch.runtime.persistence import (
+        FileStateStore,
+        PersistenceManager,
+        persistence_key,
+    )
+
+    with tempfile.TemporaryDirectory() as root:
+        store = FileStateStore(root)
+        for name, unit in (("epsilon-greedy-mab", "eg-router"),
+                           ("iris-with-outlier", "outlier-detector")):
+            d = json.loads((ROOT / "seldon_core_tpu_torch" / "examples"
+                            / f"{name}.json").read_text())
+            for prm in d["spec"]["predictors"][0]["graph"]["parameters"]:
+                if prm["name"] == "epsilon":
+                    prm["value"] = "0.0"
+            key = persistence_key(d["spec"]["name"], "main", unit)
+            bodies = _graph_requests(name)
+
+            async def answers(port):
+                outs = []
+                for b in bodies:
+                    code, o, _ = await asyncio.to_thread(_post_timed, port, b)
+                    if code != 200:
+                        raise AssertionError(f"persistence {name}: {o}")
+                    o["meta"].pop("puid")
+                    outs.append(o)
+                return outs
+
+            async def run():
+                server, first = await serve(d, port=0, host="127.0.0.1")
+                try:
+                    await answers(server.port)  # traffic
+                    if unit == "eg-router":
+                        fb = {"response": {"meta": {"routing": {unit: 1}}},
+                              "reward": 1.0}
+                        for _ in range(3):
+                            code, res, _ = await asyncio.to_thread(
+                                _post_timed, server.port, fb,
+                                "/api/v0.1/feedback")
+                            if code != 200:
+                                raise AssertionError(f"feedback: {res}")
+                    PersistenceManager(first.engine.node_impl(unit).user,
+                                       store, key).push()
+                    want = await answers(server.port)
+                finally:
+                    await server.stop()
+                server, second = await serve(d, port=0, host="127.0.0.1")
+                try:
+                    if not PersistenceManager(
+                            second.engine.node_impl(unit).user, store,
+                            key).restore():
+                        raise AssertionError(f"persistence {name}: no state")
+                    return want, await answers(server.port), \
+                        second.engine.node_impl(unit).user.get_state()
+                finally:
+                    await server.stop()
+
+            want, got, state = asyncio.run(run())
+            err = 0.0
+            for w, g in zip(want, got):
+                wv = np.asarray(w["data"]["ndarray"], np.float64)
+                gv = np.asarray(g["data"]["ndarray"], np.float64)
+                err = max(err, float(np.abs(wv - gv).max()))
+                if w["meta"] != g["meta"] or w["status"] != g["status"] or \
+                        not (wv.argmax(-1) == gv.argmax(-1)).all():
+                    raise AssertionError(f"persistence {name}: restored "
+                                         f"{g['meta']} vs {w['meta']}")
+            emit({"phase": "graphs", "graph": name,
+                  "persistence": "FileStateStore push, fresh runner restore",
+                  "probes": len(want), "meta_equal": True,
+                  "max_abs_err": err, "tolerance": "atol 1e-5",
+                  "restored_state": {k: np.asarray(v).tolist()
+                                     for k, v in state.items()
+                                     if np.asarray(v).size <= 8},
+                  "card": CARD})
+            if err > 1e-5:
+                raise AssertionError(f"persistence {name}: error {err}")
 
 
 # ----------------------------------------------------------------------
@@ -1738,18 +2182,21 @@ def main() -> int:
     runs["serve_7b"], params_7b = timed("serve_7b", serve_7b_phase, torch)
     runs["features_7b"] = timed("features_7b", features_7b_phase, torch,
                                 params_7b)
+    runs["spec_7b"] = timed("spec_7b", spec_7b_phase, torch, params_7b)
     del params_7b
     torch.cuda.empty_cache()
     timed("parity_7b", parity_7b_phase, torch)
     timed("parity_features_7b", parity_features_7b_phase, torch)
+    timed("parity_spec_7b", parity_spec_7b_phase, torch)
     runs["checkpoint_7b"] = timed("checkpoint_7b", checkpoint_7b_phase,
                                   torch)
     resnet_k1 = timed("resnet50", resnet50_phase, torch)
     timed("graphs", graphs_phase, torch)
     slice_3a = sum(seconds[k] for k in ("features_7b", "parity_features_7b",
                                         "checkpoint_7b"))
+    slice_3b = seconds["spec_7b"] + seconds["parity_spec_7b"]
     emit({"phase": "seconds", "build": build_s, **seconds,
-          "slice_3a_phases": slice_3a,
+          "slice_3a_phases": slice_3a, "slice_3b_phases": slice_3b,
           "total": time.perf_counter() - t0})
     launches = {k: sum(r[k] for r in runs.values())
                 for k in runs["serve_7b"]}

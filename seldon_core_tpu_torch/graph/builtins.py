@@ -77,7 +77,8 @@ class AverageCombiner:
 class EpsilonGreedy:
     """Multi-armed-bandit router: explore with probability ``epsilon``,
     else take the branch of best mean reward; ``send_feedback`` credits the
-    branch recorded in the response's ``meta.routing``."""
+    branch recorded in the response's ``meta.routing``.  Its counts and
+    mean rewards persist through ``get_state``/``set_state``."""
 
     def __init__(self, n_branches: int = 2, epsilon: float = 0.1,
                  seed: Optional[int] = None):
@@ -103,6 +104,16 @@ class EpsilonGreedy:
             n = self.counts[routing]
             self.values[routing] += (reward - self.values[routing]) / n
         return None
+
+    # the persistence protocol (runtime/persistence.py)
+    def get_state(self) -> dict:
+        with self._lock:
+            return {"counts": self.counts.copy(), "values": self.values.copy()}
+
+    def set_state(self, state: dict) -> None:
+        with self._lock:
+            self.counts = np.asarray(state["counts"], dtype=np.int64).copy()
+            self.values = np.asarray(state["values"], dtype=np.float64).copy()
 
 
 _BUILTINS = {

@@ -7,9 +7,10 @@ ROUTER's branch goes into ``meta.routing``; -1 fans out to every child),
 the children concurrently (``asyncio.gather``), aggregate (a COMBINER) or
 the first child's output, then transformOutput (an OUTPUT_TRANSFORMER).
 Feedback replays the routing recorded in the response down the branch that
-was taken, children first.  A component error becomes a FAILURE status: a
-:class:`SeldonComponentError` with its own code, anything else 500
-``INTERNAL``.
+was taken, children first.  :meth:`GraphEngine.stream` serves the token
+stream of a graph whose root is a single streaming node.  A component
+error becomes a FAILURE status: a :class:`SeldonComponentError` with its
+own code, anything else 500 ``INTERNAL``.
 
 Not in this slice: the prediction cache, QoS, fused plans, the health,
 profiling, placement, artifact and device planes, and the tracer
@@ -196,6 +197,24 @@ class GraphEngine:
             return
         meta.merge(out.meta)
         out.meta = Meta()  # consumed
+
+    # ------------------------------------------------------------------
+    def stream(self, request: SeldonMessage):
+        """The async generator of events of a STREAMING graph: its root is
+        a single node with ``stream`` (an LLM MODEL).  Streaming through
+        routers, combiners or transformers has no defined composition, so
+        any other graph raises a 501 ``STREAM_UNSUPPORTED`` error, before
+        any event."""
+        impl = self.root.impl
+        fn = getattr(impl, "stream", None)
+        has = getattr(impl, "has", None)
+        declared = (not callable(has)) or has("stream")
+        if not callable(fn) or self.root.children or not declared:
+            raise SeldonComponentError(
+                f"graph {self.name!r} is not streamable (root must be a "
+                "single streaming node)",
+                status_code=501, reason="STREAM_UNSUPPORTED")
+        return fn(request)
 
     # ------------------------------------------------------------------
     async def send_feedback(self, fb: Feedback) -> SeldonMessage:

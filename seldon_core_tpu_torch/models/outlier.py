@@ -2,7 +2,8 @@
 ``seldon_core_tpu/models/outlier.py``): an OUTLIER_DETECTOR that scores
 each row by its squared Mahalanobis distance to the running mean and
 covariance (Welford updates, shrinkage toward the diagonal).  Host numpy
-code, as in the reference; its scores are the reference's to the bit.
+code, as in the reference; its scores are the reference's to the bit.  Its
+running moments persist through ``get_state``/``set_state``.
 """
 
 from __future__ import annotations
@@ -53,6 +54,19 @@ class MahalanobisOutlier:
         delta = x - self.mean
         self.mean = self.mean + delta / self.n
         self.m2 = self.m2 + np.outer(delta, x - self.mean)
+
+    # the persistence protocol (runtime/persistence.py): the reference's
+    # npz fields, as a dict of arrays
+    def get_state(self) -> dict:
+        return {"n": np.asarray(self.n, np.int64),
+                "mean": self.mean if self.mean is not None else np.zeros(0),
+                "m2": self.m2 if self.m2 is not None else np.zeros((0, 0))}
+
+    def set_state(self, state: dict) -> None:
+        self.n = int(state["n"])
+        mean, m2 = np.asarray(state["mean"]), np.asarray(state["m2"])
+        self.mean = mean.copy() if mean.size else None
+        self.m2 = m2.copy() if m2.size else None
 
     def tags(self):
         return {"detector": "mahalanobis", "observed": self.n}

@@ -24,7 +24,9 @@ default); masked scores -1e30; attention scores and softmax in float32.
 This slice covers one device: no mesh, MoE, ring attention or pipeline
 (those come with the multi-device slice), and no training step.
 :func:`decode_step` decodes against a slab cache (:func:`init_cache`),
-one token or a K-token chunk per row, writing the new K/V rows in place.
+one token or a K-token chunk per row, writing the new K/V rows in place;
+:func:`generate` and :func:`speculative_generate` are the reference's
+one-request loops over it.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ __all__ = [
     "TransformerConfig", "init_params", "init_params_int8",
     "quantize_ffn_params", "quantize_attn_params", "rmsnorm", "rope",
     "attention_block", "ffn_block", "prefill", "has_quantized_params",
-    "init_cache", "decode_step",
+    "init_cache", "decode_step", "generate", "speculative_generate",
 ]
 
 # float32 products on the card must stay float32, as the reference's do
@@ -445,3 +447,91 @@ def decode_step(params, cache, token_ids, cfg: TransformerConfig):
     out = {"k": cache["k"], "v": cache["v"],
            "pos": (pos + K).to(torch.int32)}
     return (logits[:, 0, :] if single else logits), out
+
+
+# ----------------------------------------------------------------------
+# one-request generation loops
+# ----------------------------------------------------------------------
+
+def generate(params, prompt_ids, n_new: int, cfg: TransformerConfig,
+             temperature: float = 0.0, generator=None):
+    """Prefill, then one :func:`decode_step` per token: greedy argmax, or
+    with ``temperature`` > 0 a draw from ``softmax(logits / temperature)``
+    with ``generator`` (a ``torch.Generator`` on the logits' device; the
+    reference's ``jax.random`` draws cannot be replayed).  ``prompt_ids``
+    (B, L0); returns (B, L0 + n_new)."""
+    B, L0 = prompt_ids.shape
+    with torch.no_grad():
+        logits, cache = prefill(params, prompt_ids, cfg, max_len=L0 + n_new,
+                                logit_pos=L0 - 1)
+        out = [prompt_ids]
+        for t in range(n_new):
+            if temperature > 0.0:
+                probs = torch.softmax(logits / temperature, dim=-1)
+                tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            else:
+                tok = torch.argmax(logits, dim=-1)
+            out.append(tok[:, None].to(prompt_ids.dtype))
+            if t < n_new - 1:
+                logits, cache = decode_step(params, cache, tok, cfg)
+        return torch.cat(out, dim=1)
+
+
+def speculative_generate(params, draft_params, prompt_ids, n_new: int,
+                         cfg: TransformerConfig, draft_cfg: TransformerConfig,
+                         k_draft: int = 4):
+    """Greedy speculative decoding of one request: the draft proposes
+    ``k_draft`` tokens, the target scores them in ONE K-token
+    :func:`decode_step`, and the longest agreeing prefix is kept plus the
+    target's own next token.  The output is exactly the target's greedy
+    decode.  Both caches rewind by setting ``pos`` back.
+
+    The draft makes k + 1 steps, the last one only to write d_{k-1}'s K/V
+    row, as the serving engine's draft does: the reference's loop makes k,
+    and after a full acceptance its draft attends over a row never
+    written.  The ids are the same either way; the acceptance can differ.
+
+    Returns ``(ids (1, L0 + n_new), stats)``, stats ``{"rounds",
+    "accept_rate"}`` (accepted drafts per round over ``k_draft``)."""
+    B, L0 = prompt_ids.shape
+    if B != 1:
+        raise ValueError("speculative_generate is per-request (B=1); batch "
+                         "via the serving engine")
+    if n_new <= 0:
+        return prompt_ids, {"rounds": 0, "accept_rate": 0.0}
+    max_len = L0 + n_new + k_draft + 1
+    dev = prompt_ids.device
+    with torch.no_grad():
+        t_logits, t_cache = prefill(params, prompt_ids, cfg, max_len=max_len,
+                                    logit_pos=L0 - 1)
+        _, d_cache = prefill(draft_params, prompt_ids, draft_cfg,
+                             max_len=max_len, logit_pos=L0 - 1)
+        out = [int(torch.argmax(t_logits[0]))]
+        rounds = accepted = 0
+        while len(out) < n_new:
+            tok = torch.tensor([out[-1]], device=dev)
+            d_tokens = []
+            for j in range(k_draft + 1):
+                dl, d_cache = decode_step(draft_params, d_cache, tok,
+                                          draft_cfg)
+                tok = torch.argmax(dl, dim=-1)
+                if j < k_draft:
+                    d_tokens.append(int(tok[0]))
+            vtokens = torch.tensor([[out[-1]] + d_tokens], device=dev)
+            vlogits, t_cache = decode_step(params, t_cache, vtokens, cfg)
+            tgt = torch.argmax(vlogits[0], dim=-1).tolist()
+            n_acc = 0
+            while n_acc < k_draft and d_tokens[n_acc] == tgt[n_acc]:
+                n_acc += 1
+            out.extend(d_tokens[:n_acc] + [tgt[n_acc]])
+            rounds += 1
+            accepted += n_acc
+            # everything before the newest token is processed; the rows
+            # past it are masked
+            new_pos = torch.full_like(t_cache["pos"], L0 + len(out) - 1)
+            t_cache = {**t_cache, "pos": new_pos}
+            d_cache = {**d_cache, "pos": new_pos.clone()}
+    ids = torch.cat([prompt_ids, torch.tensor([out[:n_new]], device=dev,
+                                              dtype=prompt_ids.dtype)], dim=1)
+    return ids, {"rounds": rounds,
+                 "accept_rate": accepted / (rounds * k_draft)}

@@ -95,6 +95,9 @@ class LocalDeployment:
     async def predict(self, msg: SeldonMessage) -> SeldonMessage:
         return await self.engine.predict(msg)
 
+    def stream(self, msg: SeldonMessage):
+        return self.engine.stream(msg)
+
     async def send_feedback(self, fb: Feedback) -> SeldonMessage:
         return await self.engine.send_feedback(fb)
 

@@ -43,8 +43,20 @@ reference's immutable arrays, caches here are written in place, so every
 kept prefix entry owns its storage (a clone), and an extend pads its
 prefix into a fresh buffer before writing the suffix.
 
-Not in this slice: speculative decoding (``draft_params``, slice 3b) and
-tensor-parallel serving (``mesh``, slice 6); each raises
+**Speculative decoding** (``draft_params``/``draft_cfg``, ``k_draft``):
+every tick drafts ``k_draft`` tokens per slot with the draft model against
+its own slab cache (a slab in the paged engine too), verifies them in one
+(k+1)-token target chunk (:func:`decode_step` on the slab,
+:func:`paged_chunk_step` on pages) and accepts per slot by
+:func:`rejection_verify`: 1..k+1 tokens per tick, greedy and sampled slots
+in the same tick.  Greedy slots emit exactly the target's greedy decode;
+sampled slots emit tokens whose marginals are exactly the target's
+sampling distribution.  Rejection rewinds by lowering the host ``pos``:
+the rows past it are masked and later overwritten, so every cache carries
+``k_draft + 1`` rows of headroom (per slot on the slab, per reservation in
+pages).
+
+Not in this slice: tensor-parallel serving (``mesh``, slice 6) raises
 ``NotImplementedError`` naming its slice.  ``ring_prefill`` is accepted and
 ignored: sequence-parallel prefill needs a mesh, so at tp = 1 every bucket
 prefills dense, as the reference's does without one.
@@ -77,11 +89,13 @@ from seldon_core_tpu_torch.runtime.paged import (
     PagedConfig,
     init_paged_cache,
     insert_rows,
+    paged_chunk_step,
     paged_decode_step,
 )
 
 __all__ = ["LLMEngine", "PagedLLMEngine", "LLMComponent",
-           "AdmissionDeadlineError", "sample_tokens", "filtered_probs"]
+           "AdmissionDeadlineError", "sample_tokens", "filtered_probs",
+           "rejection_verify"]
 
 logger = logging.getLogger(__name__)
 
@@ -160,6 +174,65 @@ def filtered_probs(logits, temps, top_k, top_p):
     return torch.zeros_like(kept).scatter_(-1, order, kept)
 
 
+def _draw(probs, u):
+    """Inverse-CDF draws: for each row of ``probs`` (..., V), non-negative
+    with a positive total, the first id whose running sum exceeds ``u``
+    (...) in [0, 1) times the total.  An id of zero mass is never drawn."""
+    cdf = torch.cumsum(probs, dim=-1)
+    x = (u * cdf[..., -1]).unsqueeze(-1)
+    idx = torch.searchsorted(cdf, x.contiguous(), right=True).squeeze(-1)
+    # u * total can round up to the total: take the last id with mass
+    last = probs.shape[-1] - 1 - torch.argmax(
+        (probs.flip(-1) > 0).to(torch.int8), dim=-1)
+    return torch.minimum(idx, last)
+
+
+def rejection_verify(pprobs, qprobs, drafts, tgt_greedy, temps, uniforms):
+    """Per-slot speculative verification (Leviathan/Chen rejection
+    sampling); greedy slots (``temps <= 0``) accept their longest prefix of
+    drafts equal to the target's argmax.
+
+    - ``pprobs``: (S, k+1, V) filtered TARGET distributions per position
+    - ``qprobs``: (S, k, V) filtered DRAFT distributions the drafts were
+      drawn from
+    - ``drafts``: (S, k); ``tgt_greedy``: (S, k+1) target argmax
+    - ``uniforms``: (S, 2k+1) in [0, 1), per slot: the k acceptance draws
+      ``u``, then the k residual resamples, then the bonus; greedy rows
+      are not read
+
+    Accept draft i while ``u_i * q(x_i) < p(x_i)``; at the first rejection
+    emit a draw from ``norm(max(p - q, 0))`` (p where that is all zero), on
+    full acceptance a bonus draw from ``p`` at position k.  Draws are
+    inverse-CDF (:func:`_draw`), so they cannot replay the reference's
+    threefry bits; every emitted token's marginal is the target's sampling
+    distribution all the same.
+
+    Returns ``(tokens (S, k+1), n_emit (S,))``: emit ``tokens[s,
+    :n_emit[s]]``."""
+    S, k = drafts.shape
+    drafts = drafts.long()
+    sampled = temps > 0
+    px = pprobs[:, :k].gather(2, drafts[:, :, None])[:, :, 0]
+    qx = qprobs.gather(2, drafts[:, :, None])[:, :, 0]
+    accept = torch.where(sampled[:, None], uniforms[:, :k] * qx < px,
+                         drafts == tgt_greedy[:, :k])
+    n_acc = torch.cumprod(accept.long(), dim=1).sum(dim=1)  # (S,) in [0, k]
+    res = torch.clamp(pprobs[:, :k] - qprobs, min=0.0)
+    res_sum = res.sum(dim=-1, keepdim=True)
+    res = torch.where(res_sum > 0, res / torch.clamp(res_sum, min=1e-20),
+                      pprobs[:, :k])
+    resamples = _draw(res, uniforms[:, k:2 * k])  # (S, k)
+    bonus = _draw(pprobs[:, k], uniforms[:, 2 * k])
+    at = torch.clamp(n_acc, max=k - 1)[:, None]
+    final_sampled = torch.where(n_acc < k, resamples.gather(1, at)[:, 0],
+                                bonus)
+    final = torch.where(sampled, final_sampled,
+                        tgt_greedy.long().gather(1, n_acc[:, None])[:, 0])
+    tokens = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+    tokens[torch.arange(S, device=tokens.device), n_acc] = final
+    return tokens, n_acc + 1
+
+
 _DONE = object()  # end-of-stream sentinel on a slot's token queue
 
 
@@ -190,7 +263,9 @@ class LLMEngine:
 
     ``await engine.generate(prompt_ids, n_new)`` returns the ids ``[1, L0 +
     n_generated]`` as a CPU int32 tensor; :meth:`stream` yields them as
-    they are sampled.
+    they are sampled.  With ``draft_params``/``draft_cfg`` every tick is
+    speculative (module docstring); ``spec_stats`` counts its rounds and
+    its drafted and accepted tokens.
     """
 
     def __init__(
@@ -201,6 +276,7 @@ class LLMEngine:
         max_len: Optional[int] = None,
         draft_params: Optional[dict] = None,
         draft_cfg: Optional[TransformerConfig] = None,
+        k_draft: int = 4,
         chunk_prefill: int = 0,
         mesh=None,
         auto_prefix_tokens: int = 0,
@@ -208,15 +284,24 @@ class LLMEngine:
         ring_prefill: int = 0,
         batch_prefill_ms: float = 0.0,
     ):
-        if draft_params is not None or draft_cfg is not None:
-            _later_slice("speculative decoding (draft_params)", "3b")
         if mesh is not None:
             _later_slice("tensor-parallel serving (mesh)", "6")
+        if (draft_params is None) != (draft_cfg is None):
+            raise ValueError("draft_params and draft_cfg go together")
+        if draft_params is not None and int(k_draft) < 1:
+            raise ValueError(f"k_draft must be >= 1, not {k_draft}")
         self.params = params
         self.cfg = cfg
         self.device = params["embed"].device
         self.max_slots = max_slots
         self.max_len = max_len or cfg.max_seq
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.k_draft = int(k_draft)
+        # a speculative tick writes up to k_draft + 1 rows past a slot's
+        # true position before the rewind
+        self._headroom = self.k_draft + 1 if draft_params is not None else 0
+        self.spec_stats = {"rounds": 0, "drafted": 0, "accepted": 0}
         # admissions longer than this extend their cache in chunks of this
         # many tokens, each its own device job, so ticks interleave; 0 = off
         self.chunk_prefill = int(chunk_prefill)
@@ -227,7 +312,11 @@ class LLMEngine:
         self._pf_flusher: Optional[asyncio.Task] = None
         self._pf_event: Optional[tuple] = None  # (loop, asyncio.Event)
         self.prefill_batch_stats = {"groups": 0, "requests": 0}
-        self.cache = self._init_cache(self.max_len)
+        self.cache = self._init_cache(self.max_len + self._headroom)
+        # the draft's cache is a slab in both engines
+        self.draft_cache = None if draft_params is None else init_cache(
+            draft_cfg, max_slots, max_len=self.max_len + self._headroom,
+            device=self.device)
         self._slots: dict[int, _Slot] = {}
         self._free = list(range(max_slots))
         # slot admission queue: (-priority, seq, future), kept sorted
@@ -295,15 +384,18 @@ class LLMEngine:
                         **engine_kwargs):
         """Boot an engine from a checkpoint directory
         (:mod:`.checkpoint`), int8 quantized at load; ``device`` defaults
-        to the card.  Pass ``paged=`` through ``engine_kwargs`` for
-        :class:`PagedLLMEngine`."""
+        to the card.  ``draft_path`` loads a second checkpoint as the
+        speculative draft, dense as it was saved.  Pass ``paged=`` through
+        ``engine_kwargs`` for :class:`PagedLLMEngine`."""
         from seldon_core_tpu_torch.device import resolve_device
         from seldon_core_tpu_torch.runtime.checkpoint import load_transformer
 
+        dev = resolve_device(device)
+        params, cfg = load_transformer(path, mesh=mesh, int8=int8, device=dev)
         if draft_path is not None:
-            _later_slice("speculative decoding (draft_path)", "3b")
-        params, cfg = load_transformer(path, mesh=mesh, int8=int8,
-                                       device=resolve_device(device))
+            dparams, dcfg = load_transformer(draft_path, mesh=mesh, device=dev)
+            engine_kwargs.setdefault("draft_params", dparams)
+            engine_kwargs.setdefault("draft_cfg", dcfg)
         return cls(params, cfg, **engine_kwargs)
 
     def save_checkpoint(self, path: str) -> str:
@@ -414,6 +506,110 @@ class LLMEngine:
         """A callable for the device worker that writes an admission's K/V
         into the cache (host state read now, not later)."""
         return lambda: self._insert_slab(small, slot, L0)
+
+    # -- speculative decoding (runs on the device worker) ----------------
+    def _draft_prefill(self, host_ids, L0: int):
+        """The draft's K/V of the whole prompt, a 1-row cache: prefix
+        entries hold target state only, so the draft always prefills."""
+        padded = np.zeros((1, _bucket(L0)), np.int64)
+        padded[0, :L0] = host_ids[:L0]
+        with torch.no_grad():
+            _, small = prefill(
+                self.draft_params, torch.from_numpy(padded).to(self.device),
+                self.draft_cfg, max_len=padded.shape[1], logit_pos=L0 - 1)
+            return {"k": small["k"], "v": small["v"]}
+
+    def _spec_uniforms(self, gens: list):
+        """(S, 3k+1) uniforms, ONE draw call per sampled slot from its own
+        generator, in the order: the k draft samples, the k acceptance
+        draws ``u``, the k residual resamples, the bonus.  Greedy rows are
+        zeros (no draw)."""
+        n = 3 * self.k_draft + 1
+        if all(g is None for g in gens):
+            return torch.zeros((len(gens), n), device=self.device)
+        zero = torch.zeros((n,), device=self.device)
+        return torch.stack([
+            zero if g is None else torch.rand((n,), generator=g,
+                                              device=self.device)
+            for g in gens])
+
+    def _draft_propose(self, tok, pos, temps, top_k, top_p, u, sampled):
+        """Draft phase: k draft tokens per slot, each drawn from the slot's
+        filtered draft distribution (argmax for greedy slots), with the
+        uniforms ``u`` (S, k).  ``sampled``: whether any slot samples (else
+        no distribution is computed).  Returns ``(drafts (S, k), qprobs (S,
+        k, V) or None)``.
+
+        k + 1 draft steps: the extra one processes d_{k-1} so that its KV
+        row is WRITTEN.  On full acceptance the rewound position counts that
+        row as valid, and a row never written there would be a hole the
+        draft attends over from then on, lowering acceptance round by
+        round.  Its proposed token is discarded."""
+        d_cache = dict(self.draft_cache, pos=pos)
+        t = tok
+        drafts, qs = [], []
+        for j in range(self.k_draft + 1):
+            dl, d_cache = decode_step(self.draft_params, d_cache, t,
+                                      self.draft_cfg)
+            if j == self.k_draft:
+                break
+            t = torch.argmax(dl, dim=-1)
+            if sampled:
+                q = filtered_probs(dl, temps, top_k, top_p)
+                t = torch.where(temps > 0, _draw(q, u[:, j]), t)
+                qs.append(q)
+            drafts.append(t)
+        self.draft_cache = d_cache
+        return (torch.stack(drafts, dim=1),
+                torch.stack(qs, dim=1) if sampled else None)
+
+    def _verify_logits(self, state, pos, vtokens):
+        """The target's (S, k+1, V) logits of the verify chunk ``vtokens``
+        at ``pos``, its K/V rows written into the slab."""
+        self.cache["pos"] = pos
+        logits, self.cache = decode_step(self.params, self.cache, vtokens,
+                                         self.cfg)
+        return logits
+
+    def _verify_emit(self, vlogits, drafts, qprobs, temps, top_k, top_p, u):
+        """Per-slot acceptance (:func:`rejection_verify`) of the drafts
+        against the target's (k+1)-position logits.  With no sampled slot
+        (``qprobs`` None) only the argmax is read: no distribution is
+        computed, and zeros stand in for the unread ones."""
+        S, K, V = vlogits.shape
+        tgt = torch.argmax(vlogits, dim=-1)
+        if qprobs is None:
+            pprobs = torch.zeros((S, K, V), device=vlogits.device)
+            qprobs = pprobs[:, 1:]
+        else:
+            pprobs = filtered_probs(
+                vlogits.reshape(S * K, V), temps.repeat_interleave(K),
+                top_k.repeat_interleave(K), top_p.repeat_interleave(K),
+            ).reshape(S, K, V)
+        return rejection_verify(pprobs, qprobs, drafts, tgt, temps, u)
+
+    def _spec_device(self, state):
+        """One speculative tick of every slot: draft proposal, one (k+1)
+        token target verification, per-slot acceptance.  Returns host
+        ``(tokens (S, k+1), n_emit (S,))``."""
+        dev = self.device
+        k = self.k_draft
+        with torch.no_grad():
+            pos = torch.from_numpy(state["pos"]).to(dev)
+            tok = torch.from_numpy(state["tokens"]).to(dev)
+            temps = torch.from_numpy(state["temps"]).to(dev)
+            top_k = torch.from_numpy(state["top_k"]).to(dev)
+            top_p = torch.from_numpy(state["top_p"]).to(dev)
+            sampled = any(g is not None for g in state["gens"])
+            u = self._spec_uniforms(state["gens"])
+            drafts, qprobs = self._draft_propose(tok, pos, temps, top_k,
+                                                 top_p, u[:, :k], sampled)
+            vtokens = torch.cat([tok[:, None], drafts], dim=1)
+            vlogits = self._verify_logits(state, pos, vtokens)
+            tokens, n_emit = self._verify_emit(
+                vlogits, drafts, qprobs, temps, top_k, top_p, u[:, k:])
+            out = torch.cat([tokens, n_emit[:, None]], dim=1).cpu().numpy()
+            return out[:, :-1], out[:, -1]
 
     # -- prefix caching --------------------------------------------------
     def register_prefix(self, prefix_ids) -> None:
@@ -699,7 +895,7 @@ class LLMEngine:
             # the first token is drawn on the worker right after the last
             # logits; the insert comes later, so a tick in flight meanwhile
             # cannot see the slot
-            _, small, first_tok = await self._prefill_into_slot(
+            _, small, first_tok, d_small = await self._prefill_into_slot(
                 slot, host_ids, L0, n_new, priority=priority,
                 deadline=deadline,
                 first=(float(temperature), int(top_k), float(top_p), gen))
@@ -713,7 +909,7 @@ class LLMEngine:
             # no awaits from here to the registration below
             self._gens[slot] = gen
             self._gen_state[slot] = None if gen is None else gen.get_state()
-            self._finalize_admission(slot, st, small, L0, host_ids)
+            self._finalize_admission(slot, st, small, d_small, L0, host_ids)
         except BaseException:
             self._release_slot(slot)
             raise
@@ -751,11 +947,23 @@ class LLMEngine:
                                  first=None):
         """Admission tail shared by :meth:`stream` and a preemption resume
         (:meth:`_readmit`): prefix resolution, capacity reservation and the
-        prefill variant.  Returns ``(last-position logits [1, V], 1-row
-        cache, first token)``, the token drawn as ``first`` says
-        (:meth:`_sample_first`; None for a resume); the caller then calls
-        :meth:`_finalize_admission` with no await between it and the
-        slot's registration."""
+        prefill variant, then the draft's prefill of the whole prompt when
+        speculating.  Returns ``(last-position logits [1, V], 1-row cache,
+        first token, the draft's 1-row cache or None)``, the token drawn as
+        ``first`` says (:meth:`_sample_first`; None for a resume); the
+        caller then calls :meth:`_finalize_admission` with no await between
+        it and the slot's registration."""
+        logits, small, tok = await self._target_prefill(
+            slot, host_ids, L0, n_new, priority=priority, deadline=deadline,
+            first=first)
+        d_small = None
+        if self.draft_params is not None:
+            d_small = await self._on_device(self._draft_prefill, host_ids, L0)
+        return logits, small, tok, d_small
+
+    async def _target_prefill(self, slot: int, host_ids, L0: int, n_new: int,
+                              *, priority: int, deadline: Optional[float],
+                              first):
         # prefixes are matched AFTER the slot is held (one may have been
         # registered meanwhile) and BEFORE the reservation, so the paged
         # engine reserves only the pages the prefix does not cover
@@ -809,13 +1017,14 @@ class LLMEngine:
         return await self._on_device(
             self._then_first(self._prefill_rows, first), padded, L0 - 1)
 
-    def _finalize_admission(self, slot: int, st: _Slot, small, L0: int,
-                            host_ids, store_auto: bool = True) -> None:
+    def _finalize_admission(self, slot: int, st: _Slot, small, d_small,
+                            L0: int, host_ids, store_auto: bool = True
+                            ) -> None:
         """Make the admitted request visible to ticks: set its position and
-        queue the cache insert (and the automatic prefix entry's copy) on
-        the device worker.  No await: it runs before any tick submitted
-        after this point.  ``store_auto=False`` on a resume: a prompt plus
-        its generated tokens is not a future prompt."""
+        queue the cache inserts (the draft's too) and the automatic prefix
+        entry's copy on the device worker.  No await: it runs before any
+        tick submitted after this point.  ``store_auto=False`` on a resume:
+        a prompt plus its generated tokens is not a future prompt."""
         self._pos[slot] = L0
         entry = (self._auto_store(host_ids, L0)
                  if store_auto and self._auto_budget else None)
@@ -824,6 +1033,10 @@ class LLMEngine:
         def job():
             with torch.no_grad():
                 insert()
+                if d_small is not None:
+                    for name in ("k", "v"):
+                        self.draft_cache[name][:, slot, :L0] = \
+                            d_small[name][:, 0, :L0]
                 if entry is not None:
                     entry["k"] = small["k"][:, :, :L0].clone()
                     entry["v"] = small["v"][:, :, :L0].clone()
@@ -986,7 +1199,7 @@ class LLMEngine:
             try:
                 if not st.cancelled:
                     # remaining + 1 keeps the original reservation's rows
-                    _, small, _ = await self._prefill_into_slot(
+                    _, small, _, d_small = await self._prefill_into_slot(
                         slot, ctx, L1, st.remaining + 1, priority=st.priority)
                     self._temps[slot] = temp
                     self._topk[slot] = top_k
@@ -999,8 +1212,8 @@ class LLMEngine:
                             gen.set_state(gen_state)
                         self._gens[slot] = gen
                         self._gen_state[slot] = gen_state
-                        self._finalize_admission(slot, st, small, L1, ctx,
-                                                 store_auto=False)
+                        self._finalize_admission(slot, st, small, d_small,
+                                                 L1, ctx, store_auto=False)
                         self._tokens[slot] = int(st.tokens[-1])
                         admitted = True
             finally:
@@ -1070,10 +1283,39 @@ class LLMEngine:
             self._pos[slot] += 1
             self._emit(slot, st, int(host_toks[slot]))
 
+    async def _spec_tick(self) -> None:
+        """A speculative tick: each slot emits its accepted drafts and one
+        more token (1..k+1), then its position advances by what it emitted
+        (rows written past that are masked).  A request that finishes
+        mid-chunk (stop token, ``n_new``) drops the rest."""
+        active = dict(self._slots)
+        state = self._tick_state(active)
+        toks, n_emit = await self._on_device(self._spec_device, state)
+        k = self.k_draft
+        self.spec_stats["rounds"] += 1
+        for slot, st in active.items():
+            if self._slots.get(slot) is not st:
+                continue  # freed (and possibly re-occupied) mid-tick
+            gen = state["gens"][slot]
+            if gen is not None:
+                self._gen_state[slot] = gen.get_state()
+            n = int(n_emit[slot])
+            self.spec_stats["drafted"] += k
+            self.spec_stats["accepted"] += n - 1
+            pos0 = int(self._pos[slot])
+            for tok in toks[slot, :n]:
+                self._emit(slot, st, int(tok))
+                if self._slots.get(slot) is not st:
+                    break  # finished mid-chunk; the slot is released
+            else:
+                self._pos[slot] = pos0 + n
+
     async def _tick_loop(self) -> None:
+        tick = (self._plain_tick if self.draft_params is None
+                else self._spec_tick)
         try:
             while self._slots:
-                await self._plain_tick()
+                await tick()
                 await asyncio.sleep(0)  # let arrivals join between ticks
         except BaseException as e:
             # a dying tick loop must not strand in-flight requests
@@ -1095,7 +1337,10 @@ class PagedLLMEngine(LLMEngine):
     reserve ``ceil((L0 + n_new) / page_size)`` pages at admission (class
     then FIFO waiting when the pool is dry; a higher class preempts for
     pages), return them on release, and every tick runs
-    :func:`paged_decode_step` (kernel K2 on the card).
+    :func:`paged_decode_step` (kernel K2 on the card).  A speculative
+    engine verifies against the pages with :func:`paged_chunk_step` (no
+    K2), and each reservation holds ``k_draft + 1`` more rows; the draft's
+    cache stays a slab, ``k_draft + 1`` rows longer per slot.
 
     A registered prefix's FULL pages are held once in the pool and mapped
     into the table of every slot that hits it (refcounted; a cleared or
@@ -1114,11 +1359,14 @@ class PagedLLMEngine(LLMEngine):
         self.paged_cfg = paged
         super().__init__(params, cfg, max_slots=max_slots, max_len=max_len,
                          **kwargs)
-        self.max_pp = paged.pages_for(self.max_len)
+        # a single max-length request (with the speculative headroom) must
+        # be admissible
+        self.max_pp = paged.pages_for(self.max_len + self._headroom)
         if self.max_pp > paged.n_pages - 1:
             raise ValueError(
-                f"max_len {self.max_len} needs {self.max_pp} pages but the "
-                f"pool has {paged.n_pages - 1} usable")
+                f"max_len {self.max_len} (+{self._headroom} speculative "
+                f"headroom) needs {self.max_pp} pages but the pool has "
+                f"{paged.n_pages - 1} usable")
         self._free_pages = list(range(1, paged.n_pages))
         # page reservation queue: (-priority, seq, need, future), sorted
         self._page_waiters: list[tuple] = []
@@ -1154,6 +1402,14 @@ class PagedLLMEngine(LLMEngine):
                 torch.from_numpy(state["top_k"]).to(dev),
                 torch.from_numpy(state["top_p"]).to(dev), state["gens"])
             return toks.cpu().numpy()
+
+    def _verify_logits(self, state, pos, vtokens):
+        """Verification against pages (:func:`paged_chunk_step`)."""
+        logits, self.cache = paged_chunk_step(
+            self.params, self.cache,
+            torch.from_numpy(state["tables"]).to(self.device), pos, vtokens,
+            cfg=self.cfg, paged=self.paged_cfg)
+        return logits
 
     def _rows_of(self, pages, start: int, end: int) -> torch.Tensor:
         ps = self.paged_cfg.page_size
@@ -1240,12 +1496,13 @@ class PagedLLMEngine(LLMEngine):
     async def _reserve_capacity(self, slot: int, L0: int, n_new: int, *,
                                 priority: int = 0,
                                 deadline: Optional[float] = None) -> None:
-        """Reserve the pages the request needs beyond its shared prefix.
-        Waiters queue class then FIFO; a deadline sheds on expiry; a higher
-        class preempts lower ones for pages (:meth:`_preempt_for_pages`)."""
+        """Reserve the pages the request needs beyond its shared prefix,
+        with the speculative headroom.  Waiters queue class then FIFO; a
+        deadline sheds on expiry; a higher class preempts lower ones for
+        pages (:meth:`_preempt_for_pages`)."""
         entry = self._alias_used.get(slot)
         shared = len(entry["shared_pages"]) if entry is not None else 0
-        need = self.paged_cfg.pages_for(L0 + n_new)
+        need = self.paged_cfg.pages_for(L0 + n_new + self._headroom)
         need -= min(shared, need)
         if not self._page_waiters and len(self._free_pages) >= need:
             pages = [self._free_pages.pop() for _ in range(need)]
@@ -1444,7 +1701,8 @@ class LLMComponent:
 
     def _request_metrics(self, n_gen: int, seconds: float):
         """The reference's per-request metrics: tokens, duration and rate,
-        and the engine's prefix hit rate, page use and preemption gauges."""
+        and the engine's speculative acceptance rate, prefix hit rate, page
+        use and preemption gauges."""
         from seldon_core_tpu_torch.messages import Metric, MetricType
 
         out = [
@@ -1456,6 +1714,10 @@ class LLMComponent:
         if n_gen > 0 and seconds > 0:
             out.append(Metric("seldon_llm_tokens_per_second",
                               MetricType.GAUGE, n_gen / seconds))
+        st = self.engine.spec_stats
+        if self.engine.draft_params is not None and st["drafted"]:
+            out.append(Metric("seldon_llm_spec_accept_rate", MetricType.GAUGE,
+                              st["accepted"] / st["drafted"]))
         ps = self.engine.prefix_stats
         if ps.get("auto_admissions"):
             # hits over the admissions that consulted the automatic cache

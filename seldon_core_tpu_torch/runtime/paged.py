@@ -50,6 +50,7 @@ __all__ = [
     "paged_attention_ref",
     "paged_attention_cuda",
     "paged_decode_step",
+    "paged_chunk_step",
     "insert_rows",
     "SplitPlan",
     "paged_split_plan",
@@ -282,6 +283,53 @@ def paged_decode_step(params, cache, tables, pos, tok,
     xf = rmsnorm(x, params["ln_f"])
     logits = _vocab_proj(xf, params["lm_head"], cfg).float()
     return logits[:, 0, :], cache
+
+
+def paged_chunk_step(params, cache, tables, pos, toks,
+                     cfg: TransformerConfig, paged: PagedConfig):
+    """A K-token chunk per slot against the paged cache: the multi-query
+    step of speculative verification (each slot's k+1 tokens in one pass).
+    Plain torch, as the reference's is plain XLA: the slot rows ``pos ..
+    pos + K - 1`` are written into the slots' pages (in place), then the
+    slab chunk math (:func:`_chunk_attention`) runs over a page-gathered
+    (S, T, Hkv, Dh) view.  Rejection rewinds by lowering the host-owned
+    ``pos``: the stale rows are masked and later overwritten.
+
+    - ``toks``: (S, K); query j of slot s sits at ``pos[s] + j``
+    Returns ``(logits (S, K, V) float32, cache)``.
+    """
+    S, K = toks.shape
+    ps = paged.page_size
+    Hkv, Dh = cfg.kv_heads, cfg.d_head
+    x = _embed(params, toks, cfg)  # (S, K, D)
+    positions = (pos.long()[:, None]
+                 + torch.arange(K, device=x.device)[None, :])  # (S, K)
+    page_of = torch.gather(tables.long(), 1, positions // ps)
+    rows = (page_of * ps + positions % ps).reshape(-1)  # (S*K,)
+
+    for i in range(cfg.n_layers):
+        p = _layer_params(params["blocks"], i)
+        h = rmsnorm(x, p["ln1"])
+        q = _attn_proj(h, p["wq"], cfg.n_heads, Dh, x.dtype)
+        k = _attn_proj(h, p["wk"], Hkv, Dh, x.dtype)
+        v = _attn_proj(h, p["wv"], Hkv, Dh, x.dtype)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        # all S*K new rows into the pool (inactive slots' trash-page rows
+        # may collide: nobody attends over them, any winner)
+        kp, vp = cache["k"][i], cache["v"][i]
+        kp.view(Hkv, -1, Dh)[:, rows, :] = k.reshape(S * K, Hkv, Dh).transpose(
+            0, 1).to(kp.dtype)
+        vp.view(Hkv, -1, Dh)[:, rows, :] = v.reshape(S * K, Hkv, Dh).transpose(
+            0, 1).to(vp.dtype)
+        attn = _chunk_attention(q, _gather_pages(kp, tables),
+                                _gather_pages(vp, tables), positions)
+        x = x + _attn_out(attn, p["wo"], x.dtype)
+        x = ffn_block(p, x, cfg)
+
+    xf = rmsnorm(x, params["ln_f"])
+    logits = _vocab_proj(xf, params["lm_head"], cfg).float()
+    return logits, cache
 
 
 def insert_rows(cache, small, rows, true_len: int, start: int = 0):

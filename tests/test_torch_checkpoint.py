@@ -254,9 +254,15 @@ def test_engine_restart_from_checkpoint_is_deterministic(tmp_path, kind):
     assert _gen(again) == want.tolist()
     first.close()
     again.close()
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        tllm.LLMEngine.from_checkpoint(str(tmp_path / "ck"), device="cpu",
-                                       draft_path=str(tmp_path / "ck"))
+    # the checkpoint as its own speculative draft: loaded dense, and the
+    # greedy ids stay the reference's
+    spec = cls.from_checkpoint(str(tmp_path / "ck"), device="cpu",
+                               draft_path=str(tmp_path / "ck"), max_slots=2,
+                               max_len=32, **extra)
+    _bitwise_equal(spec.draft_params, tp)
+    assert _gen(spec) == want.tolist()
+    assert spec.spec_stats["accepted"] == spec.spec_stats["drafted"] > 0
+    spec.close()
 
 
 def test_int8_engine_refuses_export(tmp_path):

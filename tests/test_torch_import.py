@@ -1,6 +1,7 @@
 """The port imports neither jax, nor anything of the JAX package, nor
 ``safetensors`` (the card's machine has none; the port reads and writes
-the format itself).
+the format itself), and its checkpoints and state blobs round-trip
+without them.
 
 This runs in a subprocess: the test process itself has jax imported (the
 conftest pins its platform), so only a fresh interpreter with
@@ -35,6 +36,10 @@ d = tempfile.mkdtemp()
 checkpoint.save_checkpoint(d, {"w": torch.ones(2)}, {"family": "x"})
 tree, meta = checkpoint.load_checkpoint(d)
 assert tree["w"].tolist() == [1.0, 1.0] and meta == {"family": "x"}
+# a state blob packed and read back without jax
+from seldon_core_tpu_torch.runtime import persistence
+assert persistence.unpack_state(persistence.pack_state({"a": [1]})) == {
+    "a": [1]}
 st = sorted(m for m in sys.modules
             if m.split(".")[0] == "safetensors" and sys.modules[m] is not None)
 print(json.dumps({"modules": names, "ref": ref, "jax": jaxish,
@@ -63,6 +68,7 @@ def test_port_imports_without_jax_or_the_jax_package():
         "seldon_core_tpu_torch.runtime.llm",
         "seldon_core_tpu_torch.runtime.checkpoint",
         "seldon_core_tpu_torch.runtime.component",
+        "seldon_core_tpu_torch.runtime.persistence",
         "seldon_core_tpu_torch.graph.spec",
         "seldon_core_tpu_torch.serving.rest",
         "seldon_core_tpu_torch.operator.local",

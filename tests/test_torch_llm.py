@@ -193,8 +193,9 @@ def test_seeded_sampling_is_reproducible_and_in_vocab():
 
 
 def test_later_slice_knobs_raise():
-    """Every engine knob of the reference serves at tp = 1; only
-    speculative decoding (slice 3b) and a mesh (slice 6) raise."""
+    """Every engine knob of the reference serves at tp = 1, speculative
+    decoding included (its greedy ids are the plain engine's); only a mesh
+    (slice 6) raises."""
     _, tp = _params("none")
     paged = tpaged.PagedConfig(17, 4)
     for kw in ({"chunk_prefill": 8}, {"auto_prefix_tokens": 64},
@@ -202,7 +203,14 @@ def test_later_slice_knobs_raise():
         tllm.PagedLLMEngine(tp, TCFG, paged, max_len=32, **kw).close()
         tllm.LLMEngine(tp, TCFG, max_len=32, **kw).close()
     for cls, args in ((tllm.LLMEngine, ()), (tllm.PagedLLMEngine, (paged,))):
-        with pytest.raises(NotImplementedError, match="slice 3b"):
-            cls(tp, TCFG, *args, max_len=32, draft_params=tp, draft_cfg=TCFG)
+        eng = cls(tp, TCFG, *args, max_len=32, draft_params=tp,
+                  draft_cfg=TCFG)
+        p, n = REQS[0]
+        out = asyncio.run(eng.generate(p, n))
+        eng.close()
+        np.testing.assert_array_equal(
+            out.numpy(), np.asarray(jtf.generate(_BASE, jnp.asarray(p)[None],
+                                                 n, JCFG)))
+        assert eng.spec_stats["rounds"] >= 1
         with pytest.raises(NotImplementedError, match="slice 6"):
             cls(tp, TCFG, *args, max_len=32, mesh=object())
