@@ -106,21 +106,51 @@ Prints one JSON object per line:
    router (epsilon 0) and the outlier detector take traffic and feedback,
    ``PersistenceManager`` pushes their state to a ``FileStateStore``, and
    a fresh runner that restores it answers the same probes equally.
-14. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
+14. ``wire_env``: whether ``aiohttp``, ``grpc``, ``google.protobuf`` and
+    ``ml_dtypes`` import here (their versions), the ``g++`` version, and
+    the seconds of the native library's build from ``native/*.cc``
+    (informative).
+15. ``wire_resnet50``: ResNet50 at full width (bf16 and int8, the
+    ``resnet50`` phase's seeds) served by the port's microservice in
+    child processes (REST and FRAMED), the local runner in another
+    child calling the REST one through its graph's ``endpoint`` (the
+    hop keeps the request's encoding): 16 sequential single images as
+    binTensor float32 and as ndarray, bitwise equal to the in-process
+    graph at batch 1; 16 concurrent per encoding (p50/p95, none shed, ids
+    equal, probabilities within ``RESNET_PARITY_TOL``'s atol); one
+    binTensor batch of 64, bitwise equal to the in-process graph; the same singles through ``AsyncFramedClient`` to the
+    FRAMED child and through the runner's ``NativeRestServer``, bitwise
+    equal to the REST answers.  Children write their launch counts at
+    exit: K1 37 a forward in the int8 ones, 0 in the float ones.
+16. ``wire_llm``: ``llm.json``'s model served by a microservice child
+    and called by a runner child: ``llm_json``'s waves through
+    ``/api/v0.1/predictions`` and ``/api/v0.1/stream`` give
+    ``llm_json``'s ids; an empty prompt answers 200 with the CPU plain
+    path's ids; ``/metrics`` holds the request and stream series;
+    ``/pause`` turns predictions into 503 on the runner's Python and
+    native tiers and ``/unpause`` restores them; ``/seldon.json`` parses.
+17. ``wire_persistence``: the MAB router as a microservice child with
+    ``--persistence 1``, called by the in-process runner (its models on
+    the card): rewarded over REST, stopped with SIGTERM, booted again,
+    it answers the same probes as before (error 0.0).
+18. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
     phases of prefix caching, batched and chunked prefill, preemption and
     checkpoints together; ``slice_3b_phases``: ``spec_7b`` and
-    ``parity_spec_7b``).
-15. ``{"kernels": [...]}``: one entry per kernel with its launches in the
+    ``parity_spec_7b``; ``slice_4a_i_phases``: the ``wire_*`` phases).
+19. ``{"kernels": [...]}``: one entry per kernel with its launches in the
     runs through entry points (``llm_json``, ``serve_7b``,
-    ``features_7b``, ``spec_7b``, ``checkpoint_7b``; K1 also
-    ``resnet50_launches``: the int8 REST run), each phase's count beside,
-    its error, times and bound (K2 also at its two long cases and the
-    shared-prefix case).
-16. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+    ``features_7b``, ``spec_7b``, ``checkpoint_7b``, ``wire_resnet50``
+    and ``wire_llm``, the last two counted by the child processes; K1
+    also ``resnet50_launches``: the int8 REST run), each phase's count
+    beside, its error, times and bound (K2 also at its two long cases
+    and the shared-prefix case).
+20. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
-exits non-zero before printing any result.
+exits non-zero before printing any result.  Every child process is
+stopped (SIGTERM, then SIGKILL after 30 s) and reaped before the script
+exits, whatever happened.
 """
 
 from __future__ import annotations
@@ -562,6 +592,11 @@ def read_launches() -> dict:
     return {k: fn.launches for k, fn in _counters().items()}
 
 
+#: llm_json's prompts and in-process ids, and the CPU plain path's ids of an
+#: empty prompt: wire_llm holds the remote component to them
+LLM_JSON: dict = {}
+
+
 def llm_json_phase(torch) -> dict:
     """The port's ``llm.json`` (automatic prefix caching on, as the
     reference's) over REST: two waves of three greedy requests, the second
@@ -628,9 +663,12 @@ def llm_json_phase(torch) -> dict:
         return out
 
     refs = [r[0].tolist() for r in asyncio.run(ref())]
+    # an empty prompt's ids on the plain path, for wire_llm
+    empty = asyncio.run(cpu.generate([], 3))[0].tolist()
     cpu.close()
     engine.close()
     same = [a == r for a, r in zip(got, refs)]
+    LLM_JSON.update(prompts=prompts, ids=got, empty_ids=empty)
     s_answers, s_dt, s_launches, s_local = asyncio.run(run("llm-slab.json"))
     s_engine = s_local.engine.node_impl("llm").user.engine
     s_got = ids_of(s_answers, "llm_slab_json")
@@ -2084,6 +2122,606 @@ def persistence_round_trip() -> None:
 
 
 # ----------------------------------------------------------------------
+# the wire tiers: components in processes of their own (slice 4a-i)
+# ----------------------------------------------------------------------
+
+WIRE_DIR = ROOT / "build" / "wire"
+CHILDREN: list = []  # every process started, reaped at exit
+
+
+class Child:
+    """A subprocess of this script: its merged output is read by a thread
+    (so its pipe never fills); ``wait_for`` returns the first line holding
+    ``marker``.  ``stop`` sends SIGTERM, then kills after 30 s."""
+
+    def __init__(self, cmd: list, env: dict = None, label: str = ""):
+        import os
+        import threading
+
+        self.label = label or cmd[-1]
+        self.lines: list = []
+        self._cv = threading.Condition()
+        self.proc = subprocess.Popen(
+            cmd, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT),
+                                **(env or {})},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        CHILDREN.append(self)
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            with self._cv:
+                self.lines.append(line.rstrip("\n"))
+                self._cv.notify_all()
+        with self._cv:
+            self.lines.append(None)  # end of output
+            self._cv.notify_all()
+
+    def wait_for(self, marker: str, timeout: float = 600) -> str:
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while True:
+                for ln in self.lines:
+                    if ln is None:
+                        raise AssertionError(
+                            f"{self.label} exited (rc {self.proc.poll()}) "
+                            f"before {marker!r}: {self.tail()}")
+                    if marker in ln:
+                        return ln
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise AssertionError(f"{self.label}: no {marker!r} in "
+                                         f"{timeout} s: {self.tail()}")
+                self._cv.wait(left)
+
+    def port(self, marker: str, timeout: float = 600) -> int:
+        return int(self.wait_for(marker, timeout).strip().rsplit(":", 1)[1])
+
+    def tail(self, n: int = 30) -> str:
+        return "\n".join(ln for ln in self.lines[-n:] if ln is not None)
+
+    def stop(self) -> int:
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        if self in CHILDREN:
+            CHILDREN.remove(self)
+        return self.proc.returncode
+
+
+def reap_children() -> None:
+    for c in list(CHILDREN):
+        c.stop()
+
+
+def component_child(label: str, argv: list, env: dict = None) -> tuple:
+    """The port's microservice (``argv``) in a child of this script that
+    writes its kernels' launch counts to a file when it exits; returns
+    ``(child, counts path)``."""
+    WIRE_DIR.mkdir(parents=True, exist_ok=True)
+    counts = WIRE_DIR / f"launches_{label}.json"
+    counts.unlink(missing_ok=True)
+    child = Child([sys.executable, str(ROOT / "chip_smoke.py"),
+                   "--component-child", str(counts), *argv,
+                   "--host", "127.0.0.1"], env, label)
+    return child, counts
+
+
+def component_child_main(argv: list) -> int:
+    """``chip_smoke.py --component-child COUNTS <microservice argv>``: run
+    ``seldon_core_tpu_torch.serving.microservice`` and, at exit (SIGTERM
+    included), write the launch counts of the process to COUNTS."""
+    import atexit
+    import signal
+
+    sys.path.insert(0, str(ROOT))
+    counts, rest = argv[0], argv[1:]
+    from seldon_core_tpu_torch.serving import microservice
+
+    atexit.register(lambda: Path(counts).write_text(
+        json.dumps(read_launches())))
+    signal.signal(signal.SIGTERM, lambda s, f: sys.exit(0))
+    microservice.main(rest)
+    return 0
+
+
+def read_child_launches(path) -> dict:
+    return json.loads(Path(path).read_text())
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wire_env_phase() -> None:
+    """Which packages of the reference's wire tiers this machine has, with
+    their versions (the plan of slice 4a-ii reads it), the compiler, and
+    the native library's build from ``native/*.cc``."""
+    import importlib
+
+    have = {}
+    for mod in ("aiohttp", "grpc", "google.protobuf", "ml_dtypes"):
+        try:
+            have[mod] = getattr(importlib.import_module(mod), "__version__",
+                                True)
+        except Exception:
+            have[mod] = False
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, timeout=60)
+    from seldon_core_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.load()
+    emit({"phase": "wire_env", "imports": have,
+          "gxx": (gxx.stdout.splitlines() or ["?"])[0],
+          "native_build_s": time.perf_counter() - t0,
+          "native_compiled": native.build_stats.get("compiled"),
+          "native_library": native.build_stats.get("library")})
+
+
+def wire_resnet(int8: bool = False, device: str = "cuda"):
+    """The wire phases' ResNet50 component: ``ResNet50Model(seed=0)`` with
+    ``_randomize_resnet(seed=5)``'s BatchNorm, float (bf16) or its int8
+    model; the same seeds make the same weights in every process."""
+    import torch
+
+    from seldon_core_tpu_torch.models import resnet, resnet_int8
+
+    fm = resnet.ResNet50Model(seed=0, device=device)
+    _randomize_resnet(torch, fm.module, seed=5)
+    return resnet_int8.Int8ResNet50Model(source=fm, device=device) \
+        if int8 else fm
+
+
+def _pctl(ms: list) -> dict:
+    s = sorted(ms)
+    return {"p50_ms": statistics.median(s),
+            "p95_ms": s[int(0.95 * (len(s) - 1) + 0.5)], "n": len(s)}
+
+
+def _post_raw(port: int, path: str, data: bytes) -> tuple:
+    """POST ``data``; ``(status, body JSON, seconds)`` (server-sent events
+    as their list)."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=data,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, raw = r.status, r.read()
+            ctype = r.headers.get("Content-Type", "")
+    except urllib.error.HTTPError as e:
+        code, raw, ctype = e.code, e.read(), ""
+    dt = time.perf_counter() - t0
+    if ctype.startswith("text/event-stream"):
+        return code, [json.loads(ln[6:]) for ln in raw.decode().split("\n\n")
+                      if ln.startswith("data: ")], dt
+    return code, json.loads(raw), dt
+
+
+def _get(port: int, path: str) -> tuple:
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=120) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+WIRE_IMAGES = 16
+
+
+def wire_resnet50_phase(torch) -> dict:
+    """Full ResNet50, bf16 and int8, served by the port's microservice in
+    a child process; the engine is the local runner in another child,
+    whose graph's node has an ``endpoint`` (the hop keeps the request's
+    encoding).  Per dtype: sequential single images as binTensor float32
+    and as ndarray (bitwise equal to the in-process graph at batch 1), 16
+    concurrent single images per encoding (p50/p95, sheds 0, ids equal,
+    probabilities within RESNET_PARITY_TOL's atol), a binTensor batch of
+    64 (bitwise equal to the in-process graph at batch 64), and the same
+    single images through AsyncFramedClient to a FRAMED microservice and
+    through the engine's NativeRestServer (bitwise equal to REST).
+    Returns the components' launches."""
+    import base64
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.graph.engine import GraphEngine
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.runtime.component import ComponentHandle
+    from seldon_core_tpu_torch.serving.framed import AsyncFramedClient
+
+    rng = np.random.default_rng(11)
+    imgs = rng.integers(0, 256, (WIRE_IMAGES, 224, 224, 3)).astype(np.float32)
+    batch = rng.integers(0, 256, (64, 224, 224, 3)).astype(np.float32)
+
+    def bin_body(x):
+        return json.dumps({"data": {"binTensor": {
+            "shape": list(x.shape), "dtype": "float32",
+            "b64": base64.b64encode(x.tobytes()).decode()}}}).encode()
+
+    def nd_body(x):
+        return json.dumps({"data": {"ndarray": x.astype(np.int64)
+                                    .tolist()}}).encode()
+
+    # every child starts at once: the components load on the card while
+    # the engines boot
+    kids = {}
+    for label, int8 in (("bf16", False), ("int8", True)):
+        params = json.dumps([{"name": "int8", "value": str(int8).lower(),
+                              "type": "BOOL"}])
+        env = {"PREDICTIVE_UNIT_ID": "resnet"}
+        for api in ("REST", "FRAMED"):
+            kids[label, api] = component_child(
+                f"resnet_{label}_{api.lower()}",
+                ["chip_smoke:wire_resnet", api, "--parameters", params,
+                 "--port", "0"], env)
+    out = {"phase": "wire_resnet50", "images": WIRE_IMAGES,
+           "model": "ResNet50 (3, 4, 6, 3), 224x224x3, 1000 classes",
+           "engine": "local runner child, node endpoint REST; the hop "
+                     "carries the request's encoding",
+           "card": CARD}
+    launches = {"int8_matmul": 0, "paged_attention": 0,
+                "flash_attention": 0}
+    engines = []
+    try:
+        for label in ("bf16", "int8"):
+            cport = kids[label, "REST"][0].port("serving on")
+            graph = {"spec": {"name": f"wire-{label}", "annotations": {
+                "seldon.io/rest-read-timeout": "300000"},
+                "predictors": [{"name": "main", "graph": {
+                    "name": "resnet", "type": "MODEL", "endpoint": {
+                        "service_host": "127.0.0.1", "service_port": cport,
+                        "type": "REST"}}}]}}
+            path = WIRE_DIR / f"graph_{label}.json"
+            path.write_text(json.dumps(graph))
+            engines.append(Child(
+                [sys.executable, "-m", "seldon_core_tpu_torch.operator.local",
+                 "--graph", str(path), "--port", "0", "--host", "127.0.0.1",
+                 "--native-port", str(_free_port())], label=f"engine_{label}"))
+        for label, int8 in (("bf16", False), ("int8", True)):
+            eng = engines[int8]
+            nport = eng.port("native REST tier on")
+            eport = eng.port("serving deployment")
+            fport = kids[label, "FRAMED"][0].port("serving FRAMED on")
+            # in process: the graph over the same component at batch 1
+            local = ComponentHandle(wire_resnet(int8), name="resnet")
+            graph = GraphEngine({"name": "resnet", "type": "MODEL"},
+                                resolver=lambda u, h=local: h)
+
+            def in_process(x, graph=graph):
+                return asyncio.run(graph.predict(
+                    SeldonMessage.from_ndarray(x))).to_dict()["data"]
+
+            want_bin = [in_process(imgs[i:i + 1]) for i in range(WIRE_IMAGES)]
+            want_nd = [in_process(imgs[i:i + 1].astype(np.int64))
+                       for i in range(WIRE_IMAGES)]
+            want64 = np.asarray(in_process(batch)["ndarray"], np.float32)
+            del local, graph
+            torch.cuda.empty_cache()
+            res = {}
+            # warm the path once (first-use costs stay out of the numbers)
+            _post_raw(eport, "/api/v0.1/predictions", bin_body(imgs[:1]))
+            for enc, body, want in (("binTensor", bin_body, want_bin),
+                                    ("ndarray", nd_body, want_nd)):
+                seq = [_post_raw(eport, "/api/v0.1/predictions",
+                                 body(imgs[i:i + 1]))
+                       for i in range(WIRE_IMAGES)]
+                bad = [s for s in seq if s[0] != 200]
+                if bad:
+                    raise AssertionError(f"wire {label} {enc}: {bad[0][:2]}")
+                bitwise = sum(s[1]["data"] == w for s, w in zip(seq, want))
+                conc = asyncio.run(_in_threads(_post_raw, [
+                    (eport, "/api/v0.1/predictions", body(imgs[i:i + 1]))
+                    for i in range(WIRE_IMAGES)]))
+                failed = [c[:2] for c in conc if c[0] != 200]
+                shed = len(failed)
+                if shed:
+                    raise AssertionError(f"wire {label} {enc} concurrent: "
+                                         f"{failed[0]}")
+                got = np.asarray([c[1]["data"]["ndarray"][0] for c in conc])
+                ref = np.asarray([w["ndarray"][0] for w in want])
+                err = float(np.abs(got - ref).max())
+                ids = int((got.argmax(-1) == ref.argmax(-1)).sum())
+                res[enc] = {"sequential": _pctl([s[2] * 1e3 for s in seq]),
+                            "bitwise_equal_in_process": bitwise,
+                            "concurrent": _pctl([c[2] * 1e3 for c in conc]),
+                            "concurrent_shed": shed,
+                            "concurrent_ids_equal": ids,
+                            "concurrent_max_abs_err": err,
+                            "body_bytes": len(body(imgs[:1]))}
+                if bitwise != WIRE_IMAGES or ids != WIRE_IMAGES or \
+                        err > RESNET_PARITY_TOL[label][0]:
+                    emit({**out, label: res})
+                    raise AssertionError(f"wire {label} {enc}: {res[enc]}")
+                if enc == "binTensor":
+                    rest_bin = [np.asarray(s[1]["data"]["ndarray"],
+                                           np.float32) for s in seq]
+            code, b64, dt = _post_raw(eport, "/api/v0.1/predictions",
+                                      bin_body(batch))
+            got64 = np.asarray(b64["data"]["ndarray"], np.float32) \
+                if code == 200 else None
+            res["batch64_binTensor"] = {
+                "ms": dt * 1e3, "status": code,
+                "ids_equal": None if got64 is None else
+                int((got64.argmax(-1) == want64.argmax(-1)).sum()),
+                "max_abs_err": None if got64 is None else
+                float(np.abs(got64 - want64).max())}
+            # no batcher between the request and the component: bitwise
+            if code != 200 or res["batch64_binTensor"]["max_abs_err"] != 0.0:
+                raise AssertionError(f"wire {label} batch 64: "
+                                     f"{res['batch64_binTensor']}")
+            # the native tier of the same engine, then the framed component
+            nat = [_post_raw(nport, "/api/v0.1/predictions",
+                             bin_body(imgs[i:i + 1]))
+                   for i in range(WIRE_IMAGES)]
+            nat_equal = sum(n[0] == 200 and np.array_equal(np.asarray(
+                n[1]["data"]["ndarray"], np.float32), r)
+                for n, r in zip(nat, rest_bin))
+
+            async def framed():
+                c = await AsyncFramedClient(timeout=300).connect(
+                    "127.0.0.1", fport)
+                try:
+                    await c.predict(SeldonMessage.from_ndarray(imgs[:1]))
+                    outs = []
+                    for i in range(WIRE_IMAGES):
+                        t0 = time.perf_counter()
+                        o = await c.predict(SeldonMessage.from_ndarray(
+                            imgs[i:i + 1]))
+                        outs.append((o, time.perf_counter() - t0))
+                    return outs
+                finally:
+                    c.close()
+
+            fr = asyncio.run(framed())
+            fr_equal = sum(np.array_equal(np.asarray(o.host_data(),
+                                                     np.float32), r)
+                           for (o, _), r in zip(fr, rest_bin))
+            res["native_rest_binTensor"] = {
+                **_pctl([n[2] * 1e3 for n in nat]),
+                "bitwise_equal_rest": nat_equal}
+            res["framed"] = {**_pctl([t * 1e3 for _, t in fr]),
+                             "bitwise_equal_rest": fr_equal,
+                             "reply_dtype": str(fr[0][0].data.dtype)}
+            out[label] = res
+            if nat_equal != WIRE_IMAGES or fr_equal != WIRE_IMAGES:
+                emit(out)
+                raise AssertionError(f"wire {label}: native {nat_equal}, "
+                                     f"framed {fr_equal} of {WIRE_IMAGES}")
+    finally:
+        for e in engines:
+            e.stop()
+        for child, _ in kids.values():
+            child.stop()
+    per = {}
+    for (label, api), (child, counts) in kids.items():
+        got = read_child_launches(counts)
+        per[f"{label}_{api.lower()}"] = got
+        for k in launches:
+            launches[k] += got[k]
+    out["component_launches"] = per
+    # one warm-up, 16 x 4 singles and one batch per REST component: every
+    # forward of the int8 one launches K1 37 times, the float one never
+    rest_forwards = 1 + 4 * WIRE_IMAGES + 1 + WIRE_IMAGES
+    out["int8_k1_per_forward"] = per["int8_rest"]["int8_matmul"] / \
+        rest_forwards
+    emit(out)
+    if per["int8_rest"]["int8_matmul"] != 37 * rest_forwards or \
+            per["int8_framed"]["int8_matmul"] != 37 * (WIRE_IMAGES + 1) or \
+            per["bf16_rest"]["int8_matmul"] != 0:
+        raise AssertionError(f"wire_resnet50: K1 launches {per}")
+    return launches
+
+
+def wire_llm_phase(torch) -> dict:
+    """``llm.json``'s model served by the port's microservice (a child),
+    the local runner (another child) calling it through its endpoint node:
+    ``llm_json``'s two waves through ``/api/v0.1/predictions`` and
+    ``/api/v0.1/stream``, greedy ids equal to ``llm_json``'s in-process
+    ids; an empty prompt (200, its ids the CPU plain path's); the engine's
+    ``/metrics`` (request and stream series), ``/pause`` (503 on the
+    runner's Python and native tiers) and ``/unpause``, ``/seldon.json``.
+    Returns the component's launches."""
+    examples = ROOT / "seldon_core_tpu_torch" / "examples"
+    d = json.loads((examples / "llm.json").read_text())
+    node = d["spec"]["predictors"][0]["graph"]
+    params = [p for p in node["parameters"] if p["name"] != "model_class"]
+    cls = [p["value"] for p in node["parameters"]
+           if p["name"] == "model_class"][0]
+    comp, counts = component_child(
+        "llm", [cls, "REST", "--parameters", json.dumps(params),
+                "--port", "0"], {"PREDICTIVE_UNIT_ID": "llm"})
+    engine = None
+    out = {"phase": "wire_llm", "card": CARD}
+    try:
+        cport = comp.port("serving on")
+        node = {"name": "llm", "type": "MODEL", "endpoint": {
+            "service_host": "127.0.0.1", "service_port": cport,
+            "type": "REST"}}
+        d["spec"]["predictors"][0]["graph"] = node
+        path = WIRE_DIR / "graph_llm.json"
+        path.write_text(json.dumps(d))
+        engine = Child([sys.executable, "-m",
+                        "seldon_core_tpu_torch.operator.local", "--graph",
+                        str(path), "--port", "0", "--host", "127.0.0.1",
+                        "--native-port", str(_free_port())],
+                       label="engine_llm")
+        nport = engine.port("native REST tier on")
+        port = engine.port("serving deployment")
+        prompts, want = LLM_JSON["prompts"], LLM_JSON["ids"]
+        got, streamed = [], []
+        for wave in (prompts[:3], prompts[3:]):
+            bodies = [json.dumps({"jsonData": {"prompt_ids": p, "n_new": 8}}
+                                 ).encode() for p in wave]
+            ans = asyncio.run(_in_threads(_post_raw, [
+                (port, "/api/v0.1/predictions", b) for b in bodies]))
+            sse = asyncio.run(_in_threads(_post_raw, [
+                (port, "/api/v0.1/stream", b) for b in bodies]))
+            for a, s in zip(ans, sse):
+                if a[0] != 200 or s[0] != 200:
+                    raise AssertionError(f"wire_llm: {a[:2]} {s[:2]}")
+                got.append(a[1]["jsonData"]["ids"])
+                streamed.append(s[1][-1]["ids"])
+        empty = json.dumps({"jsonData": {"prompt_ids": [], "n_new": 3}}
+                           ).encode()
+        e_pred = _post_raw(port, "/api/v0.1/predictions", empty)
+        e_sse = _post_raw(port, "/api/v0.1/stream", empty)
+        metrics = _get(port, "/metrics")[1]
+        # the runner's native tier shares the paused state
+        paused = [_get(port, "/pause"),
+                  _post_raw(port, "/api/v0.1/predictions", empty)[:2],
+                  _get(port, "/ready"),
+                  _post_raw(nport, "/api/v0.1/predictions", empty)[:2]]
+        resumed = [_get(port, "/unpause"),
+                   _post_raw(port, "/api/v0.1/predictions", empty)[0],
+                   _post_raw(nport, "/api/v0.1/predictions", empty)[0]]
+        spec = json.loads(_get(port, "/seldon.json")[1])
+        counters = {
+            "requests_200": 'seldon_api_executor_server_requests_seconds'
+                            '_count{code="200"' in metrics,
+            "stream_tokens": 'seldon_llm_tokens_generated_total'
+                             '{model_name="predictor"}' in metrics,
+            "node_timer": 'model_name="llm"' in metrics}
+        out.update({
+            "requests": len(got), "ids_equal_llm_json": got == want,
+            "stream_ids_equal_llm_json": streamed == want,
+            "empty_prompt": {
+                "predictions_status": e_pred[0],
+                "stream_status": e_sse[0],
+                "ids": e_pred[1].get("jsonData", {}).get("ids"),
+                "stream_tokens": [e.get("token") for e in e_sse[1][:-1]]
+                if e_sse[0] == 200 else None,
+                "cpu_plain_ids": LLM_JSON["empty_ids"]},
+            "metrics_series": counters,
+            "pause": [p[0] for p in paused],
+            "unpause": [resumed[0][0], *resumed[1:]],
+            "seldon_json_paths": len(spec.get("paths", {}))})
+    finally:
+        if engine is not None:
+            engine.stop()
+        comp.stop()
+    launches = read_child_launches(counts)
+    out["component_launches"] = launches
+    emit(out)
+    e = out["empty_prompt"]
+    if not (out["ids_equal_llm_json"] and out["stream_ids_equal_llm_json"]):
+        raise AssertionError("wire_llm: ids differ from llm_json's")
+    if not (e["predictions_status"] == e["stream_status"] == 200
+            and e["ids"] == e["cpu_plain_ids"]
+            and e["stream_tokens"] == e["cpu_plain_ids"]):
+        raise AssertionError(f"wire_llm: empty prompt {e}")
+    if not all(counters.values()) or \
+            out["pause"] != [200, 503, 503, 503] or \
+            out["unpause"] != [200, 200, 200] or \
+            not out["seldon_json_paths"]:
+        raise AssertionError(f"wire_llm: routes {out}")
+    if launches["int8_matmul"] == 0 or launches["paged_attention"] == 0:
+        raise AssertionError(f"wire_llm: kernels not launched {launches}")
+    return launches
+
+
+def wire_persistence_phase() -> None:
+    """The MAB graph's router as the port's microservice with
+    ``--persistence 1`` (a FileStateStore in a temporary directory): the
+    in-process runner (its models on the card) calls it through its
+    endpoint node; after probes and REST feedback rewarding branch 1 the
+    router is stopped with SIGTERM (its final push) and booted again, and
+    the same probes answer as before (error 0.0)."""
+    import tempfile
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.operator.local import serve
+
+    d = json.loads((ROOT / "seldon_core_tpu_torch" / "examples"
+                    / "epsilon-greedy-mab.json").read_text())
+    graph = d["spec"]["predictors"][0]["graph"]
+    params = [p for p in graph["parameters"] if p["name"] != "epsilon"] + [
+        {"name": "epsilon", "value": "0.0", "type": "FLOAT"}]
+    bodies = _graph_requests("epsilon-greedy-mab")
+    fb = {"response": {"meta": {"routing": {"eg-router": 1}}}, "reward": 1.0}
+    with tempfile.TemporaryDirectory() as root:
+        env = {"SELDON_STATE_DIR": root, "PREDICTIVE_UNIT_ID": "eg-router",
+               "SELDON_DEPLOYMENT_ID": d["spec"]["name"],
+               "PREDICTOR_ID": "main"}
+        argv = ["seldon_core_tpu_torch.graph.builtins:EpsilonGreedy", "REST",
+                "--service-type", "ROUTER", "--parameters",
+                json.dumps(params), "--persistence", "1",
+                "--push-frequency", "3600", "--port", "0"]
+
+        async def answers(port):
+            outs = []
+            for b in bodies:
+                code, o, _ = await asyncio.to_thread(_post_timed, port, b)
+                if code != 200:
+                    raise AssertionError(f"wire persistence: {o}")
+                o["meta"].pop("puid")
+                outs.append(o)
+            return outs
+
+        async def run(router_port, feedback):
+            spec = json.loads(json.dumps(d))
+            g = spec["spec"]["predictors"][0]["graph"]
+            g.pop("implementation")
+            g["parameters"] = []
+            g["endpoint"] = {"service_host": "127.0.0.1",
+                             "service_port": router_port, "type": "REST"}
+            server, _ = await serve(spec, port=0, host="127.0.0.1")
+            try:
+                if feedback:
+                    await answers(server.port)
+                    for _ in range(3):
+                        code, res, _ = await asyncio.to_thread(
+                            _post_timed, server.port, fb,
+                            "/api/v0.1/feedback")
+                        if code != 200:
+                            raise AssertionError(f"feedback: {res}")
+                return await answers(server.port)
+            finally:
+                await server.stop()
+
+        results, rcs = [], []
+        for feedback in (True, False):
+            child, _ = component_child(f"mab_router_{int(feedback)}", argv,
+                                       env)
+            try:
+                results.append(asyncio.run(run(child.port("serving on"),
+                                               feedback)))
+            finally:
+                rcs.append(child.stop())
+        stored = sorted(p.name for p in Path(root).iterdir())
+    want, got = results
+    err = 0.0
+    for w, g in zip(want, got):
+        wv = np.asarray(w["data"]["ndarray"], np.float64)
+        gv = np.asarray(g["data"]["ndarray"], np.float64)
+        err = max(err, float(np.abs(wv - gv).max()))
+    routes = [w["meta"]["routing"]["eg-router"] for w in want]
+    emit({"phase": "wire_persistence", "graph": "epsilon-greedy-mab",
+          "router": "microservice REST --persistence 1, SIGTERM, reboot",
+          "probes": len(want), "routes": routes, "stored": stored,
+          "exit_codes": rcs, "max_abs_err": err,
+          "meta_equal": [w["meta"] for w in want] == [g["meta"] for g in got],
+          "card": CARD})
+    if err != 0.0 or set(routes) != {1} or rcs[0] != 0 or \
+            [w["meta"] for w in want] != [g["meta"] for g in got]:
+        raise AssertionError(f"wire persistence: routes {routes}, error "
+                             f"{err}, exit codes {rcs}")
+
+
+# ----------------------------------------------------------------------
 
 def ptxas_report(log: str) -> list:
     """Registers, spills and shared memory per kernel from the build's
@@ -2129,6 +2767,15 @@ _SUMMARY_META = {
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--component-child"]:
+        return component_child_main(sys.argv[2:])
+    try:
+        return smoke()
+    finally:
+        reap_children()
+
+
+def smoke() -> int:
     global CARD
     if not (ROOT / "seldon_core_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -2192,11 +2839,20 @@ def main() -> int:
                                   torch)
     resnet_k1 = timed("resnet50", resnet50_phase, torch)
     timed("graphs", graphs_phase, torch)
+    # slice 4a-i: the wire tiers, components in child processes (their
+    # launches come from the children's own counts)
+    timed("wire_env", wire_env_phase)
+    runs["wire_resnet50"] = timed("wire_resnet50", wire_resnet50_phase,
+                                  torch)
+    runs["wire_llm"] = timed("wire_llm", wire_llm_phase, torch)
+    timed("wire_persistence", wire_persistence_phase)
     slice_3a = sum(seconds[k] for k in ("features_7b", "parity_features_7b",
                                         "checkpoint_7b"))
     slice_3b = seconds["spec_7b"] + seconds["parity_spec_7b"]
+    slice_4a = sum(v for k, v in seconds.items() if k.startswith("wire_"))
     emit({"phase": "seconds", "build": build_s, **seconds,
           "slice_3a_phases": slice_3a, "slice_3b_phases": slice_3b,
+          "slice_4a_i_phases": slice_4a,
           "total": time.perf_counter() - t0})
     launches = {k: sum(r[k] for r in runs.values())
                 for k in runs["serve_7b"]}

@@ -7,14 +7,19 @@ ROUTER's branch goes into ``meta.routing``; -1 fans out to every child),
 the children concurrently (``asyncio.gather``), aggregate (a COMBINER) or
 the first child's output, then transformOutput (an OUTPUT_TRANSFORMER).
 Feedback replays the routing recorded in the response down the branch that
-was taken, children first.  :meth:`GraphEngine.stream` serves the token
-stream of a graph whose root is a single streaming node.  A component
+was taken, children first.  A ``metrics_sink`` (``utils.metrics.
+EngineMetrics``) observes every node call (its seconds, "ok" or "error"),
+takes the custom ``meta.metrics`` of each component response, and counts
+feedback and its reward, as the reference's engine does.
+:meth:`GraphEngine.stream` serves the token stream of a graph whose root
+is a single streaming node.  A component
 error becomes a FAILURE status: a :class:`SeldonComponentError` with its
 own code, anything else 500 ``INTERNAL``.
 
 Not in this slice: the prediction cache, QoS, fused plans, the health,
 profiling, placement, artifact and device planes, and the tracer
-(ROADMAP.md, slices 4 and 5).
+(ROADMAP.md, slices 4 and 5).  A remote node (``serving.client.
+RemoteComponent``) has the same method surface as a local one, async.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 import asyncio
 import inspect
 import logging
+import time
 from typing import Any, Callable, Optional
 
 from seldon_core_tpu_torch.graph.builtins import make_builtin
@@ -75,8 +81,10 @@ class GraphEngine:
 
     def __init__(self, graph: Any,
                  resolver: Optional[Callable[[PredictiveUnit], Any]] = None,
-                 name: str = "predictor"):
+                 name: str = "predictor",
+                 metrics_sink: Optional[Any] = None):
         self.name = name
+        self.metrics = metrics_sink
         self.spec = parse_graph(graph)
         validate_graph(self.spec)
         self._resolver = resolver
@@ -138,17 +146,25 @@ class GraphEngine:
             getattr(impl, "user", impl)).__name__
 
         # 1. transformInput: MODEL.predict / TRANSFORMER.transform_input
-        if node.type == "MODEL":
-            transformed = await _maybe_await(impl.predict(msg))
-        elif node.type == "TRANSFORMER":
-            transformed = await _maybe_await(impl.transform_input(msg))
-        elif node.type == "OUTPUT_TRANSFORMER" and not node.children:
-            # a leaf OUTPUT_TRANSFORMER applies here or never
-            transformed = await _maybe_await(impl.transform_output(msg))
-        else:
-            transformed = msg
+        t0 = time.perf_counter()
+        try:
+            if node.type == "MODEL":
+                transformed = await _maybe_await(impl.predict(msg))
+            elif node.type == "TRANSFORMER":
+                transformed = await _maybe_await(impl.transform_input(msg))
+            elif node.type == "OUTPUT_TRANSFORMER" and not node.children:
+                # a leaf OUTPUT_TRANSFORMER applies here or never
+                transformed = await _maybe_await(impl.transform_output(msg))
+            else:
+                transformed = msg
+        except BaseException:
+            self._observe(unit.name, time.perf_counter() - t0, "error")
+            raise
         if transformed is not msg:
-            self._merge_meta(meta, transformed)
+            self._merge_meta(meta, transformed, unit.name,
+                             time.perf_counter() - t0)
+        else:
+            self._observe(unit.name, time.perf_counter() - t0)
 
         # 2. a leaf returns
         if not node.children:
@@ -176,27 +192,49 @@ class GraphEngine:
 
         # 5. aggregate: a COMBINER's, else the first child's output
         if node.type == "COMBINER":
-            merged = await _maybe_await(impl.aggregate(child_outputs))
-            self._merge_meta(meta, merged)
+            t0 = time.perf_counter()
+            try:
+                merged = await _maybe_await(impl.aggregate(child_outputs))
+            except BaseException:
+                self._observe(unit.name, time.perf_counter() - t0, "error")
+                raise
+            self._merge_meta(meta, merged, unit.name,
+                             time.perf_counter() - t0)
         else:
             merged = child_outputs[0]
 
         # 6. transformOutput (OUTPUT_TRANSFORMER)
         if node.type == "OUTPUT_TRANSFORMER":
-            new = await _maybe_await(impl.transform_output(merged))
+            t0 = time.perf_counter()
+            try:
+                new = await _maybe_await(impl.transform_output(merged))
+            except BaseException:
+                self._observe(unit.name, time.perf_counter() - t0, "error")
+                raise
             if new is not merged:
-                self._merge_meta(meta, new)
+                self._merge_meta(meta, new, unit.name,
+                                 time.perf_counter() - t0)
             merged = new
         return merged
 
-    @staticmethod
-    def _merge_meta(meta: Meta, out: SeldonMessage) -> None:
+    def _merge_meta(self, meta: Meta, out: SeldonMessage, node_name: str,
+                    elapsed: float) -> None:
         """Merge a component's fresh response meta into the walk's meta
-        (never pass the request itself: its meta was copied at entry)."""
+        (never pass the request itself: its meta was copied at entry) and
+        its custom metrics into the sink."""
         if out is None:
             return
         meta.merge(out.meta)
+        if self.metrics is not None and out.meta.metrics:
+            self.metrics.merge_custom(node_name, out.meta.metrics)
         out.meta = Meta()  # consumed
+        self._observe(node_name, elapsed)
+
+    def _observe(self, node_name: str, elapsed: float,
+                 status: str = "ok") -> None:
+        if self.metrics is not None:
+            self.metrics.observe_node(self.name, node_name, elapsed,
+                                      status=status)
 
     # ------------------------------------------------------------------
     def stream(self, request: SeldonMessage):
@@ -229,6 +267,8 @@ class GraphEngine:
             logger.exception("send_feedback failed in graph %s", self.name)
             return SeldonMessage(status=Status.failure(
                 500, f"{type(e).__name__}: {e}", "INTERNAL"))
+        if self.metrics is not None:
+            self.metrics.observe_feedback(self.name, fb.reward)
         return SeldonMessage(status=Status())
 
     async def _feedback_walk(self, node: _Node, fb: Feedback) -> None:

@@ -3,8 +3,8 @@ CRD (port of ``seldon_core_tpu/graph/spec.py`` and of the parts of
 ``seldon_core_tpu/operator/spec.py`` the local runner reads).
 
 Parses the reference's JSON layout: ``PredictiveUnit{name, children[],
-type, implementation, parameters[]{name, value, type}}`` (a remote node's
-``endpoint`` and ``methods`` wait for slice 4), with typed parameters
+type, implementation, methods[], endpoint{service_host, service_port,
+type}, parameters[]{name, value, type}}``, with typed parameters
 (INT, FLOAT/DOUBLE, STRING, BOOL; any other type stays a string, as in the
 reference).  :func:`load_deployment` takes the
 first predictor's graph and the deployment's ``seldon.io/*`` annotations
@@ -18,8 +18,8 @@ from dataclasses import dataclass, field
 from typing import Any, Optional
 
 __all__ = ["UNIT_TYPES", "BUILTIN_IMPLEMENTATIONS", "GraphValidationError",
-           "PredictiveUnit", "parse_graph", "validate_graph", "Deployment",
-           "load_deployment"]
+           "Endpoint", "PredictiveUnit", "parse_graph", "validate_graph",
+           "Deployment", "load_deployment"]
 
 UNIT_TYPES = ("MODEL", "ROUTER", "COMBINER", "TRANSFORMER",
               "OUTPUT_TRANSFORMER")
@@ -52,12 +52,37 @@ def _coerce_param(value, ptype: str, unit: str, param: str) -> Any:
 
 
 @dataclass
+class Endpoint:
+    """Where a remote node's component listens."""
+
+    service_host: str = ""
+    service_port: int = 0
+    type: str = "REST"  # REST | GRPC | LOCAL
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict], unit: str = "") -> "Endpoint":
+        d = d or {}
+        raw_port = d.get("service_port", d.get("servicePort", 0)) or 0
+        try:
+            port = int(raw_port)
+        except (TypeError, ValueError):
+            raise GraphValidationError(
+                f"{unit or '<unit>'}: endpoint service_port {raw_port!r} "
+                "is not an integer") from None
+        return cls(service_host=d.get("service_host",
+                                      d.get("serviceHost", "")),
+                   service_port=port, type=d.get("type", "REST"))
+
+
+@dataclass
 class PredictiveUnit:
     name: str
     type: Optional[str] = None  # inferred from implementation when absent
     implementation: Optional[str] = None
     children: list["PredictiveUnit"] = field(default_factory=list)
     parameters: dict[str, Any] = field(default_factory=dict)
+    methods: list[str] = field(default_factory=list)
+    endpoint: Endpoint = field(default_factory=Endpoint)
 
     @classmethod
     def from_dict(cls, d: dict, path: str = "") -> "PredictiveUnit":
@@ -75,6 +100,8 @@ class PredictiveUnit:
             children=[cls.from_dict(c, path)
                       for c in d.get("children", []) or []],
             parameters=params,
+            methods=list(d.get("methods", []) or []),
+            endpoint=Endpoint.from_dict(d.get("endpoint"), path),
         )
 
     def walk(self):
@@ -130,6 +157,7 @@ class Deployment:
     name: str
     graph: PredictiveUnit
     annotations: dict[str, str] = field(default_factory=dict)
+    predictor: str = "predictor"  # the first predictor's name
 
 
 def load_deployment(src) -> Deployment:
@@ -154,4 +182,5 @@ def load_deployment(src) -> Deployment:
         annotations={**meta.get("annotations", {}),
                      **spec.get("annotations", {}),
                      **preds[0].get("annotations", {})},
+        predictor=preds[0].get("name") or "predictor",
     )

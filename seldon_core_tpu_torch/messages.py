@@ -1,10 +1,18 @@
-"""``SeldonMessage`` subset (port of ``seldon_core_tpu/messages.py``).
+"""``SeldonMessage`` (port of ``seldon_core_tpu/messages.py``).
 
-The JSON matches the reference's wire format for what this slice serves:
-``jsonData``, ``data.ndarray`` / ``data.tensor``, ``strData``, ``binData``,
-``meta`` (``puid``, ``tags``, ``routing``, ``requestPath``, ``metrics``) and
-``status``, and the reward ``Feedback``.  ``data`` may hold a numpy array or
-a torch tensor; it reaches the host only when the message is serialized.
+The JSON matches the reference's wire format: ``jsonData``,
+``data.ndarray`` / ``data.tensor`` / ``data.binTensor``, ``strData``,
+``binData``, ``meta`` (``puid``, ``tags``, ``routing``, ``requestPath``,
+``metrics``) and ``status``, and the reward ``Feedback``.  ``data`` may
+hold a numpy array or a torch tensor; it reaches the host only when the
+message is serialized.
+
+``binTensor`` carries a tensor's raw bytes in base64 with its shape and
+dtype name (float32, float16, bfloat16, int8, int32, int64, uint8, bool and
+the other numpy names).  Numpy has no bfloat16 (nor float8), so those
+decode to a torch tensor through ``torch.frombuffer``; their bytes are the
+reference's.  A ``deviceRef`` payload (the device plane) is refused: it
+comes with slice 4e of the port.
 """
 
 from __future__ import annotations
@@ -17,9 +25,10 @@ from dataclasses import dataclass, field
 from typing import Any, Optional, Union
 
 import numpy as np
+import torch
 
 __all__ = ["MetricType", "Metric", "Meta", "Status", "SeldonMessage",
-           "Feedback", "new_puid"]
+           "Feedback", "new_puid", "wire_array", "array_from_buffer"]
 
 
 def new_puid() -> str:
@@ -124,11 +133,55 @@ class Status:
                    status=d.get("status", "SUCCESS"))
 
 
+# dtypes numpy lacks: they travel as raw bytes and decode to torch tensors
+_TORCH_ONLY = {"bfloat16": torch.bfloat16,
+               "float8_e4m3fn": torch.float8_e4m3fn,
+               "float8_e5m2": torch.float8_e5m2}
+_TORCH_ONLY_NAMES = {v: k for k, v in _TORCH_ONLY.items()}
+
+
+def _dtype_str(dtype: Any) -> str:
+    """The wire name of a numpy or torch dtype (numpy's names)."""
+    if isinstance(dtype, torch.dtype):
+        if dtype in _TORCH_ONLY_NAMES:
+            return _TORCH_ONLY_NAMES[dtype]
+        return np.dtype(torch.empty((), dtype=dtype).numpy().dtype).name
+    return np.dtype(dtype).name
+
+
+def wire_array(x) -> tuple[np.ndarray, str]:
+    """``x`` (numpy or torch) as a C-contiguous host array holding its
+    bytes, and its dtype's wire name.  A bfloat16 or float8 tensor comes
+    back as a uint16 or uint8 view of the same bytes."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().to("cpu").contiguous()
+        if t.dtype in _TORCH_ONLY_NAMES:
+            view = torch.int16 if t.element_size() == 2 else torch.uint8
+            return t.view(view).numpy(), _TORCH_ONLY_NAMES[t.dtype]
+        return t.numpy(), _dtype_str(t.dtype)
+    arr = np.ascontiguousarray(x)
+    return arr, _dtype_str(arr.dtype)
+
+
+def array_from_buffer(buf, name: str, shape) -> Any:
+    """The array of dtype ``name`` and ``shape`` over ``buf``'s bytes: a
+    numpy array, or a torch tensor for a dtype numpy lacks.  Writable when
+    ``buf`` is (a ``bytearray``)."""
+    if name in _TORCH_ONLY:
+        return torch.frombuffer(buf, dtype=_TORCH_ONLY[name]).reshape(
+            tuple(shape))
+    return np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape)
+
+
 def _to_numpy(x) -> np.ndarray:
     if isinstance(x, np.ndarray):
         return x
-    if hasattr(x, "detach"):  # torch tensor, possibly on the card
-        return x.detach().cpu().numpy()
+    if isinstance(x, torch.Tensor):  # possibly on the card
+        t = x.detach().cpu()
+        if t.dtype in _TORCH_ONLY_NAMES:
+            # numpy has no bfloat16: its values, exactly, as float32
+            t = t.float()
+        return t.numpy()
     return np.asarray(x)
 
 
@@ -141,7 +194,7 @@ class SeldonMessage:
     json_data: Any = None
     meta: Meta = field(default_factory=Meta)
     status: Optional[Status] = None
-    encoding: str = "ndarray"  # "ndarray" | "tensor"
+    encoding: str = "ndarray"  # "ndarray" | "tensor" | "binTensor"
 
     @classmethod
     def from_ndarray(cls, arr, names=(), **kw) -> "SeldonMessage":
@@ -158,15 +211,22 @@ class SeldonMessage:
         if self.status is not None:
             out["status"] = self.status.to_dict()
         if self.data is not None:
-            arr = self.host_data()
             datad: dict[str, Any] = {"names": list(self.names)}
-            if self.encoding == "tensor":
+            if self.encoding == "binTensor":
+                buf, name = wire_array(self.data)
+                datad["binTensor"] = {
+                    "shape": list(buf.shape),
+                    "dtype": name,
+                    "b64": base64.b64encode(buf.data).decode("ascii"),
+                }
+            elif self.encoding == "tensor":
+                arr = self.host_data()
                 datad["tensor"] = {
                     "shape": list(arr.shape),
                     "values": arr.astype(np.float64).ravel().tolist(),
                 }
             else:
-                datad["ndarray"] = arr.tolist()
+                datad["ndarray"] = self.host_data().tolist()
             out["data"] = datad
         elif self.bin_data is not None:
             out["binData"] = base64.b64encode(self.bin_data).decode("ascii")
@@ -189,14 +249,26 @@ class SeldonMessage:
             msg.names = list(datad.get("names") or [])
             if "ndarray" in datad:
                 msg.data = np.asarray(datad["ndarray"])
+                msg.encoding = "ndarray"
             elif "tensor" in datad:
                 t = datad["tensor"]
                 msg.data = np.asarray(t.get("values", []),
                                       dtype=np.float64).reshape(
                                           t.get("shape", [-1]))
                 msg.encoding = "tensor"
-            else:
-                raise ValueError("data needs ndarray or tensor")
+            elif "binTensor" in datad:
+                t = datad["binTensor"]
+                # a bytearray: the array is writable, as a JSON one is
+                raw = bytearray(base64.b64decode(t["b64"]))
+                msg.data = array_from_buffer(
+                    raw, t.get("dtype", "float32"), t["shape"])
+                msg.encoding = "binTensor"
+            elif "deviceRef" in datad:
+                raise ValueError(
+                    "deviceRef payloads (the device plane) come with slice "
+                    "4e of the port")
+            # any other ``data`` leaves the message without a tensor, as
+            # the reference's does
         elif "binData" in d:
             msg.bin_data = base64.b64decode(d["binData"])
         elif "strData" in d:
@@ -219,6 +291,17 @@ class Feedback:
     reward: float = 0.0
     truth: Optional[SeldonMessage] = None
 
+    def to_dict(self) -> dict:
+        d: dict[str, Any] = {"reward": self.reward}
+        for key in ("request", "response", "truth"):
+            part = getattr(self, key)
+            if part is not None:
+                d[key] = part.to_dict()
+        return d
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict())
+
     @classmethod
     def from_dict(cls, d: dict) -> "Feedback":
         def msg(key):
@@ -226,3 +309,7 @@ class Feedback:
 
         return cls(request=msg("request"), response=msg("response"),
                    reward=float(d.get("reward", 0.0)), truth=msg("truth"))
+
+    @classmethod
+    def from_json(cls, s: Union[str, bytes]) -> "Feedback":
+        return cls.from_dict(json.loads(s))

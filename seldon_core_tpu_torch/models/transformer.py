@@ -486,10 +486,11 @@ def speculative_generate(params, draft_params, prompt_ids, n_new: int,
     target's own next token.  The output is exactly the target's greedy
     decode.  Both caches rewind by setting ``pos`` back.
 
-    The draft makes k + 1 steps, the last one only to write d_{k-1}'s K/V
-    row, as the serving engine's draft does: the reference's loop makes k,
-    and after a full acceptance its draft attends over a row never
-    written.  The ids are the same either way; the acceptance can differ.
+    The draft makes k steps a round, as the reference's loop does, so
+    ``rounds`` and ``accept_rate`` equal the reference's: after a full
+    acceptance the draft attends over d_{k-1}'s row, which it never wrote,
+    and its acceptance decays.  The serving engines' draft makes k + 1
+    steps and writes that row.
 
     Returns ``(ids (1, L0 + n_new), stats)``, stats ``{"rounds",
     "accept_rate"}`` (accepted drafts per round over ``k_draft``)."""
@@ -511,12 +512,11 @@ def speculative_generate(params, draft_params, prompt_ids, n_new: int,
         while len(out) < n_new:
             tok = torch.tensor([out[-1]], device=dev)
             d_tokens = []
-            for j in range(k_draft + 1):
+            for _ in range(k_draft):
                 dl, d_cache = decode_step(draft_params, d_cache, tok,
                                           draft_cfg)
                 tok = torch.argmax(dl, dim=-1)
-                if j < k_draft:
-                    d_tokens.append(int(tok[0]))
+                d_tokens.append(int(tok[0]))
             vtokens = torch.tensor([[out[-1]] + d_tokens], device=dev)
             vlogits, t_cache = decode_step(params, t_cache, vtokens, cfg)
             tgt = torch.argmax(vlogits[0], dim=-1).tolist()

@@ -145,6 +145,8 @@ class ComponentHandle:
     def has(self, method: str) -> bool:
         if method == "predict":
             return self._fn is not None or self._has["predict"]
+        if method == "stream":
+            return callable(getattr(self, "stream", None))
         return self._has.get(method, False)
 
     # ---- response assembly --------------------------------------------

@@ -875,8 +875,6 @@ class LLMEngine:
         t_arrive = time.perf_counter()
         host_ids = _host_ids(prompt_ids)
         L0 = int(host_ids.shape[0])
-        if L0 == 0:
-            raise ValueError("empty prompt")
         if L0 + n_new > self.max_len:
             raise ValueError(
                 f"prompt {L0} + n_new {n_new} exceeds max_len {self.max_len}")

@@ -1,24 +1,28 @@
-"""REST engine server on the standard library (port of the engine routes of
+"""REST serving on the standard library (port of
 ``seldon_core_tpu/serving/rest.py``).
 
-A small HTTP/1.1 server on ``asyncio.start_server`` (keep-alive,
-``Content-Length`` bodies) answering:
+One small HTTP/1.1 server on ``asyncio.start_server`` (keep-alive,
+``Content-Length`` bodies, raw JSON or the reference's form-encoded
+``json=`` field) carries two surfaces, as the reference's aiohttp app does:
 
-- ``POST /api/v0.1/predictions`` (and ``/api/v1.0/predictions``): a
-  SeldonMessage JSON in, the engine's SeldonMessage JSON out, with the
-  FAILURE status code as the HTTP status;
-- ``POST /api/v0.1/feedback``: a Feedback JSON (``request``,
-  ``response``, ``reward``, ``truth``) in, a SeldonMessage with the status
-  out;
-- ``POST /api/v0.1/stream``: a SeldonMessage JSON in, server-sent events
-  out (``data: <json>`` per event, the last one ``{"done": true, ...}``);
-- ``GET /ready`` and ``GET /live``.
+- the **engine API** (:class:`EngineServer`): ``POST /api/v0.1/predictions``
+  (and ``/api/v1.0/predictions``), ``POST /api/v0.1/feedback``,
+  ``POST /api/v0.1/stream`` (server-sent events), ``GET /ready``,
+  ``/live``, ``/pause``, ``/unpause``, ``/metrics`` and ``/seldon.json``.
+  While paused, predictions, the stream and ``/ready`` answer 503;
+  ``/pause`` waits (``?timeout=`` seconds, 10 by default) for the requests
+  in flight to drain.
+- the **component API** (:class:`ComponentServer`), the reference
+  engine's southbound calls: ``POST /predict``, ``/transform-input``,
+  ``/transform-output``, ``/route``, ``/aggregate``, ``/send-feedback``,
+  ``/stream`` (when the component has ``stream``), ``GET /health/status``,
+  ``/metrics`` and ``/seldon.json``.
 
-``engine`` is anything with ``async predict(SeldonMessage) ->
-SeldonMessage`` and, for feedback, ``async send_feedback(Feedback) ->
-SeldonMessage``; for the stream, ``stream(SeldonMessage)`` returning an
-async generator of event dicts (an engine without it answers 501
-``STREAM_UNSUPPORTED``).
+Status codes and error bodies are the reference's: a FAILURE status's code
+is the HTTP status (429 adds ``Retry-After: 1``), a body that is empty or
+not JSON answers 400.  ``/metrics`` renders :class:`EngineMetrics`: every
+answered request is observed, and the ``metrics`` of a stream event and of
+a component's response meta are merged into it.
 
 A stream's first event is awaited before the headers go out, so an error
 the generator raises early (a bad request, a prompt over ``max_len``)
@@ -26,9 +30,11 @@ answers as JSON with its status.  Once the headers are out, an error sends
 an ``{"error": ...}`` event and ends the stream.  The stream's response has
 no length: it is sent with ``Connection: close`` and ends when the
 connection does.  A client that closes its end stops the stream at once:
-the generator is closed, which frees an LLM request's slot and pages.  (An
-event's ``metrics`` key reaches no Prometheus registry yet: the port has no
-``/metrics`` route.)
+the generator is closed, which frees an LLM request's slot and pages.
+
+Not in this slice: ``/trace`` and the ``/admin/*`` planes (slices 5 and 4d
+of the port), trace headers and the device-plane identity header (slices 5
+and 4e).
 """
 
 from __future__ import annotations
@@ -36,27 +42,36 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Optional
+from typing import Any, Awaitable, Callable, Optional
+from urllib.parse import parse_qs
 
+import numpy as np
+
+from seldon_core_tpu_torch.graph.engine import _maybe_await
 from seldon_core_tpu_torch.messages import Feedback, SeldonMessage, Status
-from seldon_core_tpu_torch.runtime.component import SeldonComponentError
+from seldon_core_tpu_torch.runtime.component import (
+    SeldonComponentError,
+    validate_metrics,
+)
+from seldon_core_tpu_torch.utils.metrics import EngineMetrics
 
-__all__ = ["RestServer"]
+__all__ = ["RestServer", "EngineServer", "ComponentServer", "Request",
+           "Response", "EventStream"]
 
 logger = logging.getLogger(__name__)
 
 _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
             405: "Method Not Allowed", 413: "Payload Too Large",
+            429: "Too Many Requests", 499: "Client Closed Request",
             500: "Internal Server Error", 501: "Not Implemented",
-            503: "Service Unavailable", 504: "Gateway Timeout"}
-_STREAM_PATH = "/api/v0.1/stream"
+            502: "Bad Gateway", 503: "Service Unavailable",
+            504: "Gateway Timeout"}
 _EMPTY = object()  # a stream that ended before its first event
-_MAX_BODY = 64 << 20
-
-
-def _decode(kind, body: bytes):
-    return kind.from_dict(json.loads(body))
+_MAX_BODY = 256 << 20
+_JSON = "application/json"
+_TEXT = "text/plain"
 
 
 def _err_json(code: int, info: str, reason: str = "") -> bytes:
@@ -64,14 +79,528 @@ def _err_json(code: int, info: str, reason: str = "") -> bytes:
         status=Status.failure(code, info, reason)).to_json().encode()
 
 
-class RestServer:
-    def __init__(self, engine, host: str = "0.0.0.0", port: int = 8000):
+class _BadRequest(Exception):
+    """Answers 400 with the reference's FAILURE body."""
+
+
+def _payload_json(body: bytes, ctype: str) -> Any:
+    """Raw JSON body or the form field ``json=`` (reference wire compat)."""
+    if not body:
+        raise _BadRequest("empty request body")
+    try:
+        if "application/x-www-form-urlencoded" in ctype \
+                or body[:5] == b"json=":
+            return json.loads(parse_qs(body.decode())["json"][0])
+        return json.loads(body)
+    except (ValueError, KeyError) as e:
+        raise _BadRequest(f"malformed request: {e}")
+
+
+def _parse_msg(d: Any) -> SeldonMessage:
+    try:
+        return SeldonMessage.from_dict(d)
+    except Exception as e:
+        raise _BadRequest(f"bad SeldonMessage: {e}")
+
+
+def _parse_feedback(d: Any) -> Feedback:
+    try:
+        return Feedback.from_dict(d)
+    except Exception as e:
+        raise _BadRequest(f"bad Feedback: {e}")
+
+
+def _decode(body: bytes, ctype: str, kind):
+    d = _payload_json(body, ctype)
+    if kind is SeldonMessage:
+        return _parse_msg(d)
+    if kind is Feedback:
+        return _parse_feedback(d)
+    return d
+
+
+class Request:
+    """One parsed HTTP request."""
+
+    __slots__ = ("method", "path", "query", "headers", "body", "_server")
+
+    def __init__(self, method: str, target: str, headers: dict, body: bytes,
+                 server: "RestServer"):
+        path, _, qs = target.partition("?")
+        self.method = method
+        self.path = path
+        self.query = {k: v[-1] for k, v in parse_qs(qs).items()}
+        self.headers = headers
+        self.body = body
+        self._server = server
+
+    async def parse(self, kind=None):
+        """The body as ``kind`` (SeldonMessage, Feedback, or None for the
+        JSON value), decoded off the event loop: a large body (an image is
+        150,528 numbers) takes tens of ms, and bodies that arrive together
+        would decode back to back in one pass of the loop, holding the
+        batcher's flush timers.  Raises :class:`_BadRequest`."""
+        return await asyncio.get_running_loop().run_in_executor(
+            self._server.decoder, _decode, self.body,
+            self.headers.get("content-type", ""), kind)
+
+
+class Response:
+    __slots__ = ("code", "body", "ctype", "headers")
+
+    def __init__(self, code: int, body: bytes, ctype: str = _JSON,
+                 headers: Optional[dict] = None):
+        self.code = code
+        self.body = body
+        self.ctype = ctype
+        self.headers = headers or {}
+
+
+def _text(text: str, code: int = 200) -> Response:
+    return Response(code, text.encode(), _TEXT)
+
+
+def _bad(e: _BadRequest) -> Response:
+    return Response(400, _err_json(400, str(e)))
+
+
+def _msg_code(msg: SeldonMessage) -> int:
+    if msg.status is not None and msg.status.status == "FAILURE":
+        return msg.status.code if 400 <= msg.status.code < 600 else 500
+    return 200
+
+
+def _msg_response(msg: SeldonMessage) -> Response:
+    code = _msg_code(msg)
+    # shed answers (admission, a full queue) carry a retry hint
+    headers = {"Retry-After": "1"} if code == 429 else None
+    return Response(code, msg.to_json().encode(), _JSON, headers)
+
+
+def _openapi(which: str, **kw) -> Callable[[Request], Awaitable[Response]]:
+    async def handler(req: Request) -> Response:
+        from seldon_core_tpu_torch.serving import openapi
+
+        spec = {"engine": openapi.engine_spec,
+                "component": openapi.component_spec}[which](**kw)
+        return Response(200, json.dumps(spec).encode())
+
+    return handler
+
+
+# ---------------------------------------------------------------------------
+# server-sent events
+# ---------------------------------------------------------------------------
+
+class EventStream:
+    """A stream whose first event is in hand (``first``, or ``_EMPTY`` when
+    the generator ended before one): the transport sends the headers,
+    then ``encode(event)`` of ``first`` and of each later event of
+    ``agen``, then calls ``end(code)`` once.  ``on_end`` runs then."""
+
+    def __init__(self, first, agen, metrics, name: str, t0: float):
+        self.first = first
+        self.agen = agen
+        self.metrics = metrics
+        self.name = name
+        self.on_end: Optional[Callable[[], None]] = None
+        self._t0 = t0
+
+    def encode(self, event) -> bytes:
+        """One event's bytes; its ``metrics`` merge into the registry."""
+        return _event_bytes(event, self.metrics, self.name)
+
+    async def end(self, code: Optional[int]) -> None:
+        """Observe the request with ``code`` (200, 499 when the client
+        left, 500 when the stream failed; None observes nothing) and close
+        the generator, which ends the request (an LLM slot and its pages
+        free at once)."""
+        try:
+            if code is not None and self.metrics is not None:
+                self.metrics.observe_request(
+                    self.name, time.perf_counter() - self._t0, code)
+            await self.agen.aclose()
+        finally:
+            if self.on_end is not None:
+                self.on_end()
+
+
+def _error_event(e: Exception) -> bytes:
+    return b"data: " + json.dumps(
+        {"error": f"{type(e).__name__}: {e}"}).encode() + b"\n\n"
+
+
+async def _open_stream(req: Request, stream_fn, metrics, name: str):
+    """The stream of ``stream_fn(msg)`` with its first event awaited, or
+    the JSON error ``Response`` when the request or that event failed
+    (module docstring)."""
+    t0 = time.perf_counter()
+    try:
+        msg = await req.parse(SeldonMessage)
+    except _BadRequest as e:
+        return _bad(e)
+    try:
+        agen = stream_fn(msg)
+    except SeldonComponentError as e:
+        return _failure(e.status_code, str(e), e.reason)
+    try:
+        first = await agen.__anext__()
+    except StopAsyncIteration:
+        first = _EMPTY
+    except BaseException as e:
+        await agen.aclose()
+        if not isinstance(e, Exception):
+            raise  # cancelled
+        if isinstance(e, SeldonComponentError):
+            code, info, reason = e.status_code, str(e), e.reason
+        else:
+            logger.exception("stream failed before its first event (%s)",
+                             name)
+            code, info, reason = 500, f"{type(e).__name__}: {e}", ""
+        if metrics is not None:
+            metrics.observe_request(name, time.perf_counter() - t0, code)
+        return _failure(code, info, reason)
+    return EventStream(first, agen, metrics, name, t0)
+
+
+def _failure(code: int, info: str, reason: str = "") -> Response:
+    return Response(code if 400 <= code < 600 else 500,
+                    _err_json(code, info, reason))
+
+
+def _event_bytes(event, metrics, name: str) -> bytes:
+    if isinstance(event, dict) and event.get("metrics") \
+            and metrics is not None:
+        try:
+            metrics.merge_custom(name, validate_metrics(event["metrics"]))
+        except Exception:
+            logger.warning("ignoring malformed stream-event metrics from %s",
+                           name)
+    return b"data: " + json.dumps(event).encode() + b"\n\n"
+
+
+async def _send_stream(reader, writer, stream: EventStream) -> None:
+    """``stream`` as server-sent events on the connection, whose end
+    closing (EOF) stops it, cancelling the pending event."""
+    code = None
+    try:
+        writer.write(b"HTTP/1.1 200 OK\r\n"
+                     b"Content-Type: text/event-stream\r\n"
+                     b"Cache-Control: no-cache\r\n"
+                     b"Connection: close\r\n\r\n")
+        code = 200
+        if stream.first is not _EMPTY:
+            code = await _send_events(reader, writer, stream)
+    except (ConnectionError, asyncio.IncompleteReadError):
+        logger.debug("stream client disconnected (%s)", stream.name)
+        code = 499
+    finally:
+        await stream.end(code)
+
+
+async def _send_events(reader, writer, stream: EventStream) -> int:
+    """Write the stream's events while watching the client.  Returns the
+    request's status for the metrics (200, 499 or 500)."""
+    async def client_gone():
+        while await reader.read(4096):
+            pass  # bytes past the request are ignored
+
+    gone = asyncio.ensure_future(client_gone())
+    nxt = None
+    try:
+        event = stream.first
+        while True:
+            writer.write(stream.encode(event))
+            await writer.drain()
+            nxt = asyncio.ensure_future(stream.agen.__anext__())
+            await asyncio.wait({nxt, gone},
+                               return_when=asyncio.FIRST_COMPLETED)
+            if not nxt.done():
+                return 499  # the client left: the finally cancels nxt
+            try:
+                event = nxt.result()
+            except StopAsyncIteration:
+                return 200
+            except Exception as e:
+                logger.exception("stream failed (%s)", stream.name)
+                writer.write(_error_event(e))
+                await writer.drain()
+                return 500
+    finally:
+        # a pending event is cancelled inside the generator, which then
+        # runs its own cleanup
+        for t in (gone, nxt):
+            if t is not None and not t.done():
+                t.cancel()
+        await asyncio.gather(*(t for t in (gone, nxt) if t is not None),
+                             return_exceptions=True)
+
+
+# ---------------------------------------------------------------------------
+# the two surfaces
+# ---------------------------------------------------------------------------
+
+class EngineServer:
+    """The engine API over one predictor graph.
+
+    ``engine`` is anything with ``async predict(SeldonMessage)`` and
+    ``async send_feedback(Feedback)``; ``stream(SeldonMessage)`` returning
+    an async generator of event dicts serves the stream (an engine without
+    it answers 501 ``STREAM_UNSUPPORTED``)."""
+
+    def __init__(self, engine, metrics: Optional[EngineMetrics] = None,
+                 name: str = "predictor"):
         self.engine = engine
+        self.name = name
+        self.metrics = (metrics or getattr(engine, "metrics", None)
+                        or EngineMetrics())
+        self.paused = False
+        self._inflight = 0
+
+    async def predictions(self, req: Request) -> Response:
+        if self.paused:
+            return Response(503, _err_json(503, "paused"))
+        t0 = time.perf_counter()
+        # in flight from acceptance (before the body is decoded), so a
+        # /pause drain cannot report empty while a request still parses
+        self._inflight += 1
+        try:
+            try:
+                msg = await req.parse(SeldonMessage)
+            except _BadRequest as e:
+                return _bad(e)
+            try:
+                out = await self.engine.predict(msg)
+            except Exception as e:
+                logger.exception("predict failed")
+                out = SeldonMessage(status=Status.failure(
+                    500, f"{type(e).__name__}: {e}", "INTERNAL"))
+        finally:
+            self._inflight -= 1
+        code = (out.status.code if out.status is not None
+                and out.status.status == "FAILURE" else 200)
+        self.metrics.observe_request(self.name, time.perf_counter() - t0,
+                                     code)
+        return _msg_response(out)
+
+    async def stream(self, req: Request):
+        if self.paused:
+            return Response(503, _err_json(503, "paused"))
+        fn = getattr(self.engine, "stream", None)
+        if fn is None:
+            return Response(501, _err_json(
+                501, "engine does not support streaming",
+                "STREAM_UNSUPPORTED"))
+        self._inflight += 1  # until the stream ends
+        try:
+            out = await _open_stream(req, fn, self.metrics, self.name)
+        except BaseException:
+            self._stream_done()
+            raise
+        if isinstance(out, EventStream):
+            out.on_end = self._stream_done
+        else:
+            self._stream_done()
+        return out
+
+    def _stream_done(self) -> None:
+        self._inflight -= 1
+
+    async def feedback(self, req: Request) -> Response:
+        try:
+            fb = await req.parse(Feedback)
+        except _BadRequest as e:
+            return _bad(e)
+        try:
+            out = await self.engine.send_feedback(fb)
+        except Exception as e:
+            logger.exception("send_feedback failed")
+            out = SeldonMessage(status=Status.failure(
+                500, f"{type(e).__name__}: {e}", "INTERNAL"))
+        return _msg_response(out)
+
+    async def ready(self, req: Request) -> Response:
+        return _text("paused", 503) if self.paused else _text("ready")
+
+    async def live(self, req: Request) -> Response:
+        return _text("live")
+
+    async def pause(self, req: Request) -> Response:
+        """Stop accepting traffic, then wait (bounded) for the requests in
+        flight to drain."""
+        self.paused = True
+        deadline = time.monotonic() + float(req.query.get("timeout", 10.0))
+        while self._inflight > 0 and time.monotonic() < deadline:
+            await asyncio.sleep(0.02)
+        return _text(f"paused inflight={self._inflight}")
+
+    async def unpause(self, req: Request) -> Response:
+        self.paused = False
+        return _text("unpaused")
+
+    async def prometheus(self, req: Request) -> Response:
+        return _text(self.metrics.render())
+
+    def register(self, server: "RestServer") -> None:
+        for path in ("/api/v0.1/predictions", "/api/v1.0/predictions"):
+            server.add_route("POST", path, self.predictions)
+        server.add_stream("/api/v0.1/stream", self.stream)
+        server.add_route("POST", "/api/v0.1/feedback", self.feedback)
+        server.add_route("GET", "/ready", self.ready)
+        server.add_route("GET", "/live", self.live)
+        server.add_route("GET", "/pause", self.pause)
+        server.add_route("GET", "/unpause", self.unpause)
+        server.add_route("GET", "/metrics", self.prometheus)
+        server.add_route("GET", "/seldon.json", _openapi("engine"))
+
+
+class ComponentServer:
+    """One component (a ``ComponentHandle``, a batched model, an LLM
+    component) over the component API, wire-compatible with the reference
+    engine's southbound calls."""
+
+    def __init__(self, handle, metrics: Optional[EngineMetrics] = None):
+        self.handle = handle
+        self.metrics = metrics or EngineMetrics()
+
+    @property
+    def name(self) -> str:
+        return getattr(self.handle, "name", type(self.handle).__name__)
+
+    async def _run(self, fn, *args):
+        """``fn(*args)``, observed; any error answers 500 FAILURE (the
+        reference's, whatever the error's own code)."""
+        t0 = time.perf_counter()
+        try:
+            res = await _maybe_await(fn(*args))
+            if isinstance(res, SeldonMessage) and res.meta.metrics:
+                self.metrics.merge_custom(self.name, res.meta.metrics)
+            self.metrics.observe_request(self.name, time.perf_counter() - t0)
+            return res
+        except Exception as e:
+            logger.exception("component %s failed", self.name)
+            self.metrics.observe_request(self.name,
+                                         time.perf_counter() - t0, 500)
+            return SeldonMessage(
+                status=Status.failure(500, f"{type(e).__name__}: {e}"))
+
+    def _message_route(self, method: str):
+        async def handler(req: Request) -> Response:
+            try:
+                msg = await req.parse(SeldonMessage)
+            except _BadRequest as e:
+                return _bad(e)
+            return _msg_response(
+                await self._run(getattr(self.handle, method), msg))
+
+        return handler
+
+    async def route(self, req: Request) -> Response:
+        try:
+            msg = await req.parse(SeldonMessage)
+        except _BadRequest as e:
+            return _bad(e)
+        branch = await self._run(self.handle.route, msg)
+        if isinstance(branch, SeldonMessage):  # the error path
+            return _msg_response(branch)
+        # a router answers with a 1x1 tensor
+        return _msg_response(SeldonMessage(
+            data=np.array([[branch]], dtype=np.int32), encoding="ndarray"))
+
+    async def aggregate(self, req: Request) -> Response:
+        try:
+            payload = await req.parse()
+            msgs = [_parse_msg(m) for m in payload.get("seldonMessages", [])]
+        except _BadRequest as e:
+            return _bad(e)
+        return _msg_response(await self._run(self.handle.aggregate, msgs))
+
+    async def send_feedback(self, req: Request) -> Response:
+        try:
+            fb = await req.parse(Feedback)
+        except _BadRequest as e:
+            return _bad(e)
+        ret = await self._run(self.handle.send_feedback, fb)
+        return _msg_response(ret if isinstance(ret, SeldonMessage)
+                             else SeldonMessage(status=Status()))
+
+    async def stream(self, req: Request):
+        return await _open_stream(req, self.handle.stream, self.metrics,
+                                  self.name)
+
+    async def health(self, req: Request) -> Response:
+        return _text("ok")
+
+    async def prometheus(self, req: Request) -> Response:
+        return _text(self.metrics.render())
+
+    def register(self, server: "RestServer") -> None:
+        for path, method in (("/predict", "predict"),
+                             ("/transform-input", "transform_input"),
+                             ("/transform-output", "transform_output")):
+            server.add_route("POST", path, self._message_route(method))
+        server.add_route("POST", "/route", self.route)
+        server.add_route("POST", "/aggregate", self.aggregate)
+        server.add_route("POST", "/send-feedback", self.send_feedback)
+        streams = callable(getattr(self.handle, "stream", None))
+        if streams:
+            server.add_stream("/stream", self.stream)
+        server.add_route("GET", "/health/status", self.health)
+        # an engine registered first owns /metrics and /seldon.json
+        if not server.has_route("GET", "/metrics"):
+            server.add_route("GET", "/metrics", self.prometheus)
+        if not server.has_route("GET", "/seldon.json"):
+            server.add_route("GET", "/seldon.json",
+                             _openapi("component", stream=streams))
+
+
+# ---------------------------------------------------------------------------
+# the HTTP/1.1 server
+# ---------------------------------------------------------------------------
+
+async def _respond(writer, resp: Response, close: bool = False) -> None:
+    head = [f"HTTP/1.1 {resp.code} {_REASONS.get(resp.code, 'Error')}",
+            f"Content-Type: {resp.ctype}",
+            f"Content-Length: {len(resp.body)}",
+            f"Connection: {'close' if close else 'keep-alive'}"]
+    head += [f"{k}: {v}" for k, v in resp.headers.items()]
+    writer.write(("\r\n".join(head) + "\r\n\r\n").encode("latin-1")
+                 + resp.body)
+    await writer.drain()
+
+
+class RestServer:
+    """The engine API over ``engine``, the component API over
+    ``component``, or both on one port with one shared ``metrics``
+    (the reference's ``build_app``)."""
+
+    def __init__(self, engine=None, host: str = "0.0.0.0", port: int = 8000,
+                 component=None, metrics: Optional[EngineMetrics] = None):
         self.host = host
         self._port = port
+        self._routes: dict[tuple[str, str], Callable] = {}
+        self._streams: dict[str, Callable] = {}
         self._server: Optional[asyncio.base_events.Server] = None
         self._writers: set = set()  # open connections, closed by stop()
         self._decoder: Optional[ThreadPoolExecutor] = None  # JSON bodies
+        if metrics is None and engine is not None and component is not None:
+            metrics = EngineMetrics()  # one registry behind one /metrics
+        if engine is not None:
+            EngineServer(engine, metrics=metrics).register(self)
+        if component is not None:
+            ComponentServer(component, metrics=metrics).register(self)
+
+    def add_route(self, method: str, path: str, handler) -> None:
+        self._routes[(method, path)] = handler
+
+    def add_stream(self, path: str, handler) -> None:
+        """``handler(request)`` answers ``POST path`` with an
+        :class:`EventStream` or an error ``Response``; the connection
+        closes after either."""
+        self._streams[path] = handler
+
+    def has_route(self, method: str, path: str) -> bool:
+        return (method, path) in self._routes
 
     @property
     def port(self) -> int:
@@ -80,8 +609,15 @@ class RestServer:
             return self._server.sockets[0].getsockname()[1]
         return self._port
 
+    @property
+    def decoder(self) -> ThreadPoolExecutor:
+        """The thread that decodes request bodies."""
+        if self._decoder is None:
+            self._decoder = ThreadPoolExecutor(
+                1, thread_name_prefix="rest-json")
+        return self._decoder
+
     async def start(self) -> "RestServer":
-        self._decoder = ThreadPoolExecutor(1, thread_name_prefix="rest-json")
         self._server = await asyncio.start_server(self._serve, self.host,
                                                   self._port)
         return self
@@ -105,8 +641,8 @@ class RestServer:
                 line = await reader.readline()
                 if not line:
                     break
-                method, path, version = (line.decode("latin-1").split() + [""]
-                                         * 3)[:3]
+                method, target, version = (line.decode("latin-1").split()
+                                           + [""] * 3)[:3]
                 headers = {}
                 while True:
                     h = await reader.readline()
@@ -116,20 +652,20 @@ class RestServer:
                     headers[k.strip().lower()] = v.strip()
                 n = int(headers.get("content-length", "0") or 0)
                 if n > _MAX_BODY:
-                    await self._respond(writer, 413,
-                                        _err_json(413, "body too large"),
-                                        close=True)
+                    await _respond(writer, Response(
+                        413, _err_json(413, "body too large")), close=True)
                     break
                 body = await reader.readexactly(n) if n else b""
                 close = (headers.get("connection", "").lower() == "close"
                          or version == "HTTP/1.0")
-                if path.split("?", 1)[0] == _STREAM_PATH:
-                    # the stream's response ends with the connection
-                    await self._stream(reader, writer, method, body)
+                req = Request(method, target, headers, body, self)
+                # a stream's response ends with the connection
+                close = close or self.is_stream(req)
+                out = await self.dispatch(req)
+                if isinstance(out, EventStream):
+                    await _send_stream(reader, writer, out)
                     break
-                code, payload, ctype = await self._route(method, path, body)
-                await self._respond(writer, code, payload, ctype=ctype,
-                                    close=close)
+                await _respond(writer, out, close=close)
                 if close:
                     break
         except (ConnectionError, asyncio.IncompleteReadError):
@@ -142,147 +678,24 @@ class RestServer:
             except ConnectionError:
                 pass
 
-    async def _route(self, method: str, path: str, body: bytes):
-        path = path.split("?", 1)[0]
-        if path in ("/api/v0.1/predictions", "/api/v1.0/predictions"):
-            if method != "POST":
-                return 405, _err_json(405, "POST only"), "application/json"
-            return await self._call(body, SeldonMessage, self.engine.predict)
-        if path == "/api/v0.1/feedback":
-            if method != "POST":
-                return 405, _err_json(405, "POST only"), "application/json"
-            return await self._call(body, Feedback, self.engine.send_feedback)
-        if path == "/ready" and method == "GET":
-            return 200, b"ready", "text/plain"
-        if path == "/live" and method == "GET":
-            return 200, b"live", "text/plain"
-        return 404, _err_json(404, f"no route {method} {path}"), \
-            "application/json"
+    def is_stream(self, req: Request) -> bool:
+        return req.method == "POST" and req.path in self._streams
 
-    async def _stream(self, reader, writer, method: str, body: bytes) -> None:
-        """``POST /api/v0.1/stream``: server-sent events from
-        ``engine.stream`` (module docstring)."""
-        async def fail(code, info, reason=""):
-            await self._respond(writer, code, _err_json(code, info, reason),
-                                close=True)
-
-        if method != "POST":
-            return await fail(405, "POST only")
-        fn = getattr(self.engine, "stream", None)
-        if fn is None:
-            return await fail(501, "engine does not support streaming",
-                              "STREAM_UNSUPPORTED")
-        code, msg = await self._parse(body, SeldonMessage)
-        if code:
-            return await self._respond(writer, code, msg, close=True)
-        try:
-            agen = fn(msg)
-        except SeldonComponentError as e:
-            return await fail(e.status_code, str(e), e.reason)
-        try:
-            try:
-                first = await agen.__anext__()
-            except StopAsyncIteration:
-                first = _EMPTY
-            except SeldonComponentError as e:
-                return await fail(e.status_code, str(e), e.reason)
-            except Exception as e:
-                logger.exception("stream failed before its first event")
-                return await fail(500, f"{type(e).__name__}: {e}",
-                                  "INTERNAL")
-            writer.write(b"HTTP/1.1 200 OK\r\n"
-                         b"Content-Type: text/event-stream\r\n"
-                         b"Cache-Control: no-cache\r\n"
-                         b"Connection: close\r\n\r\n")
-            if first is not _EMPTY:
-                await self._send_events(reader, writer, first, agen)
-        except (ConnectionError, asyncio.IncompleteReadError):
-            logger.debug("stream client disconnected")
-        finally:
-            # closing the generator ends the request (an LLM slot and its
-            # pages free at once), whether it finished, failed or was left
-            await agen.aclose()
-
-    @staticmethod
-    async def _send_events(reader, writer, first, agen) -> None:
-        """Write ``first`` and every later event of ``agen`` while watching
-        the client: its end of the connection closing (EOF) stops the
-        stream, cancelling the pending event."""
-        async def client_gone():
-            while await reader.read(4096):
-                pass  # bytes past the request are ignored
-
-        gone = asyncio.ensure_future(client_gone())
-        nxt = None
-        try:
-            event = first
-            while True:
-                writer.write(b"data: " + json.dumps(event).encode() + b"\n\n")
-                await writer.drain()
-                nxt = asyncio.ensure_future(agen.__anext__())
-                await asyncio.wait({nxt, gone},
-                                   return_when=asyncio.FIRST_COMPLETED)
-                if not nxt.done():
-                    return  # the client left: the finally cancels nxt
-                try:
-                    event = nxt.result()
-                except StopAsyncIteration:
-                    return
-                except Exception as e:
-                    logger.exception("stream failed")
-                    writer.write(b"data: " + json.dumps(
-                        {"error": f"{type(e).__name__}: {e}"}).encode()
-                        + b"\n\n")
-                    await writer.drain()
-                    return
-        finally:
-            # a pending event is cancelled inside the generator, which then
-            # runs its own cleanup
-            for t in (gone, nxt):
-                if t is not None and not t.done():
-                    t.cancel()
-            await asyncio.gather(*(t for t in (gone, nxt) if t is not None),
-                                 return_exceptions=True)
-
-    async def _parse(self, body: bytes, kind):
-        """``(0, message)``, or ``(400, error JSON)`` for an empty or bad
-        body."""
-        if not body:
-            return 400, _err_json(400, "empty request body")
-        try:
-            # off the event loop: a large body (an image is 150,528 numbers)
-            # takes tens of ms to decode, and connections whose bodies
-            # arrive together would decode back to back in one pass of the
-            # loop, holding the batcher's flush timers until all are done
-            return 0, await asyncio.get_running_loop().run_in_executor(
-                self._decoder, _decode, kind, body)
-        except Exception as e:
-            return 400, _err_json(400, f"bad {kind.__name__}: {e}")
-
-    async def _call(self, body: bytes, kind, method):
-        """Parse ``body`` as ``kind`` (SeldonMessage or Feedback), await
-        ``method`` on it and answer its message."""
-        code, msg = await self._parse(body, kind)
-        if code:
-            return code, msg, "application/json"
-        try:
-            out = await method(msg)
-        except Exception as e:
-            logger.exception("%s failed", method.__name__)
-            return 500, _err_json(500, f"{type(e).__name__}: {e}",
-                                  "INTERNAL"), "application/json"
-        code = 200
-        if out.status is not None and out.status.status == "FAILURE":
-            code = out.status.code if 400 <= out.status.code < 600 else 500
-        return code, out.to_json().encode(), "application/json"
-
-    @staticmethod
-    async def _respond(writer, code: int, payload: bytes,
-                       ctype: str = "application/json",
-                       close: bool = False) -> None:
-        head = (f"HTTP/1.1 {code} {_REASONS.get(code, 'Error')}\r\n"
-                f"Content-Type: {ctype}\r\n"
-                f"Content-Length: {len(payload)}\r\n"
-                f"Connection: {'close' if close else 'keep-alive'}\r\n\r\n")
-        writer.write(head.encode("latin-1") + payload)
-        await writer.drain()
+    async def dispatch(self, req: Request):
+        """The answer to ``req``: a ``Response``, or an
+        :class:`EventStream` for a stream route.  Every transport (this
+        server, the native tier) answers through here."""
+        if self.is_stream(req):
+            return await self._streams[req.path](req)
+        handler = self._routes.get((req.method, req.path))
+        if handler is not None:
+            return await handler(req)
+        allowed = sorted({m for m, p in self._routes if p == req.path}
+                         | ({"POST"} if req.path in self._streams else set()))
+        if allowed:
+            return Response(405, _err_json(
+                405, f"{'/'.join(allowed)} only"))
+        # the reference's native tier's body
+        where = req.path if req.method == "GET" else \
+            f"{req.method} {req.path}"
+        return Response(404, _err_json(404, f"no route {where}"))

@@ -245,13 +245,25 @@ def test_spec_typed_parameters_match():
 
 
 def test_remote_endpoint_node_names_its_slice():
+    """A REST endpoint node gets a RemoteComponent with the timeout
+    annotations in seconds; a GRPC one names the slice that brings it."""
     from seldon_core_tpu_torch.operator.local import resolve_component
+    from seldon_core_tpu_torch.serving.client import RemoteComponent
 
-    unit = tspec.parse_graph({"name": "remote", "type": "MODEL",
-                              "endpoint": {"service_host": "h",
-                                           "service_port": 9000}})
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        resolve_component(unit, {}, "cpu")
+    node = {"name": "remote", "type": "MODEL", "methods": ["predict"],
+            "endpoint": {"service_host": "h", "service_port": 9000}}
+    ann = {"seldon.io/rest-read-timeout": "2500",
+           "seldon.io/rest-connection-timeout": "400"}
+    client = resolve_component(tspec.parse_graph(node), ann, "cpu")
+    assert isinstance(client, RemoteComponent)
+    assert client.base_url == "http://h:9000" and client.name == "remote"
+    assert client.timeout_s == 2.5
+    assert client._http.connect_timeout_s == 0.4
+    assert client.has("predict") and not client.has("route")
+    grpc = tspec.parse_graph({**node, "endpoint": {
+        "service_host": "h", "service_port": 9000, "type": "GRPC"}})
+    with pytest.raises(NotImplementedError, match="slice 4a-ii"):
+        resolve_component(grpc, {}, "cpu")
 
 
 # ---- the engine, case by case against the reference ----------------------

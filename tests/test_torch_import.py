@@ -1,7 +1,9 @@
 """The port imports neither jax, nor anything of the JAX package, nor
 ``safetensors`` (the card's machine has none; the port reads and writes
-the format itself), and its checkpoints and state blobs round-trip
-without them.
+the format itself), nor ``aiohttp``, ``grpc`` or ``google.protobuf``
+(absent there too: the serving tiers stand on the standard library and
+the repository's native library), and its checkpoints and state blobs
+round-trip without them.
 
 This runs in a subprocess: the test process itself has jax imported (the
 conftest pins its platform), so only a fresh interpreter with
@@ -19,6 +21,8 @@ PROBE = r"""
 import importlib, json, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["safetensors"] = None
+for blocked in ("aiohttp", "grpc", "google.protobuf", "ml_dtypes"):
+    sys.modules[blocked] = None
 import seldon_core_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -42,8 +46,49 @@ assert persistence.unpack_state(persistence.pack_state({"a": [1]})) == {
     "a": [1]}
 st = sorted(m for m in sys.modules
             if m.split(".")[0] == "safetensors" and sys.modules[m] is not None)
+# the wire tiers without aiohttp, grpc, protobuf or ml_dtypes: a bfloat16
+# binTensor and frame, a component server, a remote call, a framed call
+import asyncio, numpy as np
+from seldon_core_tpu_torch.messages import SeldonMessage
+from seldon_core_tpu_torch.native import FrameCodec
+from seldon_core_tpu_torch.runtime.component import ComponentHandle
+from seldon_core_tpu_torch.serving.client import RemoteComponent
+from seldon_core_tpu_torch.serving.framed import (
+    AsyncFramedClient, FramedComponentServer)
+from seldon_core_tpu_torch.serving.rest import RestServer
+bf = torch.arange(4).bfloat16()
+m = SeldonMessage.from_dict(SeldonMessage(data=bf, encoding="binTensor")
+                            .to_dict())
+assert m.data.dtype == torch.bfloat16 and torch.equal(m.data, bf)
+assert torch.equal(FrameCodec().decode(FrameCodec().encode(1, b"", [bf]))
+                   .tensors[0], bf)
+class Twice:
+    def predict(self, X, names):
+        return np.asarray(X) * 2
+async def wire():
+    srv = await RestServer(component=ComponentHandle(Twice()),
+                           host="127.0.0.1", port=0).start()
+    fsrv = FramedComponentServer(ComponentHandle(Twice())).start()
+    try:
+        rc = RemoteComponent(f"http://127.0.0.1:{srv.port}")
+        a = await rc.predict(SeldonMessage.from_ndarray(
+            np.ones((1, 2)), encoding="binTensor"))
+        fc = await AsyncFramedClient(timeout=30).connect("127.0.0.1",
+                                                         fsrv.port)
+        b = await fc.predict(SeldonMessage.from_ndarray(np.ones((1, 2))))
+        fc.close()
+        await rc.close()
+        return a.host_data().tolist(), b.host_data().tolist()
+    finally:
+        fsrv.stop()
+        await srv.stop()
+assert asyncio.run(asyncio.wait_for(wire(), 60)) == ([[2.0, 2.0]],) * 2
+blocked = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("aiohttp", "grpc", "ml_dtypes")
+                 or m.startswith("google.protobuf")
+                 if sys.modules[m] is not None)
 print(json.dumps({"modules": names, "ref": ref, "jax": jaxish,
-                  "safetensors": st}))
+                  "safetensors": st, "blocked": blocked}))
 """
 
 
@@ -57,6 +102,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert res["ref"] == [], res["ref"]
     assert res["jax"] == [], res["jax"]
     assert res["safetensors"] == [], res["safetensors"]
+    assert res["blocked"] == [], res["blocked"]
     expected = {
         "seldon_core_tpu_torch.device", "seldon_core_tpu_torch.convert",
         "seldon_core_tpu_torch.messages", "seldon_core_tpu_torch.ops._build",
@@ -80,6 +126,13 @@ def test_port_imports_without_jax_or_the_jax_package():
         "seldon_core_tpu_torch.models.outlier",
         "seldon_core_tpu_torch.models.resnet",
         "seldon_core_tpu_torch.models.resnet_int8",
+        "seldon_core_tpu_torch.native",
+        "seldon_core_tpu_torch.utils.metrics",
+        "seldon_core_tpu_torch.serving.openapi",
+        "seldon_core_tpu_torch.serving.client",
+        "seldon_core_tpu_torch.serving.microservice",
+        "seldon_core_tpu_torch.serving.framed",
+        "seldon_core_tpu_torch.serving.native_http",
     }
     assert expected <= set(res["modules"])
 

@@ -555,9 +555,8 @@ def test_generate_equals_reference():
 
 @pytest.mark.parametrize("draft", ["noisy", "small", "perfect"])
 def test_speculative_generate_equals_reference(draft):
-    """Ids equal the reference's (and the target's greedy decode).  The
-    port's draft writes d_{k-1}'s row (the reference's loop does not), so
-    its acceptance can only be as high or higher on a perfect draft."""
+    """Ids equal the reference's (and the target's greedy decode), and so
+    do ``rounds`` and ``accept_rate``: both drafts make k steps a round."""
     jd, td, jdc, tdc = {
         "noisy": (JNOISY, TNOISY, JCFG, TCFG),
         "small": (JSMALL, TSMALL, JDCFG, TDCFG),
@@ -571,6 +570,4 @@ def test_speculative_generate_equals_reference(draft):
     assert got[0].tolist() == np.asarray(want)[0].tolist()
     assert got[0].tolist() == _ref_ids(p, 20).tolist()
     assert stats["rounds"] >= 1
-    if draft == "perfect":
-        assert stats["accept_rate"] == 1.0
-        assert stats["accept_rate"] >= jstats["accept_rate"]
+    assert stats == jstats

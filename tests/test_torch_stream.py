@@ -217,14 +217,17 @@ def test_abandoned_stream_frees_its_slot_and_pages():
 def test_bad_requests_answer_json_like_the_reference():
     """Before the first event: a malformed body (400), a prompt over
     max_len and a request without ``prompt_ids`` (the reference answers
-    500 with the error) answer JSON with the reference's status."""
+    500 with the error) answer JSON with the reference's status.  An empty
+    prompt is no error: both stream its 3 tokens (the prefill of an empty
+    prompt is a bucket of pad ids) and answer 200 with the same ids."""
     jeng = jllm.LLMEngine(JP, JCFG, max_slots=2, max_len=32)
     jgraph = JGraphEngine(LLM_NODE, resolver=lambda u: JHandle(
         jllm.LLMComponent(jeng, n_new=6), name="llm"))
     graph, eng = _port_graph()
     bodies = [b"{not json", {"jsonData": {"prompt_ids": _prompt(30, 1),
                                          "n_new": 9}},
-              {"jsonData": {"n_new": 3}}]
+              {"jsonData": {"n_new": 3}},
+              {"jsonData": {"prompt_ids": [], "n_new": 3}}]
 
     async def run():
         runner = await start_server(build_app(engine=jgraph), "127.0.0.1", 0)
@@ -242,6 +245,10 @@ def test_bad_requests_answer_json_like_the_reference():
 
     answers = asyncio.run(run())
     eng.close()
+    (wc, want), (gc, got) = answers.pop()
+    assert gc == wc == 200 and len(got) == len(want) == 4
+    assert [e.get("token") for e in got] == [e.get("token") for e in want]
+    assert got[-1]["ids"] == want[-1]["ids"] and got[-1]["prompt_len"] == 0
     for (wc, want), (gc, got) in answers:
         assert gc == wc and 400 <= gc < 600
         assert got["status"]["status"] == "FAILURE"
