@@ -42,6 +42,12 @@ Prints one JSON object per line:
    (96 pages of 16, 8 slots, max_len 256) through ``LLMComponent`` behind
    the port's REST server: 8 concurrent requests, TTFT/TPOT medians, peak
    device memory, and the kernels' launch counts during the run.
+   ``grpc_7b``: the same weights and engine behind ``GrpcServer`` (the
+   ``Seldon`` service over a graph engine, and the component services): 8
+   concurrent ``Seldon.Predict`` and 8 concurrent ``Model.Stream``, every
+   request's ids equal to ``serve_7b``'s REST ids; TTFT/TPOT medians, peak
+   memory, launches; a stream cancelled after its first event gives back
+   its slot and pages.
 6. ``features_7b``: the same weights behind REST with 192 pages, 8
    slots, max_len 512, automatic prefixes, ``chunk_prefill`` 64 and a
    5 ms batching window: automatic and registered (page-aliased) prefix
@@ -107,7 +113,8 @@ Prints one JSON object per line:
    ``PersistenceManager`` pushes their state to a ``FileStateStore``, and
    a fresh runner that restores it answers the same probes equally.
 14. ``wire_env``: whether ``aiohttp``, ``grpc``, ``google.protobuf`` and
-    ``ml_dtypes`` import here (their versions), the ``g++`` version, and
+    ``ml_dtypes`` import here (their versions; the gRPC phases import grpc
+    and fail without it), the ``g++`` version, and
     the seconds of the native library's build from ``native/*.cc``
     (informative).
 15. ``wire_resnet50``: ResNet50 at full width (bf16 and int8, the
@@ -120,8 +127,15 @@ Prints one JSON object per line:
     equal, probabilities within ``RESNET_PARITY_TOL``'s atol); one
     binTensor batch of 64, bitwise equal to the in-process graph; the same singles through ``AsyncFramedClient`` to the
     FRAMED child and through the runner's ``NativeRestServer``, bitwise
-    equal to the REST answers.  Children write their launch counts at
-    exit: K1 37 a forward in the int8 ones, 0 in the float ones.
+    equal to the REST answers.  Then gRPC: a GRPC component child called
+    by a second runner child through a ``GRPC`` endpoint, driven by
+    ``SeldonGrpcClient`` on the runner's ``--grpc-port`` and
+    ``--native-grpc-port`` tiers: the 16 singles (bitwise equal to the
+    in-process graph), 16 concurrent (none shed, ids equal) and a batch
+    (64 images; 32 on the native tier, whose C server takes at most 32 MiB
+    a request), bitwise equal, p50/p95 per tier.  Children write their
+    launch counts at exit: K1 37 a forward in the int8 ones, 0 in the
+    float ones.
 16. ``wire_llm``: ``llm.json``'s model served by a microservice child
     and called by a runner child: ``llm_json``'s waves through
     ``/api/v0.1/predictions`` and ``/api/v0.1/stream`` give
@@ -129,22 +143,47 @@ Prints one JSON object per line:
     path's ids; ``/metrics`` holds the request and stream series;
     ``/pause`` turns predictions into 503 on the runner's Python and
     native tiers and ``/unpause`` restores them; ``/seldon.json`` parses.
+    The same model as a GRPC microservice child behind a ``GRPC`` endpoint:
+    the waves through the runner's REST predictions and stream and its
+    ``Seldon.Predict``, and each prompt's ``Generic.Stream`` on the child,
+    all give ``llm_json``'s ids; in process, a ``Generic.Stream`` cancelled
+    after its first event gives back its slot and pages.
 17. ``wire_persistence``: the MAB router as a microservice child with
     ``--persistence 1``, called by the in-process runner (its models on
     the card): rewarded over REST, stopped with SIGTERM, booted again,
     it answers the same probes as before (error 0.0).
-18. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
+18. ``workers``: ``resnet50-int8.json`` behind a runner child with
+    ``--workers 2``, REST, gRPC, native REST and native gRPC on shared
+    ``SO_REUSEPORT`` ports: both workers hold the card (their device files;
+    ``nvidia-smi --query-compute-apps=pid`` is printed beside, though a
+    container's pids need not match its list), 8 images per tier bitwise
+    equal to the in-process forward, and one worker killed stops the group
+    (the supervisor exits 0, every worker reaped).
+19. ``qos_resnet50``: the int8 ResNet50 behind a runner child with
+    ``seldon.io/slo-p95-ms``, breakers and a ``seldon.io/qos-fallback``
+    node (a SIMPLE_ROUTER over a GRPC primary child and a REST fallback
+    child): an open-loop burst of mixed priorities at twice the rate the
+    graph serves alone, every answer 200 with the in-process top-1 or 429
+    with ``Retry-After``, low shed first and most, goodput per priority; a
+    request whose budget has expired answers 504 and launches no kernel
+    (every K1 launch of the children is an answered forward's); the
+    primary stopped, its breaker opens and the fallback answers
+    ``degraded``.
+20. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
     phases of prefix caching, batched and chunked prefill, preemption and
     checkpoints together; ``slice_3b_phases``: ``spec_7b`` and
-    ``parity_spec_7b``; ``slice_4a_i_phases``: the ``wire_*`` phases).
-19. ``{"kernels": [...]}``: one entry per kernel with its launches in the
-    runs through entry points (``llm_json``, ``serve_7b``,
-    ``features_7b``, ``spec_7b``, ``checkpoint_7b``, ``wire_resnet50``
-    and ``wire_llm``, the last two counted by the child processes; K1
-    also ``resnet50_launches``: the int8 REST run), each phase's count
-    beside, its error, times and bound (K2 also at its two long cases
-    and the shared-prefix case).
-20. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+    ``parity_spec_7b``; ``slice_4a_i_phases``: the ``wire_*`` phases;
+    ``slice_4a_ii_qos_phases``: ``grpc_7b``, ``workers``,
+    ``qos_resnet50``).
+21. ``{"kernels": [...]}``: one entry per kernel with its launches in the
+    runs through entry points (``llm_json``, ``serve_7b``, ``grpc_7b``,
+    ``features_7b``, ``spec_7b``, ``checkpoint_7b``, ``wire_resnet50``,
+    ``wire_llm``, ``workers`` and ``qos_resnet50``, counted by the child
+    processes where the kernels run there; K1 also
+    ``resnet50_launches``: the int8 REST run), each phase's count beside,
+    its error, times and bound (K2 also at its two long cases and the
+    shared-prefix case).
+22. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
@@ -595,6 +634,8 @@ def read_launches() -> dict:
 #: llm_json's prompts and in-process ids, and the CPU plain path's ids of an
 #: empty prompt: wire_llm holds the remote component to them
 LLM_JSON: dict = {}
+#: serve_7b's prompts and REST ids: grpc_7b holds the gRPC tiers to them
+SERVE_7B: dict = {}
 
 
 def llm_json_phase(torch) -> dict:
@@ -779,6 +820,8 @@ def serve_7b_phase(torch) -> tuple:
     if engine.free_pages != 95:
         raise AssertionError(f"serve_7b: pages not returned "
                              f"({engine.free_pages} free)")
+    SERVE_7B.update(prompts=prompts,
+                    ids=[body["jsonData"]["ids"] for _, body in answers])
     log = list(engine.latency_log)
     engine.close()
     out = {"phase": "serve_7b",
@@ -796,6 +839,152 @@ def serve_7b_phase(torch) -> tuple:
         if n <= 0:
             raise AssertionError(f"serve_7b: {k} was not launched")
     return launches, params
+
+
+def _json_msg(prompt: list, n_new: int):
+    from seldon_core_tpu_torch.messages import SeldonMessage
+
+    return SeldonMessage(json_data={"prompt_ids": prompt, "n_new": n_new})
+
+
+def _stream_call(channel, service: str, msg):
+    """A ``/seldon.tpu.<service>/Stream`` call of ``msg`` on ``channel``."""
+    from seldon_core_tpu_torch.proto import prediction_pb2 as pb
+    from seldon_core_tpu_torch.proto.convert import message_to_proto
+
+    call = channel.unary_stream(
+        f"/seldon.tpu.{service}/Stream",
+        request_serializer=pb.SeldonMessage.SerializeToString,
+        response_deserializer=pb.SeldonMessage.FromString)
+    return call(message_to_proto(msg), timeout=600)
+
+
+async def _model_stream(channel, prompt: list, n_new: int) -> list:
+    """The events of one ``/seldon.tpu.Model/Stream`` call."""
+    from seldon_core_tpu_torch.proto.convert import message_from_proto
+
+    out = []
+    async for resp in _stream_call(channel, "Model", _json_msg(prompt, n_new)):
+        msg = message_from_proto(resp)
+        if msg.status is not None and msg.status.status == "FAILURE":
+            raise AssertionError(f"stream failed: {msg.status.to_dict()}")
+        out.append(msg.json_data)
+    return out
+
+
+def grpc_7b_phase(torch, params) -> dict:
+    """``serve_7b``'s model and weights (32 layers) in process behind
+    ``GrpcServer`` with the ``Seldon`` service (over a graph engine) and the
+    component services: 8 concurrent ``Seldon.Predict``, then 8 concurrent
+    ``Model.Stream``, each request's ids equal to ``serve_7b``'s REST ids;
+    TTFT/TPOT medians, peak memory, launches; then a stream cancelled after
+    its first event gives back its slot and pages."""
+    import grpc.aio
+
+    from seldon_core_tpu_torch.graph.engine import GraphEngine
+    from seldon_core_tpu_torch.runtime.component import ComponentHandle
+    from seldon_core_tpu_torch.runtime.llm import LLMComponent, PagedLLMEngine
+    from seldon_core_tpu_torch.runtime.paged import PagedConfig
+    from seldon_core_tpu_torch.serving.grpc_api import (
+        GrpcServer,
+        SeldonGrpcClient,
+        component_service_handlers,
+        seldon_service_handler,
+    )
+
+    engine = PagedLLMEngine(params, _cfg_7b(32),
+                            PagedConfig(n_pages=96, page_size=16),
+                            max_slots=8, max_len=256)
+    handle = ComponentHandle(LLMComponent(engine, n_new=16), name="llm")
+    graph = GraphEngine({"name": "llm", "type": "MODEL"},
+                        resolver=lambda u: handle)
+    prompts, want = SERVE_7B["prompts"], SERVE_7B["ids"]
+
+    async def run():
+        server = GrpcServer([seldon_service_handler(graph)]
+                            + component_service_handlers(handle, "MODEL"),
+                            port=0, host="127.0.0.1")
+        port = await server.start()
+        client = SeldonGrpcClient(f"127.0.0.1:{port}", timeout_s=600)
+        channel = grpc.aio.insecure_channel(f"127.0.0.1:{port}")
+        try:
+            warm = await client.predict(_json_msg([1, 2, 3], 2))
+            if warm.status.status != "SUCCESS":
+                raise AssertionError(f"grpc_7b warm-up: {warm.to_dict()}")
+            engine.latency_log.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            preds = await asyncio.gather(*(client.predict(_json_msg(p, 16))
+                                           for p in prompts))
+            t1 = time.perf_counter()
+            streams = await asyncio.gather(*(_model_stream(channel, p, 16)
+                                             for p in prompts))
+            t2 = time.perf_counter()
+            launches = read_launches()
+            # a stream cancelled after its first event
+            cancelled = _stream_call(channel, "Model",
+                                     _json_msg(prompts[0], 200))
+            await cancelled.__aiter__().__anext__()
+            held = (len(engine._slots), engine.free_pages)
+            cancelled.cancel()
+            t3 = time.monotonic()
+            while (engine._slots or engine.free_pages != 95) and \
+                    time.monotonic() - t3 < 30:
+                await asyncio.sleep(0.01)
+            freed = (len(engine._slots), engine.free_pages,
+                     time.monotonic() - t3)
+            return preds, streams, (t1 - t0, t2 - t1), launches, held, freed
+        finally:
+            await channel.close()
+            await client.close()
+            await server.stop()
+
+    preds, streams, walls, launches, held, freed = asyncio.run(run())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log = [x for x in engine.latency_log]
+    engine.close()
+    pred_ids = [p.json_data["ids"] if p.status.status == "SUCCESS" else
+                p.status.to_dict() for p in preds]
+    stream_ids = [ev[-1]["ids"] for ev in streams]
+    tokens_ok = all([e["token"] for e in ev[:-1]] == ev[-1]["ids"][len(p):]
+                    for ev, p in zip(streams, prompts))
+    out = {"phase": "grpc_7b",
+           "model": "L32 d4096 H32/Hkv8 ff16384 V32000 bf16 int8-full flash",
+           "tier": "grpc.aio GrpcServer: Seldon.Predict over GraphEngine, "
+                   "Model.Stream over the component",
+           "requests": len(prompts), "n_new": 16,
+           "predict_wall_s": walls[0], "stream_wall_s": walls[1],
+           "predict_ids_equal_serve_7b": sum(a == b for a, b in
+                                             zip(pred_ids, want)),
+           "stream_ids_equal_serve_7b": sum(a == b for a, b in
+                                            zip(stream_ids, want)),
+           "stream_tokens_match_done_ids": tokens_ok,
+           "ttft_ms_median": statistics.median(x["ttft_s"] for x in log) * 1e3,
+           "tpot_ms_median": statistics.median(
+               x["tpot_s"] for x in log if x["tpot_s"] is not None) * 1e3,
+           "tokens_per_s_predict": 16 * len(prompts) / walls[0],
+           "peak_device_bytes": peak, "launches": launches,
+           "cancelled_stream": {"held_slots": held[0],
+                                "held_free_pages": held[1],
+                                "after_slots": freed[0],
+                                "after_free_pages": freed[1],
+                                "freed_in_s": freed[2]},
+           "card": CARD}
+    emit(out)
+    if out["predict_ids_equal_serve_7b"] != len(prompts) or \
+            out["stream_ids_equal_serve_7b"] != len(prompts) or not tokens_ok:
+        raise AssertionError(f"grpc_7b: ids differ from serve_7b's: "
+                             f"{pred_ids} {stream_ids} {want}")
+    if held[0] != 1 or freed[:2] != (0, 95):
+        raise AssertionError(f"grpc_7b: cancelled stream kept its slot or "
+                             f"pages: {out['cancelled_stream']}")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"grpc_7b: {k} was not launched")
+    return launches
 
 
 def parity_7b_phase(torch) -> None:
@@ -2245,8 +2434,8 @@ def _free_port() -> int:
 
 def wire_env_phase() -> None:
     """Which packages of the reference's wire tiers this machine has, with
-    their versions (the plan of slice 4a-ii reads it), the compiler, and
-    the native library's build from ``native/*.cc``."""
+    their versions (the gRPC phases import grpc and protobuf), the
+    compiler, and the native library's build from ``native/*.cc``."""
     import importlib
 
     have = {}
@@ -2362,7 +2551,7 @@ def wire_resnet50_phase(torch) -> dict:
         params = json.dumps([{"name": "int8", "value": str(int8).lower(),
                               "type": "BOOL"}])
         env = {"PREDICTIVE_UNIT_ID": "resnet"}
-        for api in ("REST", "FRAMED"):
+        for api in ("REST", "FRAMED", "GRPC"):
             kids[label, api] = component_child(
                 f"resnet_{label}_{api.lower()}",
                 ["chip_smoke:wire_resnet", api, "--parameters", params,
@@ -2374,22 +2563,34 @@ def wire_resnet50_phase(torch) -> dict:
            "card": CARD}
     launches = {"int8_matmul": 0, "paged_attention": 0,
                 "flash_attention": 0}
-    engines = []
+    engines, grpc_engines = [], {}
     try:
         for label in ("bf16", "int8"):
-            cport = kids[label, "REST"][0].port("serving on")
-            graph = {"spec": {"name": f"wire-{label}", "annotations": {
-                "seldon.io/rest-read-timeout": "300000"},
-                "predictors": [{"name": "main", "graph": {
-                    "name": "resnet", "type": "MODEL", "endpoint": {
-                        "service_host": "127.0.0.1", "service_port": cport,
-                        "type": "REST"}}}]}}
-            path = WIRE_DIR / f"graph_{label}.json"
-            path.write_text(json.dumps(graph))
-            engines.append(Child(
-                [sys.executable, "-m", "seldon_core_tpu_torch.operator.local",
-                 "--graph", str(path), "--port", "0", "--host", "127.0.0.1",
-                 "--native-port", str(_free_port())], label=f"engine_{label}"))
+            for api, marker in (("REST", "serving on"),
+                                ("GRPC", "serving gRPC on")):
+                cport = kids[label, api][0].port(marker)
+                graph = {"spec": {"name": f"wire-{label}", "annotations": {
+                    "seldon.io/rest-read-timeout": "300000",
+                    "seldon.io/grpc-read-timeout": "300000"},
+                    "predictors": [{"name": "main", "graph": {
+                        "name": "resnet", "type": "MODEL", "endpoint": {
+                            "service_host": "127.0.0.1",
+                            "service_port": cport, "type": api}}}]}}
+                path = WIRE_DIR / f"graph_{label}_{api.lower()}.json"
+                path.write_text(json.dumps(graph))
+                argv = [sys.executable, "-m",
+                        "seldon_core_tpu_torch.operator.local", "--graph",
+                        str(path), "--port", "0", "--host", "127.0.0.1"]
+                if api == "REST":
+                    engines.append(Child(
+                        argv + ["--grpc-port", "0",
+                                "--native-port", str(_free_port())],
+                        label=f"engine_{label}"))
+                else:
+                    grpc_engines[label] = Child(
+                        argv + ["--grpc-port", str(_free_port()),
+                                "--native-grpc-port", str(_free_port())],
+                        label=f"engine_{label}_grpc")
         for label, int8 in (("bf16", False), ("int8", True)):
             eng = engines[int8]
             nport = eng.port("native REST tier on")
@@ -2408,6 +2609,9 @@ def wire_resnet50_phase(torch) -> dict:
             want_nd = [in_process(imgs[i:i + 1].astype(np.int64))
                        for i in range(WIRE_IMAGES)]
             want64 = np.asarray(in_process(batch)["ndarray"], np.float32)
+            want32 = np.asarray(in_process(batch[:NATIVE_H2_BATCH])["ndarray"],
+                                np.float32)
+            want_arr = [np.asarray(w["ndarray"], np.float64) for w in want_bin]
             del local, graph
             torch.cuda.empty_cache()
             res = {}
@@ -2500,8 +2704,37 @@ def wire_resnet50_phase(torch) -> dict:
                 emit(out)
                 raise AssertionError(f"wire {label}: native {nat_equal}, "
                                      f"framed {fr_equal} of {WIRE_IMAGES}")
+            # gRPC: the runner's Seldon service and its native gRPC tier,
+            # the hop a GRPC endpoint to the GRPC component child
+            geng = grpc_engines[label]
+            gport = geng.port("gRPC Seldon service on")
+            ngport = geng.port("native gRPC tier on")
+            for tier, port, big, want_big in (
+                    ("grpc", gport, batch, want64),
+                    ("native_grpc", ngport, batch[:NATIVE_H2_BATCH], want32)):
+                res[tier] = asyncio.run(_grpc_wire(port, imgs, big))
+                r = res[tier]
+                r["bitwise_equal_in_process"] = sum(
+                    np.array_equal(g, w) for g, w in zip(r.pop("singles"),
+                                                          want_arr))
+                conc = r.pop("concurrent_answers")
+                r["concurrent_bitwise_equal"] = sum(
+                    g is not None and np.array_equal(g, w)
+                    for g, w in zip(conc, want_arr))
+                r["concurrent_ids_equal"] = sum(
+                    g is not None and int(g.argmax()) == int(w.argmax())
+                    for g, w in zip(conc, want_arr))
+                got = r.pop("batch")
+                r["batch_max_abs_err"] = None if got is None else \
+                    float(np.abs(got - want_big).max())
+                if r["bitwise_equal_in_process"] != WIRE_IMAGES or \
+                        r["concurrent_shed"] or \
+                        r["concurrent_ids_equal"] != WIRE_IMAGES or \
+                        r["batch_max_abs_err"] != 0.0:
+                    emit({**out, label: res})
+                    raise AssertionError(f"wire {label} {tier}: {r}")
     finally:
-        for e in engines:
+        for e in engines + list(grpc_engines.values()):
             e.stop()
         for child, _ in kids.values():
             child.stop()
@@ -2512,17 +2745,69 @@ def wire_resnet50_phase(torch) -> dict:
         for k in launches:
             launches[k] += got[k]
     out["component_launches"] = per
-    # one warm-up, 16 x 4 singles and one batch per REST component: every
-    # forward of the int8 one launches K1 37 times, the float one never
+    # one warm-up, 16 x 4 singles and one batch per REST component; per
+    # gRPC tier a warm-up, 16 singles, 16 concurrent and one batch: every
+    # forward of the int8 ones launches K1 37 times, the float ones never
     rest_forwards = 1 + 4 * WIRE_IMAGES + 1 + WIRE_IMAGES
+    grpc_forwards = 2 * (1 + 2 * WIRE_IMAGES + 1)
     out["int8_k1_per_forward"] = per["int8_rest"]["int8_matmul"] / \
         rest_forwards
+    out["int8_grpc_k1_per_forward"] = per["int8_grpc"]["int8_matmul"] / \
+        grpc_forwards
     emit(out)
     if per["int8_rest"]["int8_matmul"] != 37 * rest_forwards or \
             per["int8_framed"]["int8_matmul"] != 37 * (WIRE_IMAGES + 1) or \
-            per["bf16_rest"]["int8_matmul"] != 0:
+            per["int8_grpc"]["int8_matmul"] != 37 * grpc_forwards or \
+            per["bf16_rest"]["int8_matmul"] != 0 or \
+            per["bf16_grpc"]["int8_matmul"] != 0:
         raise AssertionError(f"wire_resnet50: K1 launches {per}")
     return launches
+
+
+#: the native h2c server takes at most 32 MiB in one request
+#: (``native/httpserver.cc`` ``kMaxStreamBody``): a batch of 64 float32
+#: images is 38.5 MB, so its native gRPC tier gets the first 32
+NATIVE_H2_BATCH = 32
+
+
+async def _grpc_wire(port: int, imgs, batch) -> dict:
+    """``SeldonGrpcClient`` against one gRPC tier of a runner: a warm-up,
+    the single images in turn and all at once (binTensor), and the batch;
+    their answers (float64) and times."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.serving.grpc_api import SeldonGrpcClient
+
+    def msg(x):
+        return SeldonMessage(data=x, encoding="binTensor")
+
+    async def timed(x):
+        t0 = time.perf_counter()
+        o = await c.predict(msg(x))
+        return o, time.perf_counter() - t0
+
+    def arr(o):
+        if o.status is not None and o.status.status == "FAILURE":
+            return None
+        return np.asarray(o.host_data(), np.float64)
+
+    c = SeldonGrpcClient(f"127.0.0.1:{port}", timeout_s=600)
+    try:
+        await c.predict(msg(imgs[:1]))
+        seq = [await timed(imgs[i:i + 1]) for i in range(len(imgs))]
+        conc = await asyncio.gather(*(timed(imgs[i:i + 1])
+                                      for i in range(len(imgs))))
+        b, tb = await timed(batch)
+    finally:
+        await c.close()
+    return {"sequential": _pctl([t * 1e3 for _, t in seq]),
+            "concurrent": _pctl([t * 1e3 for _, t in conc]),
+            "concurrent_shed": sum(arr(o) is None for o, _ in conc),
+            "batch_rows": len(batch), "batch_ms": tb * 1e3,
+            "singles": [arr(o) for o, _ in seq],
+            "concurrent_answers": [arr(o) for o, _ in conc],
+            "batch": arr(b)}
 
 
 def wire_llm_phase(torch) -> dict:
@@ -2540,12 +2825,29 @@ def wire_llm_phase(torch) -> dict:
     params = [p for p in node["parameters"] if p["name"] != "model_class"]
     cls = [p["value"] for p in node["parameters"]
            if p["name"] == "model_class"][0]
+    node_params = params
     comp, counts = component_child(
         "llm", [cls, "REST", "--parameters", json.dumps(params),
                 "--port", "0"], {"PREDICTIVE_UNIT_ID": "llm"})
-    engine = None
+    gcomp, gcounts = component_child(
+        "llm_grpc", [cls, "GRPC", "--parameters", json.dumps(params),
+                     "--port", "0"], {"PREDICTIVE_UNIT_ID": "llm"})
+    engine = gengine = None
     out = {"phase": "wire_llm", "card": CARD}
     try:
+        gport = gcomp.port("serving gRPC on")
+        gd = json.loads(json.dumps(d))
+        gd["spec"]["predictors"][0]["graph"] = {
+            "name": "llm", "type": "MODEL", "endpoint": {
+                "service_host": "127.0.0.1", "service_port": gport,
+                "type": "GRPC"}}
+        gpath = WIRE_DIR / "graph_llm_grpc.json"
+        gpath.write_text(json.dumps(gd))
+        gengine = Child([sys.executable, "-m",
+                         "seldon_core_tpu_torch.operator.local", "--graph",
+                         str(gpath), "--port", "0", "--host", "127.0.0.1",
+                         "--grpc-port", str(_free_port())],
+                        label="engine_llm_grpc")
         cport = comp.port("serving on")
         node = {"name": "llm", "type": "MODEL", "endpoint": {
             "service_host": "127.0.0.1", "service_port": cport,
@@ -2556,6 +2858,7 @@ def wire_llm_phase(torch) -> dict:
         engine = Child([sys.executable, "-m",
                         "seldon_core_tpu_torch.operator.local", "--graph",
                         str(path), "--port", "0", "--host", "127.0.0.1",
+                        "--grpc-port", "0",
                         "--native-port", str(_free_port())],
                        label="engine_llm")
         nport = engine.port("native REST tier on")
@@ -2608,13 +2911,51 @@ def wire_llm_phase(torch) -> dict:
             "pause": [p[0] for p in paused],
             "unpause": [resumed[0][0], *resumed[1:]],
             "seldon_json_paths": len(spec.get("paths", {}))})
+        # the GRPC component child behind a GRPC endpoint node: the waves
+        # through the runner's REST predictions and stream (the hop is
+        # Predict and Generic.Stream) and its Seldon gRPC service, and each
+        # prompt's Generic.Stream on the child itself
+        grport = gengine.port("serving deployment")
+        gsport = gengine.port("gRPC Seldon service on")
+        g = {"rest_predictions": [], "rest_stream": []}
+        for wave in (prompts[:3], prompts[3:]):
+            bodies = [json.dumps({"jsonData": {"prompt_ids": p, "n_new": 8}}
+                                 ).encode() for p in wave]
+            ans = asyncio.run(_in_threads(_post_raw, [
+                (grport, "/api/v0.1/predictions", b) for b in bodies]))
+            sse = asyncio.run(_in_threads(_post_raw, [
+                (grport, "/api/v0.1/stream", b) for b in bodies]))
+            g["rest_predictions"] += [a[1]["jsonData"]["ids"] if a[0] == 200
+                                      else a[:2] for a in ans]
+            g["rest_stream"] += [e[1][-1]["ids"] if e[0] == 200 else e[:2]
+                                 for e in sse]
+        g.update(asyncio.run(_llm_grpc_calls(gsport, gport, prompts)))
+        out["grpc"] = {k: v == want for k, v in g.items()}
     finally:
-        if engine is not None:
-            engine.stop()
+        for e in (engine, gengine):
+            if e is not None:
+                e.stop()
         comp.stop()
+        gcomp.stop()
     launches = read_child_launches(counts)
     out["component_launches"] = launches
+    out["grpc_component_launches"] = read_child_launches(gcounts)
+    for k, n in out["grpc_component_launches"].items():
+        launches = {**launches, k: launches[k] + n}
+    out["grpc_cancelled_stream"], inproc = _llm_grpc_cancel(node_params)
+    for k, n in inproc.items():
+        launches[k] += n
     emit(out)
+    if not all(out["grpc"].values()):
+        raise AssertionError(f"wire_llm gRPC: ids differ: {out['grpc']}")
+    c = out["grpc_cancelled_stream"]
+    if c["held_slots"] != 1 or c["after_slots"] != 0 or \
+            c["after_free_pages"] != c["free_pages_idle"]:
+        raise AssertionError(f"wire_llm: cancelled gRPC stream {c}")
+    if out["grpc_component_launches"]["int8_matmul"] == 0 or \
+            out["grpc_component_launches"]["paged_attention"] == 0:
+        raise AssertionError(f"wire_llm gRPC child: kernels not launched "
+                             f"{out['grpc_component_launches']}")
     e = out["empty_prompt"]
     if not (out["ids_equal_llm_json"] and out["stream_ids_equal_llm_json"]):
         raise AssertionError("wire_llm: ids differ from llm_json's")
@@ -2630,6 +2971,87 @@ def wire_llm_phase(torch) -> dict:
     if launches["int8_matmul"] == 0 or launches["paged_attention"] == 0:
         raise AssertionError(f"wire_llm: kernels not launched {launches}")
     return launches
+
+
+async def _llm_grpc_calls(seldon_port: int, comp_port: int,
+                          prompts: list) -> dict:
+    """The prompts' greedy ids through a runner's ``Seldon.Predict`` and
+    through ``Generic.Stream`` on the component child."""
+    from seldon_core_tpu_torch.serving.grpc_api import (
+        GrpcComponentClient,
+        SeldonGrpcClient,
+    )
+
+    sc = SeldonGrpcClient(f"127.0.0.1:{seldon_port}", timeout_s=600)
+    cc = GrpcComponentClient(f"127.0.0.1:{comp_port}", timeout_s=600)
+    try:
+        out = {"seldon_predict": [], "component_stream": []}
+        for wave in (prompts[:3], prompts[3:]):
+            preds = await asyncio.gather(*(sc.predict(_json_msg(p, 8))
+                                           for p in wave))
+            out["seldon_predict"] += [
+                p.json_data["ids"] if p.status.status == "SUCCESS"
+                else p.status.to_dict() for p in preds]
+
+            async def events(p):
+                return [e async for e in cc.stream(_json_msg(p, 8))]
+
+            streams = await asyncio.gather(*(events(p) for p in wave))
+            out["component_stream"] += [ev[-1]["ids"] for ev in streams]
+        return out
+    finally:
+        await sc.close()
+        await cc.close()
+
+
+def _llm_grpc_cancel(params: list) -> tuple:
+    """``llm.json``'s model in process on the card behind ``GrpcServer``: a
+    ``Generic.Stream`` cancelled after its first event gives back its slot
+    and pages.  Returns the record and the launches."""
+    import grpc.aio
+
+    from seldon_core_tpu_torch.graph.spec import _coerce_param
+    from seldon_core_tpu_torch.models.llm_demo import DemoLLM
+    from seldon_core_tpu_torch.runtime.component import ComponentHandle
+    from seldon_core_tpu_torch.serving.grpc_api import (
+        GrpcServer,
+        component_service_handlers,
+    )
+
+    kw = {p["name"]: _coerce_param(p["value"], p.get("type", "STRING"),
+                                   "parameters", p["name"]) for p in params}
+    comp = DemoLLM(**kw)
+    engine = comp.engine
+    idle = engine.free_pages
+    handle = ComponentHandle(comp, name="llm")
+
+    async def run():
+        server = GrpcServer(component_service_handlers(handle, "MODEL"),
+                            port=0, host="127.0.0.1")
+        port = await server.start()
+        channel = grpc.aio.insecure_channel(f"127.0.0.1:{port}")
+        try:
+            reset_launches()
+            call = _stream_call(channel, "Generic",
+                                _json_msg(list(range(1, 20)), 100))
+            await call.__aiter__().__anext__()
+            held = (len(engine._slots), engine.free_pages)
+            call.cancel()
+            t0 = time.monotonic()
+            while (engine._slots or engine.free_pages != idle) and \
+                    time.monotonic() - t0 < 30:
+                await asyncio.sleep(0.01)
+            return held, (len(engine._slots), engine.free_pages,
+                          time.monotonic() - t0), read_launches()
+        finally:
+            await channel.close()
+            await server.stop()
+
+    held, freed, launches = asyncio.run(run())
+    engine.close()
+    return {"held_slots": held[0], "held_free_pages": held[1],
+            "after_slots": freed[0], "after_free_pages": freed[1],
+            "free_pages_idle": idle, "freed_in_s": freed[2]}, launches
 
 
 def wire_persistence_phase() -> None:
@@ -2721,6 +3143,401 @@ def wire_persistence_phase() -> None:
                              f"{err}, exit codes {rcs}")
 
 
+def runner_child(label: str, argv: list, env: dict = None) -> tuple:
+    """The local runner (``argv``) in a child of this script whose every
+    process (the supervisor and each worker) writes its launch counts to a
+    file of its own when it exits; returns ``(child, counts prefix)``."""
+    WIRE_DIR.mkdir(parents=True, exist_ok=True)
+    counts = WIRE_DIR / f"launches_{label}"
+    for old in WIRE_DIR.glob(f"launches_{label}.*.json"):
+        old.unlink()
+    child = Child([sys.executable, str(ROOT / "chip_smoke.py"),
+                   "--runner-child", str(counts), *argv], env, label)
+    return child, counts
+
+
+def runner_child_main(argv: list) -> int:
+    """``chip_smoke.py --runner-child COUNTS <runner argv>``: run
+    ``seldon_core_tpu_torch.operator.local`` and, at each process's exit,
+    write its launch counts to ``COUNTS.<pid>.json``."""
+    import atexit
+    import os
+
+    sys.path.insert(0, str(ROOT))
+    counts, rest = argv[0], argv[1:]
+    from seldon_core_tpu_torch.operator import local
+
+    atexit.register(lambda: Path(f"{counts}.{os.getpid()}.json").write_text(
+        json.dumps(read_launches())))
+    local.engine_main(rest)
+    return 0
+
+
+def _proc_uses_card(pid: int) -> bool:
+    """Whether process ``pid`` holds an NVIDIA device file open."""
+    import os
+
+    try:
+        return any(os.readlink(f"/proc/{pid}/fd/{fd}").startswith(
+            "/dev/nvidia") for fd in os.listdir(f"/proc/{pid}/fd"))
+    except OSError:
+        return False
+
+
+def workers_phase(torch) -> dict:
+    """The port's ``resnet50-int8.json`` behind a runner child with
+    ``--workers 2``: REST, gRPC, native REST and native gRPC on
+    ``SO_REUSEPORT`` ports shared by both workers.  Both worker pids on the
+    card (``nvidia-smi --query-compute-apps=pid``, and each holding the
+    card's device files); 8 single images per tier, each answer bitwise
+    equal to the in-process forward of the same model at batch 1; then one
+    worker is killed and the group stops (the supervisor exits 0, every
+    worker reaped).  Returns the surviving processes' launches."""
+    import os
+    import signal
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.models.resnet_int8 import Int8ResNet50Model
+    from seldon_core_tpu_torch.runtime.component import ComponentHandle
+
+    graph = ROOT / "seldon_core_tpu_torch" / "examples" / "resnet50-int8.json"
+    ports = [_free_port() for _ in range(4)]
+    child, counts = runner_child("workers", [
+        "--graph", str(graph), "--host", "127.0.0.1", "--workers", "2",
+        "--port", str(ports[0]), "--grpc-port", str(ports[1]),
+        "--native-port", str(ports[2]), "--native-grpc-port",
+        str(ports[3])])
+    n = 8
+    imgs = np.random.default_rng(13).integers(
+        0, 256, (n, 224, 224, 3)).astype(np.float32)
+    out = {"phase": "workers", "graph": "resnet50-int8.json", "workers": 2,
+           "images_per_tier": n, "card": CARD}
+    try:
+        handle = ComponentHandle(Int8ResNet50Model(image_size=224),
+                                 name="resnet50-int8")
+        want = [np.asarray(handle.predict(SeldonMessage.from_ndarray(
+            imgs[i:i + 1])).host_data(), np.float64) for i in range(n)]
+        del handle
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        while sum("serving deployment" in (ln or "")
+                  for ln in list(child.lines)) < 2:
+            child.wait_for("serving deployment", 600)
+            if time.monotonic() - t0 > 600:
+                raise AssertionError(f"workers: {child.tail()}")
+            time.sleep(0.2)
+        pids = sorted(int(ln.split("pid ")[1].rstrip(")"))
+                      for ln in list(child.lines)
+                      if ln and ln.startswith("worker ") and "(pid " in ln)
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.split()
+        out.update(worker_pids=pids, supervisor_pid=child.proc.pid,
+                   nvidia_smi_compute_pids=smi,
+                   nvidia_smi_lists_workers=all(str(p) in smi for p in pids),
+                   workers_hold_device_files=[_proc_uses_card(p)
+                                              for p in pids])
+
+        def body(x):
+            import base64
+
+            return json.dumps({"data": {"binTensor": {
+                "shape": list(x.shape), "dtype": "float32",
+                "b64": base64.b64encode(x.tobytes()).decode()}}}).encode()
+
+        tiers = {}
+        for tier, port in (("rest", ports[0]), ("native_rest", ports[2])):
+            got = []
+            for i in range(n):
+                code, res, _ = _post_raw(port, "/api/v0.1/predictions",
+                                         body(imgs[i:i + 1]))
+                got.append(np.asarray(res["data"]["ndarray"], np.float64)
+                           if code == 200 else None)
+            tiers[tier] = got
+
+        async def grpc_tier(port):
+            from seldon_core_tpu_torch.serving.grpc_api import (
+                SeldonGrpcClient,
+            )
+
+            got = []
+            for i in range(n):
+                # a new channel each time: the kernel spreads connections
+                c = SeldonGrpcClient(f"127.0.0.1:{port}", timeout_s=600)
+                try:
+                    o = await c.predict(SeldonMessage(
+                        data=imgs[i:i + 1], encoding="binTensor"))
+                finally:
+                    await c.close()
+                got.append(np.asarray(o.host_data(), np.float64)
+                           if o.status.status == "SUCCESS" else None)
+            return got
+
+        for tier, port in (("grpc", ports[1]), ("native_grpc", ports[3])):
+            tiers[tier] = asyncio.run(grpc_tier(port))
+        out["bitwise_equal_in_process"] = {
+            t: sum(g is not None and np.array_equal(g, w)
+                   for g, w in zip(got, want)) for t, got in tiers.items()}
+        # fail-fast: one worker killed stops the group
+        os.kill(pids[0], signal.SIGKILL)
+        rc = child.proc.wait(timeout=120)
+        t0 = time.monotonic()
+        while any(os.path.exists(f"/proc/{p}") for p in pids) and \
+                time.monotonic() - t0 < 30:
+            time.sleep(0.05)
+        out.update(supervisor_exit_code=rc,
+                   workers_left=[p for p in pids
+                                 if os.path.exists(f"/proc/{p}")])
+    finally:
+        child.stop()
+    files = sorted(WIRE_DIR.glob(f"launches_workers.*.json"))
+    launches = {"int8_matmul": 0, "paged_attention": 0, "flash_attention": 0}
+    for f in files:
+        for k, v in json.loads(f.read_text()).items():
+            launches[k] += v
+    out["launches_of_exited_processes"] = launches
+    out["count_files"] = len(files)
+    emit(out)
+    if len(pids) != 2 or not all(out["workers_hold_device_files"]):
+        raise AssertionError(f"workers: not both on the card: {out}")
+    if any(v != n for v in out["bitwise_equal_in_process"].values()):
+        raise AssertionError(f"workers: answers differ: {out}")
+    if out["supervisor_exit_code"] != 0 or out["workers_left"]:
+        raise AssertionError(f"workers: the group did not stop: {out}")
+    # the surviving worker warmed 7 buckets and served: K1 37 a forward
+    if launches["int8_matmul"] <= 0 or launches["int8_matmul"] % 37:
+        raise AssertionError(f"workers: K1 launches {launches}")
+    return launches
+
+
+QOS_IMAGES = 8
+QOS_BURST_S = 4.0
+
+
+def _post_qos(port: int, data: bytes, headers: dict) -> tuple:
+    """POST a prediction with QoS headers: ``(status, Retry-After, body,
+    seconds, send time)``."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/api/v0.1/predictions", data=data,
+        headers={"Content-Type": "application/json", **headers})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, hdrs, raw = r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        code, hdrs, raw = e.code, e.headers, e.read()
+    return code, hdrs.get("Retry-After"), json.loads(raw), \
+        time.perf_counter() - t0, t0
+
+
+def qos_resnet50_phase(torch) -> dict:
+    """The int8 ResNet50 behind the runner with QoS: the graph is a
+    SIMPLE_ROUTER over ``primary`` (a GRPC microservice child) and
+    ``cheap`` (a REST microservice child, the same weights), with
+    ``seldon.io/slo-p95-ms``, breakers (3 calls), and ``cheap`` as the
+    ``seldon.io/qos-fallback``.  (1) The rate the graph serves alone (64
+    uint8 images from 12 clients in a closed loop); (2) an open-loop burst at twice that rate for
+    ``QOS_BURST_S`` seconds, priorities low/normal/high in turn: every
+    answer 200 with the in-process top-1, or 429 with ``Retry-After``, low
+    shed first and most, goodput per priority; (3) a request whose budget
+    has expired answers 504 and launches no kernel: every K1 launch of the
+    children is accounted for by an answered forward; (4) the primary child
+    is stopped: after 3 failures its breaker opens and the fallback answers,
+    ``meta.tags.degraded`` ``breaker_open``.  Returns the children's
+    launches."""
+    import base64
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.runtime.component import ComponentHandle
+
+    params = json.dumps([{"name": "int8", "value": "true", "type": "BOOL"}])
+    prim, pcounts = component_child(
+        "qos_primary", ["chip_smoke:wire_resnet", "GRPC", "--parameters",
+                        params, "--port", "0"],
+        {"PREDICTIVE_UNIT_ID": "primary"})
+    cheap, ccounts = component_child(
+        "qos_cheap", ["chip_smoke:wire_resnet", "REST", "--parameters",
+                      params, "--port", "0"], {"PREDICTIVE_UNIT_ID": "cheap"})
+    ann = {"seldon.io/slo-p95-ms": "250",
+           "seldon.io/qos-fallback": "cheap",
+           "seldon.io/qos-degrade-shed-level": "3",
+           "seldon.io/qos-breaker-min-calls": "3",
+           "seldon.io/qos-breaker-open-ms": "600000",
+           "seldon.io/grpc-read-timeout": "60000",
+           "seldon.io/rest-read-timeout": "60000"}
+    # uint8 images (the model's first step casts to bf16, exactly as for
+    # float32 0-255 values): 200 KB bodies, so the REST front end parses
+    # faster than the primary computes, and the engine, where admission
+    # control stands, is the bottleneck
+    rng = np.random.default_rng(17)
+    imgs = rng.integers(0, 256, (QOS_IMAGES, 224, 224, 3)).astype(np.uint8)
+    bodies = [json.dumps({"data": {"binTensor": {
+        "shape": [1, 224, 224, 3], "dtype": "uint8",
+        "b64": base64.b64encode(imgs[i:i + 1].tobytes()).decode()}}}
+        ).encode() for i in range(QOS_IMAGES)]
+    out = {"phase": "qos_resnet50", "annotations": ann, "card": CARD}
+    engine = None
+    try:
+        local = ComponentHandle(wire_resnet(True), name="resnet")
+        top1 = [int(np.asarray(local.predict(SeldonMessage.from_ndarray(
+            imgs[i:i + 1])).host_data()).argmax()) for i in range(QOS_IMAGES)]
+        del local
+        torch.cuda.empty_cache()
+        graph = {"name": "router", "type": "ROUTER",
+                 "implementation": "SIMPLE_ROUTER", "children": [
+                     {"name": "primary", "type": "MODEL", "endpoint": {
+                         "service_host": "127.0.0.1", "type": "GRPC",
+                         "service_port": prim.port("serving gRPC on")}},
+                     {"name": "cheap", "type": "MODEL", "endpoint": {
+                         "service_host": "127.0.0.1", "type": "REST",
+                         "service_port": cheap.port("serving on")}}]}
+        path = WIRE_DIR / "graph_qos.json"
+        path.write_text(json.dumps({"spec": {
+            "name": "qos-resnet50", "annotations": ann,
+            "predictors": [{"name": "main", "graph": graph}]}}))
+        engine = Child([sys.executable, "-m",
+                        "seldon_core_tpu_torch.operator.local", "--graph",
+                        str(path), "--port", "0", "--host", "127.0.0.1",
+                        "--grpc-port", "0"], label="engine_qos")
+        port = engine.port("serving deployment")
+        answers = []  # (phase, priority, image, result)
+
+        def record(phase, pri, i, res):
+            answers.append((phase, pri, i, res))
+            return res
+
+        # (1) alone: the rate the graph serves, 12 clients in a closed
+        # loop of 64 requests (below the admission limit: none sheds)
+        record("warm", "high", 0, _post_qos(port, bodies[0], {}))
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(12) as pool:
+            alone = list(pool.map(lambda k: (k % QOS_IMAGES, _post_qos(
+                port, bodies[k % QOS_IMAGES], {"X-Seldon-Priority": "high"})),
+                range(64)))
+        rate = 64 / (time.perf_counter() - t0)
+        for i, res in alone:
+            record("alone", "high", i, res)
+        # (2) the burst, open loop at twice that rate
+        n = int(2 * rate * QOS_BURST_S)
+        pris = ["low", "normal", "high"]
+        plan = [(pris[k % 3], k % QOS_IMAGES, k / (2 * rate))
+                for k in range(n)]
+        with ThreadPoolExecutor(128) as pool:
+            start = time.perf_counter()
+            futs = []
+            for pri, i, at in plan:
+                delay = start + at - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                futs.append((pri, i, pool.submit(
+                    _post_qos, port, bodies[i], {"X-Seldon-Priority": pri})))
+            for pri, i, f in futs:
+                record("burst", pri, i, f.result())
+        metrics = _get(port, "/metrics")[1]
+        # (3) an expired budget
+        record("expired", "normal", 0, _post_qos(
+            port, bodies[0], {"X-Seldon-Deadline-Ms": "0"}))
+        # (4) the primary stops: once failures are half its breaker's
+        # window (the burst's answers are in it too) the breaker opens, and
+        # the fallback answers 4 more
+        prim.stop()
+        after = 0
+        for k in range(20000):
+            res = record("primary_down", "normal", k % QOS_IMAGES, _post_qos(
+                port, bodies[k % QOS_IMAGES], {}))
+            after += res[0] == 200
+            if after == 4:
+                break
+    finally:
+        if engine is not None:
+            engine.stop()
+        prim.stop()
+        cheap.stop()
+    plaunch, claunch = read_child_launches(pcounts), \
+        read_child_launches(ccounts)
+
+    def ok(res, i):
+        code, _, body, _, _ = res
+        return code == 200 and int(np.asarray(
+            body["data"]["ndarray"]).argmax()) == top1[i]
+
+    def degraded(res):
+        return res[0] == 200 and "degraded" in res[2].get("meta", {}).get(
+            "tags", {})
+
+    burst = [(pri, i, r) for ph, pri, i, r in answers if ph == "burst"]
+    per = {}
+    for pri in pris:
+        mine = [(i, r) for p, i, r in burst if p == pri]
+        good = sum(ok(r, i) for i, r in mine)
+        per[pri] = {"requests": len(mine), "ok": good,
+                    "shed_429": sum(r[0] == 429 for _, r in mine),
+                    "goodput_per_s": good / QOS_BURST_S,
+                    "goodput_share": good / max(len(mine), 1),
+                    "p50_ms_ok": statistics.median(
+                        [r[3] * 1e3 for i, r in mine if ok(r, i)] or [0.0])}
+    bad = [(pri, r[0], r[2].get("status")) for pri, i, r in burst
+           if not ok(r, i) and not (r[0] == 429 and r[1] == "1")]
+    sheds = sorted((r[4], pri) for pri, i, r in burst if r[0] == 429)
+    expired = [r for ph, _, _, r in answers if ph == "expired"][0]
+    down = [r for ph, _, _, r in answers if ph == "primary_down"]
+    down_codes = [(r[0], r[2].get("status", {}).get("reason"),
+                   r[2].get("meta", {}).get("tags", {}).get("degraded"))
+                  for r in down]
+    # every forward of a child is an answer it gave: 37 K1 launches each
+    served_primary = sum(1 for ph, _, i, r in answers
+                         if ph != "primary_down" and r[0] == 200
+                         and not degraded(r))
+    served_cheap = sum(1 for _, _, _, r in answers if degraded(r))
+    out.update({
+        "alone_rate_per_s": rate, "burst_rate_per_s": 2 * rate,
+        "burst_requests": n, "per_priority": per,
+        "burst_not_200_or_429": bad,
+        "first_shed_priority": sheds[0][1] if sheds else None,
+        "degraded_in_burst": sum(degraded(r) for _, _, r in burst),
+        "expired_budget": {"status": expired[0],
+                           "reason": expired[2]["status"]["reason"]},
+        "primary_down": {"failures_before_open": sum(
+            c[0] != 200 for c in down_codes), "after": down_codes[-4:]},
+        "forwards": {"primary": served_primary, "cheap": served_cheap},
+        "launches": {"primary": plaunch, "cheap": claunch},
+        "qos_metrics": [ln for ln in metrics.splitlines()
+                        if ln.startswith("seldon_qos_")],
+        "alone_p50_ms": statistics.median(
+            r[3] * 1e3 for ph, _, _, r in answers if ph == "alone")})
+    emit(out)
+    if bad:
+        raise AssertionError(f"qos_resnet50: answers neither 200-correct nor "
+                             f"429 with Retry-After: {bad[:3]}")
+    shed = {p: per[p]["shed_429"] / max(per[p]["requests"], 1) for p in pris}
+    if not sheds or sheds[0][1] != "low" or \
+            not shed["low"] >= shed["normal"] >= shed["high"]:
+        raise AssertionError(f"qos_resnet50: low priority not shed first: "
+                             f"{per}")
+    if expired[0] != 504 or expired[2]["status"]["reason"] != \
+            "DEADLINE_EXCEEDED":
+        raise AssertionError(f"qos_resnet50: expired budget {expired[:3]}")
+    fails = [c for c in down_codes if c[0] != 200]
+    if len(fails) < 3 or fails != [(503, "TRANSPORT", None)] * len(fails) \
+            or down_codes[len(fails):] != [(200, "", "breaker_open")] * 4 \
+            or not all(ok(r, k % QOS_IMAGES) for k, r in enumerate(down)
+                       if k >= len(fails)):
+        raise AssertionError(f"qos_resnet50: breaker and fallback "
+                             f"{down_codes[:3]} ... {down_codes[-5:]}")
+    if plaunch["int8_matmul"] != 37 * served_primary or \
+            claunch["int8_matmul"] != 37 * served_cheap:
+        raise AssertionError(f"qos_resnet50: K1 launches {plaunch} "
+                             f"{claunch} for {served_primary} and "
+                             f"{served_cheap} forwards")
+    return {k: plaunch[k] + claunch[k] for k in plaunch}
+
+
 # ----------------------------------------------------------------------
 
 def ptxas_report(log: str) -> list:
@@ -2769,6 +3586,8 @@ _SUMMARY_META = {
 def main() -> int:
     if sys.argv[1:2] == ["--component-child"]:
         return component_child_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--runner-child"]:
+        return runner_child_main(sys.argv[2:])
     try:
         return smoke()
     finally:
@@ -2827,6 +3646,7 @@ def smoke() -> int:
     # the main path's launches: every phase that drives an entry point
     runs = {"llm_json": timed("llm_json", llm_json_phase, torch)}
     runs["serve_7b"], params_7b = timed("serve_7b", serve_7b_phase, torch)
+    runs["grpc_7b"] = timed("grpc_7b", grpc_7b_phase, torch, params_7b)
     runs["features_7b"] = timed("features_7b", features_7b_phase, torch,
                                 params_7b)
     runs["spec_7b"] = timed("spec_7b", spec_7b_phase, torch, params_7b)
@@ -2846,6 +3666,10 @@ def smoke() -> int:
                                   torch)
     runs["wire_llm"] = timed("wire_llm", wire_llm_phase, torch)
     timed("wire_persistence", wire_persistence_phase)
+    # slice 4a-ii and the QoS plane (gRPC in wire_resnet50, wire_llm and
+    # grpc_7b too)
+    runs["workers"] = timed("workers", workers_phase, torch)
+    runs["qos_resnet50"] = timed("qos_resnet50", qos_resnet50_phase, torch)
     slice_3a = sum(seconds[k] for k in ("features_7b", "parity_features_7b",
                                         "checkpoint_7b"))
     slice_3b = seconds["spec_7b"] + seconds["parity_spec_7b"]
@@ -2853,6 +3677,8 @@ def smoke() -> int:
     emit({"phase": "seconds", "build": build_s, **seconds,
           "slice_3a_phases": slice_3a, "slice_3b_phases": slice_3b,
           "slice_4a_i_phases": slice_4a,
+          "slice_4a_ii_qos_phases": seconds["grpc_7b"] + seconds["workers"]
+          + seconds["qos_resnet50"],
           "total": time.perf_counter() - t0})
     launches = {k: sum(r[k] for r in runs.values())
                 for k in runs["serve_7b"]}

@@ -16,10 +16,21 @@ is a single streaming node.  A component
 error becomes a FAILURE status: a :class:`SeldonComponentError` with its
 own code, anything else 500 ``INTERNAL``.
 
-Not in this slice: the prediction cache, QoS, fused plans, the health,
+QoS (``qos/``, given as an ``EngineQos``): the request's context (its
+``meta.tags``, else the ambient one the server bound from the headers) is
+restamped on the request for remote hops and bound for the walk; a request
+whose budget has already run out answers 504 ``DEADLINE_EXCEEDED`` before
+any model work; admission control answers 429 ``ADMISSION_SHED``; the walk
+is bounded by the tighter of ``walk_timeout_s`` and the remaining budget
+(504); and while a breaker is open, or the shed level has reached the
+configured one, the ``seldon.io/qos-fallback`` subtree serves instead of
+the root, with ``meta.tags.degraded`` saying why.
+
+Not in this slice: the prediction cache, fused plans, the health,
 profiling, placement, artifact and device planes, and the tracer
 (ROADMAP.md, slices 4 and 5).  A remote node (``serving.client.
-RemoteComponent``) has the same method surface as a local one, async.
+RemoteComponent``, ``serving.grpc_api.GrpcComponentClient``) has the same
+method surface as a local one, async.
 """
 
 from __future__ import annotations
@@ -42,6 +53,13 @@ from seldon_core_tpu_torch.messages import (
     SeldonMessage,
     Status,
     new_puid,
+)
+from seldon_core_tpu_torch.qos.context import (
+    DEGRADED_TAG,
+    current_qos,
+    qos_from_meta,
+    qos_scope,
+    stamp_meta,
 )
 from seldon_core_tpu_torch.runtime.component import (
     ComponentHandle,
@@ -76,13 +94,16 @@ class GraphEngine:
     """One predictor's graph with its components resolved once.
 
     ``resolver(unit)`` supplies the implementation of every node that is
-    not a built-in.
+    not a built-in.  ``qos`` is an ``EngineQos`` or None; a fallback node it
+    names must be in the graph and not its root.
     """
 
     def __init__(self, graph: Any,
                  resolver: Optional[Callable[[PredictiveUnit], Any]] = None,
                  name: str = "predictor",
-                 metrics_sink: Optional[Any] = None):
+                 metrics_sink: Optional[Any] = None,
+                 qos: Optional[Any] = None,
+                 walk_timeout_s: Optional[float] = None):
         self.name = name
         self.metrics = metrics_sink
         self.spec = parse_graph(graph)
@@ -90,6 +111,21 @@ class GraphEngine:
         self._resolver = resolver
         self._nodes: dict[str, _Node] = {}
         self.root = self._build(self.spec)
+        self.qos = qos
+        self.walk_timeout_s = walk_timeout_s
+        self._fallback_node: Optional[_Node] = None
+        if qos is not None and qos.config.fallback_node:
+            node = self._nodes.get(qos.config.fallback_node)
+            if node is None:
+                raise ValueError(
+                    f"qos fallback node {qos.config.fallback_node!r} not in "
+                    f"graph {name!r} (GL802)")
+            if node is self.root:
+                raise ValueError(
+                    f"qos fallback node {qos.config.fallback_node!r} is the "
+                    f"graph root of {name!r}: falling back to the primary "
+                    "is not a degraded mode (GL803)")
+            self._fallback_node = node
 
     def _build(self, unit: PredictiveUnit) -> _Node:
         if unit.implementation:
@@ -111,13 +147,72 @@ class GraphEngine:
 
     # ------------------------------------------------------------------
     async def predict(self, request: SeldonMessage) -> SeldonMessage:
-        """Assign a puid, walk the graph, stamp the merged meta on the
-        response."""
+        """Assign a puid, apply QoS (budget, admission, degraded routing),
+        walk the graph, stamp the merged meta on the response."""
         meta = request.meta.copy()
         if not meta.puid:
             meta.puid = new_puid()
+        # the message's tags win over the ambient context; restamped on the
+        # request so remote hops see the remaining budget (the response's
+        # meta was copied above: a client that sent no tags gets none back)
+        qctx = qos_from_meta(request.meta) or current_qos()
+        if qctx is not None:
+            stamp_meta(request.meta, qctx)
+            if qctx.deadline is not None and qctx.deadline.expired:
+                return SeldonMessage(status=Status.failure(
+                    504, "deadline budget exhausted before the graph walk "
+                    "started", "DEADLINE_EXCEEDED"), meta=meta)
+        admission = self.qos.admission if self.qos is not None else None
+        if admission is not None:
+            pri = qctx.priority if qctx is not None else "normal"
+            if not admission.try_acquire(pri):
+                return SeldonMessage(status=Status.failure(
+                    429, f"shed at admission (priority {pri}, concurrency "
+                    f"limit {admission.limit}); retry after "
+                    f"{admission.retry_after_s():.1f}s", "ADMISSION_SHED"),
+                    meta=meta)
+        t0 = time.perf_counter()
+        ok = False
         try:
-            out = await self._walk(self.root, request, meta)
+            with qos_scope(qctx):
+                out = await self._predict_qos(request, meta, qctx)
+            ok = out.status is None or out.status.status == "SUCCESS"
+        finally:
+            if admission is not None:
+                admission.release(time.perf_counter() - t0, ok)
+        return out
+
+    async def _predict_qos(self, request: SeldonMessage, meta: Meta,
+                           qctx: Optional[Any]) -> SeldonMessage:
+        """The walk of an admitted request, bounded by the tighter of
+        ``walk_timeout_s`` and the request's remaining budget."""
+        timeout_s = self.walk_timeout_s or None
+        if qctx is not None and qctx.deadline is not None:
+            rem = qctx.deadline.remaining_s()
+            timeout_s = rem if timeout_s is None else min(timeout_s, rem)
+        degrade = (self.qos.should_degrade()
+                   if self._fallback_node is not None else None)
+        try:
+            if degrade is not None:
+                # the primary is sick (a breaker is open) or shedding past
+                # the configured level: the fallback subtree serves
+                meta.tags[DEGRADED_TAG] = degrade
+                reg = getattr(self.metrics, "registry", None)
+                if reg is not None:
+                    reg.counter_inc("seldon_qos_degraded_total",
+                                    {"graph": self.name, "reason": degrade})
+                coro = self._walk(self._fallback_node, request, meta)
+            else:
+                coro = self._walk(self.root, request, meta)
+            if timeout_s is None:
+                out = await coro
+            else:
+                out, timed_out = await self._await_with_deadline(coro,
+                                                                 timeout_s)
+                if timed_out:
+                    return SeldonMessage(status=Status.failure(
+                        504, f"graph walk exceeded {timeout_s:.3f}s "
+                        "deadline", "DEADLINE_EXCEEDED"), meta=meta)
         except SeldonComponentError as e:
             return SeldonMessage(
                 status=Status.failure(e.status_code, str(e), e.reason),
@@ -138,6 +233,20 @@ class GraphEngine:
         if out.status is None:
             out.status = Status()
         return out
+
+    @staticmethod
+    async def _await_with_deadline(coro, timeout_s: float) -> tuple:
+        """``(result, timed_out)``: only the walk's own deadline counts as
+        timed out; a ``TimeoutError`` raised inside a component is that
+        component's error (500)."""
+        cm = asyncio.timeout(timeout_s)
+        try:
+            async with cm:
+                return await coro, False
+        except TimeoutError:
+            if not cm.expired():
+                raise
+            return None, True
 
     async def _walk(self, node: _Node, msg: SeldonMessage,
                     meta: Meta) -> SeldonMessage:

@@ -1,9 +1,10 @@
 """Local runner: boot a SeldonDeployment's graph in process and serve it
-over REST (port of the walk path of ``seldon_core_tpu/operator/local.py``).
+(port of the walk path of ``seldon_core_tpu/operator/local.py``).
 
     python -m seldon_core_tpu_torch.operator.local \\
         --graph seldon_core_tpu_torch/examples/iris.json --port 8000 \\
-        [--native-port 8001] [--device cpu]
+        [--grpc-port 5000] [--native-port 8001] [--native-grpc-port 8002] \\
+        [--workers N] [--device cpu]
 
 The first predictor's graph runs on a :class:`GraphEngine`.  Built-in
 nodes (``implementation``) are the engine's; every other node names its
@@ -19,20 +20,36 @@ so each batch shape's first-use costs (cuDNN's choice of algorithm, the
 allocator's first blocks) are paid before traffic.
 
 A node with an ``endpoint`` (``service_host``, ``service_port``, type
-``REST``) and no ``model_class`` is a remote component: a
-:class:`~seldon_core_tpu_torch.serving.client.RemoteComponent` calls it,
-with the ``seldon.io/rest-read-timeout`` and
-``seldon.io/rest-connection-timeout`` annotations (milliseconds).  A
-tensor crosses the hop in the encoding the request arrived with.  A GRPC
-endpoint waits for slice 4a-ii of the port.  ``/metrics`` renders the
-deployment's :class:`EngineMetrics`; ``--native-port`` adds the native
-(C++ epoll) REST tier on a second port.
+``REST`` or ``GRPC``) and no ``model_class`` is a remote component: a
+:class:`~seldon_core_tpu_torch.serving.client.RemoteComponent` (with the
+``seldon.io/rest-read-timeout`` and ``seldon.io/rest-connection-timeout``
+annotations, milliseconds) or a
+:class:`~seldon_core_tpu_torch.serving.grpc_api.GrpcComponentClient`
+(``seldon.io/grpc-read-timeout``) calls it.  A tensor crosses a REST hop in
+the encoding the request arrived with.
+
+QoS (``qos/``): ``seldon.io/slo-p95-ms`` turns on admission control,
+``seldon.io/qos-fallback`` names the subgraph that serves while a breaker
+is open or shedding passes ``seldon.io/qos-degrade-shed-level``, and every
+remote node gets a circuit breaker (``seldon.io/qos-breaker``,
+``-min-calls``, ``-open-ms``, ``-slow-ms``) once QoS is on.
+``seldon.io/engine-walk-timeout-ms`` bounds every walk (504).
+
+Tiers: REST on ``--port`` (``/metrics`` renders the deployment's
+:class:`EngineMetrics`), the ``Seldon`` gRPC service on ``--grpc-port``
+(env ``ENGINE_SERVER_GRPC_PORT``, 5000 by default as the reference's; 0
+turns it off), the native (C++ epoll) REST tier on ``--native-port`` and
+the native h2c gRPC tier on ``--native-grpc-port``.  ``--workers N`` forks
+N worker processes before anything touches the card, each with its own
+engine, all binding the same ports with ``SO_REUSEPORT``; the first worker
+to exit stops the group.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import os
 import signal
 from typing import Optional
 
@@ -46,11 +63,14 @@ from seldon_core_tpu_torch.graph.spec import (
     load_deployment,
 )
 from seldon_core_tpu_torch.messages import Feedback, SeldonMessage
+from seldon_core_tpu_torch.qos.policy import EngineQos, qos_from_annotations
+from seldon_core_tpu_torch.qos.registry import publish
 from seldon_core_tpu_torch.runtime.batcher import BatchedModel, BatcherConfig
 from seldon_core_tpu_torch.runtime.component import load_component
 from seldon_core_tpu_torch.utils.metrics import EngineMetrics, MetricsRegistry
 
-__all__ = ["resolve_component", "LocalDeployment", "serve", "engine_main"]
+__all__ = ["resolve_component", "qos_config", "LocalDeployment", "serve",
+           "build_parser", "engine_main"]
 
 
 def _batching_enabled(ann: dict) -> bool:
@@ -79,32 +99,45 @@ def _timeout_s(ann: dict, key: str, default):
     return float(raw) / 1000.0
 
 
-def _remote(unit: PredictiveUnit, ann: dict):
-    """The client of a node served by another process.  Its ``/route``
-    calls carry the tensor: the reference turns ``route_meta_only`` on
-    from the signature of a node's ``model_class``, and an endpoint node
-    names none."""
+def _remote(unit: PredictiveUnit, ann: dict, qos=None):
+    """The client of a node served by another process, behind a circuit
+    breaker when QoS is on.  Its ``/route`` calls carry the tensor: the
+    reference turns ``route_meta_only`` on from the signature of a node's
+    ``model_class``, and an endpoint node names none."""
     if unit.endpoint.type == "GRPC":
-        raise NotImplementedError(
-            f"node {unit.name!r}: GRPC endpoints come with slice 4a-ii of "
-            "the port; serve the component over REST")
-    from seldon_core_tpu_torch.serving.client import RemoteComponent
+        from seldon_core_tpu_torch.serving.grpc_api import GrpcComponentClient
 
-    return RemoteComponent(
-        f"http://{unit.endpoint.service_host}:"
-        f"{unit.endpoint.service_port or 8000}",
-        name=unit.name, methods=unit.methods,
-        timeout_s=_timeout_s(ann, "seldon.io/rest-read-timeout", 30.0),
-        connect_timeout_s=_timeout_s(ann, "seldon.io/rest-connection-timeout",
-                                     None))
+        client = GrpcComponentClient(
+            f"{unit.endpoint.service_host}:"
+            f"{unit.endpoint.service_port or 5000}",
+            methods=unit.methods, name=unit.name,
+            timeout_s=_timeout_s(ann, "seldon.io/grpc-read-timeout", 30.0))
+    else:
+        from seldon_core_tpu_torch.serving.client import RemoteComponent
+
+        client = RemoteComponent(
+            f"http://{unit.endpoint.service_host}:"
+            f"{unit.endpoint.service_port or 8000}",
+            name=unit.name, methods=unit.methods,
+            timeout_s=_timeout_s(ann, "seldon.io/rest-read-timeout", 30.0),
+            connect_timeout_s=_timeout_s(
+                ann, "seldon.io/rest-connection-timeout", None))
+    if qos is not None and qos.config.breakers_enabled:
+        from seldon_core_tpu_torch.qos.breaker import BreakerWrapper
+
+        return BreakerWrapper(client, qos.make_breaker(unit.name),
+                              name=unit.name)
+    return client
 
 
-def resolve_component(unit: PredictiveUnit, annotations: dict, device: str):
-    """The implementation of one non-built-in node."""
+def resolve_component(unit: PredictiveUnit, annotations: dict, device: str,
+                      qos: Optional[EngineQos] = None, metrics=None):
+    """The implementation of one non-built-in node; ``metrics`` (a
+    ``MetricsRegistry``) receives the batcher's series."""
     model_class = unit.parameters.get("model_class")
     if not model_class:
         if unit.endpoint.service_host and unit.endpoint.type != "LOCAL":
-            return _remote(unit, annotations)
+            return _remote(unit, annotations, qos)
         raise ValueError(
             f"node {unit.name!r}: no implementation, model_class, or "
             "endpoint")
@@ -116,12 +149,34 @@ def resolve_component(unit: PredictiveUnit, annotations: dict, device: str):
         device=device)
     handle.name = unit.name
     if unit.resolved_type == "MODEL" and _batching_enabled(annotations):
-        batched = BatchedModel(handle, _batcher_config(annotations))
+        batched = BatchedModel(handle, _batcher_config(annotations),
+                               metrics=metrics)
         shape = getattr(handle.user, "input_shape", None)
         if shape is not None and handle.device.type == "cuda":
             batched.warmup(np.zeros(shape, np.float32))
         return batched
     return handle
+
+
+def qos_config(dep: Deployment):
+    """The deployment's QoS annotations as a ``QosConfig`` (None when QoS
+    is off); a fallback node must be in the graph and not its root
+    (``ValueError``)."""
+    cfg = qos_from_annotations(dep.annotations,
+                               f"{dep.name}/{dep.predictor}")
+    if cfg is not None and cfg.fallback_node:
+        names = [u.name for u in dep.graph.walk()]
+        if cfg.fallback_node not in names:
+            raise ValueError(
+                f"annotation seldon.io/qos-fallback names node "
+                f"{cfg.fallback_node!r} which is not in predictor "
+                f"{dep.predictor!r}'s graph (nodes: {names})")
+        if cfg.fallback_node == names[0]:
+            raise ValueError(
+                f"annotation seldon.io/qos-fallback names the graph root "
+                f"{cfg.fallback_node!r}: falling back to the primary is not "
+                "a degraded mode")
+    return cfg
 
 
 class LocalDeployment:
@@ -131,9 +186,20 @@ class LocalDeployment:
         dev = str(resolve_device(device))
         self.spec = dep
         self.metrics = EngineMetrics(MetricsRegistry(), deployment=dep.name)
+        cfg = qos_config(dep)
+        self.qos = None if cfg is None else EngineQos(
+            cfg, metrics=self.metrics.registry)
         self.engine = GraphEngine(
             dep.graph, name=dep.predictor, metrics_sink=self.metrics,
-            resolver=lambda u: resolve_component(u, dep.annotations, dev))
+            qos=self.qos,
+            walk_timeout_s=_timeout_s(dep.annotations,
+                                      "seldon.io/engine-walk-timeout-ms",
+                                      None),
+            resolver=lambda u: resolve_component(
+                u, dep.annotations, dev, qos=self.qos,
+                metrics=self.metrics.registry))
+        if self.qos is not None:
+            publish(dep.name, self.qos.snapshot)
 
     async def predict(self, msg: SeldonMessage) -> SeldonMessage:
         return await self.engine.predict(msg)
@@ -146,34 +212,70 @@ class LocalDeployment:
 
 
 async def serve(graph, port: int = 8000, host: str = "0.0.0.0",
-                device: Optional[str] = None):
+                device: Optional[str] = None, reuse_port: bool = False):
     """Boot ``graph`` (path, JSON string or dict) and start its REST server;
     returns ``(server, deployment)``.  ``await server.stop()`` ends it."""
     from seldon_core_tpu_torch.serving.rest import RestServer
 
     local = LocalDeployment(load_deployment(graph), device=device)
     server = await RestServer(local, host=host, port=port,
-                              metrics=local.metrics).start()
+                              metrics=local.metrics,
+                              reuse_port=reuse_port).start()
     return server, local
 
 
-def engine_main(argv: Optional[list] = None) -> None:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m seldon_core_tpu_torch.operator.local")
     ap.add_argument("--graph", required=True,
                     help="path to a SeldonDeployment JSON")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--host", default="0.0.0.0")
+    ap.add_argument("--grpc-port", type=int,
+                    default=int(os.environ.get("ENGINE_SERVER_GRPC_PORT",
+                                               "5000")),
+                    help="the Seldon gRPC service's port; 0 disables")
     ap.add_argument("--native-port", type=int, default=0,
                     help="native (C++ epoll) REST tier port; 0 disables")
+    ap.add_argument("--native-grpc-port", type=int, default=0,
+                    help="native (C++ h2c) gRPC tier port; 0 disables")
+    ap.add_argument("--workers", type=int,
+                    default=int(os.environ.get("ENGINE_WORKERS", "1")),
+                    help="worker processes sharing every port "
+                         "(SO_REUSEPORT), each with its own engine")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def engine_main(argv: Optional[list] = None) -> None:
+    args = build_parser().parse_args(argv)
+    reuse = args.workers > 1
+    if reuse:
+        # before anything touches CUDA, grpc or the native library's threads
+        from seldon_core_tpu_torch.serving.workers import fork_workers
+
+        index = fork_workers(args.workers)
+        print(f"worker {index} (pid {os.getpid()})", flush=True)
 
     async def run():
         server, local = await serve(args.graph, port=args.port,
-                                    host=args.host, device=args.device)
+                                    host=args.host, device=args.device,
+                                    reuse_port=reuse)
         stoppers = [server]
+        if args.grpc_port:
+            from seldon_core_tpu_torch.serving.grpc_api import (
+                GrpcServer,
+                seldon_service_handler,
+            )
+
+            gserver = GrpcServer([seldon_service_handler(local)],
+                                 port=args.grpc_port, host=args.host,
+                                 reuse_port=reuse)
+            await gserver.start()
+            stoppers.append(gserver)
+            print(f"gRPC Seldon service on {args.host}:{gserver.port}",
+                  flush=True)
         if args.native_port:
             from seldon_core_tpu_torch.serving.native_http import (
                 NativeRestServer,
@@ -182,10 +284,22 @@ def engine_main(argv: Optional[list] = None) -> None:
             # one RestServer behind both ports: /pause on either drains
             # both
             nrest = NativeRestServer(rest=server, port=args.native_port,
-                                     bind=args.host)
+                                     bind=args.host, reuseport=reuse)
             await nrest.start()
             stoppers.append(nrest)
             print(f"native REST tier on {args.host}:{nrest.port}",
+                  flush=True)
+        if args.native_grpc_port:
+            from seldon_core_tpu_torch.serving.native_http import (
+                NativeGrpcServer,
+            )
+
+            ngrpc = NativeGrpcServer(deployment=local,
+                                     port=args.native_grpc_port,
+                                     bind=args.host, reuseport=reuse)
+            await ngrpc.start()
+            stoppers.append(ngrpc)
+            print(f"native gRPC tier on {args.host}:{ngrpc.port}",
                   flush=True)
         print(f"serving deployment {local.spec.name!r} on "
               f"{args.host}:{server.port}", flush=True)

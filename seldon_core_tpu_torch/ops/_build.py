@@ -21,6 +21,7 @@ the CPU tests import every module, and the CPU has no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -96,7 +97,9 @@ def build() -> Path:
     """Compile ``csrc/*.cu`` (one ``nvcc`` per source, in parallel) and link
     them into the hashed library; return its path.  The compiler's report
     (``-Xptxas -v``: registers and spills per kernel) is kept in
-    ``build_stats["log"]``."""
+    ``build_stats["log"]``.  Processes that build at once (worker
+    processes starting together on a fresh checkout, test workers)
+    serialize on a lock file: one compiles, the others load its library."""
     t0 = time.perf_counter()
     so = BUILD_DIR / f"libsck_{source_hash()}.so"
     if so.exists():
@@ -104,6 +107,21 @@ def build() -> Path:
                            library=str(so))
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            log = None if so.exists() else _compile(so)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    build_stats.update(seconds=time.perf_counter() - t0,
+                       compiled=log is not None, library=str(so))
+    if log is not None:
+        build_stats["log"] = log
+    return so
+
+
+def _compile(so: Path) -> str:
+    """Build the library at ``so``; returns the compiler's output."""
     nvcc = _nvcc()
     tag = f"{os.getpid()}_{threading.get_ident()}"
     procs = []
@@ -133,9 +151,7 @@ def build() -> Path:
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
     os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
-    build_stats.update(seconds=time.perf_counter() - t0, compiled=True,
-                       library=str(so), log="\n".join(logs))
-    return so
+    return "\n".join(logs)
 
 
 def load() -> ctypes.CDLL:

@@ -19,16 +19,30 @@ Queue, pad to a bucket, one device call per batch, split:
   ``shed_after_ms`` are shed at flush time with
   :class:`DeadlineExceededError` (504).
 
+- QoS deadlines (``qos.context``: the contextvar the engine binds from
+  ``X-Seldon-Deadline-Ms`` or the message's tags): a request with a
+  deadline queues earliest-deadline-first, ahead of requests without one
+  (which stay first-in first-out), and a request whose remaining budget
+  cannot cover the batcher's observed batch latency (an EWMA of dispatch
+  to delivery) is rejected with 504 when it reaches the head of the queue,
+  before it costs a device call.
+
 ``fn(batch)`` returns ``(batch_out, aux)``, ``batch_out`` row-aligned with
 ``batch``; every caller gets ``(rows, aux)`` of its own batch.  It runs on the
-event loop; on the card it returns as soon as the kernels are queued.  Not in this slice: the QoS deadlines (earliest-deadline
-queueing and the budget check at dequeue) and the trace links.
+event loop; on the card it returns as soon as the kernels are queued.
+``stats`` counts batches, rows, pad rows and sheds; ``shed_reasons`` splits
+the sheds by reason (``queue_full``, ``deadline``, ``budget``).  ``metrics``
+(a ``MetricsRegistry``) gets the reference's series:
+``seldon_batcher_batch_rows``, ``seldon_batcher_batches_total``,
+``seldon_batcher_pad_rows_total`` and ``seldon_batcher_shed_total`` by
+reason.  Not in this slice: the trace links.
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
@@ -36,6 +50,7 @@ import numpy as np
 import torch
 
 from seldon_core_tpu_torch.messages import SeldonMessage
+from seldon_core_tpu_torch.qos.context import current_qos
 from seldon_core_tpu_torch.runtime.component import SeldonComponentError
 
 __all__ = ["QueueFullError", "DeadlineExceededError", "default_buckets",
@@ -83,6 +98,16 @@ class _Pending:
     nrows: int
     future: asyncio.Future = field(compare=False, default=None)
     t_enqueue: float = 0.0
+    deadline: Optional[float] = None  # QoS expiry on the loop's clock
+
+
+def _qos_deadline() -> Optional[float]:
+    """The ambient QoS deadline as a ``time.monotonic()`` instant (the
+    asyncio loop's clock), or None."""
+    ctx = current_qos()
+    if ctx is None or ctx.deadline is None:
+        return None
+    return ctx.deadline.expires_at
 
 
 class _Lane:
@@ -107,8 +132,9 @@ class DynamicBatcher:
     max_lanes = 64
 
     def __init__(self, fn: Callable[[Any], tuple[Any, Any]],
-                 config: Optional[BatcherConfig] = None):
+                 config: Optional[BatcherConfig] = None, metrics=None):
         self.fn = fn
+        self.metrics = metrics
         self.config = config or BatcherConfig()
         self.buckets = default_buckets(self.config.max_batch_size)
         if self.config.materialize not in ("host", "device"):
@@ -122,6 +148,10 @@ class DynamicBatcher:
         self._slot_waiters: list[asyncio.Future] = []
         # what went through: batches dispatched, real rows, pad rows, sheds
         self.stats = {"batches": 0, "rows": 0, "pad_rows": 0, "shed": 0}
+        self.shed_reasons = {"queue_full": 0, "deadline": 0, "budget": 0}
+        # EWMA of dispatch-to-delivery seconds: what a queued request's
+        # remaining budget must cover (0 until a batch has completed)
+        self.latency_ewma_s = 0.0
 
     def bucket_for(self, rows: int) -> int:
         for b in self.buckets:
@@ -170,13 +200,15 @@ class DynamicBatcher:
             lane = self._lanes[key] = _Lane()
         if (self.max_queue_rows
                 and lane.pending_rows + nrows > self.max_queue_rows):
-            self.stats["shed"] += 1
+            self._count_shed("queue_full")
             raise QueueFullError(
                 f"batcher {self.config.name!r} queue full "
                 f"({lane.pending_rows} rows pending, cap "
                 f"{self.max_queue_rows})")
         fut: asyncio.Future = loop.create_future()
-        lane.pending.append(_Pending(arr, nrows, fut, t_enqueue=loop.time()))
+        self._edf_insert(lane, _Pending(arr, nrows, fut,
+                                        t_enqueue=loop.time(),
+                                        deadline=_qos_deadline()))
         lane.pending_rows += nrows
         if lane.pending_rows >= self.config.max_batch_size:
             self._flush(lane)
@@ -185,23 +217,49 @@ class DynamicBatcher:
                 self.config.max_delay_ms / 1000.0, self._flush, lane)
         return await fut
 
+    @staticmethod
+    def _edf_insert(lane: _Lane, p: _Pending) -> None:
+        """Earliest deadline first: a request with a deadline goes before
+        every later deadline and every request without one; ties and the
+        requests without a deadline stay in arrival order."""
+        if p.deadline is not None:
+            for i, q in enumerate(lane.pending):
+                if q.deadline is None or q.deadline > p.deadline:
+                    lane.pending.insert(i, p)
+                    return
+        lane.pending.append(p)
+
+    def _count_shed(self, reason: str) -> None:
+        self.stats["shed"] += 1
+        self.shed_reasons[reason] += 1
+        if self.metrics is not None:
+            self.metrics.counter_inc(
+                "seldon_batcher_shed_total",
+                {"batcher": self.config.name, "reason": reason})
+
+    def _shed(self, p: _Pending, reason: str, message: str) -> None:
+        self._count_shed(reason)
+        if not p.future.done():
+            p.future.set_exception(DeadlineExceededError(message))
+
     # ------------------------------------------------------------------
     def _flush(self, lane: _Lane) -> None:
         if lane.flush_handle is not None:
             lane.flush_handle.cancel()
             lane.flush_handle = None
         loop = asyncio.get_running_loop()
+        now = loop.time()
         if self.config.shed_after_ms > 0:
-            cutoff = loop.time() - self.config.shed_after_ms / 1000.0
+            # the queue is in deadline order: scan all of it for age
+            cutoff = now - self.config.shed_after_ms / 1000.0
             keep = []
             for p in lane.pending:
                 if p.t_enqueue < cutoff:
                     lane.pending_rows -= p.nrows
-                    self.stats["shed"] += 1
-                    if not p.future.done():
-                        p.future.set_exception(DeadlineExceededError(
-                            f"batcher {self.config.name!r}: request queued "
-                            f"longer than {self.config.shed_after_ms}ms"))
+                    self._shed(p, "deadline",
+                               f"batcher {self.config.name!r}: request "
+                               f"queued longer than "
+                               f"{self.config.shed_after_ms}ms")
                 else:
                     keep.append(p)
             lane.pending = keep
@@ -209,11 +267,26 @@ class DynamicBatcher:
                 and self._inflight >= self.config.max_inflight):
             return  # the device queue is full: _release_slot re-flushes
         items, rows = [], 0
-        while lane.pending and (rows + lane.pending[0].nrows
-                                <= self.config.max_batch_size):
-            p = lane.pending.pop(0)
-            rows += p.nrows
-            items.append(p)
+        est = self.latency_ewma_s
+        while lane.pending:
+            head = lane.pending[0]
+            if head.deadline is not None and est > 0.0 and \
+                    head.deadline - now < est:
+                # its budget cannot cover a batch: answer 504 now rather
+                # than spend a device call on an answer already too late
+                lane.pending.pop(0)
+                lane.pending_rows -= head.nrows
+                self._shed(head, "budget",
+                           f"batcher {self.config.name!r}: remaining "
+                           f"deadline budget "
+                           f"{max(head.deadline - now, 0) * 1000:.1f}ms "
+                           f"below observed batch latency {est * 1000:.1f}ms")
+                continue
+            if rows + head.nrows > self.config.max_batch_size:
+                break
+            lane.pending.pop(0)
+            rows += head.nrows
+            items.append(head)
         lane.pending_rows -= rows
         if not items:
             return
@@ -225,6 +298,10 @@ class DynamicBatcher:
             for p in items:
                 if not p.future.done():
                     p.future.set_exception(e)
+
+    def _note_latency(self, elapsed_s: float) -> None:
+        self.latency_ewma_s = elapsed_s if self.latency_ewma_s <= 0.0 else \
+            0.8 * self.latency_ewma_s + 0.2 * elapsed_s
 
     def _assemble(self, items: list[_Pending], bucket: int) -> Any:
         """The rows of ``items`` in one array of ``bucket`` rows, pad rows
@@ -249,6 +326,13 @@ class DynamicBatcher:
         self.stats["batches"] += 1
         self.stats["rows"] += rows
         self.stats["pad_rows"] += bucket - rows
+        if self.metrics is not None:
+            labels = {"batcher": self.config.name}
+            self.metrics.observe("seldon_batcher_batch_rows", rows, labels)
+            self.metrics.counter_inc("seldon_batcher_batches_total", labels)
+            self.metrics.counter_inc("seldon_batcher_pad_rows_total", labels,
+                                     bucket - rows)
+        t_dispatch = time.monotonic()
         # on the card: returns once the work is queued
         out, aux = self.fn(batch)
         if self.config.materialize == "host" and not isinstance(out,
@@ -259,11 +343,12 @@ class DynamicBatcher:
                 fetch = asyncio.get_running_loop().run_in_executor(
                     None, _fetch_host, out)
                 fetch.add_done_callback(
-                    lambda f: self._on_batch_done(f, items, aux))
+                    lambda f: self._on_batch_done(f, items, aux, t_dispatch))
             except BaseException:
                 self._release_slot()
                 raise
             return
+        self._note_latency(time.monotonic() - t_dispatch)
         self._deliver(out, items, aux)
 
     def _deliver(self, out: Any, items: list[_Pending], aux: Any) -> None:
@@ -274,7 +359,8 @@ class DynamicBatcher:
                 p.future.set_result((rows, aux))
             off += p.nrows
 
-    def _on_batch_done(self, fetch: asyncio.Future, items, aux) -> None:
+    def _on_batch_done(self, fetch: asyncio.Future, items, aux,
+                       t_dispatch: float) -> None:
         try:
             try:
                 host = fetch.result()
@@ -283,6 +369,7 @@ class DynamicBatcher:
                     if not p.future.done():
                         p.future.set_exception(e)
             else:
+                self._note_latency(time.monotonic() - t_dispatch)
                 self._deliver(host, items, aux)
         finally:
             self._release_slot()
@@ -316,13 +403,15 @@ class BatchedModel:
     binData) bypass it.  The component sees the batch, so per-request
     feature names are not passed on."""
 
-    def __init__(self, handle, config: Optional[BatcherConfig] = None):
+    def __init__(self, handle, config: Optional[BatcherConfig] = None,
+                 metrics=None):
         self.handle = handle
         self.name = handle.name
         cfg = (dataclasses.replace(config) if config is not None
                else BatcherConfig())
         cfg.name = self.name
-        self._batcher = DynamicBatcher(self._predict_array, cfg)
+        self._batcher = DynamicBatcher(self._predict_array, cfg,
+                                       metrics=metrics)
 
     def warmup(self, example_row: Any) -> None:
         self._batcher.warmup(example_row)

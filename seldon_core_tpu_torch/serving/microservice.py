@@ -10,10 +10,13 @@
 
 ``REST`` serves the component API of ``serving/rest.py`` (``/predict``,
 ``/route``, ``/send-feedback``, ``/stream``, ``/metrics``, ...);
+``GRPC`` serves the component's gRPC services (``serving/grpc_api.py``:
+``Generic``, the service of its role, and ``Stream`` where it streams;
+messages up to 100 MiB);
 ``FRAMED`` serves the framed binary protocol (``serving/framed.py``) on the
-native epoll server.  ``GRPC`` comes with slice 4a-ii of the port.  The
-component is built on the card unless ``--device cpu`` asks for the CPU
-(the constructor gets ``device`` when it takes one).
+native epoll server.  The component is built on the card unless ``--device
+cpu`` asks for the CPU (the constructor gets ``device`` when it takes
+one).
 
 Environment, as the reference's: ``PREDICTIVE_UNIT_SERVICE_PORT``,
 ``PREDICTIVE_UNIT_PARAMETERS``, ``PREDICTIVE_UNIT_ID`` (the component's
@@ -131,9 +134,6 @@ def _start_persistence(handle, push_frequency: float):
 
 def main(argv: Optional[list] = None) -> None:
     args = build_parser().parse_args(argv)
-    if args.api_type == "GRPC":
-        raise SystemExit("the GRPC component server comes with slice 4a-ii "
-                         "of the port; serve REST or FRAMED")
     device = str(resolve_device(args.device))
     handle = load_component(args.interface_name,
                             parse_parameters(args.parameters),
@@ -156,6 +156,15 @@ def main(argv: Optional[list] = None) -> None:
             threading.Event().wait()
         finally:
             srv.stop()
+        return
+
+    if args.api_type == "GRPC":
+        from seldon_core_tpu_torch.serving.grpc_api import (
+            serve_grpc_component,
+        )
+
+        asyncio.run(serve_grpc_component(handle, host=args.host,
+                                         port=args.port))
         return
 
     async def serve():

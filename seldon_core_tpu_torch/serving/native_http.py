@@ -1,5 +1,5 @@
-"""Native wire tier: an asyncio bridge over the C++ HTTP/1.1 server (port
-of the REST half of ``seldon_core_tpu/serving/native_http.py``).
+"""Native wire tier: asyncio bridges over the C++ HTTP/1.1 and HTTP/2
+servers (port of ``seldon_core_tpu/serving/native_http.py``).
 
 :class:`NativeRestServer` puts the native epoll server
 (``native/httpserver.cc``, built by :mod:`seldon_core_tpu_torch.native`)
@@ -15,8 +15,16 @@ loop, so engines, components, metrics and the dynamic batcher behave as
 they do behind the Python tier.  The C server writes every answer as
 ``application/json`` and sends no ``Retry-After``.
 
-The native gRPC server (``NativeGrpcServer``) waits for slice 4a-ii of the
-port.
+:class:`NativeGrpcServer` serves gRPC over the same C++ server in h2c mode
+(HTTP/2 without TLS, HPACK in C++): the external ``Seldon`` service over a
+deployment, and the component services over a component (the unary
+methods of ``grpc_api.SERVICE_METHODS`` and the server-streaming
+``Stream``), answered by ``grpc_api``'s own handlers.  The C server does
+not hand request metadata to Python, so a deployment that checks
+``oauth_token`` keeps the ``grpc.aio`` tier.  This module imports ``grpc``
+and the protobuf module only when a ``NativeGrpcServer`` is made.  Every
+server binds its port with ``SO_REUSEPORT`` when asked (``reuseport``), so
+worker processes can share it.
 """
 
 from __future__ import annotations
@@ -39,7 +47,11 @@ from seldon_core_tpu_torch.serving.rest import (
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["NativeRestServer"]
+__all__ = ["NativeRestServer", "NativeGrpcServer"]
+
+#: grpc-status codes
+_GRPC_UNIMPLEMENTED = 12
+_GRPC_INTERNAL = 13
 
 #: asyncio.Task(eager_start=) landed in 3.12
 _EAGER_TASKS = sys.version_info >= (3, 12)
@@ -55,8 +67,10 @@ class _AsyncBridge:
         port: int = 0,
         bind: str = "0.0.0.0",
         reuseport: bool = False,
+        http2: bool = False,
     ):
         self._router = router
+        self._http2 = http2
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._tasks: set = set()
         # submission batching: under load the IO thread delivers many
@@ -67,7 +81,7 @@ class _AsyncBridge:
         self._inbox: deque = deque()
         self._drain_scheduled = False
         self.server = NativeHttpServer(
-            submit=self._submit, http2=False, port=port, bind=bind,
+            submit=self._submit, http2=http2, port=port, bind=bind,
             reuseport=reuseport,
         )
 
@@ -115,15 +129,18 @@ class _AsyncBridge:
             t.add_done_callback(self._tasks.discard)
 
     async def _run(self, token, method, path, body) -> None:
-        """Answer one request: the router gives ``(status, body)`` or an
-        async iterator of stream chunks."""
+        """Answer one request: the router gives ``(status, body, message)``
+        (the HTTP status, or on h2 the grpc-status and its message) or an
+        async iterator of stream chunks (SSE bytes, or gRPC messages)."""
         try:
             result = await self._router(method, path, body)
         except Exception as e:  # router bug: fail the request, keep serving
             logger.exception("native bridge handler failed (%s)", path)
-            result = (500, _err_json(500, f"{type(e).__name__}: {e}"))
+            what = f"{type(e).__name__}: {e}"
+            result = ((_GRPC_INTERNAL, b"", what) if self._http2
+                      else (500, _err_json(500, what), None))
         if isinstance(result, tuple):
-            self.server.complete(token, result[0], result[1], None)
+            self.server.complete(token, *result)
             return
         # chunks for a stream the client reset are dropped by the C side;
         # the stream's own length (an LLM's n_new) bounds the wasted work
@@ -168,7 +185,7 @@ class NativeRestServer:
             Request(method, path, {}, body, self.rest))
         if isinstance(out, EventStream):
             return _chunks(out)
-        return (out.code, out.body)
+        return (out.code, out.body, None)
 
     async def start(self) -> int:
         return await self._bridge.start()
@@ -203,3 +220,93 @@ async def _chunks(stream: EventStream):
         yield _error_event(e)
     finally:
         await stream.end(code)
+
+
+class NativeGrpcServer:
+    """gRPC over the native h2c server: the ``Seldon`` service over
+    ``deployment`` (async ``predict`` and ``send_feedback``), the
+    component services over ``component``, or both."""
+
+    def __init__(self, deployment=None, component=None, port: int = 0,
+                 bind: str = "0.0.0.0", reuseport: bool = False):
+        from seldon_core_tpu_torch.proto import prediction_pb2 as pb
+        from seldon_core_tpu_torch.proto.convert import (
+            feedback_from_proto,
+            message_from_proto,
+            message_to_proto,
+        )
+        from seldon_core_tpu_torch.serving.grpc_api import (
+            _PKG,
+            SERVICE_METHODS,
+            STREAMING_METHODS,
+            _ComponentRpc,
+            stream_events,
+        )
+
+        self._routes: dict[str, Callable[[bytes], Awaitable[bytes]]] = {}
+        self._stream_routes: dict[str, Callable[[bytes], object]] = {}
+        if deployment is not None:
+            async def predict(data: bytes) -> bytes:
+                out = await deployment.predict(message_from_proto(
+                    pb.SeldonMessage.FromString(data)))
+                return message_to_proto(out).SerializeToString()
+
+            async def feedback(data: bytes) -> bytes:
+                out = await deployment.send_feedback(feedback_from_proto(
+                    pb.Feedback.FromString(data)))
+                return message_to_proto(out).SerializeToString()
+
+            self._routes[f"/{_PKG}.Seldon/Predict"] = predict
+            self._routes[f"/{_PKG}.Seldon/SendFeedback"] = feedback
+        if component is not None:
+            rpc = _ComponentRpc(component)
+            for svc, methods in SERVICE_METHODS.items():
+                if svc == "Seldon":
+                    continue
+                for method, (req_cls, _resp) in methods.items():
+                    async def call(data: bytes, _m=method, _rc=req_cls):
+                        out = await rpc.call(_m, _rc.FromString(data))
+                        return out.SerializeToString()
+
+                    self._routes[f"/{_PKG}.{svc}/{method}"] = call
+            if callable(getattr(component, "stream", None)):
+                def chunks(data: bytes):
+                    msg = message_from_proto(pb.SeldonMessage.FromString(data))
+
+                    async def gen():
+                        async for out in stream_events(component, msg):
+                            yield out.SerializeToString()
+
+                    return gen()
+
+                for svc, methods in STREAMING_METHODS.items():
+                    for method in methods:
+                        self._stream_routes[f"/{_PKG}.{svc}/{method}"] = \
+                            chunks
+        self._bridge = _AsyncBridge(self._route, port=port, bind=bind,
+                                    reuseport=reuseport, http2=True)
+
+    async def _route(self, method: str, path: str, body: bytes):
+        sfn = self._stream_routes.get(path)
+        fn = self._routes.get(path)
+        if sfn is None and fn is None:
+            return (_GRPC_UNIMPLEMENTED, b"", f"unknown method {path}")
+        try:
+            if sfn is not None:
+                return sfn(body)
+            return (0, await fn(body), None)
+        except Exception as e:
+            # component errors are FAILURE messages already (_ComponentRpc);
+            # what reaches here is a wire or protobuf fault
+            logger.exception("native gRPC handler failed (%s)", path)
+            return (_GRPC_INTERNAL, b"", f"{type(e).__name__}: {e}")
+
+    async def start(self) -> int:
+        return await self._bridge.start()
+
+    async def stop(self) -> None:
+        await self._bridge.stop()
+
+    @property
+    def port(self) -> int:
+        return self._bridge.port

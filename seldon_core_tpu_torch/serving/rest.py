@@ -19,8 +19,12 @@ One small HTTP/1.1 server on ``asyncio.start_server`` (keep-alive,
   ``/metrics`` and ``/seldon.json``.
 
 Status codes and error bodies are the reference's: a FAILURE status's code
-is the HTTP status (429 adds ``Retry-After: 1``), a body that is empty or
-not JSON answers 400.  ``/metrics`` renders :class:`EngineMetrics`: every
+is the HTTP status (429, an admission or queue shed, adds ``Retry-After:
+1``), a body that is empty or not JSON answers 400.  The QoS headers
+``X-Seldon-Priority`` and ``X-Seldon-Deadline-Ms`` bind the request's QoS
+context for the engine's walk (``qos/``).  ``reuse_port`` binds the port
+with ``SO_REUSEPORT``, so worker processes can share it
+(``serving/workers.py``).  ``/metrics`` renders :class:`EngineMetrics`: every
 answered request is observed, and the ``metrics`` of a stream event and of
 a component's response meta are merged into it.
 
@@ -51,9 +55,16 @@ import numpy as np
 
 from seldon_core_tpu_torch.graph.engine import _maybe_await
 from seldon_core_tpu_torch.messages import Feedback, SeldonMessage, Status
+from seldon_core_tpu_torch.qos.context import qos_from_headers, qos_scope
 from seldon_core_tpu_torch.runtime.component import (
     SeldonComponentError,
     validate_metrics,
+)
+from seldon_core_tpu_torch.serving.bodies import BadRequest as _BadRequest
+from seldon_core_tpu_torch.serving.bodies import (
+    HELPER_BYTES,
+    BodyParser,
+    payload_json,
 )
 from seldon_core_tpu_torch.utils.metrics import EngineMetrics
 
@@ -79,23 +90,6 @@ def _err_json(code: int, info: str, reason: str = "") -> bytes:
         status=Status.failure(code, info, reason)).to_json().encode()
 
 
-class _BadRequest(Exception):
-    """Answers 400 with the reference's FAILURE body."""
-
-
-def _payload_json(body: bytes, ctype: str) -> Any:
-    """Raw JSON body or the form field ``json=`` (reference wire compat)."""
-    if not body:
-        raise _BadRequest("empty request body")
-    try:
-        if "application/x-www-form-urlencoded" in ctype \
-                or body[:5] == b"json=":
-            return json.loads(parse_qs(body.decode())["json"][0])
-        return json.loads(body)
-    except (ValueError, KeyError) as e:
-        raise _BadRequest(f"malformed request: {e}")
-
-
 def _parse_msg(d: Any) -> SeldonMessage:
     try:
         return SeldonMessage.from_dict(d)
@@ -110,8 +104,13 @@ def _parse_feedback(d: Any) -> Feedback:
         raise _BadRequest(f"bad Feedback: {e}")
 
 
-def _decode(body: bytes, ctype: str, kind):
-    d = _payload_json(body, ctype)
+def _decode(body: bytes, ctype: str, kind, parser: Optional[BodyParser]):
+    """``body`` as ``kind``; a body of at least ``HELPER_BYTES`` is parsed
+    by ``parser``'s helper process (``serving/bodies.py``)."""
+    if parser is not None and len(body) >= HELPER_BYTES:
+        d = parser.parse(body, ctype)
+    else:
+        d = payload_json(body, ctype)
     if kind is SeldonMessage:
         return _parse_msg(d)
     if kind is Feedback:
@@ -139,10 +138,13 @@ class Request:
         JSON value), decoded off the event loop: a large body (an image is
         150,528 numbers) takes tens of ms, and bodies that arrive together
         would decode back to back in one pass of the loop, holding the
-        batcher's flush timers.  Raises :class:`_BadRequest`."""
+        batcher's flush timers.  The decoder thread hands a large body's
+        parse to a helper process, which holds no GIL of this one
+        (``serving/bodies.py``).  Raises :class:`_BadRequest`."""
         return await asyncio.get_running_loop().run_in_executor(
             self._server.decoder, _decode, self.body,
-            self.headers.get("content-type", ""), kind)
+            self.headers.get("content-type", ""), kind,
+            self._server.body_parser)
 
 
 class Response:
@@ -370,7 +372,10 @@ class EngineServer:
             except _BadRequest as e:
                 return _bad(e)
             try:
-                out = await self.engine.predict(msg)
+                # the QoS headers bind the context of the whole walk: the
+                # engine, the batcher and the breakers read it
+                with qos_scope(qos_from_headers(req.headers)):
+                    out = await self.engine.predict(msg)
             except Exception as e:
                 logger.exception("predict failed")
                 out = SeldonMessage(status=Status.failure(
@@ -575,14 +580,17 @@ class RestServer:
     (the reference's ``build_app``)."""
 
     def __init__(self, engine=None, host: str = "0.0.0.0", port: int = 8000,
-                 component=None, metrics: Optional[EngineMetrics] = None):
+                 component=None, metrics: Optional[EngineMetrics] = None,
+                 reuse_port: bool = False):
         self.host = host
         self._port = port
+        self.reuse_port = reuse_port
         self._routes: dict[tuple[str, str], Callable] = {}
         self._streams: dict[str, Callable] = {}
         self._server: Optional[asyncio.base_events.Server] = None
         self._writers: set = set()  # open connections, closed by stop()
         self._decoder: Optional[ThreadPoolExecutor] = None  # JSON bodies
+        self._body_parser: Optional[BodyParser] = None  # the large ones
         if metrics is None and engine is not None and component is not None:
             metrics = EngineMetrics()  # one registry behind one /metrics
         if engine is not None:
@@ -617,9 +625,17 @@ class RestServer:
                 1, thread_name_prefix="rest-json")
         return self._decoder
 
+    @property
+    def body_parser(self) -> BodyParser:
+        """The helper process that parses large bodies."""
+        if self._body_parser is None:
+            self._body_parser = BodyParser()
+        return self._body_parser
+
     async def start(self) -> "RestServer":
-        self._server = await asyncio.start_server(self._serve, self.host,
-                                                  self._port)
+        self._server = await asyncio.start_server(
+            self._serve, self.host, self._port,
+            reuse_port=self.reuse_port or None)
         return self
 
     async def stop(self) -> None:
@@ -632,6 +648,9 @@ class RestServer:
         if self._decoder is not None:
             self._decoder.shutdown(wait=False)
             self._decoder = None
+        if self._body_parser is not None:
+            self._body_parser.close()
+            self._body_parser = None
 
     async def _serve(self, reader: asyncio.StreamReader,
                      writer: asyncio.StreamWriter) -> None:

@@ -246,9 +246,11 @@ def test_spec_typed_parameters_match():
 
 def test_remote_endpoint_node_names_its_slice():
     """A REST endpoint node gets a RemoteComponent with the timeout
-    annotations in seconds; a GRPC one names the slice that brings it."""
+    annotations in seconds; a GRPC one a GrpcComponentClient with
+    ``seldon.io/grpc-read-timeout`` (no slice is left to name)."""
     from seldon_core_tpu_torch.operator.local import resolve_component
     from seldon_core_tpu_torch.serving.client import RemoteComponent
+    from seldon_core_tpu_torch.serving.grpc_api import GrpcComponentClient
 
     node = {"name": "remote", "type": "MODEL", "methods": ["predict"],
             "endpoint": {"service_host": "h", "service_port": 9000}}
@@ -262,8 +264,12 @@ def test_remote_endpoint_node_names_its_slice():
     assert client.has("predict") and not client.has("route")
     grpc = tspec.parse_graph({**node, "endpoint": {
         "service_host": "h", "service_port": 9000, "type": "GRPC"}})
-    with pytest.raises(NotImplementedError, match="slice 4a-ii"):
-        resolve_component(grpc, {}, "cpu")
+    client = resolve_component(grpc, {"seldon.io/grpc-read-timeout": "1500"},
+                               "cpu")
+    assert isinstance(client, GrpcComponentClient)
+    assert client.target == "h:9000" and client.name == "remote"
+    assert client.timeout == 1.5
+    assert client.has("predict") and not client.has("route")
 
 
 # ---- the engine, case by case against the reference ----------------------

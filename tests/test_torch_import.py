@@ -1,11 +1,15 @@
 """The port imports neither jax, nor anything of the JAX package, nor
-``safetensors`` (the card's machine has none; the port reads and writes
-the format itself), nor ``aiohttp``, ``grpc`` or ``google.protobuf``
-(absent there too: the serving tiers stand on the standard library and
-the repository's native library), and its checkpoints and state blobs
-round-trip without them.
+``safetensors`` (the port reads and writes the format itself), and only
+its gRPC modules (``proto.*``, ``serving.grpc_api`` and the gRPC half of
+``serving.native_http``) import ``grpc`` and ``google.protobuf``.  Both
+import on the card's machine (``chip_smoke.py`` ``wire_env`` read grpc
+1.80.0 and protobuf 6.33.6 there), but REST, the framed wire and the native
+REST tier stand without them, and without ``aiohttp`` and ``ml_dtypes``:
+every other module imports, and a checkpoint, a state blob and the wire
+tiers round-trip, with those packages blocked.  A second probe imports the
+gRPC modules and serves a gRPC call, still without jax or the JAX package.
 
-This runs in a subprocess: the test process itself has jax imported (the
+This runs in subprocesses: the test process itself has jax imported (the
 conftest pins its platform), so only a fresh interpreter with
 ``sys.modules["jax"] = None`` can show that every port module imports
 without it.
@@ -25,8 +29,18 @@ for blocked in ("aiohttp", "grpc", "google.protobuf", "ml_dtypes"):
     sys.modules[blocked] = None
 import seldon_core_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+GRPC_MODULES = ("seldon_core_tpu_torch.proto",
+                "seldon_core_tpu_torch.serving.grpc_api")
 for name in names:
-    importlib.import_module(name)
+    if not name.startswith(GRPC_MODULES):
+        importlib.import_module(name)
+# the gRPC half of the native tier needs grpc: it says so when made
+from seldon_core_tpu_torch.serving.native_http import NativeGrpcServer
+try:
+    NativeGrpcServer(component=object())
+    raise AssertionError("NativeGrpcServer made without protobuf")
+except ImportError:
+    pass
 # careful: seldon_core_tpu_torch shares the prefix seldon_core_tpu
 ref = sorted(m for m in sys.modules
              if m == "seldon_core_tpu" or m.startswith("seldon_core_tpu."))
@@ -92,6 +106,60 @@ print(json.dumps({"modules": names, "ref": ref, "jax": jaxish,
 """
 
 
+GRPC_PROBE = r"""
+import asyncio, json, sys
+sys.modules["jax"] = None
+for blocked in ("aiohttp", "ml_dtypes", "safetensors"):
+    sys.modules[blocked] = None
+import numpy as np
+from seldon_core_tpu_torch.proto import convert, prediction_pb2
+from seldon_core_tpu_torch.runtime.component import ComponentHandle
+from seldon_core_tpu_torch.serving import grpc_api
+from seldon_core_tpu_torch.serving.native_http import NativeGrpcServer
+from seldon_core_tpu_torch.messages import SeldonMessage
+class Twice:
+    def predict(self, X, names):
+        return np.asarray(X) * 2
+async def call():
+    h = ComponentHandle(Twice())
+    srv = grpc_api.GrpcServer(grpc_api.component_service_handlers(h, "MODEL"),
+                              port=0, host="127.0.0.1")
+    port = await srv.start()
+    nsrv = NativeGrpcServer(component=h, bind="127.0.0.1")
+    nport = await nsrv.start()
+    try:
+        outs = []
+        for p in (port, nport):
+            c = grpc_api.GrpcComponentClient(f"127.0.0.1:{p}")
+            outs.append((await c.predict(SeldonMessage.from_ndarray(
+                np.ones((1, 2))))).host_data().tolist())
+            await c.close()
+        return outs
+    finally:
+        await nsrv.stop()
+        await srv.stop()
+assert asyncio.run(asyncio.wait_for(call(), 60)) == [[[2.0, 2.0]]] * 2
+ref = sorted(m for m in sys.modules
+             if m == "seldon_core_tpu" or m.startswith("seldon_core_tpu."))
+jaxish = sorted(m for m in sys.modules
+                if (m == "jax" or m.startswith(("jax.", "jaxlib")))
+                and sys.modules[m] is not None)
+print(json.dumps({"ref": ref, "jax": jaxish,
+                  "grpc": "grpc" in sys.modules,
+                  "protobuf": "google.protobuf" in sys.modules}))
+"""
+
+
+def test_grpc_modules_import_without_jax_or_the_jax_package():
+    import json
+
+    out = subprocess.run([sys.executable, "-c", GRPC_PROBE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"ref": [], "jax": [], "grpc": True, "protobuf": True}
+
+
 def test_port_imports_without_jax_or_the_jax_package():
     import json
 
@@ -133,6 +201,16 @@ def test_port_imports_without_jax_or_the_jax_package():
         "seldon_core_tpu_torch.serving.microservice",
         "seldon_core_tpu_torch.serving.framed",
         "seldon_core_tpu_torch.serving.native_http",
+        "seldon_core_tpu_torch.serving.bodies",
+        "seldon_core_tpu_torch.serving.workers",
+        "seldon_core_tpu_torch.serving.grpc_api",
+        "seldon_core_tpu_torch.proto.convert",
+        "seldon_core_tpu_torch.proto.prediction_pb2",
+        "seldon_core_tpu_torch.qos.context",
+        "seldon_core_tpu_torch.qos.admission",
+        "seldon_core_tpu_torch.qos.breaker",
+        "seldon_core_tpu_torch.qos.policy",
+        "seldon_core_tpu_torch.qos.registry",
     }
     assert expected <= set(res["modules"])
 

@@ -82,7 +82,7 @@ def test_local_runner_cli_answers_reference_json_shape(reference_answer):
     proc = subprocess.Popen(
         [sys.executable, "-m", "seldon_core_tpu_torch.operator.local",
          "--graph", str(PORT_GRAPH), "--port", "0", "--host", "127.0.0.1",
-         "--device", "cpu"],
+         "--grpc-port", "0", "--device", "cpu"],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
     try:
