@@ -112,12 +112,36 @@ Prints one JSON object per line:
    router (epsilon 0) and the outlier detector take traffic and feedback,
    ``PersistenceManager`` pushes their state to a ``FileStateStore``, and
    a fresh runner that restores it answers the same probes equally.
-14. ``wire_env``: whether ``aiohttp``, ``grpc``, ``google.protobuf`` and
+14. ``plan_resnet50``: ``resnet50.json`` and ``resnet50-int8.json``
+    (BASELINE config 3, full width, ``wire_resnet``'s seeded weights) booted
+    by ``LocalDeployment`` with ``seldon.io/graph-plan: fused`` and
+    ``-warmup`` (every batcher bucket captured as a CUDA graph at boot),
+    batcher on, and a walk engine over the same components: a batch of 64
+    and 16 concurrent single images bitwise equal to the walk's, one
+    replay per batch, K1 37 launches per int8 forward counted across
+    replays (and 74 per bucket at boot: the capture's eager run and first
+    replay), held against the 37 quantize and 37 product kernels that
+    torch.profiler sees in one replay; capture seconds per bucket, the graph pool's bytes, host ms
+    and images/s per forward fused and walk at batch 1, 8 and 64, peak
+    memory, and 20 single images through each engine, reported.
+15. ``plan_graphs``: iris, mnist, epsilon-greedy-mab (a router root over
+    fused branches), ensemble and iris-with-outlier (a boundary above a
+    fused model), fused against walk on the card: every answer
+    byte-identical, one segment call per request.
+16. ``cache_resnet50``: the int8 ResNet50 fused with
+    ``seldon.io/prediction-cache``: a repeated image hits, launches no
+    kernel and answers bitwise equal to its miss; 16 identical concurrent
+    requests make one batch row.
+17. ``canary``: two predictors (bf16 ResNet50 at replicas 3, int8 at 1)
+    behind the runner's REST with a seeded split: 200 requests pick the
+    seeded sequence exactly, each answer equal to its predictor's
+    in-process answer.
+18. ``wire_env``: whether ``aiohttp``, ``grpc``, ``google.protobuf`` and
     ``ml_dtypes`` import here (their versions; the gRPC phases import grpc
     and fail without it), the ``g++`` version, and
     the seconds of the native library's build from ``native/*.cc``
     (informative).
-15. ``wire_resnet50``: ResNet50 at full width (bf16 and int8, the
+19. ``wire_resnet50``: ResNet50 at full width (bf16 and int8, the
     ``resnet50`` phase's seeds) served by the port's microservice in
     child processes (REST and FRAMED), the local runner in another
     child calling the REST one through its graph's ``endpoint`` (the
@@ -136,7 +160,7 @@ Prints one JSON object per line:
     a request), bitwise equal, p50/p95 per tier.  Children write their
     launch counts at exit: K1 37 a forward in the int8 ones, 0 in the
     float ones.
-16. ``wire_llm``: ``llm.json``'s model served by a microservice child
+20. ``wire_llm``: ``llm.json``'s model served by a microservice child
     and called by a runner child: ``llm_json``'s waves through
     ``/api/v0.1/predictions`` and ``/api/v0.1/stream`` give
     ``llm_json``'s ids; an empty prompt answers 200 with the CPU plain
@@ -148,18 +172,18 @@ Prints one JSON object per line:
     ``Seldon.Predict``, and each prompt's ``Generic.Stream`` on the child,
     all give ``llm_json``'s ids; in process, a ``Generic.Stream`` cancelled
     after its first event gives back its slot and pages.
-17. ``wire_persistence``: the MAB router as a microservice child with
+21. ``wire_persistence``: the MAB router as a microservice child with
     ``--persistence 1``, called by the in-process runner (its models on
     the card): rewarded over REST, stopped with SIGTERM, booted again,
     it answers the same probes as before (error 0.0).
-18. ``workers``: ``resnet50-int8.json`` behind a runner child with
+22. ``workers``: ``resnet50-int8.json`` behind a runner child with
     ``--workers 2``, REST, gRPC, native REST and native gRPC on shared
     ``SO_REUSEPORT`` ports: both workers hold the card (their device files;
     ``nvidia-smi --query-compute-apps=pid`` is printed beside, though a
     container's pids need not match its list), 8 images per tier bitwise
     equal to the in-process forward, and one worker killed stops the group
     (the supervisor exits 0, every worker reaped).
-19. ``qos_resnet50``: the int8 ResNet50 behind a runner child with
+23. ``qos_resnet50``: the int8 ResNet50 behind a runner child with
     ``seldon.io/slo-p95-ms``, breakers and a ``seldon.io/qos-fallback``
     node (a SIMPLE_ROUTER over a GRPC primary child and a REST fallback
     child): an open-loop burst of mixed priorities at twice the rate the
@@ -169,21 +193,22 @@ Prints one JSON object per line:
     (every K1 launch of the children is an answered forward's); the
     primary stopped, its breaker opens and the fallback answers
     ``degraded``.
-20. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
+24. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
     phases of prefix caching, batched and chunked prefill, preemption and
     checkpoints together; ``slice_3b_phases``: ``spec_7b`` and
     ``parity_spec_7b``; ``slice_4a_i_phases``: the ``wire_*`` phases;
     ``slice_4a_ii_qos_phases``: ``grpc_7b``, ``workers``,
-    ``qos_resnet50``).
-21. ``{"kernels": [...]}``: one entry per kernel with its launches in the
+    ``qos_resnet50``; ``slice_4b_4c_i_phases``: the four of 14-17).
+25. ``{"kernels": [...]}``: one entry per kernel with its launches in the
     runs through entry points (``llm_json``, ``serve_7b``, ``grpc_7b``,
-    ``features_7b``, ``spec_7b``, ``checkpoint_7b``, ``wire_resnet50``,
+    ``features_7b``, ``spec_7b``, ``checkpoint_7b``, ``plan_resnet50``,
+    ``cache_resnet50``, ``canary``, ``wire_resnet50``,
     ``wire_llm``, ``workers`` and ``qos_resnet50``, counted by the child
     processes where the kernels run there; K1 also
     ``resnet50_launches``: the int8 REST run), each phase's count beside,
     its error, times and bound (K2 also at its two long cases and the
     shared-prefix case).
-22. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+26. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
@@ -512,6 +537,22 @@ def _device_ms_by_kernel(torch, fn, reps: int) -> dict:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / reps)
     return by_name
+
+
+def _kernels_run(torch, fn) -> dict:
+    """How many times each kernel name ran on the card in one ``fn()``,
+    from torch.profiler (empty if it sees no device event)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    seen: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            seen[e.name] = seen.get(e.name, 0) + 1
+    return seen
 
 
 def _k1_split(by_name: dict) -> dict:
@@ -3539,6 +3580,435 @@ def qos_resnet50_phase(torch) -> dict:
 
 
 # ----------------------------------------------------------------------
+# slice 4b/4c-i: fused plans, the prediction cache, several predictors
+# ----------------------------------------------------------------------
+
+SMOKE_RESNET = "chip_smoke:wire_resnet"
+PLAN_IMAGES = 16
+CANARY_SEED = 7
+CANARY_REQUESTS = 200
+
+
+def _resnet_graph(int8: bool, ann: dict, node: str = "resnet") -> dict:
+    """The port's ``resnet50(-int8).json`` (its batching annotations) with
+    ``ann`` added; the node serves ``wire_resnet``'s weights (random
+    BatchNorm, so every K1 launch computes something) and is registered
+    with ResNet50's signature, which the plan's warm-up reads."""
+    from seldon_core_tpu_torch.models import register_signature, signature_for
+
+    register_signature(SMOKE_RESNET, signature_for(
+        "seldon_core_tpu_torch.models.resnet:ResNet50Model"))
+    name = "resnet50-int8" if int8 else "resnet50"
+    d = json.loads((ROOT / "seldon_core_tpu_torch" / "examples"
+                    / f"{name}.json").read_text())
+    d["spec"]["annotations"].update(ann)
+    d["spec"]["predictors"][0]["graph"] = {
+        "name": node, "type": "MODEL", "parameters": [
+            {"name": "model_class", "value": SMOKE_RESNET,
+             "type": "STRING"},
+            {"name": "int8", "value": str(int8).lower(), "type": "BOOL"}]}
+    return d
+
+
+def _pinned(x, puid: str = "smoke"):
+    from seldon_core_tpu_torch.messages import SeldonMessage
+
+    m = SeldonMessage.from_ndarray(x)
+    m.meta.puid = puid
+    return m
+
+
+def _same_answer(a, b) -> bool:
+    """Two responses byte-identical: meta, status, names, and the bytes of
+    their data (as the wire would carry them)."""
+    import numpy as np
+
+    da, db = a.to_dict(), b.to_dict()
+    if da.get("meta") != db.get("meta") or da.get("status") != \
+            db.get("status"):
+        return False
+    if (a.data is None) != (b.data is None):
+        return False
+    if a.data is None:
+        return da == db
+    ha, hb = a.host_data(), b.host_data()
+    return (list(a.names) == list(b.names) and ha.dtype == hb.dtype
+            and ha.shape == hb.shape
+            and np.ascontiguousarray(ha).tobytes()
+            == np.ascontiguousarray(hb).tobytes())
+
+
+def _fwd_ms(torch, call, reps: int) -> tuple[float, float]:
+    """Median host ms until ``call()`` returns, and median wall ms until
+    the card has finished it, over ``reps`` calls."""
+    host, wall = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        call()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host.append((t1 - t0) * 1e3)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(host), statistics.median(wall)
+
+
+def plan_resnet50_phase(torch) -> dict:
+    """Full ResNet50, bf16 and int8, booted by the local runner's
+    ``LocalDeployment`` from ``resnet50.json`` / ``resnet50-int8.json``
+    with ``seldon.io/graph-plan: fused`` and ``-warmup`` (every batcher
+    bucket captured as a CUDA graph at boot), batcher on; a walk engine
+    over the same components in the same process beside it.  A batch of
+    64 and 16 concurrent single images through each engine: every fused
+    answer bitwise equal to the walk's, one replay per batch, K1 37
+    launches per int8 forward counted across replays, and as many K1
+    kernels seen by torch.profiler in one replay.  Reported, not
+    gated: capture seconds per bucket, the graph pool's bytes, host ms per
+    forward and images/s (fused replay vs the walk's eager forward) at
+    batch 1, 8 and 64 on a device-resident batch, peak memory, and the
+    median ms of 20 single host images through each engine in turn (the
+    batcher's window, H2D, forward, D2H).  Returns the fused engine's
+    launches."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.graph.engine import GraphEngine
+    from seldon_core_tpu_torch.graph.spec import load_deployment
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.operator.local import LocalDeployment
+
+    rng = np.random.default_rng(13)
+    imgs = rng.integers(0, 256, (PLAN_IMAGES, 224, 224, 3)).astype(
+        np.float32)
+    batch = rng.integers(0, 256, (64, 224, 224, 3)).astype(np.float32)
+    total = {"int8_matmul": 0, "paged_attention": 0, "flash_attention": 0}
+    for label, int8 in (("bf16", False), ("int8", True)):
+        d = _resnet_graph(int8, {"seldon.io/graph-plan": "fused",
+                                 "seldon.io/graph-plan-warmup": "true"})
+        reset_launches()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        local = LocalDeployment(load_deployment(d), seed=0)
+        boot_s = time.perf_counter() - t0
+        boot_k1 = read_launches()["int8_matmul"]
+        fused = local.engine
+        seg = fused.plan.segments[0]
+        walk = GraphEngine(d["spec"]["predictors"][0]["graph"], name="main",
+                           resolver=lambda u, e=fused: e.node_impl(u.name))
+        buckets = len(seg.batcher.buckets)
+        out = {"phase": "plan_resnet50", "dtype": label,
+               "segments": fused.plan.describe()["segments"],
+               "boot_s": boot_s, "buckets_captured": len(seg.capture_s),
+               "capture_s_by_rows": {str(k[0][0]): v
+                                     for k, v in seg.capture_s.items()},
+               "pool_bytes": seg.pool_bytes(),
+               "allocated_after_boot_bytes":
+                   torch.cuda.memory_allocated() - mem0,
+               "boot_k1_launches": boot_k1, "card": CARD}
+        # a capture runs the stages once eagerly and replays once
+        want_boot = 2 * 37 * buckets if int8 else 0
+        if len(seg.capture_s) != buckets or boot_k1 != want_boot:
+            emit(out)
+            raise AssertionError(f"plan {label}: {len(seg.capture_s)} "
+                                 f"buckets of {buckets} captured, boot K1 "
+                                 f"{boot_k1} (want {want_boot})")
+
+        async def drive(eng, xs):
+            return await asyncio.gather(*(eng.predict(_pinned(x))
+                                          for x in xs))
+
+        # the walk first: its first-use costs stay out of the fused counts
+        w64 = asyncio.run(walk.predict(_pinned(batch)))
+        w16 = asyncio.run(drive(walk, [imgs[i:i + 1]
+                                       for i in range(PLAN_IMAGES)]))
+        calls0, b0 = seg.n_calls, seg.batcher.stats["batches"]
+        reset_launches()
+        f64 = asyncio.run(fused.predict(_pinned(batch)))
+        k1_64 = read_launches()["int8_matmul"]
+        calls64 = seg.n_calls - calls0
+        reset_launches()
+        f16 = asyncio.run(drive(fused, [imgs[i:i + 1]
+                                        for i in range(PLAN_IMAGES)]))
+        k1_16 = read_launches()["int8_matmul"]
+        calls16 = seg.n_calls - calls0 - calls64
+        batches16 = seg.batcher.stats["batches"] - b0 - 1
+        run = {"int8_matmul": k1_64 + k1_16}
+        for k in total:
+            total[k] += run.get(k, 0)
+        equal64 = _same_answer(w64, f64)
+        equal16 = sum(_same_answer(a, b) for a, b in zip(w16, f16))
+        ok = all(r.status.status == "SUCCESS" for r in [f64, *f16])
+        out.update({
+            "batch64_bitwise_equal_walk": equal64,
+            "concurrent16_bitwise_equal_walk": equal16,
+            "batch64_calls": calls64, "concurrent16_calls": calls16,
+            "concurrent16_batches": batches16,
+            "k1_launches_batch64": k1_64, "k1_launches_concurrent16": k1_16})
+        want = 37 if int8 else 0
+        # the counts above are the capture's record added per replay:
+        # hold them against the kernels the profiler sees in one replay
+        # of the batch-64 bucket (each K1 call is one quantize pass and
+        # one product)
+        x64 = torch.from_numpy(batch).cuda()
+        seen = _kernels_run(torch, lambda: seg(x64))
+        seen_k1 = {"quantize": sum(n for k, n in seen.items()
+                                   if "quant_rows" in k),
+                   "product": sum(n for k, n in seen.items()
+                                  if "int8_gemm" in k or "int8_gemv" in k)}
+        out["k1_kernels_profiled_one_replay"] = seen_k1
+        out["device_kernels_profiled_one_replay"] = sum(seen.values())
+        if not (ok and equal64 and equal16 == PLAN_IMAGES and calls64 == 1
+                and calls16 == batches16 and k1_64 == want
+                and k1_16 == want * batches16
+                and seen_k1 == {"quantize": want, "product": want}
+                and sum(seen.values()) > 0):
+            emit(out)
+            raise AssertionError(f"plan_resnet50 {label}: {out}")
+
+        # forward cost on a batch already on the card: the replay against
+        # the walk's eager forward (the handle under the batcher)
+        handle = fused.node_impl("resnet").handle
+        perf = {}
+        for B in (1, 8, 64):
+            x = torch.from_numpy(batch[:B]).cuda()
+            walk_call = (lambda x=x: handle.predict(SeldonMessage(data=x)))
+            fused_call = (lambda x=x: seg(x))
+            for fn in (walk_call, fused_call):  # warm
+                fn()
+            torch.cuda.synchronize()
+            row = {}
+            for mode, fn in (("walk", walk_call), ("fused", fused_call),
+                             ("fused_again", fused_call),
+                             ("walk_again", walk_call)):
+                torch.cuda.reset_peak_memory_stats()
+                host, wall = _fwd_ms(torch, fn, 20)
+                row[mode] = {"host_ms": host, "wall_ms": wall,
+                             "images_per_s": B / wall * 1e3,
+                             "peak_bytes": torch.cuda.max_memory_allocated()}
+            perf[f"batch{B}"] = row
+        out["forward"] = perf
+        out["forward_note"] = ("host_ms: until the call returns; wall_ms: "
+                               "until the card is done; medians of 20; "
+                               "device-resident batch")
+
+        # one image at a time through the engine as a server calls it:
+        # host image, batcher (its 2 ms window), H2D, forward, D2H
+        async def sequential(eng, n=20):
+            ms = []
+            for i in range(n):
+                t0 = time.perf_counter()
+                await eng.predict(_pinned(imgs[i % PLAN_IMAGES:
+                                               i % PLAN_IMAGES + 1]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(ms)
+
+        out["engine_single_p50_ms"] = {
+            mode: asyncio.run(sequential(eng)) for mode, eng in (
+                ("walk", walk), ("fused", fused), ("fused_again", fused),
+                ("walk_again", walk))}
+        emit(out)
+        del local, fused, walk, seg, handle
+        torch.cuda.empty_cache()
+    return total
+
+
+def plan_graphs_phase(torch) -> None:
+    """Every BASELINE graph (the MAB router seeded: a router root over two
+    fused segments; iris-with-outlier: the learning transformer a boundary
+    above a fused model) booted twice on the card, walk and fused, the
+    walk's components sharing the fused components' weights: every answer
+    of ``_graph_requests`` byte-identical, one call per segment per
+    request."""
+    from seldon_core_tpu_torch.graph.spec import load_deployment
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.operator.local import LocalDeployment
+
+    for name in GRAPHS:
+        base = json.loads((ROOT / "seldon_core_tpu_torch" / "examples"
+                           / f"{name}.json").read_text())
+        if name == "epsilon-greedy-mab":
+            base["spec"]["predictors"][0]["graph"]["parameters"].append(
+                {"name": "seed", "value": "11", "type": "INT"})
+        deps = {}
+        for mode in ("walk", "fused"):
+            d = json.loads(json.dumps(base))
+            d["spec"]["annotations"]["seldon.io/graph-plan"] = mode
+            deps[mode] = LocalDeployment(load_deployment(d), seed=0)
+        walk, fused = deps["walk"].engine, deps["fused"].engine
+        for unit in deps["walk"].spec.graph.walk():
+            if unit.implementation:
+                continue
+            wu = getattr(walk.node_impl(unit.name), "handle",
+                         walk.node_impl(unit.name)).user
+            fu = getattr(fused.node_impl(unit.name), "handle",
+                         fused.node_impl(unit.name)).user
+            if hasattr(fu, "params"):
+                wu.params = fu.params
+        segs = fused.plan.segments
+        bodies = _graph_requests(name)
+
+        async def run():
+            equal = 0
+            for i, body in enumerate(bodies):
+                a = await walk.predict(SeldonMessage.from_dict(
+                    {**body, "meta": {"puid": f"p{i}"}}))
+                b = await fused.predict(SeldonMessage.from_dict(
+                    {**body, "meta": {"puid": f"p{i}"}}))
+                if a.status.status != "SUCCESS":
+                    raise AssertionError(f"plan_graphs {name}: {a.status}")
+                equal += _same_answer(a, b)
+            return equal
+
+        equal = asyncio.run(run())
+        calls = sum(s.n_calls for s in segs)
+        line = {"phase": "plan_graphs", "graph": name,
+                "requests": len(bodies), "bitwise_equal_walk": equal,
+                "segments": [s.label for s in segs],
+                "boundaries": [b for b, _ in fused.plan.boundaries],
+                "segment_calls": calls,
+                "buckets_captured": sum(len(s.capture_s) for s in segs),
+                "card": CARD}
+        emit(line)
+        # one call per request through each segment on its path (the MAB
+        # router takes one branch)
+        if equal != len(bodies) or calls != len(bodies):
+            raise AssertionError(f"plan_graphs {name}: {line}")
+
+
+def cache_resnet50_phase(torch) -> dict:
+    """The int8 ResNet50 fused (``resnet50-int8.json``'s batcher) with
+    ``seldon.io/prediction-cache`` on: a repeated image (10 times) is a hit
+    that launches no kernel and answers bitwise equal to its miss (its ms
+    reported: the first and the median); 16 identical concurrent requests
+    of a new image make one batch row (15 coalesced).  Returns the
+    launches of those requests."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.graph.spec import load_deployment
+    from seldon_core_tpu_torch.operator.local import LocalDeployment
+
+    rng = np.random.default_rng(17)
+    a, b = (rng.integers(0, 256, (1, 224, 224, 3)).astype(np.float32)
+            for _ in range(2))
+    d = _resnet_graph(True, {"seldon.io/graph-plan": "fused",
+                             "seldon.io/prediction-cache": "true",
+                             "seldon.io/spec-hash": "smoke"})
+    local = LocalDeployment(load_deployment(d), seed=0)
+    eng = local.engine
+    seg, cache = eng.plan.segments[0], eng.cache
+    hit_ms = []
+
+    async def run():
+        miss = await eng.predict(_pinned(a))
+        reset_launches()
+        calls0 = seg.n_calls
+        for _ in range(10):
+            t0 = time.perf_counter()
+            hit = await eng.predict(_pinned(a))
+            hit_ms.append((time.perf_counter() - t0) * 1e3)
+        k1_hit, calls_hit = read_launches()["int8_matmul"], \
+            seg.n_calls - calls0
+        rows0, c0 = seg.batcher.stats["rows"], cache.coalesced
+        reset_launches()
+        storm = await asyncio.gather(*(eng.predict(_pinned(b))
+                                       for _ in range(16)))
+        k1_storm = read_launches()["int8_matmul"]
+        return (miss, hit, k1_hit, calls_hit, storm, k1_storm,
+                seg.batcher.stats["rows"] - rows0, cache.coalesced - c0)
+
+    miss, hit, k1_hit, calls_hit, storm, k1_storm, rows, coalesced = \
+        asyncio.run(run())
+    storm_equal = sum(_same_answer(storm[0], s) for s in storm)
+    out = {"phase": "cache_resnet50", "hit_bitwise_equal_miss":
+           _same_answer(miss, hit), "hit_k1_launches": k1_hit,
+           "hit_segment_calls": calls_hit, "identical16_batch_rows": rows,
+           "identical16_coalesced": coalesced,
+           "identical16_k1_launches": k1_storm,
+           "identical16_equal": storm_equal, "first_hit_ms": hit_ms[0],
+           "hit_p50_ms": statistics.median(hit_ms),
+           "stats": cache.stats,
+           "card": CARD}
+    emit(out)
+    if not (out["hit_bitwise_equal_miss"] and k1_hit == 0 and calls_hit == 0
+            and rows == 1 and coalesced == 15 and k1_storm == 37
+            and storm_equal == 16):
+        raise AssertionError(f"cache_resnet50: {out}")
+    return {"int8_matmul": k1_hit + k1_storm, "paged_attention": 0,
+            "flash_attention": 0}
+
+
+def canary_phase(torch) -> dict:
+    """Two predictors behind the runner's REST (``serve(seed=CANARY_SEED)``):
+    ``main`` the bf16 ResNet50 at replicas 3, ``canary`` the int8 one at
+    replicas 1, ``resnet50.json``'s batching.  200 sequential requests over
+    8 images: the predictor that answered each (its node in
+    ``requestPath``) is the seeded sequence of ``random.Random(seed)``
+    split 3:1, drawn here independently, and every answer is byte-equal to
+    its predictor's in-process answer for that image.  Returns the
+    launches of the 200."""
+    import random
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.operator.local import serve
+
+    bf16, int8 = (_resnet_graph(q, {}, node=f"resnet-{lab}")
+                  for q, lab in ((False, "bf16"), (True, "int8")))
+    d = {"metadata": {"name": "canary"}, "spec": {
+        "name": "canary", "annotations": bf16["spec"]["annotations"],
+        "predictors": [
+            {"name": "main", "replicas": 3,
+             "graph": bf16["spec"]["predictors"][0]["graph"]},
+            {"name": "canary", "replicas": 1,
+             "graph": int8["spec"]["predictors"][0]["graph"]}]}}
+    imgs = np.random.default_rng(19).integers(0, 256, (8, 1, 224, 224, 3))
+    bodies = [{"data": {"ndarray": im.tolist()}} for im in imgs]
+    draw = random.Random(CANARY_SEED)
+    want = ["resnet-bf16" if draw.random() <= 0.75 else "resnet-int8"
+            for _ in range(CANARY_REQUESTS)]
+
+    async def run():
+        server, local = await serve(d, port=0, host="127.0.0.1",
+                                    seed=CANARY_SEED)
+        try:
+            ref = {}
+            for p in local.predictors:
+                node = p.spec.graph.name
+                for i, body in enumerate(bodies):
+                    ref[node, i] = (await p.engine.predict(
+                        SeldonMessage.from_dict(body))).to_dict()["data"]
+            reset_launches()
+            got, lat = [], []
+            for n in range(CANARY_REQUESTS):
+                code, res, dt = await asyncio.to_thread(
+                    _post_timed, server.port, bodies[n % 8])
+                if code != 200:
+                    raise AssertionError(f"canary: HTTP {code} {res}")
+                node = next(iter(res["meta"]["requestPath"]))
+                got.append((node, res["data"] == ref[node, n % 8]))
+                lat.append(dt * 1e3)
+            return got, lat, read_launches()
+        finally:
+            await server.stop()
+
+    got, lat, launched = asyncio.run(run())
+    picks = [g[0] for g in got]
+    out = {"phase": "canary", "requests": CANARY_REQUESTS,
+           "replicas": {"main (bf16)": 3, "canary (int8)": 1},
+           "picked_int8": picks.count("resnet-int8"),
+           "picks_equal_seeded_sequence": picks == want,
+           "answers_equal_in_process": sum(g[1] for g in got),
+           "k1_launches": launched["int8_matmul"], **_pctl(lat),
+           "card": CARD}
+    emit(out)
+    if not (picks == want and out["answers_equal_in_process"]
+            == CANARY_REQUESTS
+            and launched["int8_matmul"] == 37 * out["picked_int8"]):
+        raise AssertionError(f"canary: {out}")
+    return launched
+
+
+# ----------------------------------------------------------------------
 
 def ptxas_report(log: str) -> list:
     """Registers, spills and shared memory per kernel from the build's
@@ -3659,6 +4129,14 @@ def smoke() -> int:
                                   torch)
     resnet_k1 = timed("resnet50", resnet50_phase, torch)
     timed("graphs", graphs_phase, torch)
+    # slice 4b/4c-i: fused plans as CUDA graphs, the prediction cache, two
+    # predictors behind one runner
+    runs["plan_resnet50"] = timed("plan_resnet50", plan_resnet50_phase,
+                                  torch)
+    timed("plan_graphs", plan_graphs_phase, torch)
+    runs["cache_resnet50"] = timed("cache_resnet50", cache_resnet50_phase,
+                                   torch)
+    runs["canary"] = timed("canary", canary_phase, torch)
     # slice 4a-i: the wire tiers, components in child processes (their
     # launches come from the children's own counts)
     timed("wire_env", wire_env_phase)
@@ -3679,6 +4157,8 @@ def smoke() -> int:
           "slice_4a_i_phases": slice_4a,
           "slice_4a_ii_qos_phases": seconds["grpc_7b"] + seconds["workers"]
           + seconds["qos_resnet50"],
+          "slice_4b_4c_i_phases": sum(seconds[k] for k in (
+              "plan_resnet50", "plan_graphs", "cache_resnet50", "canary")),
           "total": time.perf_counter() - t0})
     launches = {k: sum(r[k] for r in runs.values())
                 for k in runs["serve_7b"]}

@@ -9,8 +9,10 @@
 The routers draw from ``random.Random(seed)`` exactly as the reference
 does, so with a seed the port routes request for request as the reference
 does.  The combiner averages torch tensors with a torch mean on their
-device: an ensemble of models on the card aggregates there, with no copy to
-the host.
+device (:func:`tensor_mean`): an ensemble of models on the card aggregates
+there, with no copy to the host.  A fused segment (``graph/plan.py``) runs
+the same :func:`tensor_mean` as its pure aggregate, so the walk and the
+segment launch the same kernels.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 __all__ = ["SimpleModel", "SimpleRouter", "RandomABTest", "AverageCombiner",
-           "EpsilonGreedy", "make_builtin"]
+           "EpsilonGreedy", "make_builtin", "tensor_mean"]
 
 
 class SimpleModel:
@@ -57,6 +59,14 @@ class RandomABTest:
         return 0 if self._rng.random() < self.ratio_a else 1
 
 
+def tensor_mean(Xs: Sequence[Any]) -> torch.Tensor:
+    """Element-wise mean of ``Xs`` on the device of the first tensor among
+    them: one stack, then one mean over the new axis."""
+    dev = next(x for x in Xs if isinstance(x, torch.Tensor)).device
+    return torch.stack([torch.as_tensor(x, device=dev)
+                        for x in Xs]).mean(dim=0)
+
+
 class AverageCombiner:
     """Element-wise mean over the children's outputs; torch tensors are
     averaged on their device."""
@@ -66,11 +76,8 @@ class AverageCombiner:
     def aggregate(self, Xs: Sequence[Any], names_list):
         if not Xs:
             raise ValueError("AverageCombiner: no inputs")
-        tensors = [x for x in Xs if isinstance(x, torch.Tensor)]
-        if tensors:
-            dev = tensors[0].device
-            return torch.stack([torch.as_tensor(x, device=dev)
-                                for x in Xs]).mean(dim=0)
+        if any(isinstance(x, torch.Tensor) for x in Xs):
+            return tensor_mean(Xs)
         return np.mean(np.stack([np.asarray(x) for x in Xs]), axis=0)
 
 

@@ -26,11 +26,27 @@ is bounded by the tighter of ``walk_timeout_s`` and the remaining budget
 configured one, the ``seldon.io/qos-fallback`` subtree serves instead of
 the root, with ``meta.tags.degraded`` saying why.
 
-Not in this slice: the prediction cache, fused plans, the health,
-profiling, placement, artifact and device planes, and the tracer
-(ROADMAP.md, slices 4 and 5).  A remote node (``serving.client.
-RemoteComponent``, ``serving.grpc_api.GrpcComponentClient``) has the same
-method surface as a local one, async.
+Fused plans (``plan_mode="fused"``, ``graph/plan.py``): the engine
+compiles maximal static subgraphs into segments at construction and walks
+the segment DAG instead of the node tree; a segment is one call per
+request (one CUDA graph replay per batch on the card), optionally through
+a dynamic batcher of its own (``plan_batcher``).  A graph in which nothing
+fuses warns and keeps the plain walk.  Requests without a tensor payload
+walk the nodes beneath a segment.
+
+The prediction cache (``cache``, a ``caching.PredictionCache``): in walk
+mode the engine memoises maximal deterministic-pure subtrees (one key,
+one stored result, the subtree's meta delta replayed per request); in plan
+mode it caches per segment, and a hit skips the segment entirely.
+``cache_version`` (the ``seldon.io/spec-hash`` annotation) is folded into
+every key.  Identical concurrent requests coalesce through one
+single-flight table before any batcher: N arrivals, one computation, one
+batch row.  A request refused by QoS never reaches the cache.
+
+Not in this slice: the health, profiling, placement, artifact and device
+planes, and the tracer (ROADMAP.md, slice 5).  A remote node
+(``serving.client.RemoteComponent``, ``serving.grpc_api.
+GrpcComponentClient``) has the same method surface as a local one, async.
 """
 
 from __future__ import annotations
@@ -41,9 +57,13 @@ import logging
 import time
 from typing import Any, Callable, Optional
 
+import numpy as np
+import torch
+
 from seldon_core_tpu_torch.graph.builtins import make_builtin
 from seldon_core_tpu_torch.graph.spec import (
     PredictiveUnit,
+    check_plan_mode,
     parse_graph,
     validate_graph,
 )
@@ -103,7 +123,11 @@ class GraphEngine:
                  name: str = "predictor",
                  metrics_sink: Optional[Any] = None,
                  qos: Optional[Any] = None,
-                 walk_timeout_s: Optional[float] = None):
+                 walk_timeout_s: Optional[float] = None,
+                 plan_mode: str = "walk",
+                 plan_batcher: Optional[Any] = None,
+                 cache: Optional[Any] = None,
+                 cache_version: str = ""):
         self.name = name
         self.metrics = metrics_sink
         self.spec = parse_graph(graph)
@@ -111,6 +135,36 @@ class GraphEngine:
         self._resolver = resolver
         self._nodes: dict[str, _Node] = {}
         self.root = self._build(self.spec)
+        self.plan_mode = plan_mode = check_plan_mode(plan_mode)
+        self.plan = None
+        if plan_mode == "fused":
+            from seldon_core_tpu_torch.graph.plan import compile_plan
+
+            self.plan = compile_plan(
+                self.root, batcher_config=plan_batcher,
+                metrics=getattr(metrics_sink, "registry", None))
+            if not self.plan.segments:
+                # the plan walk would be the walk with extra indirection
+                logger.warning(
+                    "graph %s: plan mode requested but no segment fused "
+                    "(%s); falling back to interpreted walk",
+                    name, self.plan.boundaries)
+                self.plan = None
+        self.cache = cache
+        self.cache_version = cache_version
+        self._flight = None
+        self._cache_roots: set[int] = set()
+        if cache is not None:
+            from seldon_core_tpu_torch.caching import SingleFlight
+
+            self._flight = SingleFlight()
+            if self.plan is None:
+                from seldon_core_tpu_torch.caching.policy import (
+                    maximal_cacheable_roots,
+                )
+
+                self._cache_roots = {
+                    id(n) for n in maximal_cacheable_roots(self.root)}
         self.qos = qos
         self.walk_timeout_s = walk_timeout_s
         self._fallback_node: Optional[_Node] = None
@@ -202,6 +256,8 @@ class GraphEngine:
                     reg.counter_inc("seldon_qos_degraded_total",
                                     {"graph": self.name, "reason": degrade})
                 coro = self._walk(self._fallback_node, request, meta)
+            elif self.plan is not None:
+                coro = self._plan_walk(self.plan.root, request, meta)
             else:
                 coro = self._walk(self.root, request, meta)
             if timeout_s is None:
@@ -250,9 +306,31 @@ class GraphEngine:
 
     async def _walk(self, node: _Node, msg: SeldonMessage,
                     meta: Meta) -> SeldonMessage:
+        """Maximal cacheable subtree roots take the memoised path; every
+        other node, and every node below a cache root on its cold
+        computation, runs the plain per-node walk."""
+        if (self.cache is not None and id(node) in self._cache_roots
+                and msg.data is not None):
+            return await self._walk_cached(node, msg, meta)
+        return await self._walk_node(node, msg, meta)
+
+    async def _walk_node(self, node: _Node, msg: SeldonMessage,
+                         meta: Meta) -> SeldonMessage:
         unit, impl = node.unit, node.impl
         meta.request_path[unit.name] = unit.implementation or type(
             getattr(impl, "user", impl)).__name__
+        return await self._walk_traced(node, msg, meta)
+
+    async def _walk_traced(self, node: _Node, msg: SeldonMessage,
+                           meta: Meta, child_walks: Optional[list] = None
+                           ) -> SeldonMessage:
+        """One node after its stamp.  ``child_walks`` (coroutine factories
+        aligned with ``node.children``) lets the plan walk descend into
+        plan nodes below an interpreter boundary."""
+        unit, impl = node.unit, node.impl
+        if child_walks is None:
+            child_walks = [(lambda m, _c=c: self._walk(_c, m, meta))
+                           for c in node.children]
 
         # 1. transformInput: MODEL.predict / TRANSFORMER.transform_input
         t0 = time.perf_counter()
@@ -280,7 +358,7 @@ class GraphEngine:
             return transformed
 
         # 3. route (ROUTER only); -1 means every child
-        selected = node.children
+        selected = child_walks
         if node.type == "ROUTER":
             branch = int(await _maybe_await(impl.route(transformed)))
             meta.routing[unit.name] = branch
@@ -290,14 +368,14 @@ class GraphEngine:
                         f"router {unit.name} chose branch {branch} of "
                         f"{len(node.children)}",
                         status_code=500, reason="ROUTING_ERROR")
-                selected = [node.children[branch]]
+                selected = [child_walks[branch]]
 
         # 4. the children, concurrently
         if len(selected) == 1:
-            child_outputs = [await self._walk(selected[0], transformed, meta)]
+            child_outputs = [await selected[0](transformed)]
         else:
             child_outputs = list(await asyncio.gather(
-                *(self._walk(c, transformed, meta) for c in selected)))
+                *(w(transformed) for w in selected)))
 
         # 5. aggregate: a COMBINER's, else the first child's output
         if node.type == "COMBINER":
@@ -344,6 +422,154 @@ class GraphEngine:
         if self.metrics is not None:
             self.metrics.observe_node(self.name, node_name, elapsed,
                                       status=status)
+
+    # ------------------------------------------------------------------
+    # prediction cache (walk mode): maximal-subtree memoisation
+    # ------------------------------------------------------------------
+    async def _walk_cached(self, node: _Node, msg: SeldonMessage,
+                           meta: Meta) -> SeldonMessage:
+        """Serve one maximal cacheable subtree from the cache.
+
+        An entry is ``(data, names, delta)``, ``delta`` being the Meta the
+        subtree's cold walk produced (requestPath stamps in walk order,
+        component tags, custom metrics), replayed into each caller's meta
+        so hit and coalesced responses are byte-identical to the cold path
+        (per-request meta aside).  A payload that cannot be keyed (an
+        object array) takes the cold path, counted as a bypass.
+        """
+        from seldon_core_tpu_torch.caching.key import message_key
+
+        name = node.unit.name
+        key = message_key(msg, node=name, graph=self.name,
+                          version=self.cache_version)
+        if key is None:
+            self.cache.note_bypass()
+            return await self._walk_node(node, msg, meta)
+        t0 = time.perf_counter()
+        entry = self.cache.get(key)
+        if entry is not None:
+            out = self._replay_entry(entry, meta, node)
+            self._observe(name, time.perf_counter() - t0)
+            return out
+
+        async def compute():
+            sub = Meta()
+            cold = await self._walk_node(node, msg, sub)
+            e = (cold.data, list(cold.names), sub)
+            self.cache.put(key, e, _entry_nbytes(cold.data, cold.names, sub))
+            return e
+
+        entry, coalesced = await self._flight.run(key, compute)
+        if coalesced:
+            self.cache.note_coalesced()
+        out = self._replay_entry(entry, meta, node)
+        self._observe(name, time.perf_counter() - t0)
+        return out
+
+    def _replay_entry(self, entry: tuple, meta: Meta,
+                      node: _Node) -> SeldonMessage:
+        """A cache entry as this request's response fragment: the stored
+        delta is copied before merging, and below the root the payload is
+        copied too (tensors are mutable: a parent component changing its
+        input in place must never reach the shared entry)."""
+        data, names, delta = entry
+        meta.merge(delta.copy())
+        if node is not self.root:
+            data = _private(data)
+        return SeldonMessage(data=data, names=list(names))
+
+    # ------------------------------------------------------------------
+    # plan mode: walk the segment DAG instead of the node tree
+    # ------------------------------------------------------------------
+    async def _plan_walk(self, pnode: Any, msg: SeldonMessage,
+                         meta: Meta) -> SeldonMessage:
+        """One node of the plan walk (``graph/plan.py`` PlanNode): fused
+        segments run as one call; interpreter boundaries run the standard
+        per-node path but descend into plan children."""
+        if pnode.segment is not None:
+            if msg.data is None:
+                # segments are tensor-in/tensor-out; binData/strData/
+                # jsonData requests walk the nodes beneath the segment
+                return await self._walk(pnode.node, msg, meta)
+            out = await self._run_segment(pnode.segment, msg, meta,
+                                          interior=bool(pnode.children))
+            if pnode.children:
+                # chain segment: the fused prefix feeds the interpreted rest
+                return await self._plan_walk(pnode.children[0], out, meta)
+            return out
+        node = pnode.node
+        unit, impl = node.unit, node.impl
+        meta.request_path[unit.name] = unit.implementation or type(
+            getattr(impl, "user", impl)).__name__
+        walks = [(lambda m, _p=p: self._plan_walk(_p, m, meta))
+                 for p in pnode.children]
+        return await self._walk_traced(node, msg, meta, child_walks=walks)
+
+    async def _run_segment(self, seg: Any, msg: SeldonMessage, meta: Meta,
+                           interior: bool = False) -> SeldonMessage:
+        """One fused segment: one call (through its batcher when it has
+        one), or none when the cache holds its result for this input.
+        Either way its meta script replays per request, so requestPath,
+        tags and custom metrics are byte-identical to the walk's.  One
+        ``observe_node`` for the whole segment."""
+        t0 = time.perf_counter()
+        y, names = await self._segment_result(seg, msg, interior)
+        for ev in seg.meta_events:
+            if ev.op == "stamp":
+                meta.request_path[ev.name] = ev.label
+            else:
+                cm = ev.handle._component_meta()
+                meta.merge(cm)
+                if self.metrics is not None and cm.metrics:
+                    self.metrics.merge_custom(ev.name, cm.metrics)
+        self._observe(seg.label, time.perf_counter() - t0)
+        return SeldonMessage(data=y, names=names)
+
+    async def _segment_result(self, seg: Any, msg: SeldonMessage,
+                              interior: bool) -> tuple:
+        """``(y, names)`` for one segment input: a cache hit (no call), a
+        coalesced duplicate riding the leader's call (one call and one
+        batch row for the whole group), else one fresh call."""
+        x = msg.data
+        key = None
+        if self.cache is not None and seg.cacheable:
+            from seldon_core_tpu_torch.caching.key import array_key
+
+            key = array_key(x, msg.names, node=seg.label, graph=self.name,
+                            version=self.cache_version)
+            if key is None:
+                self.cache.note_bypass()
+        if key is None:
+            return await self._dispatch_segment(seg, x, msg.names)
+        entry = self.cache.get(key)
+        if entry is not None:
+            return self._segment_entry(entry, interior)
+
+        async def compute():
+            e = await self._dispatch_segment(seg, x, msg.names)
+            self.cache.put(key, e, _entry_nbytes(e[0], e[1]))
+            return e
+
+        entry, coalesced = await self._flight.run(key, compute)
+        if coalesced:
+            self.cache.note_coalesced()
+        return self._segment_entry(entry, interior)
+
+    async def _dispatch_segment(self, seg: Any, x: Any, in_names) -> tuple:
+        if seg.batcher is not None:
+            y, _ = await seg.batcher(x)
+        else:
+            y = seg(x)
+        return y, seg.out_names(x, in_names)
+
+    @staticmethod
+    def _segment_entry(entry: tuple, interior: bool) -> tuple:
+        """A chain segment feeds an interpreted (possibly mutating)
+        remainder: interior consumers get a private copy of the result."""
+        y, names = entry
+        if interior:
+            y = _private(y)
+        return y, list(names)
 
     # ------------------------------------------------------------------
     def stream(self, request: SeldonMessage):
@@ -403,3 +629,24 @@ class GraphEngine:
             deliver = callable(getattr(node.impl, "send_feedback", None))
         if deliver:
             await _maybe_await(node.impl.send_feedback(fb))
+
+
+def _private(data: Any) -> Any:
+    """A copy of a payload shared through the cache."""
+    if isinstance(data, np.ndarray):
+        return data.copy()
+    if isinstance(data, torch.Tensor):
+        return data.clone()
+    return data
+
+
+def _entry_nbytes(data: Any, names, delta: Optional[Meta] = None) -> int:
+    """Byte cost of one cache entry for the store's budget (the
+    reference's charge: the payload's bytes, names, a flat overhead per
+    meta item)."""
+    n = int(getattr(data, "nbytes", 0) or 0) + 64
+    n += sum(len(str(x)) + 8 for x in names or ())
+    if delta is not None:
+        n += 64 * (len(delta.request_path) + len(delta.tags)
+                   + len(delta.metrics))
+    return n

@@ -6,9 +6,15 @@ Parses the reference's JSON layout: ``PredictiveUnit{name, children[],
 type, implementation, methods[], endpoint{service_host, service_port,
 type}, parameters[]{name, value, type}}``, with typed parameters
 (INT, FLOAT/DOUBLE, STRING, BOOL; any other type stays a string, as in the
-reference).  :func:`load_deployment` takes the
-first predictor's graph and the deployment's ``seldon.io/*`` annotations
-(metadata, then spec, then the predictor's own, the later winning).
+reference).  :func:`load_deployment` reads every predictor: its name,
+graph, ``replicas`` and ``traffic`` (the reference's defaults, 1 and 100),
+and its ``seldon.io/*`` annotations merged as metadata, then spec, then the
+predictor's own, the later winning.  It checks what the reference checks
+at admission: unique predictor names, no negative replicas, a valid graph,
+and a valid ``seldon.io/graph-plan`` (:func:`graph_plan_mode`) and
+``seldon.io/prediction-cache*`` (:func:`prediction_cache_config`) on every
+predictor; a bad value raises :class:`DeploymentValidationError` with the
+reference's message.
 """
 
 from __future__ import annotations
@@ -18,8 +24,10 @@ from dataclasses import dataclass, field
 from typing import Any, Optional
 
 __all__ = ["UNIT_TYPES", "BUILTIN_IMPLEMENTATIONS", "GraphValidationError",
-           "Endpoint", "PredictiveUnit", "parse_graph", "validate_graph",
-           "Deployment", "load_deployment"]
+           "DeploymentValidationError", "Endpoint", "PredictiveUnit",
+           "parse_graph", "validate_graph", "Predictor", "Deployment",
+           "check_plan_mode", "graph_plan_mode", "prediction_cache_config",
+           "load_deployment"]
 
 UNIT_TYPES = ("MODEL", "ROUTER", "COMBINER", "TRANSFORMER",
               "OUTPUT_TRANSFORMER")
@@ -32,6 +40,10 @@ _BOOL_FALSE = ("0", "false", "no")
 
 class GraphValidationError(Exception):
     pass
+
+
+class DeploymentValidationError(GraphValidationError):
+    """A deployment the reference's admission would reject."""
 
 
 def _coerce_param(value, ptype: str, unit: str, param: str) -> Any:
@@ -153,11 +165,66 @@ def validate_graph(root: PredictiveUnit) -> None:
 
 
 @dataclass
-class Deployment:
+class Predictor:
+    """One predictor of a deployment: its graph, merged annotations and its
+    share of the traffic (``replicas`` x ``traffic``)."""
+
     name: str
     graph: PredictiveUnit
     annotations: dict[str, str] = field(default_factory=dict)
-    predictor: str = "predictor"  # the first predictor's name
+    replicas: int = 1
+    traffic: int = 100
+
+
+@dataclass
+class Deployment:
+    """A SeldonDeployment: every predictor, in order.  ``graph``,
+    ``annotations`` and ``predictor`` read the first one's, for callers
+    that serve one."""
+
+    name: str
+    predictors: list[Predictor]
+
+    @property
+    def graph(self) -> PredictiveUnit:
+        return self.predictors[0].graph
+
+    @property
+    def annotations(self) -> dict[str, str]:
+        return self.predictors[0].annotations
+
+    @property
+    def predictor(self) -> str:
+        return self.predictors[0].name
+
+
+def check_plan_mode(value) -> str:
+    """A graph-plan mode, ``walk`` or ``fused``, normalised; anything else
+    raises with the reference admission's message."""
+    mode = str(value).strip().lower()
+    if mode not in ("walk", "fused"):
+        raise DeploymentValidationError(
+            f"annotation seldon.io/graph-plan must be 'walk' or 'fused', "
+            f"got {mode!r}")
+    return mode
+
+
+def graph_plan_mode(ann: dict) -> str:
+    """``seldon.io/graph-plan``: ``walk`` (default, the per-node walk) or
+    ``fused`` (maximal static subgraphs run as segments, ``graph/plan.py``).
+    Anything else raises, as the reference's admission does."""
+    return check_plan_mode(ann.get("seldon.io/graph-plan", "walk"))
+
+
+def prediction_cache_config(ann: dict, name: str):
+    """``seldon.io/prediction-cache*`` as a ``caching.CacheConfig``, or None
+    when the tier is off; an invalid value raises."""
+    from seldon_core_tpu_torch.caching import config_from_annotations
+
+    try:
+        return config_from_annotations(ann, name)
+    except ValueError as e:
+        raise DeploymentValidationError(str(e)) from None
 
 
 def load_deployment(src) -> Deployment:
@@ -171,16 +238,25 @@ def load_deployment(src) -> Deployment:
             d = json.load(f)
     meta = d.get("metadata", {})
     spec = d.get("spec", d)
-    preds = spec.get("predictors") or []
-    if not preds:
+    name = spec.get("name") or meta.get("name", "")
+    raw = spec.get("predictors") or []
+    if not raw:
         raise GraphValidationError("deployment has no predictors")
-    graph = parse_graph(preds[0].get("graph", {}))
-    validate_graph(graph)
-    return Deployment(
-        name=spec.get("name") or meta.get("name", ""),
-        graph=graph,
-        annotations={**meta.get("annotations", {}),
-                     **spec.get("annotations", {}),
-                     **preds[0].get("annotations", {})},
-        predictor=preds[0].get("name") or "predictor",
-    )
+    base = {**meta.get("annotations", {}), **spec.get("annotations", {})}
+    predictors, seen = [], set()
+    for p in raw:
+        pname = p.get("name") or "predictor"
+        if pname in seen:
+            raise DeploymentValidationError(f"duplicate predictor {pname!r}")
+        seen.add(pname)
+        pred = Predictor(name=pname, graph=parse_graph(p.get("graph", {})),
+                         annotations={**base, **p.get("annotations", {})},
+                         replicas=int(p.get("replicas", 1)),
+                         traffic=int(p.get("traffic", 100)))
+        if pred.replicas < 0:
+            raise DeploymentValidationError(f"{pname}: negative replicas")
+        validate_graph(pred.graph)
+        graph_plan_mode(pred.annotations)
+        prediction_cache_config(pred.annotations, f"{name}/{pname}")
+        predictors.append(pred)
+    return Deployment(name=name, predictors=predictors)

@@ -1,1 +1,140 @@
-"""Models served by the port."""
+"""Models served by the port, and their static serving signatures (port of
+the registry in ``seldon_core_tpu/models/__init__.py``).
+
+Every model class the port ships registers a :class:`ModelSignature`
+keyed by the ``module:Class`` string users write in a node's
+``model_class`` parameter.  The graph-plan compiler (``graph/plan.py``)
+reads the entry signature of a fused segment from here to warm every
+batcher bucket at boot (``seldon.io/graph-plan-warmup``); the prediction
+cache reads ``deterministic``.  Third-party components register their own
+with :func:`register_signature`; an unregistered class simply has no
+static contract.  The table imports nothing but the standard library.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+__all__ = ["ANY", "ModelSignature", "SIGNATURES", "BUILTIN_SIGNATURES",
+           "register_signature", "signature_for"]
+
+#: wildcard dimension — matches any size (batch, sequence length, ...)
+ANY = None
+
+Shape = tuple  # of int | None
+
+
+@dataclass(frozen=True)
+class ModelSignature:
+    """Static serving contract of one model class.
+
+    ``None`` anywhere means "unknown/any": a ``None`` dim matches every
+    size; a ``None`` shape or dtype disables the corresponding check.
+    ``hbm_bytes`` is the resident-weights estimate (KV caches and
+    activations are workload-dependent and deliberately excluded).
+
+    ``pure_fn`` declares that the class serves through a pure tensor
+    function (``predict_fn``) with no per-request host state — the static
+    precondition the graph-plan compiler needs to fuse the node into a
+    segment.
+
+    ``deterministic`` declares that identical inputs always produce
+    identical outputs — False for RNG routers, learning/stateful
+    components, and anything with per-request-meta-dependent output.
+
+    The reference's ``batch_shardable`` and ``tp_param_specs`` (the
+    placement plane, slice 6) and ``routes_on`` (the device plane, slice
+    4e) come with the slices that read them.
+    """
+
+    input_shape: Optional[Shape] = None
+    input_dtype: Optional[str] = None
+    output_shape: Optional[Shape] = None
+    output_dtype: Optional[str] = None
+    hbm_bytes: int = 0
+    pure_fn: bool = False
+    deterministic: bool = True
+
+
+def _dense_bytes(sizes: tuple, dtype_bytes: int = 4) -> int:
+    total = 0
+    for m, n in zip(sizes[:-1], sizes[1:]):
+        total += (m * n + n) * dtype_bytes
+    return total
+
+
+_PKG = "seldon_core_tpu_torch.models"
+
+#: module:Class → signature, for every model class shipped in this package
+SIGNATURES: dict[str, ModelSignature] = {
+    f"{_PKG}.iris:IrisClassifier": ModelSignature(
+        input_shape=(ANY, 4), input_dtype="float32",
+        output_shape=(ANY, 3), output_dtype="float32",
+        hbm_bytes=_dense_bytes((4, 3)),
+        pure_fn=True,
+    ),
+    f"{_PKG}.mlp:MNISTMLP": ModelSignature(
+        input_shape=(ANY, 784), input_dtype="float32",
+        output_shape=(ANY, 10), output_dtype="float32",
+        hbm_bytes=_dense_bytes((784, 512, 256, 10)),
+        pure_fn=True,
+    ),
+    f"{_PKG}.mlp:MNISTMLPClassifier": ModelSignature(
+        input_shape=(ANY, 784), input_dtype="float32",
+        output_shape=(ANY,), output_dtype="int32",
+        hbm_bytes=_dense_bytes((784, 512, 256, 10)),
+        pure_fn=True,
+    ),
+    f"{_PKG}.resnet:ResNet50Model": ModelSignature(
+        input_shape=(ANY, 224, 224, 3), input_dtype="float32",
+        output_shape=(ANY, 1000), output_dtype="float32",
+        # ~25.6M params stored in the bf16 serving dtype (models/resnet.py)
+        hbm_bytes=25_600_000 * 2,
+        pure_fn=True,
+    ),
+    f"{_PKG}.resnet_int8:Int8ResNet50Model": ModelSignature(
+        input_shape=(ANY, 224, 224, 3), input_dtype="float32",
+        output_shape=(ANY, 1000), output_dtype="float32",
+        hbm_bytes=25_600_000 * 1,
+        pure_fn=True,
+    ),
+    # token-in/token-out through the continuous-batching engine, which
+    # holds per-request state; generation metrics are time-derived
+    f"{_PKG}.llm_demo:DemoLLM": ModelSignature(
+        input_shape=(ANY, ANY), input_dtype="int32",
+        output_shape=(ANY, ANY), output_dtype="int32",
+        hbm_bytes=2 * 64 * (4 * 64 * 64 + 2 * 64 * 128) * 4,
+        deterministic=False,
+    ),
+    # learning transformer: scores rows, passes data through unchanged —
+    # the running moments (and its tags) change with every request
+    f"{_PKG}.outlier:MahalanobisOutlier": ModelSignature(
+        deterministic=False,
+    ),
+}
+
+#: built-in implementations with a static contract; the router entries
+#: exist for their ``deterministic`` flag
+BUILTIN_SIGNATURES: dict[str, ModelSignature] = {
+    # fixed [[1.0, 2.0, 3.0]] broadcast per row (graph/builtins.py)
+    "SIMPLE_MODEL": ModelSignature(
+        output_shape=(ANY, 3), output_dtype="float64",
+    ),
+    # always branch 0: deterministic, but routers are still cache
+    # boundaries (control flow re-runs per request)
+    "SIMPLE_ROUTER": ModelSignature(),
+    "RANDOM_ABTEST": ModelSignature(deterministic=False),
+    "EPSILON_GREEDY": ModelSignature(deterministic=False),
+    # element-wise mean over children, on the children's device
+    "AVERAGE_COMBINER": ModelSignature(pure_fn=True),
+}
+
+
+def register_signature(model_class: str, sig: ModelSignature) -> None:
+    """Register (or override) the static signature for a ``module:Class``."""
+    SIGNATURES[model_class] = sig
+
+
+def signature_for(model_class: str) -> Optional[ModelSignature]:
+    return SIGNATURES.get(model_class)

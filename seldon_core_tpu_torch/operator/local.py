@@ -6,7 +6,14 @@
         [--grpc-port 5000] [--native-port 8001] [--native-grpc-port 8002] \\
         [--workers N] [--device cpu]
 
-The first predictor's graph runs on a :class:`GraphEngine`.  Built-in
+Every predictor of the deployment runs on a :class:`GraphEngine` of its
+own (:class:`LocalPredictor`: its engine, QoS, batchers, plan and cache),
+and :meth:`LocalDeployment.pick` splits the traffic among them in
+proportion to ``replicas`` x ``traffic``, drawing from
+``random.Random(seed)`` as the reference does (the same seed picks the same
+predictor sequence).  ``predict`` and ``stream`` go through ``pick``;
+feedback goes to every predictor.  Every tier below serves the
+deployment, never one engine.  Built-in
 nodes (``implementation``) are the engine's; every other node names its
 class with the ``model_class`` parameter (``pkg.module:Class``), built from
 the node's other typed parameters and ``device``.  A ``service_type``
@@ -18,6 +25,16 @@ materialize, max-queue-rows}``.  On the card, a batched model that states
 the shape of one input row (``input_shape``) runs every bucket once at boot,
 so each batch shape's first-use costs (cuDNN's choice of algorithm, the
 allocator's first blocks) are paid before traffic.
+
+``seldon.io/graph-plan: "fused"`` compiles maximal static subgraphs into
+segments (``graph/plan.py``): with batching on, a segment is the batched
+callable, with the batcher knobs above, and each batch replays one CUDA
+graph per shape bucket on the card.  ``seldon.io/graph-plan-warmup:
+"true"`` captures every bucket of every segment at boot; without it a
+bucket is captured the first time it is seen.  ``seldon.io/prediction-
+cache: "true"`` (``-bytes``, ``-ttl-ms``) puts the prediction cache in
+front of the deterministic pure subtrees (walk) or segments (fused), keyed
+with ``seldon.io/spec-hash``.
 
 A node with an ``endpoint`` (``service_host``, ``service_port``, type
 ``REST`` or ``GRPC``) and no ``model_class`` is a remote component: a
@@ -50,7 +67,9 @@ from __future__ import annotations
 import argparse
 import asyncio
 import os
+import random
 import signal
+import sys
 from typing import Optional
 
 import numpy as np
@@ -60,7 +79,10 @@ from seldon_core_tpu_torch.graph.engine import GraphEngine
 from seldon_core_tpu_torch.graph.spec import (
     Deployment,
     PredictiveUnit,
+    Predictor,
+    graph_plan_mode,
     load_deployment,
+    prediction_cache_config,
 )
 from seldon_core_tpu_torch.messages import Feedback, SeldonMessage
 from seldon_core_tpu_torch.qos.policy import EngineQos, qos_from_annotations
@@ -69,8 +91,8 @@ from seldon_core_tpu_torch.runtime.batcher import BatchedModel, BatcherConfig
 from seldon_core_tpu_torch.runtime.component import load_component
 from seldon_core_tpu_torch.utils.metrics import EngineMetrics, MetricsRegistry
 
-__all__ = ["resolve_component", "qos_config", "LocalDeployment", "serve",
-           "build_parser", "engine_main"]
+__all__ = ["resolve_component", "qos_config", "LocalPredictor",
+           "LocalDeployment", "serve", "build_parser", "engine_main"]
 
 
 def _batching_enabled(ann: dict) -> bool:
@@ -149,28 +171,24 @@ def resolve_component(unit: PredictiveUnit, annotations: dict, device: str,
         device=device)
     handle.name = unit.name
     if unit.resolved_type == "MODEL" and _batching_enabled(annotations):
-        batched = BatchedModel(handle, _batcher_config(annotations),
-                               metrics=metrics)
-        shape = getattr(handle.user, "input_shape", None)
-        if shape is not None and handle.device.type == "cuda":
-            batched.warmup(np.zeros(shape, np.float32))
-        return batched
+        return BatchedModel(handle, _batcher_config(annotations),
+                            metrics=metrics)
     return handle
 
 
-def qos_config(dep: Deployment):
-    """The deployment's QoS annotations as a ``QosConfig`` (None when QoS
-    is off); a fallback node must be in the graph and not its root
-    (``ValueError``)."""
-    cfg = qos_from_annotations(dep.annotations,
-                               f"{dep.name}/{dep.predictor}")
+def qos_config(dep: Deployment, pred: Optional[Predictor] = None):
+    """A predictor's QoS annotations (the first predictor's by default) as
+    a ``QosConfig`` (None when QoS is off); a fallback node must be in the
+    graph and not its root (``ValueError``)."""
+    pred = pred or dep.predictors[0]
+    cfg = qos_from_annotations(pred.annotations, f"{dep.name}/{pred.name}")
     if cfg is not None and cfg.fallback_node:
-        names = [u.name for u in dep.graph.walk()]
+        names = [u.name for u in pred.graph.walk()]
         if cfg.fallback_node not in names:
             raise ValueError(
                 f"annotation seldon.io/qos-fallback names node "
                 f"{cfg.fallback_node!r} which is not in predictor "
-                f"{dep.predictor!r}'s graph (nodes: {names})")
+                f"{pred.name!r}'s graph (nodes: {names})")
         if cfg.fallback_node == names[0]:
             raise ValueError(
                 f"annotation seldon.io/qos-fallback names the graph root "
@@ -179,49 +197,134 @@ def qos_config(dep: Deployment):
     return cfg
 
 
-class LocalDeployment:
-    """The first predictor's graph with its live components."""
+class LocalPredictor:
+    """One predictor's live graph: its engine with its own QoS, batchers,
+    plan and cache (``metrics`` is the deployment's, shared)."""
 
-    def __init__(self, dep: Deployment, device: Optional[str] = None):
+    def __init__(self, dep: Deployment, pred: Predictor, device: str,
+                 metrics: EngineMetrics):
+        ann = pred.annotations
+        self.spec = pred
+        self.metrics = metrics
+        plan_mode = graph_plan_mode(ann)
+        # a fused segment is the batched callable: one call serves a
+        # cross-request batch through every fused node
+        plan_batcher = (_batcher_config(ann)
+                        if plan_mode == "fused" and _batching_enabled(ann)
+                        else None)
+        cache_cfg = prediction_cache_config(ann, f"{dep.name}/{pred.name}")
+        self.cache = None
+        if cache_cfg is not None:
+            from seldon_core_tpu_torch.caching import PredictionCache
+
+            self.cache = PredictionCache(cache_cfg,
+                                         metrics=metrics.registry)
+        cfg = qos_config(dep, pred)
+        self.qos = None if cfg is None else EngineQos(
+            cfg, metrics=metrics.registry)
+        self.engine = GraphEngine(
+            pred.graph, name=pred.name, metrics_sink=metrics, qos=self.qos,
+            walk_timeout_s=_timeout_s(ann, "seldon.io/engine-walk-timeout-ms",
+                                      None),
+            plan_mode=plan_mode, plan_batcher=plan_batcher, cache=self.cache,
+            cache_version=str(ann.get("seldon.io/spec-hash", "")),
+            resolver=lambda u: resolve_component(
+                u, ann, device, qos=self.qos, metrics=metrics.registry))
+        plan = self.engine.plan
+        # on the card, every batched model outside the segments (all of
+        # them on the walk) runs each bucket once, if it states its row
+        # shape; the segments capture theirs on request or below
+        fused = {s.name for seg in (plan.segments if plan else ())
+                 for s in seg.members}
+        for unit in pred.graph.walk():
+            impl = self.engine.node_impl(unit.name)
+            if unit.name not in fused and isinstance(impl, BatchedModel):
+                shape = getattr(impl.handle.user, "input_shape", None)
+                if shape is not None and impl.handle.device.type == "cuda":
+                    impl.warmup(np.zeros(shape, np.float32))
+        if plan is not None and ann.get(
+                "seldon.io/graph-plan-warmup", "").lower() in ("1", "true",
+                                                               "yes"):
+            plan.warmup()
+
+
+class LocalDeployment:
+    """Every predictor of a SeldonDeployment, with the reference's
+    replica x traffic split.  ``engine`` is the first predictor's, for
+    callers that read it."""
+
+    def __init__(self, dep: Deployment, device: Optional[str] = None,
+                 seed: Optional[int] = None):
         dev = str(resolve_device(device))
         self.spec = dep
         self.metrics = EngineMetrics(MetricsRegistry(), deployment=dep.name)
-        cfg = qos_config(dep)
-        self.qos = None if cfg is None else EngineQos(
-            cfg, metrics=self.metrics.registry)
-        self.engine = GraphEngine(
-            dep.graph, name=dep.predictor, metrics_sink=self.metrics,
-            qos=self.qos,
-            walk_timeout_s=_timeout_s(dep.annotations,
-                                      "seldon.io/engine-walk-timeout-ms",
-                                      None),
-            resolver=lambda u: resolve_component(
-                u, dep.annotations, dev, qos=self.qos,
-                metrics=self.metrics.registry))
-        if self.qos is not None:
-            publish(dep.name, self.qos.snapshot)
+        self.predictors = [LocalPredictor(dep, p, dev, self.metrics)
+                           for p in dep.predictors]
+        self.engine = self.predictors[0].engine
+        self.qos = self.predictors[0].qos
+        if any(p.qos is not None for p in self.predictors):
+            def _snapshot(preds=self.predictors):
+                return {"predictors": [
+                    {"name": p.spec.name, **p.qos.snapshot()}
+                    for p in preds if p.qos is not None]}
+
+            publish(dep.name, _snapshot)
+        self._rng = random.Random(seed)
+        weights = [max(p.spec.replicas, 0) * max(p.spec.traffic, 0)
+                   for p in self.predictors]
+        total = sum(weights) or len(weights)
+        self._weights = [w / total if total else 1 / len(weights)
+                         for w in weights]
+
+    def pick(self) -> LocalPredictor:
+        """The predictor of the next request (reference
+        ``operator/local.py`` ``pick``, draw for draw)."""
+        if len(self.predictors) == 1:
+            return self.predictors[0]
+        r = self._rng.random()
+        acc = 0.0
+        for p, w in zip(self.predictors, self._weights):
+            acc += w
+            if r <= acc:
+                return p
+        return self.predictors[-1]
 
     async def predict(self, msg: SeldonMessage) -> SeldonMessage:
-        return await self.engine.predict(msg)
+        return await self.pick().engine.predict(msg)
 
     def stream(self, msg: SeldonMessage):
-        return self.engine.stream(msg)
+        """One predictor is picked per stream, weighted as predictions."""
+        return self.pick().engine.stream(msg)
 
     async def send_feedback(self, fb: Feedback) -> SeldonMessage:
-        return await self.engine.send_feedback(fb)
+        # every predictor replays its own routing
+        out = None
+        for p in self.predictors:
+            out = await p.engine.send_feedback(fb)
+        return out
 
 
 async def serve(graph, port: int = 8000, host: str = "0.0.0.0",
-                device: Optional[str] = None, reuse_port: bool = False):
+                device: Optional[str] = None, reuse_port: bool = False,
+                seed: Optional[int] = None):
     """Boot ``graph`` (path, JSON string or dict) and start its REST server;
-    returns ``(server, deployment)``.  ``await server.stop()`` ends it."""
+    returns ``(server, deployment)``.  ``await server.stop()`` ends it.
+    ``seed`` seeds the predictor split."""
     from seldon_core_tpu_torch.serving.rest import RestServer
 
-    local = LocalDeployment(load_deployment(graph), device=device)
+    local = LocalDeployment(load_deployment(graph), device=device, seed=seed)
     server = await RestServer(local, host=host, port=port,
                               metrics=local.metrics,
                               reuse_port=reuse_port).start()
     return server, local
+
+
+def _say(line: str) -> None:
+    """One line to stdout in one write: forked workers share the pipe, and
+    ``print`` writes the text and its newline apart when stdout is
+    unbuffered (``PYTHONUNBUFFERED``), so two workers' lines could mix."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -245,6 +348,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "(SO_REUSEPORT), each with its own engine")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="seed of the split among several predictors")
     return ap
 
 
@@ -256,12 +361,12 @@ def engine_main(argv: Optional[list] = None) -> None:
         from seldon_core_tpu_torch.serving.workers import fork_workers
 
         index = fork_workers(args.workers)
-        print(f"worker {index} (pid {os.getpid()})", flush=True)
+        _say(f"worker {index} (pid {os.getpid()})")
 
     async def run():
         server, local = await serve(args.graph, port=args.port,
                                     host=args.host, device=args.device,
-                                    reuse_port=reuse)
+                                    reuse_port=reuse, seed=args.seed)
         stoppers = [server]
         if args.grpc_port:
             from seldon_core_tpu_torch.serving.grpc_api import (
@@ -274,8 +379,7 @@ def engine_main(argv: Optional[list] = None) -> None:
                                  reuse_port=reuse)
             await gserver.start()
             stoppers.append(gserver)
-            print(f"gRPC Seldon service on {args.host}:{gserver.port}",
-                  flush=True)
+            _say(f"gRPC Seldon service on {args.host}:{gserver.port}")
         if args.native_port:
             from seldon_core_tpu_torch.serving.native_http import (
                 NativeRestServer,
@@ -287,8 +391,7 @@ def engine_main(argv: Optional[list] = None) -> None:
                                      bind=args.host, reuseport=reuse)
             await nrest.start()
             stoppers.append(nrest)
-            print(f"native REST tier on {args.host}:{nrest.port}",
-                  flush=True)
+            _say(f"native REST tier on {args.host}:{nrest.port}")
         if args.native_grpc_port:
             from seldon_core_tpu_torch.serving.native_http import (
                 NativeGrpcServer,
@@ -299,10 +402,9 @@ def engine_main(argv: Optional[list] = None) -> None:
                                      bind=args.host, reuseport=reuse)
             await ngrpc.start()
             stoppers.append(ngrpc)
-            print(f"native gRPC tier on {args.host}:{ngrpc.port}",
-                  flush=True)
-        print(f"serving deployment {local.spec.name!r} on "
-              f"{args.host}:{server.port}", flush=True)
+            _say(f"native gRPC tier on {args.host}:{ngrpc.port}")
+        _say(f"serving deployment {local.spec.name!r} on "
+             f"{args.host}:{server.port}")
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGTERM, signal.SIGINT):

@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from seldon_core_tpu_torch.ops import _build
+from seldon_core_tpu_torch.ops import _build, launches
 from seldon_core_tpu_torch.parallel.ring_attention import dense_attention
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_cuda",
@@ -93,11 +93,11 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
         _VARIANT_CODES[flash_variant(q.dtype, D)], _build.stream_of(q),
     )
     _build.check(err, what)
-    flash_attention_cuda.launches += 1
+    launches.note(flash_attention_cuda)
     return out
 
 
-flash_attention_cuda.launches = 0
+launches.register("flash_attention", flash_attention_cuda)
 
 
 def flash_attention(q, k, v, causal: bool = True,

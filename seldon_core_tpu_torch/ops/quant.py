@@ -33,7 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from seldon_core_tpu_torch.ops import _build
+from seldon_core_tpu_torch.ops import _build, launches
 
 __all__ = ["QuantizedLinear", "quantize_int8", "k_major", "is_k_major",
            "quantize_rows", "int8_variant", "int8_matmul", "int8_matmul_ref",
@@ -206,11 +206,11 @@ def int8_matmul_cuda(x2: torch.Tensor, values: torch.Tensor,
         _build.stream_of(x2),
     )
     _build.check(err, what)
-    int8_matmul_cuda.launches += 1
+    launches.note(int8_matmul_cuda)
     return out
 
 
-int8_matmul_cuda.launches = 0
+launches.register("int8_matmul", int8_matmul_cuda)
 
 
 def int8_matmul(x, w: QuantizedLinear,

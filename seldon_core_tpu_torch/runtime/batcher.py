@@ -29,7 +29,11 @@ Queue, pad to a bucket, one device call per batch, split:
 
 ``fn(batch)`` returns ``(batch_out, aux)``, ``batch_out`` row-aligned with
 ``batch``; every caller gets ``(rows, aux)`` of its own batch.  It runs on the
-event loop; on the card it returns as soon as the kernels are queued.
+event loop; on the card it returns as soon as the kernels are queued.  A
+fused segment (``graph/plan.py``) is such an ``fn``: it replays a CUDA graph
+and hands back a clone of the graph's static output made on the same
+stream, so the next replay cannot overwrite a batch whose host copy is still
+pending.
 ``stats`` counts batches, rows, pad rows and sheds; ``shed_reasons`` splits
 the sheds by reason (``queue_full``, ``deadline``, ``budget``).  ``metrics``
 (a ``MetricsRegistry``) gets the reference's series:

@@ -14,7 +14,11 @@ A user class may define any of
 or a pure tensor function ``predict_fn(params, X)`` (with a ``params``
 attribute) or ``predict_fn(X)``.  The handle runs ``predict_fn`` eagerly
 under ``torch.inference_mode()``; a numpy input goes to the component's
-``device`` first.  The reference runs jax with 64-bit types off, so there a
+``device`` first (:meth:`ComponentHandle._to_device`, which a fused
+segment of ``graph/plan.py`` calls too, so both convert alike).  The
+plan compiler reads the same pure functions from the user object
+(``predict_fn``, ``transform_input_fn``, ``transform_output_fn``,
+``aggregate_fn``).  The reference runs jax with 64-bit types off, so there a
 float64 (int64) input reaches ``predict_fn`` as float32 (int32); the handle
 converts the same way.  Outputs stay where ``predict_fn`` left them (on the
 card) until a message is serialized.
@@ -43,7 +47,7 @@ from seldon_core_tpu_torch.messages import (
 )
 
 __all__ = ["SERVICE_TYPES", "SeldonComponentError", "ComponentHandle",
-           "load_component"]
+           "load_component", "host_dtype"]
 
 logger = logging.getLogger(__name__)
 
@@ -55,6 +59,15 @@ _METHODS = ("predict", "route", "aggregate", "transform_input",
 _JAX_DTYPES = {np.dtype(np.float64): np.float32,
                np.dtype(np.int64): np.int32,
                np.dtype(np.uint64): np.uint32}
+
+
+def host_dtype(x: Any) -> str:
+    """The dtype name ``x`` has once a handle has moved it to its device
+    (a float64 host array becomes float32, as jax makes it)."""
+    if isinstance(x, torch.Tensor):
+        return str(x.dtype).replace("torch.", "")
+    dt = np.dtype(x.dtype) if hasattr(x, "dtype") else np.asarray(x).dtype
+    return np.dtype(_JAX_DTYPES.get(dt, dt)).name
 
 
 class SeldonComponentError(Exception):

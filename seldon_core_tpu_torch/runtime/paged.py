@@ -41,7 +41,7 @@ from seldon_core_tpu_torch.models.transformer import (
     rmsnorm,
     rope,
 )
-from seldon_core_tpu_torch.ops import _build
+from seldon_core_tpu_torch.ops import _build, launches
 
 __all__ = [
     "PagedConfig",
@@ -229,11 +229,11 @@ def paged_attention_cuda(q, k_pages, v_pages, lengths, page_indices,
         _build.stream_of(q),
     )
     _build.check(err, what)
-    paged_attention_cuda.launches += 1
+    launches.note(paged_attention_cuda)
     return out
 
 
-paged_attention_cuda.launches = 0
+launches.register("paged_attention", paged_attention_cuda)
 
 
 def paged_attention(q, k_pages, v_pages, lengths, page_indices):

@@ -342,20 +342,26 @@ def test_runner_warms_batched_models_on_the_card(monkeypatch, device, warmed):
     """The local runner runs every bucket of a batched model that states its
     ``input_shape`` once at boot when the model lies on the card; warm-up
     is not traffic.  On the CPU there is nothing to warm."""
-    from seldon_core_tpu_torch.graph.spec import PredictiveUnit
+    from seldon_core_tpu_torch.graph.spec import load_deployment
     from seldon_core_tpu_torch.operator import local
 
     stub = _RowStub(device)
     monkeypatch.setattr(local, "load_component",
                         lambda *a, **k: ComponentHandle(stub))
-    unit = PredictiveUnit(name="m", type="MODEL",
-                          parameters={"model_class": "x:Y"})
-    bm = local.resolve_component(unit, {"seldon.io/batch-max-size": "4"},
-                                 device)
+
+    def boot(ann):
+        node = {"name": "m", "type": "MODEL", "parameters": [
+            {"name": "model_class", "value": "x:Y", "type": "STRING"}]}
+        dep = {"metadata": {"name": "w", "annotations": ann},
+               "spec": {"predictors": [{"name": "p", "graph": node}]}}
+        # the stub states its own device; the runner's is the CPU
+        return local.LocalDeployment(load_deployment(dep),
+                                     device="cpu").engine.node_impl("m")
+
+    bm = boot({"seldon.io/batch-max-size": "4"})
     assert isinstance(bm, BatchedModel)
     assert stub.seen == ([(1, 3), (2, 3), (4, 3)] if warmed else [])
     assert bm._batcher.stats["batches"] == 0
-    no_batch = local.resolve_component(unit, {"seldon.io/batching": "false"},
-                                       device)
+    no_batch = boot({"seldon.io/batching": "false"})
     assert isinstance(no_batch, ComponentHandle)
     assert len(stub.seen) == (3 if warmed else 0)

@@ -97,6 +97,22 @@ async def wire():
         fsrv.stop()
         await srv.stop()
 assert asyncio.run(asyncio.wait_for(wire(), 60)) == ([[2.0, 2.0]],) * 2
+# a fused, cached two-predictor deployment without jax
+from seldon_core_tpu_torch.graph.spec import load_deployment
+from seldon_core_tpu_torch.operator.local import LocalDeployment
+mlp = {"name": "m", "type": "MODEL", "parameters": [
+    {"name": "model_class", "type": "STRING",
+     "value": "seldon_core_tpu_torch.models.mlp:MNISTMLP"},
+    {"name": "hidden", "value": "8", "type": "INT"}]}
+local = LocalDeployment(load_deployment({"spec": {"name": "d", "annotations": {
+    "seldon.io/graph-plan": "fused", "seldon.io/prediction-cache": "true"},
+    "predictors": [{"name": "a", "graph": mlp},
+                   {"name": "b", "graph": mlp}]}}), device="cpu", seed=0)
+for _ in range(4):
+    out = asyncio.run(local.predict(SeldonMessage.from_ndarray(
+        np.zeros((1, 784), np.float32))))
+    assert out.status.status == "SUCCESS"
+assert sum(p.cache.stats["hits"] for p in local.predictors) >= 2
 blocked = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("aiohttp", "grpc", "ml_dtypes")
                  or m.startswith("google.protobuf")
@@ -211,6 +227,14 @@ def test_port_imports_without_jax_or_the_jax_package():
         "seldon_core_tpu_torch.qos.breaker",
         "seldon_core_tpu_torch.qos.policy",
         "seldon_core_tpu_torch.qos.registry",
+        "seldon_core_tpu_torch.graph.plan",
+        "seldon_core_tpu_torch.caching",
+        "seldon_core_tpu_torch.caching.key",
+        "seldon_core_tpu_torch.caching.store",
+        "seldon_core_tpu_torch.caching.singleflight",
+        "seldon_core_tpu_torch.caching.policy",
+        "seldon_core_tpu_torch.models",
+        "seldon_core_tpu_torch.ops.launches",
     }
     assert expected <= set(res["modules"])
 

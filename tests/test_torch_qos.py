@@ -718,7 +718,7 @@ def test_runner_puts_breakers_around_remote_nodes(kind):
     assert [f[1] for f in firsts] == [503, 503]
     assert out.meta.tags["degraded"] == "breaker_open"
     assert list(out.meta.request_path) == ["cheap"]
-    assert tq.snapshot("qdep")["openBreakers"] == ["big"]
+    assert tq.snapshot("qdep")["predictors"][0]["openBreakers"] == ["big"]
     assert 'seldon_qos_breaker_state{component="big"} 2' in \
         local.metrics.render() or \
         'seldon_qos_breaker_state{component="big"} 2.0' in \
