@@ -193,22 +193,40 @@ Prints one JSON object per line:
     (every K1 launch of the children is an answered forward's); the
     primary stopped, its breaker opens and the fallback answers
     ``degraded``.
-24. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
+24. ``llm_graphs_7b``: the LLM engines' programs (ticks, prefill and
+    extend per shape, the speculative round) as CUDA graphs, which every
+    LLM phase above replays by default, against the same programs run
+    eagerly (``programs.eager()``) at 32 layers on ``serve_7b``'s weights:
+    the paged, slab and speculative engines (both of ``spec_7b``'s
+    drafts) answer ``serve_7b``'s prompts, greedy and sampled, with ids
+    EQUAL to the eager ids; every first replay bitwise equal to its eager
+    run (the count of captures); TTFT/TPOT and tokens/s per mode; the
+    decode tick's host ms, device busy ms and idle share per mode
+    (``profile_decode``); ms per admission job (128-token prefill, batched
+    8 x 128, 64-token extend) per mode; capture seconds per key, pool
+    bytes, peak memory; the K1, K2 and K3 launches of one replayed tick,
+    prefill, extend and speculative round (paged and slab) held to
+    torch.profiler's kernels; the prefill program's retained bytes and the
+    pool's after each of 12 (rows, bucket) keys, at the default budget and
+    at one that evicts, twice.
+25. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
     phases of prefix caching, batched and chunked prefill, preemption and
     checkpoints together; ``slice_3b_phases``: ``spec_7b`` and
     ``parity_spec_7b``; ``slice_4a_i_phases``: the ``wire_*`` phases;
     ``slice_4a_ii_qos_phases``: ``grpc_7b``, ``workers``,
-    ``qos_resnet50``; ``slice_4b_4c_i_phases``: the four of 14-17).
-25. ``{"kernels": [...]}``: one entry per kernel with its launches in the
+    ``qos_resnet50``; ``slice_4b_4c_i_phases``: the four of 14-17;
+    ``slice_4c_ii_phases``: ``llm_graphs_7b``).
+26. ``{"kernels": [...]}``: one entry per kernel with its launches in the
     runs through entry points (``llm_json``, ``serve_7b``, ``grpc_7b``,
-    ``features_7b``, ``spec_7b``, ``checkpoint_7b``, ``plan_resnet50``,
+    ``features_7b``, ``spec_7b``, ``llm_graphs_7b``, ``checkpoint_7b``,
+    ``plan_resnet50``,
     ``cache_resnet50``, ``canary``, ``wire_resnet50``,
     ``wire_llm``, ``workers`` and ``qos_resnet50``, counted by the child
     processes where the kernels run there; K1 also
     ``resnet50_launches``: the int8 REST run), each phase's count beside,
     its error, times and bound (K2 also at its two long cases and the
     shared-prefix case).
-26. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+27. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
@@ -221,6 +239,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import contextlib
 import json
 import math
 import re
@@ -366,7 +385,10 @@ def kernel_phase(torch, timer) -> dict:
         plan = paged.kernel_split_plan(
             case.S, case.H, case.Hkv, case.D, case.page_size,
             tables.shape[1], q.element_size(), sms)
-        out = paged.paged_attention_cuda(q, kp, vp, lens, tables)
+        arrivals = paged.arrival_counters(case.S, case.H, case.Hkv,
+                                          q.device)
+        out = paged.paged_attention_cuda(q, kp, vp, lens, tables,
+                                         arrivals=arrivals)
         ref = paged.paged_attention_ref(q, kp, vp, lens, tables)
         torch.cuda.synchronize()
         active = lens > 0
@@ -395,7 +417,8 @@ def kernel_phase(torch, timer) -> dict:
             b_ms, b_by = bound(nbytes, ops, "bf16" if case.dtype == "bfloat16"
                                else "f32")
             line.update(ms=timer(lambda: paged.paged_attention_cuda(
-                q, kp, vp, lens, tables)), bound_ms=b_ms, bound_by=b_by)
+                q, kp, vp, lens, tables, arrivals=arrivals)), bound_ms=b_ms,
+                bound_by=b_by)
             if active.any():  # the all-inactive case times the kernel only
                 line.update(
                     plain_ms=timer(lambda: paged.paged_attention_ref(
@@ -403,7 +426,7 @@ def kernel_phase(torch, timer) -> dict:
                     library_ms=timer(k2cases.yardstick(q, kp, vp, lens,
                                                        tables)))
         emit(line)
-        del q, kp, vp, out, ref
+        del q, kp, vp, out, ref, arrivals
         return line
 
     lines = {c.name: paged_case(c) for c in k2cases.CASES}
@@ -1049,12 +1072,14 @@ def parity_7b_phase(torch) -> None:
     )
     from seldon_core_tpu_torch.runtime.paged import (
         PagedConfig,
+        arrival_counters,
         init_paged_cache,
         insert_rows,
         paged_decode_step,
     )
 
     cfg = _cfg_7b(2)
+    arrivals = arrival_counters(2, cfg.n_heads, cfg.kv_heads, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     gpu_params = init_params_int8(gen, cfg)
     cpu_params = _to_device(gpu_params, "cpu")
@@ -1105,7 +1130,7 @@ def parity_7b_phase(torch) -> None:
         for _ in range(4):
             gl, g_cache = paged_decode_step(
                 gpu_params, g_cache, tables.cuda(), pos.cuda(), tok.cuda(),
-                cfg, paged)
+                cfg, paged, arrivals)
             cl, c_cache = paged_decode_step(cpu_params, c_cache, tables, pos,
                                             tok, cfg, paged)
             gl = gl.float().cpu()
@@ -1444,7 +1469,9 @@ def parity_features_7b_phase(torch) -> None:
                                   "v": small["v"][:, b:b + 1]}, b, n)
             return res
 
-    got = {dev: paths(eng) for dev, eng in engines.items()}
+    # on each engine's device worker, where its programs capture
+    got = {dev: eng._device_worker.submit(paths, eng).result()
+           for dev, eng in engines.items()}
 
     def agree(card, cpu):
         at = cpu.gather(-1, card.argmax(-1)[:, None])[:, 0]
@@ -1815,6 +1842,339 @@ def spec_7b_phase(torch, params) -> dict:
     if total["plain"]["paged_attention"] == 0:
         raise AssertionError("spec_7b plain: K2 not launched")
     return {k: sum(t[k] for t in total.values()) for k in total["plain"]}
+
+
+LLM_GRAPHS_REPS = 5  # admission jobs timed per mode and turn
+# llm_graphs_7b (h): a prefill budget that 12 keys at 32 layers exceed
+RETAIN_PROBE_BYTES = 320 << 20
+
+
+def _llm_burst(torch, engine, bodies: list, n_new: int) -> tuple:
+    """``bodies`` through ``LLMComponent`` behind the REST server twice: a
+    warm-up burst (first-use costs and, with graphs, the captures of every
+    shape the traffic needs) and the measured burst.  Returns the measured
+    ids, the warm-up's ids and the measured burst's TTFT and TPOT medians
+    (engine latency log, host clock), tokens/s and wall seconds."""
+    from seldon_core_tpu_torch.runtime.llm import LLMComponent
+    from seldon_core_tpu_torch.serving.rest import RestServer
+
+    comp = LLMComponent(engine, n_new=n_new)
+
+    async def run():
+        server = await RestServer(comp, host="127.0.0.1", port=0).start()
+        try:
+            warm = await _post_all(server.port, bodies)
+            engine.latency_log.clear()
+            t0 = time.perf_counter()
+            answers = await _post_all(server.port, bodies)
+            return warm, answers, time.perf_counter() - t0
+        finally:
+            await server.stop()
+
+    warm, answers, wall = asyncio.run(run())
+    for code, body in warm + answers:
+        if code != 200:
+            raise AssertionError(f"llm_graphs_7b: HTTP {code}: {body}")
+    log = list(engine.latency_log)
+    return ([b["jsonData"]["ids"] for _, b in answers],
+            [b["jsonData"]["ids"] for _, b in warm],
+            {"ttft_ms_median": statistics.median(
+                x["ttft_s"] for x in log) * 1e3,
+             "tpot_ms_median": statistics.median(
+                 x["tpot_s"] for x in log if x["tpot_s"] is not None) * 1e3,
+             "tokens_per_s": n_new * len(bodies) / wall, "wall_s": wall})
+
+
+def llm_graphs_7b_phase(torch, params) -> dict:
+    """The LLM engines' programs as CUDA graphs against the same programs
+    run eagerly (``programs.eager()``), at 32 layers on ``serve_7b``'s
+    weights, on five engines in turn: the paged engine (``serve_7b``'s: 96
+    pages of 16, 8 slots, max_len 256), the slab engine (8 slots, max_len
+    256), the speculative paged engine (``spec_7b``'s: 161 pages, k 4)
+    with the target as its own draft and with ``spec_7b``'s small draft,
+    and the speculative slab engine with the small draft.
+
+    (a) Every program's first replay is bitwise equal to its eager run (the
+    program raises otherwise): the count of (program, key) captures.
+    (b) 8 requests of 16 new tokens behind REST, ``serve_7b``'s prompts on
+    the plain engines and ``spec_7b``'s on the speculative ones, even
+    requests greedy and odd ones sampled (temperature 0.8, top-k 50, a seed
+    each): eager then graphs, each a warm-up burst and a measured one; the
+    ids of the graphs EQUAL the eager ids, greedy and sampled, and each
+    mode's warm-up ids equal its measured ids.  (d) The measured bursts'
+    TTFT and TPOT medians and tokens/s.  (c) ``profile_decode``'s host ms
+    per tick, device busy ms and idle share on the paged engine, eager,
+    graphs, graphs, eager.  (e) Milliseconds per admission job on the paged
+    engine's worker (a 128-token prefill with its first token's draw, a
+    batched prefill of 8 x 128 rows, a 64-token extend of a 128-row
+    prefix with its draw; median of ``LLM_GRAPHS_REPS`` after a warm-up
+    that captures), eager, graphs, graphs, eager.  (f) Capture seconds per
+    key, replays and pool bytes per engine; peak device memory.  (g) One
+    replayed tick's K1 and K2 launches held against the kernels
+    torch.profiler sees in it (each K1 launch: one quantize pass and one
+    product; 6 projections a layer and the lm_head, and K2 once a layer);
+    so are one replayed prefill (1 x 128: K1 and K3, once a layer), extend
+    and speculative round (the perfect draft's on pages, K1 in its draft
+    steps and its verify chunk; the slab engine's).  (h) The prefill
+    program's retained bytes and the pool's after each call of 12 (rows,
+    bucket) keys, rows 1, 2, 4, 8 by buckets 64, 128, 256: once on the
+    paged engine at ``GRAPH_RETAIN_BYTES``, and twice on a fresh one at
+    ``RETAIN_PROBE_BYTES``, which evicts (the second pass captures the
+    evicted keys again); the last key's answer bitwise equal on both; beside them, what every key up to 8 rows and the
+    bucket of max_len would hold with no budget, at max_len 256 and 4096.
+    Returns the launches of the measured and warm-up bursts."""
+    import numpy as np
+
+    from seldon_core_tpu_torch import profile_decode
+    from seldon_core_tpu_torch.runtime import llm, programs
+    from seldon_core_tpu_torch.runtime.llm import LLMEngine, PagedLLMEngine
+    from seldon_core_tpu_torch.runtime.paged import PagedConfig
+
+    cfg = _cfg_7b(32)
+    n_new = 16
+
+    def traffic(prompts, seed0):
+        return [{"jsonData": {
+            "prompt_ids": p, "n_new": n_new,
+            **({"temperature": 0.8, "top_k": 50, "seed": seed0 + i}
+               if i % 2 else {})}} for i, p in enumerate(prompts)]
+
+    # serve_7b's prompts, and spec_7b's (its generator, its seeds)
+    rng = torch.Generator().manual_seed(13)
+    spec_prompts = [_rand_ids(torch, rng, 5 + (115 * i) // 7)
+                    for i in range(8)]
+    bodies = {"serve": traffic(SERVE_7B["prompts"], 200),
+              "spec": traffic(spec_prompts, 100)}
+    d_params, d_cfg = _draft_small(torch)
+    makers = {
+        "paged": lambda: PagedLLMEngine(
+            params, cfg, PagedConfig(n_pages=96, page_size=16), max_slots=8,
+            max_len=256),
+        "slab": lambda: LLMEngine(params, cfg, max_slots=8, max_len=256),
+        "spec_perfect_draft": lambda: PagedLLMEngine(
+            params, cfg, PagedConfig(n_pages=161, page_size=16), max_slots=8,
+            max_len=256, draft_params=params, draft_cfg=cfg, k_draft=4),
+        "spec_small_draft": lambda: PagedLLMEngine(
+            params, cfg, PagedConfig(n_pages=161, page_size=16), max_slots=8,
+            max_len=256, draft_params=d_params, draft_cfg=d_cfg, k_draft=4),
+        "slab_spec": lambda: LLMEngine(
+            params, cfg, max_slots=8, max_len=256, draft_params=d_params,
+            draft_cfg=d_cfg, k_draft=4),
+    }
+    out = {"phase": "llm_graphs_7b",
+           "model": "L32 d4096 H32/Hkv8 ff16384 V32000 bf16 int8-full flash",
+           "prompt_lens": {k: [len(b["jsonData"]["prompt_ids"]) for b in v]
+                           for k, v in bodies.items()}, "n_new": n_new,
+           "sampled": [bool(i % 2) for i in range(8)], "card": CARD}
+    def held(label, engine, job, want=None):
+        """One ``job()`` on ``engine``'s worker under torch.profiler: the
+        launches it counted against the kernels the profiler saw (K1's
+        quantize pass and product each once a launch); ``want``: expected
+        counts by kernel."""
+        def run():
+            return engine._device_worker.submit(job).result()
+
+        before = read_launches()
+        seen = _kernels_run(torch, run)
+        after = read_launches()
+        counted = {k: after[k] - before[k] for k in after}
+        seen_k = {"k1_quantize": sum(n for k, n in seen.items()
+                                     if "quant_rows" in k),
+                  "k1_product": sum(n for k, n in seen.items()
+                                    if "int8_gemm" in k or "int8_gemv" in k),
+                  "k2": sum(n for k, n in seen.items()
+                            if "paged_decode" in k),
+                  "k3": sum(n for k, n in seen.items() if "flash_fwd" in k)}
+        line = {"launches_counted": counted, "kernels_profiled": seen_k,
+                "device_kernels_profiled": sum(seen.values()),
+                "expected": want}
+        out.setdefault("replays_profiled", {})[label] = line
+        if not (counted["int8_matmul"] == seen_k["k1_quantize"]
+                == seen_k["k1_product"]
+                and counted["paged_attention"] == seen_k["k2"]
+                and counted["flash_attention"] == seen_k["k3"]
+                and sum(counted.values()) > 0
+                and all(counted[k] == n for k, n in (want or {}).items())):
+            emit(out)
+            raise AssertionError(f"llm_graphs_7b: one {label} replay "
+                                 f"counted {counted}, the profiler saw "
+                                 f"{seen_k}, expected {want}")
+
+    want_k1 = 6 * cfg.n_layers + 1  # 6 projections a layer, the lm_head
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    captures = {}  # (program, key) captures per engine, each checked
+    kept = {}  # engines used again after the bursts
+    for name, make in makers.items():
+        engine = make()
+        traffic_of = bodies["serve" if name in ("paged", "slab")
+                            else "spec"]
+        with programs.eager():
+            e_ids, e_warm, e_line = _llm_burst(torch, engine, traffic_of,
+                                               n_new)
+        g_ids, g_warm, g_line = _llm_burst(torch, engine, traffic_of, n_new)
+        stats = engine.program_stats()
+        captures[name] = sum(p["captures"]
+                             for p in stats["programs"].values())
+        equal = [a == b for a, b in zip(g_ids, e_ids)]
+        out[name] = {"eager": e_line, "graphs": g_line,
+                     "ids_equal_eager": equal,
+                     "greedy_equal": sum(equal[0::2]),
+                     "sampled_equal": sum(equal[1::2]),
+                     "programs": stats}
+        if not (all(equal) and len(equal) == len(traffic_of)
+                and e_warm == e_ids and g_warm == g_ids):
+            emit(out)
+            raise AssertionError(f"llm_graphs_7b {name}: graph ids differ "
+                                 f"from eager ids ({equal}) or a burst "
+                                 "repeated differently")
+        if name in ("paged", "spec_perfect_draft", "slab_spec"):
+            kept[name] = engine
+        else:
+            engine.close()
+    launches = read_launches()
+    # (g) one greedy speculative round at profile_decode's lengths (a
+    # first call captures its key if the bursts did not)
+    for name in ("spec_perfect_draft", "slab_spec"):
+        engine = kept.pop(name)
+        st = profile_decode.live_state(engine, cfg.vocab_size)
+        engine._device_worker.submit(engine._spec_device, st).result()
+        held(f"{name} round", engine, lambda: engine._spec_device(st),
+             {"int8_matmul": (engine.k_draft + 2) * want_k1
+              if engine.draft_params is params else want_k1})
+        engine.close()
+    del d_params
+    engine = kept.pop("paged")
+    worker = engine._device_worker
+
+    # (c) the tick, eager and graphs in turns
+    state = profile_decode.live_state(engine, cfg.vocab_size)
+    ticks = []
+    for eager in (True, False, False, True):
+        r = profile_decode.profile_ticks(engine, state, 8, eager=eager)
+        ticks.append({k: r[k] for k in (
+            "mode", "host_ms_per_tick_median", "device_busy_ms_per_tick",
+            "device_idle_share", "device_events_per_tick")})
+    out["tick"] = ticks
+
+    # (g) one replayed tick's launches against the profiler's kernels
+    held("tick", engine, lambda: engine._tick_device(state),
+         {"int8_matmul": want_k1, "paged_attention": cfg.n_layers,
+          "flash_attention": 0})
+
+    # (e) admission jobs
+    rng = torch.Generator().manual_seed(31)
+    ids128 = np.asarray([_rand_ids(torch, rng, 128)], np.int64)
+    ids8 = np.asarray([_rand_ids(torch, rng, 128) for _ in range(8)],
+                      np.int64)
+    pos8 = np.asarray([127 - 9 * b for b in range(8)], np.int64)
+    ids8[np.arange(128)[None, :] > pos8[:, None]] = 0
+    suffix = np.asarray([_rand_ids(torch, rng, 64)], np.int64)
+    first = (0.0, 0, 1.0, None)  # a greedy first token's draw
+    src = worker.submit(engine._prefill_rows, ids128, 127).result()[1]
+    jobs = {
+        "prefill_128": lambda: engine._then_first(
+            engine._prefill_rows, first)(ids128, 127)[2],
+        "batched_prefill_8x128": lambda: engine._prefill_rows(
+            ids8, pos8)[0].argmax(-1).tolist(),
+        "extend_64_after_128": lambda: engine._then_first(
+            engine._extend_job, first)(src, suffix, 128, 63)[2],
+    }
+    admissions = []
+    for eager in (True, False, False, True):
+        row = {}
+        with programs.eager() if eager else contextlib.nullcontext():
+            row["mode"] = ("graphs" if programs.graphs_on(engine.device)
+                           else "eager")
+            for label, job in jobs.items():
+                worker.submit(job).result()  # warm-up (and capture)
+                ms = []
+                for _ in range(LLM_GRAPHS_REPS):
+                    t0 = time.perf_counter()
+                    worker.submit(job).result()  # ends with a host read
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                row[label + "_ms_median"] = statistics.median(ms)
+                row[label + "_ms"] = ms
+        admissions.append(row)
+    out["admission_jobs"] = admissions
+    # (g) a replayed prefill (its key captured in (e)) and extend
+    held("prefill 1x128", engine, lambda: engine._prefill_rows(ids128, 127),
+         {"int8_matmul": want_k1, "flash_attention": cfg.n_layers,
+          "paged_attention": 0})
+    held("extend 64 after 128", engine,
+         lambda: engine._extend_job(src, suffix, 128, 63),
+         {"int8_matmul": want_k1, "paged_attention": 0,
+          "flash_attention": 0})
+    torch.cuda.synchronize()
+    # (f) the paged engine again, with the admissions' captures
+    stats = out["paged"]["programs"] = engine.program_stats()
+    captures["paged"] = sum(p["captures"]
+                            for p in stats["programs"].values())
+
+    # (h) what the prefill program retains, key by key
+    def key_bytes(B, L):  # static ids, logit positions, logits, K and V
+        return (B * L * 8 + B * 8 + B * cfg.vocab_size * 4
+                + 2 * cfg.n_layers * B * L * cfg.kv_heads * cfg.d_head
+                * 2)
+
+    def sweep(eng, passes):
+        """The 12 keys in order, ``passes`` times (each key's ids from a
+        seed of its own); a row per call, and the last answer."""
+        rows, last = [], None
+        for B, L in [(B, L) for B in (1, 2, 4, 8)
+                     for L in (64, 128, 256)] * passes:
+            rng = torch.Generator().manual_seed(1000 * B + L)
+            ids = np.asarray([_rand_ids(torch, rng, L) for _ in range(B)],
+                             np.int64)
+            last = eng._device_worker.submit(eng._prefill_rows, ids,
+                                             L - 1).result()
+            prog = eng._programs["prefill"]
+            rows.append({"key": [B, L],
+                         "retained_bytes": prog.retained_bytes(),
+                         "pool_bytes": eng._graph_pool.bytes(),
+                         "evicted": prog.evicted})
+        return rows, last
+
+    budget_rows, ans = sweep(engine, 1)
+    engine.close()
+    saved = llm.GRAPH_RETAIN_BYTES
+    llm.GRAPH_RETAIN_BYTES = RETAIN_PROBE_BYTES
+    try:
+        tight = PagedLLMEngine(params, cfg, PagedConfig(96, 16),
+                               max_slots=8, max_len=256)
+        tight_rows, tight_ans = sweep(tight, 2)
+    finally:
+        llm.GRAPH_RETAIN_BYTES = saved
+    tight.close()
+    largest = key_bytes(8, 256)
+    same = (programs.bitwise_equal(ans[0], tight_ans[0])
+            and all(programs.bitwise_equal(ans[1][k], tight_ans[1][k])
+                    for k in ("k", "v")))
+    out["prefill_retention"] = {
+        "default_budget_bytes": saved, "at_default": budget_rows,
+        "probe_budget_bytes": RETAIN_PROBE_BYTES, "at_probe": tight_rows,
+        "largest_key_bytes": largest,
+        "last_answer_bitwise_equal": same,
+        "unbounded_bytes": {
+            str(max_len): sum(key_bytes(B, 8 << j) for B in range(1, 9)
+                              for j in range(max_len.bit_length() - 3))
+            for max_len in (256, 4096)}}
+    if not (same and tight_rows[-1]["evicted"] > 0
+            and all(r["retained_bytes"] <= RETAIN_PROBE_BYTES + largest
+                    for r in tight_rows)):
+        emit(out)
+        raise AssertionError("llm_graphs_7b: the prefill program's "
+                             "eviction did not hold its budget or changed "
+                             "an answer")
+    out["captures_checked_bitwise"] = captures
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    out["launches"] = launches
+    emit(out)
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"llm_graphs_7b: {k} was not launched")
+    return launches
 
 
 def parity_spec_7b_phase(torch) -> None:
@@ -4120,6 +4480,9 @@ def smoke() -> int:
     runs["features_7b"] = timed("features_7b", features_7b_phase, torch,
                                 params_7b)
     runs["spec_7b"] = timed("spec_7b", spec_7b_phase, torch, params_7b)
+    # slice 4c-ii: the engines' programs as CUDA graphs against eager
+    runs["llm_graphs_7b"] = timed("llm_graphs_7b", llm_graphs_7b_phase,
+                                  torch, params_7b)
     del params_7b
     torch.cuda.empty_cache()
     timed("parity_7b", parity_7b_phase, torch)
@@ -4159,6 +4522,7 @@ def smoke() -> int:
           + seconds["qos_resnet50"],
           "slice_4b_4c_i_phases": sum(seconds[k] for k in (
               "plan_resnet50", "plan_graphs", "cache_resnet50", "canary")),
+          "slice_4c_ii_phases": seconds["llm_graphs_7b"],
           "total": time.perf_counter() - t0})
     launches = {k: sum(r[k] for r in runs.values())
                 for k in runs["serve_7b"]}

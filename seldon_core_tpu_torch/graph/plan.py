@@ -32,7 +32,9 @@ outside the graph, the graph replays on the caller's current stream, and
 the output is cloned on that stream before it is handed back, so the next
 replay cannot overwrite a batch whose host copy is still pending.  Every
 bucket of a segment allocates from one memory pool
-(``torch.cuda.graph_pool_handle()``).  Capture runs on the calling thread
+(``torch.cuda.graph_pool_handle()``).  The capture steps are
+``runtime/programs.py`` :func:`capture`, which the LLM engines' programs
+share.  Capture runs on the calling thread
 (the one that runs the batcher's forwards) with
 ``capture_error_mode="thread_local"``, so CUDA work of other threads (an
 LLM engine's worker, a host copy) cannot void it, on a stream of the
@@ -73,7 +75,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from seldon_core_tpu_torch.ops import launches
+from seldon_core_tpu_torch.runtime import programs
 
 __all__ = ["FUSIBLE_TYPES", "PURE_FN_ATTR", "extract_stage",
            "boundary_reason", "MetaEvent", "FusedSegment", "PlanNode",
@@ -266,28 +268,6 @@ class MetaEvent:
     handle: Any = None  # ComponentHandle (merge: tags/metrics source)
 
 
-class _Bucket:
-    """One captured shape bucket: its graph, static input and output, and
-    the kernel launches one replay makes."""
-
-    __slots__ = ("graph", "static_x", "static_y", "recording")
-
-    def __init__(self, graph, static_x, static_y, recording):
-        self.graph = graph
-        self.static_x = static_x
-        self.static_y = static_y
-        self.recording = recording
-
-
-def _bitwise_equal(a: Any, b: Any) -> bool:
-    if not (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)):
-        return False
-    if a.shape != b.shape or a.dtype != b.dtype:
-        return False
-    return torch.equal(a.reshape(-1).view(torch.uint8),
-                       b.reshape(-1).view(torch.uint8))
-
-
 class FusedSegment:
     """One fused run of graph nodes, called once per request (or batch).
 
@@ -321,7 +301,6 @@ class FusedSegment:
         self.n_replays = 0   # replays of a captured bucket
         self._buckets: dict = {}
         self._pool = None
-        self._stream = None
         self._capture_lock = threading.Lock()
         self.capture_s: dict = {}
         self._names: dict = {}
@@ -401,62 +380,38 @@ class FusedSegment:
         key = self.bucket_key(xt)
         b = self._buckets.get(key)
         if b is None:
-            return self._capture(key, xt).static_y.clone()
-        b.static_x.copy_(xt)
-        b.graph.replay()
-        b.recording.replayed()
+            return self._capture(key, xt).outputs.clone()
+        b.inputs[0].copy_(xt)
+        y = b.replay()
         self.n_replays += 1
-        # the next replay overwrites static_y: hand out a copy made on
-        # this stream, in order before that replay
-        return b.static_y.clone()
+        # the next replay overwrites the static output: hand out a copy
+        # made on this stream, in order before that replay
+        return y.clone()
 
-    def _capture(self, key: tuple, xt: torch.Tensor) -> _Bucket:
-        """Capture bucket ``key``: one eager run on the segment's stream
-        (warm-up, and the walk's answer), the capture, one replay that
-        must equal the eager run bit for bit."""
+    def _capture(self, key: tuple, xt: torch.Tensor) -> programs.Captured:
+        """Capture bucket ``key`` (:func:`programs.capture`: one eager run
+        on the segment's stream, the walk's answer at this shape; the
+        capture; one replay that must equal the eager run bit for bit)."""
         with self._capture_lock:
             hit = self._buckets.get(key)
             if hit is not None:
                 return hit
             t0 = time.perf_counter()
-            dev = xt.device
             if self._pool is None:
-                self._pool = torch.cuda.graph_pool_handle()
-                self._stream = torch.cuda.Stream(device=dev)
-            cur = torch.cuda.current_stream(dev)
-            static_x = xt.clone()
-            self._stream.wait_stream(cur)
-            graph = torch.cuda.CUDAGraph()
-            rec = launches.Recording()
-            try:
-                with torch.cuda.stream(self._stream), \
-                        torch.inference_mode():
-                    ref, names = self._run_tree(self.tree, static_x, _IN)
-                with rec, torch.inference_mode():
-                    with torch.cuda.graph(
-                            graph, pool=self._pool, stream=self._stream,
-                            capture_error_mode="thread_local"):
-                        static_y, _ = self._run_tree(self.tree, static_x,
-                                                     _IN)
-            except Exception as e:
-                raise RuntimeError(
-                    f"segment {self.label!r}: capture of bucket {key} "
-                    f"failed: {type(e).__name__}: {e}") from e
-            finally:
-                rec.undo()  # capturing launched nothing, whole or cut
-            cur.wait_stream(self._stream)
-            graph.replay()
-            rec.replayed()
-            torch.cuda.synchronize(dev)
-            if not _bitwise_equal(ref, static_y):
-                raise RuntimeError(
-                    f"segment {self.label!r}: bucket {key}: the replay of "
-                    "its CUDA graph is not bitwise equal to the walk's "
-                    "kernels on the same input")
-            b = _Bucket(graph, static_x, static_y, rec)
+                self._pool = programs.GraphPool(xt.device)
+            names = []
+
+            def run(x):
+                with torch.inference_mode():
+                    y, n = self._run_tree(self.tree, x, _IN)
+                names.append(n)
+                return y
+
+            b = programs.capture(run, (xt.clone(),), self._pool,
+                                 f"segment {self.label!r}", f"bucket {key}")
             self._buckets[key] = b
             self._names.setdefault((key[0][1:], key[1].replace("torch.", "")),
-                                   names)
+                                   names[0])
             self.capture_s[key] = time.perf_counter() - t0
             return b
 
@@ -488,11 +443,7 @@ class FusedSegment:
 
     def pool_bytes(self) -> int:
         """Device bytes the segment's graph pool holds (0 on the CPU)."""
-        if self._pool is None:
-            return 0
-        return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                   if tuple(s.get("segment_pool_id", ())) == tuple(
-                       self._pool))
+        return 0 if self._pool is None else self._pool.bytes()
 
     def describe(self) -> dict:
         return {

@@ -43,6 +43,19 @@ reference's immutable arrays, caches here are written in place, so every
 kept prefix entry owns its storage (a clone), and an extend pads its
 prefix into a fresh buffer before writing the suffix.
 
+**Programs** (:mod:`.programs`): the model work of a tick, a prefill of
+(rows, bucket), an extend of (prefix rows, suffix bucket) and a
+speculative round each runs as a program, the counterpart of the
+reference's ``jax.jit`` programs: on the card one CUDA graph per shape,
+captured on the worker at first sight and replayed after (eager under
+``programs.eager()``), on the CPU the plain path.  A program's inputs are
+the host snapshot a job was given, staged into static buffers on the
+worker; its graphs hold the weights' and caches' addresses, so the engine
+never rebinds them (if they are rebound, every program is dropped).
+Sampling (per-request generators), the first token's draw, the speculative
+uniforms and the cache inserts (their lengths vary per admission) stay
+eager.
+
 **Speculative decoding** (``draft_params``/``draft_cfg``, ``k_draft``):
 every tick drafts ``k_draft`` tokens per slot with the draft model against
 its own slab cache (a slab in the paged engine too), verifies them in one
@@ -84,9 +97,11 @@ from seldon_core_tpu_torch.models.transformer import (
     init_cache,
     prefill,
 )
+from seldon_core_tpu_torch.runtime import programs
 from seldon_core_tpu_torch.runtime.component import SeldonComponentError
 from seldon_core_tpu_torch.runtime.paged import (
     PagedConfig,
+    arrival_counters,
     init_paged_cache,
     insert_rows,
     paged_chunk_step,
@@ -98,6 +113,11 @@ __all__ = ["LLMEngine", "PagedLLMEngine", "LLMComponent",
            "rejection_verify"]
 
 logger = logging.getLogger(__name__)
+
+# the budget of the static buffers that each program of many shape keys
+# (prefill, draft prefill, extend) keeps captured: past it, its least
+# recently used keys are dropped (programs.Program ``retain_bytes``)
+GRAPH_RETAIN_BYTES = 2 << 30
 
 
 class AdmissionDeadlineError(SeldonComponentError):
@@ -354,6 +374,11 @@ class LLMEngine:
         # the ONE thread that runs device work, in submission order
         self._device_worker = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="llm-device")
+        # device programs by name, built at first use, and what they were
+        # built over (_program)
+        self._programs: dict[str, programs.Program] = {}
+        self._graph_pool: Optional[programs.GraphPool] = None
+        self._bound: tuple = ()
 
     def _init_cache(self, cache_len: int):
         return init_cache(self.cfg, self.max_slots, max_len=cache_len,
@@ -411,18 +436,135 @@ class LLMEngine:
                 "quantize at load with from_checkpoint(int8=...)")
         return save_transformer(path, self.params, self.cfg)
 
+    # -- programs --------------------------------------------------------
+    def _program(self, name: str, build) -> programs.Program:
+        """The program ``name``, made by ``build()`` at its first use.  Its
+        graphs hold the addresses of the weights and caches it was built
+        over: if any has been rebound since, every program is dropped."""
+        bound = (self.params, self.draft_params, self.cache["k"],
+                 self.cache["v"],
+                 *((self.draft_cache["k"], self.draft_cache["v"])
+                   if self.draft_cache is not None else ()))
+        if len(bound) != len(self._bound) or any(
+                a is not b for a, b in zip(bound, self._bound)):
+            self._programs, self._graph_pool, self._bound = {}, None, bound
+        prog = self._programs.get(name)
+        if prog is None:
+            prog = self._programs[name] = build()
+        return prog
+
+    def _pool(self) -> programs.GraphPool:
+        if self._graph_pool is None:
+            self._graph_pool = programs.GraphPool(self.device)
+        return self._graph_pool
+
+    def _make(self, name: str, fn, **kw) -> programs.Program:
+        return programs.Program(name, fn, self.device, self._pool, **kw)
+
+    def program_stats(self) -> dict:
+        """Per program: capture seconds per shape key (its latest capture),
+        captures, replays, eager runs, keys evicted for its budget and the
+        bytes its captured keys hold; and the bytes of the engine's graph
+        pool (0 before the first capture)."""
+        return {
+            "programs": {
+                name: {"capture_s": {str(k): v
+                                     for k, v in p.capture_s.items()},
+                       "captures": p.captures, "replays": p.replays, "eager_runs": p.eager_runs,
+                       "evicted": p.evicted,
+                       "retained_bytes": p.retained_bytes()}
+                for name, p in self._programs.items()},
+            "pool_bytes": (0 if self._graph_pool is None
+                           else self._graph_pool.bytes()),
+        }
+
+    def _prefill_program(self, name: str, params, cfg) -> programs.Program:
+        """Prefill of (B, bucket) right-padded rows with one logit position
+        per row, a (B,) tensor (an int would be a constant of the graph):
+        ``(logits (B, V), k, v)``, each (layers, B, bucket, Hkv, Dh)."""
+        def fn(key, ids, logit_pos):
+            with torch.no_grad():
+                logits, small = prefill(params, ids, cfg, max_len=ids.shape[1],
+                                        logit_pos=logit_pos)
+            return logits, small["k"], small["v"]
+
+        return self._make(name, fn, keep=(params,), owned_outputs=True,
+                          retain_bytes=GRAPH_RETAIN_BYTES)
+
+    def _extend_program(self) -> programs.Program:
+        """Extend of a prefix's (1, cap0) K/V by a (1, bs) suffix chunk at
+        row ``done`` ((1,) int32): the prefix padded into a fresh buffer of
+        cap0 + bs rows, one K-token ``decode_step``, and the logits of the
+        chunk's position ``last`` ((1,) int64)."""
+        params, cfg = self.params, self.cfg
+
+        def fn(key, k, v, suffix, done, last):
+            bs = suffix.shape[1]
+            with torch.no_grad():
+                cache = {"k": F.pad(k, (0, 0, 0, 0, 0, bs)),
+                         "v": F.pad(v, (0, 0, 0, 0, 0, bs)), "pos": done}
+                logits, cache = decode_step(params, cache, suffix, cfg)
+                return logits[0, last], cache["k"], cache["v"]
+
+        return self._make("extend", fn, keep=(params,), owned_outputs=True,
+                          retain_bytes=GRAPH_RETAIN_BYTES)
+
+    def _tick_program(self) -> programs.Program:
+        """One decode step of every slot against the slab at host positions
+        (``pos`` a static input; ``self.cache`` is never rebound)."""
+        params, cfg, cache = self.params, self.cfg, self.cache
+
+        def fn(key, tokens, pos):
+            with torch.no_grad():
+                logits, _ = decode_step(
+                    params, {"k": cache["k"], "v": cache["v"], "pos": pos},
+                    tokens, cfg)
+            return logits
+
+        return self._make("tick", fn, keep=(params, cache),
+                          answered=self._answered_rows)
+
+    def _tick_inputs(self, state) -> tuple:
+        """The tick program's inputs from a tick snapshot."""
+        return state["tokens"], state["pos"]
+
+    def _answered_rows(self, key, host, out):
+        """The part of a tick's or a round's output an answer reads (the
+        bitwise check of a first replay): on the slab, every row."""
+        return out
+
+    def _spec_program(self) -> programs.Program:
+        """The speculative round (:meth:`_spec_device`), keyed by whether
+        any slot samples: ``(S, k + 2)`` int64, the tokens then ``n_emit``.
+        The draft's cache and the target's are written in place; neither
+        is rebound."""
+        k = self.k_draft
+
+        def fn(sampled, tok, pos, temps, top_k, top_p, u, *tables):
+            with torch.no_grad():
+                drafts, qprobs = self._draft_propose(tok, pos, temps, top_k,
+                                                     top_p, u[:, :k], sampled)
+                vtokens = torch.cat([tok[:, None], drafts], dim=1)
+                vlogits = self._verify_logits(pos, vtokens, *tables)
+                tokens, n_emit = self._verify_emit(
+                    vlogits, drafts, qprobs, temps, top_k, top_p, u[:, k:])
+                return torch.cat([tokens, n_emit[:, None]], dim=1)
+
+        return self._make("spec", fn, keep=(self.params, self.draft_params,
+                                            self.cache, self.draft_cache),
+                          answered=self._answered_rows)
+
     # -- device work (runs on the device worker) -------------------------
     def _prefill_rows(self, ids: np.ndarray, logit_pos):
         """Prefill of right-padded rows ``ids`` (B, bucket): last-position
-        logits (B, V) and the 1-row-per-request K/V ``{"k", "v"}``."""
-        with torch.no_grad():
-            lp = (logit_pos if isinstance(logit_pos, int)
-                  else torch.as_tensor(logit_pos, device=self.device))
-            logits, small = prefill(
-                self.params, torch.from_numpy(ids.astype(np.int64)).to(
-                    self.device), self.cfg, max_len=ids.shape[1],
-                logit_pos=lp)
-            return logits, {"k": small["k"], "v": small["v"]}
+        logits (B, V) and the 1-row-per-request K/V ``{"k", "v"}``.
+        ``logit_pos``: one position for every row, or one per row."""
+        B = ids.shape[0]
+        lp = np.array(np.broadcast_to(np.asarray(logit_pos, np.int64), (B,)))
+        prog = self._program("prefill", lambda: self._prefill_program(
+            "prefill", self.params, self.cfg))
+        logits, k, v = prog(ids.shape, ids.astype(np.int64), lp)
+        return logits, {"k": k, "v": v}
 
     @staticmethod
     def _kv_of(src: dict):
@@ -438,21 +580,13 @@ class LLMEngine:
         """Extend ``src``'s K/V (``done`` true rows) by a padded suffix
         chunk: the prefix K/V padded into a FRESH buffer of cap0 + bs rows,
         one K-token ``decode_step`` writing the chunk at ``done``, and the
-        logits of the chunk's last true position ``last``."""
+        logits of the chunk's last true position ``last`` (the program of
+        key (cap0, bs), :meth:`_extend_program`)."""
         k, v = self._kv_of(src)
-        bs = suffix.shape[1]
-        with torch.no_grad():
-            cache = {
-                "k": F.pad(k, (0, 0, 0, 0, 0, bs)),
-                "v": F.pad(v, (0, 0, 0, 0, 0, bs)),
-                "pos": torch.full((1,), done, dtype=torch.int32,
-                                  device=self.device),
-            }
-            logits, cache = decode_step(
-                self.params, cache,
-                torch.from_numpy(suffix.astype(np.int64)).to(self.device),
-                self.cfg)
-            return logits[:, last], {"k": cache["k"], "v": cache["v"]}
+        logits, k2, v2 = self._program("extend", self._extend_program)(
+            (k.shape[2], suffix.shape[1]), k, v, suffix.astype(np.int64),
+            np.array([done], np.int32), np.array([last], np.int64))
+        return logits, {"k": k2, "v": v2}
 
     def _sample_first(self, logits, first):
         """The first generated token from the last position's logits (B = 1)
@@ -481,14 +615,12 @@ class LLMEngine:
         return run
 
     def _tick_device(self, state):
-        """One decode tick of every slot against the slab, host positions
+        """One decode tick of every slot (the tick program), host snapshot
         in, sampled ids out."""
         dev = self.device
+        logits = self._program("tick", self._tick_program)(
+            self.max_slots, *self._tick_inputs(state))
         with torch.no_grad():
-            self.cache["pos"] = torch.from_numpy(state["pos"]).to(dev)
-            logits, self.cache = decode_step(
-                self.params, self.cache,
-                torch.from_numpy(state["tokens"]).to(dev), self.cfg)
             toks = sample_tokens(
                 logits, torch.from_numpy(state["temps"]).to(dev),
                 torch.from_numpy(state["top_k"]).to(dev),
@@ -513,11 +645,10 @@ class LLMEngine:
         entries hold target state only, so the draft always prefills."""
         padded = np.zeros((1, _bucket(L0)), np.int64)
         padded[0, :L0] = host_ids[:L0]
-        with torch.no_grad():
-            _, small = prefill(
-                self.draft_params, torch.from_numpy(padded).to(self.device),
-                self.draft_cfg, max_len=padded.shape[1], logit_pos=L0 - 1)
-            return {"k": small["k"], "v": small["v"]}
+        prog = self._program("draft_prefill", lambda: self._prefill_program(
+            "draft_prefill", self.draft_params, self.draft_cfg))
+        _, k, v = prog(padded.shape, padded, np.array([L0 - 1], np.int64))
+        return {"k": k, "v": v}
 
     def _spec_uniforms(self, gens: list):
         """(S, 3k+1) uniforms, ONE draw call per sampled slot from its own
@@ -545,7 +676,8 @@ class LLMEngine:
         row as valid, and a row never written there would be a hole the
         draft attends over from then on, lowering acceptance round by
         round.  Its proposed token is discarded."""
-        d_cache = dict(self.draft_cache, pos=pos)
+        d_cache = {"k": self.draft_cache["k"], "v": self.draft_cache["v"],
+                   "pos": pos}
         t = tok
         drafts, qs = [], []
         for j in range(self.k_draft + 1):
@@ -559,16 +691,15 @@ class LLMEngine:
                 t = torch.where(temps > 0, _draw(q, u[:, j]), t)
                 qs.append(q)
             drafts.append(t)
-        self.draft_cache = d_cache
         return (torch.stack(drafts, dim=1),
                 torch.stack(qs, dim=1) if sampled else None)
 
-    def _verify_logits(self, state, pos, vtokens):
+    def _verify_logits(self, pos, vtokens):
         """The target's (S, k+1, V) logits of the verify chunk ``vtokens``
         at ``pos``, its K/V rows written into the slab."""
-        self.cache["pos"] = pos
-        logits, self.cache = decode_step(self.params, self.cache, vtokens,
-                                         self.cfg)
+        logits, _ = decode_step(
+            self.params, {"k": self.cache["k"], "v": self.cache["v"],
+                          "pos": pos}, vtokens, self.cfg)
         return logits
 
     def _verify_emit(self, vlogits, drafts, qprobs, temps, top_k, top_p, u):
@@ -590,26 +721,18 @@ class LLMEngine:
 
     def _spec_device(self, state):
         """One speculative tick of every slot: draft proposal, one (k+1)
-        token target verification, per-slot acceptance.  Returns host
-        ``(tokens (S, k+1), n_emit (S,))``."""
-        dev = self.device
-        k = self.k_draft
+        token target verification, per-slot acceptance (the spec program,
+        keyed by whether any slot samples; its uniforms are drawn first,
+        outside it).  Returns host ``(tokens (S, k+1), n_emit (S,))``."""
+        sampled = any(g is not None for g in state["gens"])
         with torch.no_grad():
-            pos = torch.from_numpy(state["pos"]).to(dev)
-            tok = torch.from_numpy(state["tokens"]).to(dev)
-            temps = torch.from_numpy(state["temps"]).to(dev)
-            top_k = torch.from_numpy(state["top_k"]).to(dev)
-            top_p = torch.from_numpy(state["top_p"]).to(dev)
-            sampled = any(g is not None for g in state["gens"])
             u = self._spec_uniforms(state["gens"])
-            drafts, qprobs = self._draft_propose(tok, pos, temps, top_k,
-                                                 top_p, u[:, :k], sampled)
-            vtokens = torch.cat([tok[:, None], drafts], dim=1)
-            vlogits = self._verify_logits(state, pos, vtokens)
-            tokens, n_emit = self._verify_emit(
-                vlogits, drafts, qprobs, temps, top_k, top_p, u[:, k:])
-            out = torch.cat([tokens, n_emit[:, None]], dim=1).cpu().numpy()
-            return out[:, :-1], out[:, -1]
+        # the paged engine's tables come last, as in the tick's inputs
+        out = self._program("spec", self._spec_program)(
+            sampled, state["tokens"], state["pos"], state["temps"],
+            state["top_k"], state["top_p"], u,
+            *self._tick_inputs(state)[2:]).cpu().numpy()
+        return out[:, :-1], out[:, -1]
 
     # -- prefix caching --------------------------------------------------
     def register_prefix(self, prefix_ids) -> None:
@@ -1376,6 +1499,11 @@ class PagedLLMEngine(LLMEngine):
         self._retired_prefixes: list[dict] = []
         self._pinned_pages = 0
         self.prefix_stats.update(alias_hits=0, alias_pages_saved=0)
+        # K2's merge counters of this engine's ticks, made before any
+        # capture (a graph holds their address)
+        self._arrivals = (arrival_counters(max_slots, cfg.n_heads,
+                                           cfg.kv_heads, self.device)
+                          if self.device.type == "cuda" else None)
 
     def _init_cache(self, cache_len: int):
         return init_paged_cache(self.cfg, self.paged_cfg, device=self.device)
@@ -1385,28 +1513,38 @@ class PagedLLMEngine(LLMEngine):
         state["tables"] = self._tables.copy()
         return state
 
-    def _tick_device(self, state):
-        dev = self.device
-        with torch.no_grad():
-            logits, self.cache = paged_decode_step(
-                self.params, self.cache,
-                torch.from_numpy(state["tables"]).to(dev),
-                torch.from_numpy(state["pos"]).to(dev),
-                torch.from_numpy(state["tokens"]).to(dev),
-                cfg=self.cfg, paged=self.paged_cfg,
-            )
-            toks = sample_tokens(
-                logits, torch.from_numpy(state["temps"]).to(dev),
-                torch.from_numpy(state["top_k"]).to(dev),
-                torch.from_numpy(state["top_p"]).to(dev), state["gens"])
-            return toks.cpu().numpy()
+    def _tick_program(self) -> programs.Program:
+        """One :func:`paged_decode_step` of every slot (K2 on the card)."""
+        params, cfg, paged = self.params, self.cfg, self.paged_cfg
+        cache, arrivals = self.cache, self._arrivals
 
-    def _verify_logits(self, state, pos, vtokens):
+        def fn(key, tokens, pos, tables):
+            with torch.no_grad():
+                logits, _ = paged_decode_step(params, cache, tables, pos,
+                                              tokens, cfg=cfg, paged=paged,
+                                              arrivals=arrivals)
+            return logits
+
+        return self._make("tick", fn, keep=(params, cache, arrivals),
+                          answered=self._answered_rows)
+
+    def _tick_inputs(self, state) -> tuple:
+        return state["tokens"], state["pos"], state["tables"]
+
+    def _answered_rows(self, key, host, out):
+        """``out``'s rows of the slots whose current page is not the trash
+        page: inactive slots write there together, any winner, so what
+        they attend over may differ from run to run; nobody reads them.
+        ``host`` holds ``pos`` second and the tables last."""
+        pos, tables = host[1], host[-1]
+        live = tables[np.arange(len(pos)), pos // self.paged_cfg.page_size]
+        return out[torch.from_numpy(np.nonzero(live)[0]).to(out.device)]
+
+    def _verify_logits(self, pos, vtokens, tables):
         """Verification against pages (:func:`paged_chunk_step`)."""
-        logits, self.cache = paged_chunk_step(
-            self.params, self.cache,
-            torch.from_numpy(state["tables"]).to(self.device), pos, vtokens,
-            cfg=self.cfg, paged=self.paged_cfg)
+        logits, _ = paged_chunk_step(self.params, self.cache, tables, pos,
+                                     vtokens, cfg=self.cfg,
+                                     paged=self.paged_cfg)
         return logits
 
     def _rows_of(self, pages, start: int, end: int) -> torch.Tensor:

@@ -55,6 +55,7 @@ __all__ = [
     "SplitPlan",
     "paged_split_plan",
     "kernel_split_plan",
+    "arrival_counters",
 ]
 
 # csrc/paged_attention.cu: query heads per block, bytes and tokens of a chunk
@@ -155,28 +156,32 @@ def paged_attention_ref(q, k_pages, v_pages, lengths, page_indices):
                             (lengths.long() - 1)[:, None])[:, 0]
 
 
-_ARRIVALS: dict = {}
+def _pairs(S: int, H: int, Hkv: int) -> int:
+    """K2's (slot, KV head, head group) pairs: one arrival counter each."""
+    return S * Hkv * -(-(H // Hkv) // _KERNEL_HEADS)
 
 
-def _arrival_counters(device: torch.device, n: int) -> torch.Tensor:
-    """int32 counters of K2's merge, allocated at zero once per device (and
-    again only to grow); each launch leaves them at zero.  Calls on one
-    device share them, so they must run in one stream order, as the
-    engine's single worker does."""
-    buf = _ARRIVALS.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros((max(n, 64),), dtype=torch.int32, device=device)
-        _ARRIVALS[device] = buf
-    return buf
+def arrival_counters(S: int, H: int, Hkv: int, device) -> torch.Tensor:
+    """K2's merge counters for ``S`` slots of ``H`` query heads over ``Hkv``
+    KV heads, at zero; each launch leaves them at zero.  Launches that
+    share them must run in one stream order: an engine makes its own
+    before it captures a graph (a graph holds their address), so that its
+    ticks (on its one worker) never share them with another engine's (on
+    another thread and stream)."""
+    return torch.zeros((_pairs(S, H, Hkv),), dtype=torch.int32,
+                       device=device)
 
 
 def paged_attention_cuda(q, k_pages, v_pages, lengths, page_indices,
-                         plan: Optional[SplitPlan] = None):
+                         plan: Optional[SplitPlan] = None,
+                         arrivals: Optional[torch.Tensor] = None):
     """Launch K2.  ``q`` (S, H, Dh) and the pages share a dtype (float32 or
     bfloat16); lengths and tables are int32; all contiguous on one card,
     the pages 16-byte aligned.  Returns (S, H, Dh) float32 (the reference's
     output dtype).  ``plan`` replaces :func:`kernel_split_plan`'s
-    (measurement only).  Reads no device value on the host."""
+    (measurement only).  ``arrivals`` (:func:`arrival_counters`) are the
+    merge counters a split plan needs.  Reads no device value on the
+    host."""
     what = "paged_attention"
     ts = (q, k_pages, v_pages, lengths, page_indices)
     if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
@@ -214,12 +219,18 @@ def paged_attention_cuda(q, k_pages, v_pages, lengths, page_indices,
     if plan is None:
         plan = kernel_split_plan(S, H, Hkv, D, ps, pp, q.element_size(),
                                  _build.sm_count(dev))
-    part = arrivals = None
+    part = None
     if plan.n_split > 1:  # partial outputs, then their (max, sum)
-        pairs = S * Hkv * -(-(H // Hkv) // _KERNEL_HEADS)
+        pairs = _pairs(S, H, Hkv)
+        if (arrivals is None or arrivals.dtype != torch.int32
+                or arrivals.device != dev or arrivals.numel() < pairs):
+            raise ValueError(f"{what}: a plan of {plan.n_split} splits needs "
+                             f"arrivals (arrival_counters): int32 on {dev}, "
+                             f">= {pairs} counters")
         part = torch.empty((pairs * plan.n_split * _KERNEL_HEADS * (D + 2),),
                            dtype=torch.float32, device=dev)
-        arrivals = _arrival_counters(dev, pairs)
+    else:
+        arrivals = None
     err = _build.load().sck_paged_attention(
         _build.ptr(q), _build.ptr(k_pages), _build.ptr(v_pages),
         _build.ptr(lengths), _build.ptr(page_indices), _build.ptr(out),
@@ -236,21 +247,25 @@ def paged_attention_cuda(q, k_pages, v_pages, lengths, page_indices,
 launches.register("paged_attention", paged_attention_cuda)
 
 
-def paged_attention(q, k_pages, v_pages, lengths, page_indices):
+def paged_attention(q, k_pages, v_pages, lengths, page_indices,
+                    arrivals: Optional[torch.Tensor] = None):
     if q.is_cuda:
         return paged_attention_cuda(q.contiguous(), k_pages, v_pages,
-                                    lengths, page_indices)
+                                    lengths, page_indices, arrivals=arrivals)
     return paged_attention_ref(q, k_pages, v_pages, lengths, page_indices)
 
 
 def paged_decode_step(params, cache, tables, pos, tok,
-                      cfg: TransformerConfig, paged: PagedConfig):
+                      cfg: TransformerConfig, paged: PagedConfig,
+                      arrivals: Optional[torch.Tensor] = None):
     """One decode token per slot against the paged cache.
 
     - ``tables``: (S, pages_per_slot) int32 page ids (trash page 0 for
       released slots)
     - ``pos``: (S,) int32 host-owned positions (tokens already processed)
     - ``tok``: (S,) current token per slot
+    - ``arrivals``: K2's merge counters (:func:`arrival_counters`; on the
+      card when K2 splits)
 
     Writes each slot's new K/V row into its current page (in place) and
     returns ``(logits (S, V) float32, cache)``.
@@ -276,7 +291,7 @@ def paged_decode_step(params, cache, tables, pos, tok,
         kp, vp = cache["k"][i], cache["v"][i]
         kp.view(Hkv, -1, Dh)[:, row, :] = k[:, 0].transpose(0, 1)
         vp.view(Hkv, -1, Dh)[:, row, :] = v[:, 0].transpose(0, 1)
-        attn = paged_attention(q[:, 0], kp, vp, lengths, tables)
+        attn = paged_attention(q[:, 0], kp, vp, lengths, tables, arrivals)
         x = x + _attn_out(attn[:, None].to(x.dtype), p["wo"], x.dtype)
         x = ffn_block(p, x, cfg)
 

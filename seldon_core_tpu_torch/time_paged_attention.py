@@ -15,8 +15,9 @@ times the kernel at every plan of 1, 2, 4, ... pages per block.
 To time two checkouts' kernels on the same inputs on one card, copy this
 file into the other checkout's ``seldon_core_tpu_torch/`` and run it
 there too (its own build directory, its own kernel): the module uses only
-``paged_attention_cuda(q, k_pages, v_pages, lengths, tables)`` and
-``ColdTimer`` of the checkout it runs in.
+``paged_attention_cuda(q, k_pages, v_pages, lengths, tables, plan=,
+arrivals=)``, ``arrival_counters`` and ``ColdTimer`` of the checkout it runs
+in.  Each case's merge counters are made once, outside the timed calls.
 """
 
 from __future__ import annotations
@@ -188,8 +189,10 @@ def main(argv=None) -> list:
             plan = plan_of(case.S, case.H, case.Hkv, case.D, case.page_size,
                            pp, q.element_size(), sms)
             row.update(n_split=plan.n_split, pages_per_split=plan.pages)
+        arrivals = paged.arrival_counters(case.S, case.H, case.Hkv,
+                                          q.device)
         call = lambda: paged.paged_attention_cuda(  # noqa: E731
-            q, kp, vp, lens, tables)
+            q, kp, vp, lens, tables, arrivals=arrivals)
         try:
             row["ms"] = timer(call, reps=args.reps)
             row["ms_back_to_back"] = back_to_back_ms(call, args.reps)
@@ -201,12 +204,13 @@ def main(argv=None) -> list:
         while args.sweep and plan_of is not None and pages <= pp:
             plan = paged.SplitPlan(-(-pp // pages), pages)
             ms = timer(lambda: paged.paged_attention_cuda(
-                q, kp, vp, lens, tables, plan=plan), reps=args.reps)
+                q, kp, vp, lens, tables, plan=plan, arrivals=arrivals),
+                reps=args.reps)
             print(json.dumps({"case": case.name, "sweep_n_split":
                               plan.n_split, "sweep_pages": pages, "ms": ms}),
                   flush=True)
             pages *= 2
-        del q, kp, vp
+        del q, kp, vp, arrivals
     return rows
 
 

@@ -2,6 +2,7 @@
 in repeated bursts: the TTFT and TPOT medians of each burst.
 
     python -m seldon_core_tpu_torch.time_serve [--bursts 5] [--layers 32]
+        [--eager]
 
 Builds ``serve_7b``'s setup: the 7B-class int8 "full" model (d4096,
 H32/Hkv8, ff16384, V32000, bf16, flash prefill; ``--layers`` deep) with
@@ -11,7 +12,10 @@ After one warm-up request (it also builds the kernels), it sends
 ``--bursts`` bursts of the same 8 concurrent requests (prompts of 5..120
 tokens, n_new 16) and prints one JSON line per burst: the TTFT and TPOT
 medians from the engine's latency log (host clock) and the burst's wall
-time; then one line with the median of the bursts' medians.
+time; then one line with the median of the bursts' medians.  The engine's
+programs replay CUDA graphs (captured by the warm-up request and the first
+burst); ``--eager`` runs them eagerly (``programs.eager()``); each line
+names the mode.
 
 To compare two checkouts on one card, copy this file into the other
 checkout's ``seldon_core_tpu_torch/`` and run it in each in turn (parent,
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import statistics
 import subprocess
@@ -70,13 +75,17 @@ def main(argv=None) -> list:
         LLMComponent,
         PagedLLMEngine,
     )
+    from seldon_core_tpu_torch.runtime import programs
     from seldon_core_tpu_torch.runtime.paged import PagedConfig
     from seldon_core_tpu_torch.serving.rest import RestServer
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--bursts", type=int, default=5)
     ap.add_argument("--layers", type=int, default=32)
+    ap.add_argument("--eager", action="store_true",
+                    help="run the engine's programs eagerly, not as graphs")
     args = ap.parse_args(argv)
+    mode = "eager" if args.eager else "graphs"
 
     cfg = TransformerConfig(
         vocab_size=32000, d_model=4096, n_layers=args.layers, n_heads=32,
@@ -113,7 +122,7 @@ def main(argv=None) -> list:
                        "tpot_ms_median": statistics.median(
                            x["tpot_s"] for x in log
                            if x["tpot_s"] is not None) * 1e3,
-                       "wall_s": wall, "card": card}
+                       "wall_s": wall, "mode": mode, "card": card}
                 print(json.dumps(row), flush=True)
                 rows.append(row)
             return rows
@@ -121,11 +130,12 @@ def main(argv=None) -> list:
             await server.stop()
 
     try:
-        rows = asyncio.run(run())
+        with programs.eager() if args.eager else contextlib.nullcontext():
+            rows = asyncio.run(run())
     finally:
         engine.close()
     print(json.dumps({
-        "bursts": len(rows), "layers": args.layers,
+        "bursts": len(rows), "layers": args.layers, "mode": mode,
         "ttft_ms_median_of_bursts": statistics.median(
             r["ttft_ms_median"] for r in rows),
         "tpot_ms_median_of_bursts": statistics.median(

@@ -235,6 +235,7 @@ def test_port_imports_without_jax_or_the_jax_package():
         "seldon_core_tpu_torch.caching.policy",
         "seldon_core_tpu_torch.models",
         "seldon_core_tpu_torch.ops.launches",
+        "seldon_core_tpu_torch.runtime.programs",
     }
     assert expected <= set(res["modules"])
 

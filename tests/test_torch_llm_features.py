@@ -60,14 +60,50 @@ def _ref_ids(p, n, int8="none"):
     return np.asarray(jtf.generate(jp, jnp.asarray(p)[None], n, JCFG))[0]
 
 
+#: the reference engine's host mirrors that its tick programs take
+_MIRRORS = ("_tokens", "_pos", "_temps", "_topk", "_topp", "_keys", "_tables")
+
+
+def snapshot_dispatch(jeng):
+    """Make the reference engine's ticks read a private copy of its host
+    mirrors.  Its ``_dispatch_plain``/``_dispatch_spec`` hand the live
+    arrays to a jitted tick; on the CPU, ``jnp.asarray`` of a 64-byte
+    aligned numpy array is that array's buffer, not a copy, and the tick
+    runs asynchronously, so an admission that maps a slot's shared pages
+    while the tick waits to run changes what the tick reads (beside busy
+    processes the reference's aliased slot then decoded ``[18, 40, 19,
+    ...]`` where its own ``generate`` gives ``[18, 18, 18, ...]``:
+    :func:`test_reference_tick_never_reads_a_later_alias_mapping`).  The
+    copy is the snapshot the engine means to dispatch; the engine's code
+    is unchanged."""
+    def snap(dispatch):
+        def run():
+            live = {n: getattr(jeng, n) for n in _MIRRORS if hasattr(jeng, n)}
+            for n, a in live.items():
+                setattr(jeng, n, a.copy())
+            try:
+                return dispatch()
+            finally:
+                for n, a in live.items():
+                    setattr(jeng, n, a)
+        return run
+
+    jeng._dispatch_plain = snap(jeng._dispatch_plain)
+    jeng._dispatch_spec = snap(jeng._dispatch_spec)
+    return jeng
+
+
 def _engines(kind="slab", int8="none", paged=(33, 4), **kw):
-    """A reference engine and a port engine with the same knobs."""
+    """A reference engine (:func:`snapshot_dispatch`) and a port engine with
+    the same knobs."""
     jp, tp = _params(int8)
     kw.setdefault("max_slots", 4)
     kw.setdefault("max_len", 32)
     if kind == "slab":
-        return jllm.LLMEngine(jp, JCFG, **kw), tllm.LLMEngine(tp, TCFG, **kw)
-    return (jllm.PagedLLMEngine(jp, JCFG, jpaged.PagedConfig(*paged), **kw),
+        return (snapshot_dispatch(jllm.LLMEngine(jp, JCFG, **kw)),
+                tllm.LLMEngine(tp, TCFG, **kw))
+    return (snapshot_dispatch(
+        jllm.PagedLLMEngine(jp, JCFG, jpaged.PagedConfig(*paged), **kw)),
             tllm.PagedLLMEngine(tp, TCFG, tpaged.PagedConfig(*paged), **kw))
 
 
@@ -613,6 +649,42 @@ def test_alias_shrinks_admission_demand():
     _, got = _both(run, "paged", paged=(13, 4))
     np.testing.assert_array_equal(got[0], _ref_ids(fa, 12)[20:])
     np.testing.assert_array_equal(got[1], _ref_ids(fb, 12)[20:])
+
+
+def _aligned_copy(a):
+    """``a`` copied into a 64-byte aligned buffer."""
+    raw = np.zeros(a.nbytes + 64, np.uint8)
+    off = (-raw.ctypes.data) % 64
+    out = raw[off:off + a.nbytes].view(a.dtype).reshape(a.shape)
+    out[...] = a
+    return out
+
+
+def test_reference_tick_never_reads_a_later_alias_mapping():
+    """The flake of ``test_alias_shrinks_admission_demand``, made
+    deterministic.  The reference's paged dispatch hands its jitted tick
+    ``jnp.asarray(self._tables)``, which on the CPU is the live array itself
+    when that is 64-byte aligned, and the tick runs asynchronously: an
+    admission's alias mapping made after the dispatch reached the tick, and
+    its pos-0 write for the admitting slot landed in the SHARED prefix page.
+    A stand-in for the jitted tick keeps what it was handed; a mapping made
+    after the dispatch must not reach it (it does without
+    :func:`snapshot_dispatch`)."""
+    jeng, teng = _engines("paged")
+    teng.close()
+    jeng._tables = _aligned_copy(jeng._tables)
+    handed = {}
+
+    def tick(params, cache, tables, pos, *rest):
+        handed["tables"], handed["pos"] = tables, pos
+        return None, None, cache
+
+    jeng._step_paged = tick
+    jeng._dispatch_plain()
+    jeng._tables[1, :4] = [5, 6, 7, 8]  # an admission's alias mapping
+    jeng._pos[1] = 20
+    assert np.asarray(handed["tables"])[1, :4].tolist() == [0, 0, 0, 0]
+    assert int(np.asarray(handed["pos"])[1]) == 0
 
 
 def test_reregistration_does_not_leak_pinned_pages():
