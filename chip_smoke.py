@@ -208,25 +208,52 @@ Prints one JSON object per line:
     prefill, extend and speculative round (paged and slab) held to
     torch.profiler's kernels; the prefill program's retained bytes and the
     pool's after each of 12 (rows, bucket) keys, at the default budget and
-    at one that evicts, twice.
-25. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
+    at one that evicts, twice; (i) the same 12 keys and a request's ticks
+    at max_len 4096 beside a page pool of the card's free memory less
+    twice the programs' retention budget: whether every capture succeeds,
+    the graph pool's bytes per key and its peak, the least free memory.
+25. ``artifacts_resnet50``: the int8 ResNet50 fused (batching off) behind
+    runner children on one ``seldon.io/artifact-store``: a cold child
+    (the batch-1 bucket captured by precompile at boot, 4 singles, a batch
+    of 8 and one of 64 captured live and published, the kernel library
+    published), then a warm child and one on a copy of the store whose
+    batch-8 record has a wrong probe digest, booted together: the warm one
+    captures every stored bucket at boot with its digest equal, loads the
+    kernel library from the store, captures nothing on the request path,
+    tags its answers ``aot-cache``; the other quarantines the bad record
+    and captures that bucket live; every answer bitwise equal to the cold
+    child's.  Per child: boot s, capture s at boot, request-path
+    captures, first-request ms, ``/admin/artifacts?coverage=1``, K1
+    launches.
+26. ``device_plane_resnet50``: ``wire_resnet50``'s topology at int8 with
+    ``seldon.io/device-plane`` on and off: 16 singles and a batch of 64
+    through a runner child whose node is a REST component child, the
+    singles through ``FramedClient`` to a FRAMED child, every answer
+    bitwise equal across modes and to the in-process graph; both hops
+    negotiate ``shm`` and the framed connection's pooled lane stays one
+    segment; in process, a SIMPLE_ROUTER over a model on the card copies
+    0 bytes from the card with the plane on (the input with it off);
+    p50/p95 per mode, the planes' counters.
+27. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
     phases of prefix caching, batched and chunked prefill, preemption and
     checkpoints together; ``slice_3b_phases``: ``spec_7b`` and
     ``parity_spec_7b``; ``slice_4a_i_phases``: the ``wire_*`` phases;
     ``slice_4a_ii_qos_phases``: ``grpc_7b``, ``workers``,
     ``qos_resnet50``; ``slice_4b_4c_i_phases``: the four of 14-17;
-    ``slice_4c_ii_phases``: ``llm_graphs_7b``).
-26. ``{"kernels": [...]}``: one entry per kernel with its launches in the
+    ``slice_4c_ii_phases``: ``llm_graphs_7b``; ``slice_4d_4e_phases``:
+    25-26).
+28. ``{"kernels": [...]}``: one entry per kernel with its launches in the
     runs through entry points (``llm_json``, ``serve_7b``, ``grpc_7b``,
     ``features_7b``, ``spec_7b``, ``llm_graphs_7b``, ``checkpoint_7b``,
     ``plan_resnet50``,
     ``cache_resnet50``, ``canary``, ``wire_resnet50``,
-    ``wire_llm``, ``workers`` and ``qos_resnet50``, counted by the child
+    ``wire_llm``, ``workers``, ``qos_resnet50``, ``artifacts_resnet50``
+    and ``device_plane_resnet50``, counted by the child
     processes where the kernels run there; K1 also
     ``resnet50_launches``: the int8 REST run), each phase's count beside,
     its error, times and bound (K2 also at its two long cases and the
     shared-prefix case).
-27. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+29. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
@@ -240,6 +267,7 @@ from __future__ import annotations
 import asyncio
 import concurrent.futures
 import contextlib
+import gc
 import json
 import math
 import re
@@ -1885,6 +1913,54 @@ def _llm_burst(torch, engine, bodies: list, n_new: int) -> tuple:
              "tokens_per_s": n_new * len(bodies) / wall, "wall_s": wall})
 
 
+def _graph_pool_probe(torch, params, cfg, sweep) -> dict:
+    """``llm_graphs_7b`` (i): a paged engine at max_len 4096 whose page
+    pool takes the card's free memory less twice ``GRAPH_RETAIN_BYTES``;
+    ``sweep``'s 12 prefill keys and a request's ticks, each shape captured
+    at first sight.  Whether every capture succeeded, the graph pool's
+    bytes per key and its peak, the least free memory."""
+    from seldon_core_tpu_torch.runtime import llm
+    from seldon_core_tpu_torch.runtime.llm import PagedLLMEngine
+    from seldon_core_tpu_torch.runtime.paged import PagedConfig
+
+    torch.cuda.empty_cache()
+    free0, total = torch.cuda.mem_get_info()
+    elem = torch.empty((), dtype=cfg.dtype).element_size()
+    page_bytes = 2 * cfg.n_layers * cfg.kv_heads * 16 * cfg.d_head * elem
+    reserve = 2 * llm.GRAPH_RETAIN_BYTES
+    n_pages = int((free0 - reserve) // page_bytes)
+    probe = {"max_len": 4096, "free_before_bytes": free0,
+             "total_bytes": total, "page_bytes": page_bytes,
+             "n_pages": n_pages, "page_pool_bytes": n_pages * page_bytes,
+             "retain_budget_bytes": llm.GRAPH_RETAIN_BYTES,
+             "reserve_bytes": reserve}
+    full = PagedLLMEngine(params, cfg, PagedConfig(n_pages, 16),
+                          max_slots=8, max_len=4096)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        probe["free_after_pool_bytes"] = torch.cuda.mem_get_info()[0]
+        try:
+            rows, _ = sweep(full, 1)
+            probe["captures_ok"] = True
+            probe["pool_bytes_by_key"] = [[r["key"], r["pool_bytes"]]
+                                          for r in rows]
+            probe["pool_peak_bytes"] = max(r["pool_bytes"] for r in rows)
+            probe["evicted"] = rows[-1]["evicted"]
+            _llm_burst(torch, full, [{"jsonData": {"prompt_ids": _rand_ids(
+                torch, torch.Generator().manual_seed(77), 64),
+                "n_new": 4}}], 4)
+            probe["tick_ok"] = True
+            probe["pool_bytes_after_tick"] = full._graph_pool.bytes()
+        except Exception as e:  # the finding: which capture ran out
+            probe["captures_ok"] = False
+            probe["error"] = f"{type(e).__name__}: {str(e)[:400]}"
+        probe["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        probe["free_min_bytes"] = torch.cuda.mem_get_info()[0]
+    finally:
+        full.close()
+    return probe
+
+
 def llm_graphs_7b_phase(torch, params) -> dict:
     """The LLM engines' programs as CUDA graphs against the same programs
     run eagerly (``programs.eager()``), at 32 layers on ``serve_7b``'s
@@ -2169,6 +2245,22 @@ def llm_graphs_7b_phase(torch, params) -> dict:
                              "an answer")
     out["captures_checked_bitwise"] = captures
     out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+
+    # (i) the graph pool's peak at max_len 4096 beside a page pool that
+    # takes the card's free memory less twice the programs' retention
+    # budget (what their static buffers may hold, and as much again for
+    # the pool): the 12 prefill keys, captured at first sight, and ticks
+    probe = _graph_pool_probe(torch, params, cfg, sweep)
+    # the engine's programs and worker form reference cycles: collect
+    # them, or its 69 GB page pool outlives the probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    probe["free_after_close_bytes"] = torch.cuda.mem_get_info()[0]
+    if probe["free_after_close_bytes"] < probe["page_pool_bytes"]:
+        emit({**out, "graph_pool_at_4096": probe})
+        raise AssertionError("llm_graphs_7b: the probe's page pool was not "
+                             "freed")
+    out["graph_pool_at_4096"] = probe
     out["launches"] = launches
     emit(out)
     for k, n in launches.items():
@@ -3566,8 +3658,12 @@ def runner_child_main(argv: list) -> int:
 
     sys.path.insert(0, str(ROOT))
     counts, rest = argv[0], argv[1:]
+    from seldon_core_tpu_torch.models import register_signature, signature_for
     from seldon_core_tpu_torch.operator import local
 
+    # the smoke ResNet's signature, which a plan's warm-up reads
+    register_signature(SMOKE_RESNET, signature_for(
+        "seldon_core_tpu_torch.models.resnet:ResNet50Model"))
     atexit.register(lambda: Path(f"{counts}.{os.getpid()}.json").write_text(
         json.dumps(read_launches())))
     local.engine_main(rest)
@@ -4370,6 +4466,402 @@ def canary_phase(torch) -> dict:
 
 # ----------------------------------------------------------------------
 
+ART_SINGLES = 4
+
+
+def _bin_body(x) -> bytes:
+    """A binTensor request body for a float32 array."""
+    import base64
+
+    return json.dumps({"data": {"binTensor": {
+        "shape": list(x.shape), "dtype": "float32",
+        "b64": base64.b64encode(x.tobytes()).decode()}}}).encode()
+
+
+def _child_launches(prefix) -> dict:
+    """The launch counts a runner child's processes wrote at exit."""
+    got = {"int8_matmul": 0, "paged_attention": 0, "flash_attention": 0}
+    for f in WIRE_DIR.glob(f"{Path(prefix).name}.*.json"):
+        for k, v in read_child_launches(f).items():
+            got[k] = got.get(k, 0) + v
+    return got
+
+
+def artifacts_resnet50_phase(torch) -> dict:
+    """Slice 4d on the card: int8 ResNet50 fused at full width (BASELINE
+    config 3, ``wire_resnet``'s weights) behind a runner child with
+    ``seldon.io/artifact-store`` on a fresh directory and batching off.
+
+    (1) cold: boot captures the batch-1 bucket (precompile) and publishes
+    it and the kernel library; ART_SINGLES singles, a batch of 8 and one of
+    64 follow, the two batches captured live at first sight and published.
+    (2) warm (same store) and (3) a copy of the store with the batch-8
+    record's probe digest corrupted, booted together: the warm child
+    captures every published bucket at boot, each probe digest equal,
+    loads the kernel library from the store (no nvcc), captures nothing on
+    the request path and tags every answer ``aot-cache``; the third
+    quarantines the corrupted bucket, captures it live at first sight and
+    serves the rest from boot.  Every answer of (2) and (3) is bitwise
+    equal to (1)'s.  Per child: boot seconds, capture seconds at boot,
+    captures on the request path, first-request ms at batch 1 and 64,
+    quarantines, ``/admin/artifacts?coverage=1`` and its K1 launches."""
+    import shutil
+
+    import numpy as np
+
+    WIRE_DIR.mkdir(parents=True, exist_ok=True)
+    store = WIRE_DIR / "artifact_store"
+    shutil.rmtree(store, ignore_errors=True)
+    rng = np.random.default_rng(21)
+    traffic = [("b1", rng.integers(0, 256, (1, 224, 224, 3)).astype(
+        np.float32)) for _ in range(ART_SINGLES)]
+    traffic += [("b8", rng.integers(0, 256, (8, 224, 224, 3)).astype(
+        np.float32)), ("b64", rng.integers(0, 256, (64, 224, 224, 3))
+                       .astype(np.float32))]
+
+    def graph(root, name):
+        path = WIRE_DIR / f"graph_{name}.json"
+        path.write_text(json.dumps(_resnet_graph(True, {
+            "seldon.io/graph-plan": "fused", "seldon.io/batching": "false",
+            "seldon.io/artifact-store": str(root)})))
+        return path
+
+    def boot(label, root):
+        t0 = time.perf_counter()
+        child, counts = runner_child(label, [
+            "--graph", str(graph(root, label)), "--port", "0",
+            "--host", "127.0.0.1", "--grpc-port", "0"])
+        return child, counts, t0
+
+    def serve(child, counts, t0):
+        port = child.port("serving deployment")
+        boot_s = time.perf_counter() - t0
+        at_boot = json.loads(_get(port, "/admin/artifacts")[1])
+        answers, first, tags = [], {}, set()
+        for name, x in traffic:
+            code, body, dt = _post_raw(port, "/api/v0.1/predictions",
+                                       _bin_body(x))
+            if code != 200:
+                raise AssertionError(f"artifacts {child.label}: {code} "
+                                     f"{str(body)[:300]}")
+            first.setdefault(name, dt * 1e3)
+            answers.append(body["data"])
+            tags.add(body["meta"]["tags"].get("artifact-source"))
+        after = json.loads(_get(port, "/admin/artifacts")[1])
+        cov = json.loads(_get(port, "/admin/artifacts?coverage=1")[1])
+        child.stop()
+        seg = at_boot["segments"][0]
+        return {
+            "boot_s": boot_s,
+            "boot_buckets": seg["buckets"],
+            "capture_s_at_boot": sum(
+                b.get("hydrate_ms", 0.0) / 1e3 if b["source"] == "aot-cache"
+                else b.get("capture_s", 0.0)
+                for b in seg["buckets"].values()),
+            "hydrated_at_boot": at_boot["hydrated"],
+            "live_at_boot": at_boot["liveCompiles"],
+            "request_path_captures": after["liveCompiles"]
+            - at_boot["liveCompiles"],
+            "first_request_ms": first,
+            "quarantined": after["quarantined"],
+            "parity_failures": after["parityFailures"],
+            "published": after["published"],
+            "kernel_library": after.get("kernelLibrary"),
+            "artifact_source_tags": sorted(tags),
+            "coverage": cov,
+            "store_stats": after.get("storeStats"),
+            "launches": _child_launches(counts),
+        }, answers
+
+    out = {"phase": "artifacts_resnet50", "card": CARD,
+           "model": "int8 ResNet50 (3, 4, 6, 3), 224x224x3, 1000 classes, "
+                    "fused, batching off",
+           "traffic": [n for n, _ in traffic]}
+    cold, cold_answers = serve(*boot("art_cold", store))
+    out["cold"] = cold
+    # the batch-8 record's probe digest, corrupted in a copy of the store
+    bad_store = WIRE_DIR / "artifact_store_bad"
+    shutil.rmtree(bad_store, ignore_errors=True)
+    shutil.copytree(store, bad_store)
+    bad = [p for p in bad_store.rglob("*.json")
+           if json.loads(p.read_text()).get("bucketShape", [0])[0] == 8]
+    if len(bad) != 1:
+        raise AssertionError(f"artifacts: batch-8 records {bad}")
+    sc = json.loads(bad[0].read_text())
+    sc["probeDigest"] = "0" * 32
+    bad[0].write_text(json.dumps(sc))
+    warm_child = boot("art_warm", store)
+    bad_child = boot("art_corrupt", bad_store)
+    warm, warm_answers = serve(*warm_child)
+    corrupt, bad_answers = serve(*bad_child)
+    out["warm"], out["corrupt"] = warm, corrupt
+    out["warm_bitwise_equal_cold"] = sum(
+        a == b for a, b in zip(warm_answers, cold_answers))
+    out["corrupt_bitwise_equal_cold"] = sum(
+        a == b for a, b in zip(bad_answers, cold_answers))
+    emit(out)
+    n = len(traffic)
+    checks = {
+        "cold boot captured bucket 1 live": cold["live_at_boot"] == 1
+        and cold["hydrated_at_boot"] == 0,
+        "cold captured b8 and b64 on the request path":
+            cold["request_path_captures"] == 2 and cold["published"] == 3,
+        "cold published the kernel library":
+            (cold["kernel_library"] or {}).get("source") in ("live",
+                                                              "aot-cache"),
+        "warm captured every bucket at boot": warm["hydrated_at_boot"] == 3
+        and warm["live_at_boot"] == 0 and warm["quarantined"] == 0,
+        "warm made no capture on the request path":
+            warm["request_path_captures"] == 0,
+        "warm tagged aot-cache": warm["artifact_source_tags"]
+        == ["aot-cache"],
+        "warm loaded the library from the store":
+            (warm["kernel_library"] or {}).get("source") == "aot-cache",
+        "warm bitwise equal": out["warm_bitwise_equal_cold"] == n,
+        "corrupt quarantined one": corrupt["quarantined"] == 1
+        and corrupt["parity_failures"] == 1
+        and corrupt["hydrated_at_boot"] == 2,
+        "corrupt captured it live at first sight":
+            corrupt["request_path_captures"] == 1,
+        "corrupt bitwise equal": out["corrupt_bitwise_equal_cold"] == n,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"artifacts_resnet50: {failed}")
+    launches = {k: cold["launches"][k] + warm["launches"][k]
+                + corrupt["launches"][k] for k in cold["launches"]}
+    if min(c["launches"]["int8_matmul"] for c in (cold, warm, corrupt)) \
+            <= 0:
+        raise AssertionError(f"artifacts_resnet50: K1 launches {launches}")
+    return launches
+
+
+DP_IMAGES = 16
+
+
+def _metric_values(text: str, name: str) -> dict:
+    """``{labels: value}`` of one Prometheus series family."""
+    got = {}
+    for ln in text.splitlines():
+        if ln.startswith(name):
+            head, _, val = ln.rpartition(" ")
+            got[head[len(name):] or "{}"] = float(val)
+    return got
+
+
+def device_plane_resnet50_phase(torch) -> dict:
+    """Slice 4e on the card: ``wire_resnet50``'s topology at int8, a
+    runner child whose node's endpoint is a REST component child, plus a
+    FRAMED component child called from this process.  With
+    ``seldon.io/device-plane: "true"`` and with the plane off: DP_IMAGES
+    singles and a batch of 64 through the runner, the singles through the
+    framed client, every answer bitwise equal between the modes and to the
+    in-process graph; the runner's hop and the framed connection both
+    negotiate the ``shm`` tier, and the framed connection's pooled lane is
+    one segment for every message.  In process: a SIMPLE_ROUTER (meta
+    only) over a model on the card copies nothing from the card with the
+    plane on (its D2H bytes: tensors ``SeldonMessage.host_data`` copies
+    from the card during the walk), at least the input with it off.
+    p50/p95 per mode and the planes' counters."""
+    import numpy as np
+
+    from seldon_core_tpu_torch import messages
+    from seldon_core_tpu_torch.graph.engine import GraphEngine
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.runtime.component import ComponentHandle
+    from seldon_core_tpu_torch.runtime.device_plane import (
+        DevicePlane,
+        DevicePlaneConfig,
+    )
+    from seldon_core_tpu_torch.serving.framed import FramedClient
+
+    rng = np.random.default_rng(31)
+    imgs = rng.integers(0, 256, (DP_IMAGES, 224, 224, 3)).astype(np.float32)
+    batch = rng.integers(0, 256, (64, 224, 224, 3)).astype(np.float32)
+    params = json.dumps([{"name": "int8", "value": "true", "type": "BOOL"}])
+    env = {"PREDICTIVE_UNIT_ID": "resnet"}
+    kids = {api: component_child(f"dp_{api.lower()}", [
+        "chip_smoke:wire_resnet", api, "--parameters", params,
+        "--port", "0"], env) for api in ("REST", "FRAMED")}
+    runners = {}
+    out = {"phase": "device_plane_resnet50", "card": CARD,
+           "model": "int8 ResNet50 (3, 4, 6, 3), 224x224x3, 1000 classes",
+           "images": DP_IMAGES}
+    try:
+        cport = kids["REST"][0].port("serving on")
+        for mode in ("on", "off"):
+            ann = {"seldon.io/rest-read-timeout": "300000"}
+            if mode == "on":
+                ann["seldon.io/device-plane"] = "true"
+            g = {"spec": {"name": f"dp-{mode}", "annotations": ann,
+                          "predictors": [{"name": "main", "graph": {
+                              "name": "resnet", "type": "MODEL",
+                              "endpoint": {"service_host": "127.0.0.1",
+                                           "service_port": cport,
+                                           "type": "REST"}}}]}}
+            path = WIRE_DIR / f"graph_dp_{mode}.json"
+            path.write_text(json.dumps(g))
+            runners[mode] = Child([sys.executable, "-m",
+                                   "seldon_core_tpu_torch.operator.local",
+                                   "--graph", str(path), "--port", "0",
+                                   "--host", "127.0.0.1", "--grpc-port", "0"],
+                                  label=f"dp_runner_{mode}")
+        # the in-process graph's answers while the children boot
+        local = ComponentHandle(wire_resnet(True), name="resnet")
+        graph = GraphEngine({"name": "resnet", "type": "MODEL"},
+                            resolver=lambda u: local)
+
+        def in_process(x):
+            return np.asarray(asyncio.run(graph.predict(
+                SeldonMessage.from_ndarray(x))).to_dict()["data"]["ndarray"],
+                np.float32)
+
+        want = [in_process(imgs[i:i + 1]) for i in range(DP_IMAGES)]
+        want64 = in_process(batch)
+        del local, graph
+        torch.cuda.empty_cache()
+        fport = kids["FRAMED"][0].port("serving FRAMED on")
+        res = {}
+        for mode in ("on", "off"):
+            eport = runners[mode].port("serving deployment")
+            _post_raw(eport, "/api/v0.1/predictions", _bin_body(imgs[:1]))
+            seq = [_post_raw(eport, "/api/v0.1/predictions",
+                             _bin_body(imgs[i:i + 1]))
+                   for i in range(DP_IMAGES)]
+            code, b64, dt64 = _post_raw(eport, "/api/v0.1/predictions",
+                                        _bin_body(batch))
+            got = [np.asarray(s[1]["data"]["ndarray"], np.float32)
+                   if s[0] == 200 else None for s in seq]
+            got64 = np.asarray(b64["data"]["ndarray"], np.float32) \
+                if code == 200 else None
+            metrics = _get(eport, "/metrics")[1]
+            plane = DevicePlane(DevicePlaneConfig(enabled=mode == "on"))
+            cli = FramedClient(port=fport, timeout=300,
+                               device_plane=plane if mode == "on" else None)
+            try:
+                cli.predict(SeldonMessage.from_ndarray(imgs[:1]))
+                lane0 = cli._lane._shm.name if cli._lane else None
+                fr = []
+                for i in range(DP_IMAGES):
+                    t0 = time.perf_counter()
+                    o = cli.predict(SeldonMessage.from_ndarray(
+                        imgs[i:i + 1]))
+                    fr.append((o, time.perf_counter() - t0))
+                lane1 = cli._lane._shm.name if cli._lane else None
+                gen = cli._lane._gen if cli._lane else 0
+                framed_mode = cli._device_mode
+            finally:
+                cli.close()
+            res[mode] = {
+                "rest": {**_pctl([s[2] * 1e3 for s in seq]),
+                         "bitwise_equal_in_process": sum(
+                             g is not None and np.array_equal(g, w)
+                             for g, w in zip(got, want)),
+                         "batch64_ms": dt64 * 1e3,
+                         "batch64_bitwise_equal": got64 is not None
+                         and np.array_equal(got64, want64),
+                         "answers": got,
+                         "runner_plane": {
+                             k: _metric_values(metrics, f"seldon_device_"
+                                                        f"plane_{k}_total")
+                             for k in ("remote_refs", "transfers_avoided",
+                                       "downgrades", "donations")},
+                         "runner_transfer_bytes": _metric_values(
+                             metrics, "seldon_device_registry_transfer_"
+                                      "bytes_total")},
+                "framed": {**_pctl([t * 1e3 for _, t in fr]),
+                           "negotiated": framed_mode,
+                           "lane_reused": lane0 is not None
+                           and lane0 == lane1,
+                           "lane_messages": gen,
+                           "bitwise_equal_in_process": sum(
+                               np.array_equal(np.asarray(o.host_data(),
+                                                         np.float32), w)
+                               for (o, _), w in zip(fr, want)),
+                           "client_plane": plane.snapshot()}}
+        on, off = res["on"], res["off"]
+        modes_equal = sum(
+            a is not None and b is not None and np.array_equal(a, b)
+            for a, b in zip(on["rest"].pop("answers"),
+                            off["rest"].pop("answers")))
+        out.update(res)
+        out["rest_modes_bitwise_equal"] = modes_equal
+    finally:
+        for r in runners.values():
+            r.stop()
+        for child, _ in kids.values():
+            child.stop()
+    launches = {"int8_matmul": 0, "paged_attention": 0, "flash_attention": 0}
+    for api, (child, counts) in kids.items():
+        got = read_child_launches(counts)
+        out[f"{api.lower()}_component_launches"] = got
+        for k in launches:
+            launches[k] += got[k]
+
+    # the meta-only route in process: D2H bytes copied by host_data
+    copied = [0]
+    real = messages._to_numpy
+
+    def counting(x):
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            copied[0] += x.numel() * x.element_size()
+        return real(x)
+
+    class Twice:
+        accepts_tensors = True
+
+        def predict(self, X, names):
+            return X * 2
+
+    spec = {"name": "r", "type": "ROUTER", "implementation": "SIMPLE_ROUTER",
+            "children": [{"name": "m", "type": "MODEL"}]}
+    x = torch.ones((64, 224, 224, 3), device="cuda")
+    route = {}
+    messages._to_numpy = counting
+    try:
+        for mode in ("on", "off"):
+            plane = DevicePlane(DevicePlaneConfig(enabled=mode == "on"))
+            eng = GraphEngine(spec, resolver=lambda u: ComponentHandle(
+                Twice(), name="m"), device_plane=plane)
+            copied[0] = 0
+            o = asyncio.run(eng.predict(SeldonMessage.from_ndarray(x)))
+            torch.cuda.synchronize()
+            route[mode] = {"d2h_bytes": copied[0],
+                           "answer_on_card": bool(o.data.is_cuda),
+                           "plane": plane.snapshot()}
+    finally:
+        messages._to_numpy = real
+    out["meta_only_route"] = route
+    emit(out)
+    checks = {
+        "rest answers bitwise equal to in-process (on)":
+            on["rest"]["bitwise_equal_in_process"] == DP_IMAGES,
+        "rest answers bitwise equal to in-process (off)":
+            off["rest"]["bitwise_equal_in_process"] == DP_IMAGES,
+        "rest modes bitwise equal": modes_equal == DP_IMAGES,
+        "batch 64 bitwise": on["rest"]["batch64_bitwise_equal"]
+        and off["rest"]["batch64_bitwise_equal"],
+        "runner hop negotiated shm":
+            on["rest"]["runner_plane"]["remote_refs"].get(
+                '{mode="shm"}', 0) >= DP_IMAGES,
+        "framed negotiated shm": on["framed"]["negotiated"] == "shm",
+        "framed lane reused": on["framed"]["lane_reused"]
+        and on["framed"]["lane_messages"] == DP_IMAGES + 1,
+        "framed bitwise equal": on["framed"]["bitwise_equal_in_process"]
+        == DP_IMAGES and off["framed"]["bitwise_equal_in_process"]
+        == DP_IMAGES,
+        "no downgrade": not on["rest"]["runner_plane"]["downgrades"]
+        and not on["framed"]["client_plane"]["downgrades"],
+        "meta-only route copies nothing (on)":
+            route["on"]["d2h_bytes"] == 0,
+        "the route copies the input (off)": route["off"]["d2h_bytes"] >= 1,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"device_plane_resnet50: {failed}")
+    return launches
+
+
 def ptxas_report(log: str) -> list:
     """Registers, spills and shared memory per kernel from the build's
     ``-Xptxas -v`` output, names demangled where ``c++filt`` exists."""
@@ -4511,6 +5003,11 @@ def smoke() -> int:
     # grpc_7b too)
     runs["workers"] = timed("workers", workers_phase, torch)
     runs["qos_resnet50"] = timed("qos_resnet50", qos_resnet50_phase, torch)
+    # slices 4d and 4e: the artifact plane and the device plane
+    runs["artifacts_resnet50"] = timed("artifacts_resnet50",
+                                       artifacts_resnet50_phase, torch)
+    runs["device_plane_resnet50"] = timed(
+        "device_plane_resnet50", device_plane_resnet50_phase, torch)
     slice_3a = sum(seconds[k] for k in ("features_7b", "parity_features_7b",
                                         "checkpoint_7b"))
     slice_3b = seconds["spec_7b"] + seconds["parity_spec_7b"]
@@ -4523,6 +5020,8 @@ def smoke() -> int:
           "slice_4b_4c_i_phases": sum(seconds[k] for k in (
               "plan_resnet50", "plan_graphs", "cache_resnet50", "canary")),
           "slice_4c_ii_phases": seconds["llm_graphs_7b"],
+          "slice_4d_4e_phases": seconds["artifacts_resnet50"]
+          + seconds["device_plane_resnet50"],
           "total": time.perf_counter() - t0})
     launches = {k: sum(r[k] for r in runs.values())
                 for k in runs["serve_7b"]}

@@ -43,8 +43,23 @@ every key.  Identical concurrent requests coalesce through one
 single-flight table before any batcher: N arrivals, one computation, one
 batch row.  A request refused by QoS never reaches the cache.
 
-Not in this slice: the health, profiling, placement, artifact and device
-planes, and the tracer (ROADMAP.md, slice 5).  A remote node
+The artifact plane (``artifacts``, an ``artifacts.ArtifactPlane``, fused
+plans only): attached to the plan at construction, which captures every
+stored bucket whose key matches before any traffic; every response
+carries ``meta.tags["artifact-source"]``, ``aot-cache`` when every bucket
+this replica served was captured at boot from the store, else ``live``.
+
+The device plane (``device_plane``, a ``runtime.device_plane.
+DevicePlane``): a meta-only router (``ModelSignature.routes_on ==
+"meta"``) routes on a message without its tensor, so a tensor on the card
+is never copied to the host for it; a cache entry computed on the host is
+kept as a CUDA tensor (never a downcast copy); every response carries
+``meta.tags["device-plane"] = "on"``.  Torch tensors, unlike jax arrays,
+can be changed in place, so an interior consumer of a shared cache entry
+still gets a copy, made on the card.
+
+Not in this slice: the health, profiling and placement planes and the
+tracer (ROADMAP.md, slices 5 and 6).  A remote node
 (``serving.client.RemoteComponent``, ``serving.grpc_api.
 GrpcComponentClient``) has the same method surface as a local one, async.
 """
@@ -100,7 +115,7 @@ async def _maybe_await(x: Any) -> Any:
 
 
 class _Node:
-    __slots__ = ("unit", "impl", "children", "type")
+    __slots__ = ("unit", "impl", "children", "type", "meta_only_route")
 
     def __init__(self, unit: PredictiveUnit, impl: Any,
                  children: list["_Node"]):
@@ -108,6 +123,22 @@ class _Node:
         self.impl = impl
         self.children = children
         self.type = unit.resolved_type
+        self.meta_only_route = routes_on_meta(unit)
+
+
+def routes_on_meta(unit: PredictiveUnit) -> bool:
+    """A ROUTER whose registered signature declares that its decision
+    reads meta and names only (``ModelSignature.routes_on``)."""
+    if unit.resolved_type != "ROUTER":
+        return False
+    from seldon_core_tpu_torch import models as _models
+
+    if unit.implementation:
+        sig = _models.BUILTIN_SIGNATURES.get(unit.implementation)
+    else:
+        model_class = (unit.parameters or {}).get("model_class")
+        sig = _models.signature_for(model_class) if model_class else None
+    return sig is not None and sig.routes_on == "meta"
 
 
 class GraphEngine:
@@ -127,7 +158,9 @@ class GraphEngine:
                  plan_mode: str = "walk",
                  plan_batcher: Optional[Any] = None,
                  cache: Optional[Any] = None,
-                 cache_version: str = ""):
+                 cache_version: str = "",
+                 artifacts: Optional[Any] = None,
+                 device_plane: Optional[Any] = None):
         self.name = name
         self.metrics = metrics_sink
         self.spec = parse_graph(graph)
@@ -150,6 +183,13 @@ class GraphEngine:
                     "(%s); falling back to interpreted walk",
                     name, self.plan.boundaries)
                 self.plan = None
+        # the artifact plane captures every stored bucket of the plan's
+        # segments now, before any traffic (a walk has nothing to store)
+        self.artifacts = artifacts if self.plan is not None else None
+        if self.artifacts is not None:
+            self.artifacts.attach_plan(self.plan)
+            self.artifacts.hydrate_plan(self.plan)
+        self.device_plane = device_plane
         self.cache = cache
         self.cache_version = cache_version
         self._flight = None
@@ -206,6 +246,10 @@ class GraphEngine:
         meta = request.meta.copy()
         if not meta.puid:
             meta.puid = new_puid()
+        if self.artifacts is not None:
+            meta.tags["artifact-source"] = self.artifacts.source_tag()
+        if self._plane_on():
+            meta.tags["device-plane"] = "on"
         # the message's tags win over the ambient context; restamped on the
         # request so remote hops see the remaining budget (the response's
         # meta was copied above: a client that sent no tags gets none back)
@@ -360,7 +404,17 @@ class GraphEngine:
         # 3. route (ROUTER only); -1 means every child
         selected = child_walks
         if node.type == "ROUTER":
-            branch = int(await _maybe_await(impl.route(transformed)))
+            route_msg = transformed
+            if node.meta_only_route and self._plane_on() \
+                    and transformed.data is not None:
+                # the decision reads no values: route on a message
+                # without the tensor, so nothing is copied from the card
+                if transformed.is_device_resident:
+                    self.device_plane.note_avoided(
+                        "d2h", int(transformed.nbytes or 0))
+                route_msg = SeldonMessage(names=list(transformed.names),
+                                          meta=transformed.meta)
+            branch = int(await _maybe_await(impl.route(route_msg)))
             meta.routing[unit.name] = branch
             if branch >= 0:
                 if branch >= len(node.children):
@@ -455,8 +509,9 @@ class GraphEngine:
         async def compute():
             sub = Meta()
             cold = await self._walk_node(node, msg, sub)
-            e = (cold.data, list(cold.names), sub)
-            self.cache.put(key, e, _entry_nbytes(cold.data, cold.names, sub))
+            data = self._promote_device(cold.data)
+            e = (data, list(cold.names), sub)
+            self.cache.put(key, e, _entry_nbytes(data, cold.names, sub))
             return e
 
         entry, coalesced = await self._flight.run(key, compute)
@@ -465,6 +520,28 @@ class GraphEngine:
         out = self._replay_entry(entry, meta, node)
         self._observe(name, time.perf_counter() - t0)
         return out
+
+    def _plane_on(self) -> bool:
+        return self.device_plane is not None and self.device_plane.enabled
+
+    def _promote_device(self, data: Any) -> Any:
+        """With the device plane on, a cache entry computed on the host is
+        kept on the card, so every hit hands out a CUDA tensor.  Torch
+        keeps the dtype (a float64 array stays float64), so the entry is
+        never a downcast copy; an array torch cannot hold stays on the
+        host.  Without a card there is nowhere to promote to."""
+        if not self._plane_on() or not isinstance(data, np.ndarray):
+            return data
+        from seldon_core_tpu_torch.runtime.device_registry import registry
+
+        dev = registry.resolve_device()
+        if dev.type != "cuda":
+            return data
+        try:
+            t = torch.from_numpy(np.ascontiguousarray(data))
+        except TypeError:  # object, string or other non-numeric arrays
+            return data
+        return t.to(dev)
 
     def _replay_entry(self, entry: tuple, meta: Meta,
                       node: _Node) -> SeldonMessage:
@@ -546,7 +623,8 @@ class GraphEngine:
             return self._segment_entry(entry, interior)
 
         async def compute():
-            e = await self._dispatch_segment(seg, x, msg.names)
+            y, names = await self._dispatch_segment(seg, x, msg.names)
+            e = (self._promote_device(y), names)
             self.cache.put(key, e, _entry_nbytes(e[0], e[1]))
             return e
 

@@ -22,8 +22,9 @@ the built engine graph into maximal **fusible segments**, and each
   MODEL/TRANSFORMER chain above a non-fusible child becomes a *chain
   segment* feeding the interpreted remainder.
 
-**How a segment runs.**  On the card, each shape bucket (the input's rows,
-trailing shape and dtype, :meth:`FusedSegment.bucket_key`) is captured once
+**How a segment runs.**  On the card (outside ``programs.eager()``), each
+shape bucket (the input's rows, trailing shape and dtype,
+:meth:`FusedSegment.bucket_key`) is captured once
 as a ``torch.cuda.CUDAGraph`` of the stages' own eager kernels, in the
 walk's order, and replayed for every later batch of that shape: the input
 is converted on the host exactly as the walk converts it (float64 to
@@ -60,8 +61,16 @@ Segments also plug into the dynamic batcher (``runtime/batcher.py``) as a
 single batched callable, so cross-request batching amortizes the whole
 segment, not just one model, per replay.
 
-Not ported here: the sharded executor, cost analysis, the residency map
-and artifact hydration (ROADMAP.md, slices 4d, 4e, 5 and 6).
+The artifact plane (``artifacts/plane.py``) attaches to the plan: a
+bucket first seen on the request path is captured from the store's record
+when one matches (probe-checked), else live and published back; the
+engine captures every stored bucket at boot, and :meth:`GraphPlan.warmup`
+skips buckets already captured.  :meth:`GraphPlan.residency_map` gives
+the planned residency tier of every edge from the device plane's tier
+model (``runtime/device_plane.py``).
+
+Not ported here: the sharded executor and cost analysis (ROADMAP.md,
+slices 5 and 6).
 """
 
 from __future__ import annotations
@@ -304,6 +313,12 @@ class FusedSegment:
         self._capture_lock = threading.Lock()
         self.capture_s: dict = {}
         self._names: dict = {}
+        # the artifact plane (artifacts/plane.py attach_plan): bucket
+        # provenance, captured at boot from the store or live
+        self.artifacts = None
+        self.hydrated: set = set()
+        self.live_compiled: set = set()
+        self.cost_by_bucket: dict = {}
         # prediction-cache eligibility: every member is a pure tensor fn by
         # construction, so the segment caches unless a member opted out or
         # declared itself non-deterministic (graph/engine.py consults this)
@@ -355,10 +370,15 @@ class FusedSegment:
         return merged, merged_names
 
     # -- request-time ----------------------------------------------------
+    @property
+    def device(self) -> torch.device:
+        """The device the segment's entry stage runs on."""
+        return torch.device(getattr(self._entry, "device", "cpu"))
+
     def __call__(self, x):
         self.n_calls += 1
         xt = self._entry._to_device(x)  # the walk's host conversion
-        if isinstance(xt, torch.Tensor) and xt.is_cuda:
+        if isinstance(xt, torch.Tensor) and programs.graphs_on(xt.device):
             return self._replay(xt)
         with torch.inference_mode():
             y, names = self._run_tree(self.tree, xt, _IN)
@@ -376,11 +396,24 @@ class FusedSegment:
         return (tuple(getattr(x, "shape", ())),
                 str(getattr(x, "dtype", "")))
 
+    @staticmethod
+    def bucket_for(shape, dtype: str) -> tuple:
+        """The bucket key of a shape and a wire dtype name."""
+        return (tuple(int(d) for d in shape),
+                str(getattr(torch, str(dtype))))
+
+    @staticmethod
+    def bucket_wire(bucket: tuple) -> tuple:
+        """``(shape, wire dtype name)`` of a bucket key."""
+        return bucket[0], bucket[1].replace("torch.", "")
+
     def _replay(self, xt: torch.Tensor) -> torch.Tensor:
         key = self.bucket_key(xt)
         b = self._buckets.get(key)
         if b is None:
-            return self._capture(key, xt).outputs.clone()
+            b, fresh = self._capture(key, xt)
+            if fresh:  # the capture's outputs are this input's answer
+                return b.outputs.clone()
         b.inputs[0].copy_(xt)
         y = b.replay()
         self.n_replays += 1
@@ -388,32 +421,59 @@ class FusedSegment:
         # made on this stream, in order before that replay
         return y.clone()
 
-    def _capture(self, key: tuple, xt: torch.Tensor) -> programs.Captured:
-        """Capture bucket ``key`` (:func:`programs.capture`: one eager run
-        on the segment's stream, the walk's answer at this shape; the
-        capture; one replay that must equal the eager run bit for bit)."""
+    def _capture(self, key: tuple, xt: torch.Tensor) -> tuple:
+        """``(captured, fresh)`` for bucket ``key`` seen at ``xt``: from the
+        artifact store's record when one matches, else a live capture
+        (published back); ``fresh`` when its static outputs hold ``xt``'s
+        answer."""
+        art = self.artifacts
         with self._capture_lock:
             hit = self._buckets.get(key)
             if hit is not None:
-                return hit
-            t0 = time.perf_counter()
-            if self._pool is None:
-                self._pool = programs.GraphPool(xt.device)
-            names = []
+                return hit, False
+            if art is not None:
+                b = art.load_bucket(self, key)
+                if b is not None:
+                    return b, False
+            b = self._capture_bucket(key, xt)
+            self.live_compiled.add(key)
+            self.cost_by_bucket[key] = {"source": "live",
+                                        "capture_s": self.capture_s[key]}
+        if art is not None:
+            art.note_live_compile(self, key)
+            if art.publish_bucket(self, key, b, self.capture_s[key]):
+                return b, False  # the probe replayed over the outputs
+        return b, True
 
-            def run(x):
-                with torch.inference_mode():
-                    y, n = self._run_tree(self.tree, x, _IN)
-                names.append(n)
-                return y
+    def _capture_bucket(self, key: tuple, x: torch.Tensor
+                        ) -> programs.Captured:
+        """Capture bucket ``key`` on input ``x`` (the caller holds the
+        capture lock): :func:`programs.capture`, one eager run on the
+        segment's stream, the walk's answer at this shape; the capture;
+        one replay that must equal the eager run bit for bit."""
+        t0 = time.perf_counter()
+        if self._pool is None:
+            self._pool = programs.GraphPool(x.device)
+        names = []
 
-            b = programs.capture(run, (xt.clone(),), self._pool,
-                                 f"segment {self.label!r}", f"bucket {key}")
-            self._buckets[key] = b
-            self._names.setdefault((key[0][1:], key[1].replace("torch.", "")),
-                                   names[0])
-            self.capture_s[key] = time.perf_counter() - t0
-            return b
+        def run(x):
+            with torch.inference_mode():
+                y, n = self._run_tree(self.tree, x, _IN)
+            names.append(n)
+            return y
+
+        b = programs.capture(run, (x.clone(),), self._pool,
+                             f"segment {self.label!r}", f"bucket {key}")
+        self._buckets[key] = b
+        self._names.setdefault((key[0][1:], key[1].replace("torch.", "")),
+                               names[0])
+        self.capture_s[key] = time.perf_counter() - t0
+        return b
+
+    def drop_bucket(self, key: tuple) -> None:
+        """Forget a captured bucket (its next call captures it again)."""
+        self._buckets.pop(key, None)
+        self.capture_s.pop(key, None)
 
     @staticmethod
     def _names_key(x) -> tuple:
@@ -497,11 +557,68 @@ class GraphPlan:
             "fully_fused": self.fully_fused,
         }
 
+    def residency_map(self, annotations: Optional[dict] = None) -> list:
+        """The planned residency of every request-flow edge of this plan
+        under ``annotations`` (the device-plane posture): one dict per
+        edge, ``src``, ``dst``, ``tier``, ``partition``, ``ownership``,
+        ``fused``, ``remote``.  An edge inside a segment, or between two
+        in-process nodes, keeps the tensor on the card; a remote edge gets
+        the tier its transport can negotiate at best; the request's entry
+        edge is host bytes.  From the spec and the plan only: nothing
+        runs."""
+        from seldon_core_tpu_torch.runtime.device_plane import (
+            TIER_HBM_HANDLE,
+            TIER_HOST_BYTES,
+            DevicePlaneConfig,
+            device_plane_config_from_annotations,
+            negotiated_remote_tier,
+        )
+        from seldon_core_tpu_torch.runtime.device_registry import (
+            OWNERSHIP_ONE_SHOT,
+            OWNERSHIP_SHARED,
+        )
+
+        try:
+            plane = device_plane_config_from_annotations(
+                dict(annotations or {}), "plan")
+        except ValueError:
+            plane = None
+        if plane is None:
+            plane = DevicePlaneConfig(enabled=False)
+        seg_of = {st.name: i for i, seg in enumerate(self.segments)
+                  for st in seg.members}
+        edges: list = []
+
+        def visit(u, parent) -> None:
+            fused = (parent is not None and u.name in seg_of
+                     and seg_of.get(parent.name) == seg_of[u.name])
+            remote = bool(u.endpoint.service_host) and \
+                u.endpoint.type != "LOCAL"
+            if fused or (parent is not None and not remote):
+                tier, own = TIER_HBM_HANDLE, OWNERSHIP_SHARED
+            elif remote:
+                tier = negotiated_remote_tier(plane, u.endpoint.type)
+                own = (OWNERSHIP_ONE_SHOT if tier != TIER_HOST_BYTES
+                       else OWNERSHIP_SHARED)
+            else:  # the entry edge: the server hands over parsed bytes
+                tier, own = TIER_HOST_BYTES, OWNERSHIP_SHARED
+            edges.append({"src": parent.name if parent is not None
+                          else "<request>", "dst": u.name, "tier": tier,
+                          "partition": "replicated", "ownership": own,
+                          "fused": fused, "remote": remote})
+            for c in u.children:
+                visit(c, u)
+
+        visit(self.root.node.unit, None)
+        return edges
+
     def warmup(self, example_row=None) -> int:
         """Run every batcher bucket of every segment once before traffic
         (on the card: capture each bucket's graph).  ``example_row`` may be
         supplied; otherwise it is derived from the entry node's static
-        signature (``models/__init__.py``).  Returns buckets warmed."""
+        signature (``models/__init__.py``).  A segment whose warm-up
+        buckets are all captured already (at boot, from the artifact
+        store) is skipped.  Returns buckets warmed."""
         warmed = 0
         for seg in self.segments:
             row = example_row
@@ -513,6 +630,8 @@ class GraphPlan:
                 dt = np.dtype(sig.input_dtype or "float32")
                 row = np.zeros(tuple(sig.input_shape[1:]), dt)
             row = np.asarray(row)
+            if self._warm_buckets_ready(seg, row):
+                continue
             if seg.batcher is not None:
                 seg.batcher.warmup(row)
                 warmed += len(seg.batcher.buckets)
@@ -522,6 +641,20 @@ class GraphPlan:
                     torch.cuda.synchronize(y.device)
                 warmed += 1
         return warmed
+
+
+    @staticmethod
+    def _warm_buckets_ready(seg: FusedSegment, row) -> bool:
+        """Every bucket a warm-up of ``row`` would run is captured."""
+        from seldon_core_tpu_torch.runtime.component import host_dtype
+
+        dtype = str(getattr(torch, host_dtype(row)))
+        if seg.batcher is not None:
+            sizes = {seg.batcher.bucket_for(b) for b in seg.batcher.buckets}
+        else:
+            sizes = {1}
+        return all(((b,) + tuple(row.shape), dtype) in seg._buckets
+                   for b in sizes)
 
 
 def _entry_signature(node: Any):

@@ -11,8 +11,10 @@ graph, ``replicas`` and ``traffic`` (the reference's defaults, 1 and 100),
 and its ``seldon.io/*`` annotations merged as metadata, then spec, then the
 predictor's own, the later winning.  It checks what the reference checks
 at admission: unique predictor names, no negative replicas, a valid graph,
-and a valid ``seldon.io/graph-plan`` (:func:`graph_plan_mode`) and
-``seldon.io/prediction-cache*`` (:func:`prediction_cache_config`) on every
+and a valid ``seldon.io/graph-plan`` (:func:`graph_plan_mode`),
+``seldon.io/prediction-cache*`` (:func:`prediction_cache_config`),
+``seldon.io/artifact*`` (:func:`artifact_config`) and
+``seldon.io/device-plane*`` (:func:`device_plane_config`) on every
 predictor; a bad value raises :class:`DeploymentValidationError` with the
 reference's message.
 """
@@ -27,7 +29,7 @@ __all__ = ["UNIT_TYPES", "BUILTIN_IMPLEMENTATIONS", "GraphValidationError",
            "DeploymentValidationError", "Endpoint", "PredictiveUnit",
            "parse_graph", "validate_graph", "Predictor", "Deployment",
            "check_plan_mode", "graph_plan_mode", "prediction_cache_config",
-           "load_deployment"]
+           "artifact_config", "device_plane_config", "load_deployment"]
 
 UNIT_TYPES = ("MODEL", "ROUTER", "COMBINER", "TRANSFORMER",
               "OUTPUT_TRANSFORMER")
@@ -227,6 +229,34 @@ def prediction_cache_config(ann: dict, name: str):
         raise DeploymentValidationError(str(e)) from None
 
 
+def artifact_config(ann: dict, name: str):
+    """``seldon.io/artifact*`` (or the ``SELDON_ARTIFACT_STORE`` env) as an
+    ``artifacts.ArtifactConfig``, or None when the family is absent; an
+    invalid value raises."""
+    from seldon_core_tpu_torch.artifacts.config import (
+        artifact_config_from_annotations,
+    )
+
+    try:
+        return artifact_config_from_annotations(ann, name)
+    except ValueError as e:
+        raise DeploymentValidationError(str(e)) from None
+
+
+def device_plane_config(ann: dict, name: str):
+    """``seldon.io/device-plane*`` as a ``runtime.device_plane.
+    DevicePlaneConfig``, or None when the family is absent; an invalid
+    value raises."""
+    from seldon_core_tpu_torch.runtime.device_plane import (
+        device_plane_config_from_annotations,
+    )
+
+    try:
+        return device_plane_config_from_annotations(ann, name)
+    except ValueError as e:
+        raise DeploymentValidationError(str(e)) from None
+
+
 def load_deployment(src) -> Deployment:
     """A SeldonDeployment from a dict, a JSON string or a file path."""
     if isinstance(src, dict):
@@ -258,5 +288,7 @@ def load_deployment(src) -> Deployment:
         validate_graph(pred.graph)
         graph_plan_mode(pred.annotations)
         prediction_cache_config(pred.annotations, f"{name}/{pname}")
+        artifact_config(pred.annotations, f"{name}/{pname}")
+        device_plane_config(pred.annotations, f"{name}/{pname}")
         predictors.append(pred)
     return Deployment(name=name, predictors=predictors)

@@ -11,8 +11,12 @@ message is serialized.
 dtype name (float32, float16, bfloat16, int8, int32, int64, uint8, bool and
 the other numpy names).  Numpy has no bfloat16 (nor float8), so those
 decode to a torch tensor through ``torch.frombuffer``; their bytes are the
-reference's.  A ``deviceRef`` payload (the device plane) is refused: it
-comes with slice 4e of the port.
+reference's.  A ``deviceRef`` payload (the device plane,
+:class:`DeviceTensorRef`) is resolved through
+``runtime/device_registry.py``: a ref that cannot resolve here raises,
+which the transports carry back to the sender as the error it downgrades
+on.  ``shape`` and ``nbytes`` read a tensor's metadata and never copy it
+from the card.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import numpy as np
 import torch
 
 __all__ = ["MetricType", "Metric", "Meta", "Status", "SeldonMessage",
-           "Feedback", "new_puid", "wire_array", "array_from_buffer"]
+           "Feedback", "DeviceTensorRef", "new_puid", "wire_array",
+           "array_from_buffer", "dtype_name"]
 
 
 def new_puid() -> str:
@@ -140,7 +145,7 @@ _TORCH_ONLY = {"bfloat16": torch.bfloat16,
 _TORCH_ONLY_NAMES = {v: k for k, v in _TORCH_ONLY.items()}
 
 
-def _dtype_str(dtype: Any) -> str:
+def dtype_name(dtype: Any) -> str:
     """The wire name of a numpy or torch dtype (numpy's names)."""
     if isinstance(dtype, torch.dtype):
         if dtype in _TORCH_ONLY_NAMES:
@@ -158,9 +163,9 @@ def wire_array(x) -> tuple[np.ndarray, str]:
         if t.dtype in _TORCH_ONLY_NAMES:
             view = torch.int16 if t.element_size() == 2 else torch.uint8
             return t.view(view).numpy(), _TORCH_ONLY_NAMES[t.dtype]
-        return t.numpy(), _dtype_str(t.dtype)
+        return t.numpy(), dtype_name(t.dtype)
     arr = np.ascontiguousarray(x)
-    return arr, _dtype_str(arr.dtype)
+    return arr, dtype_name(arr.dtype)
 
 
 def array_from_buffer(buf, name: str, shape) -> Any:
@@ -185,6 +190,31 @@ def _to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
+@dataclass(frozen=True)
+class DeviceTensorRef:
+    """A tensor by reference, not by value: ``ref`` is a registry key
+    (in-process loopback, zero copies) or an ``shm:`` / ``shmc:`` segment
+    (same host, one D2H and one H2D).  ``shape``, ``dtype`` and ``nbytes``
+    ride beside it, so a receiver can reason about the payload without
+    resolving (and so consuming) a one-shot ref."""
+
+    ref: str
+    shape: tuple = ()
+    dtype: str = ""
+    nbytes: int = 0
+
+    def to_dict(self) -> dict:
+        return {"ref": self.ref, "shape": list(self.shape),
+                "dtype": self.dtype, "nbytes": self.nbytes}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "DeviceTensorRef":
+        return cls(ref=str(d.get("ref", "")),
+                   shape=tuple(int(s) for s in d.get("shape", ())),
+                   dtype=str(d.get("dtype", "")),
+                   nbytes=int(d.get("nbytes", 0)))
+
+
 @dataclass
 class SeldonMessage:
     data: Any = None
@@ -199,6 +229,40 @@ class SeldonMessage:
     @classmethod
     def from_ndarray(cls, arr, names=(), **kw) -> "SeldonMessage":
         return cls(data=arr, names=list(names), **kw)
+
+    @property
+    def is_device_resident(self) -> bool:
+        """``data`` is a torch tensor (the counterpart of a ``jax.Array``),
+        on the card or on the CPU device."""
+        return isinstance(self.data, torch.Tensor)
+
+    @property
+    def shape(self) -> Optional[tuple]:
+        """The tensor's shape, from its metadata: never a copy to the
+        host."""
+        if self.data is None:
+            return None
+        shape = getattr(self.data, "shape", None)
+        if shape is not None:
+            return tuple(shape)
+        return np.asarray(self.data).shape  # a host list or scalar
+
+    @property
+    def nbytes(self) -> Optional[int]:
+        """Payload bytes, from the tensor's metadata (and the byte
+        payloads' lengths): never a copy to the host."""
+        if self.data is not None:
+            if isinstance(self.data, torch.Tensor):
+                return self.data.numel() * self.data.element_size()
+            nbytes = getattr(self.data, "nbytes", None)
+            if nbytes is not None:
+                return int(nbytes)
+            return int(np.asarray(self.data).nbytes)
+        if self.bin_data is not None:
+            return len(self.bin_data)
+        if self.str_data is not None:
+            return len(self.str_data.encode("utf-8", errors="replace"))
+        return None
 
     def host_data(self) -> Optional[np.ndarray]:
         return None if self.data is None else _to_numpy(self.data)
@@ -264,9 +328,17 @@ class SeldonMessage:
                     raw, t.get("dtype", "float32"), t["shape"])
                 msg.encoding = "binTensor"
             elif "deviceRef" in datad:
-                raise ValueError(
-                    "deviceRef payloads (the device plane) come with slice "
-                    "4e of the port")
+                # the tensor never rode the wire: a ref that cannot
+                # resolve here raises (ForeignProcessRef, KeyError), which
+                # the transport answers as the error the sender
+                # downgrades on, never an empty message
+                from seldon_core_tpu_torch.runtime.device_registry import (
+                    registry,
+                )
+
+                ref = DeviceTensorRef.from_dict(datad["deviceRef"])
+                msg.data = registry.resolve(ref.ref)
+                msg.encoding = "binTensor"
             # any other ``data`` leaves the message without a tensor, as
             # the reference's does
         elif "binData" in d:

@@ -43,9 +43,13 @@ class ModelSignature:
     identical outputs — False for RNG routers, learning/stateful
     components, and anything with per-request-meta-dependent output.
 
+    ``routes_on`` (routers only) declares what the ``route()`` decision
+    reads: ``"tensor"`` (the values) or ``"meta"`` (meta and names only).
+    A meta-only router is called without the tensor when the device plane
+    is on, so no D2H is paid for it.
+
     The reference's ``batch_shardable`` and ``tp_param_specs`` (the
-    placement plane, slice 6) and ``routes_on`` (the device plane, slice
-    4e) come with the slices that read them.
+    placement plane, slice 6) come with the slice that reads them.
     """
 
     input_shape: Optional[Shape] = None
@@ -55,6 +59,7 @@ class ModelSignature:
     hbm_bytes: int = 0
     pure_fn: bool = False
     deterministic: bool = True
+    routes_on: str = "tensor"
 
 
 def _dense_bytes(sizes: tuple, dtype_bytes: int = 4) -> int:
@@ -123,9 +128,9 @@ BUILTIN_SIGNATURES: dict[str, ModelSignature] = {
     ),
     # always branch 0: deterministic, but routers are still cache
     # boundaries (control flow re-runs per request)
-    "SIMPLE_ROUTER": ModelSignature(),
-    "RANDOM_ABTEST": ModelSignature(deterministic=False),
-    "EPSILON_GREEDY": ModelSignature(deterministic=False),
+    "SIMPLE_ROUTER": ModelSignature(routes_on="meta"),
+    "RANDOM_ABTEST": ModelSignature(deterministic=False, routes_on="meta"),
+    "EPSILON_GREEDY": ModelSignature(deterministic=False, routes_on="meta"),
     # element-wise mean over children, on the children's device
     "AVERAGE_COMBINER": ModelSignature(pure_fn=True),
 }

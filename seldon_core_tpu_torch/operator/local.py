@@ -45,6 +45,18 @@ annotations, milliseconds) or a
 (``seldon.io/grpc-read-timeout``) calls it.  A tensor crosses a REST hop in
 the encoding the request arrived with.
 
+``seldon.io/artifact-store`` (or ``SELDON_ARTIFACT_STORE``) with a fused
+plan turns on the artifact plane (``artifacts/``): the kernel library
+loads from the store when it holds it (else it is built and published),
+every stored bucket is captured at boot, held to its probe digest, and
+``seldon.io/artifact-precompile`` (default true) warms every derivable
+bucket at boot; ``/admin/artifacts`` reports it.
+``seldon.io/device-plane: "true"`` (``-remote``: auto, loopback, shm,
+off) turns on the device plane (``runtime/device_plane.py``): remote REST
+nodes negotiate ``deviceRef`` per peer, meta-only routers route without
+the tensor, cache entries stay on the card; orphaned shm segments of dead
+producers are reaped at boot.
+
 QoS (``qos/``): ``seldon.io/slo-p95-ms`` turns on admission control,
 ``seldon.io/qos-fallback`` names the subgraph that serves while a breaker
 is open or shedding passes ``seldon.io/qos-degrade-shed-level``, and every
@@ -73,13 +85,16 @@ import sys
 from typing import Optional
 
 import numpy as np
+import torch
 
 from seldon_core_tpu_torch.device import resolve_device
-from seldon_core_tpu_torch.graph.engine import GraphEngine
+from seldon_core_tpu_torch.graph.engine import GraphEngine, routes_on_meta
 from seldon_core_tpu_torch.graph.spec import (
     Deployment,
     PredictiveUnit,
     Predictor,
+    artifact_config,
+    device_plane_config,
     graph_plan_mode,
     load_deployment,
     prediction_cache_config,
@@ -121,11 +136,11 @@ def _timeout_s(ann: dict, key: str, default):
     return float(raw) / 1000.0
 
 
-def _remote(unit: PredictiveUnit, ann: dict, qos=None):
+def _remote(unit: PredictiveUnit, ann: dict, qos=None, device_plane=None):
     """The client of a node served by another process, behind a circuit
-    breaker when QoS is on.  Its ``/route`` calls carry the tensor: the
-    reference turns ``route_meta_only`` on from the signature of a node's
-    ``model_class``, and an endpoint node names none."""
+    breaker when QoS is on.  A REST node's ``/route`` calls carry no
+    tensor when its signature routes on meta (``routes_on_meta``), and
+    ``device_plane`` turns on its per-peer ``deviceRef`` fast path."""
     if unit.endpoint.type == "GRPC":
         from seldon_core_tpu_torch.serving.grpc_api import GrpcComponentClient
 
@@ -143,7 +158,8 @@ def _remote(unit: PredictiveUnit, ann: dict, qos=None):
             name=unit.name, methods=unit.methods,
             timeout_s=_timeout_s(ann, "seldon.io/rest-read-timeout", 30.0),
             connect_timeout_s=_timeout_s(
-                ann, "seldon.io/rest-connection-timeout", None))
+                ann, "seldon.io/rest-connection-timeout", None),
+            route_meta_only=routes_on_meta(unit), device_plane=device_plane)
     if qos is not None and qos.config.breakers_enabled:
         from seldon_core_tpu_torch.qos.breaker import BreakerWrapper
 
@@ -153,13 +169,14 @@ def _remote(unit: PredictiveUnit, ann: dict, qos=None):
 
 
 def resolve_component(unit: PredictiveUnit, annotations: dict, device: str,
-                      qos: Optional[EngineQos] = None, metrics=None):
+                      qos: Optional[EngineQos] = None, metrics=None,
+                      device_plane=None):
     """The implementation of one non-built-in node; ``metrics`` (a
     ``MetricsRegistry``) receives the batcher's series."""
     model_class = unit.parameters.get("model_class")
     if not model_class:
         if unit.endpoint.service_host and unit.endpoint.type != "LOCAL":
-            return _remote(unit, annotations, qos)
+            return _remote(unit, annotations, qos, device_plane)
         raise ValueError(
             f"node {unit.name!r}: no implementation, model_class, or "
             "endpoint")
@@ -222,15 +239,43 @@ class LocalPredictor:
         cfg = qos_config(dep, pred)
         self.qos = None if cfg is None else EngineQos(
             cfg, metrics=metrics.registry)
+        where = f"{dep.name}/{pred.name}"
+        art_cfg = artifact_config(ann, where)
+        self.artifacts = None
+        if art_cfg is not None and art_cfg.enabled and plan_mode == "fused":
+            from seldon_core_tpu_torch.artifacts import ArtifactPlane
+            from seldon_core_tpu_torch.ops import _build
+
+            self.artifacts = ArtifactPlane(art_cfg, metrics=metrics.registry,
+                                           deployment=dep.name)
+            # before any component launches a kernel
+            _build.attach_artifacts(self.artifacts)
+        dp_cfg = device_plane_config(ann, where)
+        self.device_plane = None
+        if dp_cfg is not None and dp_cfg.enabled:
+            from seldon_core_tpu_torch.runtime.device_plane import DevicePlane
+            from seldon_core_tpu_torch.runtime.device_registry import (
+                registry,
+            )
+
+            self.device_plane = DevicePlane(dp_cfg, metrics=metrics.registry)
+            registry.device = torch.device(device)
+            registry.attach_metrics(metrics.registry)
+            # a crashed producer's segments must not outlive a restart
+            registry.reap_orphan_shm()
         self.engine = GraphEngine(
             pred.graph, name=pred.name, metrics_sink=metrics, qos=self.qos,
             walk_timeout_s=_timeout_s(ann, "seldon.io/engine-walk-timeout-ms",
                                       None),
             plan_mode=plan_mode, plan_batcher=plan_batcher, cache=self.cache,
             cache_version=str(ann.get("seldon.io/spec-hash", "")),
+            artifacts=self.artifacts, device_plane=self.device_plane,
             resolver=lambda u: resolve_component(
-                u, ann, device, qos=self.qos, metrics=metrics.registry))
+                u, ann, device, qos=self.qos, metrics=metrics.registry,
+                device_plane=self.device_plane))
         plan = self.engine.plan
+        if plan is None:
+            self.artifacts = None  # nothing fused: nothing to store
         # on the card, every batched model outside the segments (all of
         # them on the walk) runs each bucket once, if it states its row
         # shape; the segments capture theirs on request or below
@@ -242,9 +287,12 @@ class LocalPredictor:
                 shape = getattr(impl.handle.user, "input_shape", None)
                 if shape is not None and impl.handle.device.type == "cuda":
                     impl.warmup(np.zeros(shape, np.float32))
-        if plan is not None and ann.get(
+        # an artifact plane with precompile on warms every derivable bucket
+        # at boot; buckets captured from the store are skipped
+        if plan is not None and (ann.get(
                 "seldon.io/graph-plan-warmup", "").lower() in ("1", "true",
-                                                               "yes"):
+                                                               "yes")
+                or (self.artifacts is not None and art_cfg.precompile)):
             plan.warmup()
 
 
@@ -262,6 +310,15 @@ class LocalDeployment:
                            for p in dep.predictors]
         self.engine = self.predictors[0].engine
         self.qos = self.predictors[0].qos
+        if any(p.artifacts is not None for p in self.predictors):
+            from seldon_core_tpu_torch.artifacts import publish as art_publish
+
+            def _art_snapshot(preds=self.predictors):
+                return {"predictors": [
+                    {"name": p.spec.name, **p.artifacts.snapshot()}
+                    for p in preds if p.artifacts is not None]}
+
+            art_publish(dep.name, _art_snapshot)
         if any(p.qos is not None for p in self.predictors):
             def _snapshot(preds=self.predictors):
                 return {"predictors": [
@@ -275,6 +332,23 @@ class LocalDeployment:
         total = sum(weights) or len(weights)
         self._weights = [w / total if total else 1 / len(weights)
                          for w in weights]
+
+    @property
+    def artifacts(self):
+        """The first predictor's artifact plane that is on (what
+        ``/admin/artifacts`` reads), or None."""
+        for p in self.predictors:
+            if p.artifacts is not None:
+                return p.artifacts
+        return None
+
+    @property
+    def device_plane(self):
+        """The first predictor's device plane that is on, or None."""
+        for p in self.predictors:
+            if p.device_plane is not None:
+                return p.device_plane
+        return None
 
     def pick(self) -> LocalPredictor:
         """The predictor of the next request (reference

@@ -12,6 +12,14 @@ Flags: ``-gencode arch=compute_90a,code=sm_90a -O3``, and no
 approximations, and the int8 kernel must quantize exactly as the plain
 version does.
 
+With an artifact plane attached (:func:`attach_artifacts`, done by the
+local runner when ``seldon.io/artifact-store`` is set), :func:`load`
+looks in the plane's store first: an entry whose sha256 matches its
+sidecar is written beside the build's own library and loaded without
+``nvcc`` (``build_stats``: ``compiled`` False, ``store`` the entry); a
+mismatch is quarantined and never passed to ``dlopen``; a miss builds as
+usual and publishes the library.  Without a plane nothing changes.
+
 Every C entry point takes its pointers and the stream as ``c_void_p`` and
 returns a ``cudaError_t`` (0 = launched); :func:`check` raises on anything
 else.  The build happens at first use, never when a module is imported:
@@ -35,7 +43,7 @@ import torch
 
 __all__ = ["build", "load", "check", "ptr", "stream_of", "dtype_code",
            "check_head_dim", "sm_count", "HEAD_DIMS", "BUILD_DIR",
-           "SOURCE_DIR", "build_stats"]
+           "SOURCE_DIR", "build_stats", "attach_artifacts", "source_hash"]
 
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -65,6 +73,8 @@ HEAD_DIMS = (8, 16, 32, 64, 128, 256)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+#: the artifact plane load() consults first (attach_artifacts)
+_artifacts = None
 #: what the last build did: seconds, whether it compiled, the library path
 build_stats: dict = {}
 
@@ -154,12 +164,46 @@ def _compile(so: Path) -> str:
     return "\n".join(logs)
 
 
+def attach_artifacts(plane) -> None:
+    """Make :func:`load` look in ``plane``'s store first (None detaches).
+    The library is process-wide, so is this."""
+    global _artifacts
+    _artifacts = plane
+
+
+def _from_store(plane) -> Optional[Path]:
+    """The stored library, checked and written beside the build's own, or
+    None (a miss, or a quarantined entry)."""
+    h = source_hash()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            t0 = time.perf_counter()
+            so = plane.load_library(h, BUILD_DIR / f"libsck_{h}.store.so")
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    if so is not None:
+        build_stats.clear()
+        build_stats.update(seconds=time.perf_counter() - t0, compiled=False,
+                           library=str(so),
+                           store=plane.library.get("store"))
+    return so
+
+
 def load() -> ctypes.CDLL:
-    """The kernel library, built at first use."""
+    """The kernel library, built (or taken from the attached artifact
+    store) at first use."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            plane = _artifacts
+            so = _from_store(plane) if plane is not None else None
+            if so is None:
+                so = build()
+                if plane is not None:
+                    plane.publish_library(source_hash(), so)
+            lib = ctypes.CDLL(str(so))
             for name, args in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = args

@@ -10,9 +10,16 @@ The bytes are the reference's for the same message:
 A tensor on the card is copied to the host once, where it is encoded.
 bfloat16 (and float8) travel without ``ml_dtypes``: their bytes go out
 through an integer view (``messages.wire_array``) and come back as a torch
-tensor (``messages.array_from_buffer``).  A ``DeviceTensorRef`` payload
-(``data.device``, the device plane) is refused: it comes with slice 4e of
-the port.
+tensor (``messages.array_from_buffer``).
+
+A ``DeviceTensorRef`` payload (``data.device``, the device plane) carries
+a ``runtime/device_registry.py`` ref in ``buffer_uuid``:
+``message_to_proto(device_refs=True)`` registers a torch tensor in this
+process (a loopback hop; another process refuses the ref),
+``device_refs="shm"`` stages any tensor into same-host shared memory, and
+the default sends bytes.  ``message_from_proto`` resolves the ref, or
+raises (``ForeignProcessRef``, ``KeyError``) with the ``DeviceTensorRef``
+marker the sender downgrades on.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from seldon_core_tpu_torch.messages import (
     SeldonMessage,
     Status,
     array_from_buffer,
+    dtype_name,
     wire_array,
 )
 from seldon_core_tpu_torch.proto import prediction_pb2 as pb
@@ -155,17 +163,34 @@ def _fill_listvalue(lv: struct_pb2.ListValue, rows: Sequence) -> None:
 # ---------------------------------------------------------------------------
 
 def message_to_proto(msg: SeldonMessage,
-                     out: Optional[pb.SeldonMessage] = None
-                     ) -> pb.SeldonMessage:
+                     out: Optional[pb.SeldonMessage] = None,
+                     device_refs=False) -> pb.SeldonMessage:
+    """``device_refs=True``: a torch tensor rides as a loopback registry
+    ref (peers in this process only); ``"shm"``: any tensor rides a
+    same-host shm segment (one D2H); ``False``: bytes, always safe."""
     p = out if out is not None else pb.SeldonMessage()
     if msg.status is not None:
         _status_to_proto(msg.status, p.status)
     md = msg.meta
     if md.puid or md.tags or md.routing or md.request_path or md.metrics:
         _meta_to_proto(md, p.meta)
+    if msg.data is not None and device_refs and (
+            msg.is_device_resident or device_refs == "shm"):
+        from seldon_core_tpu_torch.runtime.device_registry import registry
+
+        arr = msg.data
+        p.data.names.extend(msg.names)
+        if device_refs == "shm":
+            p.data.device.buffer_uuid = registry.put_shm(arr)
+        else:
+            p.data.device.buffer_uuid = registry.put(arr)
+        p.data.device.dtype = dtype_name(getattr(arr, "dtype", "float32"))
+        p.data.device.shape.extend(int(s) for s in msg.shape)
+        p.data.device.sharding = ""
+        return p
     if msg.data is not None:
         p.data.names.extend(msg.names)
-        if msg.encoding == "binTensor":
+        if msg.encoding in ("binTensor", "device"):
             buf, name = wire_array(msg.data)
             p.data.binTensor.dtype = name
             p.data.binTensor.shape.extend(int(s) for s in buf.shape)
@@ -212,9 +237,13 @@ def message_from_proto(p: pb.SeldonMessage) -> SeldonMessage:
                                          t.dtype or "float32", list(t.shape))
             msg.encoding = "binTensor"
         elif dwhich == "device":
-            raise ValueError(
-                "DeviceTensorRef payloads (the device plane) come with slice "
-                "4e of the port")
+            from seldon_core_tpu_torch.runtime.device_registry import (
+                registry,
+            )
+
+            # a ref minted by another process raises ForeignProcessRef
+            msg.data = registry.resolve(p.data.device.buffer_uuid)
+            msg.encoding = "device"
     elif which == "binData":
         msg.bin_data = p.binData
     elif which == "strData":

@@ -63,8 +63,8 @@ _eager_depth = 0
 
 @contextlib.contextmanager
 def eager():
-    """Run every program eagerly on the card while open (the counterpart of
-    ``jax.disable_jit()``); nests.  Process-wide, since the engines' device
+    """Run every program, and every fused segment, eagerly on the card
+    while open (the counterpart of ``jax.disable_jit()``); nests.  Process-wide, since the engines' device
     work runs on their own worker threads.  For tests and A/B measurement:
     serving never enters it."""
     global _eager_depth

@@ -20,8 +20,18 @@ broken connection is 503 ``TRANSPORT``; a reply slower than the read
 timeout is 504 ``DEADLINE_EXCEEDED``; a body that is not a JSON object
 takes the HTTP status (502 below 400) with ``TRANSPORT``.
 
-Device-tensor references (``deviceRef``, the device plane) and trace
-headers wait for slices 4e and 5 of the port.
+The device plane (``device_plane=``, a ``runtime.device_plane.
+DevicePlane``): every answer of a port or reference server names its
+process in ``X-Seldon-Device-Plane`` (``<process token>|<host token>``).
+Once a peer has named itself, a request's tensor to a peer in this process
+rides a registry ref, to a peer on this host a one-shot shm segment
+(``deviceRef``), else bytes; the first request always rides bytes, so
+negotiation costs no round trip.  A peer that cannot resolve the ref
+answers an error naming ``DeviceTensorRef``: the client retries the same
+request as bytes and stays on bytes for that peer, counted as a
+downgrade.  A meta-only route call (``route_meta_only``) sends no tensor
+at all, and so never copies one from the card.  Trace headers wait for
+slice 5.
 """
 
 from __future__ import annotations
@@ -32,10 +42,29 @@ import logging
 from typing import AsyncIterator, Optional, Sequence
 from urllib.parse import urlsplit
 
-from seldon_core_tpu_torch.messages import Feedback, SeldonMessage
+from seldon_core_tpu_torch.messages import (
+    DeviceTensorRef,
+    Feedback,
+    SeldonMessage,
+    dtype_name,
+)
 from seldon_core_tpu_torch.runtime.component import SeldonComponentError
 
-__all__ = ["HttpClient", "HttpError", "RemoteComponent", "ExternalClient"]
+__all__ = ["HttpClient", "HttpError", "RemoteComponent", "ExternalClient",
+           "DEVICE_PLANE_HEADER", "plane_identity"]
+
+#: the answer header naming the server's process for the device plane
+DEVICE_PLANE_HEADER = "X-Seldon-Device-Plane"
+
+
+def plane_identity() -> str:
+    """``<process token>|<host token>``: this process, for the header."""
+    from seldon_core_tpu_torch.runtime.device_registry import (
+        host_token,
+        process_token,
+    )
+
+    return f"{process_token()}|{host_token()}"
 
 logger = logging.getLogger(__name__)
 
@@ -246,7 +275,8 @@ class RemoteComponent:
 
     def __init__(self, base_url: str, name: str = "", timeout_s: float = 30.0,
                  connect_timeout_s: Optional[float] = None,
-                 methods: Sequence[str] = (), route_meta_only: bool = False):
+                 methods: Sequence[str] = (), route_meta_only: bool = False,
+                 device_plane=None):
         """``timeout_s`` / ``connect_timeout_s`` are the reference's
         ``seldon.io/rest-read-timeout`` / ``rest-connection-timeout``
         annotations in seconds: a reply past the deadline sheds with 504
@@ -255,7 +285,9 @@ class RemoteComponent:
         ``binTensor`` request stays ``binTensor`` on the hop and an
         ``ndarray`` one goes out as the reference sends it.
         ``route_meta_only`` strips the tensor from ``/route`` calls, for a
-        router whose decision reads meta and names only."""
+        router whose decision reads meta and names only.  ``device_plane``
+        turns on the per-peer ``deviceRef`` fast path (module
+        docstring)."""
         self.base_url = base_url.rstrip("/")
         self.name = name or self.base_url
         host, port, self._prefix = _split_url(self.base_url)
@@ -264,6 +296,11 @@ class RemoteComponent:
         self.route_meta_only = route_meta_only
         self._http = HttpClient(host, port,
                                 connect_timeout_s=connect_timeout_s)
+        self.device_plane = device_plane
+        #: the peer's latest identity header
+        self._peer_plane: Optional[str] = None
+        #: bytes only, for good, after a failed ref resolution
+        self._device_disabled = False
 
     def has(self, method: str) -> bool:
         # without a declared methods list, the remote is taken to support
@@ -276,10 +313,13 @@ class RemoteComponent:
     async def _post(self, path: str, payload: dict) -> dict:
         body = _json.dumps(payload).encode()
         try:
-            status, _, raw = await asyncio.wait_for(
+            status, headers, raw = await asyncio.wait_for(
                 self._http.request("POST", self._prefix + path, body,
                                    {"Content-Type": "application/json"}),
                 self.timeout_s)
+            peer = headers.get(DEVICE_PLANE_HEADER.lower())
+            if peer:
+                self._peer_plane = peer
         except ConnectTimeout as e:
             # an unreachable backend is "down" (503), not "slow"
             raise SeldonComponentError(
@@ -311,9 +351,73 @@ class RemoteComponent:
                                        out.status.reason)
         return out
 
+    # ---- device-plane fast path ---------------------------------------
+    def _device_mode(self) -> str:
+        """This peer's tier right now (``loopback`` | ``shm`` | ``off``):
+        its latest identity header under the plane's ``remote`` cap."""
+        plane = self.device_plane
+        if plane is None or not plane.enabled or self._device_disabled:
+            return "off"
+        cap = plane.config.remote
+        if cap == "off" or not self._peer_plane:
+            return "off"
+        from seldon_core_tpu_torch.runtime.device_registry import (
+            host_token,
+            process_token,
+        )
+
+        token, _, host = self._peer_plane.partition("|")
+        if token == process_token() and cap in ("auto", "loopback"):
+            return "loopback"
+        if host and host == host_token() and cap in ("auto", "shm"):
+            return "shm"
+        return "off"
+
+    def _encode_maybe_device(self, msg: SeldonMessage) -> tuple:
+        """``(payload, used_ref)``: ``msg`` for the wire, its tensor as a
+        ``deviceRef`` when this peer's tier allows."""
+        mode = self._device_mode()
+        if mode == "off" or msg.data is None:
+            return msg.to_dict(), False
+        from seldon_core_tpu_torch.runtime.device_registry import registry
+
+        plane = self.device_plane
+        nbytes = int(msg.nbytes or 0)
+        try:
+            if mode == "loopback":
+                ref = registry.put(msg.data)
+                plane.note_avoided(
+                    "d2h" if msg.is_device_resident else "copy", nbytes)
+            else:
+                ref = registry.put_shm(msg.data)  # one D2H
+        except ValueError:
+            # an object array: shm cannot carry it
+            plane.note_downgrade("dtype")
+            return msg.to_dict(), False
+        plane.note_remote_ref(mode)
+        payload = SeldonMessage(names=list(msg.names), meta=msg.meta,
+                                status=msg.status).to_dict()
+        payload["data"] = {
+            "names": list(msg.names),
+            "deviceRef": DeviceTensorRef(
+                ref=ref, shape=tuple(msg.shape or ()),
+                dtype=dtype_name(getattr(msg.data, "dtype", "float32")),
+                nbytes=nbytes).to_dict()}
+        return payload, True
+
     async def _msg_call(self, path: str, msg: SeldonMessage
                         ) -> SeldonMessage:
-        return self._decode(await self._post(path, msg.to_dict()))
+        payload, used_ref = self._encode_maybe_device(msg)
+        try:
+            return self._decode(await self._post(path, payload))
+        except SeldonComponentError as e:
+            if not used_ref or "DeviceTensorRef" not in str(e):
+                raise
+            # the peer could not resolve the ref: bytes for this peer from
+            # now on, and the same request again
+            self.device_plane.note_downgrade("resolve-failed")
+            self._device_disabled = True
+            return self._decode(await self._post(path, msg.to_dict()))
 
     # ---- component surface --------------------------------------------
     async def predict(self, msg: SeldonMessage) -> SeldonMessage:
@@ -327,6 +431,10 @@ class RemoteComponent:
 
     async def route(self, msg: SeldonMessage) -> int:
         if self.route_meta_only and msg.data is not None:
+            # the router's decision reads no values: no tensor goes out,
+            # and a tensor on the card is never copied to the host
+            if self.device_plane is not None and msg.is_device_resident:
+                self.device_plane.note_avoided("d2h", int(msg.nbytes or 0))
             msg = SeldonMessage(names=list(msg.names), meta=msg.meta)
         data = (await self._msg_call("/route", msg)).host_data()
         if data is None:
@@ -335,8 +443,22 @@ class RemoteComponent:
 
     async def aggregate(self, msgs: Sequence[SeldonMessage]
                         ) -> SeldonMessage:
-        return self._decode(await self._post(
-            "/aggregate", {"seldonMessages": [m.to_dict() for m in msgs]}))
+        encoded = [self._encode_maybe_device(m) for m in msgs]
+        try:
+            return self._decode(await self._post(
+                "/aggregate", {"seldonMessages": [p for p, _ in encoded]}))
+        except SeldonComponentError as e:
+            if not any(u for _, u in encoded) or \
+                    "DeviceTensorRef" not in str(e):
+                raise
+            # refs the peer resolved before failing are consumed; the
+            # tensors are still in hand, so everything goes again as bytes
+            # (unresolved refs age out by the registry's TTL)
+            self.device_plane.note_downgrade("resolve-failed")
+            self._device_disabled = True
+            return self._decode(await self._post(
+                "/aggregate", {"seldonMessages": [m.to_dict()
+                                                  for m in msgs]}))
 
     async def send_feedback(self, fb: Feedback) -> Optional[SeldonMessage]:
         d = await self._post("/send-feedback", fb.to_dict())

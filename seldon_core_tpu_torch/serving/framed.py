@@ -21,9 +21,20 @@ response and truth as tensors with their blobs under ``parts``.
 - :class:`AsyncFramedClient` and :class:`FramedClient`: one connection
   each, strict request and response.
 
-Device-tensor references (``deviceRef`` in the meta blob, the device
-plane) are refused with an error naming slice 4e of the port; trace
-context in the blob waits for slice 5.
+The device plane (``runtime/device_plane.py``): a client with a plane
+sends one hello per connection (``devicePlaneHello``: its process and
+host tokens); a server answers with its own (``devicePlane``), plane or
+not, and an old server answers it like any predict, without the key.  The
+client then picks the tier (:func:`_pick_device_mode`): the same process
+rides a registry ref (``loopback``), the same host a pooled shm lane of
+the connection's own (``shm``), anything else bytes.  A request's tensor
+then rides ``deviceRef`` in the meta blob instead of frame tensor 0; a
+server with its plane on answers in the tier the request arrived on (a
+pooled reply lane keyed by the client's lane), a plane-less one in bytes.
+A ref the server cannot resolve comes back as an error naming
+``DeviceTensorRef``: the client retries the request as bytes once and
+stays on bytes for the connection, counted as a downgrade.  Trace context
+in the blob waits for slice 5.
 """
 
 from __future__ import annotations
@@ -39,7 +50,13 @@ from typing import Optional
 
 import numpy as np
 
-from seldon_core_tpu_torch.messages import Feedback, Meta, SeldonMessage, Status
+from seldon_core_tpu_torch.messages import (
+    Feedback,
+    Meta,
+    SeldonMessage,
+    Status,
+    dtype_name,
+)
 from seldon_core_tpu_torch.native import (
     MSG_ERROR,
     MSG_FEEDBACK,
@@ -48,6 +65,11 @@ from seldon_core_tpu_torch.native import (
     Frame,
     FrameCodec,
     FramedServer,
+)
+from seldon_core_tpu_torch.runtime.device_registry import (
+    host_token,
+    process_token,
+    registry,
 )
 
 __all__ = [
@@ -94,22 +116,170 @@ def _apply_blob(msg: SeldonMessage, blob: dict) -> SeldonMessage:
     return msg
 
 
+def _device_ref_entry(msg: SeldonMessage, mode: str, plane,
+                      lane=None) -> dict:
+    """Register ``msg.data`` for the peer; the ``deviceRef`` blob entry.
+    ``loopback`` hands over the tensor itself; ``shm`` stages one D2H onto
+    the connection's ``lane`` when it holds one, else into a one-shot
+    segment.  Raises ``ValueError`` for a payload shm cannot carry (an
+    object array): the caller sends bytes."""
+    nbytes = int(msg.nbytes or 0)
+    if mode == "loopback":
+        ref = registry.put(msg.data)
+        if plane is not None:
+            # the serialize, socket and parse round trip never happens; a
+            # tensor's D2H is skipped too
+            plane.note_avoided(
+                "d2h" if msg.is_device_resident else "copy", nbytes)
+    elif lane is not None:
+        ref = lane.put(msg.data)
+    else:
+        ref = registry.put_shm(msg.data)
+    if plane is not None:
+        plane.note_remote_ref(mode)
+    return {"ref": ref, "shape": list(msg.shape or ()),
+            "dtype": dtype_name(getattr(msg.data, "dtype", "float32")),
+            "nbytes": nbytes}
+
+
 def encode_message(codec: FrameCodec, msg: SeldonMessage,
-                   msg_type: int = MSG_PREDICT) -> bytes:
-    tensors = [] if msg.data is None else [msg.data]
-    meta = json.dumps(_meta_blob(msg)).encode()
+                   msg_type: int = MSG_PREDICT, device_mode: str = "off",
+                   device_plane=None, device_lane=None) -> bytes:
+    tensors = []
+    blob = _meta_blob(msg)
+    if msg.data is not None:
+        if device_mode in ("loopback", "shm"):
+            try:
+                blob["deviceRef"] = _device_ref_entry(
+                    msg, device_mode, device_plane, lane=device_lane)
+            except ValueError:
+                if device_plane is not None:
+                    device_plane.note_downgrade("dtype")
+                tensors.append(msg.data)
+        else:
+            tensors.append(msg.data)
+    meta = json.dumps(blob).encode()
     return codec.encode(msg_type, meta=meta, tensors=tensors)
 
 
-def decode_message(frame: Frame) -> SeldonMessage:
+def decode_message(frame: Frame, device_plane=None) -> SeldonMessage:
     blob = json.loads(frame.meta) if frame.meta else {}
-    if "deviceRef" in blob:
-        raise ValueError("deviceRef payloads (the device plane) come with "
-                         "slice 4e of the port")
     msg = SeldonMessage(encoding="binTensor")
-    if frame.tensors:
+    wire_mode = "off"
+    peer_lane = ""
+    dref = blob.pop("deviceRef", None)
+    if dref is not None:
+        ref = str(dref.get("ref", ""))
+        # raises ForeignProcessRef / KeyError when the ref cannot resolve
+        # here: the server's error frame carries it back to the sender
+        msg.data = registry.resolve(ref)
+        if ref.startswith("shmc:"):
+            wire_mode = "shm"
+            peer_lane = ref.split(":", 2)[1]
+        elif ref.startswith("shm:"):
+            wire_mode = "shm"
+        else:
+            wire_mode = "loopback"
+        if device_plane is not None and wire_mode == "loopback":
+            device_plane.note_donation()  # the one-shot entry is freed
+    elif frame.tensors:
         msg.data = frame.tensors[0]
-    return _apply_blob(msg, blob)
+    _apply_blob(msg, blob)
+    # transport-internal: a server answers in the tier the request came
+    # on; a named peer lane keys the server's pooled reply lane
+    msg.device_wire_mode = wire_mode
+    msg.device_peer_lane = peer_lane
+    return msg
+
+
+class _ReplyLanes:
+    """A server's reply lanes, keyed by the client's inbound lane name (one
+    client connection, one inbound lane, one reply lane).  Bounded LRU: an
+    evicted lane is made again at the client's next request."""
+
+    def __init__(self, cap: int = 128):
+        self._lanes: dict = {}
+        self._order: list = []
+        self._cap = cap
+        self._lock = threading.Lock()
+
+    def get(self, peer: str):
+        with self._lock:
+            lane = self._lanes.get(peer)
+            if lane is None:
+                lane = registry.channel()
+                self._lanes[peer] = lane
+            else:
+                self._order.remove(peer)
+            self._order.append(peer)
+            evicted = []
+            while len(self._order) > self._cap:
+                old = self._order.pop(0)
+                evicted.append(self._lanes.pop(old))
+        for lane_ in evicted:
+            lane_.close()
+        return lane
+
+    def close_all(self) -> None:
+        with self._lock:
+            lanes, self._lanes, self._order = \
+                list(self._lanes.values()), {}, []
+        for lane in lanes:
+            lane.close()
+
+
+def _plane_hello_msg() -> SeldonMessage:
+    return SeldonMessage(json_data={"devicePlaneHello": {
+        "token": process_token(), "host": host_token()}})
+
+
+def _is_plane_hello(msg: SeldonMessage) -> bool:
+    return isinstance(msg.json_data, dict) and \
+        "devicePlaneHello" in msg.json_data
+
+
+def _plane_hello_reply() -> SeldonMessage:
+    return SeldonMessage(json_data={"devicePlane": {
+        "token": process_token(), "host": host_token()}})
+
+
+def _pick_device_mode(reply: SeldonMessage, plane) -> str:
+    """The client's side of the negotiation: the server's identity against
+    ours, under the plane's ``remote`` cap.  A reply without
+    ``devicePlane`` (an old server) negotiates to ``off``."""
+    info = None
+    if isinstance(reply.json_data, dict):
+        info = reply.json_data.get("devicePlane")
+    if not isinstance(info, dict):
+        if plane is not None:
+            plane.note_downgrade("negotiation")
+        return "off"
+    cap = plane.config.remote if plane is not None else "auto"
+    if info.get("token") == process_token() and cap in ("auto", "loopback"):
+        return "loopback"
+    if info.get("host") == host_token() and cap in ("auto", "shm"):
+        return "shm"
+    if plane is not None:
+        plane.note_downgrade("foreign-process")
+    return "off"
+
+
+def _wants_hello(plane) -> bool:
+    return plane is not None and plane.enabled and \
+        plane.config.remote != "off"
+
+
+def _reply_mode(plane, msg: SeldonMessage) -> str:
+    """Answer in the tier the request arrived on (an inbound ref that
+    resolved proves the way back resolves too); a plane-less server
+    always answers in bytes."""
+    if plane is None or not plane.enabled:
+        return "off"
+    return getattr(msg, "device_wire_mode", "off")
+
+
+def _is_ref_failure(e: Exception, mode: str) -> bool:
+    return mode != "off" and "DeviceTensorRef" in str(e)
 
 
 def encode_feedback(codec: FrameCodec, fb: Feedback) -> bytes:
@@ -162,12 +332,19 @@ class FramedComponentServer:
     target whose methods are async runs on an event loop of the server's
     own, kept for its lifetime (a dynamic batcher's timers live there)."""
 
-    def __init__(self, target, port: int = 0, bind: str = "127.0.0.1"):
+    def __init__(self, target, port: int = 0, bind: str = "127.0.0.1",
+                 device_plane=None):
         self._codec = FrameCodec()
         self._target = target
         self._server = FramedServer(self._handle, port=port, bind=bind)
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._loop_thread: Optional[threading.Thread] = None
+        self.device_plane = device_plane
+        self._reply_lanes = _ReplyLanes()
+        if device_plane is not None and device_plane.enabled:
+            # a dead producer's exports outlive both processes: boot is
+            # where they are reaped
+            registry.reap_orphan_shm()
 
     def _result(self, x):
         if not inspect.isawaitable(x):
@@ -187,6 +364,7 @@ class FramedComponentServer:
     def _handle(self, req: bytes) -> bytes:
         try:
             frame = self._codec.decode(req)
+            lane = None
             if frame.msg_type == MSG_FEEDBACK:
                 fb = decode_feedback(frame)
                 for part in (fb.request, fb.response, fb.truth):
@@ -194,11 +372,22 @@ class FramedComponentServer:
                         _writable(part)
                 out = self._result(self._target.send_feedback(fb))
                 out = out if out is not None else SeldonMessage()
+                mode = "off"
             else:
-                msg = decode_message(frame)
+                msg = decode_message(frame, self.device_plane)
+                if _is_plane_hello(msg):
+                    return encode_message(self._codec, _plane_hello_reply(),
+                                          MSG_RESPONSE)
                 _writable(msg)
                 out = self._result(self._target.predict(msg))
-            return encode_message(self._codec, out, MSG_RESPONSE)
+                mode = _reply_mode(self.device_plane, msg)
+                if mode == "shm" and msg.device_peer_lane:
+                    # a pooled request gets a pooled reply
+                    lane = self._reply_lanes.get(msg.device_peer_lane)
+            return encode_message(self._codec, out, MSG_RESPONSE,
+                                  device_mode=mode,
+                                  device_plane=self.device_plane,
+                                  device_lane=lane)
         except Exception as e:  # every error goes on the wire
             return _error_frame(self._codec, e)
 
@@ -212,6 +401,7 @@ class FramedComponentServer:
 
     def stop(self) -> None:
         self._server.stop()
+        self._reply_lanes.close_all()
         if self._loop is not None:
             self._loop.call_soon_threadsafe(self._loop.stop)
             self._loop_thread.join(timeout=5)
@@ -230,12 +420,17 @@ class AsyncFramedComponentServer:
     the target on the caller's loop; a connection's requests are answered
     in order."""
 
-    def __init__(self, target, port: int = 0, bind: str = "127.0.0.1"):
+    def __init__(self, target, port: int = 0, bind: str = "127.0.0.1",
+                 device_plane=None):
         self._codec = FrameCodec()
         self._target = target
         self._port_req = port
         self._bind = bind
         self._server: Optional[asyncio.base_events.Server] = None
+        self.device_plane = device_plane
+        self._reply_lanes = _ReplyLanes()
+        if device_plane is not None and device_plane.enabled:
+            registry.reap_orphan_shm()
 
     async def start(self) -> "AsyncFramedComponentServer":
         self._server = await asyncio.start_server(
@@ -251,6 +446,7 @@ class AsyncFramedComponentServer:
             self._server.close()
             await self._server.wait_closed()
             self._server = None
+        self._reply_lanes.close_all()
 
     async def __aenter__(self) -> "AsyncFramedComponentServer":
         return await self.start()
@@ -281,6 +477,7 @@ class AsyncFramedComponentServer:
     async def _handle(self, req: bytes) -> bytes:
         try:
             frame = self._codec.decode(req)
+            lane = None
             if frame.msg_type == MSG_FEEDBACK:
                 fb = decode_feedback(frame)
                 for part in (fb.request, fb.response, fb.truth):
@@ -290,13 +487,23 @@ class AsyncFramedComponentServer:
                 if inspect.isawaitable(out):
                     out = await out
                 out = out if out is not None else SeldonMessage()
+                mode = "off"
             else:
-                msg = decode_message(frame)
+                msg = decode_message(frame, self.device_plane)
+                if _is_plane_hello(msg):
+                    return encode_message(self._codec, _plane_hello_reply(),
+                                          MSG_RESPONSE)
                 _writable(msg)
                 out = self._target.predict(msg)
                 if inspect.isawaitable(out):  # an engine, a batched model
                     out = await out
-            return encode_message(self._codec, out, MSG_RESPONSE)
+                mode = _reply_mode(self.device_plane, msg)
+                if mode == "shm" and msg.device_peer_lane:
+                    lane = self._reply_lanes.get(msg.device_peer_lane)
+            return encode_message(self._codec, out, MSG_RESPONSE,
+                                  device_mode=mode,
+                                  device_plane=self.device_plane,
+                                  device_lane=lane)
         except Exception as e:  # every error goes on the wire
             return _error_frame(self._codec, e)
 
@@ -312,22 +519,41 @@ def _raise_error(codec: FrameCodec, body: bytes) -> Frame:
 
 class AsyncFramedClient:
     """Asyncio client of the framed protocol (one connection).
-    ``timeout`` bounds every round trip."""
+    ``timeout`` bounds every round trip; ``device_plane`` negotiates the
+    connection's ref tier at connect (module docstring)."""
 
-    def __init__(self, timeout: float = 30.0):
+    def __init__(self, timeout: float = 30.0, device_plane=None):
         self._codec = FrameCodec()
         self._reader = None
         self._writer = None
         self._lock: Optional[asyncio.Lock] = None  # made on connect
         self._timeout = timeout
+        self._device_plane = device_plane
+        self._device_mode = "off"
+        self._lane = None
+        self._lane_lock: Optional[asyncio.Lock] = None
 
     async def connect(self, host: str = "127.0.0.1", port: int = 0
                       ) -> "AsyncFramedClient":
         self._reader, self._writer = await asyncio.open_connection(host, port)
         self._lock = asyncio.Lock()
+        self._lane_lock = asyncio.Lock()
         sock = self._writer.get_extra_info("socket")
         if sock is not None:
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        plane = self._device_plane
+        if _wants_hello(plane):
+            # one hello decides the tier for the connection; any failure
+            # negotiates to bytes
+            try:
+                reply = decode_message(await self._roundtrip(encode_message(
+                    self._codec, _plane_hello_msg(), MSG_PREDICT)))
+                self._device_mode = _pick_device_mode(reply, plane)
+            except Exception:
+                plane.note_downgrade("negotiation")
+                self._device_mode = "off"
+        if self._device_mode == "shm":
+            self._lane = registry.channel()
         return self
 
     async def _roundtrip(self, payload: bytes) -> Frame:
@@ -344,14 +570,37 @@ class AsyncFramedClient:
         return _raise_error(self._codec, body)
 
     async def predict(self, msg: SeldonMessage) -> SeldonMessage:
-        return decode_message(await self._roundtrip(
-            encode_message(self._codec, msg, MSG_PREDICT)))
+        # staging onto the lane is serialized with the round trip that
+        # licenses its reuse (the reply proves the server copied it off)
+        async with self._lane_lock:
+            payload = encode_message(
+                self._codec, msg, MSG_PREDICT, device_mode=self._device_mode,
+                device_plane=self._device_plane, device_lane=self._lane)
+            try:
+                return decode_message(await self._roundtrip(payload),
+                                      self._device_plane)
+            except RuntimeError as e:
+                if not _is_ref_failure(e, self._device_mode):
+                    raise
+                # the peer could not resolve our ref: bytes from now on,
+                # and the same request again
+                self._device_plane.note_downgrade("resolve-failed")
+                self._device_mode = "off"
+                self._close_lane()
+                return decode_message(await self._roundtrip(encode_message(
+                    self._codec, msg, MSG_PREDICT)), self._device_plane)
 
     async def send_feedback(self, fb: Feedback) -> SeldonMessage:
         return decode_message(await self._roundtrip(
             encode_feedback(self._codec, fb)))
 
+    def _close_lane(self) -> None:
+        if self._lane is not None:
+            self._lane.close()
+            self._lane = None
+
     def close(self) -> None:
+        self._close_lane()
         if self._writer is not None:
             self._writer.close()
 
@@ -362,11 +611,26 @@ class FramedClient:
     for ever); ``predict(msg, timeout=...)`` overrides it for one call."""
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
-                 timeout: Optional[float] = 30.0):
+                 timeout: Optional[float] = 30.0, device_plane=None):
         self._codec = FrameCodec()
         self._timeout = timeout
         self._sock = socket.create_connection((host, port), timeout=timeout)
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self._device_plane = device_plane
+        self._device_mode = "off"
+        self._lane = None
+        self._lane_lock = threading.Lock()
+        if _wants_hello(device_plane):
+            try:
+                reply = decode_message(self._roundtrip(encode_message(
+                    self._codec, _plane_hello_msg(), MSG_PREDICT)))
+                self._device_mode = _pick_device_mode(reply, device_plane)
+            except Exception:
+                device_plane.note_downgrade("negotiation")
+                self._device_mode = "off"
+        if self._device_mode == "shm":
+            # the connection's lane: one segment rewritten per message
+            self._lane = registry.channel()
 
     def _roundtrip(self, payload: bytes,
                    timeout: Optional[float] = None) -> Frame:
@@ -397,8 +661,32 @@ class FramedClient:
 
     def predict(self, msg: SeldonMessage,
                 timeout: Optional[float] = None) -> SeldonMessage:
-        return decode_message(self._roundtrip(
-            encode_message(self._codec, msg, MSG_PREDICT), timeout=timeout))
+        # the lane is rewritten in place: message N+1 is staged only after
+        # N's reply proved the server copied N off
+        with self._lane_lock:
+            payload = encode_message(
+                self._codec, msg, MSG_PREDICT, device_mode=self._device_mode,
+                device_plane=self._device_plane, device_lane=self._lane)
+            try:
+                return decode_message(
+                    self._roundtrip(payload, timeout=timeout),
+                    self._device_plane)
+            except RuntimeError as e:
+                if not _is_ref_failure(e, self._device_mode):
+                    raise
+                self._device_plane.note_downgrade("resolve-failed")
+                self._device_mode = "off"
+                self._close_lane()
+                return decode_message(
+                    self._roundtrip(encode_message(self._codec, msg,
+                                                   MSG_PREDICT),
+                                    timeout=timeout),
+                    self._device_plane)
+
+    def _close_lane(self) -> None:
+        if self._lane is not None:
+            self._lane.close()
+            self._lane = None
 
     def send_feedback(self, fb: Feedback,
                       timeout: Optional[float] = None) -> SeldonMessage:
@@ -413,6 +701,7 @@ class FramedClient:
         return self._recv_exact(n)
 
     def close(self) -> None:
+        self._close_lane()
         try:
             self._sock.close()
         except OSError:

@@ -370,6 +370,16 @@ class _LoopChannel:
         self._stubs = {}
 
 
+def _device_refs_enabled():
+    """The process-wide ``DeviceTensorRef`` opt-in, env
+    ``SELDON_DEVICE_REFS``: ``1`` in-process refs (loopback serving only),
+    ``shm`` same-host shared memory."""
+    import os
+
+    v = os.environ.get("SELDON_DEVICE_REFS", "")
+    return "shm" if v == "shm" else v == "1"
+
+
 class GrpcComponentClient:
     """Calls a component over gRPC: the method surface of the REST
     ``RemoteComponent``, so the runner picks either by the node's
@@ -381,7 +391,7 @@ class GrpcComponentClient:
     def __init__(self, target: str, methods: Sequence[str] = (),
                  timeout_s: float = 30.0,
                  max_message_size: int = DEFAULT_MAX_MESSAGE_SIZE,
-                 name: str = ""):
+                 name: str = "", device_refs=None):
         self.target = target
         self.name = name or target
         self._chan = _LoopChannel(target, max_message_size)
@@ -389,6 +399,12 @@ class GrpcComponentClient:
             "predict", "route", "aggregate", "transform_input",
             "transform_output", "send_feedback", "stream"}
         self.timeout = timeout_s
+        if device_refs is None:
+            device_refs = _device_refs_enabled()
+        self.device_refs = device_refs
+
+    def _encode(self, msg: SeldonMessage):
+        return message_to_proto(msg, device_refs=self.device_refs)
 
     def has(self, method: str) -> bool:
         return method in self._methods
@@ -415,7 +431,7 @@ class GrpcComponentClient:
 
     async def _message(self, service: str, method: str,
                        msg: SeldonMessage) -> SeldonMessage:
-        resp = await self._unary(service, method, message_to_proto(msg))
+        resp = await self._unary(service, method, self._encode(msg))
         return self._ok(message_from_proto(resp))
 
     async def predict(self, msg: SeldonMessage) -> SeldonMessage:
@@ -450,7 +466,7 @@ class GrpcComponentClient:
         iterator cancels the call, which closes the server's generator.
         ``timeout_s`` bounds the whole stream (none by default: a
         generation lasts as long as its request asks)."""
-        call = self._chan.stub("Generic").Stream(message_to_proto(msg),
+        call = self._chan.stub("Generic").Stream(self._encode(msg),
                                                  timeout=timeout_s)
         try:
             async for resp in call:

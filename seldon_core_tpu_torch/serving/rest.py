@@ -36,9 +36,17 @@ no length: it is sent with ``Connection: close`` and ends when the
 connection does.  A client that closes its end stops the stream at once:
 the generator is closed, which frees an LLM request's slot and pages.
 
-Not in this slice: ``/trace`` and the ``/admin/*`` planes (slices 5 and 4d
-of the port), trace headers and the device-plane identity header (slices 5
-and 4e).
+Every message answer names this process for the device plane
+(``X-Seldon-Device-Plane: <process token>|<host token>``, read by a
+plane-enabled ``RemoteComponent``), and a request whose tensor rides a
+``deviceRef`` is resolved through ``runtime/device_registry.py`` (an
+unresolvable one answers 400 naming ``DeviceTensorRef``, the sender's
+cue to downgrade).  ``GET /admin/artifacts`` (``?coverage=1``) answers the
+artifact plane's posture, or 404 when the deployment has none
+(``artifacts/http.py``).
+
+Not in this slice: ``/trace`` and the other ``/admin/*`` planes (slices 5
+and 6 of the port) and trace headers (slice 5).
 """
 
 from __future__ import annotations
@@ -61,6 +69,10 @@ from seldon_core_tpu_torch.runtime.component import (
     validate_metrics,
 )
 from seldon_core_tpu_torch.serving.bodies import BadRequest as _BadRequest
+from seldon_core_tpu_torch.serving.client import (
+    DEVICE_PLANE_HEADER,
+    plane_identity,
+)
 from seldon_core_tpu_torch.serving.bodies import (
     HELPER_BYTES,
     BodyParser,
@@ -174,8 +186,10 @@ def _msg_code(msg: SeldonMessage) -> int:
 
 def _msg_response(msg: SeldonMessage) -> Response:
     code = _msg_code(msg)
-    # shed answers (admission, a full queue) carry a retry hint
-    headers = {"Retry-After": "1"} if code == 429 else None
+    headers = {DEVICE_PLANE_HEADER: plane_identity()}
+    if code == 429:
+        # shed answers (admission, a full queue) carry a retry hint
+        headers["Retry-After"] = "1"
     return Response(code, msg.to_json().encode(), _JSON, headers)
 
 
@@ -446,6 +460,13 @@ class EngineServer:
     async def prometheus(self, req: Request) -> Response:
         return _text(self.metrics.render())
 
+    async def artifacts(self, req: Request) -> Response:
+        from seldon_core_tpu_torch.artifacts.http import artifacts_body
+
+        status, payload = artifacts_body(
+            getattr(self.engine, "artifacts", None), req.query)
+        return Response(status, json.dumps(payload).encode())
+
     def register(self, server: "RestServer") -> None:
         for path in ("/api/v0.1/predictions", "/api/v1.0/predictions"):
             server.add_route("POST", path, self.predictions)
@@ -456,6 +477,7 @@ class EngineServer:
         server.add_route("GET", "/pause", self.pause)
         server.add_route("GET", "/unpause", self.unpause)
         server.add_route("GET", "/metrics", self.prometheus)
+        server.add_route("GET", "/admin/artifacts", self.artifacts)
         server.add_route("GET", "/seldon.json", _openapi("engine"))
 
 

@@ -6,7 +6,9 @@ import on the card's machine (``chip_smoke.py`` ``wire_env`` read grpc
 1.80.0 and protobuf 6.33.6 there), but REST, the framed wire and the native
 REST tier stand without them, and without ``aiohttp`` and ``ml_dtypes``:
 every other module imports, and a checkpoint, a state blob and the wire
-tiers round-trip, with those packages blocked.  A second probe imports the
+tiers round-trip (a framed call with the device plane on among them), and
+a fused deployment boots with the artifact and device planes, with those
+packages blocked.  A second probe imports the
 gRPC modules and serves a gRPC call, still without jax or the JAX package.
 
 This runs in subprocesses: the test process itself has jax imported (the
@@ -97,6 +99,23 @@ async def wire():
         fsrv.stop()
         await srv.stop()
 assert asyncio.run(asyncio.wait_for(wire(), 60)) == ([[2.0, 2.0]],) * 2
+# a framed call with the device plane on (the tensor rides a pooled shm
+# lane), without jax
+from seldon_core_tpu_torch.runtime.device_plane import (
+    DevicePlane, DevicePlaneConfig)
+from seldon_core_tpu_torch.runtime.device_registry import registry
+from seldon_core_tpu_torch.serving.framed import FramedClient
+registry.device = torch.device("cpu")
+plane = DevicePlane(DevicePlaneConfig(enabled=True, remote="shm"))
+with FramedComponentServer(ComponentHandle(Twice()),
+                           device_plane=plane) as psrv:
+    pc = FramedClient(port=psrv.port, device_plane=plane, timeout=30)
+    try:
+        po = pc.predict(SeldonMessage.from_ndarray(np.ones((1, 2))))
+        assert pc._device_mode == "shm" and po.device_wire_mode == "shm"
+        assert po.host_data().tolist() == [[2.0, 2.0]]
+    finally:
+        pc.close()
 # a fused, cached two-predictor deployment without jax
 from seldon_core_tpu_torch.graph.spec import load_deployment
 from seldon_core_tpu_torch.operator.local import LocalDeployment
@@ -104,8 +123,11 @@ mlp = {"name": "m", "type": "MODEL", "parameters": [
     {"name": "model_class", "type": "STRING",
      "value": "seldon_core_tpu_torch.models.mlp:MNISTMLP"},
     {"name": "hidden", "value": "8", "type": "INT"}]}
+import tempfile
 local = LocalDeployment(load_deployment({"spec": {"name": "d", "annotations": {
-    "seldon.io/graph-plan": "fused", "seldon.io/prediction-cache": "true"},
+    "seldon.io/graph-plan": "fused", "seldon.io/prediction-cache": "true",
+    "seldon.io/artifact-store": tempfile.mkdtemp(),
+    "seldon.io/device-plane": "true"},
     "predictors": [{"name": "a", "graph": mlp},
                    {"name": "b", "graph": mlp}]}}), device="cpu", seed=0)
 for _ in range(4):
@@ -236,6 +258,15 @@ def test_port_imports_without_jax_or_the_jax_package():
         "seldon_core_tpu_torch.models",
         "seldon_core_tpu_torch.ops.launches",
         "seldon_core_tpu_torch.runtime.programs",
+        "seldon_core_tpu_torch.runtime.device_registry",
+        "seldon_core_tpu_torch.runtime.device_plane",
+        "seldon_core_tpu_torch.artifacts",
+        "seldon_core_tpu_torch.artifacts.config",
+        "seldon_core_tpu_torch.artifacts.store",
+        "seldon_core_tpu_torch.artifacts.key",
+        "seldon_core_tpu_torch.artifacts.plane",
+        "seldon_core_tpu_torch.artifacts.registry",
+        "seldon_core_tpu_torch.artifacts.http",
     }
     assert expected <= set(res["modules"])
 

@@ -9,7 +9,9 @@
   bytes (``deterministic=True`` on both sides: exact), and the port decodes
   the reference's bytes to the values the reference decodes them to
   (exact: the same dtype and the same bits).
-- A ``DeviceTensorRef`` payload is refused, naming slice 4e.
+- A ``DeviceTensorRef`` payload minted by another process is refused
+  with the reference's error (``ForeignProcessRef``, whose message names
+  ``DeviceTensorRef``: the marker a sender downgrades on).
 """
 
 import subprocess
@@ -180,5 +182,9 @@ def test_feedback_and_message_list():
 def test_device_tensor_refs_are_refused_naming_their_slice():
     p = tpb.SeldonMessage()
     p.data.device.buffer_uuid = "tok/uuid"
-    with pytest.raises(ValueError, match="slice 4e"):
+    with pytest.raises(ValueError, match="DeviceTensorRef") as ei:
         tconvert.message_from_proto(p)
+    with pytest.raises(ValueError) as ej:
+        jconvert.message_from_proto(jpb.SeldonMessage.FromString(
+            p.SerializeToString()))
+    assert str(ei.value) == str(ej.value)

@@ -107,8 +107,11 @@ def test_feedback_json_and_device_refs():
         JFeedback.from_dict(parts).to_json()
     ref = {"data": {"deviceRef": {"ref": "r1", "shape": [1], "dtype":
                                   "float32", "nbytes": 4}}}
-    with pytest.raises(ValueError, match="slice 4e"):
+    with pytest.raises(ValueError, match="DeviceTensorRef") as ei:
         TMessage.from_dict(ref)
+    with pytest.raises(ValueError) as ej:
+        JMessage.from_dict(ref)
+    assert str(ei.value) == str(ej.value)
 
 
 def _observe(metrics, reg, types):
