@@ -234,26 +234,48 @@ Prints one JSON object per line:
     segment; in process, a SIMPLE_ROUTER over a model on the card copies
     0 bytes from the card with the plane on (the input with it off);
     p50/p95 per mode, the planes' counters.
-27. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
+27. ``observe_7b`` (after ``llm_graphs_7b``, on ``serve_7b``'s weights):
+    ``serve_7b``'s model behind the local runner's REST as a one-node
+    graph, the planes off, then ``seldon.io/tracing`` (sample rate 1),
+    ``seldon.io/health`` and ``seldon.io/profile`` on: ``serve_7b``'s 8
+    prompts with a ``traceparent`` each, ids equal to ``serve_7b``'s, each
+    answer's trace id the sent one and ``/trace?puid=`` its span tree;
+    ``/admin/introspect``'s device memory from ``torch.cuda`` above the
+    weights' bytes and within the card's; a 200 flight record per request;
+    ``/admin/health``'s verdict; capture windows with a device trace
+    (``torch.profiler``) over a second burst with a new prefill shape
+    (graphs, a capture inside the window, its ids equal to eager ones) and
+    under ``programs.eager()``: K1's, K2's and K3's ``__global__`` names in
+    a trace, a host table not empty.  TTFT/TPOT and tokens/s planes off
+    and on, captures in the window, trace bytes: reported.
+28. ``observe_resnet50``: ``plan_resnet50``'s int8 fused configuration with
+    ``seldon.io/profile`` and ``seldon.io/tracing`` behind REST:
+    ``/admin/profile/compile`` lists each captured bucket (wall ms > 0),
+    its ``flops`` equal to the host's count from the shapes (meta tensors)
+    x rows and within 1% of ResNet50's hand count; ``/admin/profile/
+    capacity`` names the card and its peak; no storm after warm-up; a
+    traced single's segment span carries ``device_block_ms``.
+29. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
     phases of prefix caching, batched and chunked prefill, preemption and
     checkpoints together; ``slice_3b_phases``: ``spec_7b`` and
     ``parity_spec_7b``; ``slice_4a_i_phases``: the ``wire_*`` phases;
     ``slice_4a_ii_qos_phases``: ``grpc_7b``, ``workers``,
     ``qos_resnet50``; ``slice_4b_4c_i_phases``: the four of 14-17;
     ``slice_4c_ii_phases``: ``llm_graphs_7b``; ``slice_4d_4e_phases``:
-    25-26).
-28. ``{"kernels": [...]}``: one entry per kernel with its launches in the
+    25-26; ``slice_5_i_phases``: 27-28).
+30. ``{"kernels": [...]}``: one entry per kernel with its launches in the
     runs through entry points (``llm_json``, ``serve_7b``, ``grpc_7b``,
     ``features_7b``, ``spec_7b``, ``llm_graphs_7b``, ``checkpoint_7b``,
     ``plan_resnet50``,
     ``cache_resnet50``, ``canary``, ``wire_resnet50``,
-    ``wire_llm``, ``workers``, ``qos_resnet50``, ``artifacts_resnet50``
-    and ``device_plane_resnet50``, counted by the child
+    ``wire_llm``, ``workers``, ``qos_resnet50``, ``artifacts_resnet50``,
+    ``device_plane_resnet50``, ``observe_7b`` and ``observe_resnet50``,
+    counted by the child
     processes where the kernels run there; K1 also
     ``resnet50_launches``: the int8 REST run), each phase's count beside,
     its error, times and bound (K2 also at its two long cases and the
     shared-prefix case).
-29. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+31. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
@@ -679,11 +701,12 @@ def resnet_k1_cases(torch, timer, gen, sms) -> list:
 # serving phases
 # ----------------------------------------------------------------------
 
-def _post(port: int, body: dict) -> tuple[int, dict]:
+def _post(port: int, body: dict, headers: dict = None
+          ) -> tuple[int, dict]:
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/api/v0.1/predictions",
         data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"})
+        headers={"Content-Type": "application/json", **(headers or {})})
     try:
         with urllib.request.urlopen(req, timeout=600) as r:
             return r.status, json.loads(r.read())
@@ -4862,6 +4885,431 @@ def device_plane_resnet50_phase(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 5-i: tracing, the health plane and the profiling plane on the card
+# ---------------------------------------------------------------------------
+
+#: the weights ``observe_7b_llm`` serves (set by ``observe_7b_phase``)
+OBSERVE_7B: dict = {}
+#: measured bursts of ``serve_7b``'s 8 prompts per deployment and turn
+OBSERVE_BURSTS = 3
+#: the kernels' ``__global__`` names in ``csrc/``, by kernel
+KERNEL_NAMES = {
+    "int8_matmul": ("quant_rows_kernel", "int8_gemv_kernel",
+                    "int8_gemm_kernel"),
+    "paged_attention": ("paged_decode_kernel",),
+    "flash_attention": ("flash_fwd_mma_kernel", "flash_fwd_simt_kernel"),
+}
+
+
+def observe_7b_llm(device: str = "cuda"):
+    """The ``observe_7b`` graph's node: ``serve_7b``'s engine and knobs
+    (96 pages of 16, 8 slots, max_len 256, 16 new tokens) over the weights
+    the phase hands over in ``OBSERVE_7B``."""
+    from seldon_core_tpu_torch.runtime.llm import LLMComponent, PagedLLMEngine
+    from seldon_core_tpu_torch.runtime.paged import PagedConfig
+
+    engine = PagedLLMEngine(OBSERVE_7B["params"], _cfg_7b(32),
+                            PagedConfig(n_pages=96, page_size=16),
+                            max_slots=8, max_len=256)
+    return LLMComponent(engine, n_new=16)
+
+
+def _observe_7b_graph(planes: bool) -> dict:
+    ann = {"seldon.io/batching": "false"}
+    if planes:
+        ann.update({"seldon.io/tracing": "true",
+                    "seldon.io/trace-sample": "1",
+                    "seldon.io/health": "true",
+                    "seldon.io/health-sample-ms": "250",
+                    "seldon.io/profile": "true"})
+    return {"metadata": {"name": "observe-7b", "annotations": ann},
+            "spec": {"predictors": [{"name": "main", "graph": {
+                "name": "llm", "type": "MODEL", "parameters": [
+                    {"name": "model_class", "type": "STRING",
+                     "value": "chip_smoke:observe_7b_llm"}]}}]}}
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if hasattr(tree, "numel") \
+        else 0
+
+
+def _get_json(port: int, path: str) -> tuple:
+    code, text = _get(port, path)
+    return code, json.loads(text)
+
+
+def _trace_kernels(logdir: Path) -> tuple:
+    """``({kernel: count of its device events}, trace bytes, device
+    events)`` of the Chrome trace a capture window wrote into ``logdir``."""
+    files = sorted(logdir.glob("trace-*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"observe_7b: {len(files)} traces in {logdir}")
+    size = files[0].stat().st_size
+    events = json.loads(files[0].read_text()).get("traceEvents", [])
+    device = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    seen = {k: sum(1 for e in device
+                   if any(n in str(e.get("name", "")) for n in names))
+            for k, names in KERNEL_NAMES.items()}
+    return seen, size, len(device)
+
+
+def observe_7b_phase(torch, params) -> dict:
+    """``serve_7b``'s model (32 layers, its weights) behind the local
+    runner's REST as a one-node graph, in turns with the planes off, on
+    (``seldon.io/tracing`` at sample rate 1, ``seldon.io/health``,
+    ``seldon.io/profile``) and off again; each deployment takes
+    ``serve_7b``'s 8 prompts once to capture its programs and then
+    ``OBSERVE_BURSTS`` times, measured, every request with its own
+    ``traceparent`` when the planes are on.  Gated: ids
+    equal ``serve_7b``'s; each answer's ``trace-id`` the sent one and
+    ``/trace?puid=`` its span tree under it, parented by the sent span;
+    ``/admin/introspect``'s device probe in use above the weights' bytes
+    and at most its limit, from ``torch.cuda``; ``/admin/flightrecorder``
+    a 200 record for each of the 8; ``/admin/health`` a verdict; a capture
+    window (``/admin/profile/capture?seconds=30&device=<dir>``) over a
+    second burst with a 200-token prompt (a new prefill shape, captured
+    inside the window) whose ids equal the same prompt's eager ones, and
+    a second window under ``programs.eager()``: one of the two traces
+    names K1's and K2's kernels (and K3's, a prefill ran in both), and
+    the window's host table is not empty.  Reported: TTFT/TPOT and
+    tokens/s per burst and their medians per mode (planes off: 6 bursts
+    over two deployments; on: 3), captures inside the window, the traces'
+    bytes and kernel events.  Returns the phase's launches."""
+    import shutil
+
+    from seldon_core_tpu_torch.operator.local import serve
+    from seldon_core_tpu_torch.runtime import programs
+
+    OBSERVE_7B["params"] = params
+    prompts, want = SERVE_7B["prompts"], SERVE_7B["ids"]
+    bodies = [{"jsonData": {"prompt_ids": p, "n_new": 16}} for p in prompts]
+    rng = torch.Generator().manual_seed(11)
+    long_body = {"jsonData": {"prompt_ids": torch.randint(
+        1, 32000, (200,), generator=rng).tolist(), "n_new": 16}}
+    tdir = ROOT / "build" / "observe_7b"
+    shutil.rmtree(tdir, ignore_errors=True)
+    weights = _tree_bytes(params)
+    out = {"phase": "observe_7b", "weights_bytes": weights, "card": CARD}
+    failed = []
+
+    def tps(tag: int) -> list:
+        return [(f"{tag:08x}{i:024x}", f"{i + 1:016x}") for i in range(8)]
+
+    async def burst(port, bods, parents=None):
+        parents = parents or [None] * len(bods)
+        return await _in_threads(_post, [
+            (port, b, {"traceparent": f"00-{p[0]}-{p[1]}-01"} if p else None)
+            for b, p in zip(bods, parents)])
+
+    def ids_of(answers, what):
+        got = []
+        for code, body in answers:
+            if code != 200:
+                raise AssertionError(f"observe_7b {what}: HTTP {code}: "
+                                     f"{body}")
+            got.append(body["jsonData"]["ids"])
+        return got
+
+    async def observe(port, local, engine, answers, parents):
+        loop = asyncio.get_running_loop()
+
+        async def get(path):
+            return await loop.run_in_executor(None, _get_json, port, path)
+
+        res = {}
+        # traces: the sent ids, the span tree under each
+        tree_ok = 0
+        for (code, body), (tid, sid) in zip(answers, parents):
+            puid = body["meta"]["puid"]
+            c, tr = await get(f"/trace?puid={puid}")
+            kids = [(k["name"], k["kind"]) for k in tr.get("children", ())]
+            if (body["meta"]["tags"].get("trace-id") == tid and c == 200
+                    and tr.get("trace_id") == tid
+                    and tr.get("parent_span_id") == sid
+                    and ("llm", "MODEL") in kids):
+                tree_ok += 1
+        res["traces_ok"] = tree_ok
+        if tree_ok != len(answers):
+            failed.append(f"traces {tree_ok} of {len(answers)}")
+        # device memory from torch.cuda, after a sample past the burst
+        t_after = time.time()
+        for _ in range(100):
+            c, intro = await get("/admin/introspect?n=1&probe=device")
+            s = intro.get("samples") or [{}]
+            if s[-1].get("ts", 0) > t_after:
+                break
+            await asyncio.sleep(0.1)
+        dev = s[-1].get("probes", {}).get("device", {})
+        res["introspect_device"] = dev
+        res["sampler"] = (await get("/admin/introspect?stats=1"))[1]["stats"]
+        if not (weights < dev.get("hbm_bytes_in_use", 0)
+                <= dev.get("hbm_bytes_limit", 0)) or "host_rss_bytes" in dev:
+            failed.append(f"device probe {dev}")
+        # the flight recorder: each measured request, 200
+        c, fr = await get("/admin/flightrecorder?n=1000")
+        codes = {r["puid"]: r["status"] for r in fr.get("records", ())}
+        mine = [codes.get(b["meta"]["puid"]) for _, b in answers]
+        res["flight_records"] = {"recorded": fr.get("stats", {}).get(
+            "recorded"), "measured_200": sum(x == 200 for x in mine)}
+        if mine != [200] * len(answers):
+            failed.append(f"flight records {mine}")
+        c, verdict = await get("/admin/health")
+        res["health"] = {k: verdict.get(k) for k in ("verdict", "signals")}
+        if c != 200 or verdict.get("verdict") not in ("ok", "warn",
+                                                      "critical"):
+            failed.append(f"health {c} {verdict}")
+        # window A: graphs; the long prompt's prefill shape is new
+        stats0 = engine.program_stats()["programs"]
+        c, w = await get(f"/admin/profile/capture?seconds=30&device="
+                         f"{tdir / 'graphs'}")
+        if c != 200 or w.get("device") is None:
+            raise AssertionError(f"observe_7b: capture window {c} {w}")
+        t0 = time.perf_counter()
+        a_answers = await burst(port, bodies + [long_body])
+        a_s = time.perf_counter() - t0
+        c, wa = await get(f"/admin/profile/capture?id={w['id']}&stop=1")
+        stats1 = engine.program_stats()["programs"]
+        a_ids = ids_of(a_answers, "window burst")
+        if a_ids[:8] != want:
+            failed.append("window burst ids differ from serve_7b's")
+        res["window_graphs"] = {
+            "burst_s": a_s, "samples": wa.get("samples"),
+            "stacks": wa.get("stacks"),
+            "captures_in_window": {
+                k: stats1[k]["captures"] - stats0[k]["captures"]
+                for k in stats1 if stats1[k]["captures"]
+                != stats0[k]["captures"]}}
+        if not (wa.get("done") and wa.get("stacks", 0) > 0
+                and wa.get("folded")):
+            failed.append(f"window host table {wa.get('stacks')}")
+        seen_a, bytes_a, dev_a = _trace_kernels(tdir / "graphs")
+        res["window_graphs"].update(kernels=seen_a, trace_bytes=bytes_a,
+                                    device_events=dev_a)
+        # window B: the same programs eagerly
+        with programs.eager():
+            c, w = await get(f"/admin/profile/capture?seconds=30&device="
+                             f"{tdir / 'eager'}")
+            t0 = time.perf_counter()
+            b_answers = await burst(port, [bodies[0], long_body])
+            b_s = time.perf_counter() - t0
+            c, wb = await get(f"/admin/profile/capture?id={w['id']}&stop=1")
+        b_ids = ids_of(b_answers, "eager window burst")
+        seen_b, bytes_b, dev_b = _trace_kernels(tdir / "eager")
+        res["window_eager"] = {"burst_s": b_s, "samples": wb.get("samples"),
+                               "stacks": wb.get("stacks"), "kernels": seen_b,
+                               "trace_bytes": bytes_b,
+                               "device_events": dev_b}
+        if b_ids != [a_ids[0], a_ids[8]]:
+            failed.append("the window's graph ids differ from eager ids")
+        need = ("int8_matmul", "paged_attention", "flash_attention")
+        named = [n for n, seen in (("graphs", seen_a), ("eager", seen_b))
+                 if all(seen[k] > 0 for k in need)]
+        res["kernels_named_in"] = named
+        if not named:
+            failed.append(f"no trace names K1, K2 and K3: {seen_a} {seen_b}")
+        c, cap = await get("/admin/profile/capacity")
+        res["capacity"] = {k: cap.get(k) for k in ("deviceKind",
+                                                   "devicePeakTflops")}
+        return res
+
+    async def run(planes: bool, turn: int) -> dict:
+        server, local = await serve(_observe_7b_graph(planes), port=0,
+                                    host="127.0.0.1")
+        engine = local.engine.node_impl("llm").user.engine
+        try:
+            ids_of(await burst(server.port, bodies), "warm-up")
+            bursts = []
+            for i in range(OBSERVE_BURSTS):
+                engine.latency_log.clear()
+                parents = tps(0xA0 + 16 * turn + i) if planes else None
+                t0 = time.perf_counter()
+                answers = await burst(server.port, bodies, parents)
+                wall = time.perf_counter() - t0
+                log = list(engine.latency_log)
+                if ids_of(answers, "burst") != want:
+                    mode = "on" if planes else "off"
+                    failed.append(f"ids with planes {mode} differ from "
+                                  "serve_7b's")
+                bursts.append({
+                    "ttft_ms_median": statistics.median(
+                        x["ttft_s"] for x in log) * 1e3,
+                    "tpot_ms_median": statistics.median(
+                        x["tpot_s"] for x in log
+                        if x["tpot_s"] is not None) * 1e3,
+                    "tokens_per_s": 16 * len(bodies) / wall})
+            res = {"bursts": bursts}
+            if planes:
+                res.update(await observe(server.port, local, engine,
+                                         answers, parents))
+            return res
+        finally:
+            await server.stop()
+            await local.aclose()
+            engine.close()
+
+    reset_launches()
+    try:
+        # in turns, off, on, off: a turn's order effect shows in the spread
+        turns = [(planes, asyncio.run(run(planes, t)))
+                 for t, planes in enumerate((False, True, False))]
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+        OBSERVE_7B.clear()
+    launches = read_launches()
+    for name, planes in (("planes_off", False), ("planes_on", True)):
+        bursts = [b for p, r in turns if p == planes for b in r["bursts"]]
+        out[name] = {k: statistics.median(b[k] for b in bursts)
+                     for k in bursts[0]}
+        out[name]["by_burst"] = bursts
+    out["planes_on"].update({k: v for k, v in turns[1][1].items()
+                             if k != "bursts"})
+    out["launches"] = launches
+    emit(out)
+    if failed or not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"observe_7b: {failed} {launches}")
+    return launches
+
+
+def resnet50_flops(rows: int, size: int = 224, classes: int = 1000) -> int:
+    """ResNet50's (3, 4, 6, 3) multiply-adds x 2 for ``rows`` images,
+    counted by hand: every convolution (the stride on the 3x3, as the
+    model's) and the head; batch norm, ReLU and pooling count none."""
+    macs = 0
+    res = size // 2
+    macs += res * res * 3 * 64 * 49            # the 7x7 stem
+    res //= 2                                  # max pool
+    cin = 64
+    for n, w, s in ((3, 64, 1), (4, 128, 2), (6, 256, 2), (3, 512, 2)):
+        for b in range(n):
+            stride = s if b == 0 else 1
+            out = res // stride
+            macs += res * res * cin * w        # 1x1 reduce
+            macs += out * out * w * w * 9      # 3x3
+            macs += out * out * w * 4 * w      # 1x1 expand
+            if b == 0:
+                macs += out * out * cin * 4 * w  # projection
+            cin, res = 4 * w, out
+    macs += cin * classes
+    return 2 * macs * rows
+
+
+def observe_resnet50_phase(torch) -> dict:
+    """``plan_resnet50``'s int8 fused configuration (``resnet50-int8.json``,
+    BASELINE config 3, ``wire_resnet``'s seeds, every bucket captured at
+    boot) with ``seldon.io/profile`` and ``seldon.io/tracing`` on
+    (``seldon.io/profile-storm`` 8: the 7 buckets of the warm-up are one
+    capture each, not churn) behind the runner's REST.  Gated:
+    ``/admin/profile/compile`` lists every captured bucket with
+    ``wallMsTotal`` > 0; each bucket's ``flops`` equals, exactly, the cost
+    module 9 counts on the host from the shapes (one image on the meta
+    device, times the bucket's rows) and lies within 1% of the hand count
+    (``resnet50_flops``); ``/admin/profile/capacity`` names the card and
+    its peak; no storm after the warm-up; a traced single's segment span
+    carries ``device_block_ms``.  Returns the phase's launches."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.models import resnet, resnet_int8
+    from seldon_core_tpu_torch.operator.local import serve
+    from seldon_core_tpu_torch.ops.cost import CostCount
+
+    d = _resnet_graph(True, {"seldon.io/graph-plan": "fused",
+                             "seldon.io/graph-plan-warmup": "true",
+                             "seldon.io/profile": "true",
+                             "seldon.io/profile-storm": "8",
+                             "seldon.io/tracing": "true"})
+    failed = []
+    # module 9 on the host: one image's cost from the shapes alone (meta
+    # tensors: nothing is computed), the int8 model's own forward
+    host = resnet_int8.Int8ResNet50Model(
+        source=resnet.ResNet50Model(seed=0, device="cpu"), device="cpu")
+    meta = _to_device(host.params, "meta")
+    with torch.inference_mode(), CostCount() as count:
+        host.predict_fn(meta, torch.zeros((1, 224, 224, 3), device="meta"))
+    per_row = count.flops
+    del host, meta
+    x = np.random.default_rng(21).integers(0, 256, (1, 224, 224, 3)).astype(
+        np.float32)
+
+    async def run():
+        reset_launches()
+        t0 = time.perf_counter()
+        server, local = await serve(d, port=0, host="127.0.0.1")
+        boot_s = time.perf_counter() - t0
+        loop = asyncio.get_running_loop()
+        try:
+            code, body, _ = await loop.run_in_executor(
+                None, _post_raw, server.port, "/api/v0.1/predictions",
+                _bin_body(x))
+            if code != 200:
+                raise AssertionError(f"observe_resnet50: {code} {body}")
+            got = {}
+            for path in (f"/trace?puid={body['meta']['puid']}",
+                         "/admin/profile/compile", "/admin/profile/capacity",
+                         "/admin/profile?n=5"):
+                got[path.split("?")[0]] = await loop.run_in_executor(
+                    None, _get_json, server.port, path)
+            return boot_s, got, local.engine.plan.segments[0]
+        finally:
+            await server.stop()
+            await local.aclose()
+
+    boot_s, got, seg = asyncio.run(run())
+    launches = read_launches()
+    code, ledger = got["/admin/profile/compile"]
+    rows_by_label = {f"{k[0][0]}x224x224x3:float32": k[0][0]
+                     for k in seg.capture_s}
+    segs = ledger.get("segments", {})
+    buckets = segs.get(seg.label, {}).get("buckets", {})
+    out = {"phase": "observe_resnet50", "boot_s": boot_s,
+           "host_flops_per_image": per_row,
+           "hand_flops_per_image": resnet50_flops(1),
+           "ledger": {k: v for k, v in segs.get(seg.label, {}).items()
+                      if k != "buckets"},
+           "buckets": {b: {k: c[k] for k in ("wall_ms", "flops",
+                                             "bytes_accessed",
+                                             "peak_hbm_bytes", "source")}
+                       for b, c in buckets.items()},
+           "storm": ledger.get("storm"), "card": CARD}
+    if code != 200 or set(buckets) != set(rows_by_label) or not \
+            segs[seg.label]["wallMsTotal"] > 0:
+        failed.append(f"ledger buckets {sorted(buckets)} vs captured "
+                      f"{sorted(rows_by_label)}")
+    for label, rows in rows_by_label.items():
+        b = buckets.get(label, {})
+        if b.get("flops") != per_row * rows:
+            failed.append(f"{label}: flops {b.get('flops')} != host count "
+                          f"{per_row * rows}")
+        if abs(b.get("flops", 0) / resnet50_flops(rows) - 1) > 0.01:
+            failed.append(f"{label}: flops {b.get('flops')} not within 1% "
+                          f"of {resnet50_flops(rows)}")
+    if ledger.get("storm") != [] or segs.get(seg.label, {}).get("storm"):
+        failed.append(f"storm after warm-up: {ledger.get('storm')}")
+    code, cap = got["/admin/profile/capacity"]
+    out["capacity"] = cap
+    if cap.get("deviceKind") != torch.cuda.get_device_name(0) or not \
+            (cap.get("devicePeakTflops") or 0) > 0:
+        failed.append(f"capacity {cap}")
+    code, tree = got["/trace"]
+    spans = [c for c in tree.get("children", ())
+             if c.get("kind") == "FUSED_SEGMENT"]
+    out["segment_span"] = spans[0]["attributes"] if spans else None
+    if not spans or "device_block_ms" not in spans[0]["attributes"]:
+        failed.append(f"segment span {tree}")
+    code, prof = got["/admin/profile"]
+    out["host_profile"] = prof.get("stats")
+    out["launches"] = launches
+    emit(out)
+    if failed or launches["int8_matmul"] <= 0:
+        raise AssertionError(f"observe_resnet50: {failed}")
+    return launches
+
+
 def ptxas_report(log: str) -> list:
     """Registers, spills and shared memory per kernel from the build's
     ``-Xptxas -v`` output, names demangled where ``c++filt`` exists."""
@@ -4929,6 +5377,10 @@ def smoke() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    # graph nodes name this script's factories as "chip_smoke:..." (the
+    # observe_7b node reads OBSERVE_7B): the runner must find this module,
+    # not a second copy of it
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
     from seldon_core_tpu_torch.ops import _build
 
     smi = subprocess.run(
@@ -4975,6 +5427,9 @@ def smoke() -> int:
     # slice 4c-ii: the engines' programs as CUDA graphs against eager
     runs["llm_graphs_7b"] = timed("llm_graphs_7b", llm_graphs_7b_phase,
                                   torch, params_7b)
+    # slice 5-i: the three planes around the same weights behind REST
+    runs["observe_7b"] = timed("observe_7b", observe_7b_phase, torch,
+                               params_7b)
     del params_7b
     torch.cuda.empty_cache()
     timed("parity_7b", parity_7b_phase, torch)
@@ -5008,6 +5463,8 @@ def smoke() -> int:
                                        artifacts_resnet50_phase, torch)
     runs["device_plane_resnet50"] = timed(
         "device_plane_resnet50", device_plane_resnet50_phase, torch)
+    runs["observe_resnet50"] = timed("observe_resnet50",
+                                     observe_resnet50_phase, torch)
     slice_3a = sum(seconds[k] for k in ("features_7b", "parity_features_7b",
                                         "checkpoint_7b"))
     slice_3b = seconds["spec_7b"] + seconds["parity_spec_7b"]
@@ -5022,6 +5479,8 @@ def smoke() -> int:
           "slice_4c_ii_phases": seconds["llm_graphs_7b"],
           "slice_4d_4e_phases": seconds["artifacts_resnet50"]
           + seconds["device_plane_resnet50"],
+          "slice_5_i_phases": seconds["observe_7b"]
+          + seconds["observe_resnet50"],
           "total": time.perf_counter() - t0})
     launches = {k: sum(r[k] for r in runs.values())
                 for k in runs["serve_7b"]}

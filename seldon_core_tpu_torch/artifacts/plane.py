@@ -219,13 +219,14 @@ class ArtifactPlane:
                     continue
                 wall_ms = (time.perf_counter() - t0) * 1000.0
                 bucket = seg.bucket_for(shape, dtype)
-                cost = dict(sc.get("cost") or {})
+                cost = {**dict(sc.get("cost") or {}),
+                        **seg.bucket_cost(bucket)}
                 cost["source"] = "aot-cache"
                 cost["hydrate_ms"] = round(wall_ms, 3)
                 seg.hydrated.add(bucket)
-                seg.cost_by_bucket[bucket] = cost
+                seg.cost_by_bucket[seg.bucket_wire(bucket)] = cost
             n += 1
-            self.note_hydrated(seg, bucket)
+            self.note_hydrated(seg, bucket, wall_ms)
         return n
 
     def _capture_stored(self, seg, fp: str, key: str, shape, dtype: str,
@@ -255,9 +256,12 @@ class ArtifactPlane:
             return None
         return b
 
-    def note_hydrated(self, seg, bucket: tuple) -> None:
+    def note_hydrated(self, seg, bucket: tuple, wall_ms: float) -> None:
+        """Counters and the capture-ledger row (``source="aot-cache"``,
+        never a live capture) of one bucket captured from the store."""
         with self._lock:
             self.hydrated += 1
+        seg.note_ledger(bucket, wall_ms, "aot-cache")
         if self.metrics is not None:
             try:
                 self.metrics.counter_inc(_HYDRATIONS_COUNTER,
@@ -286,11 +290,12 @@ class ArtifactPlane:
             b = self._capture_stored(seg, fp, key, shape, dtype, None)
             if b is None:
                 return None
+            wall_ms = (time.perf_counter() - t0) * 1e3
             seg.hydrated.add(bucket)
-            seg.cost_by_bucket[bucket] = {
-                "source": "aot-cache",
-                "hydrate_ms": round((time.perf_counter() - t0) * 1e3, 3)}
-            self.note_hydrated(seg, bucket)
+            seg.cost_by_bucket[seg.bucket_wire(bucket)] = {
+                **seg.bucket_cost(bucket), "source": "aot-cache",
+                "hydrate_ms": round(wall_ms, 3)}
+            self.note_hydrated(seg, bucket, wall_ms)
             return b
         except Exception:
             logger.debug("artifact load failed for segment %s bucket %s",
@@ -533,8 +538,8 @@ class ArtifactPlane:
 
     # -- probe ------------------------------------------------------------
     def probe(self):
-        """A probe of store occupancy and warm coverage (the introspection
-        sampler that reads it comes with slice 5-i of the port)."""
+        """A probe of store occupancy and warm coverage, for the health
+        plane's introspection sampler (``operator/local.py`` adds it)."""
         def _probe() -> dict:
             try:
                 st = self.store.stats()

@@ -58,9 +58,28 @@ kept as a CUDA tensor (never a downcast copy); every response carries
 can be changed in place, so an interior consumer of a shared cache entry
 still gets a copy, made on the card.
 
-Not in this slice: the health, profiling and placement planes and the
-tracer (ROADMAP.md, slices 5 and 6).  A remote node
-(``serving.client.RemoteComponent``, ``serving.grpc_api.
+Tracing (``tracer``, a ``utils.tracing.Tracer``): every request is a
+root span keyed by its puid, with one span per node (its type as the
+kind), per fused segment (``FUSED_SEGMENT``) and per cache hit or
+coalesced follower (``CACHE_HIT``, ``CACHE_COALESCED``); the trace context
+comes from the message's tags, else the one the server bound from
+``traceparent``, else a new one whose trace id is the puid, and its
+parity-safe part (``trace-id``, ``trace-flags``, ``trace-state``) is
+stamped on the request and the response.  A traced request's segment
+span carries ``host_dispatch_ms`` and ``device_block_ms``: a CUDA event
+recorded after the replay is waited on, which an untraced request never
+does.  Sheds get a root span with the reason as an event.
+
+The health plane (``health``, a ``health.HealthPlane``): every exit path
+of :meth:`predict` leaves one flight-recorder record (per-node ms, status,
+flags) and one burn-monitor observation.  The profiling plane
+(``profiler``, a ``profiling.ProfilePlane``): fused segments report their
+captures into its ledger, and each request's share of every segment
+batch's counted cost is attributed to it (``flags.flops`` in its flight
+record).
+
+The placement plane comes with the multi-device slice of the port.  A
+remote node (``serving.client.RemoteComponent``, ``serving.grpc_api.
 GrpcComponentClient``) has the same method surface as a local one, async.
 """
 
@@ -69,6 +88,7 @@ from __future__ import annotations
 import asyncio
 import inspect
 import logging
+import os
 import time
 from typing import Any, Callable, Optional
 
@@ -76,6 +96,10 @@ import numpy as np
 import torch
 
 from seldon_core_tpu_torch.graph.builtins import make_builtin
+from seldon_core_tpu_torch.health.flightrecorder import (
+    node_times_scope,
+    note_node_time,
+)
 from seldon_core_tpu_torch.graph.spec import (
     PredictiveUnit,
     check_plan_mode,
@@ -96,9 +120,19 @@ from seldon_core_tpu_torch.qos.context import (
     qos_scope,
     stamp_meta,
 )
+from seldon_core_tpu_torch.profiling.attribution import attribution_scope
 from seldon_core_tpu_torch.runtime.component import (
     ComponentHandle,
     SeldonComponentError,
+)
+from seldon_core_tpu_torch.utils.tracing import (
+    NULL_TRACER,
+    TRACE_ID_TAG,
+    current_trace,
+    profile_annotation,
+    stamp_trace_meta,
+    trace_from_meta,
+    trace_scope,
 )
 
 __all__ = ["GraphEngine"]
@@ -160,9 +194,13 @@ class GraphEngine:
                  cache: Optional[Any] = None,
                  cache_version: str = "",
                  artifacts: Optional[Any] = None,
-                 device_plane: Optional[Any] = None):
+                 device_plane: Optional[Any] = None,
+                 tracer: Optional[Any] = None,
+                 health: Optional[Any] = None,
+                 profiler: Optional[Any] = None):
         self.name = name
         self.metrics = metrics_sink
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.spec = parse_graph(graph)
         validate_graph(self.spec)
         self._resolver = resolver
@@ -183,6 +221,22 @@ class GraphEngine:
                     "(%s); falling back to interpreted walk",
                     name, self.plan.boundaries)
                 self.plan = None
+            else:
+                # segment batchers emit one span per batch, linked to each
+                # member request's trace
+                for seg in self.plan.segments:
+                    if seg.batcher is not None:
+                        seg.batcher.tracer = self.tracer
+        # every request leaves a flight record and a burn observation; the
+        # sampler starts on the first request (the loop exists by then)
+        self.health = health
+        # fused segments report their captures into the profiling plane's
+        # ledger: wired before the artifact plane captures at boot, so
+        # those land on it (as aot-cache rows)
+        self.profiler = profiler
+        if profiler is not None and self.plan is not None:
+            for seg in self.plan.segments:
+                seg.compile_watch = profiler.compile
         # the artifact plane captures every stored bucket of the plan's
         # segments now, before any traffic (a walk has nothing to store)
         self.artifacts = artifacts if self.plan is not None else None
@@ -207,6 +261,9 @@ class GraphEngine:
                     id(n) for n in maximal_cacheable_roots(self.root)}
         self.qos = qos
         self.walk_timeout_s = walk_timeout_s
+        # the serving replica's identity (SELDON_REPLICA), stamped on root
+        # spans, meta.tags["replica"] and flight records
+        self.replica = os.environ.get("SELDON_REPLICA", "")
         self._fallback_node: Optional[_Node] = None
         if qos is not None and qos.config.fallback_node:
             node = self._nodes.get(qos.config.fallback_node)
@@ -241,11 +298,33 @@ class GraphEngine:
 
     # ------------------------------------------------------------------
     async def predict(self, request: SeldonMessage) -> SeldonMessage:
-        """Assign a puid, apply QoS (budget, admission, degraded routing),
-        walk the graph, stamp the merged meta on the response."""
+        """Assign a puid, bind the trace, apply QoS (budget, admission,
+        degraded routing), walk the graph, stamp the merged meta on the
+        response; every exit leaves a flight record (health plane on)."""
         meta = request.meta.copy()
         if not meta.puid:
             meta.puid = new_puid()
+        health = self.health
+        ht0 = time.perf_counter()
+        htoken = None
+        if health is not None:
+            health.ensure_started()
+            htoken = node_times_scope()
+        ptoken = None
+        if self.profiler is not None:
+            self.profiler.ensure_started()
+            ptoken = attribution_scope()
+        # the message's tags (a framed hop) win over the context the
+        # server bound from traceparent; else a new context whose trace id
+        # is the puid, so walk and fused runs of one request share it
+        tctx = trace_from_meta(request.meta) or current_trace()
+        if tctx is None and self.tracer.enabled:
+            tctx = self.tracer.new_context(trace_hint=meta.puid)
+        if tctx is not None:
+            stamp_trace_meta(request.meta, tctx)
+            stamp_trace_meta(meta, tctx)
+        if self.replica:
+            meta.tags["replica"] = self.replica
         if self.artifacts is not None:
             meta.tags["artifact-source"] = self.artifacts.source_tag()
         if self._plane_on():
@@ -257,33 +336,51 @@ class GraphEngine:
         if qctx is not None:
             stamp_meta(request.meta, qctx)
             if qctx.deadline is not None and qctx.deadline.expired:
-                return SeldonMessage(status=Status.failure(
-                    504, "deadline budget exhausted before the graph walk "
-                    "started", "DEADLINE_EXCEEDED"), meta=meta)
+                return self._flight_done(SeldonMessage(
+                    status=Status.failure(
+                        504, "deadline budget exhausted before the graph "
+                        "walk started", "DEADLINE_EXCEEDED"), meta=meta),
+                    meta, ht0, htoken, ptoken=ptoken)
         admission = self.qos.admission if self.qos is not None else None
         if admission is not None:
             pri = qctx.priority if qctx is not None else "normal"
             if not admission.try_acquire(pri):
-                return SeldonMessage(status=Status.failure(
-                    429, f"shed at admission (priority {pri}, concurrency "
-                    f"limit {admission.limit}); retry after "
-                    f"{admission.retry_after_s():.1f}s", "ADMISSION_SHED"),
-                    meta=meta)
+                if self.tracer.enabled:
+                    # a shed request still gets a (tiny) trace, its root
+                    # span carrying the reason; the error status keeps it
+                    # through tail sampling
+                    with trace_scope(tctx), self.tracer.trace(
+                            meta.puid, graph=self.name,
+                            **self._replica_attr()) as root:
+                        root.status = "ERROR: ADMISSION_SHED"
+                        root.add_event("shed", reason="ADMISSION_SHED",
+                                       priority=pri, limit=admission.limit)
+                return self._flight_done(SeldonMessage(
+                    status=Status.failure(
+                        429, f"shed at admission (priority {pri}, "
+                        f"concurrency limit {admission.limit}); retry "
+                        f"after {admission.retry_after_s():.1f}s",
+                        "ADMISSION_SHED"), meta=meta),
+                    meta, ht0, htoken, shed=True, ptoken=ptoken)
         t0 = time.perf_counter()
         ok = False
         try:
-            with qos_scope(qctx):
+            with trace_scope(tctx), qos_scope(qctx):
                 out = await self._predict_qos(request, meta, qctx)
             ok = out.status is None or out.status.status == "SUCCESS"
         finally:
             if admission is not None:
                 admission.release(time.perf_counter() - t0, ok)
-        return out
+        return self._flight_done(out, meta, ht0, htoken, ptoken=ptoken)
+
+    def _replica_attr(self) -> dict:
+        return {"replica": self.replica} if self.replica else {}
 
     async def _predict_qos(self, request: SeldonMessage, meta: Meta,
                            qctx: Optional[Any]) -> SeldonMessage:
-        """The walk of an admitted request, bounded by the tighter of
-        ``walk_timeout_s`` and the request's remaining budget."""
+        """The walk of an admitted request under its root span, bounded by
+        the tighter of ``walk_timeout_s`` and the request's remaining
+        budget."""
         timeout_s = self.walk_timeout_s or None
         if qctx is not None and qctx.deadline is not None:
             rem = qctx.deadline.remaining_s()
@@ -291,28 +388,38 @@ class GraphEngine:
         degrade = (self.qos.should_degrade()
                    if self._fallback_node is not None else None)
         try:
-            if degrade is not None:
-                # the primary is sick (a breaker is open) or shedding past
-                # the configured level: the fallback subtree serves
-                meta.tags[DEGRADED_TAG] = degrade
-                reg = getattr(self.metrics, "registry", None)
-                if reg is not None:
-                    reg.counter_inc("seldon_qos_degraded_total",
-                                    {"graph": self.name, "reason": degrade})
-                coro = self._walk(self._fallback_node, request, meta)
-            elif self.plan is not None:
-                coro = self._plan_walk(self.plan.root, request, meta)
-            else:
-                coro = self._walk(self.root, request, meta)
-            if timeout_s is None:
-                out = await coro
-            else:
-                out, timed_out = await self._await_with_deadline(coro,
-                                                                 timeout_s)
-                if timed_out:
-                    return SeldonMessage(status=Status.failure(
-                        504, f"graph walk exceeded {timeout_s:.3f}s "
-                        "deadline", "DEADLINE_EXCEEDED"), meta=meta)
+            with self.tracer.trace(meta.puid, graph=self.name,
+                                   **self._replica_attr()) as root_sp:
+                if degrade is not None:
+                    # the primary is sick (a breaker is open) or shedding
+                    # past the configured level: the fallback subtree serves
+                    meta.tags[DEGRADED_TAG] = degrade
+                    if self.tracer.enabled:
+                        root_sp.add_event("degraded", reason=degrade)
+                    reg = getattr(self.metrics, "registry", None)
+                    if reg is not None:
+                        reg.counter_inc("seldon_qos_degraded_total",
+                                        {"graph": self.name,
+                                         "reason": degrade})
+                    coro = self._walk(self._fallback_node, request, meta)
+                elif self.plan is not None:
+                    coro = self._plan_walk(self.plan.root, request, meta)
+                else:
+                    coro = self._walk(self.root, request, meta)
+                if timeout_s is None:
+                    out = await coro
+                else:
+                    out, timed_out = await self._await_with_deadline(
+                        coro, timeout_s)
+                    if timed_out:
+                        if self.tracer.enabled:
+                            root_sp.status = "ERROR: DEADLINE_EXCEEDED"
+                            root_sp.add_event("shed",
+                                              reason="DEADLINE_EXCEEDED",
+                                              timeout_s=timeout_s)
+                        return SeldonMessage(status=Status.failure(
+                            504, f"graph walk exceeded {timeout_s:.3f}s "
+                            "deadline", "DEADLINE_EXCEEDED"), meta=meta)
         except SeldonComponentError as e:
             return SeldonMessage(
                 status=Status.failure(e.status_code, str(e), e.reason),
@@ -363,7 +470,8 @@ class GraphEngine:
         unit, impl = node.unit, node.impl
         meta.request_path[unit.name] = unit.implementation or type(
             getattr(impl, "user", impl)).__name__
-        return await self._walk_traced(node, msg, meta)
+        with self.tracer.span(unit.name, kind=node.type):
+            return await self._walk_traced(node, msg, meta)
 
     async def _walk_traced(self, node: _Node, msg: SeldonMessage,
                            meta: Meta, child_walks: Optional[list] = None
@@ -473,9 +581,69 @@ class GraphEngine:
 
     def _observe(self, node_name: str, elapsed: float,
                  status: str = "ok") -> None:
+        # the request's node times for its flight record (a no-op without
+        # the health plane's scope)
+        note_node_time(node_name, elapsed * 1000.0)
         if self.metrics is not None:
             self.metrics.observe_node(self.name, node_name, elapsed,
                                       status=status)
+
+    def _flight_done(self, out: SeldonMessage, meta: Meta, ht0: float,
+                     htoken, shed: bool = False,
+                     ptoken=None) -> SeldonMessage:
+        """Every exit of :meth:`predict` ends here: the request's
+        attributed cost (profiling plane), one flight record and one
+        burn-monitor observation (health plane), sheds and failures
+        included.  Never raises."""
+        cost = None
+        if ptoken is not None:
+            try:
+                cost = ptoken.close()
+                if self.profiler is not None and cost["flops"] > 0:
+                    self.profiler.attribution.note_request(cost["flops"])
+            except Exception:
+                cost = None
+        health = self.health
+        if health is None:
+            return out
+        try:
+            node_ms = htoken.close() if htoken is not None else {}
+            elapsed_ms = (time.perf_counter() - ht0) * 1000.0
+            status = out.status
+            code = 200 if status is None else int(status.code or 200)
+            reason = "" if status is None else status.reason
+            flags = {
+                "shed": shed or reason == "ADMISSION_SHED",
+                "degraded": meta.tags.get(DEGRADED_TAG, False),
+                "mode": "fused" if self.plan is not None else "walk",
+            }
+            if self.artifacts is not None:
+                flags["artifactSource"] = self.artifacts.source_tag()
+            if meta.routing:
+                flags["routing"] = dict(meta.routing)
+            if cost is not None and cost["flops"] > 0:
+                # the bucket's counted cost x this request's batch share
+                flags["flops"] = round(cost["flops"], 3)
+                flags["hbmBytes"] = round(cost["hbmBytes"], 3)
+                flags["segmentFlops"] = {
+                    k: round(v, 3) for k, v in cost["segments"].items()}
+            health.recorder.record(
+                puid=meta.puid,
+                trace_id=str(meta.tags.get(TRACE_ID_TAG, "")),
+                deployment=health.deployment or self.name,
+                route=tuple(meta.request_path),
+                node_ms=node_ms,
+                status=code,
+                reason=reason,
+                duration_ms=elapsed_ms,
+                flags=flags,
+                replica=self.replica,
+            )
+            health.note_request(elapsed_ms, code)
+        except Exception:
+            logger.exception("flight recording failed in graph %s",
+                             self.name)
+        return out
 
     # ------------------------------------------------------------------
     # prediction cache (walk mode): maximal-subtree memoisation
@@ -502,7 +670,8 @@ class GraphEngine:
         t0 = time.perf_counter()
         entry = self.cache.get(key)
         if entry is not None:
-            out = self._replay_entry(entry, meta, node)
+            with self.tracer.span(name, kind="CACHE_HIT"):
+                out = self._replay_entry(entry, meta, node)
             self._observe(name, time.perf_counter() - t0)
             return out
 
@@ -517,7 +686,10 @@ class GraphEngine:
         entry, coalesced = await self._flight.run(key, compute)
         if coalesced:
             self.cache.note_coalesced()
-        out = self._replay_entry(entry, meta, node)
+            with self.tracer.span(name, kind="CACHE_COALESCED"):
+                out = self._replay_entry(entry, meta, node)
+        else:
+            out = self._replay_entry(entry, meta, node)
         self._observe(name, time.perf_counter() - t0)
         return out
 
@@ -580,7 +752,9 @@ class GraphEngine:
             getattr(impl, "user", impl)).__name__
         walks = [(lambda m, _p=p: self._plan_walk(_p, m, meta))
                  for p in pnode.children]
-        return await self._walk_traced(node, msg, meta, child_walks=walks)
+        with self.tracer.span(unit.name, kind=node.type):
+            return await self._walk_traced(node, msg, meta,
+                                           child_walks=walks)
 
     async def _run_segment(self, seg: Any, msg: SeldonMessage, meta: Meta,
                            interior: bool = False) -> SeldonMessage:
@@ -620,6 +794,8 @@ class GraphEngine:
             return await self._dispatch_segment(seg, x, msg.names)
         entry = self.cache.get(key)
         if entry is not None:
+            with self.tracer.span(seg.label, kind="CACHE_HIT"):
+                pass
             return self._segment_entry(entry, interior)
 
         async def compute():
@@ -631,14 +807,55 @@ class GraphEngine:
         entry, coalesced = await self._flight.run(key, compute)
         if coalesced:
             self.cache.note_coalesced()
+            with self.tracer.span(seg.label, kind="CACHE_COALESCED"):
+                pass
         return self._segment_entry(entry, interior)
 
     async def _dispatch_segment(self, seg: Any, x: Any, in_names) -> tuple:
-        if seg.batcher is not None:
-            y, _ = await seg.batcher(x)
-        else:
-            y = seg(x)
-        return y, seg.out_names(x, in_names)
+        """One segment call (through its batcher when it has one), under
+        a ``FUSED_SEGMENT`` span and a profiler range.  A traced request
+        waits on a CUDA event recorded after the call: the wait is the
+        span's ``device_block_ms`` (an untraced request never waits).  With
+        the profiling plane on, this request's share of the bucket's
+        counted cost is attributed to it."""
+        traced = self.tracer.enabled
+        with self.tracer.span(seg.label, kind="FUSED_SEGMENT") as sp:
+            calls_before = seg.n_calls
+            t0 = time.perf_counter()
+            with profile_annotation(f"seldon.segment.{seg.label}"):
+                if seg.batcher is not None:
+                    y, _ = await seg.batcher(x)
+                else:
+                    y = seg(x)
+            t_dispatch = time.perf_counter() - t0
+            if traced:
+                t1 = time.perf_counter()
+                if isinstance(y, torch.Tensor) and y.is_cuda:
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(y.device))
+                    done.synchronize()
+                sp.attributes.update(
+                    host_dispatch_ms=round(t_dispatch * 1e3, 4),
+                    device_block_ms=round(
+                        (time.perf_counter() - t1) * 1e3, 4),
+                    dispatch_count=seg.n_calls,
+                    compile_cache_hit=calls_before > 0,
+                    members=",".join(s.name for s in seg.members))
+            if self.profiler is not None:
+                # this request's rows x the bucket's per-row cost: the
+                # shares of a coalesced batch sum to the bucket's total
+                try:
+                    shape = getattr(x, "shape", None)
+                    rows = int(shape[0]) if shape else 1
+                    est = seg.cost_for_rows(rows)
+                    if est is not None:
+                        self.profiler.attribution.note_dispatch(
+                            seg.label, est["flops"], est["hbm_bytes"])
+                except Exception:
+                    logger.debug("cost attribution failed for %s",
+                                 seg.label, exc_info=True)
+            names = seg.out_names(x, in_names)
+        return y, list(names)
 
     @staticmethod
     def _segment_entry(entry: tuple, interior: bool) -> tuple:

@@ -69,8 +69,24 @@ skips buckets already captured.  :meth:`GraphPlan.residency_map` gives
 the planned residency tier of every edge from the device plane's tier
 model (``runtime/device_plane.py``).
 
-Not ported here: the sharded executor and cost analysis (ROADMAP.md,
-slices 5 and 6).
+**Cost and the capture ledger.**  XLA's ``cost_analysis()`` has no
+counterpart here, so a bucket's cost is counted once, when it is first
+run: the capture's eager run on the card (the first eager run of a
+bucket on the CPU) goes through ``ops/cost.py`` :class:`CostCount`, whose
+FLOPs come from ``FlopCounterMode`` over the aten products and
+convolutions, plus each hand-written kernel's own ``pl.CostEstimate``
+formula, and whose bytes are each op's inputs and outputs.  The graph
+pool's bytes after the capture stand for the reference's peak memory.
+``cost_by_bucket`` holds ``flops``, ``bytes_accessed`` and
+``peak_hbm_bytes`` per bucket, keyed as the reference keys it
+(``((rows, ...), "float32")``), and :meth:`FusedSegment.cost_for_rows`
+scales it to a request's rows.  A ``compile_watch``
+(``profiling/compilewatch.py``, set by the engine) gets one ledger row per
+bucket: ``source="live"`` with the capture's wall time (on the CPU, the
+counted first run's), ``"aot-cache"`` for a bucket captured at boot from
+the artifact store.
+
+Not ported here: the sharded executor (ROADMAP.md, slice 6).
 """
 
 from __future__ import annotations
@@ -84,6 +100,7 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from seldon_core_tpu_torch.ops.cost import CostCount
 from seldon_core_tpu_torch.runtime import programs
 
 __all__ = ["FUSIBLE_TYPES", "PURE_FN_ATTR", "extract_stage",
@@ -318,7 +335,12 @@ class FusedSegment:
         self.artifacts = None
         self.hydrated: set = set()
         self.live_compiled: set = set()
+        # per bucket (the reference's keys: shape, wire dtype name): its
+        # counted cost and provenance; ``compile_watch`` (a CompileWatch,
+        # set by the engine) gets one ledger row per bucket
         self.cost_by_bucket: dict = {}
+        self.compile_watch = None
+        self._counted: dict = {}
         # prediction-cache eligibility: every member is a pure tensor fn by
         # construction, so the segment caches unless a member opted out or
         # declared itself non-deterministic (graph/engine.py consults this)
@@ -380,8 +402,20 @@ class FusedSegment:
         xt = self._entry._to_device(x)  # the walk's host conversion
         if isinstance(xt, torch.Tensor) and programs.graphs_on(xt.device):
             return self._replay(xt)
-        with torch.inference_mode():
-            y, names = self._run_tree(self.tree, xt, _IN)
+        key = self.bucket_key(xt)
+        if self.bucket_wire(key) in self.cost_by_bucket:
+            with torch.inference_mode():
+                y, names = self._run_tree(self.tree, xt, _IN)
+        else:
+            # a bucket's first eager run counts its cost (module docstring)
+            t0 = time.perf_counter()
+            with torch.inference_mode(), CostCount() as count:
+                y, names = self._run_tree(self.tree, xt, _IN)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            self.cost_by_bucket[self.bucket_wire(key)] = {
+                **count.summary(), "peak_hbm_bytes": float(self.pool_bytes()),
+                "compile_ms": round(wall_ms, 3), "source": "live"}
+            self.note_ledger(key, wall_ms, "live")
         self._names.setdefault(self._names_key(x), names)
         return y
 
@@ -437,8 +471,11 @@ class FusedSegment:
                     return b, False
             b = self._capture_bucket(key, xt)
             self.live_compiled.add(key)
-            self.cost_by_bucket[key] = {"source": "live",
-                                        "capture_s": self.capture_s[key]}
+            self.cost_by_bucket[self.bucket_wire(key)] = {
+                **self.bucket_cost(key), "source": "live",
+                "capture_s": self.capture_s[key],
+                "compile_ms": round(self.capture_s[key] * 1e3, 3)}
+        self.note_ledger(key, self.capture_s[key] * 1e3, "live")
         if art is not None:
             art.note_live_compile(self, key)
             if art.publish_bucket(self, key, b, self.capture_s[key]):
@@ -449,8 +486,9 @@ class FusedSegment:
                         ) -> programs.Captured:
         """Capture bucket ``key`` on input ``x`` (the caller holds the
         capture lock): :func:`programs.capture`, one eager run on the
-        segment's stream, the walk's answer at this shape; the capture;
-        one replay that must equal the eager run bit for bit."""
+        segment's stream, the walk's answer at this shape, which also
+        counts the bucket's cost (:meth:`bucket_cost`); the capture; one
+        replay that must equal the eager run bit for bit."""
         t0 = time.perf_counter()
         if self._pool is None:
             self._pool = programs.GraphPool(x.device)
@@ -458,7 +496,12 @@ class FusedSegment:
 
         def run(x):
             with torch.inference_mode():
-                y, n = self._run_tree(self.tree, x, _IN)
+                if names:
+                    y, n = self._run_tree(self.tree, x, _IN)
+                else:
+                    with CostCount() as count:
+                        y, n = self._run_tree(self.tree, x, _IN)
+                    self._counted[key] = count.summary()
             names.append(n)
             return y
 
@@ -474,6 +517,68 @@ class FusedSegment:
         """Forget a captured bucket (its next call captures it again)."""
         self._buckets.pop(key, None)
         self.capture_s.pop(key, None)
+        self._counted.pop(key, None)
+
+    def bucket_cost(self, key: tuple) -> dict:
+        """The counted cost of captured bucket ``key``: ``flops`` and
+        ``bytes_accessed`` of its capture's eager run, and the segment's
+        graph pool bytes as ``peak_hbm_bytes``."""
+        return {**self._counted.get(key, {}),
+                "peak_hbm_bytes": float(self.pool_bytes())}
+
+    def note_ledger(self, key: tuple, wall_ms: float, source: str) -> None:
+        """One capture-ledger row for bucket ``key`` (``source`` "live" or
+        "aot-cache"), labelled as the reference labels a bucket
+        (``"1x784:float32"``); never raises."""
+        watch = self.compile_watch
+        if watch is None:
+            return
+        try:
+            shape, dtype = self.bucket_wire(key)
+            cost = self.cost_by_bucket.get((shape, dtype), {})
+            watch.note_compile(
+                self.label,
+                bucket="x".join(str(d) for d in shape) + f":{dtype}",
+                wall_ms=wall_ms,
+                flops=cost.get("flops", 0.0),
+                bytes_accessed=cost.get("bytes_accessed", 0.0),
+                peak_hbm_bytes=cost.get("peak_hbm_bytes", 0.0),
+                source=source,
+            )
+        except Exception:
+            logger.debug("segment %s: ledger row for bucket %s failed",
+                         self.label, key, exc_info=True)
+
+    def cost_for_rows(self, rows: int) -> Optional[dict]:
+        """Estimated device cost of ``rows`` request rows through this
+        segment: the best-matching counted bucket's cost scaled by the row
+        share (exact bucket > smallest covering bucket > largest), so a
+        coalesced batch's request shares sum to the executed bucket's
+        total and padding is charged to nobody.  None until a bucket with
+        a cost has run."""
+        rows = max(1, int(rows))
+        best = None  # (exactness rank, bucket_rows, cost)
+        for (shape, _dtype), cost in self.cost_by_bucket.items():
+            if not cost.get("flops") or not shape:
+                continue
+            bucket_rows = int(shape[0]) if shape[0] else 1
+            if bucket_rows == rows:
+                rank = 0
+            elif bucket_rows > rows:
+                rank = 1
+            else:
+                rank = 2
+            cand = (rank, bucket_rows if rank == 1 else -bucket_rows)
+            if best is None or cand < best[0]:
+                best = (cand, bucket_rows, cost)
+        if best is None:
+            return None
+        _, bucket_rows, cost = best
+        share = rows / float(bucket_rows)
+        return {
+            "flops": cost["flops"] * share,
+            "hbm_bytes": cost.get("bytes_accessed", 0.0) * share,
+        }
 
     @staticmethod
     def _names_key(x) -> tuple:

@@ -13,10 +13,12 @@ predictor's own, the later winning.  It checks what the reference checks
 at admission: unique predictor names, no negative replicas, a valid graph,
 and a valid ``seldon.io/graph-plan`` (:func:`graph_plan_mode`),
 ``seldon.io/prediction-cache*`` (:func:`prediction_cache_config`),
-``seldon.io/artifact*`` (:func:`artifact_config`) and
-``seldon.io/device-plane*`` (:func:`device_plane_config`) on every
-predictor; a bad value raises :class:`DeploymentValidationError` with the
-reference's message.
+``seldon.io/artifact*`` (:func:`artifact_config`),
+``seldon.io/device-plane*`` (:func:`device_plane_config`),
+``seldon.io/tracing`` and ``seldon.io/trace-*`` (:func:`trace_config`),
+``seldon.io/health*`` (:func:`health_config`) and ``seldon.io/profile*``
+(:func:`profile_config`) on every predictor; a bad value raises
+:class:`DeploymentValidationError` with the reference's message.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ __all__ = ["UNIT_TYPES", "BUILTIN_IMPLEMENTATIONS", "GraphValidationError",
            "DeploymentValidationError", "Endpoint", "PredictiveUnit",
            "parse_graph", "validate_graph", "Predictor", "Deployment",
            "check_plan_mode", "graph_plan_mode", "prediction_cache_config",
-           "artifact_config", "device_plane_config", "load_deployment"]
+           "artifact_config", "device_plane_config", "trace_config",
+           "health_config", "profile_config", "load_deployment"]
 
 UNIT_TYPES = ("MODEL", "ROUTER", "COMBINER", "TRANSFORMER",
               "OUTPUT_TRANSFORMER")
@@ -257,6 +260,51 @@ def device_plane_config(ann: dict, name: str):
         raise DeploymentValidationError(str(e)) from None
 
 
+def trace_config(ann: dict, name: str):
+    """``seldon.io/tracing`` / ``seldon.io/trace-*`` as a
+    ``utils.tracing.TraceConfig``; an invalid value (a sample rate outside
+    [0, 1], a non-numeric slow-ms bar, a bad ring size) raises with the
+    reference admission's message."""
+    from seldon_core_tpu_torch.utils.tracing import (
+        trace_config_from_annotations,
+    )
+
+    try:
+        return trace_config_from_annotations(ann, name)
+    except ValueError as e:
+        raise DeploymentValidationError(str(e)) from None
+
+
+def health_config(ann: dict, name: str):
+    """``seldon.io/health*`` / ``seldon.io/slo-availability`` as a
+    ``health.HealthConfig``; an invalid value (an availability objective
+    outside (0, 1), a non-positive sample interval, a bad ring size)
+    raises with the reference admission's message."""
+    from seldon_core_tpu_torch.health.config import (
+        health_config_from_annotations,
+    )
+
+    try:
+        return health_config_from_annotations(ann, name)
+    except ValueError as e:
+        raise DeploymentValidationError(str(e)) from None
+
+
+def profile_config(ann: dict, name: str):
+    """``seldon.io/profile*`` as a ``profiling.ProfileConfig``; an invalid
+    value (a sampling rate outside (0, 1000], a non-positive stack-table
+    cap, a capture window beyond ten minutes, a storm threshold below 2)
+    raises with the reference admission's message."""
+    from seldon_core_tpu_torch.profiling.config import (
+        profile_config_from_annotations,
+    )
+
+    try:
+        return profile_config_from_annotations(ann, name)
+    except ValueError as e:
+        raise DeploymentValidationError(str(e)) from None
+
+
 def load_deployment(src) -> Deployment:
     """A SeldonDeployment from a dict, a JSON string or a file path."""
     if isinstance(src, dict):
@@ -290,5 +338,8 @@ def load_deployment(src) -> Deployment:
         prediction_cache_config(pred.annotations, f"{name}/{pname}")
         artifact_config(pred.annotations, f"{name}/{pname}")
         device_plane_config(pred.annotations, f"{name}/{pname}")
+        trace_config(pred.annotations, f"{name}/{pname}")
+        health_config(pred.annotations, f"{name}/{pname}")
+        profile_config(pred.annotations, f"{name}/{pname}")
         predictors.append(pred)
     return Deployment(name=name, predictors=predictors)

@@ -57,6 +57,20 @@ nodes negotiate ``deviceRef`` per peer, meta-only routers route without
 the tensor, cache entries stay on the card; orphaned shm segments of dead
 producers are reaped at boot.
 
+Observability, one plane of each per predictor: ``seldon.io/tracing:
+"true"`` (env ``SELDON_TRACING``; ``seldon.io/trace-sample``,
+``-slow-ms``, ``-export`` an OTLP JSON-lines file, ``seldon.io/tracing-
+max``) gives the engine a tracer, read at ``GET /trace``;
+``seldon.io/health: "true"`` or ``seldon.io/slo-availability`` the health
+plane (``/admin/introspect``, ``/admin/flightrecorder``,
+``/admin/health``; its sampler probes device memory, the engine's
+segments, batchers, cache, QoS, the device-tensor registry and the device
+and artifact planes); ``seldon.io/profile: "true"`` the profiling plane
+(``/admin/profile*``: host stacks, capture windows with a
+``torch.profiler`` device trace, the capture ledger, capacity), whose
+capture storms degrade the health verdict.  A bad value is refused when
+the deployment loads (``graph/spec.py``).
+
 QoS (``qos/``): ``seldon.io/slo-p95-ms`` turns on admission control,
 ``seldon.io/qos-fallback`` names the subgraph that serves while a breaker
 is open or shedding passes ``seldon.io/qos-degrade-shed-level``, and every
@@ -96,8 +110,11 @@ from seldon_core_tpu_torch.graph.spec import (
     artifact_config,
     device_plane_config,
     graph_plan_mode,
+    health_config,
     load_deployment,
     prediction_cache_config,
+    profile_config,
+    trace_config,
 )
 from seldon_core_tpu_torch.messages import Feedback, SeldonMessage
 from seldon_core_tpu_torch.qos.policy import EngineQos, qos_from_annotations
@@ -214,9 +231,32 @@ def qos_config(dep: Deployment, pred: Optional[Predictor] = None):
     return cfg
 
 
+def _tracer_from_config(ann: dict, name: str):
+    """The engine's tracer when ``seldon.io/tracing`` (or env
+    ``SELDON_TRACING``) turns tracing on, else None: the head-sampling rate
+    from ``seldon.io/trace-sample``, an OTLP JSON-lines sink at
+    ``seldon.io/trace-export``, the tail buffer's slow bar from
+    ``seldon.io/trace-slow-ms``, the ring from ``seldon.io/tracing-max``
+    (values checked when the deployment loaded)."""
+    from seldon_core_tpu_torch.utils.tracing import (
+        FileSpanSink,
+        SpanCollector,
+        Tracer,
+    )
+
+    cfg = trace_config(ann, name)
+    if not cfg.enabled:
+        return None
+    sink = FileSpanSink(cfg.export_path) if cfg.export_path else None
+    return Tracer(max_traces=cfg.max_traces, sample_rate=cfg.sample_rate,
+                  collector=SpanCollector(service="engine",
+                                          slow_ms=cfg.slow_ms, sink=sink))
+
+
 class LocalPredictor:
     """One predictor's live graph: its engine with its own QoS, batchers,
-    plan and cache (``metrics`` is the deployment's, shared)."""
+    plan, cache and observability planes (``metrics`` is the
+    deployment's, shared)."""
 
     def __init__(self, dep: Deployment, pred: Predictor, device: str,
                  metrics: EngineMetrics):
@@ -240,6 +280,27 @@ class LocalPredictor:
         self.qos = None if cfg is None else EngineQos(
             cfg, metrics=metrics.registry)
         where = f"{dep.name}/{pred.name}"
+        self.device = device
+        health_cfg = health_config(ann, where)
+        self.health = None
+        if health_cfg.enabled:
+            from seldon_core_tpu_torch.health import HealthPlane
+
+            self.health = HealthPlane(health_cfg, metrics=metrics.registry,
+                                      service="engine", deployment=dep.name)
+            self.health.qos = self.qos
+        profile_cfg = profile_config(ann, where)
+        self.profiler = None
+        if profile_cfg.enabled:
+            from seldon_core_tpu_torch.profiling import ProfilePlane
+
+            self.profiler = ProfilePlane(profile_cfg,
+                                         metrics=metrics.registry,
+                                         service="engine",
+                                         deployment=dep.name)
+            if self.health is not None:
+                # a capture storm degrades the health verdict
+                self.health.profiler = self.profiler
         art_cfg = artifact_config(ann, where)
         self.artifacts = None
         if art_cfg is not None and art_cfg.enabled and plan_mode == "fused":
@@ -270,6 +331,8 @@ class LocalPredictor:
             plan_mode=plan_mode, plan_batcher=plan_batcher, cache=self.cache,
             cache_version=str(ann.get("seldon.io/spec-hash", "")),
             artifacts=self.artifacts, device_plane=self.device_plane,
+            tracer=_tracer_from_config(ann, where), health=self.health,
+            profiler=self.profiler,
             resolver=lambda u: resolve_component(
                 u, ann, device, qos=self.qos, metrics=metrics.registry,
                 device_plane=self.device_plane))
@@ -294,6 +357,65 @@ class LocalPredictor:
                                                                "yes")
                 or (self.artifacts is not None and art_cfg.precompile)):
             plan.warmup()
+        if self.health is not None:
+            self._wire_health_probes()
+
+    def _wire_health_probes(self) -> None:
+        """Point the introspection sampler at this predictor's runtime
+        objects: device memory, the engine's segments, the batchers, the
+        cache, admission, the device-tensor registry and the device,
+        artifact and profiling planes.  (The placement probe comes with
+        the multi-device slice.)"""
+        from seldon_core_tpu_torch.health import (
+            batcher_probe,
+            cache_probe,
+            device_memory_probe,
+            device_registry_probe,
+            engine_probe,
+            profile_probe,
+            qos_probe,
+        )
+        from seldon_core_tpu_torch.runtime.device_registry import registry
+
+        registry.attach_metrics(self.metrics.registry)
+        sampler = self.health.sampler
+        sampler.add_probe("device", device_memory_probe(self.device))
+        sampler.add_probe("device_registry", device_registry_probe())
+        sampler.add_probe("engine", engine_probe(self.engine))
+        if self.cache is not None:
+            sampler.add_probe("cache", cache_probe(self.cache))
+        if self.qos is not None:
+            sampler.add_probe("qos", qos_probe(self.qos))
+        if self.profiler is not None:
+            sampler.add_probe("profile", profile_probe(self.profiler))
+        if self.artifacts is not None:
+            sampler.add_probe("artifacts", self.artifacts.probe())
+        if self.device_plane is not None:
+            from seldon_core_tpu_torch.runtime.device_plane import (
+                device_plane_probe,
+            )
+
+            sampler.add_probe("device_plane",
+                              device_plane_probe(self.device_plane))
+        plan = self.engine.plan
+        if plan is not None:
+            for seg in plan.segments:
+                if seg.batcher is not None:
+                    sampler.add_probe(f"batcher:{seg.label}",
+                                      batcher_probe(seg.batcher))
+        else:
+            for name, node in self.engine._nodes.items():
+                if isinstance(node.impl, BatchedModel):
+                    sampler.add_probe(f"batcher:{name}",
+                                      batcher_probe(node.impl._batcher))
+
+    async def aclose(self) -> None:
+        """Stop the planes' samplers (the health sampler's task, the host
+        profiler's thread)."""
+        if self.health is not None:
+            await self.health.aclose()
+        if self.profiler is not None:
+            await self.profiler.aclose()
 
 
 class LocalDeployment:
@@ -326,6 +448,15 @@ class LocalDeployment:
                     for p in preds if p.qos is not None]}
 
             publish(dep.name, _snapshot)
+        if any(p.health is not None for p in self.predictors):
+            from seldon_core_tpu_torch.health import publish as health_publish
+
+            def _health_snapshot(preds=self.predictors):
+                return {"predictors": [
+                    {"name": p.spec.name, **p.health.snapshot()}
+                    for p in preds if p.health is not None]}
+
+            health_publish(dep.name, _health_snapshot)
         self._rng = random.Random(seed)
         weights = [max(p.spec.replicas, 0) * max(p.spec.traffic, 0)
                    for p in self.predictors]
@@ -349,6 +480,44 @@ class LocalDeployment:
             if p.device_plane is not None:
                 return p.device_plane
         return None
+
+    @property
+    def tracer(self):
+        """The first traced predictor's tracer (what ``/trace`` reads)."""
+        from seldon_core_tpu_torch.utils.tracing import NULL_TRACER
+
+        for p in self.predictors:
+            if p.engine.tracer is not NULL_TRACER:
+                return p.engine.tracer
+        return NULL_TRACER
+
+    @property
+    def health(self):
+        """The first predictor's health plane that is on (what
+        ``/admin/introspect``, ``/admin/flightrecorder`` and
+        ``/admin/health`` read), or None."""
+        for p in self.predictors:
+            if p.health is not None:
+                return p.health
+        return None
+
+    @property
+    def profiler(self):
+        """The first predictor's profiling plane that is on (what
+        ``/admin/profile*`` reads), or None."""
+        for p in self.predictors:
+            if p.profiler is not None:
+                return p.profiler
+        return None
+
+    @property
+    def replica(self) -> str:
+        return self.engine.replica
+
+    async def aclose(self) -> None:
+        """Stop every predictor's plane samplers."""
+        for p in self.predictors:
+            await p.aclose()
 
     def pick(self) -> LocalPredictor:
         """The predictor of the next request (reference
@@ -486,6 +655,7 @@ def engine_main(argv: Optional[list] = None) -> None:
         await stop.wait()
         for srv in reversed(stoppers):
             await srv.stop()
+        await local.aclose()
 
     asyncio.run(run())
 

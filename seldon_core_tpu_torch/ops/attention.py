@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from seldon_core_tpu_torch.ops import _build, launches
+from seldon_core_tpu_torch.ops import _build, cost, launches
 from seldon_core_tpu_torch.parallel.ring_attention import dense_attention
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_cuda",
@@ -102,11 +102,18 @@ launches.register("flash_attention", flash_attention_cuda)
 
 def flash_attention(q, k, v, causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Flash attention on ``(batch, seq, heads, d_head)`` tensors."""
-    if q.is_cuda:
-        return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), causal=causal, scale=scale)
-    return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    """Flash attention on ``(batch, seq, heads, d_head)`` tensors.  A
+    cost count (``ops/cost.py``) takes the reference kernel's
+    ``pl.CostEstimate`` for the call: ``4·BH·L²·D`` FLOPs and
+    ``4·BH·L·D·itemsize`` bytes, BH = batch x heads."""
+    B, L, H, D = q.shape
+    with cost.kernel(4 * B * H * L * L * D,
+                     4 * B * H * L * D * q.element_size()):
+        if q.is_cuda:
+            return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal=causal,
+                                        scale=scale)
+        return flash_attention_ref(q, k, v, causal=causal, scale=scale)
 
 
 def _fit_block(L: int, want: int) -> Optional[int]:

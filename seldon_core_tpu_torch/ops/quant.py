@@ -33,7 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from seldon_core_tpu_torch.ops import _build, launches
+from seldon_core_tpu_torch.ops import _build, cost, launches
 
 __all__ = ["QuantizedLinear", "quantize_int8", "k_major", "is_k_major",
            "quantize_rows", "int8_variant", "int8_matmul", "int8_matmul_ref",
@@ -215,15 +215,22 @@ launches.register("int8_matmul", int8_matmul_cuda)
 
 def int8_matmul(x, w: QuantizedLinear,
                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """``x @ dequant(w)`` with int8 compute; ``x`` is (..., K)."""
+    """``x @ dequant(w)`` with int8 compute; ``x`` is (..., K).  A cost
+    count (``ops/cost.py``) takes the reference kernel's
+    ``pl.CostEstimate`` for the call: ``2·M·N·K`` FLOPs and
+    ``M·K·itemsize + K·N + M·N·4`` bytes."""
     if out_dtype is None:
         out_dtype = x.dtype
     lead = x.shape[:-1]
     K = x.shape[-1]
     x2 = x.reshape(-1, K)
+    M = x2.shape[0]
     N = w.values.shape[1]
-    if x2.is_cuda:
-        out = int8_matmul_cuda(x2.contiguous(), w.values, w.scales, out_dtype)
-    else:
-        out = int8_matmul_ref(x2, w.values, w.scales, out_dtype)
+    with cost.kernel(2 * M * N * K,
+                     M * K * x2.element_size() + K * N + M * N * 4):
+        if x2.is_cuda:
+            out = int8_matmul_cuda(x2.contiguous(), w.values, w.scales,
+                                   out_dtype)
+        else:
+            out = int8_matmul_ref(x2, w.values, w.scales, out_dtype)
     return out.reshape(*lead, N)

@@ -39,7 +39,14 @@ the sheds by reason (``queue_full``, ``deadline``, ``budget``).  ``metrics``
 (a ``MetricsRegistry``) gets the reference's series:
 ``seldon_batcher_batch_rows``, ``seldon_batcher_batches_total``,
 ``seldon_batcher_pad_rows_total`` and ``seldon_batcher_shed_total`` by
-reason.  Not in this slice: the trace links.
+reason.
+
+Tracing: with a ``tracer`` set (the engine sets its own on a segment's
+batcher), every dispatched batch is a root span of its own
+(``batch:<name>``: rows, bucket, requests, pad rows) **linked** to each
+member request's span, whose context was captured when the request was
+queued (links, not parenthood: one batch serves many traces, and the
+flush timer runs outside any request's context).
 """
 
 from __future__ import annotations
@@ -56,6 +63,7 @@ import torch
 from seldon_core_tpu_torch.messages import SeldonMessage
 from seldon_core_tpu_torch.qos.context import current_qos
 from seldon_core_tpu_torch.runtime.component import SeldonComponentError
+from seldon_core_tpu_torch.utils.tracing import current_trace
 
 __all__ = ["QueueFullError", "DeadlineExceededError", "default_buckets",
            "BatcherConfig", "DynamicBatcher", "BatchedModel"]
@@ -103,6 +111,9 @@ class _Pending:
     future: asyncio.Future = field(compare=False, default=None)
     t_enqueue: float = 0.0
     deadline: Optional[float] = None  # QoS expiry on the loop's clock
+    # the trace context at enqueue (TraceContext or None): the batch span
+    # links to it
+    tctx: Optional[Any] = None
 
 
 def _qos_deadline() -> Optional[float]:
@@ -156,6 +167,9 @@ class DynamicBatcher:
         # EWMA of dispatch-to-delivery seconds: what a queued request's
         # remaining budget must cover (0 until a batch has completed)
         self.latency_ewma_s = 0.0
+        # set by the owning engine: one span per dispatched batch
+        self.tracer = None
+        self._batch_seq = 0
 
     def bucket_for(self, rows: int) -> int:
         for b in self.buckets:
@@ -212,7 +226,8 @@ class DynamicBatcher:
         fut: asyncio.Future = loop.create_future()
         self._edf_insert(lane, _Pending(arr, nrows, fut,
                                         t_enqueue=loop.time(),
-                                        deadline=_qos_deadline()))
+                                        deadline=_qos_deadline(),
+                                        tctx=current_trace()))
         lane.pending_rows += nrows
         if lane.pending_rows >= self.config.max_batch_size:
             self._flush(lane)
@@ -326,6 +341,24 @@ class DynamicBatcher:
 
     def _run_batch(self, items: list[_Pending], rows: int) -> None:
         bucket = self.bucket_for(rows)
+        tracer = self.tracer
+        if tracer is None or not getattr(tracer, "enabled", False):
+            self._run_batch_inner(items, rows, bucket)
+            return
+        self._batch_seq += 1
+        with tracer.trace(f"batch:{self.config.name}:{self._batch_seq}",
+                          name=f"batch:{self.config.name}",
+                          batcher=self.config.name, rows=rows,
+                          bucket=bucket, n_requests=len(items),
+                          pad_rows=bucket - rows) as bsp:
+            for p in items:
+                if p.tctx is not None and p.tctx.span_id:
+                    bsp.add_link(p.tctx.trace_id, p.tctx.span_id,
+                                 kind="batched-request")
+            self._run_batch_inner(items, rows, bucket)
+
+    def _run_batch_inner(self, items: list[_Pending], rows: int,
+                         bucket: int) -> None:
         batch = self._assemble(items, bucket)
         self.stats["batches"] += 1
         self.stats["rows"] += rows

@@ -259,8 +259,8 @@ class DevicePlane:
 
 
 def device_plane_probe(plane: DevicePlane):
-    """A probe over the plane's rollup counters (the introspection
-    sampler that reads it comes with slice 5-i of the port)."""
+    """A probe over the plane's rollup counters, for the health plane's
+    introspection sampler (``operator/local.py`` adds it)."""
 
     def probe() -> dict:
         return plane.counts()

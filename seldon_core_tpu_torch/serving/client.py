@@ -30,8 +30,11 @@ negotiation costs no round trip.  A peer that cannot resolve the ref
 answers an error naming ``DeviceTensorRef``: the client retries the same
 request as bytes and stays on bytes for that peer, counted as a
 downgrade.  A meta-only route call (``route_meta_only``) sends no tensor
-at all, and so never copies one from the card.  Trace headers wait for
-slice 5.
+at all, and so never copies one from the card.
+
+Every call of a :class:`RemoteComponent` carries the ambient trace context
+as W3C ``traceparent`` / ``tracestate`` headers (the engine's node span
+open for the hop becomes the remote process's parent).
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from seldon_core_tpu_torch.messages import (
     dtype_name,
 )
 from seldon_core_tpu_torch.runtime.component import SeldonComponentError
+from seldon_core_tpu_torch.utils.tracing import current_trace, trace_headers
 
 __all__ = ["HttpClient", "HttpError", "RemoteComponent", "ExternalClient",
            "DEVICE_PLANE_HEADER", "plane_identity"]
@@ -315,7 +319,8 @@ class RemoteComponent:
         try:
             status, headers, raw = await asyncio.wait_for(
                 self._http.request("POST", self._prefix + path, body,
-                                   {"Content-Type": "application/json"}),
+                                   {"Content-Type": "application/json",
+                                    **trace_headers(current_trace())}),
                 self.timeout_s)
             peer = headers.get(DEVICE_PLANE_HEADER.lower())
             if peer:
@@ -478,7 +483,8 @@ class RemoteComponent:
         try:
             status, headers, lines = await self._http.stream_lines(
                 "POST", self._prefix + "/stream", body,
-                {"Content-Type": "application/json"})
+                {"Content-Type": "application/json",
+                 **trace_headers(current_trace())})
         except HttpError as e:
             raise SeldonComponentError(
                 f"{self.name}/stream transport error: {e}", 503, "TRANSPORT")

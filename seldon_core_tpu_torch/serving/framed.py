@@ -33,8 +33,13 @@ server with its plane on answers in the tier the request arrived on (a
 pooled reply lane keyed by the client's lane), a plane-less one in bytes.
 A ref the server cannot resolve comes back as an error naming
 ``DeviceTensorRef``: the client retries the request as bytes once and
-stays on bytes for the connection, counted as a downgrade.  Trace context
-in the blob waits for slice 5.
+stays on bytes for the connection, counted as a downgrade.
+
+Trace context: the framed wire has no headers, so a client stamps the
+ambient context's full ``traceparent`` (and ``tracestate``) into a
+transport-side copy of the message's ``meta.tags`` (``trace-parent``,
+``trace-state``); the server binds it for the target's call and strips
+the transport-only tag, so it never echoes back in the answer.
 """
 
 from __future__ import annotations
@@ -70,6 +75,16 @@ from seldon_core_tpu_torch.runtime.device_registry import (
     host_token,
     process_token,
     registry,
+)
+from seldon_core_tpu_torch.utils.tracing import (
+    TRACE_PARENT_TAG,
+    TRACE_STATE_TAG,
+    TRACEPARENT_HEADER,
+    TRACESTATE_HEADER,
+    current_trace,
+    trace_from_meta,
+    trace_headers,
+    trace_scope,
 )
 
 __all__ = [
@@ -313,6 +328,35 @@ def decode_feedback(frame: Frame) -> Feedback:
     return fb
 
 
+def _traced_copy(msg: SeldonMessage) -> SeldonMessage:
+    """A transport-side copy with the ambient trace context stamped into
+    ``meta.tags`` (the full traceparent rides the meta blob).  The caller's
+    message is never changed: span ids differ between walk and fused runs,
+    so they must not reach the payload the engine sees."""
+    ctx = current_trace()
+    if ctx is None:
+        return msg
+    h = trace_headers(ctx)
+    m = msg.meta
+    tags = {**m.tags, TRACE_PARENT_TAG: h[TRACEPARENT_HEADER]}
+    if TRACESTATE_HEADER in h:
+        tags[TRACE_STATE_TAG] = h[TRACESTATE_HEADER]
+    meta2 = Meta(puid=m.puid, tags=tags, routing=dict(m.routing),
+                 request_path=dict(m.request_path), metrics=list(m.metrics))
+    return SeldonMessage(
+        data=msg.data, names=list(msg.names), bin_data=msg.bin_data,
+        str_data=msg.str_data, json_data=msg.json_data, meta=meta2,
+        status=msg.status, encoding=msg.encoding)
+
+
+def _bind_trace(msg: SeldonMessage):
+    """Server side: the wire's trace context, bound for the call, with the
+    transport-only tag stripped (it must not echo back in the answer)."""
+    ctx = trace_from_meta(msg.meta)
+    msg.meta.tags.pop(TRACE_PARENT_TAG, None)
+    return trace_scope(ctx)
+
+
 def _writable(msg: SeldonMessage) -> None:
     """A decoded array is a read-only view over the receive buffer; a user
     component may change its input in place, so it gets its own copy."""
@@ -379,7 +423,8 @@ class FramedComponentServer:
                     return encode_message(self._codec, _plane_hello_reply(),
                                           MSG_RESPONSE)
                 _writable(msg)
-                out = self._result(self._target.predict(msg))
+                with _bind_trace(msg):
+                    out = self._result(self._target.predict(msg))
                 mode = _reply_mode(self.device_plane, msg)
                 if mode == "shm" and msg.device_peer_lane:
                     # a pooled request gets a pooled reply
@@ -494,9 +539,10 @@ class AsyncFramedComponentServer:
                     return encode_message(self._codec, _plane_hello_reply(),
                                           MSG_RESPONSE)
                 _writable(msg)
-                out = self._target.predict(msg)
-                if inspect.isawaitable(out):  # an engine, a batched model
-                    out = await out
+                with _bind_trace(msg):
+                    out = self._target.predict(msg)
+                    if inspect.isawaitable(out):  # an engine, a batch
+                        out = await out
                 mode = _reply_mode(self.device_plane, msg)
                 if mode == "shm" and msg.device_peer_lane:
                     lane = self._reply_lanes.get(msg.device_peer_lane)
@@ -572,6 +618,7 @@ class AsyncFramedClient:
     async def predict(self, msg: SeldonMessage) -> SeldonMessage:
         # staging onto the lane is serialized with the round trip that
         # licenses its reuse (the reply proves the server copied it off)
+        msg = _traced_copy(msg)
         async with self._lane_lock:
             payload = encode_message(
                 self._codec, msg, MSG_PREDICT, device_mode=self._device_mode,
@@ -663,6 +710,7 @@ class FramedClient:
                 timeout: Optional[float] = None) -> SeldonMessage:
         # the lane is rewritten in place: message N+1 is staged only after
         # N's reply proved the server copied N off
+        msg = _traced_copy(msg)
         with self._lane_lock:
             payload = encode_message(
                 self._codec, msg, MSG_PREDICT, device_mode=self._device_mode,

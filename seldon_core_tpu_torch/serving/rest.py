@@ -45,8 +45,18 @@ cue to downgrade).  ``GET /admin/artifacts`` (``?coverage=1``) answers the
 artifact plane's posture, or 404 when the deployment has none
 (``artifacts/http.py``).
 
-Not in this slice: ``/trace`` and the other ``/admin/*`` planes (slices 5
-and 6 of the port) and trace headers (slice 5).
+Observability (the reference's routes and bodies): W3C ``traceparent`` /
+``tracestate`` headers bind the trace context of a prediction, as the QoS
+headers bind its QoS context.  ``GET /trace`` lists recent span trees
+(``?n=``), one by ``?puid=``, the collector's ``?stats=1`` or its
+filtered view (``?status= ?min_ms= ?drill= ?trace_id= ?replica=``), 404
+without a tracer.  ``GET /admin/introspect``, ``/admin/flightrecorder`` and
+``/admin/health`` read the health plane (``health/http.py``);
+``/admin/profile``, ``/admin/profile/capture``, ``/admin/profile/compile``
+and ``/admin/profile/capacity`` the profiling plane (``profiling/
+http.py``); each answers 404 with an enable hint when its plane is off
+and 400 for a malformed number.  The engine's answer says which replica
+served (``X-Seldon-Replica``) when it has one.
 """
 
 from __future__ import annotations
@@ -79,6 +89,10 @@ from seldon_core_tpu_torch.serving.bodies import (
     payload_json,
 )
 from seldon_core_tpu_torch.utils.metrics import EngineMetrics
+from seldon_core_tpu_torch.utils.tracing import (
+    trace_from_headers,
+    trace_scope,
+)
 
 __all__ = ["RestServer", "EngineServer", "ComponentServer", "Request",
            "Response", "EventStream"]
@@ -386,9 +400,12 @@ class EngineServer:
             except _BadRequest as e:
                 return _bad(e)
             try:
-                # the QoS headers bind the context of the whole walk: the
-                # engine, the batcher and the breakers read it
-                with qos_scope(qos_from_headers(req.headers)):
+                # the QoS headers bind the context of the whole walk (the
+                # engine, the batcher and the breakers read it); the W3C
+                # headers bind the trace context the same way (absent or
+                # malformed: None, and the engine makes its own)
+                with qos_scope(qos_from_headers(req.headers)), \
+                        trace_scope(trace_from_headers(req.headers)):
                     out = await self.engine.predict(msg)
             except Exception as e:
                 logger.exception("predict failed")
@@ -400,7 +417,15 @@ class EngineServer:
                 and out.status.status == "FAILURE" else 200)
         self.metrics.observe_request(self.name, time.perf_counter() - t0,
                                      code)
-        return _msg_response(out)
+        return self._stamp_replica(_msg_response(out))
+
+    def _stamp_replica(self, resp: Response) -> Response:
+        """``X-Seldon-Replica`` on data-path answers: which replica
+        served, without opening the body."""
+        rep = getattr(self.engine, "replica", "")
+        if rep:
+            resp.headers["X-Seldon-Replica"] = str(rep)
+        return resp
 
     async def stream(self, req: Request):
         if self.paused:
@@ -436,7 +461,7 @@ class EngineServer:
             logger.exception("send_feedback failed")
             out = SeldonMessage(status=Status.failure(
                 500, f"{type(e).__name__}: {e}", "INTERNAL"))
-        return _msg_response(out)
+        return self._stamp_replica(_msg_response(out))
 
     async def ready(self, req: Request) -> Response:
         return _text("paused", 503) if self.paused else _text("ready")
@@ -467,7 +492,71 @@ class EngineServer:
             getattr(self.engine, "artifacts", None), req.query)
         return Response(status, json.dumps(payload).encode())
 
+    async def trace(self, req: Request) -> Response:
+        """Recent request trace trees, one by ``?puid=``, the collector's
+        stats or its filtered view; 404 without a tracer."""
+        tracer = getattr(self.engine, "tracer", None)
+        if tracer is None or not tracer.enabled:
+            return Response(404, _err_json(404, "tracing disabled"))
+        q = req.query
+        puid = q.get("puid")
+        collector = getattr(tracer, "collector", None)
+        if puid:
+            sp = tracer.get(puid)
+            if sp is None:
+                return Response(404, _err_json(404, f"no trace for {puid}"))
+            body = {"puid": puid, **sp.to_dict()}
+        elif q.get("stats") and collector is not None:
+            body = {"collector": collector.stats()}
+        elif collector is not None and (
+                q.get("status") or q.get("min_ms") or q.get("drill")
+                or q.get("trace_id") or q.get("replica")):
+            try:
+                min_ms = float(q["min_ms"]) if "min_ms" in q else None
+                n = int(q.get("n", 20))
+            except ValueError:
+                return Response(400, _err_json(
+                    400, "min_ms/n must be numeric"))
+            body = {"traces": collector.query(
+                status=q.get("status"), min_duration_ms=min_ms,
+                drill=q.get("drill"), trace_id=q.get("trace_id"),
+                replica=q.get("replica"), n=n)}
+        else:
+            try:
+                n = int(q.get("n", 20))
+            except ValueError:
+                return Response(400, _err_json(400, "n must be an integer"))
+            body = {"traces": tracer.recent(n) if n > 0 else []}
+        return Response(200, json.dumps(body).encode())
+
+    def _admin(self, body_fn, plane_attr: str):
+        """An ``/admin/*`` route over the engine's ``plane_attr`` plane
+        (``health`` or ``profiler``): 404 with the hint when it is off, 400
+        for a malformed number."""
+        async def handler(req: Request) -> Response:
+            try:
+                status, payload = body_fn(
+                    getattr(self.engine, plane_attr, None), req.query)
+            except ValueError:
+                return Response(400, _err_json(
+                    400, "numeric query parameter expected"))
+            return Response(status, json.dumps(payload).encode())
+
+        return handler
+
     def register(self, server: "RestServer") -> None:
+        from seldon_core_tpu_torch.health.http import (
+            flightrecorder_body,
+            health_body,
+            introspect_body,
+        )
+        from seldon_core_tpu_torch.profiling.http import (
+            capacity_body,
+            capture_body,
+            compile_body,
+            profile_body,
+        )
+
         for path in ("/api/v0.1/predictions", "/api/v1.0/predictions"):
             server.add_route("POST", path, self.predictions)
         server.add_stream("/api/v0.1/stream", self.stream)
@@ -478,6 +567,16 @@ class EngineServer:
         server.add_route("GET", "/unpause", self.unpause)
         server.add_route("GET", "/metrics", self.prometheus)
         server.add_route("GET", "/admin/artifacts", self.artifacts)
+        server.add_route("GET", "/trace", self.trace)
+        for path, fn, attr in (
+                ("/admin/introspect", introspect_body, "health"),
+                ("/admin/flightrecorder", flightrecorder_body, "health"),
+                ("/admin/health", health_body, "health"),
+                ("/admin/profile", profile_body, "profiler"),
+                ("/admin/profile/capture", capture_body, "profiler"),
+                ("/admin/profile/compile", compile_body, "profiler"),
+                ("/admin/profile/capacity", capacity_body, "profiler")):
+            server.add_route("GET", path, self._admin(fn, attr))
         server.add_route("GET", "/seldon.json", _openapi("engine"))
 
 

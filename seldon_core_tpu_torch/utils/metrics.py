@@ -6,8 +6,10 @@ tagged by deployment, predictor and node, the custom COUNTER / GAUGE /
 TIMER metrics forwarded from component responses and stream events, and
 the feedback counters, rendered as Prometheus text at ``GET /metrics``.
 The text is the reference's line for line for the same observations.
-Histogram exemplars (a bucket's last trace id) wait for the tracer, slice 5
-of the port.
+When a sampled trace context is ambient (``utils/tracing.py``), a
+histogram observation is remembered as its bucket's OpenMetrics exemplar
+(``# {trace_id="..."} <value> <unix ts>``), so a latency panel deep-links
+to the trace behind it.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from collections import defaultdict
 from typing import Iterable, Optional
 
 from seldon_core_tpu_torch.messages import Metric, MetricType
+from seldon_core_tpu_torch.utils.tracing import current_trace
 
 __all__ = ["MetricsRegistry", "EngineMetrics"]
 
@@ -56,6 +59,11 @@ class MetricsRegistry:
         self._hist_counts: dict[tuple, list[int]] = {}
         self._hist_sum: dict[tuple, float] = defaultdict(float)
         self._hist_total: dict[tuple, int] = defaultdict(int)
+        # (series key, bucket index) -> (trace_id, value, unix ts): the
+        # last sampled observation landing in that bucket
+        self._hist_exemplars: dict[tuple, tuple[str, float, float]] = {}
+        # extra exemplar labels rendered beside trace_id (a replica id)
+        self.exemplar_labels: dict[str, str] = {}
         # metric name -> count of distinct label sets across all kinds
         self._series_count: dict[str, int] = defaultdict(int)
 
@@ -94,8 +102,14 @@ class MetricsRegistry:
 
     def observe(self, name: str, value: float,
                 labels: Optional[dict] = None):
-        """Histogram observation (seconds for timers)."""
+        """Histogram observation (seconds for timers).  With a sampled
+        trace context ambient, the observation becomes its bucket's
+        exemplar."""
         key = self._key(name, labels)
+        exemplar = None
+        ctx = current_trace()
+        if ctx is not None and ctx.sampled:
+            exemplar = (ctx.trace_id, value, time.time())
         with self._lock:
             if key not in self._hist_counts:
                 if not self._admit_locked(key, self._hist_counts):
@@ -105,9 +119,13 @@ class MetricsRegistry:
             for i, b in enumerate(_DEFAULT_BUCKETS):
                 if value <= b:
                     counts[i] += 1
+                    bucket = i
                     break
             else:
                 counts[-1] += 1
+                bucket = len(_DEFAULT_BUCKETS)
+            if exemplar is not None:
+                self._hist_exemplars[(key, bucket)] = exemplar
             self._hist_sum[key] += value
             self._hist_total[key] += 1
 
@@ -132,6 +150,17 @@ class MetricsRegistry:
             hist_counts = {k: list(v) for k, v in self._hist_counts.items()}
             hist_sum = dict(self._hist_sum)
             hist_total = dict(self._hist_total)
+            exemplars = dict(self._hist_exemplars)
+            ex_labels = sorted(self.exemplar_labels.items())
+
+        def exemplar_suffix(key: tuple, bucket: int) -> str:
+            ex = exemplars.get((key, bucket))
+            if ex is None:
+                return ""
+            trace_id, value, ts = ex
+            inner = ",".join(f'{k}="{_escape(v)}"'
+                             for k, v in [("trace_id", trace_id), *ex_labels])
+            return f" # {{{inner}}} {value} {ts}"
 
         lines: list[str] = []
         seen_types: set[str] = set()
@@ -155,10 +184,12 @@ class MetricsRegistry:
             for i, b in enumerate(_DEFAULT_BUCKETS):
                 cum += hist_counts[key][i]
                 lines.append(
-                    f'{name}_bucket{_fmt_labels({**ld, "le": repr(b)})} {cum}')
+                    f'{name}_bucket{_fmt_labels({**ld, "le": repr(b)})} {cum}'
+                    f'{exemplar_suffix(key, i)}')
             cum += hist_counts[key][-1]
             lines.append(
-                f'{name}_bucket{_fmt_labels({**ld, "le": "+Inf"})} {cum}')
+                f'{name}_bucket{_fmt_labels({**ld, "le": "+Inf"})} {cum}'
+                f'{exemplar_suffix(key, len(_DEFAULT_BUCKETS))}')
             lines.append(f"{name}_sum{_fmt_labels(ld)} {hist_sum[key]}")
             lines.append(f"{name}_count{_fmt_labels(ld)} {hist_total[key]}")
         return "\n".join(lines) + "\n"

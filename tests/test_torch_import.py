@@ -7,8 +7,8 @@ import on the card's machine (``chip_smoke.py`` ``wire_env`` read grpc
 REST tier stand without them, and without ``aiohttp`` and ``ml_dtypes``:
 every other module imports, and a checkpoint, a state blob and the wire
 tiers round-trip (a framed call with the device plane on among them), and
-a fused deployment boots with the artifact and device planes, with those
-packages blocked.  A second probe imports the
+a fused deployment boots with the artifact, device, tracing, health and
+profiling planes, with those packages blocked.  A second probe imports the
 gRPC modules and serves a gRPC call, still without jax or the JAX package.
 
 This runs in subprocesses: the test process itself has jax imported (the
@@ -127,7 +127,8 @@ import tempfile
 local = LocalDeployment(load_deployment({"spec": {"name": "d", "annotations": {
     "seldon.io/graph-plan": "fused", "seldon.io/prediction-cache": "true",
     "seldon.io/artifact-store": tempfile.mkdtemp(),
-    "seldon.io/device-plane": "true"},
+    "seldon.io/device-plane": "true", "seldon.io/tracing": "true",
+    "seldon.io/health": "true", "seldon.io/profile": "true"},
     "predictors": [{"name": "a", "graph": mlp},
                    {"name": "b", "graph": mlp}]}}), device="cpu", seed=0)
 for _ in range(4):
@@ -135,6 +136,9 @@ for _ in range(4):
         np.zeros((1, 784), np.float32))))
     assert out.status.status == "SUCCESS"
 assert sum(p.cache.stats["hits"] for p in local.predictors) >= 2
+assert local.tracer.enabled and local.health.recorder.stats()["recorded"] > 0
+assert local.profiler.compile.stats()["compiles"] > 0
+asyncio.run(local.aclose())
 blocked = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("aiohttp", "grpc", "ml_dtypes")
                  or m.startswith("google.protobuf")
@@ -267,6 +271,24 @@ def test_port_imports_without_jax_or_the_jax_package():
         "seldon_core_tpu_torch.artifacts.plane",
         "seldon_core_tpu_torch.artifacts.registry",
         "seldon_core_tpu_torch.artifacts.http",
+        "seldon_core_tpu_torch.ops.cost",
+        "seldon_core_tpu_torch.utils.tracing",
+        "seldon_core_tpu_torch.utils.analytics",
+        "seldon_core_tpu_torch.health",
+        "seldon_core_tpu_torch.health.config",
+        "seldon_core_tpu_torch.health.registry",
+        "seldon_core_tpu_torch.health.burnrate",
+        "seldon_core_tpu_torch.health.flightrecorder",
+        "seldon_core_tpu_torch.health.introspect",
+        "seldon_core_tpu_torch.health.plane",
+        "seldon_core_tpu_torch.health.http",
+        "seldon_core_tpu_torch.profiling",
+        "seldon_core_tpu_torch.profiling.config",
+        "seldon_core_tpu_torch.profiling.hostsampler",
+        "seldon_core_tpu_torch.profiling.compilewatch",
+        "seldon_core_tpu_torch.profiling.attribution",
+        "seldon_core_tpu_torch.profiling.plane",
+        "seldon_core_tpu_torch.profiling.http",
     }
     assert expected <= set(res["modules"])
 
