@@ -612,19 +612,37 @@ def _device_ms_by_kernel(torch, fn, reps: int) -> dict:
     return by_name
 
 
+#: idle time inside a profiled window before ``fn()`` and after its work
+PROFILE_PAD_S = 0.05
+#: per profiled window: µs from the window's start to its first device
+#: record (the pad plus the launch; less would mean the card's clock
+#: stands behind the host's)
+PROFILE_FIRST_US: list = []
+
+
 def _kernels_run(torch, fn) -> dict:
     """How many times each kernel name ran on the card in one ``fn()``,
-    from torch.profiler (empty if it sees no device event)."""
+    from torch.profiler (empty if it sees no device event).  The profiler
+    keeps only device records whose card timestamps fall within the
+    window's host-clock bounds, so the window opens and closes
+    ``PROFILE_PAD_S`` away from the work: with ``fn()`` launched at once
+    after the start, a replay of the int8 ResNet50 bucket on an H100 once
+    showed 36 of its 37 quantize passes."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         fn()
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     seen: dict = {}
+    first = math.inf
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             seen[e.name] = seen.get(e.name, 0) + 1
+            first = min(first, e.time_range.start)
+    PROFILE_FIRST_US.append(first)
     return seen
 
 
@@ -2086,6 +2104,7 @@ def llm_graphs_7b_phase(torch, params) -> dict:
                   "k3": sum(n for k, n in seen.items() if "flash_fwd" in k)}
         line = {"launches_counted": counted, "kernels_profiled": seen_k,
                 "device_kernels_profiled": sum(seen.values()),
+                "first_device_record_us": PROFILE_FIRST_US[-1],
                 "expected": want}
         out.setdefault("replays_profiled", {})[label] = line
         if not (counted["int8_matmul"] == seen_k["k1_quantize"]
@@ -4234,6 +4253,7 @@ def plan_resnet50_phase(torch) -> dict:
                    "product": sum(n for k, n in seen.items()
                                   if "int8_gemm" in k or "int8_gemv" in k)}
         out["k1_kernels_profiled_one_replay"] = seen_k1
+        out["profile_first_device_record_us"] = PROFILE_FIRST_US[-1]
         out["device_kernels_profiled_one_replay"] = sum(seen.values())
         if not (ok and equal64 and equal16 == PLAN_IMAGES and calls64 == 1
                 and calls16 == batches16 and k1_64 == want
