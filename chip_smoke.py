@@ -255,27 +255,49 @@ Prints one JSON object per line:
     x rows and within 1% of ResNet50's hand count; ``/admin/profile/
     capacity`` names the card and its peak; no storm after warm-up; a
     traced single's segment span carries ``device_block_ms``.
-29. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
+29. ``lint``: the static-analysis plane (``seldon_core_tpu_torch/
+    analysis/``) against what the card ran.  (a) ``--self --fail-on
+    warn`` in process over the port and its signature registry (traced on
+    fake tensors): no ERROR or WARN; each of the port's example specs
+    linted as admission would, host ms each.  (b) Each of the registry's
+    five traceable models built on the card by its own constructor and
+    run at the trace's probe binding (batch 8): its output (shape, dtype)
+    equal to the trace's; the int8 ResNet50's forward launches K1 37
+    times.  (c) The GL6xx segments and boundary reasons against the plans
+    ``plan_resnet50`` (int8) and ``plan_graphs`` captured; the GL18xx
+    tier of ``device_plane_resnet50``'s runner hop, plane on and off,
+    against ``GraphPlan.residency_map`` and the tier the hop rode
+    (``seldon_device_plane_remote_refs_total`` by mode): equal, but for
+    the REST hop with the plane on, where the lint's tier model says
+    bytes (GL1801) and the card rides shm: asserted as found and
+    reported (ROADMAP.md Queue 3).  (d) Each model's GL3xx ``hbm_bytes``
+    beside the growth of ``torch.cuda.memory_allocated()`` its
+    construction made (reported); ``HBM_PER_CHIP_GB`` within
+    ``total_memory``; the shm hop (``put_shm`` and ``resolve``, 1 KiB to
+    64 MiB) fitted to a rate and a per-hop overhead, printed beside
+    ``analysis/planlint.py``'s ``TRANSFER_GBPS`` and ``HOP_OVERHEAD_MS``.
+30. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
     phases of prefix caching, batched and chunked prefill, preemption and
     checkpoints together; ``slice_3b_phases``: ``spec_7b`` and
     ``parity_spec_7b``; ``slice_4a_i_phases``: the ``wire_*`` phases;
     ``slice_4a_ii_qos_phases``: ``grpc_7b``, ``workers``,
     ``qos_resnet50``; ``slice_4b_4c_i_phases``: the four of 14-17;
     ``slice_4c_ii_phases``: ``llm_graphs_7b``; ``slice_4d_4e_phases``:
-    25-26; ``slice_5_i_phases``: 27-28).
-30. ``{"kernels": [...]}``: one entry per kernel with its launches in the
+    25-26; ``slice_5_i_phases``: 27-28; ``slice_5_ii_phases``: 29).
+31. ``{"kernels": [...]}``: one entry per kernel with its launches in the
     runs through entry points (``llm_json``, ``serve_7b``, ``grpc_7b``,
     ``features_7b``, ``spec_7b``, ``llm_graphs_7b``, ``checkpoint_7b``,
     ``plan_resnet50``,
     ``cache_resnet50``, ``canary``, ``wire_resnet50``,
     ``wire_llm``, ``workers``, ``qos_resnet50``, ``artifacts_resnet50``,
-    ``device_plane_resnet50``, ``observe_7b`` and ``observe_resnet50``,
+    ``device_plane_resnet50``, ``observe_7b``, ``observe_resnet50`` and
+    ``lint``,
     counted by the child
     processes where the kernels run there; K1 also
     ``resnet50_launches``: the int8 REST run), each phase's count beside,
     its error, times and bound (K2 also at its two long cases and the
     shared-prefix case).
-31. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+32. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
@@ -4190,6 +4212,9 @@ def plan_resnet50_phase(torch) -> dict:
         boot_k1 = read_launches()["int8_matmul"]
         fused = local.engine
         seg = fused.plan.segments[0]
+        if int8:  # the partition the lint phase predicts offline
+            LINT_OBSERVED["plans"]["resnet50-int8"] = (
+                d, fused.plan.describe())
         walk = GraphEngine(d["spec"]["predictors"][0]["graph"], name="main",
                            resolver=lambda u, e=fused: e.node_impl(u.name))
         buckets = len(seg.batcher.buckets)
@@ -4333,6 +4358,7 @@ def plan_graphs_phase(torch) -> None:
             d["spec"]["annotations"]["seldon.io/graph-plan"] = mode
             deps[mode] = LocalDeployment(load_deployment(d), seed=0)
         walk, fused = deps["walk"].engine, deps["fused"].engine
+        LINT_OBSERVED["plans"][name] = (d, fused.plan.describe())
         for unit in deps["walk"].spec.graph.walk():
             if unit.implementation:
                 continue
@@ -4744,6 +4770,7 @@ def device_plane_resnet50_phase(torch) -> dict:
                                            "type": "REST"}}}]}}
             path = WIRE_DIR / f"graph_dp_{mode}.json"
             path.write_text(json.dumps(g))
+            LINT_OBSERVED["device_plane"][mode] = {"spec": g}
             runners[mode] = Child([sys.executable, "-m",
                                    "seldon_core_tpu_torch.operator.local",
                                    "--graph", str(path), "--port", "0",
@@ -4822,6 +4849,9 @@ def device_plane_resnet50_phase(torch) -> dict:
                                                          np.float32), w)
                                for (o, _), w in zip(fr, want)),
                            "client_plane": plane.snapshot()}}
+            LINT_OBSERVED["device_plane"][mode].update(
+                runner_plane=res[mode]["rest"]["runner_plane"],
+                requests=DP_IMAGES + 2)
         on, off = res["on"], res["off"]
         modes_equal = sum(
             a is not None and b is not None and np.array_equal(a, b)
@@ -5330,6 +5360,279 @@ def observe_resnet50_phase(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 5-ii: the static-analysis plane against the live plan and the card
+# ---------------------------------------------------------------------------
+
+#: what earlier phases ran, for ``lint_phase`` to hold the lint's offline
+#: prediction against: ``plans`` name -> (deployment dict, the live
+#: ``GraphPlan.describe()``), from ``plan_resnet50`` (int8) and
+#: ``plan_graphs``; ``device_plane`` mode -> the runner child's deployment
+#: and its ``seldon_device_plane_*`` counters, from
+#: ``device_plane_resnet50``
+LINT_OBSERVED: dict = {"plans": {}, "device_plane": {}}
+#: the registry's model classes, each built on the card by its own
+#: constructor for ``lint_phase`` (b) and (d)
+LINT_MODELS = ("iris:IrisClassifier", "mlp:MNISTMLP",
+               "mlp:MNISTMLPClassifier", "resnet:ResNet50Model",
+               "resnet_int8:Int8ResNet50Model")
+#: shm hop payload sizes (bytes) for the transfer figures: a 1 KiB row up
+#: to 64 MiB (about 13 batches of 8 ResNet images in float32)
+LINT_HOP_SIZES = (1 << 10, 64 << 10, 1 << 20, 4 << 20, 16 << 20, 64 << 20)
+#: the residency tier a runner's ``remote_refs`` mode shows the hop rode
+_MODE_TIER = {"shm": "shm-lane", "loopback": "loopback-ref"}
+
+
+def _shm_hop_figures(torch) -> dict:
+    """The device plane's pageable shm hop on the card, as PR 11's runtime
+    takes it: ``put_shm`` (one D2H into a fresh segment) and ``resolve``
+    (one H2D off it, unlink), synchronised, at each of LINT_HOP_SIZES
+    (median of 5 after 2 warm-ups).  The round trip is two hops, so
+    ``analysis/planlint.py``'s figures (one hop: an overhead plus bytes
+    over a rate) come out as: the overhead, half the smallest size's
+    round trip (its bytes cost microseconds); the rate, both hops' bytes
+    of the largest size over its round trip less the two overheads.  (A
+    least-squares line over all sizes lets the largest sizes set its
+    intercept, which read below zero.)"""
+    from seldon_core_tpu_torch.runtime.device_registry import (
+        DeviceBufferRegistry,
+    )
+
+    reg = DeviceBufferRegistry(device="cuda")
+    rows = []
+    for n in LINT_HOP_SIZES:
+        x = torch.randint(0, 256, (n,), dtype=torch.uint8, device="cuda")
+        ms = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = reg.resolve(reg.put_shm(x))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if not (y.is_cuda and torch.equal(y, x)):
+            raise AssertionError(f"lint: the shm hop changed {n} bytes")
+        rows.append((n, statistics.median(ms[2:])))
+    overhead = rows[0][1] / 2
+    n, t = rows[-1]
+    return {"round_trip_ms_by_bytes": {str(n): t for n, t in rows},
+            "hop_overhead_ms": overhead,
+            "transfer_gbps": 2 * n / (t - 2 * overhead) / 1e6}
+
+
+def _lint_plan_check(graphlint, name: str, spec: dict, live: dict) -> dict:
+    """GL6xx offline against one captured plan: the static segments'
+    members against ``compile_plan``'s, and the GL602 boundary nodes and
+    reasons against the plan's.  The lint also reports an ancestor whose
+    subtree a boundary splits ("a descendant prevents whole-subtree
+    fusion"); the plan lists the frontier only, so those are set aside.
+    A reason both derive from the node's type (a ROUTER, an unfusible
+    type) must read the same; the others come from different facts (the
+    signature registry's ``pure_fn``, the live object's methods) and are
+    reported side by side."""
+    from seldon_core_tpu_torch.operator.spec import SeldonDeployment
+
+    dep = SeldonDeployment.from_dict(spec)
+    pred = dep.predictors[0]
+    ann = {**dep.annotations, **pred.annotations}
+    lint_segments = sorted(sorted(u.name for u in seg)
+                           for seg in graphlint._static_segments(pred.graph))
+    live_segments = sorted(sorted(s["members"]) for s in live["segments"])
+    lint_bounds = {}
+    for f in graphlint.lint_graph(pred.graph, ann, pred.name):
+        if f.code == "GL602":
+            reason = f.message.split(": ", 1)[1]
+            if reason != "a descendant prevents whole-subtree fusion":
+                lint_bounds[f.path.rsplit("/", 1)[-1]] = reason
+    live_bounds = {b["node"]: b["reason"] for b in live["boundaries"]}
+    structural = {n: r for n, r in live_bounds.items()
+                  if r.startswith(("ROUTER:", "type "))}
+    return {"graph": name, "segments_lint": lint_segments,
+            "segments_live": live_segments,
+            "boundaries_lint": lint_bounds, "boundaries_live": live_bounds,
+            "equal": lint_segments == live_segments
+            and set(lint_bounds) == set(live_bounds)
+            and all(lint_bounds.get(n) == r for n, r in structural.items())}
+
+
+def _lint_tier_check(mode: str, obs: dict) -> dict:
+    """GL18xx offline against ``device_plane_resnet50``'s runner child in
+    one mode.  Its graph is one node served by a REST component child:
+    one remote edge, the runner's hop to the child.  The lint's tier
+    (``plan_edges``, its GL1805 map) against ``GraphPlan.residency_map``
+    of the same spec and against the tier the hop rode on the card, the
+    mode of the runner's ``seldon_device_plane_remote_refs_total`` (none:
+    bytes)."""
+    from seldon_core_tpu_torch.analysis import lint_deployment, planlint
+    from seldon_core_tpu_torch.graph.engine import GraphEngine
+    from seldon_core_tpu_torch.graph.plan import compile_plan
+    from seldon_core_tpu_torch.operator.spec import SeldonDeployment
+
+    dep = SeldonDeployment.from_dict(obs["spec"])
+    pred = dep.predictors[0]
+    ann = {**dep.annotations, **pred.annotations}
+    (edge,) = planlint.plan_edges(pred.graph, ann, pred.name)
+
+    class Remote:  # the node's stand-in: nothing is called
+        def predict(self, X, names):
+            return X
+
+    # nothing fuses, so the engine keeps no plan: partition its graph
+    engine = GraphEngine(obs["spec"]["spec"]["predictors"][0]["graph"],
+                         resolver=lambda u: Remote())
+    (live,) = compile_plan(engine.root).residency_map(ann)
+    refs = obs["runner_plane"]["remote_refs"]
+    rode = [_MODE_TIER[m] for m in ("loopback", "shm")
+            if refs.get(f'{{mode="{m}"}}', 0) > 0]
+    rows = [{"edge": f"{edge.src}->{edge.dst}",
+             "hop": f"runner -> component ({pred.graph.endpoint.type})",
+             "remote": edge.remote, "lint": edge.state.tier,
+             "residency_map": live["tier"],
+             "card": "+".join(rode) or "host-bytes"}]
+    return {"mode": mode, "rows": rows, "remote_refs": refs,
+            "requests": obs["requests"],
+            "findings": sorted({f.code for f in lint_deployment(obs["spec"])
+                                if f.severity != "INFO"})}
+
+
+def lint_phase(torch) -> dict:
+    """Slice 5-ii on the card.  (a) ``python -m seldon_core_tpu_torch.
+    analysis --self --fail-on warn`` in process: the port's package and
+    its signature registry traced on fake tensors, no ERROR or WARN; then
+    each of the port's example specs linted as admission would, host ms
+    each.  (b) GL16xx against reality: each registry model built on the
+    card by its own constructor, its real forward at the trace's probe
+    binding, whose output (shape, dtype) must equal the trace's; the int8
+    ResNet50's forward launches K1 37 times.  (c) GL6xx and GL18xx
+    against what the card did: ``plan_resnet50``'s int8 fused cell and
+    ``plan_graphs``' graphs (segments and boundary reasons against the
+    captured plans), ``device_plane_resnet50``'s runner child in both
+    modes (tier per edge against ``residency_map`` and the runner's
+    counters by mode; the one disagreement the tier model has with the
+    runtime, a REST hop's, is asserted as found and reported).  (d) GL3xx
+    against memory, reported: each model's ``hbm_bytes`` beside the growth
+    of ``torch.cuda.memory_allocated()`` its construction made; the
+    per-device budget against ``total_memory``; the shm hop's measured
+    figures beside planlint's.  Returns the forwards' launches."""
+    from seldon_core_tpu_torch import models
+    from seldon_core_tpu_torch.analysis import graphlint, lint_deployment
+    from seldon_core_tpu_torch.analysis import planlint, tracelint
+    from seldon_core_tpu_torch.analysis.cli import main as lint_main
+
+    out = {"phase": "lint", "card": CARD}
+    t0 = time.perf_counter()
+    rc = lint_main(["--self", "--fail-on", "warn"])
+    out["self_s"] = time.perf_counter() - t0
+    out["self_rc"] = rc
+    specs = {}
+    for path in sorted((ROOT / "seldon_core_tpu_torch" / "examples").glob(
+            "*.json")):
+        spec = json.loads(path.read_text())
+        t0 = time.perf_counter()
+        fs = lint_deployment(spec)
+        specs[path.stem] = {
+            "host_ms": (time.perf_counter() - t0) * 1e3,
+            "not_info": [str(f) for f in fs if f.severity != "INFO"]}
+    out["example_specs"] = specs
+
+    # (b) and (d): each registry model on the card
+    pkg = "seldon_core_tpu_torch.models"
+    traced, mem = {}, {}
+    reset_launches()
+    k1_int8 = 0
+    for cls in LINT_MODELS:
+        mc = f"{pkg}.{cls}"
+        sig = models.signature_for(mc)
+        trace = tracelint._trace_model(mc, sig)
+        mod_name, cls_name = cls.split(":")
+        module = __import__(f"{pkg}.{mod_name}", fromlist=[cls_name])
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        model = getattr(module, cls_name)(device="cuda")
+        gc.collect()
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - before
+        shape = tracelint._bind_input_shape(sig)
+        x = torch.rand(shape, device="cuda") * 255
+        launched = read_launches()["int8_matmul"]
+        with torch.inference_mode():
+            y = model.predict_fn(model.params, x)
+        torch.cuda.synchronize()
+        if cls.startswith("resnet_int8"):
+            k1_int8 = read_launches()["int8_matmul"] - launched
+        real = (tuple(y.shape), tracelint.dtype_name(y.dtype))
+        traced[cls] = {"probe": list(shape),
+                       "traced": [list(trace.out_shapes[0][0]),
+                                  trace.out_shapes[0][1]],
+                       "card": [list(real[0]), real[1]],
+                       "equal": trace.error is None
+                       and len(trace.out_shapes) == 1
+                       and trace.out_shapes[0][:2] == real}
+        mem[cls] = {"hbm_bytes_lint": sig.hbm_bytes,
+                    "allocated_growth_bytes": grown,
+                    "ratio": grown / sig.hbm_bytes if sig.hbm_bytes else None}
+        del model, y, x
+        torch.cuda.empty_cache()
+    launches = read_launches()
+    out["gl16xx_against_the_card"] = traced
+    out["k1_launches_int8_forward"] = k1_int8
+    total = torch.cuda.get_device_properties(0).total_memory
+    out["gl3xx_against_memory"] = {
+        "models": mem, "hbm_per_chip_gb": graphlint.HBM_PER_CHIP_GB,
+        "budget_bytes": int(graphlint.HBM_PER_CHIP_GB * (1 << 30)),
+        "total_memory": total}
+    hop = _shm_hop_figures(torch)
+    out["shm_hop"] = {**hop, "planlint_transfer_gbps": planlint.TRANSFER_GBPS,
+                      "planlint_hop_overhead_ms": planlint.HOP_OVERHEAD_MS}
+
+    # (c): the lint's offline prediction against what the card ran
+    plans = [_lint_plan_check(graphlint, name, spec, live)
+             for name, (spec, live) in sorted(
+                 LINT_OBSERVED["plans"].items())]
+    tiers = [_lint_tier_check(mode, obs) for mode, obs in sorted(
+        LINT_OBSERVED["device_plane"].items())]
+    out["gl6xx_against_plans"] = plans
+    out["gl18xx_against_the_plane"] = tiers
+    disagree = [dict(r, mode=t["mode"]) for t in tiers for r in t["rows"]
+                if not r["lint"] == r["residency_map"] == r["card"]]
+    out["tier_disagreements"] = disagree
+    emit(out)
+
+    # the reference's tier model: a REST edge never carries a deviceRef
+    # (GL1801); both runtimes negotiate one per peer on REST
+    # (ROADMAP.md Queue 3).  Held as found: lint and residency_map say
+    # bytes, the card rode shm on every request after the first.
+    known = [r for r in disagree
+             if r["mode"] == "on" and r["hop"].endswith("(REST)")
+             and r["lint"] == r["residency_map"] == "host-bytes"
+             and r["card"] == "shm-lane"]
+    on = [t for t in tiers if t["mode"] == "on"]
+    checks = {
+        "--self reports no ERROR or WARN": rc == 0,
+        "example specs lint clean": not any(
+            s["not_info"] for s in specs.values()),
+        "traced outputs equal the card's": all(
+            t["equal"] for t in traced.values()),
+        "int8 forward launches K1": k1_int8 == 37,
+        "budget within the card": out["gl3xx_against_memory"][
+            "budget_bytes"] <= total,
+        "plans observed": len(plans) >= 2,
+        "segments and boundaries equal the live plans": all(
+            p["equal"] for p in plans),
+        "both plane modes observed": len(tiers) == 2,
+        "tiers equal but the known REST hop": disagree == known
+        and len(known) == 1,
+        "GL1801 raised for the REST hop with the plane on": bool(on)
+        and on[0]["findings"] == ["GL1801"],
+        "hop figures positive": hop["transfer_gbps"] > 0
+        and hop["hop_overhead_ms"] > 0,
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"lint: {failed}")
+    return launches
+
+
 def ptxas_report(log: str) -> list:
     """Registers, spills and shared memory per kernel from the build's
     ``-Xptxas -v`` output, names demangled where ``c++filt`` exists."""
@@ -5485,6 +5788,8 @@ def smoke() -> int:
         "device_plane_resnet50", device_plane_resnet50_phase, torch)
     runs["observe_resnet50"] = timed("observe_resnet50",
                                      observe_resnet50_phase, torch)
+    # slice 5-ii: the lint against what the phases above ran
+    runs["lint"] = timed("lint", lint_phase, torch)
     slice_3a = sum(seconds[k] for k in ("features_7b", "parity_features_7b",
                                         "checkpoint_7b"))
     slice_3b = seconds["spec_7b"] + seconds["parity_spec_7b"]
@@ -5501,6 +5806,7 @@ def smoke() -> int:
           + seconds["device_plane_resnet50"],
           "slice_5_i_phases": seconds["observe_7b"]
           + seconds["observe_resnet50"],
+          "slice_5_ii_phases": seconds["lint"],
           "total": time.perf_counter() - t0})
     launches = {k: sum(r[k] for r in runs.values())
                 for k in runs["serve_7b"]}

@@ -40,7 +40,7 @@ class SingleFlight:
         # leader path: probe -> insert with NO await between them (the
         # await above is on the follower's return branch), so the
         # check-then-act is atomic on the event loop
-        self._inflight[key] = fut
+        self._inflight[key] = fut  # graphlint: disable=RL601
         try:
             result = await compute()
         except BaseException as e:

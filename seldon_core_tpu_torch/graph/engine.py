@@ -536,8 +536,11 @@ class GraphEngine:
         if len(selected) == 1:
             child_outputs = [await selected[0](transformed)]
         else:
-            child_outputs = list(await asyncio.gather(
-                *(w(transformed) for w in selected)))
+            # fail-fast on the first child error, as the reference's walk;
+            # siblings are cancelled by the walk deadline
+            child_outputs = list(
+                await asyncio.gather(  # graphlint: disable=RL605
+                    *(w(transformed) for w in selected)))
 
         # 5. aggregate: a COMBINER's, else the first child's output
         if node.type == "COMBINER":

@@ -66,8 +66,8 @@ bucket first seen on the request path is captured from the store's record
 when one matches (probe-checked), else live and published back; the
 engine captures every stored bucket at boot, and :meth:`GraphPlan.warmup`
 skips buckets already captured.  :meth:`GraphPlan.residency_map` gives
-the planned residency tier of every edge from the device plane's tier
-model (``runtime/device_plane.py``).
+the planned residency tier of every edge from the GL18xx lint's abstract
+interpretation (``analysis/planlint.py``).
 
 **Cost and the capture ledger.**  XLA's ``cost_analysis()`` has no
 counterpart here, so a bucket's cost is counted once, when it is first
@@ -664,58 +664,29 @@ class GraphPlan:
 
     def residency_map(self, annotations: Optional[dict] = None) -> list:
         """The planned residency of every request-flow edge of this plan
-        under ``annotations`` (the device-plane posture): one dict per
+        under ``annotations`` (device-plane/mesh posture): one dict per
         edge, ``src``, ``dst``, ``tier``, ``partition``, ``ownership``,
-        ``fused``, ``remote``.  An edge inside a segment, or between two
-        in-process nodes, keeps the tensor on the card; a remote edge gets
-        the tier its transport can negotiate at best; the request's entry
-        edge is host bytes.  From the spec and the plan only: nothing
-        runs."""
-        from seldon_core_tpu_torch.runtime.device_plane import (
-            TIER_HBM_HANDLE,
-            TIER_HOST_BYTES,
-            DevicePlaneConfig,
-            device_plane_config_from_annotations,
-            negotiated_remote_tier,
-        )
-        from seldon_core_tpu_torch.runtime.device_registry import (
-            OWNERSHIP_ONE_SHOT,
-            OWNERSHIP_SHARED,
-        )
+        ``fused``, ``remote``.  Delegates to the abstract interpretation
+        the GL18xx admission lint runs offline (``analysis/planlint.py``
+        :func:`plan_edges`), so the live plan's answer and the lint's
+        residency map cannot drift.  From the spec only: nothing runs."""
+        from seldon_core_tpu_torch.analysis.graphlint import PLAN_ANNOTATION
+        from seldon_core_tpu_torch.analysis.planlint import plan_edges
 
-        try:
-            plane = device_plane_config_from_annotations(
-                dict(annotations or {}), "plan")
-        except ValueError:
-            plane = None
-        if plane is None:
-            plane = DevicePlaneConfig(enabled=False)
-        seg_of = {st.name: i for i, seg in enumerate(self.segments)
-                  for st in seg.members}
-        edges: list = []
-
-        def visit(u, parent) -> None:
-            fused = (parent is not None and u.name in seg_of
-                     and seg_of.get(parent.name) == seg_of[u.name])
-            remote = bool(u.endpoint.service_host) and \
-                u.endpoint.type != "LOCAL"
-            if fused or (parent is not None and not remote):
-                tier, own = TIER_HBM_HANDLE, OWNERSHIP_SHARED
-            elif remote:
-                tier = negotiated_remote_tier(plane, u.endpoint.type)
-                own = (OWNERSHIP_ONE_SHOT if tier != TIER_HOST_BYTES
-                       else OWNERSHIP_SHARED)
-            else:  # the entry edge: the server hands over parsed bytes
-                tier, own = TIER_HOST_BYTES, OWNERSHIP_SHARED
-            edges.append({"src": parent.name if parent is not None
-                          else "<request>", "dst": u.name, "tier": tier,
-                          "partition": "replicated", "ownership": own,
-                          "fused": fused, "remote": remote})
-            for c in u.children:
-                visit(c, u)
-
-        visit(self.root.node.unit, None)
-        return edges
+        ann = dict(annotations or {})
+        # this object IS the fused plan: pin the posture the offline
+        # interpreter reconstructs
+        ann.setdefault(PLAN_ANNOTATION, "fused")
+        return [
+            {
+                "src": e.src, "dst": e.dst,
+                "tier": e.state.tier,
+                "partition": e.state.partition,
+                "ownership": e.state.ownership,
+                "fused": e.fused, "remote": e.remote,
+            }
+            for e in plan_edges(self.root.node.unit, ann)
+        ]
 
     def warmup(self, example_row=None) -> int:
         """Run every batcher bucket of every segment once before traffic

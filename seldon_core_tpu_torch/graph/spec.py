@@ -59,7 +59,9 @@ def _coerce_param(value, ptype: str, unit: str, param: str) -> Any:
             return True
         if s in _BOOL_FALSE:
             return False
-        raise GraphValidationError(f"{where}: invalid BOOL value {value!r}")
+        raise GraphValidationError(
+            f"{where}: invalid BOOL value {value!r} "
+            f"(expected one of {_BOOL_TRUE + _BOOL_FALSE})")
     conv = PARAM_TYPES.get(ptype, str)
     try:
         return conv(value)

@@ -337,7 +337,8 @@ class SeldonMessage:
                 )
 
                 ref = DeviceTensorRef.from_dict(datad["deviceRef"])
-                msg.data = registry.resolve(ref.ref)
+                # the raise IS the downgrade signal at this boundary
+                msg.data = registry.resolve(ref.ref)  # graphlint: disable=RL703
                 msg.encoding = "binTensor"
             # any other ``data`` leaves the message without a tensor, as
             # the reference's does

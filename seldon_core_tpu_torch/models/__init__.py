@@ -6,9 +6,15 @@ keyed by the ``module:Class`` string users write in a node's
 ``model_class`` parameter.  The graph-plan compiler (``graph/plan.py``)
 reads the entry signature of a fused segment from here to warm every
 batcher bucket at boot (``seldon.io/graph-plan-warmup``); the prediction
-cache reads ``deterministic``.  Third-party components register their own
-with :func:`register_signature`; an unregistered class simply has no
-static contract.  The table imports nothing but the standard library.
+cache reads ``deterministic``; the admission lint (``analysis/``) reads
+all of it.  Third-party components register their own with
+:func:`register_signature`; an unregistered class simply has no static
+contract.  The table imports nothing but the standard library.
+
+The trace providers (:func:`register_trace_provider`) say how the GL16xx
+trace-lint (``analysis/tracelint.py``) builds each class's serving
+function and parameters on fake tensors; the model zoo's own live in
+``models/traceable.py``, installed on first use.
 """
 
 from __future__ import annotations
@@ -17,7 +23,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 __all__ = ["ANY", "ModelSignature", "SIGNATURES", "BUILTIN_SIGNATURES",
-           "register_signature", "signature_for"]
+           "register_signature", "signature_for", "TraceTarget",
+           "TRACE_PROVIDERS", "register_trace_provider", "trace_target_for"]
 
 #: wildcard dimension — matches any size (batch, sequence length, ...)
 ANY = None
@@ -48,8 +55,14 @@ class ModelSignature:
     A meta-only router is called without the tensor when the device plane
     is on, so no D2H is paid for it.
 
-    The reference's ``batch_shardable`` and ``tp_param_specs`` (the
-    placement plane, slice 6) come with the slice that reads them.
+    ``batch_shardable`` declares that the serving function is row-wise
+    over the leading batch dim (row *i* of the output depends only on row
+    *i* of the input), the precondition for splitting a batch over a
+    mesh's ``dp`` axis.  ``tp_param_specs`` optionally maps parameter keys
+    to partition axis tuples (e.g. ``{"0/w": (None, "tp")}``) so large
+    weight matrices shard over the ``tp`` axis.  The admission lint's
+    placement, residency and trace passes read both; the sharded executor
+    that acts on them comes with the placement slice.
     """
 
     input_shape: Optional[Shape] = None
@@ -59,6 +72,8 @@ class ModelSignature:
     hbm_bytes: int = 0
     pure_fn: bool = False
     deterministic: bool = True
+    batch_shardable: bool = True
+    tp_param_specs: Optional[dict] = None
     routes_on: str = "tensor"
 
 
@@ -84,12 +99,22 @@ SIGNATURES: dict[str, ModelSignature] = {
         output_shape=(ANY, 10), output_dtype="float32",
         hbm_bytes=_dense_bytes((784, 512, 256, 10)),
         pure_fn=True,
+        # column-parallel hidden layers (512 and 256 divide every power-
+        # of-two tp); the final (256, 10) layer replicates
+        tp_param_specs={
+            "0/w": (None, "tp"), "0/b": ("tp",),
+            "1/w": (None, "tp"), "1/b": ("tp",),
+        },
     ),
     f"{_PKG}.mlp:MNISTMLPClassifier": ModelSignature(
         input_shape=(ANY, 784), input_dtype="float32",
         output_shape=(ANY,), output_dtype="int32",
         hbm_bytes=_dense_bytes((784, 512, 256, 10)),
         pure_fn=True,
+        tp_param_specs={
+            "0/w": (None, "tp"), "0/b": ("tp",),
+            "1/w": (None, "tp"), "1/b": ("tp",),
+        },
     ),
     f"{_PKG}.resnet:ResNet50Model": ModelSignature(
         input_shape=(ANY, 224, 224, 3), input_dtype="float32",
@@ -143,3 +168,47 @@ def register_signature(model_class: str, sig: ModelSignature) -> None:
 
 def signature_for(model_class: str) -> Optional[ModelSignature]:
     return SIGNATURES.get(model_class)
+
+
+# ---------------------------------------------------------------------------
+# trace providers — how the GL16xx trace-lint verifies a signature
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TraceTarget:
+    """The (fn, params) pair the trace-lint runs on fake tensors.
+
+    ``fn(params, X)`` is the node's serving function *unbound* from any
+    instance.  A provider is called inside the trace-lint's
+    ``FakeTensorMode``, so the parameters it builds (with the same init
+    code the real constructor runs) are fake tensors: shapes and dtypes,
+    no storage, no weights."""
+
+    fn: object
+    params: object
+
+
+#: module:Class → zero-arg callable returning a :class:`TraceTarget`.
+#: Registering a provider must not import torch; only calling it may.
+#: Classes without one (the LLM engine, shapeless numpy components) are
+#: not statically traceable and the GL16xx pass skips them.
+TRACE_PROVIDERS: dict = {}
+
+_BUILTIN_PROVIDERS_LOADED = False
+
+
+def register_trace_provider(model_class: str, provider) -> None:
+    """Register (or override) the trace provider for a ``module:Class``."""
+    TRACE_PROVIDERS[model_class] = provider
+
+
+def trace_target_for(model_class: str) -> Optional[TraceTarget]:
+    """Resolve and call the trace provider for ``model_class``, installing
+    the model zoo's providers (``models/traceable.py``) on first use."""
+    global _BUILTIN_PROVIDERS_LOADED
+    if model_class not in TRACE_PROVIDERS and not _BUILTIN_PROVIDERS_LOADED:
+        _BUILTIN_PROVIDERS_LOADED = True
+        from seldon_core_tpu_torch.models import traceable
+        traceable.install()
+    provider = TRACE_PROVIDERS.get(model_class)
+    return provider() if provider is not None else None

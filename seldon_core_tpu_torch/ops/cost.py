@@ -19,6 +19,12 @@ which the reference reads from a compiled executable).
 
 Counting runs the ops it sees through Python dispatch modes and changes no
 numerics; it is done once per bucket, at capture.
+
+The trace-lint (``analysis/tracelint.py``) uses the same seam through
+:func:`observing`: while it traces, each kernel call is one opaque call
+to its observer, so the ops of a plain version (K1's float64 product,
+exact where the kernel accumulates in int32) are not taken for the
+model's own.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ from torch.utils._python_dispatch import (
 )
 from torch.utils._pytree import tree_flatten
 
-__all__ = ["CostCount", "kernel"]
+__all__ = ["CostCount", "kernel", "observing"]
 
 _local = threading.local()
 
@@ -81,20 +87,17 @@ class CostCount:
         self._bytes_mode = None
 
     def __enter__(self) -> "CostCount":
-        if getattr(_local, "count", None) is not None:
-            raise RuntimeError("a cost count is already open on this thread")
         from torch.utils.flop_counter import FlopCounterMode
 
         self._flop_mode = FlopCounterMode(display=False)
         self._bytes_mode = _BytesMode()
         self._stack = contextlib.ExitStack()
+        self._stack.enter_context(observing(self))
         self._stack.enter_context(self._flop_mode)
         self._stack.enter_context(self._bytes_mode)
-        _local.count = self
         return self
 
     def __exit__(self, *exc) -> None:
-        _local.count = None
         self._stack.close()
         self.flops = float(self._flop_mode.get_total_flops()) \
             + self._kernel_flops
@@ -104,19 +107,36 @@ class CostCount:
     def summary(self) -> dict:
         return {"flops": self.flops, "bytes_accessed": self.bytes_accessed}
 
+    def kernel(self, flops: float, bytes_accessed: float):
+        return _hidden(self, flops, bytes_accessed)
+
 
 _NULL = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def observing(observer) -> Iterator[None]:
+    """Inside the block, each :func:`kernel` call on this thread returns
+    ``observer.kernel(flops, bytes_accessed)``, a context around the call."""
+    if getattr(_local, "count", None) is not None:
+        raise RuntimeError("a cost count is already open on this thread")
+    _local.count = observer
+    try:
+        yield
+    finally:
+        _local.count = None
 
 
 def kernel(flops: float, bytes_accessed: float):
     """Around one hand-written kernel's call (or its plain version's):
     with a count open on this thread, add the kernel's stated cost once and
-    count nothing the call dispatches; otherwise a shared no-op context
+    count nothing the call dispatches; with another observer
+    (:func:`observing`), its context; otherwise a shared no-op context
     (the serving path pays one attribute read)."""
     count = getattr(_local, "count", None)
     if count is None:
         return _NULL
-    return _hidden(count, flops, bytes_accessed)
+    return count.kernel(flops, bytes_accessed)
 
 
 @contextlib.contextmanager

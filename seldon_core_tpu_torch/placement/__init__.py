@@ -1,0 +1,29 @@
+"""Placement plane: so far its annotations and their parser, the planner
+and the tensor-parallel rule table, which the admission lint reads
+(``analysis/graphlint.py`` GL12xx, ``analysis/tracelint.py`` GL1604 and
+GL1207).  The mesh manager, the sharded executor and the admin surface of
+``seldon_core_tpu/placement/`` come with a later slice."""
+
+from seldon_core_tpu_torch.placement.config import (
+    MESH_ANNOTATION,
+    PLACEMENT_ANNOTATION,
+    PlacementConfig,
+    placement_config_from_annotations,
+)
+from seldon_core_tpu_torch.placement.planner import (
+    Assignment,
+    PlacementPlan,
+    SegmentFacts,
+    plan_placement,
+)
+
+__all__ = [
+    "MESH_ANNOTATION",
+    "PLACEMENT_ANNOTATION",
+    "Assignment",
+    "PlacementConfig",
+    "PlacementPlan",
+    "SegmentFacts",
+    "placement_config_from_annotations",
+    "plan_placement",
+]

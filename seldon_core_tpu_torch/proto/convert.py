@@ -241,8 +241,10 @@ def message_from_proto(p: pb.SeldonMessage) -> SeldonMessage:
                 registry,
             )
 
-            # a ref minted by another process raises ForeignProcessRef
-            msg.data = registry.resolve(p.data.device.buffer_uuid)
+            # a ref minted by another process raises ForeignProcessRef:
+            # the raise IS the downgrade signal at this boundary
+            msg.data = registry.resolve(  # graphlint: disable=RL703
+                p.data.device.buffer_uuid)
             msg.encoding = "device"
     elif which == "binData":
         msg.bin_data = p.binData

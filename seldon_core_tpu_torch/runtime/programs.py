@@ -45,6 +45,7 @@ next call.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 from typing import Any, Callable, Optional
@@ -54,11 +55,13 @@ import torch
 
 from seldon_core_tpu_torch.ops import launches
 
-__all__ = ["eager", "graphs_on", "GraphPool", "Captured", "capture",
-           "bitwise_equal", "Program"]
+__all__ = ["eager", "gc_paused", "graphs_on", "GraphPool", "Captured",
+           "capture", "bitwise_equal", "Program"]
 
 _lock = threading.Lock()
 _eager_depth = 0
+_gc_pauses = 0
+_gc_was_enabled = False
 
 
 @contextlib.contextmanager
@@ -75,6 +78,28 @@ def eager():
     finally:
         with _lock:
             _eager_depth -= 1
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Automatic garbage collection off while open; nests across threads.
+    A collection that runs inside a capture may free a dead graph of an
+    earlier engine, whose ``reset()`` on the capturing thread voids the
+    capture (``thread_local`` mode forbids it); the collection runs after
+    instead."""
+    global _gc_pauses, _gc_was_enabled
+    with _lock:
+        if _gc_pauses == 0:
+            _gc_was_enabled = gc.isenabled()
+            gc.disable()
+        _gc_pauses += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _gc_pauses -= 1
+            if _gc_pauses == 0 and _gc_was_enabled:
+                gc.enable()
 
 
 def graphs_on(device) -> bool:
@@ -152,7 +177,7 @@ def capture(fn: Callable, inputs: tuple, pool: GraphPool, what: str,
     try:
         with torch.cuda.stream(pool.stream):
             ref = fn(*inputs)
-        with rec:
+        with rec, gc_paused():
             with torch.cuda.graph(graph, pool=pool.handle, stream=pool.stream,
                                   capture_error_mode="thread_local"):
                 out = fn(*inputs)

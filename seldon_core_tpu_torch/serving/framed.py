@@ -187,7 +187,7 @@ def decode_message(frame: Frame, device_plane=None) -> SeldonMessage:
         ref = str(dref.get("ref", ""))
         # raises ForeignProcessRef / KeyError when the ref cannot resolve
         # here: the server's error frame carries it back to the sender
-        msg.data = registry.resolve(ref)
+        msg.data = registry.resolve(ref)  # graphlint: disable=RL703
         if ref.startswith("shmc:"):
             wire_mode = "shm"
             peer_lane = ref.split(":", 2)[1]

@@ -811,7 +811,9 @@ class RestServer:
         except (ConnectionError, asyncio.IncompleteReadError):
             pass
         finally:
-            self._writers.discard(writer)
+            # close-time bookkeeping only: each connection adds and
+            # discards its own writer
+            self._writers.discard(writer)  # graphlint: disable=RL602
             writer.close()
             try:
                 await writer.wait_closed()

@@ -62,8 +62,13 @@ async def _post_all(port: int, bodies: list) -> list:
     # a pool of its own: the loop's default executor serves the server
     loop = asyncio.get_running_loop()
     with ThreadPoolExecutor(max_workers=len(bodies)) as pool:
-        return await asyncio.gather(*(
-            loop.run_in_executor(pool, _post, port, b) for b in bodies))
+        outs = await asyncio.gather(*(
+            loop.run_in_executor(pool, _post, port, b) for b in bodies),
+            return_exceptions=True)
+    for out in outs:  # raise once every request has ended
+        if isinstance(out, BaseException):
+            raise out
+    return outs
 
 
 def main(argv=None) -> list:

@@ -6,9 +6,10 @@ import on the card's machine (``chip_smoke.py`` ``wire_env`` read grpc
 1.80.0 and protobuf 6.33.6 there), but REST, the framed wire and the native
 REST tier stand without them, and without ``aiohttp`` and ``ml_dtypes``:
 every other module imports, and a checkpoint, a state blob and the wire
-tiers round-trip (a framed call with the device plane on among them), and
-a fused deployment boots with the artifact, device, tracing, health and
-profiling planes, with those packages blocked.  A second probe imports the
+tiers round-trip (a framed call with the device plane on among them), a
+fused deployment boots with the artifact, device, tracing, health and
+profiling planes, and the static-analysis plane lints an example clean,
+with those packages blocked.  A second probe imports the
 gRPC modules and serves a gRPC call, still without jax or the JAX package.
 
 This runs in subprocesses: the test process itself has jax imported (the
@@ -139,6 +140,13 @@ assert sum(p.cache.stats["hits"] for p in local.predictors) >= 2
 assert local.tracer.enabled and local.health.recorder.stats()["recorded"] > 0
 assert local.profiler.compile.stats()["compiles"] > 0
 asyncio.run(local.aclose())
+# the static-analysis plane without jax: an example spec lints clean
+from seldon_core_tpu_torch.analysis import lint_deployment
+with open("seldon_core_tpu_torch/examples/resnet50-int8.json") as f:
+    spec = json.load(f)
+spec["spec"]["annotations"]["seldon.io/device-plane"] = "true"
+assert [f.code for f in lint_deployment(spec)
+        if f.severity != "INFO"] == []
 blocked = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("aiohttp", "grpc", "ml_dtypes")
                  or m.startswith("google.protobuf")
@@ -289,6 +297,25 @@ def test_port_imports_without_jax_or_the_jax_package():
         "seldon_core_tpu_torch.profiling.attribution",
         "seldon_core_tpu_torch.profiling.plane",
         "seldon_core_tpu_torch.profiling.http",
+        "seldon_core_tpu_torch.analysis",
+        "seldon_core_tpu_torch.analysis.__main__",
+        "seldon_core_tpu_torch.analysis.asynclint",
+        "seldon_core_tpu_torch.analysis.cli",
+        "seldon_core_tpu_torch.analysis.findings",
+        "seldon_core_tpu_torch.analysis.graphlint",
+        "seldon_core_tpu_torch.analysis.ownlint",
+        "seldon_core_tpu_torch.analysis.planlint",
+        "seldon_core_tpu_torch.analysis.repolint",
+        "seldon_core_tpu_torch.analysis.tracelint",
+        "seldon_core_tpu_torch.fleet",
+        "seldon_core_tpu_torch.fleet.config",
+        "seldon_core_tpu_torch.fleet.observe",
+        "seldon_core_tpu_torch.placement",
+        "seldon_core_tpu_torch.placement.config",
+        "seldon_core_tpu_torch.placement.layouts",
+        "seldon_core_tpu_torch.placement.planner",
+        "seldon_core_tpu_torch.models.traceable",
+        "seldon_core_tpu_torch.operator.spec",
     }
     assert expected <= set(res["modules"])
 

@@ -431,3 +431,38 @@ def test_aliased_admissions_in_forced_orders_equal_the_reference(order):
     np.testing.assert_array_equal(ga, _ref_ids(_FA, 12)[20:])
     np.testing.assert_array_equal(gb, _ref_ids(_FB, 12)[20:])
     assert eng.free_pages == 12 - 4  # the prefix's pinned pages stay
+
+
+def test_gc_stays_paused_while_any_capture_runs():
+    """A collection inside a capture could free a dead graph, whose
+    ``reset()`` voids the capture: ``gc_paused`` holds collection off
+    while any capture runs, on any thread, and restores what it found."""
+    import gc
+
+    from seldon_core_tpu_torch.runtime.programs import gc_paused
+
+    was = gc.isenabled()
+    gc.enable()
+    try:
+        inside, release = threading.Event(), threading.Event()
+
+        def other():
+            with gc_paused():
+                inside.set()
+                release.wait(10)
+
+        t = threading.Thread(target=other)
+        with gc_paused():
+            assert not gc.isenabled()
+            t.start()
+            assert inside.wait(10)
+        assert not gc.isenabled()  # the other thread still captures
+        release.set()
+        t.join(10)
+        assert not t.is_alive() and gc.isenabled()
+        gc.disable()
+        with gc_paused():
+            pass
+        assert not gc.isenabled()  # what it found stays
+    finally:
+        (gc.enable if was else gc.disable)()
