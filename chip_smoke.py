@@ -276,28 +276,54 @@ Prints one JSON object per line:
     ``total_memory``; the shm hop (``put_shm`` and ``resolve``, 1 KiB to
     64 MiB) fitted to a rate and a per-hop overhead, printed beside
     ``analysis/planlint.py``'s ``TRANSFER_GBPS`` and ``HOP_OVERHEAD_MS``.
-30. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
+30. ``gateway_7b`` (after ``observe_7b``, on ``serve_7b``'s weights): the
+    port's gateway in process in front of ``serve_7b``'s model behind the
+    runner's REST: a token by form fields; the 8 prompts through
+    ``/api/v0.1/predictions`` and ``/api/v0.1/stream``, ids equal to
+    ``serve_7b``'s; 401 without a token; a stream abandoned at the gateway
+    after its first event gives back its slot and pages at once.  Client
+    TTFT/TPOT through the gateway and direct: reported.
+31. ``gateway_resnet50``: the gateway as a child (``--firehose jsonl``) in
+    front of a runner child serving ``resnet50-int8.json`` (wire seeds,
+    batching off); tokens by HTTP Basic and by form; singles (sequential,
+    concurrent; binTensor and ndarray) and a batch of 64 over REST, and
+    over gRPC ``Seldon.Predict`` with ``oauth_token``, bitwise equal to the
+    in-process graph; the cache tier (a hit moves no K1 count, 16 identical
+    concurrent bodies one forward), a firehose record per prediction equal
+    to the bytes sent and received, and a 2 s burst at twice the path's
+    rate answering only 200 or 429 with ``Retry-After``, low shed first.
+    p50/p95 through the gateway against direct: reported.
+32. ``fleet_resnet50``: a ``LocalFleet`` of 2 fused int8 ResNet50 replicas
+    on one artifact store behind the gateway's pool: 64 requests per
+    policy bitwise equal to the in-process graph, consistent-hash sticky
+    per body, streams pinned per ``X-Seldon-Session``; replica 1 killed
+    mid-burst with every answer 200, ejected, ``unreachable`` in a
+    ``partial`` ``/admin/fleet/health``; ``autoscale_tick`` to 3, the new
+    replica captured from the store at boot and nothing on the request
+    path.
+33. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
     phases of prefix caching, batched and chunked prefill, preemption and
     checkpoints together; ``slice_3b_phases``: ``spec_7b`` and
     ``parity_spec_7b``; ``slice_4a_i_phases``: the ``wire_*`` phases;
     ``slice_4a_ii_qos_phases``: ``grpc_7b``, ``workers``,
     ``qos_resnet50``; ``slice_4b_4c_i_phases``: the four of 14-17;
     ``slice_4c_ii_phases``: ``llm_graphs_7b``; ``slice_4d_4e_phases``:
-    25-26; ``slice_5_i_phases``: 27-28; ``slice_5_ii_phases``: 29).
-31. ``{"kernels": [...]}``: one entry per kernel with its launches in the
+    25-26; ``slice_5_i_phases``: 27-28; ``slice_5_ii_phases``: 29;
+    ``slice_5b_i_phases``: 30-32).
+34. ``{"kernels": [...]}``: one entry per kernel with its launches in the
     runs through entry points (``llm_json``, ``serve_7b``, ``grpc_7b``,
     ``features_7b``, ``spec_7b``, ``llm_graphs_7b``, ``checkpoint_7b``,
     ``plan_resnet50``,
     ``cache_resnet50``, ``canary``, ``wire_resnet50``,
     ``wire_llm``, ``workers``, ``qos_resnet50``, ``artifacts_resnet50``,
-    ``device_plane_resnet50``, ``observe_7b``, ``observe_resnet50`` and
-    ``lint``,
+    ``device_plane_resnet50``, ``observe_7b``, ``observe_resnet50``,
+    ``lint``, ``gateway_7b``, ``gateway_resnet50`` and ``fleet_resnet50``,
     counted by the child
     processes where the kernels run there; K1 also
     ``resnet50_launches``: the int8 REST run), each phase's count beside,
     its error, times and bound (K2 also at its two long cases and the
     shared-prefix case).
-32. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+35. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
@@ -3719,6 +3745,7 @@ def runner_child_main(argv: list) -> int:
     write its launch counts to ``COUNTS.<pid>.json``."""
     import atexit
     import os
+    import signal
 
     sys.path.insert(0, str(ROOT))
     counts, rest = argv[0], argv[1:]
@@ -3730,6 +3757,10 @@ def runner_child_main(argv: list) -> int:
         "seldon_core_tpu_torch.models.resnet:ResNet50Model"))
     atexit.register(lambda: Path(f"{counts}.{os.getpid()}.json").write_text(
         json.dumps(read_launches())))
+    # the counts so far, on request (``_child_launches_now``)
+    signal.signal(signal.SIGUSR1, lambda s, f: Path(
+        f"{counts}-now.{os.getpid()}.json").write_text(
+            json.dumps(read_launches())))
     local.engine_main(rest)
     return 0
 
@@ -5633,6 +5664,745 @@ def lint_phase(torch) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# slice 5b-i: the front door (the gateway) and the fleet data plane
+# ----------------------------------------------------------------------
+
+GATEWAY_IMAGES = 16
+GATEWAY_BURST_S = 2.0
+FLEET_REQUESTS = 64
+FLEET_IMAGES = 8
+
+
+def _gw_token(port: int, key: str, secret: str, how: str) -> str:
+    """An OAuth token from the gateway on ``port``: the client's
+    credentials in an HTTP Basic header (``how`` "basic") or in the form
+    fields (``how`` "form")."""
+    import base64
+
+    headers = {"Content-Type": "application/x-www-form-urlencoded"}
+    form = "grant_type=client_credentials"
+    if how == "basic":
+        headers["Authorization"] = "Basic " + base64.b64encode(
+            f"{key}:{secret}".encode()).decode()
+    else:
+        form += f"&client_id={key}&client_secret={secret}"
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/oauth/token",
+                                 data=form.encode(), headers=headers)
+    with urllib.request.urlopen(req, timeout=60) as r:
+        body = json.loads(r.read())
+    if body.get("token_type") != "bearer":
+        raise AssertionError(f"gateway token ({how}): {body}")
+    return body["access_token"]
+
+
+def _gw_post(port: int, path: str, data: bytes, headers: dict) -> tuple:
+    """POST ``data``: ``(status, headers with lower-case names, body bytes,
+    seconds)``."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data,
+        headers={"Content-Type": "application/json", **headers})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, hdrs, raw = r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        code, hdrs, raw = e.code, e.headers, e.read()
+    return code, {k.lower(): v for k, v in hdrs.items()}, raw, \
+        time.perf_counter() - t0
+
+
+def _sse_timed(port: int, data: bytes, headers: dict) -> tuple:
+    """A stream request read event by event: ``(status, events, TTFT s,
+    TPOT s)`` as the client sees them (first token event after the send;
+    mean gap between token events)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/api/v0.1/stream", body=data,
+                     headers={"Content-Type": "application/json",
+                              **headers})
+        resp = conn.getresponse()
+        if not (resp.getheader("Content-Type") or "").startswith(
+                "text/event-stream"):
+            return resp.status, json.loads(resp.read()), None, None
+        events, times = [], []
+        for line in resp:
+            if line.startswith(b"data: "):
+                events.append(json.loads(line[6:]))
+                times.append(time.perf_counter())
+    finally:
+        conn.close()
+    toks = [i for i, e in enumerate(events) if "token" in e]
+    ttft = times[toks[0]] - t0 if toks else None
+    tpot = ((times[toks[-1]] - times[toks[0]]) / (len(toks) - 1)
+            if len(toks) > 1 else None)
+    return resp.status, events, ttft, tpot
+
+
+def _abandon_stream(port: int, data: bytes, headers: dict) -> float:
+    """Open a stream, read its first event, close the connection: the
+    ``time.perf_counter()`` of the close."""
+    import socket
+
+    s = socket.create_connection(("127.0.0.1", port), timeout=120)
+    try:
+        head = "".join(f"{k}: {v}\r\n" for k, v in {
+            "Host": "127.0.0.1", "Content-Type": "application/json",
+            "Content-Length": str(len(data)), **headers}.items())
+        s.sendall(f"POST /api/v0.1/stream HTTP/1.1\r\n{head}\r\n".encode()
+                  + data)
+        buf = b""
+        while b"data: " not in buf or not buf.split(b"data: ", 1)[1] \
+                .count(b"\n\n"):
+            chunk = s.recv(65536)
+            if not chunk:
+                raise AssertionError(f"abandoned stream: closed early {buf}")
+            buf += chunk
+    finally:
+        s.close()
+    return time.perf_counter()
+
+
+def gateway_7b_phase(torch, params) -> dict:
+    """``serve_7b``'s model behind the local runner's REST (in process, as
+    ``observe_7b`` boots it) and the port's gateway in front of it, in
+    process too.  A token from ``/oauth/token`` (form fields);
+    ``serve_7b``'s 8 prompts through the gateway's
+    ``/api/v0.1/predictions`` and ``/api/v0.1/stream`` (events relayed as
+    they arrive), ids equal to ``serve_7b``'s; a request without a token
+    answers 401; a stream the client abandons at the gateway after its
+    first event frees its slot and pages in the engine (all 95 free pages
+    back, well before the generation could have finished).  Reported:
+    TTFT and TPOT as the client sees them through the gateway and direct
+    (the same 8 concurrent streams), medians.  Returns the launches."""
+    from seldon_core_tpu_torch.gateway.app import Gateway
+    from seldon_core_tpu_torch.gateway.store import (
+        DeploymentRecord,
+        DeploymentStore,
+    )
+    from seldon_core_tpu_torch.operator.local import serve
+
+    OBSERVE_7B["params"] = params
+    prompts, want = SERVE_7B["prompts"], SERVE_7B["ids"]
+    bodies = [json.dumps({"jsonData": {"prompt_ids": p, "n_new": 16}})
+              .encode() for p in prompts]
+    long_new = 240  # 8 + 240 tokens fit max_len 256
+    abandon = json.dumps({"jsonData": {"prompt_ids": prompts[0][:8],
+                                       "n_new": long_new}}).encode()
+    out = {"phase": "gateway_7b", "card": CARD,
+           "path": "client -> gateway REST -> runner REST -> LLMComponent "
+                   "-> PagedLLMEngine (in process)"}
+    failed = []
+
+    def ids_of(answers, what):
+        got = []
+        for code, _, raw, _ in answers:
+            if code != 200:
+                raise AssertionError(f"gateway_7b {what}: HTTP {code}: "
+                                     f"{raw[:300]!r}")
+            got.append(json.loads(raw)["jsonData"]["ids"])
+        return got
+
+    def stream_ids(streams, what):
+        got = []
+        for code, events, _, _ in streams:
+            if code != 200 or not events or not events[-1].get("done"):
+                raise AssertionError(f"gateway_7b {what}: {code} "
+                                     f"{str(events)[:300]}")
+            done = events[-1]
+            toks = [e["token"] for e in events[:-1]]
+            if toks != done["ids"][done["prompt_len"]:]:
+                failed.append(f"{what}: token events differ from done ids")
+            got.append(done["ids"])
+        return got
+
+    async def run():
+        server, local = await serve(_observe_7b_graph(False), port=0,
+                                    host="127.0.0.1")
+        engine = local.engine.node_impl("llm").user.engine
+        store = DeploymentStore()
+        store.put(DeploymentRecord(
+            name="gateway-7b", oauth_key="llm-client", oauth_secret="s3cret",
+            engine_url=f"http://127.0.0.1:{server.port}"))
+        gw = Gateway(store)
+        gport = (await gw.start("127.0.0.1", 0)).port
+        eport = server.port
+        res = {}
+        try:
+            tok = await asyncio.to_thread(_gw_token, gport, "llm-client",
+                                          "s3cret", "form")
+            auth = {"Authorization": f"Bearer {tok}"}
+            # warm-up: every prefill bucket of the 8 prompts is captured
+            ids_of(await _in_threads(_gw_post, [
+                (eport, "/api/v0.1/predictions", b, {}) for b in bodies]),
+                "warm-up")
+            code, _, raw, _ = await asyncio.to_thread(
+                _gw_post, gport, "/api/v0.1/predictions", bodies[0], {})
+            res["no_token"] = {"status": code, "body": json.loads(raw)}
+            if code != 401:
+                failed.append(f"no token answered {code}")
+            engine.latency_log.clear()
+            t0 = time.perf_counter()
+            answers = await _in_threads(_gw_post, [
+                (gport, "/api/v0.1/predictions", b, auth) for b in bodies])
+            res["predictions_wall_s"] = time.perf_counter() - t0
+            if ids_of(answers, "predictions") != want:
+                failed.append("predictions ids differ from serve_7b's")
+            timing = {}
+            for label, port, hdr in (("gateway", gport, auth),
+                                     ("direct", eport, {}),
+                                     ("gateway_again", gport, auth)):
+                streams = await _in_threads(_sse_timed, [
+                    (port, b, hdr) for b in bodies])
+                if stream_ids(streams, f"{label} streams") != want:
+                    failed.append(f"{label} stream ids differ from "
+                                  "serve_7b's")
+                timing[label] = {
+                    "ttft_ms_median": statistics.median(
+                        s[2] for s in streams) * 1e3,
+                    "tpot_ms_median": statistics.median(
+                        s[3] for s in streams) * 1e3}
+            res["streams"] = timing
+            tpot_s = timing["direct"]["tpot_ms_median"] / 1e3
+            closed = await asyncio.to_thread(_abandon_stream, gport,
+                                             abandon, auth)
+            while engine.free_pages != 95 and \
+                    time.perf_counter() - closed < 60:
+                await asyncio.sleep(0.005)
+            free_s = time.perf_counter() - closed
+            res["abandoned"] = {
+                "n_new": long_new, "freed_s": free_s,
+                "free_pages": engine.free_pages,
+                "full_generation_s_at_tpot": long_new * tpot_s}
+            if engine.free_pages != 95 or free_s > 0.25 * long_new * tpot_s:
+                failed.append(f"abandoned stream not freed: {res['abandoned']}")
+            return res
+        finally:
+            await gw.close()
+            await server.stop()
+            await local.aclose()
+            engine.close()
+
+    reset_launches()
+    try:
+        out.update(asyncio.run(run()))
+    finally:
+        OBSERVE_7B.clear()
+    launches = read_launches()
+    out["launches"] = launches
+    emit(out)
+    if failed or not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"gateway_7b: {failed} {launches}")
+    return launches
+
+
+def _child_launches_now(child, prefix) -> dict:
+    """A runner child's launch counts now: it writes them on SIGUSR1."""
+    import signal
+
+    path = Path(f"{prefix}-now.{child.proc.pid}.json")
+    path.unlink(missing_ok=True)
+    child.proc.send_signal(signal.SIGUSR1)
+    deadline = time.monotonic() + 30
+    while True:
+        try:
+            return json.loads(path.read_text())
+        except (OSError, ValueError):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{child.label}: no launch counts")
+            time.sleep(0.01)
+
+
+def _firehose_records(path: Path, n: int) -> list:
+    """The first ``n`` records of a jsonl firehose file, waited for (the
+    gateway publishes off its event loop)."""
+    deadline = time.monotonic() + 60
+    while True:
+        lines = path.read_text().splitlines() if path.exists() else []
+        if len(lines) >= n or time.monotonic() > deadline:
+            return [json.loads(ln) for ln in lines]
+        time.sleep(0.05)
+
+
+def gateway_resnet50_phase(torch) -> dict:
+    """The port's gateway as a child (``python -m
+    seldon_core_tpu_torch.gateway.app --config ... --firehose jsonl``) in
+    front of a runner child serving ``resnet50-int8.json`` (BASELINE
+    config 3, full width, ``wire_resnet``'s seeds, batching off so every
+    answer is one batch-1 or batch-64 forward).  Three deployment records
+    name the runner: ``plain``, ``cached`` (``seldon.io/prediction-cache``)
+    and ``qos`` (``seldon.io/slo-p95-ms``).  Tokens by HTTP Basic and by
+    form fields.  Gated: 16 sequential and 16 concurrent singles
+    (binTensor; ndarray sequential) and a batch of 64 over the gateway's
+    REST, and 16 singles and the batch over its gRPC ``Seldon.Predict``
+    with ``oauth_token``, every answer bitwise equal to the in-process
+    graph; a repeated body answers ``X-Seldon-Cache: hit`` and the child's
+    K1 count does not move, 16 identical concurrent bodies make one engine
+    forward (one miss, K1 moves by one forward's count); one firehose
+    record per answered REST prediction, its request and response the
+    JSON of the bytes sent and received; in a 2 s burst at twice the rate
+    the gateway path sustains alone (measured here), only 200s and 429s
+    with ``Retry-After``, low priority shed first and most.  Reported:
+    p50/p95 of the singles through the gateway against direct.  Returns
+    the runner child's launches."""
+    import base64
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.graph.engine import GraphEngine
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.runtime.component import ComponentHandle
+    from seldon_core_tpu_torch.serving.grpc_api import SeldonGrpcClient
+
+    WIRE_DIR.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(23)
+    imgs = rng.integers(0, 256, (GATEWAY_IMAGES, 224, 224, 3)).astype(
+        np.float32)
+    batch = rng.integers(0, 256, (64, 224, 224, 3)).astype(np.float32)
+    u8 = rng.integers(0, 256, (8, 224, 224, 3)).astype(np.uint8)
+
+    def nd_body(x):
+        return json.dumps({"data": {"ndarray": x.astype(np.int64)
+                                    .tolist()}}).encode()
+
+    def u8_body(x):
+        return json.dumps({"data": {"binTensor": {
+            "shape": list(x.shape), "dtype": "uint8",
+            "b64": base64.b64encode(x.tobytes()).decode()}}}).encode()
+
+    gpath = WIRE_DIR / "graph_gateway_resnet50.json"
+    gpath.write_text(json.dumps(_resnet_graph(
+        True, {"seldon.io/batching": "false"})))
+    egrpc, ggrpc, gport = _free_port(), _free_port(), _free_port()
+    engine, counts = runner_child("gw_engine", [
+        "--graph", str(gpath), "--port", "0", "--host", "127.0.0.1",
+        "--grpc-port", str(egrpc)])
+    fdir = WIRE_DIR / "gateway_firehose"
+    shutil.rmtree(fdir, ignore_errors=True)
+    out = {"phase": "gateway_resnet50", "card": CARD,
+           "model": "int8 ResNet50 (3, 4, 6, 3), 224x224x3, 1000 classes, "
+                    "batching off",
+           "path": "client -> gateway child (REST, gRPC) -> runner child"}
+    failed = []
+    gw = None
+    try:
+        # in process: the graph over the same component at batch 1 and 64
+        local = ComponentHandle(wire_resnet(True), name="resnet")
+        graph = GraphEngine({"name": "resnet", "type": "MODEL"},
+                            resolver=lambda u, h=local: h)
+
+        def in_process(x):
+            return asyncio.run(graph.predict(
+                SeldonMessage.from_ndarray(x))).to_dict()["data"]
+
+        want_bin = [in_process(imgs[i:i + 1]) for i in range(GATEWAY_IMAGES)]
+        want_nd = [in_process(imgs[i:i + 1].astype(np.int64))
+                   for i in range(GATEWAY_IMAGES)]
+        want64 = in_process(batch)
+        top1_u8 = [int(np.asarray(in_process(u8[i:i + 1])["ndarray"])
+                       .argmax()) for i in range(len(u8))]
+        del local, graph
+        torch.cuda.empty_cache()
+        eport = engine.port("serving deployment")
+        base = f"http://127.0.0.1:{eport}"
+        deps = [
+            {"name": "resnet50-int8", "oauth_key": "plain",
+             "oauth_secret": "s-plain", "engine_url": base,
+             "engine_grpc": f"127.0.0.1:{egrpc}"},
+            {"name": "resnet50-int8-cached", "oauth_key": "cached",
+             "oauth_secret": "s-cached", "engine_url": base,
+             "annotations": {"seldon.io/prediction-cache": "true"}},
+            {"name": "resnet50-int8-qos", "oauth_key": "qos",
+             "oauth_secret": "s-qos", "engine_url": base,
+             "annotations": {"seldon.io/slo-p95-ms": "100"}}]
+        cfg = WIRE_DIR / "gateway_deployments.json"
+        cfg.write_text(json.dumps({"deployments": deps}))
+        gw = Child([sys.executable, "-m", "seldon_core_tpu_torch.gateway.app",
+                    "--config", str(cfg), "--port", str(gport),
+                    "--host", "127.0.0.1", "--grpc-port", str(ggrpc),
+                    "--firehose", "jsonl", "--firehose-dir", str(fdir)],
+                   label="gateway")
+        gw.wait_for("gateway REST on")
+        tok = {"plain": _gw_token(gport, "plain", "s-plain", "basic"),
+               "cached": _gw_token(gport, "cached", "s-cached", "form"),
+               "qos": _gw_token(gport, "qos", "s-qos", "form")}
+        auth = {k: {"Authorization": f"Bearer {v}"} for k, v in tok.items()}
+        sent = {k: [] for k in tok}  # (request bytes, answer bytes)
+
+        def post(client, data, hdr=None):
+            r = _gw_post(gport, "/api/v0.1/predictions", data,
+                         {**auth[client], **(hdr or {})})
+            sent[client].append((data, r[2]))
+            return r
+
+        def check(res, want, what):
+            bad = [r[0] for r in res if r[0] != 200]
+            if bad:
+                raise AssertionError(f"gateway_resnet50 {what}: {bad[:3]} "
+                                     f"{res[0][2][:300]!r}")
+            n = sum(json.loads(r[2])["data"] == w for r, w in zip(res, want))
+            if n != len(want):
+                failed.append(f"{what}: {n} of {len(want)} bitwise equal")
+            return n
+
+        # warm the path once, then the traffic
+        post("plain", _bin_body(imgs[:1]))
+        _post_raw(eport, "/api/v0.1/predictions", _bin_body(imgs[:1]))
+        singles = [_bin_body(imgs[i:i + 1]) for i in range(GATEWAY_IMAGES)]
+        seq = [post("plain", b) for b in singles]
+        direct = [_post_raw(eport, "/api/v0.1/predictions", b)
+                  for b in singles]
+        nd = [post("plain", nd_body(imgs[i:i + 1]))
+              for i in range(GATEWAY_IMAGES)]
+        with ThreadPoolExecutor(GATEWAY_IMAGES) as pool:
+            conc = list(pool.map(lambda b: post("plain", b), singles))
+        b64 = post("plain", _bin_body(batch))
+        out["bitwise_equal_in_process"] = {
+            "sequential_binTensor": check(seq, want_bin, "sequential"),
+            "sequential_ndarray": check(nd, want_nd, "ndarray"),
+            "concurrent_binTensor": check(conc, want_bin, "concurrent"),
+            "batch_64": check([b64], [want64], "batch of 64")}
+        out["latency"] = {
+            "gateway_sequential": _pctl([r[3] * 1e3 for r in seq]),
+            "direct_sequential": _pctl([r[2] * 1e3 for r in direct]),
+            "gateway_concurrent": _pctl([r[3] * 1e3 for r in conc])}
+        # gRPC through the gateway, oauth_token in the metadata
+        want_arr = [np.asarray(w["ndarray"], np.float64) for w in want_bin]
+
+        async def grpc_calls():
+            c = SeldonGrpcClient(f"127.0.0.1:{ggrpc}", token=tok["plain"],
+                                 timeout_s=600)
+            bad = SeldonGrpcClient(f"127.0.0.1:{ggrpc}", token="bogus",
+                                   timeout_s=60)
+            try:
+                got = []
+                for i in range(GATEWAY_IMAGES):
+                    o = await c.predict(SeldonMessage(
+                        data=imgs[i:i + 1], encoding="binTensor"))
+                    got.append(np.asarray(o.host_data(), np.float64))
+                o = await c.predict(SeldonMessage(data=batch,
+                                                  encoding="binTensor"))
+                got.append(np.asarray(o.host_data(), np.float64))
+                try:
+                    await bad.predict(SeldonMessage(data=imgs[:1],
+                                                    encoding="binTensor"))
+                    code = "OK"
+                except Exception as e:
+                    code = str(getattr(e, "code", lambda: e)())
+                return got, code
+            finally:
+                await c.close()
+                await bad.close()
+
+        got, bad_code = asyncio.run(grpc_calls())
+        n = sum(np.array_equal(g, w) for g, w in
+                zip(got, want_arr + [np.asarray(want64["ndarray"],
+                                                np.float64)]))
+        out["grpc"] = {"bitwise_equal_in_process": n,
+                       "bad_token": bad_code}
+        if n != GATEWAY_IMAGES + 1:
+            failed.append(f"gRPC: {n} of {GATEWAY_IMAGES + 1} bitwise equal")
+        if "UNAUTHENTICATED" not in bad_code:
+            failed.append(f"gRPC bad token answered {bad_code}")
+        # the cache tier: a hit launches nothing; 16 identical concurrent
+        # bodies make one engine forward
+        c0 = _child_launches_now(engine, counts)["int8_matmul"]
+        first = post("cached", singles[0])
+        c1 = _child_launches_now(engine, counts)["int8_matmul"]
+        again = post("cached", singles[0])
+        c2 = _child_launches_now(engine, counts)["int8_matmul"]
+        with ThreadPoolExecutor(16) as pool:
+            flight = list(pool.map(lambda _: post("cached", singles[1]),
+                                   range(16)))
+        c3 = _child_launches_now(engine, counts)["int8_matmul"]
+        states = sorted(r[1].get("x-seldon-cache", "") for r in flight)
+        out["cache"] = {"first": first[1].get("x-seldon-cache"),
+                        "again": again[1].get("x-seldon-cache"),
+                        "k1_one_forward": c1 - c0, "k1_on_hit": c2 - c1,
+                        "k1_for_16_identical": c3 - c2,
+                        "identical_states": states}
+        check([first, again], [want_bin[0]] * 2, "cache")
+        check(flight, [want_bin[1]] * 16, "single-flight")
+        if not (out["cache"]["first"] == "miss"
+                and out["cache"]["again"] == "hit" and c2 == c1
+                and c1 - c0 > 0 and c3 - c2 == c1 - c0
+                and states.count("miss") == 1
+                and set(states) <= {"miss", "coalesced", "hit"}):
+            failed.append(f"cache tier {out['cache']}")
+        # the QoS tier: the rate the path sustains alone, then twice it
+        ubodies = [u8_body(u8[i:i + 1]) for i in range(len(u8))]
+
+        def qos(k, pri):
+            i = k % len(ubodies)
+            return i, pri, post("qos", ubodies[i], {"X-Seldon-Priority": pri})
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(12) as pool:
+            alone = list(pool.map(lambda k: qos(k, "high"), range(48)))
+        rate = 48 / (time.perf_counter() - t0)
+        n_burst = int(2 * rate * GATEWAY_BURST_S)
+        pris = ["low", "normal", "high"]
+        with ThreadPoolExecutor(128) as pool:
+            start = time.perf_counter()
+            futs = []
+            for k in range(n_burst):
+                delay = start + k / (2 * rate) - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                futs.append(pool.submit(qos, k, pris[k % 3]))
+            burst = [f.result() for f in futs]
+        shed = {p: sum(1 for _, pr, r in burst if pr == p and r[0] == 429)
+                for p in pris}
+        sent_n = {p: sum(1 for _, pr, _ in burst if pr == p) for p in pris}
+        codes = sorted({r[0] for _, _, r in alone + burst})
+        no_retry = sum(1 for _, _, r in burst
+                       if r[0] == 429 and not r[1].get("retry-after"))
+        wrong = sum(1 for i, _, r in alone + burst if r[0] == 200 and int(
+            np.asarray(json.loads(r[2])["data"]["ndarray"]).argmax())
+            != top1_u8[i])
+        out["burst"] = {"alone_rps": rate, "offered_rps": 2 * rate,
+                        "seconds": GATEWAY_BURST_S, "sent": sent_n,
+                        "shed": shed, "codes": codes,
+                        "429_without_retry_after": no_retry,
+                        "top1_wrong": wrong,
+                        "goodput": {p: sent_n[p] - shed[p] for p in pris}}
+        if not (set(codes) <= {200, 429} and no_retry == 0 and wrong == 0
+                and shed["low"] > 0
+                and shed["low"] >= shed["normal"] >= shed["high"]):
+            failed.append(f"burst {out['burst']}")
+        # the firehose: one record per answered prediction, its JSON the
+        # bytes sent and received
+        fh = {}
+        for client, pairs in sent.items():
+            recs = _firehose_records(fdir / f"{client}.jsonl", len(pairs))
+            key = [json.dumps([json.loads(a), json.loads(b)], sort_keys=True)
+                   for a, b in pairs]
+            got_key = [json.dumps([r["request"], r["response"]],
+                                  sort_keys=True) for r in recs]
+            fh[client] = {"records": len(recs), "predictions": len(pairs),
+                          "equal": sorted(key) == sorted(got_key)}
+            if len(recs) != len(pairs) or sorted(key) != sorted(got_key):
+                failed.append(f"firehose {client}: {fh[client]}")
+        out["firehose"] = fh
+    finally:
+        if gw is not None:
+            gw.stop()
+        engine.stop()
+        shutil.rmtree(fdir, ignore_errors=True)
+    launches = _child_launches(counts)
+    out["launches"] = launches
+    emit(out)
+    if failed or launches["int8_matmul"] <= 0:
+        raise AssertionError(f"gateway_resnet50: {failed} {launches}")
+    return launches
+
+
+def fleet_resnet50_phase(torch) -> dict:
+    """A ``LocalFleet`` of 2 int8 ResNet50 replicas (full width,
+    ``wire_resnet``'s seeds, fused, batching off, one
+    ``seldon.io/artifact-store``) behind the port's gateway, in process.
+    Per routing policy (round-robin, consistent-hash, least-loaded), 64
+    requests over ``FLEET_IMAGES`` distinct images, every answer bitwise
+    equal to the in-process graph; under consistent-hash equal bodies land
+    on one replica, under round-robin on both.  Session affinity: streams
+    with ``X-Seldon-Session`` pin their session to one replica (the
+    ResNet answers 501, passed through).  Kill replica 1 after request 16
+    of a 64-request burst: every answer 200, the pool ejects the replica,
+    ``/admin/fleet/health`` shows it ``unreachable`` in a ``partial``
+    envelope.  Then ``autoscale_tick`` to 3 replicas: the new one captures
+    its bucket at boot from the store (``hydrated`` > 0, no live capture)
+    and nothing on the request path, its answers bitwise equal too.
+    Returns the launches."""
+    import shutil
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.gateway.app import Gateway
+    from seldon_core_tpu_torch.gateway.store import (
+        DeploymentRecord,
+        DeploymentStore,
+    )
+    from seldon_core_tpu_torch.graph.engine import GraphEngine
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.operator.local import LocalFleet
+    from seldon_core_tpu_torch.runtime.component import ComponentHandle
+
+    WIRE_DIR.mkdir(parents=True, exist_ok=True)
+    store_dir = WIRE_DIR / "fleet_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    rng = np.random.default_rng(29)
+    imgs = rng.integers(0, 256, (FLEET_IMAGES, 224, 224, 3)).astype(
+        np.float32)
+    bodies = [_bin_body(imgs[i:i + 1]) for i in range(FLEET_IMAGES)]
+    local = ComponentHandle(wire_resnet(True), name="resnet")
+    graph = GraphEngine({"name": "resnet", "type": "MODEL"},
+                        resolver=lambda u, h=local: h)
+    want = [asyncio.run(graph.predict(SeldonMessage.from_ndarray(
+        imgs[i:i + 1]))).to_dict()["data"] for i in range(FLEET_IMAGES)]
+    del local, graph
+    torch.cuda.empty_cache()
+    ann = {"seldon.io/graph-plan": "fused", "seldon.io/batching": "false",
+           "seldon.io/artifact-store": str(store_dir),
+           "seldon.io/fleet-replicas": "2",
+           "seldon.io/fleet-max-replicas": "3"}
+    policies = ("round-robin", "consistent-hash", "least-loaded")
+    out = {"phase": "fleet_resnet50", "card": CARD,
+           "model": "int8 ResNet50 (3, 4, 6, 3), 224x224x3, 1000 classes, "
+                    "fused, batching off, artifact store",
+           "requests_per_policy": FLEET_REQUESTS}
+    failed = []
+
+    async def run():
+        t0 = time.perf_counter()
+        fl = await LocalFleet(_resnet_graph(True, ann)).start()
+        res = {"boot_s": time.perf_counter() - t0}
+        store = DeploymentStore()
+        for policy in policies:
+            store.put(DeploymentRecord(
+                name=f"fleet-{policy}", oauth_key=policy, oauth_secret="s",
+                engine_urls=fl.urls(),
+                annotations={"seldon.io/fleet-replicas": "2",
+                             "seldon.io/fleet-policy": policy}))
+        gw = Gateway(store)
+        gport = (await gw.start("127.0.0.1", 0)).port
+        try:
+            auth = {}
+            for policy in policies:
+                tok = await asyncio.to_thread(_gw_token, gport, policy, "s",
+                                              "form")
+                auth[policy] = {"Authorization": f"Bearer {tok}"}
+
+            def check(answers, idx, what):
+                bad = [a[0] for a in answers if a[0] != 200]
+                if bad:
+                    raise AssertionError(f"fleet_resnet50 {what}: {bad[:3]}")
+                n = sum(json.loads(a[2])["data"] == want[i]
+                        for a, i in zip(answers, idx))
+                if n != len(idx):
+                    failed.append(f"{what}: {n} of {len(idx)} bitwise equal")
+                return n
+
+            idx = [k % FLEET_IMAGES for k in range(FLEET_REQUESTS)]
+            per = {}
+            for policy in policies:
+                answers = await _in_threads(_gw_post, [
+                    (gport, "/api/v0.1/predictions", bodies[i],
+                     auth[policy]) for i in idx])
+                homes = {}
+                for a, i in zip(answers, idx):
+                    homes.setdefault(i, set()).add(a[1]["x-seldon-replica"])
+                served = sorted({r for s in homes.values() for r in s})
+                per[policy] = {
+                    "bitwise_equal": check(answers, idx, policy),
+                    "replicas_served": served,
+                    "p50_p95": _pctl([a[3] * 1e3 for a in answers])}
+                if policy == "consistent-hash":
+                    sticky = all(len(s) == 1 for s in homes.values())
+                    per[policy]["equal_bodies_one_replica"] = sticky
+                    if not sticky:
+                        failed.append(f"consistent-hash homes {homes}")
+                elif policy == "round-robin" and served != ["r0", "r1"]:
+                    failed.append(f"round-robin served {served}")
+            res["policies"] = per
+            # session affinity: the stream route pins a session's replica
+            pool = gw._pools["fleet-round-robin"][2]
+            bound = {}
+            for k in range(8):
+                sess = f"session-{k % 2}"
+                code, _, raw, _ = await asyncio.to_thread(
+                    _gw_post, gport, "/api/v0.1/stream", bodies[0],
+                    {**auth["round-robin"], "X-Seldon-Session": sess})
+                bound.setdefault(sess, []).append(
+                    (code, pool.session_url(sess)))
+            res["session_affinity"] = {
+                s: sorted({u for _, u in v}) for s, v in bound.items()}
+            if not all(len({u for _, u in v}) == 1 and None not in
+                       {u for _, u in v} and {c for c, _ in v} == {501}
+                       for v in bound.values()):
+                failed.append(f"session affinity {bound}")
+            # kill replica 1 after request 16 of a burst of 64
+            kill_answers = []
+            for k in range(FLEET_REQUESTS):
+                if k == 16:
+                    await fl.kill(1)
+                kill_answers.append(await asyncio.to_thread(
+                    _gw_post, gport, "/api/v0.1/predictions",
+                    bodies[idx[k]], auth["round-robin"]))
+            codes = sorted({a[0] for a in kill_answers})
+            check(kill_answers, idx, "kill burst")
+            snap = pool.snapshot()
+            r1 = next(r for r in snap["replicas"] if r["replica"] == "r1")
+            code, health = await asyncio.to_thread(
+                _get_json, gport,
+                "/admin/fleet/health?deployment=fleet-round-robin&refresh=1")
+            res["kill"] = {
+                "codes": codes, "r1": r1,
+                "after_kill_served": sorted({a[1].get("x-seldon-replica")
+                                             for a in kill_answers[16:]}),
+                "fleet_health": {k: health.get(k) for k in (
+                    "verdict", "partial", "unreachable")},
+                "r1_health": health.get("replicas", {}).get("r1")}
+            if not (codes == [200] and r1["ejections"] >= 1
+                    and r1["state"] in ("ejected", "probing")
+                    and code == 200 and health.get("partial") is True
+                    and "r1" in health.get("unreachable", ())
+                    and (health.get("replicas", {}).get("r1") or {})
+                    .get("unreachable") is True):
+                failed.append(f"kill drill {res['kill']}")
+            # autoscale to 3: the new replica boots warm from the store
+            t1 = time.perf_counter()
+            d = await fl.autoscale_tick({"demandRps": 20.0,
+                                         "capacityRps": 10.0})
+            scale_s = time.perf_counter() - t1
+            new = fl.replicas()[-1]
+            nport = int(new["url"].rsplit(":", 1)[1])
+            at_boot = (await asyncio.to_thread(_get_json, nport,
+                                               "/admin/artifacts"))[1]
+            answers = await _in_threads(_gw_post, [
+                (nport, "/api/v0.1/predictions", bodies[i], {})
+                for i in range(FLEET_IMAGES)])
+            after = (await asyncio.to_thread(_get_json, nport,
+                                             "/admin/artifacts"))[1]
+            res["autoscale"] = {
+                "decision": d.to_dict(), "replicas": len(fl),
+                "scale_up_s": scale_s, "new_replica": new["rid"],
+                "coverage": new.get("artifact_coverage"),
+                "hydrated_at_boot": at_boot.get("hydrated"),
+                "live_at_boot": at_boot.get("liveCompiles"),
+                "request_path_captures": (after.get("liveCompiles", 0)
+                                          - at_boot.get("liveCompiles", 0)),
+                "bitwise_equal": check(answers, list(range(FLEET_IMAGES)),
+                                       "new replica"),
+                "first_request_ms": answers[0][3] * 1e3}
+            a = res["autoscale"]
+            if not (d.desired == 3 and len(fl) == 3
+                    and (a["hydrated_at_boot"] or 0) > 0
+                    and a["live_at_boot"] == 0
+                    and a["request_path_captures"] == 0):
+                failed.append(f"autoscale {a}")
+            return res
+        finally:
+            await gw.close()
+            await fl.stop()
+
+    reset_launches()
+    try:
+        out.update(asyncio.run(run()))
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    launches = read_launches()
+    out["launches"] = launches
+    emit(out)
+    if failed or launches["int8_matmul"] <= 0:
+        raise AssertionError(f"fleet_resnet50: {failed} {launches}")
+    return launches
+
+
 def ptxas_report(log: str) -> list:
     """Registers, spills and shared memory per kernel from the build's
     ``-Xptxas -v`` output, names demangled where ``c++filt`` exists."""
@@ -5753,6 +6523,9 @@ def smoke() -> int:
     # slice 5-i: the three planes around the same weights behind REST
     runs["observe_7b"] = timed("observe_7b", observe_7b_phase, torch,
                                params_7b)
+    # slice 5b-i: the gateway in front of the same weights
+    runs["gateway_7b"] = timed("gateway_7b", gateway_7b_phase, torch,
+                               params_7b)
     del params_7b
     torch.cuda.empty_cache()
     timed("parity_7b", parity_7b_phase, torch)
@@ -5790,6 +6563,11 @@ def smoke() -> int:
                                      observe_resnet50_phase, torch)
     # slice 5-ii: the lint against what the phases above ran
     runs["lint"] = timed("lint", lint_phase, torch)
+    # slice 5b-i: the gateway and the fleet data plane
+    runs["gateway_resnet50"] = timed("gateway_resnet50",
+                                     gateway_resnet50_phase, torch)
+    runs["fleet_resnet50"] = timed("fleet_resnet50", fleet_resnet50_phase,
+                                   torch)
     slice_3a = sum(seconds[k] for k in ("features_7b", "parity_features_7b",
                                         "checkpoint_7b"))
     slice_3b = seconds["spec_7b"] + seconds["parity_spec_7b"]
@@ -5807,6 +6585,8 @@ def smoke() -> int:
           "slice_5_i_phases": seconds["observe_7b"]
           + seconds["observe_resnet50"],
           "slice_5_ii_phases": seconds["lint"],
+          "slice_5b_i_phases": seconds["gateway_7b"]
+          + seconds["gateway_resnet50"] + seconds["fleet_resnet50"],
           "total": time.perf_counter() - t0})
     launches = {k: sum(r[k] for r in runs.values())
                 for k in runs["serve_7b"]}

@@ -86,12 +86,19 @@ the native h2c gRPC tier on ``--native-grpc-port``.  ``--workers N`` forks
 N worker processes before anything touches the card, each with its own
 engine, all binding the same ports with ``SO_REUSEPORT``; the first worker
 to exit stops the group.
+
+:class:`LocalFleet` runs N replicas of one deployment in this process,
+each a :class:`LocalDeployment` behind its own REST port (``urls()`` for a
+gateway's replica pool), with ``kill``, ``add_replica``,
+``remove_replica`` and ``autoscale_tick``; every replica answers
+``/admin/fleet`` and ``/admin/fleet/*`` over the whole set.
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import logging
 import os
 import random
 import signal
@@ -123,8 +130,14 @@ from seldon_core_tpu_torch.runtime.batcher import BatchedModel, BatcherConfig
 from seldon_core_tpu_torch.runtime.component import load_component
 from seldon_core_tpu_torch.utils.metrics import EngineMetrics, MetricsRegistry
 
+logger = logging.getLogger(__name__)
+
+#: how long a killed or drained replica lets its requests in hand finish
+KILL_DRAIN_S = 30.0
+
 __all__ = ["resolve_component", "qos_config", "LocalPredictor",
-           "LocalDeployment", "serve", "build_parser", "engine_main"]
+           "LocalDeployment", "LocalFleet", "serve", "build_parser",
+           "engine_main"]
 
 
 def _batching_enabled(ann: dict) -> bool:
@@ -259,8 +272,11 @@ class LocalPredictor:
     deployment's, shared)."""
 
     def __init__(self, dep: Deployment, pred: Predictor, device: str,
-                 metrics: EngineMetrics):
+                 metrics: EngineMetrics, component_wrap=None):
+        """``component_wrap(handle)`` decorates every resolved node (a
+        fleet harness slowing one replica's components, say)."""
         ann = pred.annotations
+        wrap = component_wrap or (lambda handle: handle)
         self.spec = pred
         self.metrics = metrics
         plan_mode = graph_plan_mode(ann)
@@ -333,9 +349,9 @@ class LocalPredictor:
             artifacts=self.artifacts, device_plane=self.device_plane,
             tracer=_tracer_from_config(ann, where), health=self.health,
             profiler=self.profiler,
-            resolver=lambda u: resolve_component(
+            resolver=lambda u: wrap(resolve_component(
                 u, ann, device, qos=self.qos, metrics=metrics.registry,
-                device_plane=self.device_plane))
+                device_plane=self.device_plane)))
         plan = self.engine.plan
         if plan is None:
             self.artifacts = None  # nothing fused: nothing to store
@@ -424,15 +440,24 @@ class LocalDeployment:
     callers that read it."""
 
     def __init__(self, dep: Deployment, device: Optional[str] = None,
-                 seed: Optional[int] = None):
+                 seed: Optional[int] = None, publish_status: bool = True,
+                 component_wrap=None):
+        """``publish_status`` False leaves the process registries alone (a
+        fleet's replicas publish one replica-keyed snapshot through their
+        :class:`LocalFleet` instead)."""
         dev = str(resolve_device(device))
         self.spec = dep
+        #: the fleet harness this replica belongs to (``/admin/fleet`` on
+        #: the engine answers with its replica set), else None
+        self.fleet = None
         self.metrics = EngineMetrics(MetricsRegistry(), deployment=dep.name)
-        self.predictors = [LocalPredictor(dep, p, dev, self.metrics)
+        self.predictors = [LocalPredictor(dep, p, dev, self.metrics,
+                                          component_wrap=component_wrap)
                            for p in dep.predictors]
         self.engine = self.predictors[0].engine
         self.qos = self.predictors[0].qos
-        if any(p.artifacts is not None for p in self.predictors):
+        if publish_status and any(p.artifacts is not None
+                                  for p in self.predictors):
             from seldon_core_tpu_torch.artifacts import publish as art_publish
 
             def _art_snapshot(preds=self.predictors):
@@ -441,14 +466,15 @@ class LocalDeployment:
                     for p in preds if p.artifacts is not None]}
 
             art_publish(dep.name, _art_snapshot)
-        if any(p.qos is not None for p in self.predictors):
+        if publish_status and any(p.qos is not None for p in self.predictors):
             def _snapshot(preds=self.predictors):
                 return {"predictors": [
                     {"name": p.spec.name, **p.qos.snapshot()}
                     for p in preds if p.qos is not None]}
 
             publish(dep.name, _snapshot)
-        if any(p.health is not None for p in self.predictors):
+        if publish_status and any(p.health is not None
+                                  for p in self.predictors):
             from seldon_core_tpu_torch.health import publish as health_publish
 
             def _health_snapshot(preds=self.predictors):
@@ -514,6 +540,16 @@ class LocalDeployment:
     def replica(self) -> str:
         return self.engine.replica
 
+    def set_replica(self, rid: str) -> None:
+        """Stamp replica identity on every per-replica surface: engine
+        span attributes and response meta, flight records, exemplars and
+        the ``X-Seldon-Replica`` answer header."""
+        self.metrics.registry.exemplar_labels["replica"] = rid
+        for p in self.predictors:
+            p.engine.replica = rid
+            if p.health is not None:
+                p.health.recorder.replica = rid
+
     async def aclose(self) -> None:
         """Stop every predictor's plane samplers."""
         for p in self.predictors:
@@ -545,6 +581,338 @@ class LocalDeployment:
         for p in self.predictors:
             out = await p.engine.send_feedback(fb)
         return out
+
+
+class LocalFleet:
+    """N in-process engine replicas of ONE deployment behind real HTTP —
+    the analog of ``replicas: N`` pods (reference ``operator/local.py``
+    ``LocalFleet``).
+
+    Each replica is its own :class:`LocalDeployment` (own metrics
+    registry, own planes) served by a :class:`RestServer` on an ephemeral
+    port; a gateway routes over :meth:`urls` through its ReplicaPool.
+    Registry publishes are aggregated HERE, keyed by replica id, so the
+    process registries' ``qos``/``health``/``artifacts`` snapshots stay
+    truthful at N>1.  With ``seldon.io/artifact-store`` set, a replica
+    added later (:meth:`add_replica`, :meth:`autoscale_tick`) captures its
+    buckets at boot from the store the first replicas published, and its
+    membership entry records the store's coverage.  ``autoscale_tick``
+    closes the loop: demand/capacity/burn signals → Autoscaler decision →
+    replicas added or drained.
+    """
+
+    def __init__(self, dep, replicas: Optional[int] = None,
+                 seed: Optional[int] = None, component_wrap=None,
+                 host: str = "127.0.0.1", device: Optional[str] = None):
+        """``dep`` is a ``Deployment`` or what ``load_deployment`` reads;
+        ``component_wrap(index, handle)`` decorates replica ``index``'s
+        nodes."""
+        import dataclasses
+
+        from seldon_core_tpu_torch.fleet import (
+            Autoscaler,
+            FleetConfig,
+            FleetObserver,
+            fleet_config_from_annotations,
+            observe_config_from_annotations,
+        )
+
+        if not isinstance(dep, Deployment):
+            dep = load_deployment(dep)
+        self.spec = dep
+        merged = dict(dep.annotations)
+        try:
+            cfg = fleet_config_from_annotations(merged, dep.name)
+        except ValueError as e:
+            logger.warning("deployment %s: %s — fleet defaults in effect",
+                           dep.name, e)
+            cfg = None
+        if cfg is None or not cfg.enabled:
+            n = replicas or 1
+            cfg = FleetConfig(enabled=True, replicas=n, max_replicas=max(n, 1))
+        if replicas is not None and replicas != cfg.replicas:
+            cfg = dataclasses.replace(
+                cfg, replicas=replicas,
+                min_replicas=min(cfg.min_replicas, replicas),
+                max_replicas=max(cfg.max_replicas, replicas),
+            )
+        self.config = cfg
+        self.autoscaler = Autoscaler(cfg)
+        # the engine-side /admin/fleet/* aggregation endpoints scrape the
+        # replica set through this observer
+        try:
+            obs_cfg = observe_config_from_annotations(merged, dep.name)
+        except ValueError as e:
+            logger.warning("deployment %s: %s — fleet-obs defaults in "
+                           "effect", dep.name, e)
+            obs_cfg = None
+        self.observer = FleetObserver(obs_cfg)
+        self._obs_session = None
+        #: manual demand/capacity/burn override for tests and drills —
+        #: when None the live profiling/health planes are summed instead
+        self.signals_override: Optional[dict] = None
+        self.last_decision = None
+        self._seed = seed
+        self._component_wrap = component_wrap
+        self._host = host
+        self._device = device
+        self._replicas: list = []
+        self._seq = 0
+
+    # -- lifecycle ------------------------------------------------------
+    async def start(self) -> "LocalFleet":
+        for _ in range(self.config.replicas):
+            await self.add_replica()
+        return self
+
+    async def stop(self) -> None:
+        for rep in self._replicas:
+            if not rep["killed"]:
+                try:
+                    await rep["server"].stop()
+                except Exception:
+                    pass
+            await rep["local"].aclose()
+        # shutdown path, called once after traffic drains — no concurrent
+        # coroutine mutates the replica list here
+        self._replicas.clear()  # graphlint: disable=RL602
+        if self._obs_session is not None:
+            await self._obs_session.close()
+            self._obs_session = None
+        self._unpublish()
+
+    def obs_session(self):
+        """The ``HttpSession`` of the observability scrapes (shared
+        across scrapes; closed in stop())."""
+        from seldon_core_tpu_torch.serving.client import HttpSession
+
+        if self._obs_session is None:
+            self._obs_session = HttpSession()
+        return self._obs_session
+
+    async def add_replica(self) -> dict:
+        """Boot one more in-process replica (autoscale up / initial
+        boot): a fresh LocalDeployment and REST server on an ephemeral
+        port, registered into membership and the aggregated publish."""
+        from seldon_core_tpu_torch.serving.rest import RestServer
+
+        idx = self._seq
+        self._seq += 1
+        wrap = None
+        if self._component_wrap is not None:
+            cw = self._component_wrap
+
+            def wrap(handle, _i=idx):
+                return cw(_i, handle)
+
+        local = LocalDeployment(self.spec, device=self._device,
+                                seed=self._seed, publish_status=False,
+                                component_wrap=wrap)
+        local.fleet = self
+        local.set_replica(f"r{idx}")
+        # warm-artifact admission: the replica's captures from the store
+        # (and the precompile warm-up) ran inside the LocalDeployment
+        # build above, so its first predict cannot hit a cold capture for
+        # any stored bucket; the coverage verdict is kept on the
+        # membership entry
+        coverage = None
+        art = local.artifacts
+        if art is not None:
+            coverage = art.coverage()
+        server = await RestServer(local, host=self._host, port=0,
+                                  metrics=local.metrics).start()
+        rep = {
+            "rid": f"r{idx}",
+            "local": local,
+            "server": server,
+            "url": f"http://{self._host}:{server.port}",
+            "killed": False,
+        }
+        if coverage is not None:
+            rep["artifact_coverage"] = coverage
+        self._replicas.append(rep)
+        self._publish()
+        return rep
+
+    async def remove_replica(self) -> Optional[dict]:
+        """Drain the newest replica (autoscale down); never drops below
+        one live replica."""
+        live = [r for r in self._replicas if not r["killed"]]
+        if len(live) <= 1:
+            return None
+        rep = live[-1]
+        self._replicas.remove(rep)
+        try:
+            await rep["server"].stop(drain_s=KILL_DRAIN_S)
+        except Exception:
+            pass
+        await rep["local"].aclose()
+        self._publish()
+        return rep
+
+    async def kill(self, idx: int) -> dict:
+        """Chaos: stop replica ``idx``'s server WITHOUT removing it from
+        membership — connections now refuse, exactly like a crashed pod
+        whose endpoint has not yet been reconciled away (requests in hand
+        finish first, as aiohttp's shutdown lets them).  The gateway's
+        retry-next-replica + pool ejection must absorb it."""
+        rep = self._replicas[idx]
+        if not rep["killed"]:
+            await rep["server"].stop(drain_s=KILL_DRAIN_S)
+            rep["killed"] = True
+        return rep
+
+    # -- membership / routing ------------------------------------------
+    def urls(self) -> tuple:
+        """Every member URL, killed ones included — membership is the
+        operator's view; the pool's health gating ejects the dead."""
+        return tuple(rep["url"] for rep in self._replicas)
+
+    def replicas(self) -> list:
+        return list(self._replicas)
+
+    def __len__(self) -> int:
+        return len(self._replicas)
+
+    # -- status / signals ----------------------------------------------
+    def snapshot(self) -> dict:
+        """The engine ``/admin/fleet`` posture (and the fleet registry's)."""
+        return {
+            "deployment": self.spec.name,
+            "policy": self.config.policy,
+            "autoscale": self.config.autoscale,
+            "desired": len(self._replicas),
+            "replicas": [
+                {"replica": rep["rid"], "url": rep["url"],
+                 "state": "killed" if rep["killed"] else "healthy",
+                 **({"artifactCoverage": rep["artifact_coverage"]}
+                    if "artifact_coverage" in rep else {})}
+                for rep in self._replicas
+            ],
+            "signals": self._signals(),
+        }
+
+    def _signals(self) -> dict:
+        """Autoscale inputs: attributed-FLOP demand vs achievable fleet
+        capacity (profiling plane's capacity model, summed over live
+        replicas) and the worst SLO burn verdict (health plane)."""
+        if self.signals_override is not None:
+            return dict(self.signals_override)
+        from seldon_core_tpu_torch.profiling.http import capacity_body
+
+        demand = capacity = 0.0
+        have = False
+        burn_warn = burn_critical = False
+        for rep in self._replicas:
+            if rep["killed"]:
+                continue
+            prof = rep["local"].profiler
+            if prof is not None:
+                try:
+                    status, payload = capacity_body(prof, {})
+                except ValueError:
+                    status, payload = 0, {}
+                if status == 200:
+                    demand += float(payload.get("observedRps") or 0.0)
+                    capacity += float(payload.get("achievableRps") or 0.0)
+                    have = True
+            plane = rep["local"].health
+            if plane is not None:
+                level = plane.verdict().get("level", 0)
+                burn_warn = burn_warn or level >= 1
+                burn_critical = burn_critical or level >= 2
+        out = {"burnWarn": burn_warn, "burnCritical": burn_critical}
+        if have:
+            out["demandRps"] = round(demand, 3)
+            out["capacityRps"] = round(capacity, 3)
+        return out
+
+    async def autoscale_tick(self, signals: Optional[dict] = None):
+        """One autoscale evaluation: signals → Autoscaler decision →
+        replicas added/drained to match.  Returns the decision."""
+        sig = signals if signals is not None else self._signals()
+        decision = self.autoscaler.decide(
+            current=len(self._replicas),
+            demand_rps=sig.get("demandRps"),
+            capacity_rps=sig.get("capacityRps"),
+            burn_critical=bool(sig.get("burnCritical")),
+            burn_warn=bool(sig.get("burnWarn")),
+        )
+        self.last_decision = decision
+        if decision.changed:
+            from seldon_core_tpu_torch.fleet.observe import record_decision
+
+            record_decision(
+                "autoscale", deployment=self.spec.name,
+                reason=decision.reason, current=decision.current,
+                desired=decision.desired,
+            )
+        while len(self._replicas) < decision.desired:
+            await self.add_replica()
+        while len(self._replicas) > decision.desired:
+            if await self.remove_replica() is None:
+                break
+        return decision
+
+    # -- registry publish ----------------------------------------------
+    def _plane_status(self, attr: str) -> dict:
+        """Replica-keyed plane snapshot: one list entry per (predictor,
+        replica) pair, each tagged with its replica id."""
+        preds: dict[str, list] = {}
+        for rep in self._replicas:
+            if rep["killed"]:
+                continue
+            for p in rep["local"].predictors:
+                plane = getattr(p, attr)
+                if plane is None:
+                    continue
+                preds.setdefault(p.spec.name, []).append(
+                    {"replica": rep["rid"], **plane.snapshot()}
+                )
+        return {
+            "predictors": [
+                {"name": name, "replicas": reps}
+                for name, reps in preds.items()
+            ]
+        }
+
+    def _publish(self) -> None:
+        from seldon_core_tpu_torch.artifacts import (
+            publish as artifacts_publish,
+        )
+        from seldon_core_tpu_torch.fleet import publish as fleet_publish
+        from seldon_core_tpu_torch.health import publish as health_publish
+
+        dep = self.spec.name
+        fleet_publish(dep, self.snapshot)
+        live = [r for r in self._replicas if not r["killed"]]
+        if not live:
+            return
+        sample = live[0]["local"].predictors
+        if any(p.qos is not None for p in sample):
+            publish(dep, lambda: self._plane_status("qos"))
+        if any(p.health is not None for p in sample):
+            health_publish(dep, lambda: self._plane_status("health"))
+        if any(p.artifacts is not None for p in sample):
+            artifacts_publish(dep, lambda: self._plane_status("artifacts"))
+
+    def _unpublish(self) -> None:
+        from seldon_core_tpu_torch.artifacts import (
+            unpublish as artifacts_unpublish,
+        )
+        from seldon_core_tpu_torch.fleet import unpublish as fleet_unpublish
+        from seldon_core_tpu_torch.health import (
+            unpublish as health_unpublish,
+        )
+        from seldon_core_tpu_torch.qos.registry import (
+            unpublish as qos_unpublish,
+        )
+
+        dep = self.spec.name
+        fleet_unpublish(dep)
+        qos_unpublish(dep)
+        health_unpublish(dep)
+        artifacts_unpublish(dep)
 
 
 async def serve(graph, port: int = 8000, host: str = "0.0.0.0",

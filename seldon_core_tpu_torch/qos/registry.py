@@ -8,7 +8,7 @@ from __future__ import annotations
 import threading
 from typing import Callable, Optional
 
-__all__ = ["publish", "snapshot"]
+__all__ = ["publish", "unpublish", "snapshot"]
 
 _lock = threading.Lock()
 _providers: dict[str, Callable[[], dict]] = {}
@@ -17,6 +17,11 @@ _providers: dict[str, Callable[[], dict]] = {}
 def publish(deployment: str, provider: Callable[[], dict]) -> None:
     with _lock:
         _providers[deployment] = provider
+
+
+def unpublish(deployment: str) -> None:
+    with _lock:
+        _providers.pop(deployment, None)
 
 
 def snapshot(deployment: str) -> Optional[dict]:

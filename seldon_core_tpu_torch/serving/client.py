@@ -10,9 +10,15 @@ server-sent events as an async generator of event dicts).
 
 Both run on :class:`HttpClient`, an asyncio HTTP/1.1 client of the port's
 own with a pool of keep-alive connections (the reference's runs on
-aiohttp, which the card's machine does not have).  It reads bodies with a
-``Content-Length``, chunked bodies and bodies that end with the
-connection, so it talks to the port's servers and the reference's alike.
+aiohttp; the card's machine has aiohttp too, but the port keeps to the
+standard library).  It reads bodies with a ``Content-Length``, chunked
+bodies and bodies that end with the connection, so it talks to the port's
+servers and the reference's alike.  :class:`HttpSession` keeps one client
+per host and port for callers that talk to many (the gateway, the fleet
+observer), the role of aiohttp's ``ClientSession``.  A connection that
+could not be opened raises :class:`ConnectError`, distinct from a
+connection that broke later: only the first provably never reached the
+server, so only it is safe to replay elsewhere.
 
 Errors map as the reference's do, to :class:`SeldonComponentError`: a
 remote FAILURE status keeps its code and reason; a connect timeout or a
@@ -43,7 +49,7 @@ import asyncio
 import json as _json
 import logging
 from typing import AsyncIterator, Optional, Sequence
-from urllib.parse import urlsplit
+from urllib.parse import urlencode, urlsplit
 
 from seldon_core_tpu_torch.messages import (
     DeviceTensorRef,
@@ -54,7 +60,8 @@ from seldon_core_tpu_torch.messages import (
 from seldon_core_tpu_torch.runtime.component import SeldonComponentError
 from seldon_core_tpu_torch.utils.tracing import current_trace, trace_headers
 
-__all__ = ["HttpClient", "HttpError", "RemoteComponent", "ExternalClient",
+__all__ = ["HttpClient", "HttpSession", "HttpError", "ConnectError",
+           "ConnectTimeout", "RemoteComponent", "ExternalClient",
            "DEVICE_PLANE_HEADER", "plane_identity"]
 
 #: the answer header naming the server's process for the device plane
@@ -80,6 +87,18 @@ class HttpError(Exception):
 
 class ConnectTimeout(HttpError):
     pass
+
+
+class ConnectError(HttpError):
+    """The connection could not be opened (refused, unreachable): the
+    request never left this process.  Its text is aiohttp's
+    ``ClientConnectorError``'s, so error bodies that quote it read the
+    same as the reference's."""
+
+    def __init__(self, host: str, port: int, err: OSError):
+        super().__init__(f"Cannot connect to host {host}:{port} ssl:default "
+                         f"[{err.strerror or err}]")
+        self.os_error = err
 
 
 async def _read_head(reader) -> tuple[int, dict]:
@@ -170,11 +189,13 @@ class HttpClient:
                 f"connect to {self.host}:{self.port} timed out after "
                 f"{connect_timeout_s}s") from None
         except OSError as e:
-            raise HttpError(f"cannot connect to {self.host}:{self.port}: "
-                            f"{e}") from None
+            raise ConnectError(self.host, self.port, e) from None
 
-    async def _acquire(self):
-        """An idle pooled connection (reused: True) or a new one."""
+    async def _acquire(self, retry: bool = False):
+        """An idle pooled connection (reused: True) or a new one.  On the
+        retry after a stale keep-alive connection (``retry``), a failed
+        connect is reported as the broken connection it follows: the
+        first attempt's request may have reached the server."""
         now = self._loop.time()
         while self._idle:
             reader, writer, since = self._idle.pop()
@@ -182,7 +203,12 @@ class HttpClient:
                     and not writer.is_closing():
                 return reader, writer, True
             writer.close()
-        reader, writer = await self._connect(self.connect_timeout_s)
+        try:
+            reader, writer = await self._connect(self.connect_timeout_s)
+        except ConnectError as e:
+            if retry:
+                raise HttpError(f"connection lost, then {e}") from None
+            raise
         return reader, writer, False
 
     def _release(self, reader, writer) -> None:
@@ -203,7 +229,7 @@ class HttpClient:
         self._bind_loop()
         async with self._sem:
             for attempt in range(2):
-                reader, writer, reused = await self._acquire()
+                reader, writer, reused = await self._acquire(attempt > 0)
                 ok = False
                 try:
                     writer.write(self._head(method, path, body, headers)
@@ -230,12 +256,13 @@ class HttpClient:
                         writer.close()
             raise HttpError("unreachable")  # pragma: no cover
 
-    async def stream_lines(self, method: str, path: str, body: bytes,
-                           headers: Optional[dict] = None,
-                           connect_timeout_s: Optional[float] = 10.0):
+    async def stream(self, method: str, path: str, body: bytes,
+                     headers: Optional[dict] = None,
+                     connect_timeout_s: Optional[float] = 10.0):
         """Open a request on a connection of its own and return ``(status,
-        headers, lines)``: ``lines`` is an async generator of the body's
-        lines; closing it closes the connection."""
+        headers, chunks)``: ``chunks`` is an async generator of the body's
+        bytes as they arrive (no total deadline); closing it closes the
+        connection, which ends the request at the server."""
         self._bind_loop()
         reader, writer = await self._connect(connect_timeout_s)
         try:
@@ -246,10 +273,26 @@ class HttpClient:
             writer.close()
             raise
 
+        async def chunks():
+            try:
+                async for data in _chunks(reader, rh):
+                    yield data
+            finally:
+                writer.close()
+
+        return status, rh, chunks()
+
+    async def stream_lines(self, method: str, path: str, body: bytes,
+                           headers: Optional[dict] = None,
+                           connect_timeout_s: Optional[float] = 10.0):
+        """:meth:`stream` with the body cut into lines."""
+        status, rh, chunks = await self.stream(method, path, body, headers,
+                                               connect_timeout_s)
+
         async def lines():
             buf = b""
             try:
-                async for data in _chunks(reader, rh):
+                async for data in chunks:
                     buf += data
                     while b"\n" in buf:
                         line, _, buf = buf.partition(b"\n")
@@ -257,7 +300,7 @@ class HttpClient:
                 if buf:
                     yield buf
             finally:
-                writer.close()
+                await chunks.aclose()
 
         return status, rh, lines()
 
@@ -265,6 +308,64 @@ class HttpClient:
         idle, self._idle = self._idle, []
         for _, writer, _ in idle:
             writer.close()
+
+
+class HttpSession:
+    """One :class:`HttpClient` per host and port, made on first use: the
+    role of aiohttp's ``ClientSession`` for callers that talk to many
+    servers.  ``limit`` bounds each host's connections."""
+
+    def __init__(self, limit: int = 150):
+        self._limit = limit
+        self._clients: dict[tuple[str, int], HttpClient] = {}
+
+    def client(self, url: str) -> tuple[HttpClient, str]:
+        """The client of ``url``'s host and the request target (path and
+        query) on it."""
+        u = urlsplit(url)
+        if u.scheme not in ("http", ""):
+            raise ValueError(f"only http:// endpoints are served: {url}")
+        host, port = u.hostname or "127.0.0.1", u.port or 80
+        cli = self._clients.get((host, port))
+        if cli is None:
+            cli = self._clients[(host, port)] = HttpClient(
+                host, port, limit=self._limit)
+        target = u.path or "/"
+        if u.query:
+            target += "?" + u.query
+        return cli, target
+
+    async def request(self, method: str, url: str, body: bytes = b"",
+                      headers: Optional[dict] = None,
+                      timeout_s: Optional[float] = None
+                      ) -> tuple[int, dict, bytes]:
+        """``(status, headers, body)`` of one request; past ``timeout_s``
+        (the whole exchange, connect included) ``asyncio.TimeoutError``."""
+        cli, target = self.client(url)
+        return await asyncio.wait_for(
+            cli.request(method, target, body, headers), timeout_s)
+
+    async def get_json(self, url: str, params: Optional[dict] = None,
+                       timeout_s: Optional[float] = None):
+        """``(status, decoded JSON body)`` of a GET with query ``params``;
+        a body that is not JSON raises ``ValueError``."""
+        if params:
+            url += ("&" if "?" in url else "?") + urlencode(params)
+        status, _, raw = await self.request("GET", url, timeout_s=timeout_s)
+        return status, _json.loads(raw)
+
+    async def stream(self, method: str, url: str, body: bytes,
+                     headers: Optional[dict] = None,
+                     connect_timeout_s: Optional[float] = 10.0):
+        """:meth:`HttpClient.stream` on ``url``."""
+        cli, target = self.client(url)
+        return await cli.stream(method, target, body, headers,
+                                connect_timeout_s)
+
+    async def close(self) -> None:
+        clients, self._clients = self._clients, {}
+        for cli in clients.values():
+            await cli.close()
 
 
 def _split_url(base_url: str) -> tuple[str, int, str]:

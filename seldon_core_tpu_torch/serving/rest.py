@@ -43,7 +43,11 @@ plane-enabled ``RemoteComponent``), and a request whose tensor rides a
 unresolvable one answers 400 naming ``DeviceTensorRef``, the sender's
 cue to downgrade).  ``GET /admin/artifacts`` (``?coverage=1``) answers the
 artifact plane's posture, or 404 when the deployment has none
-(``artifacts/http.py``).
+(``artifacts/http.py``).  ``GET /admin/fleet`` and ``/admin/fleet/{traces,
+health,flightrecorder,profile,capacity,decisions}`` answer over the
+engine's fleet harness (``engine.fleet``, a ``LocalFleet`` replica): the
+replica set and the aggregations of ``fleet/observe.py`` (404 with a hint
+without a fleet; ``decisions`` answers either way).
 
 Observability (the reference's routes and bodies): W3C ``traceparent`` /
 ``tracestate`` headers bind the trace context of a prediction, as the QoS
@@ -95,7 +99,7 @@ from seldon_core_tpu_torch.utils.tracing import (
 )
 
 __all__ = ["RestServer", "EngineServer", "ComponentServer", "Request",
-           "Response", "EventStream"]
+           "Response", "EventStream", "RelayStream"]
 
 logger = logging.getLogger(__name__)
 
@@ -212,7 +216,8 @@ def _openapi(which: str, **kw) -> Callable[[Request], Awaitable[Response]]:
         from seldon_core_tpu_torch.serving import openapi
 
         spec = {"engine": openapi.engine_spec,
-                "component": openapi.component_spec}[which](**kw)
+                "component": openapi.component_spec,
+                "gateway": openapi.gateway_spec}[which](**kw)
         return Response(200, json.dumps(spec).encode())
 
     return handler
@@ -227,6 +232,9 @@ class EventStream:
     the generator ended before one): the transport sends the headers,
     then ``encode(event)`` of ``first`` and of each later event of
     ``agen``, then calls ``end(code)`` once.  ``on_end`` runs then."""
+
+    #: a failure after the headers sends an ``{"error": ...}`` event
+    error_events = True
 
     def __init__(self, first, agen, metrics, name: str, t0: float):
         self.first = first
@@ -253,6 +261,23 @@ class EventStream:
         finally:
             if self.on_end is not None:
                 self.on_end()
+
+
+class RelayStream(EventStream):
+    """A stream relayed as it arrives from another server (the gateway's
+    stream proxy): ``first`` and every item of ``agen`` are raw bytes,
+    written unchanged.  A failure after the headers ends the stream and
+    sends nothing more; a client that leaves closes ``agen``, whose own
+    cleanup closes the upstream connection."""
+
+    error_events = False
+
+    def __init__(self, first: bytes, agen, on_end=None):
+        super().__init__(first, agen, None, "relay", time.perf_counter())
+        self.on_end = on_end
+
+    def encode(self, chunk) -> bytes:
+        return chunk
 
 
 def _error_event(e: Exception) -> bytes:
@@ -352,6 +377,8 @@ async def _send_events(reader, writer, stream: EventStream) -> int:
             except StopAsyncIteration:
                 return 200
             except Exception as e:
+                if not stream.error_events:
+                    return 500
                 logger.exception("stream failed (%s)", stream.name)
                 writer.write(_error_event(e))
                 await writer.drain()
@@ -529,6 +556,55 @@ class EngineServer:
             body = {"traces": tracer.recent(n) if n > 0 else []}
         return Response(200, json.dumps(body).encode())
 
+    async def fleet(self, req: Request) -> Response:
+        """The replica set of the engine's fleet harness (a ``LocalFleet``
+        on ``engine.fleet``), 404 with the hint without one."""
+        from seldon_core_tpu_torch.fleet.http import fleet_body
+
+        try:
+            status, payload = fleet_body(getattr(self.engine, "fleet", None),
+                                         req.query)
+        except ValueError:
+            return Response(400, _err_json(
+                400, "numeric query parameter expected"))
+        return Response(status, json.dumps(payload).encode())
+
+    def _fleet_obs(self, kind: str):
+        """``/admin/fleet/{kind}``: the aggregation over the harness's
+        replica set, killed replicas included (they come back
+        ``unreachable`` inside a ``partial`` envelope, never a 500);
+        ``decisions`` answers from the process ring without a fleet."""
+        async def handler(req: Request) -> Response:
+            from seldon_core_tpu_torch.fleet.observe import (
+                OBS_DISABLED,
+                decision_audit,
+                decisions_body,
+                fleet_obs_body,
+            )
+
+            fleet = getattr(self.engine, "fleet", None)
+            observer = getattr(fleet, "observer", None)
+            try:
+                if kind == "decisions":
+                    audit = observer.audit if observer is not None \
+                        else decision_audit()
+                    status, payload = decisions_body(audit, req.query)
+                elif fleet is None or observer is None:
+                    status, payload = 404, OBS_DISABLED
+                else:
+                    targets = [(rep["rid"], rep["url"])
+                               for rep in fleet.replicas()]
+                    status, payload = await fleet_obs_body(
+                        observer, fleet.obs_session(), targets, kind,
+                        req.query,
+                        deployment=getattr(fleet.spec, "name", ""))
+            except ValueError:
+                return Response(400, _err_json(
+                    400, "numeric query parameter expected"))
+            return Response(status, json.dumps(payload).encode())
+
+        return handler
+
     def _admin(self, body_fn, plane_attr: str):
         """An ``/admin/*`` route over the engine's ``plane_attr`` plane
         (``health`` or ``profiler``): 404 with the hint when it is off, 400
@@ -567,6 +643,11 @@ class EngineServer:
         server.add_route("GET", "/unpause", self.unpause)
         server.add_route("GET", "/metrics", self.prometheus)
         server.add_route("GET", "/admin/artifacts", self.artifacts)
+        server.add_route("GET", "/admin/fleet", self.fleet)
+        for kind in ("traces", "health", "flightrecorder", "profile",
+                     "capacity", "decisions"):
+            server.add_route("GET", f"/admin/fleet/{kind}",
+                             self._fleet_obs(kind))
         server.add_route("GET", "/trace", self.trace)
         for path, fn, attr in (
                 ("/admin/introspect", introspect_body, "health"),
@@ -710,6 +791,8 @@ class RestServer:
         self._streams: dict[str, Callable] = {}
         self._server: Optional[asyncio.base_events.Server] = None
         self._writers: set = set()  # open connections, closed by stop()
+        self._busy: set = set()  # connections with a request in hand
+        self._closing = False
         self._decoder: Optional[ThreadPoolExecutor] = None  # JSON bodies
         self._body_parser: Optional[BodyParser] = None  # the large ones
         if metrics is None and engine is not None and component is not None:
@@ -759,13 +842,24 @@ class RestServer:
             reuse_port=self.reuse_port or None)
         return self
 
-    async def stop(self) -> None:
+    async def stop(self, drain_s: float = 0.0) -> None:
+        """Stop accepting and close every connection.  With ``drain_s``
+        the requests in hand (a stream included) first run to their answer
+        for up to that long, as aiohttp's graceful shutdown lets them; idle
+        keep-alive connections close at once either way."""
         if self._server is not None:
             self._server.close()
-            for w in list(self._writers):  # idle keep-alive connections
+            self._closing = True
+            deadline = time.monotonic() + drain_s
+            for w in list(self._writers - self._busy):
+                w.close()
+            while self._busy and time.monotonic() < deadline:
+                await asyncio.sleep(0.01)
+            for w in list(self._writers):
                 w.close()
             await self._server.wait_closed()
             self._server = None
+            self._closing = False
         if self._decoder is not None:
             self._decoder.shutdown(wait=False)
             self._decoder = None
@@ -799,14 +893,20 @@ class RestServer:
                 close = (headers.get("connection", "").lower() == "close"
                          or version == "HTTP/1.0")
                 req = Request(method, target, headers, body, self)
-                # a stream's response ends with the connection
-                close = close or self.is_stream(req)
-                out = await self.dispatch(req)
-                if isinstance(out, EventStream):
-                    await _send_stream(reader, writer, out)
-                    break
-                await _respond(writer, out, close=close)
-                if close:
+                # a stream's response ends with the connection, and so
+                # does every answer of a server that is stopping
+                close = close or self.is_stream(req) or self._closing
+                self._busy.add(writer)
+                try:
+                    out = await self.dispatch(req)
+                    if isinstance(out, EventStream):
+                        await _send_stream(reader, writer, out)
+                        break
+                    await _respond(writer, out,
+                                   close=close or self._closing)
+                finally:
+                    self._busy.discard(writer)  # graphlint: disable=RL602
+                if close or self._closing:
                     break
         except (ConnectionError, asyncio.IncompleteReadError):
             pass

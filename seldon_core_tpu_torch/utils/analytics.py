@@ -5,9 +5,9 @@ analytics.py``).
 The catalog is CODE — the single source the dashboard, the alerts and the
 docs are generated from, so a metric rename cannot silently orphan its
 panels.  It lists every metric the port emits and nothing else: the
-gateway's, the fleet's and the placement plane's metrics come with their
-slices, and the reference's compile-cache metrics have no counterpart
-(the port keeps no compile cache).
+placement plane's metrics come with its slice, and the reference's
+compile-cache metrics have no counterpart (the port keeps no compile
+cache).
 """
 
 from __future__ import annotations
@@ -43,6 +43,18 @@ CATALOG: tuple[MetricInfo, ...] = (
         "transformer calls); status=ok|error so failed calls keep their "
         "latency instead of vanishing from the histogram",
         ("deployment", "predictor", "model_name", "status"),
+    ),
+    MetricInfo(
+        "seldon_api_server_ingress_seconds", "histogram",
+        "Gateway ingress latency per deployment (apife "
+        "AuthorizedWebMvcTagsProvider parity)",
+        ("deployment", "path"),
+    ),
+    MetricInfo(
+        "seldon_api_gateway_retries_total", "counter",
+        "Gateway->engine forward retries after connection failures "
+        "(apife HttpRetryHandler parity)",
+        ("deployment", "path"),
     ),
     MetricInfo(
         "seldon_api_model_feedback_total", "counter",
@@ -620,6 +632,66 @@ CATALOG: tuple[MetricInfo, ...] = (
         "(hydrations land on the ledger for bucket visibility but never "
         "count as captures or storm events)",
         ("segment", "bucket"),
+    ),
+    # -- fleet plane (docs/scale-out.md): multi-replica engine pool
+    # behind one gateway — capacity-aware routing, health-gated
+    # membership, autoscale
+    MetricInfo(
+        "seldon_fleet_forwards_total", "counter",
+        "Requests forwarded to a fleet replica and completed without a "
+        "transport failure (per-replica skew shows the routing policy "
+        "at work; snapshot at /admin/fleet)",
+        ("deployment", "replica"),
+    ),
+    MetricInfo(
+        "seldon_fleet_ejections_total", "counter",
+        "Replicas ejected from the healthy pool, by reason "
+        "(connect-error, probe-failed, health-critical, breaker-open); "
+        "ejected replicas are re-probed half-open before readmission",
+        ("deployment", "replica", "reason"),
+    ),
+    MetricInfo(
+        "seldon_fleet_replicas", "gauge",
+        "Fleet membership by state (healthy / probing / ejected) for "
+        "each deployment's replica pool",
+        ("deployment", "state"),
+    ),
+    # -- fleet observability plane (docs/observability.md#fleet-
+    # observability): cross-replica aggregation, straggler detection,
+    # decision audit
+    MetricInfo(
+        "seldon_fleet_obs_verdict", "gauge",
+        "Fused fleet health verdict level (0 ok / 1 warn / 2 critical) "
+        "from the /admin/fleet/health differential analysis",
+        ("deployment",),
+    ),
+    MetricInfo(
+        "seldon_fleet_obs_skew", "gauge",
+        "Per-replica robust z-score (MAD multiples from the fleet "
+        "median) on each compared dimension — latency, errors, compile "
+        "count; the straggler threshold is seldon.io/fleet-obs-mad-k",
+        ("deployment", "replica", "dimension"),
+    ),
+    MetricInfo(
+        "seldon_fleet_obs_straggler", "gauge",
+        "1 when the replica is currently flagged as a latency/error "
+        "straggler (named in the fleet verdict and penalized in "
+        "routing), else 0",
+        ("deployment", "replica"),
+    ),
+    MetricInfo(
+        "seldon_fleet_obs_unreachable", "gauge",
+        "Replicas that failed the last fleet-health scrape (timeout or "
+        "refused connect) — reported inside the partial envelope, "
+        "never a 500",
+        ("deployment",),
+    ),
+    MetricInfo(
+        "seldon_fleet_obs_scrape_seconds", "histogram",
+        "Wall time of one bounded scatter-gather scrape across the "
+        "fleet, by aggregation endpoint (the admin surface's own "
+        "overhead, gated in CI)",
+        ("endpoint",),
     ),
 )
 

@@ -9,8 +9,11 @@ every other module imports, and a checkpoint, a state blob and the wire
 tiers round-trip (a framed call with the device plane on among them), a
 fused deployment boots with the artifact, device, tracing, health and
 profiling planes, and the static-analysis plane lints an example clean,
-with those packages blocked.  A second probe imports the
-gRPC modules and serves a gRPC call, still without jax or the JAX package.
+with those packages blocked, and the gateway issues a token and forwards
+one prediction to an engine without them.  A second probe imports the
+gRPC modules and serves a gRPC call, and forwards one through the
+gateway's gRPC handler with its ``oauth_token``, still without jax or the
+JAX package.
 
 This runs in subprocesses: the test process itself has jax imported (the
 conftest pins its platform), so only a fresh interpreter with
@@ -147,6 +150,39 @@ with open("seldon_core_tpu_torch/examples/resnet50-int8.json") as f:
 spec["spec"]["annotations"]["seldon.io/device-plane"] = "true"
 assert [f.code for f in lint_deployment(spec)
         if f.severity != "INFO"] == []
+# the gateway without aiohttp, grpc or protobuf: a token, then one
+# prediction forwarded to an engine
+from seldon_core_tpu_torch.gateway.app import Gateway
+from seldon_core_tpu_torch.gateway.store import (
+    DeploymentRecord, DeploymentStore)
+from seldon_core_tpu_torch.operator.local import serve
+from seldon_core_tpu_torch.serving.client import HttpSession
+async def front():
+    eng, dep = await serve("seldon_core_tpu_torch/examples/iris.json",
+                           port=0, host="127.0.0.1", device="cpu")
+    store = DeploymentStore()
+    store.put(DeploymentRecord(name="iris", oauth_key="k", oauth_secret="s",
+                               engine_url=f"http://127.0.0.1:{eng.port}"))
+    gw = Gateway(store)
+    base = f"http://127.0.0.1:{(await gw.start('127.0.0.1', 0)).port}"
+    http = HttpSession()
+    try:
+        _, _, b = await http.request(
+            "POST", base + "/oauth/token",
+            b"grant_type=client_credentials&client_id=k&client_secret=s",
+            {"Content-Type": "application/x-www-form-urlencoded"})
+        st, _, b = await http.request(
+            "POST", base + "/api/v0.1/predictions",
+            b'{"data": {"ndarray": [[5.1, 3.5, 1.4, 0.2]]}}',
+            {"Authorization": "Bearer " + json.loads(b)["access_token"],
+             "Content-Type": "application/json"})
+        return st, len(json.loads(b)["data"]["ndarray"][0])
+    finally:
+        await http.close()
+        await gw.close()
+        await eng.stop()
+        await dep.aclose()
+assert asyncio.run(asyncio.wait_for(front(), 60)) == (200, 3)
 blocked = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("aiohttp", "grpc", "ml_dtypes")
                  or m.startswith("google.protobuf")
@@ -189,6 +225,40 @@ async def call():
         await nsrv.stop()
         await srv.stop()
 assert asyncio.run(asyncio.wait_for(call(), 60)) == [[[2.0, 2.0]]] * 2
+# the gateway's gRPC front: oauth_token in, the engine's Seldon service out
+import grpc
+from seldon_core_tpu_torch.gateway.app import Gateway
+from seldon_core_tpu_torch.gateway.store import (
+    DeploymentRecord, DeploymentStore)
+from seldon_core_tpu_torch.graph.spec import load_deployment
+from seldon_core_tpu_torch.operator.local import LocalDeployment
+async def gateway_grpc():
+    local = LocalDeployment(load_deployment(
+        "seldon_core_tpu_torch/examples/iris.json"), device="cpu")
+    eng = grpc_api.GrpcServer([grpc_api.seldon_service_handler(local)],
+                              port=0, host="127.0.0.1")
+    await eng.start()
+    store = DeploymentStore()
+    store.put(DeploymentRecord(name="iris", oauth_key="k", oauth_secret="s",
+                               engine_grpc=f"127.0.0.1:{eng.port}"))
+    gw = Gateway(store)
+    front = grpc_api.GrpcServer([gw.grpc_handler()], port=0,
+                                host="127.0.0.1")
+    await front.start()
+    tok, _ = gw.oauth.tokens.issue("k")
+    try:
+        async with grpc.aio.insecure_channel(f"127.0.0.1:{front.port}") as ch:
+            out = await grpc_api._Stub(ch, "Seldon").Predict(
+                convert.message_to_proto(SeldonMessage.from_ndarray(
+                    np.array([[5.1, 3.5, 1.4, 0.2]]))),
+                metadata=(("oauth_token", tok),), timeout=30)
+        return len(out.data.ndarray.values[0].list_value.values)
+    finally:
+        await front.stop()
+        await gw.close()
+        await eng.stop()
+        await local.aclose()
+assert asyncio.run(asyncio.wait_for(gateway_grpc(), 60)) == 3
 ref = sorted(m for m in sys.modules
              if m == "seldon_core_tpu" or m.startswith("seldon_core_tpu."))
 jaxish = sorted(m for m in sys.modules
@@ -310,6 +380,19 @@ def test_port_imports_without_jax_or_the_jax_package():
         "seldon_core_tpu_torch.fleet",
         "seldon_core_tpu_torch.fleet.config",
         "seldon_core_tpu_torch.fleet.observe",
+        "seldon_core_tpu_torch.fleet.ring",
+        "seldon_core_tpu_torch.fleet.pool",
+        "seldon_core_tpu_torch.fleet.policy",
+        "seldon_core_tpu_torch.fleet.registry",
+        "seldon_core_tpu_torch.fleet.http",
+        "seldon_core_tpu_torch.fleet.autoscale",
+        "seldon_core_tpu_torch.gateway",
+        "seldon_core_tpu_torch.gateway.app",
+        "seldon_core_tpu_torch.gateway.oauth",
+        "seldon_core_tpu_torch.gateway.store",
+        "seldon_core_tpu_torch.gateway.firehose",
+        "seldon_core_tpu_torch.gateway.firehose_net",
+        "seldon_core_tpu_torch.gateway.firehose_kafka",
         "seldon_core_tpu_torch.placement",
         "seldon_core_tpu_torch.placement.config",
         "seldon_core_tpu_torch.placement.layouts",
