@@ -6211,8 +6211,9 @@ def fleet_resnet50_phase(torch) -> dict:
     equal to the in-process graph; under consistent-hash equal bodies land
     on one replica, under round-robin on both.  Session affinity: streams
     with ``X-Seldon-Session`` pin their session to one replica (the
-    ResNet answers 501, passed through).  Kill replica 1 after request 16
-    of a 64-request burst: every answer 200, the pool ejects the replica,
+    ResNet answers 501, passed through).  Kill replica 1 after answer 16
+    of a 64-request burst, with requests in hand there: every answer 200,
+    the pool ejects the replica,
     ``/admin/fleet/health`` shows it ``unreachable`` in a ``partial``
     envelope.  Then ``autoscale_tick`` to 3 replicas: the new one captures
     its bucket at boot from the store (``hydrated`` > 0, no live capture)
@@ -6325,14 +6326,34 @@ def fleet_resnet50_phase(torch) -> dict:
                        {u for _, u in v} and {c for c, _ in v} == {501}
                        for v in bound.values()):
                 failed.append(f"session affinity {bound}")
-            # kill replica 1 after request 16 of a burst of 64
-            kill_answers = []
-            for k in range(FLEET_REQUESTS):
-                if k == 16:
-                    await fl.kill(1)
-                kill_answers.append(await asyncio.to_thread(
-                    _gw_post, gport, "/api/v0.1/predictions",
-                    bodies[idx[k]], auth["round-robin"]))
+            # kill replica 1 in a burst of 64: the first 48 go out at
+            # once, and r1 is killed when 16 answers are back, so that it
+            # holds at least 8 of its 24 (drained, each answered); the
+            # last 16 go out once the gateway has seen r1's idle
+            # keep-alive connections close, so their picks of r1 fail to
+            # connect and are replayed on r0 (a POST on a connection that
+            # closes under it may have been read, and is never replayed)
+            half = FLEET_REQUESTS * 3 // 4
+            answered = []
+
+            def post_counted(i):
+                a = _gw_post(gport, "/api/v0.1/predictions", bodies[i],
+                             auth["round-robin"])
+                answered.append(a[0])
+                return a
+
+            first = asyncio.ensure_future(_in_threads(
+                post_counted, [(idx[k],) for k in range(half)]))
+            while len(answered) < 16 and not first.done():
+                await asyncio.sleep(0.001)
+            in_hand_r1 = next(r for r in pool.snapshot()["replicas"]
+                              if r["replica"] == "r1")["inflight"]
+            killing = asyncio.ensure_future(fl.kill(1))
+            await asyncio.sleep(0.05)
+            rest = await _in_threads(post_counted, [
+                (idx[k],) for k in range(half, FLEET_REQUESTS)])
+            kill_answers = await first + rest
+            await killing
             codes = sorted({a[0] for a in kill_answers})
             check(kill_answers, idx, "kill burst")
             snap = pool.snapshot()
@@ -6341,13 +6362,14 @@ def fleet_resnet50_phase(torch) -> dict:
                 _get_json, gport,
                 "/admin/fleet/health?deployment=fleet-round-robin&refresh=1")
             res["kill"] = {
-                "codes": codes, "r1": r1,
+                "codes": codes, "r1": r1, "in_hand_at_r1": in_hand_r1,
                 "after_kill_served": sorted({a[1].get("x-seldon-replica")
-                                             for a in kill_answers[16:]}),
+                                             for a in rest}),
                 "fleet_health": {k: health.get(k) for k in (
                     "verdict", "partial", "unreachable")},
                 "r1_health": health.get("replicas", {}).get("r1")}
-            if not (codes == [200] and r1["ejections"] >= 1
+            if not (codes == [200] and in_hand_r1 > 0
+                    and r1["ejections"] >= 1
                     and r1["state"] in ("ejected", "probing")
                     and code == 200 and health.get("partial") is True
                     and "r1" in health.get("unreachable", ())

@@ -648,9 +648,6 @@ class LocalFleet:
             obs_cfg = None
         self.observer = FleetObserver(obs_cfg)
         self._obs_session = None
-        #: manual demand/capacity/burn override for tests and drills —
-        #: when None the live profiling/health planes are summed instead
-        self.signals_override: Optional[dict] = None
         self.last_decision = None
         self._seed = seed
         self._component_wrap = component_wrap
@@ -795,9 +792,8 @@ class LocalFleet:
     def _signals(self) -> dict:
         """Autoscale inputs: attributed-FLOP demand vs achievable fleet
         capacity (profiling plane's capacity model, summed over live
-        replicas) and the worst SLO burn verdict (health plane)."""
-        if self.signals_override is not None:
-            return dict(self.signals_override)
+        replicas) and the worst SLO burn verdict (health plane).  Drills
+        pass their own signals to :meth:`autoscale_tick` instead."""
         from seldon_core_tpu_torch.profiling.http import capacity_body
 
         demand = capacity = 0.0

@@ -18,7 +18,11 @@ per host and port for callers that talk to many (the gateway, the fleet
 observer), the role of aiohttp's ``ClientSession``.  A connection that
 could not be opened raises :class:`ConnectError`, distinct from a
 connection that broke later: only the first provably never reached the
-server, so only it is safe to replay elsewhere.
+server, so only it is safe to replay elsewhere.  For the same reason a
+pooled keep-alive connection that the server closed under a request is
+retried on a new one only for an idempotent method, as aiohttp does: a
+POST there may have been read, and fails as aiohttp's "Server
+disconnected".
 
 Errors map as the reference's do, to :class:`SeldonComponentError`: a
 remote FAILURE status keeps its code and reason; a connect timeout or a
@@ -48,6 +52,7 @@ from __future__ import annotations
 import asyncio
 import json as _json
 import logging
+import socket
 from typing import AsyncIterator, Optional, Sequence
 from urllib.parse import urlencode, urlsplit
 
@@ -66,6 +71,12 @@ __all__ = ["HttpClient", "HttpSession", "HttpError", "ConnectError",
 
 #: the answer header naming the server's process for the device plane
 DEVICE_PLANE_HEADER = "X-Seldon-Device-Plane"
+
+
+#: methods resent on a new connection when a pooled one proves stale
+#: (aiohttp's ``IDEMPOTENT_METHODS``)
+IDEMPOTENT_METHODS = frozenset({"GET", "HEAD", "OPTIONS", "TRACE", "PUT",
+                                "DELETE"})
 
 
 def plane_identity() -> str:
@@ -104,7 +115,7 @@ class ConnectError(HttpError):
 async def _read_head(reader) -> tuple[int, dict]:
     line = await reader.readline()
     if not line:
-        raise HttpError("connection closed before the status line")
+        raise HttpError("Server disconnected")
     parts = line.decode("latin-1").split(None, 2)
     if len(parts) < 2 or not parts[0].startswith("HTTP/"):
         raise HttpError(f"bad status line {line[:80]!r}")
@@ -149,6 +160,25 @@ async def _chunks(reader, headers: dict) -> AsyncIterator[bytes]:
             yield data
 
 
+def _peer_closed(writer) -> bool:
+    """Whether the server has closed an idle pooled connection (or written
+    on it unasked): a non-blocking peek at the socket, which sees a close
+    that the event loop has not read yet."""
+    ts = writer.get_extra_info("socket")
+    if ts is None:
+        return False
+    sock = socket.socket(fileno=ts.fileno())
+    try:
+        sock.recv(1, socket.MSG_PEEK | socket.MSG_DONTWAIT)
+        return True
+    except BlockingIOError:
+        return False
+    except OSError:
+        return True
+    finally:
+        sock.detach()
+
+
 def _reusable(headers: dict) -> bool:
     return (headers.get("connection", "").lower() != "close"
             and ("content-length" in headers
@@ -191,24 +221,16 @@ class HttpClient:
         except OSError as e:
             raise ConnectError(self.host, self.port, e) from None
 
-    async def _acquire(self, retry: bool = False):
-        """An idle pooled connection (reused: True) or a new one.  On the
-        retry after a stale keep-alive connection (``retry``), a failed
-        connect is reported as the broken connection it follows: the
-        first attempt's request may have reached the server."""
+    async def _acquire(self):
+        """An idle pooled connection (reused: True) or a new one."""
         now = self._loop.time()
         while self._idle:
             reader, writer, since = self._idle.pop()
             if now - since < self.keepalive_s and not reader.at_eof() \
-                    and not writer.is_closing():
+                    and not writer.is_closing() and not _peer_closed(writer):
                 return reader, writer, True
             writer.close()
-        try:
-            reader, writer = await self._connect(self.connect_timeout_s)
-        except ConnectError as e:
-            if retry:
-                raise HttpError(f"connection lost, then {e}") from None
-            raise
+        reader, writer = await self._connect(self.connect_timeout_s)
         return reader, writer, False
 
     def _release(self, reader, writer) -> None:
@@ -225,11 +247,14 @@ class HttpClient:
                       headers: Optional[dict] = None
                       ) -> tuple[int, dict, bytes]:
         """``(status, headers, body)``.  A reused connection that the server
-        closed meanwhile is retried once on a new one."""
+        closed meanwhile is retried once on a new one, for an idempotent
+        ``method`` only."""
         self._bind_loop()
+        resend = method.upper() in IDEMPOTENT_METHODS
         async with self._sem:
             for attempt in range(2):
-                reader, writer, reused = await self._acquire(attempt > 0)
+                reader, writer, reused = await self._acquire()
+                stale = reused and resend and attempt == 0
                 ok = False
                 try:
                     writer.write(self._head(method, path, body, headers)
@@ -238,14 +263,14 @@ class HttpClient:
                     try:
                         status, rh = await _read_head(reader)
                     except (HttpError, ConnectionError) as e:
-                        if reused and attempt == 0:
+                        if stale:
                             continue  # a stale keep-alive connection
                         raise HttpError(str(e)) from None
                     data = b"".join([c async for c in _chunks(reader, rh)])
                     ok = _reusable(rh)
                     return status, rh, data
                 except (ConnectionError, asyncio.IncompleteReadError) as e:
-                    if reused and attempt == 0 and not isinstance(
+                    if stale and not isinstance(
                             e, asyncio.IncompleteReadError):
                         continue
                     raise HttpError(f"{type(e).__name__}: {e}") from None

@@ -229,18 +229,30 @@ def test_fleet_obs_envelopes_equal(kind):
 
 
 def test_decisions_body_equal():
+    """The same decisions into a ring of each package's, one small enough
+    to drop: the bodies EQUAL but for ``ts``.  Fresh rings, since the
+    process-default ones carry the counts of whatever ran before."""
+    bodies = []
     for mod in (jobs, tobs):
-        mod.decision_audit().clear()
-        mod.record_decision("eject", deployment="d", replica="r0",
-                            reason="connect-error", url="u")
-    q = {"kind": "eject", "n": "5"}
-    (js, jp), (ts, tp) = (jobs.decisions_body(jobs.decision_audit(), q),
-                          tobs.decisions_body(tobs.decision_audit(), q))
-    strip = [{k: v for k, v in r.items() if k != "ts"}
-             for r in tp["decisions"]]
-    assert (ts, strip, tp["stats"]) == \
-        (js, [{k: v for k, v in r.items() if k != "ts"}
-              for r in jp["decisions"]], jp["stats"])
+        audit = mod.DecisionAudit(capacity=4)
+        for k in range(5):
+            audit.record("eject", deployment="d", replica=f"r{k % 2}",
+                         reason="connect-error", url="u")
+        audit.record("readmit", deployment="d", replica="r1",
+                     reason="probe-ok")
+        for q in ({"kind": "eject", "n": "5"}, {"replica": "r1"}, {}):
+            st, body = mod.decisions_body(audit, q)
+            bodies.append((st, [{k: v for k, v in r.items() if k != "ts"}
+                                for r in body["decisions"]], body["stats"]))
+    assert bodies[:3] == bodies[3:]
+    assert bodies[3][2] == {"capacity": 4, "size": 4, "recorded": 6,
+                            "dropped": 2}
+    recs = [mod.record_decision("eject", deployment="d", replica="r0",
+                                reason="connect-error", url="u")
+            for mod in (jobs, tobs)]
+    assert [{k: v for k, v in r.items() if k != "ts"} for r in recs] == \
+        [{"kind": "eject", "deployment": "d", "replica": "r0",
+          "reason": "connect-error", "url": "u"}] * 2
     with pytest.raises(ValueError):
         tobs.decisions_body(tobs.decision_audit(), {"n": "x"})
 

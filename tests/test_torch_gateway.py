@@ -18,7 +18,7 @@ bytes through each with the port's HTTP client:
   EQUAL, a pre-stream 501 passed through, a client that leaves at the
   gateway closes the engine's stream), the retry rule (a refused connect
   goes to the next replica, a connection that breaks after it opened is
-  never replayed), ``/metrics`` series and label sets EQUAL, and a gRPC
+  never replayed, a fresh one or a pooled keep-alive one), ``/metrics`` series and label sets EQUAL, and a gRPC
   ``Seldon.Predict`` forward with ``oauth_token`` EQUAL.
 
 Every test runs under its own timeout.
@@ -422,18 +422,28 @@ def test_cache_tier_hit_and_single_flight():
             assert first[1][1]["x-seldon-cache"] == "miss"
             assert again[1][1]["x-seldon-cache"] == "hit"
             assert s.engine.calls == 2  # one miss per gateway
-            # 16 identical concurrent bodies: one engine forward
+            # 16 identical concurrent bodies: one engine forward, through
+            # each gateway
             s.engine.delay_s = 0.2
-            tok = await s.token(s.turl)
             body2 = _pred([[3.0, 4.0]])
-            outs = await asyncio.gather(*(s.http.request(
-                "POST", s.turl + "/api/v0.1/predictions", body2,
-                {"Authorization": f"Bearer {tok}",
-                 "Content-Type": "application/json"}) for _ in range(16)))
-            assert s.engine.calls == 3
-            states = sorted(h["x-seldon-cache"] for _, h, _ in outs)
-            assert states == ["coalesced"] * 15 + ["miss"]
-            assert len({b for _, _, b in outs}) == 1
+            seen = []
+            for base in (s.jurl, s.turl):
+                tok = await s.token(base)
+                calls = s.engine.calls
+                outs = await asyncio.gather(*(s.http.request(
+                    "POST", base + "/api/v0.1/predictions", body2,
+                    {"Authorization": f"Bearer {tok}",
+                     "Content-Type": "application/json"})
+                    for _ in range(16)))
+                seen.append((
+                    s.engine.calls - calls,
+                    sorted(h["x-seldon-cache"] for _, h, _ in outs),
+                    {(st, b) for st, _, b in outs}))
+            (jcalls, jstates, jouts), (tcalls, tstates, touts) = seen
+            assert (tcalls, tstates) == (jcalls, jstates)
+            assert tcalls == 1
+            assert tstates == ["coalesced"] * 15 + ["miss"]
+            assert touts == jouts and len(touts) == 1
 
     _run(go())
 
@@ -544,8 +554,67 @@ def test_broken_connection_is_never_replayed():
             async with Stack("port", engine_url=url) as s:
                 j, t = await s.both("POST", "/api/v0.1/predictions",
                                     _pred([[1.0, 2.0]]))
-                assert j[0] == t[0] == 503
+                _same(j, t)
+                assert t[0] == 503
                 assert len(seen) == 2  # one attempt per gateway
+        finally:
+            srv.close()
+
+    _run(go())
+
+
+def test_post_on_a_dropped_keepalive_connection_is_never_replayed():
+    """An engine that answers the first request on a keep-alive connection,
+    then reads the second and drops the connection: the second answers
+    503 through each gateway and reaches the engine exactly once — a POST
+    on a pooled connection that closes under it is not resent on a new
+    one, as aiohttp's is not."""
+    conns = []
+    ok = json.dumps({"data": {"names": [], "ndarray": [[1.0]]}}).encode()
+
+    async def answer_once(reader, writer):
+        seen = []
+        conns.append(seen)
+        while True:
+            try:
+                head = await reader.readuntil(b"\r\n\r\n")
+            except asyncio.IncompleteReadError:
+                break
+            n = int(re.search(rb"(?i)content-length:\s*(\d+)",
+                              head).group(1))
+            await reader.readexactly(n)
+            seen.append(head.split(b" ", 2)[1])
+            if len(seen) > 1:
+                break
+            writer.write(b"HTTP/1.1 200 OK\r\n"
+                         b"Content-Type: application/json\r\n"
+                         + f"Content-Length: {len(ok)}\r\n\r\n".encode()
+                         + ok)
+            await writer.drain()
+        writer.close()
+
+    async def go():
+        srv = await asyncio.start_server(answer_once, "127.0.0.1", 0)
+        url = f"http://127.0.0.1:{srv.sockets[0].getsockname()[1]}"
+        try:
+            async with Stack("port", engine_url=url) as s:
+                body = _pred([[1.0, 2.0]])
+                for base in (s.jurl, s.turl):
+                    tok = await s.token(base)
+                    h = {"Authorization": f"Bearer {tok}",
+                         "Content-Type": "application/json"}
+                    first = await s.http.request(
+                        "POST", base + "/api/v0.1/predictions", body, h)
+                    second = await s.http.request(
+                        "POST", base + "/api/v0.1/predictions", body, h)
+                    assert first[0] == 200 and first[2] == ok
+                    if base == s.jurl:
+                        jsecond = second
+                _same(jsecond, second)
+                assert second[0] == 503
+                assert b"Server disconnected" in second[2]
+                # one connection per gateway, each request on it once
+                assert conns == [[b"/api/v0.1/predictions"] * 2] * 2
         finally:
             srv.close()
 
