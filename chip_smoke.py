@@ -301,7 +301,27 @@ Prints one JSON object per line:
     ``partial`` ``/admin/fleet/health``; ``autoscale_tick`` to 3, the new
     replica captured from the store at boot and nothing on the request
     path.
-33. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
+33. ``loadtest_7b`` (after ``gateway_7b``, on ``serve_7b``'s weights): the
+    port's load harness (``tools/loadtest.py``) against the runner's REST
+    in process: ``RestDriver`` and ``SseStreamDriver``, 8 workers each, one
+    per ``serve_7b`` prompt (16 new tokens), closed loop; every recorded id
+    sequence equal to ``serve_7b``'s; requests, req/s, p50/p95, TTFT/TPOT
+    medians and tokens/s reported beside ``serve_7b``'s.
+34. ``operator_resnet50``: the port's operator around a real engine.  The
+    controller reconciles a CR of ``resnet50-int8.json`` (annotations on
+    the predictor, the wire seeds, fused, health plane, an artifact store)
+    into a ``FakeKubeApi``; a kubelet stand-in boots the engine
+    Deployment's container as a runner child from its env alone (no
+    ``--graph``), waits on its readinessProbe and marks it available
+    (Creating, then Available).  The port's ``api-test`` (answers bitwise
+    equal to the in-process graph) and ``load`` over REST and gRPC (2 s
+    each); one request through a gateway child gives a flight record.  A
+    rolling update (``seldon.io/batch-max-delay-ms`` 2.0 to 1.0): a new
+    spec hash, the old pod's preStop ``/pause`` and SIGTERM, the new pod
+    booted from the new env; ``replay`` of the record against it EQUAL to
+    the old answer and stamped ``aot-cache``; the delete prunes every
+    owned object; one reconcile timed.
+35. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
     phases of prefix caching, batched and chunked prefill, preemption and
     checkpoints together; ``slice_3b_phases``: ``spec_7b`` and
     ``parity_spec_7b``; ``slice_4a_i_phases``: the ``wire_*`` phases;
@@ -309,21 +329,21 @@ Prints one JSON object per line:
     ``qos_resnet50``; ``slice_4b_4c_i_phases``: the four of 14-17;
     ``slice_4c_ii_phases``: ``llm_graphs_7b``; ``slice_4d_4e_phases``:
     25-26; ``slice_5_i_phases``: 27-28; ``slice_5_ii_phases``: 29;
-    ``slice_5b_i_phases``: 30-32).
-34. ``{"kernels": [...]}``: one entry per kernel with its launches in the
+    ``slice_5b_i_phases``: 30-32; ``slice_5b_ii_phases``: 33-34).
+36. ``{"kernels": [...]}``: one entry per kernel with its launches in the
     runs through entry points (``llm_json``, ``serve_7b``, ``grpc_7b``,
     ``features_7b``, ``spec_7b``, ``llm_graphs_7b``, ``checkpoint_7b``,
     ``plan_resnet50``,
     ``cache_resnet50``, ``canary``, ``wire_resnet50``,
     ``wire_llm``, ``workers``, ``qos_resnet50``, ``artifacts_resnet50``,
     ``device_plane_resnet50``, ``observe_7b``, ``observe_resnet50``,
-    ``lint``, ``gateway_7b``, ``gateway_resnet50`` and ``fleet_resnet50``,
-    counted by the child
+    ``lint``, ``gateway_7b``, ``loadtest_7b``, ``gateway_resnet50``,
+    ``fleet_resnet50`` and ``operator_resnet50``, counted by the child
     processes where the kernels run there; K1 also
     ``resnet50_launches``: the int8 REST run), each phase's count beside,
     its error, times and bound (K2 also at its two long cases and the
     shared-prefix case).
-35. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+37. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
@@ -1016,6 +1036,8 @@ def serve_7b_phase(torch) -> tuple:
            "peak_device_bytes": peak, "weights_init_s": t_init,
            "launches": launches, "card": CARD}
     emit(out)
+    SERVE_7B.update({k: out[k] for k in ("ttft_ms_median", "tpot_ms_median",
+                                         "tokens_per_s")})
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"serve_7b: {k} was not launched")
@@ -6425,6 +6447,533 @@ def fleet_resnet50_phase(torch) -> dict:
     return launches
 
 
+LOADTEST_7B_S = 4.0  # seconds of each closed loop
+
+
+def loadtest_7b_phase(torch, params) -> dict:
+    """The port's load harness (``tools/loadtest.py``) against
+    ``serve_7b``'s model behind the local runner's REST (in process, as
+    ``gateway_7b`` boots it): ``RestDriver`` on ``/api/v0.1/predictions``
+    and ``SseStreamDriver`` on ``/api/v0.1/stream``, each as 8 workers,
+    one per ``serve_7b`` prompt (16 new tokens), closed loop for
+    LOADTEST_7B_S seconds, every answer recorded.  Gated: no failure,
+    every recorded greedy id sequence (REST bodies, each stream's last
+    event) equal to ``serve_7b``'s for that prompt, and K1, K2 and K3
+    launched.  Reported: requests, req/s, p50/p95 latency, the streams'
+    TTFT/TPOT medians and tokens/s beside ``serve_7b``'s ``latency_log``
+    medians.  Returns the launches."""
+    from seldon_core_tpu_torch.operator.local import serve
+    from seldon_core_tpu_torch.tools.loadtest import (
+        RestDriver,
+        SseStreamDriver,
+        run_load,
+    )
+
+    OBSERVE_7B["params"] = params
+    prompts, want = SERVE_7B["prompts"], SERVE_7B["ids"]
+    out = {"phase": "loadtest_7b", "card": CARD, "workers": len(prompts),
+           "n_new": 16, "seconds_each": LOADTEST_7B_S,
+           "path": "tools.loadtest -> runner REST -> LLMComponent "
+                   "-> PagedLLMEngine (in process)"}
+    failed = []
+
+    def keeping(cls):
+        class Keeping(cls):
+            """``cls`` keeping every answer (REST: the body; SSE: the
+            stream's last event) in ``bodies``."""
+
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.bodies = []
+
+            async def __call__(self):
+                self.bodies.append(await super().__call__())
+        Keeping.__name__ = cls.__name__
+        return Keeping
+
+    async def drive(cls, base):
+        loads = [keeping(cls)(base, {"jsonData": {"prompt_ids": p,
+                                                  "n_new": 16}})
+                 for p in prompts]
+        results = await asyncio.gather(*(
+            run_load(d, seconds=LOADTEST_7B_S, concurrency=1, warmup_s=0.0,
+                     protocol=cls.__name__) for d in loads))
+        return loads, results
+
+    def summary(results) -> dict:
+        lat = [x for r in results for x in r.latencies_ms]
+        n = sum(r.requests for r in results)
+        return {"requests": n,
+                "failures": sum(r.failures for r in results),
+                "req_per_s": n / LOADTEST_7B_S,
+                "latency_ms": _pctl(lat) if lat else None}
+
+    async def run():
+        server, local = await serve(_observe_7b_graph(False), port=0,
+                                    host="127.0.0.1")
+        engine = local.engine.node_impl("llm").user.engine
+        base = f"http://127.0.0.1:{server.port}"
+        try:
+            # warm-up: every prefill bucket of the 8 prompts is captured
+            warm = await _post_all(server.port, [
+                {"jsonData": {"prompt_ids": p, "n_new": 16}}
+                for p in prompts])
+            if [b["jsonData"]["ids"] for _, b in warm] != want:
+                failed.append("warm-up ids differ from serve_7b's")
+            res = {}
+            rest, rest_res = await drive(RestDriver, base)
+            res["rest"] = summary(rest_res)
+            for i, d in enumerate(rest):
+                got = [json.loads(b)["jsonData"]["ids"] for b in d.bodies]
+                if not got or any(g != want[i] for g in got):
+                    failed.append(f"REST prompt {i}: ids differ")
+            sse, sse_res = await drive(SseStreamDriver, base)
+            res["sse"] = summary(sse_res)
+            ttft = [x for d in sse for x in d.ttfts_ms]
+            tpot = [x for d in sse for x in d.tpots_ms]
+            tokens = sum(d.tokens for d in sse)
+            res["sse"].update(
+                ttft_ms_median=statistics.median(ttft) if ttft else None,
+                tpot_ms_median=statistics.median(tpot) if tpot else None,
+                tokens=tokens, tokens_per_s=tokens / LOADTEST_7B_S)
+            for i, d in enumerate(sse):
+                if not d.bodies or any(
+                        not (e or {}).get("done") or e["ids"] != want[i]
+                        for e in d.bodies):
+                    failed.append(f"stream prompt {i}: ids differ")
+            if engine.free_pages != 95:
+                failed.append(f"pages not returned ({engine.free_pages})")
+            return res
+        finally:
+            await server.stop()
+            await local.aclose()
+            engine.close()
+
+    reset_launches()
+    try:
+        out.update(asyncio.run(run()))
+    finally:
+        OBSERVE_7B.clear()
+    out["serve_7b"] = {k: SERVE_7B.get(k) for k in (
+        "ttft_ms_median", "tpot_ms_median", "tokens_per_s")}
+    launches = read_launches()
+    out["launches"] = launches
+    emit(out)
+    for what in ("rest", "sse"):
+        if out[what]["failures"] or out[what]["requests"] < len(prompts):
+            failed.append(f"{what}: {out[what]}")
+    if failed or not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"loadtest_7b: {failed} {launches}")
+    return launches
+
+
+OPERATOR_SINGLES = 4  # api-test requests
+OPERATOR_LOAD_S = 2.0
+OPERATOR_LOAD_WORKERS = 8
+OPERATOR_DRAIN_LEAD_S = 0.5  # load on the old pod before its preStop runs
+
+# the first reconcile of the CR in a fresh process: the module's import,
+# then the reconcile (the admission lint's trace of the registry included)
+COLD_RECONCILE = r"""
+import json, sys, time
+t0 = time.perf_counter()
+from seldon_core_tpu_torch.operator.reconcile import (
+    FakeKubeApi, SeldonDeploymentController)
+t1 = time.perf_counter()
+cr = json.load(open(sys.argv[1]))
+api = FakeKubeApi()
+api.create(cr)
+status = SeldonDeploymentController(api).reconcile(api.get(
+    "SeldonDeployment", cr["metadata"]["namespace"], cr["metadata"]["name"]))
+print(json.dumps({"import_s": t1 - t0, "create_s": time.perf_counter() - t1,
+                  "state": status["state"]}))
+"""
+
+
+def _cold_reconcile(cr: dict) -> dict:
+    """``COLD_RECONCILE`` over ``cr`` in a child process of its own."""
+    import os
+
+    path = WIRE_DIR / "operator_cr.json"
+    path.write_text(json.dumps(cr))
+    proc = subprocess.run(
+        [sys.executable, "-c", COLD_RECONCILE, str(path)], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"cold reconcile: rc {proc.returncode} "
+                             f"{proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _operator_cr(store: str) -> dict:
+    """The CR the operator phase applies: ``resnet50-int8.json`` with its
+    annotations moved onto the predictor (``ENGINE_PREDICTOR`` carries the
+    predictor's own, as the reference's compiler writes it), the smoke
+    ResNet's node (``wire_resnet``'s seeds, int8), and the fused plan, the
+    health plane and the artifact plane on ``store``."""
+    d = _resnet_graph(True, {})
+    pred = d["spec"]["predictors"][0]
+    pred["annotations"] = {**d["spec"].pop("annotations"),
+                           "seldon.io/graph-plan": "fused",
+                           "seldon.io/health": "true",
+                           "seldon.io/artifact-store": store}
+    d["metadata"] = {"name": d["spec"]["name"], "namespace": "default",
+                     "uid": "uid-operator-smoke"}
+    return d
+
+
+def _u8_body(x) -> bytes:
+    """A uint8 binTensor request body (a 224x224x3 image is ~200 KB in
+    base64, under the flight recorder's body cap)."""
+    import base64
+
+    return json.dumps({"data": {"binTensor": {
+        "shape": list(x.shape), "dtype": "uint8",
+        "b64": base64.b64encode(x.tobytes()).decode()}}}).encode()
+
+
+class _Pod:
+    """The kubelet stand-in's pod: the workload's engine container booted
+    as a runner child with exactly the container's env, the ports moved to
+    free ones."""
+
+    def __init__(self, label: str, workload: dict):
+        container = workload["spec"]["template"]["spec"]["containers"][0]
+        self.container = container
+        self.port, self.grpc = _free_port(), _free_port()
+        env = {e["name"]: e["value"] for e in container["env"]}
+        env.update(ENGINE_SERVER_PORT=str(self.port),
+                   ENGINE_SERVER_GRPC_PORT=str(self.grpc))
+        self.t0 = time.perf_counter()
+        self.child, self.counts = runner_child(label, [], env)
+        self.base = f"http://127.0.0.1:{self.port}"
+
+    def ready(self, timeout: float = 600) -> float:
+        """Wait on the readinessProbe path; seconds from boot."""
+        path = self.container["readinessProbe"]["httpGet"]["path"]
+        deadline = time.monotonic() + timeout
+        while True:
+            if self.child.proc.poll() is not None:
+                raise AssertionError(f"{self.child.label} exited: "
+                                     f"{self.child.tail()}")
+            try:
+                if _get(self.port, path)[0] == 200:
+                    return time.perf_counter() - self.t0
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{self.child.label} not ready: "
+                                     f"{self.child.tail()}")
+            time.sleep(0.2)
+
+    def pre_stop(self) -> tuple:
+        """Run the container's preStop hook (its ``curl`` of the engine's
+        ``/pause``) against this pod's port; ``(status, body, seconds)``."""
+        cmd = " ".join(self.container["lifecycle"]["preStop"]["exec"][
+            "command"])
+        path = re.search(r"localhost:\d+(/\S*)", cmd).group(1)
+        t0 = time.perf_counter()
+        code, body = _get(self.port, path)
+        return code, body, time.perf_counter() - t0
+
+    def stop_under_load(self, payload: dict) -> dict:
+        """The kubelet's stop of this pod while OPERATOR_LOAD_WORKERS
+        closed-loop ``RestDriver`` workers keep sending to it: after
+        OPERATOR_DRAIN_LEAD_S of load the preStop hook runs, then SIGTERM
+        is sent, and the workers stop once the process has exited.  Every
+        request is logged as ``(sent, answered, outcome)``; reported: the
+        requests in hand when the hook began, the hook's status, body and
+        seconds, the exit code, and the outcomes of the requests sent
+        before and after the hook began."""
+        from seldon_core_tpu_torch.tools.loadtest import RestDriver
+
+        async def run():
+            log, done = [], asyncio.Event()
+
+            async def worker(driver):
+                while not done.is_set():
+                    t0 = time.perf_counter()
+                    try:
+                        await driver()
+                        outcome = "200"
+                    except Exception as e:  # logged; judged after the run
+                        outcome = f"{type(e).__name__}: {e}"[:120]
+                    log.append((t0, time.perf_counter(), outcome))
+                    if outcome != "200":
+                        await asyncio.sleep(0.01)  # refused: no busy loop
+
+            async with RestDriver(self.base, payload) as driver:
+                workers = [asyncio.create_task(worker(driver))
+                           for _ in range(OPERATOR_LOAD_WORKERS)]
+                await asyncio.sleep(OPERATOR_DRAIN_LEAD_S)
+                t_hook = time.perf_counter()
+                code, body, hook_s = await asyncio.to_thread(self.pre_stop)
+                exit_code = await asyncio.to_thread(self.child.stop)
+                done.set()
+                await asyncio.gather(*workers)
+            return log, t_hook, code, body, hook_s, exit_code
+
+        log, t_hook, code, body, hook_s, exit_code = asyncio.run(run())
+        before = [r for r in log if r[0] < t_hook]
+        after = [r for r in log if r[0] >= t_hook]
+
+        def outcomes(rows):
+            tally: dict = {}
+            for _, _, o in rows:
+                tally[o] = tally.get(o, 0) + 1
+            return tally
+
+        return {
+            "in_hand_at_prestop": sum(1 for t0, t1, _ in before
+                                      if t1 > t_hook),
+            "prestop_status": code, "prestop_body": body.strip(),
+            "prestop_s": hook_s, "old_exit": exit_code,
+            "sent_before": len(before), "outcomes_before": outcomes(before),
+            "last_answer_after_prestop_began_s": max(
+                (t1 for _, t1, _ in before), default=t_hook) - t_hook,
+            "sent_after": len(after), "outcomes_after": outcomes(after)}
+
+
+def operator_resnet50_phase(torch) -> dict:
+    """Slice 5b-ii: the port's operator around a real engine.  The
+    controller reconciles ``_operator_cr`` into a ``FakeKubeApi``
+    (Creating); a kubelet stand-in boots the engine Deployment's container
+    as a runner child from its env alone (no ``--graph``), waits on its
+    readinessProbe and marks the workload available (Available, replicas
+    1 of 1).  Through the port's tools: ``api-test`` with
+    ``examples/contracts/resnet50.json`` (answers bitwise equal to the
+    walk graph in process over the same weights), ``load`` closed loop
+    over REST (uint8 binTensor) and gRPC; one request through a gateway
+    child with the health plane gives a flight record.  Rolling update:
+    one predictor annotation edited, the workload updated with a new spec
+    hash, the old pod's preStop run and SIGTERM sent while closed-loop
+    workers keep sending to it (every request sent before the hook began
+    answers 200, and some are in hand when it begins), the new pod booted
+    from the new env; ``replay`` of the record against it answers EQUAL
+    to the old pod's answer and stamped ``aot-cache`` (hydrated from the
+    store).  Deleting the CR prunes every owned object.  The first
+    reconcile (admission lint included) is timed twice: cold, in a fresh
+    process (``COLD_RECONCILE``), and warm, in this one, where the
+    ``lint`` phase has already traced the registry.  Returns the
+    children's launches."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.graph.engine import GraphEngine
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.operator.reconcile import (
+        FakeKubeApi,
+        SeldonDeploymentController,
+    )
+    from seldon_core_tpu_torch.runtime.component import ComponentHandle
+    from seldon_core_tpu_torch.tools import replay
+    from seldon_core_tpu_torch.tools.contract import Contract
+    from seldon_core_tpu_torch.tools.loadtest import (
+        GrpcDriver,
+        RestDriver,
+        run_load,
+    )
+    from seldon_core_tpu_torch.tools.tester import test_api
+
+    local = ComponentHandle(wire_resnet(True), name="resnet")
+    graph = GraphEngine({"name": "resnet", "type": "MODEL"},
+                        resolver=lambda u, h=local: h)
+
+    def in_process(payload):
+        return asyncio.run(graph.predict(SeldonMessage.from_dict(
+            payload))).to_dict()["data"]
+
+    WIRE_DIR.mkdir(parents=True, exist_ok=True)
+    store = tempfile.mkdtemp(prefix="operator_store_", dir=WIRE_DIR)
+    cr = _operator_cr(store)
+    ns, name = cr["metadata"]["namespace"], cr["metadata"]["name"]
+    pred = cr["spec"]["predictors"][0]["name"]
+    workload = f"{name}-{pred}"
+    rng = np.random.default_rng(31)
+    single = _u8_body(rng.integers(0, 256, (1, 224, 224, 3)).astype(
+        np.uint8))
+    load_payload = json.loads(single)
+    out = {"phase": "operator_resnet50", "card": CARD, "workload": workload,
+           "path": "CR -> controller -> FakeKubeApi -> stand-in kubelet -> "
+                   "runner child (env only) -> tools"}
+    failed, pods, gw = [], [], None
+    api = FakeKubeApi()
+    ctl = SeldonDeploymentController(api)
+
+    def reconcile(label):
+        t0 = time.perf_counter()
+        status = ctl.reconcile(api.get("SeldonDeployment", ns, name))
+        out.setdefault("reconcile_s", {})[label] = \
+            time.perf_counter() - t0
+        return status
+
+    try:
+        cold = _cold_reconcile(cr)
+        out["reconcile_cold"] = cold
+        if cold["state"] != "Creating":
+            failed.append(f"cold reconcile: {cold}")
+        api.create(cr)
+        status = reconcile("create_warm")
+        out["status_create"] = status["state"]
+        if status["state"] != "Creating":
+            failed.append(f"after create: {status}")
+        old = _Pod("op_old", api.get("Deployment", ns, workload))
+        pods.append(old)
+        out["old_ready_s"] = old.ready()
+        api.set_workload_available(ns, workload, 1)
+        status = reconcile("available")
+        out["status_available"] = status
+        if status["state"] != "Available" or status["predictorStatus"] != [
+                {"name": pred, "replicas": 1, "replicasAvailable": 1}]:
+            failed.append(f"after ready: {status}")
+
+        # the tools against the old pod
+        c = Contract.load(str(ROOT / "examples" / "contracts"
+                              / "resnet50.json"))
+        report = asyncio.run(test_api(c, old.base, n_requests=OPERATOR_SINGLES,
+                                      seed=0))
+        draws = np.random.default_rng(0)  # test_api's draws, seed 0
+        want = [in_process(c.rest_request(1, rng=draws))
+                for _ in range(OPERATOR_SINGLES)]
+        got = [r.get("data") for r in report.responses]
+        out["api_test"] = {"sent": report.sent, "ok": report.ok,
+                           "failures": report.failures[:3],
+                           "bitwise_equal": sum(
+                               g == w for g, w in zip(got, want))}
+        if not report.ok or out["api_test"]["bitwise_equal"] != \
+                OPERATOR_SINGLES:
+            failed.append(f"api-test: {out['api_test']}")
+        for label, load in (
+                ("rest", RestDriver(old.base, load_payload)),
+                ("grpc", GrpcDriver(f"127.0.0.1:{old.grpc}", load_payload))):
+            res = asyncio.run(run_load(
+                load, seconds=OPERATOR_LOAD_S,
+                concurrency=OPERATOR_LOAD_WORKERS, warmup_s=0.2,
+                protocol=label)).to_dict()
+            out[f"load_{label}"] = {k: res[k] for k in (
+                "requests", "failures", "req_per_s")} | {
+                "p50_ms": res["latency_ms"]["p50"],
+                "p95_ms": res["latency_ms"]["p95"]}
+            if res["failures"] or not res["requests"]:
+                failed.append(f"load {label}: {out[f'load_{label}']}")
+
+        # a flight record of one request, through a gateway child
+        gport = _free_port()
+        cfg = WIRE_DIR / "operator_gateway.json"
+        cfg.write_text(json.dumps({"deployments": [{
+            "name": name, "oauth_key": "op", "oauth_secret": "s-op",
+            "engine_url": old.base}]}))
+        gw = Child([sys.executable, "-m", "seldon_core_tpu_torch.gateway.app",
+                    "--config", str(cfg), "--port", str(gport),
+                    "--host", "127.0.0.1", "--grpc-port", "0"],
+                   env={"SELDON_HEALTH": "true"}, label="op_gateway")
+        gw.wait_for("gateway REST on")
+        tok = _gw_token(gport, "op", "s-op", "form")
+        code, _, old_answer, _ = _gw_post(
+            gport, "/api/v0.1/predictions", single,
+            {"Authorization": f"Bearer {tok}"})
+        if code != 200:
+            raise AssertionError(f"operator gateway: {code} "
+                                 f"{old_answer[:300]!r}")
+        records = json.loads(_get(gport, "/admin/flightrecorder?n=1")[1])[
+            "records"]
+        record = records[0]
+        rec_path = WIRE_DIR / "operator_flight_record.json"
+        rec_path.write_text(json.dumps({"records": [record]}))
+        out["flight_record"] = {
+            "body_bytes": len(single),
+            "truncated": record.get("requestTruncated"),
+            "path": (record.get("request") or {}).get("path")}
+        if record.get("requestTruncated") or not record.get("request"):
+            failed.append(f"flight record without its body: "
+                          f"{out['flight_record']}")
+        gw.stop()
+        gw = None
+
+        # rolling update: one annotation edited
+        live = api.get("SeldonDeployment", ns, name)
+        old_hash = api.get("Deployment", ns, workload)["metadata"][
+            "annotations"]["seldon.io/spec-hash"]
+        ann = live["spec"]["predictors"][0].setdefault("annotations", {})
+        ann["seldon.io/batch-max-delay-ms"] = "1.0"
+        api.update(live)
+        n_actions = len(api.actions)
+        reconcile("update")
+        new_dep = api.get("Deployment", ns, workload)
+        new_hash = new_dep["metadata"]["annotations"]["seldon.io/spec-hash"]
+        out["rolling_update"] = {
+            "old_hash": old_hash, "new_hash": new_hash,
+            "actions": api.actions[n_actions:]}
+        if new_hash == old_hash or ("update", "Deployment", workload) \
+                not in api.actions[n_actions:]:
+            failed.append(f"rolling update: {out['rolling_update']}")
+        drain = old.stop_under_load(load_payload)
+        out["rolling_update"].update(drain)
+        if drain["prestop_status"] != 200 or \
+                drain["prestop_body"] != "paused inflight=0":
+            failed.append(f"preStop: {drain}")
+        if drain["in_hand_at_prestop"] <= 0 or \
+                drain["outcomes_before"] != {"200": drain["sent_before"]}:
+            failed.append(f"drain under load: {drain}")
+        new = _Pod("op_new", new_dep)
+        pods.append(new)
+        out["new_ready_s"] = new.ready()
+        api.set_workload_available(ns, workload, 1)
+        status = reconcile("after_update")
+        if status["state"] != "Available":
+            failed.append(f"after update: {status}")
+
+        # replay the old pod's record against the new pod
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+            rc = replay.main(["--record", str(rec_path), "--to", new.base,
+                              "--expect-artifact-source", "aot-cache"])
+        code, new_answer = replay.replay_record(record, new.base)
+        equal, detail = replay.compare_responses(old_answer, new_answer)
+        out["replay"] = {"rc": rc, "status": code, "equal": equal,
+                         "detail": detail,
+                         "artifact_source": replay.artifact_source(
+                             new_answer),
+                         "output": buf.getvalue().splitlines()[:3]}
+        if rc != 0 or code != 200 or not equal:
+            failed.append(f"replay: {out['replay']}")
+
+        # delete: every owned object pruned
+        api.delete("SeldonDeployment", ns, name)
+        pruned = ctl.prune(ns, name)
+        left = [o["metadata"]["name"] for k in ("Deployment", "StatefulSet",
+                                                 "Service")
+                for o in api.list(k, ns)]
+        out["delete"] = {"pruned": pruned, "left": left}
+        if pruned < 2 or left:
+            failed.append(f"delete: {out['delete']}")
+    finally:
+        if gw is not None:
+            gw.stop()
+        for p in pods:
+            p.child.stop()
+        shutil.rmtree(store, ignore_errors=True)
+        del local, graph
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {"int8_matmul": 0, "paged_attention": 0, "flash_attention": 0}
+    for p in pods:
+        for k, v in _child_launches(p.counts).items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    emit(out)
+    if launches["int8_matmul"] <= 0:
+        failed.append(f"K1 launches {launches}")
+    if failed:
+        raise AssertionError(f"operator_resnet50: {failed}")
+    return launches
+
+
 def ptxas_report(log: str) -> list:
     """Registers, spills and shared memory per kernel from the build's
     ``-Xptxas -v`` output, names demangled where ``c++filt`` exists."""
@@ -6548,6 +7097,9 @@ def smoke() -> int:
     # slice 5b-i: the gateway in front of the same weights
     runs["gateway_7b"] = timed("gateway_7b", gateway_7b_phase, torch,
                                params_7b)
+    # slice 5b-ii: the port's load harness against the same weights
+    runs["loadtest_7b"] = timed("loadtest_7b", loadtest_7b_phase, torch,
+                                params_7b)
     del params_7b
     torch.cuda.empty_cache()
     timed("parity_7b", parity_7b_phase, torch)
@@ -6590,6 +7142,10 @@ def smoke() -> int:
                                      gateway_resnet50_phase, torch)
     runs["fleet_resnet50"] = timed("fleet_resnet50", fleet_resnet50_phase,
                                    torch)
+    # slice 5b-ii: the operator's loop around an engine booted from its
+    # own compiled manifest, driven by the port's tools
+    runs["operator_resnet50"] = timed("operator_resnet50",
+                                      operator_resnet50_phase, torch)
     slice_3a = sum(seconds[k] for k in ("features_7b", "parity_features_7b",
                                         "checkpoint_7b"))
     slice_3b = seconds["spec_7b"] + seconds["parity_spec_7b"]
@@ -6609,6 +7165,8 @@ def smoke() -> int:
           "slice_5_ii_phases": seconds["lint"],
           "slice_5b_i_phases": seconds["gateway_7b"]
           + seconds["gateway_resnet50"] + seconds["fleet_resnet50"],
+          "slice_5b_ii_phases": seconds["loadtest_7b"]
+          + seconds["operator_resnet50"],
           "total": time.perf_counter() - t0})
     launches = {k: sum(r[k] for r in runs.values())
                 for k in runs["serve_7b"]}

@@ -38,7 +38,9 @@ UNIT_TYPES = ("MODEL", "ROUTER", "COMBINER", "TRANSFORMER",
               "OUTPUT_TRANSFORMER")
 BUILTIN_IMPLEMENTATIONS = ("SIMPLE_MODEL", "SIMPLE_ROUTER", "RANDOM_ABTEST",
                            "AVERAGE_COMBINER", "EPSILON_GREEDY")
-PARAM_TYPES = {"STRING": str, "INT": int, "FLOAT": float, "DOUBLE": float}
+# BOOL is coerced on its own (`_coerce_param`); listed for the CRD schema
+PARAM_TYPES = {"STRING": str, "INT": int, "FLOAT": float, "DOUBLE": float,
+               "BOOL": None}
 _BOOL_TRUE = ("1", "true", "yes")
 _BOOL_FALSE = ("0", "false", "no")
 
@@ -92,6 +94,10 @@ class Endpoint:
                                       d.get("serviceHost", "")),
                    service_port=port, type=d.get("type", "REST"))
 
+    def to_dict(self) -> dict:
+        return {"service_host": self.service_host,
+                "service_port": self.service_port, "type": self.type}
+
 
 @dataclass
 class PredictiveUnit:
@@ -102,6 +108,9 @@ class PredictiveUnit:
     parameters: dict[str, Any] = field(default_factory=dict)
     methods: list[str] = field(default_factory=list)
     endpoint: Endpoint = field(default_factory=Endpoint)
+    # placement hint of the reference (``sliceGroup``): kept so a spec
+    # round-trips through the operator unchanged
+    slice_group: str = ""
 
     @classmethod
     def from_dict(cls, d: dict, path: str = "") -> "PredictiveUnit":
@@ -121,7 +130,29 @@ class PredictiveUnit:
             parameters=params,
             methods=list(d.get("methods", []) or []),
             endpoint=Endpoint.from_dict(d.get("endpoint"), path),
+            slice_group=d.get("sliceGroup", ""),
         )
+
+    def to_dict(self) -> dict:
+        """The reference's JSON layout; parameters carry their type."""
+        d: dict[str, Any] = {"name": self.name}
+        if self.type:
+            d["type"] = self.type
+        if self.implementation:
+            d["implementation"] = self.implementation
+        if self.children:
+            d["children"] = [c.to_dict() for c in self.children]
+        if self.parameters:
+            d["parameters"] = [
+                {"name": k, "value": str(v), "type": _param_type_name(v)}
+                for k, v in self.parameters.items()]
+        if self.endpoint.service_host or self.endpoint.service_port:
+            d["endpoint"] = self.endpoint.to_dict()
+        if self.methods:
+            d["methods"] = self.methods
+        if self.slice_group:
+            d["sliceGroup"] = self.slice_group
+        return d
 
     def walk(self):
         yield self
@@ -139,6 +170,16 @@ class PredictiveUnit:
         if impl == "AVERAGE_COMBINER":
             return "COMBINER"
         return "MODEL"
+
+
+def _param_type_name(v: Any) -> str:
+    if isinstance(v, bool):
+        return "BOOL"
+    if isinstance(v, int):
+        return "INT"
+    if isinstance(v, float):
+        return "FLOAT"
+    return "STRING"
 
 
 def parse_graph(spec: Any) -> PredictiveUnit:

@@ -82,7 +82,13 @@ Tiers: REST on ``--port`` (``/metrics`` renders the deployment's
 :class:`EngineMetrics`), the ``Seldon`` gRPC service on ``--grpc-port``
 (env ``ENGINE_SERVER_GRPC_PORT``, 5000 by default as the reference's; 0
 turns it off), the native (C++ epoll) REST tier on ``--native-port`` and
-the native h2c gRPC tier on ``--native-grpc-port``.  ``--workers N`` forks
+the native h2c gRPC tier on ``--native-grpc-port``; each port, and
+``--workers``, defaults from the env the operator compiles into an engine
+pod (``ENGINE_SERVER_PORT``, ``ENGINE_NATIVE_PORT``,
+``ENGINE_NATIVE_GRPC_PORT``, ``ENGINE_WORKERS``).  Without ``--graph`` the
+engine serves the predictor in ``ENGINE_PREDICTOR`` (base64 JSON) as
+deployment ``SELDON_DEPLOYMENT_ID``; ``--max-lifetime-s`` (env
+``ENGINE_MAX_LIFETIME_S``) stops it after that long.  ``--workers N`` forks
 N worker processes before anything touches the card, each with its own
 engine, all binding the same ports with ``SO_REUSEPORT``; the first worker
 to exit stops the group.
@@ -98,6 +104,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import logging
 import os
 import random
@@ -934,25 +941,37 @@ def _say(line: str) -> None:
     sys.stdout.flush()
 
 
+def _env_int(name: str, default: str) -> int:
+    return int(os.environ.get(name, default))
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m seldon_core_tpu_torch.operator.local")
-    ap.add_argument("--graph", required=True,
-                    help="path to a SeldonDeployment JSON")
-    ap.add_argument("--port", type=int, default=8000)
+    ap.add_argument("--graph",
+                    help="path to a SeldonDeployment JSON; without it the "
+                         "predictor comes from the ENGINE_PREDICTOR env "
+                         "(base64 JSON, as the operator compiles it)")
+    ap.add_argument("--port", type=int,
+                    default=_env_int("ENGINE_SERVER_PORT", "8000"))
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--grpc-port", type=int,
-                    default=int(os.environ.get("ENGINE_SERVER_GRPC_PORT",
-                                               "5000")),
+                    default=_env_int("ENGINE_SERVER_GRPC_PORT", "5000"),
                     help="the Seldon gRPC service's port; 0 disables")
-    ap.add_argument("--native-port", type=int, default=0,
+    ap.add_argument("--native-port", type=int,
+                    default=_env_int("ENGINE_NATIVE_PORT", "0"),
                     help="native (C++ epoll) REST tier port; 0 disables")
-    ap.add_argument("--native-grpc-port", type=int, default=0,
+    ap.add_argument("--native-grpc-port", type=int,
+                    default=_env_int("ENGINE_NATIVE_GRPC_PORT", "0"),
                     help="native (C++ h2c) gRPC tier port; 0 disables")
     ap.add_argument("--workers", type=int,
-                    default=int(os.environ.get("ENGINE_WORKERS", "1")),
+                    default=_env_int("ENGINE_WORKERS", "1"),
                     help="worker processes sharing every port "
                          "(SO_REUSEPORT), each with its own engine")
+    ap.add_argument("--max-lifetime-s", type=float,
+                    default=float(os.environ.get("ENGINE_MAX_LIFETIME_S",
+                                                 "0")),
+                    help="stop after this many seconds (0 = never)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=None,
@@ -960,8 +979,25 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def graph_from_env() -> dict:
+    """The deployment an operator-compiled engine pod serves: the
+    predictor in ``ENGINE_PREDICTOR`` (base64 JSON) under the name in
+    ``SELDON_DEPLOYMENT_ID``.  Exits as the reference engine does when
+    the variable is missing."""
+    import base64
+
+    raw = os.environ.get("ENGINE_PREDICTOR")
+    if not raw:
+        raise SystemExit("need --graph or ENGINE_PREDICTOR env")
+    pred = json.loads(base64.b64decode(raw))
+    return {"spec": {
+        "name": os.environ.get("SELDON_DEPLOYMENT_ID", "deployment"),
+        "predictors": [pred]}}
+
+
 def engine_main(argv: Optional[list] = None) -> None:
     args = build_parser().parse_args(argv)
+    graph = args.graph or graph_from_env()
     reuse = args.workers > 1
     if reuse:
         # before anything touches CUDA, grpc or the native library's threads
@@ -971,7 +1007,7 @@ def engine_main(argv: Optional[list] = None) -> None:
         _say(f"worker {index} (pid {os.getpid()})")
 
     async def run():
-        server, local = await serve(args.graph, port=args.port,
+        server, local = await serve(graph, port=args.port,
                                     host=args.host, device=args.device,
                                     reuse_port=reuse, seed=args.seed)
         stoppers = [server]
@@ -1016,6 +1052,8 @@ def engine_main(argv: Optional[list] = None) -> None:
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGTERM, signal.SIGINT):
             loop.add_signal_handler(sig, stop.set)
+        if args.max_lifetime_s > 0:
+            loop.call_later(args.max_lifetime_s, stop.set)
         await stop.wait()
         for srv in reversed(stoppers):
             await srv.stop()

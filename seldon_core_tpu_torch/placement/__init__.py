@@ -1,8 +1,11 @@
 """Placement plane: so far its annotations and their parser, the planner
 and the tensor-parallel rule table, which the admission lint reads
 (``analysis/graphlint.py`` GL12xx, ``analysis/tracelint.py`` GL1604 and
-GL1207).  The mesh manager, the sharded executor and the admin surface of
-``seldon_core_tpu/placement/`` come with a later slice."""
+GL1207), and the process-local registry the operator's
+``status.placement`` reads (``registry.py``; nothing publishes to it
+until the placement plane runs).  The mesh manager, the sharded executor
+and the admin surface of ``seldon_core_tpu/placement/`` come with a later
+slice."""
 
 from seldon_core_tpu_torch.placement.config import (
     MESH_ANNOTATION,
@@ -16,6 +19,12 @@ from seldon_core_tpu_torch.placement.planner import (
     SegmentFacts,
     plan_placement,
 )
+from seldon_core_tpu_torch.placement.registry import (
+    clear,
+    publish,
+    snapshot,
+    unpublish,
+)
 
 __all__ = [
     "MESH_ANNOTATION",
@@ -26,4 +35,8 @@ __all__ = [
     "SegmentFacts",
     "placement_config_from_annotations",
     "plan_placement",
+    "publish",
+    "unpublish",
+    "snapshot",
+    "clear",
 ]

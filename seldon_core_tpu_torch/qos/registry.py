@@ -8,7 +8,7 @@ from __future__ import annotations
 import threading
 from typing import Callable, Optional
 
-__all__ = ["publish", "unpublish", "snapshot"]
+__all__ = ["publish", "unpublish", "snapshot", "clear"]
 
 _lock = threading.Lock()
 _providers: dict[str, Callable[[], dict]] = {}
@@ -33,3 +33,9 @@ def snapshot(deployment: str) -> Optional[dict]:
         return provider()
     except Exception:
         return None
+
+
+def clear() -> None:
+    """Forget every provider (tests)."""
+    with _lock:
+        _providers.clear()

@@ -883,6 +883,57 @@ def alert_rules() -> dict:
                                 "compile has the per-bucket ledger)",
                         },
                     },
+                    {
+                        "alert": "SeldonFleetReplicaEjected",
+                        "expr": (
+                            'sum(seldon_fleet_replicas{state="ejected"}) '
+                            "by (deployment) > 0"
+                        ),
+                        "for": "2m",
+                        "labels": {"severity": "warning"},
+                        "annotations": {
+                            "summary":
+                                "fleet replica(s) ejected for "
+                                "{{ $labels.deployment }} — pool serving "
+                                "below configured width (/admin/fleet has "
+                                "per-replica verdicts and ejection reasons)",
+                        },
+                    },
+                    {
+                        "alert": "SeldonFleetStraggler",
+                        "expr": (
+                            "max(seldon_fleet_obs_straggler) "
+                            "by (deployment, replica) > 0"
+                        ),
+                        "for": "5m",
+                        "labels": {"severity": "warning"},
+                        "annotations": {
+                            "summary":
+                                "replica {{ $labels.replica }} of "
+                                "{{ $labels.deployment }} is a sustained "
+                                "straggler — its latency/error profile "
+                                "sits past the fleet's MAD threshold and "
+                                "routing is penalizing it "
+                                "(/admin/fleet/health names the "
+                                "dimension; profview --diff its "
+                                "/admin/fleet/profile stacks against a "
+                                "healthy peer)",
+                        },
+                    },
+                    {
+                        "alert": "SeldonGatewayRetrying",
+                        "expr": (
+                            "sum(rate(seldon_api_gateway_retries_total[5m])) "
+                            "by (deployment) > 1"
+                        ),
+                        "for": "5m",
+                        "labels": {"severity": "warning"},
+                        "annotations": {
+                            "summary":
+                                "gateway retrying engine forwards for "
+                                "{{ $labels.deployment }} — engine flapping",
+                        },
+                    },
                 ],
             }
         ]
@@ -941,9 +992,10 @@ def grafana_dashboard() -> dict:
                "sum(rate(seldon_batcher_batch_rows_sum[5m])) by (batcher) / "
                "sum(rate(seldon_batcher_batch_rows_count[5m])) by (batcher)",
                y=16, x=0),
-        _panel(6, "Batcher sheds",
-               "sum(rate(seldon_batcher_shed_total[5m])) by (batcher, reason)",
-               y=16, x=12),
+        _panel(6, "Batcher sheds + gateway retries",
+               ["sum(rate(seldon_batcher_shed_total[5m])) by (batcher, reason)",
+                "sum(rate(seldon_api_gateway_retries_total[5m])) "
+                "by (deployment)"], y=16, x=12),
         _panel(7, "Feedback reward rate",
                "sum(rate(seldon_api_model_feedback_reward_total[5m])) "
                "by (deployment, model_name)", y=24, x=0),
@@ -1009,6 +1061,26 @@ def grafana_dashboard() -> dict:
                ["max(seldon_artifact_coverage)",
                 "sum(rate(seldon_artifact_hydrations_total[5m])) "
                 "by (segment)"], y=80, x=0),
+        _panel(22, "Gateway ingress latency p99",
+               "histogram_quantile(0.99, sum(rate("
+               "seldon_api_server_ingress_seconds_bucket[5m])) "
+               "by (le, deployment))", y=80, x=12, unit="s"),
+        _panel(23, "Fleet forwards by replica (req/s)",
+               "sum(rate(seldon_fleet_forwards_total[5m])) "
+               "by (deployment, replica)", y=88, x=0),
+        _panel(24, "Fleet membership + ejections",
+               ["sum(seldon_fleet_replicas) by (deployment, state)",
+                "sum(rate(seldon_fleet_ejections_total[5m])) "
+                "by (deployment, replica, reason)"], y=88, x=12),
+        _panel(25, "Fleet skew (MADs from fleet median, by replica)",
+               ["max(seldon_fleet_obs_skew) "
+                "by (deployment, replica, dimension)",
+                "max(seldon_fleet_obs_straggler) by (deployment, replica)"],
+               y=96, x=0),
+        _panel(26, "Fleet verdict + unreachable replicas",
+               ["max(seldon_fleet_obs_verdict) by (deployment)",
+                "max(seldon_fleet_obs_unreachable) by (deployment)"],
+               y=96, x=12),
     ]
     return {
         "title": "Seldon Core TPU (PyTorch/CUDA port) — Prediction "
@@ -1063,16 +1135,12 @@ def main(argv=None) -> None:
     ap.add_argument("what", choices=["dashboard", "prometheus", "alerts",
                                      "docs"])
     args = ap.parse_args(argv)
-    if args.what == "dashboard":
-        print(json.dumps(grafana_dashboard(), indent=2))
-    elif args.what == "prometheus":
-        import yaml
-
-        print(yaml.safe_dump(prometheus_config(), sort_keys=False))
-    elif args.what == "alerts":
-        import yaml
-
-        print(yaml.safe_dump(alert_rules(), sort_keys=False))
+    # the scrape config and the alerts as JSON, which every YAML reader
+    # reads (the port carries no YAML writer)
+    docs = {"dashboard": grafana_dashboard, "prometheus": prometheus_config,
+            "alerts": alert_rules}
+    if args.what in docs:
+        print(json.dumps(docs[args.what](), indent=2))
     else:
         print(metric_docs())
 

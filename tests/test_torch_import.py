@@ -10,7 +10,9 @@ tiers round-trip (a framed call with the device plane on among them), a
 fused deployment boots with the artifact, device, tracing, health and
 profiling planes, and the static-analysis plane lints an example clean,
 with those packages blocked, and the gateway issues a token and forwards
-one prediction to an engine without them.  A second probe imports the
+one prediction to an engine without them.  The operator compiles and
+reconciles an example and renders the charts with ``yaml`` blocked too,
+and the tools draw a contract's request and judge a replay.  A second probe imports the
 gRPC modules and serves a gRPC call, and forwards one through the
 gateway's gRPC handler with its ``oauth_token``, still without jax or the
 JAX package.
@@ -31,7 +33,7 @@ PROBE = r"""
 import importlib, json, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
 sys.modules["safetensors"] = None
-for blocked in ("aiohttp", "grpc", "google.protobuf", "ml_dtypes"):
+for blocked in ("aiohttp", "grpc", "google.protobuf", "ml_dtypes", "yaml"):
     sys.modules[blocked] = None
 import seldon_core_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -183,8 +185,30 @@ async def front():
         await eng.stop()
         await dep.aclose()
 assert asyncio.run(asyncio.wait_for(front(), 60)) == (200, 3)
+# the operator without jax or yaml: an example compiles (admission lint
+# included), reconciles into the fake apiserver, and the charts render
+from seldon_core_tpu_torch.operator.chart import default_chart_dir, manifests
+from seldon_core_tpu_torch.operator.reconcile import (
+    FakeKubeApi, SeldonDeploymentController)
+with open("seldon_core_tpu_torch/examples/iris.json") as f:
+    cr = json.load(f)
+api = FakeKubeApi()
+api.create(cr)
+assert SeldonDeploymentController(api).reconcile(
+    api.get("SeldonDeployment", "default", "iris") or cr)["state"] == "Creating"
+assert any(m["kind"] == "CustomResourceDefinition"
+           for m in manifests(default_chart_dir()))
+# the tools without aiohttp: a contract's request, a replay verdict
+from seldon_core_tpu_torch.tools import Contract
+from seldon_core_tpu_torch.tools.replay import compare_responses
+with open("examples/contracts/iris.json") as f:
+    req = Contract.from_dict(json.load(f)).rest_request(
+        2, rng=np.random.default_rng(0))
+assert req["data"]["tensor"]["shape"] == [2, 4]
+assert compare_responses(b'{"a": 1}', b'{"a":1}')[0]
 blocked = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("aiohttp", "grpc", "ml_dtypes")
+                 if m.split(".")[0] in ("aiohttp", "grpc", "ml_dtypes",
+                                        "yaml")
                  or m.startswith("google.protobuf")
                  if sys.modules[m] is not None)
 print(json.dumps({"modules": names, "ref": ref, "jax": jaxish,
@@ -399,6 +423,22 @@ def test_port_imports_without_jax_or_the_jax_package():
         "seldon_core_tpu_torch.placement.planner",
         "seldon_core_tpu_torch.models.traceable",
         "seldon_core_tpu_torch.operator.spec",
+        "seldon_core_tpu_torch.operator.crd_schema",
+        "seldon_core_tpu_torch.operator.compile",
+        "seldon_core_tpu_torch.operator.reconcile",
+        "seldon_core_tpu_torch.operator.chart",
+        "seldon_core_tpu_torch.placement.registry",
+        "seldon_core_tpu_torch.utils.yamlite",
+        "seldon_core_tpu_torch.tools",
+        "seldon_core_tpu_torch.tools.__main__",
+        "seldon_core_tpu_torch.tools.contract",
+        "seldon_core_tpu_torch.tools.tester",
+        "seldon_core_tpu_torch.tools.loadtest",
+        "seldon_core_tpu_torch.tools.replay",
+        "seldon_core_tpu_torch.tools.chaos",
+        "seldon_core_tpu_torch.tools.traceview",
+        "seldon_core_tpu_torch.tools.profview",
+        "seldon_core_tpu_torch.tools.fleetview",
     }
     assert expected <= set(res["modules"])
 
