@@ -29,6 +29,11 @@ Prints one JSON object per line:
    8192), 8 slots whose tables share their first 12 pages (an aliased
    prefix), all slots inactive (the kernel's floor), g = 16, MHA at D64,
    float32 D256 and partition edges; each line names the split plan.
+   Slice 6a's per-rank shapes at tp = 2 (``7b_tp2_rank_*``): K1 on a
+   rank's w1 columns (4096x8192), w2 rows (8192x4096) and lm_head
+   vocabulary (4096x16000) at M 8, 128 and the one logit row; K2 at S8
+   H16/Hkv4; K3 at B1 L128 H16/Hkv4; each held to its plain version and
+   timed as the rows above.
 4. ``llm_json``: boots the local runner on the port's copy of
    ``examples/graphs/llm.json`` (automatic prefix caching on) in process,
    POSTs two waves of three greedy requests, the second sharing 32-token
@@ -321,7 +326,21 @@ Prints one JSON object per line:
     booted from the new env; ``replay`` of the record against it EQUAL to
     the old answer and stamped ``aot-cache``; the delete prunes every
     owned object; one reconcile timed.
-35. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
+35. ``parity_tp_7b`` (after ``parity_spec_7b``): tensor parallelism at
+    full width, 2 layers, int8 "ffn", on a tp = 2 mesh of two ranks on
+    cuda:0 against the plain path on a tp = 2 CPU mesh with the same
+    weights: 8 prompts of 66..127 tokens prefill (K3 and K1 per rank), 4
+    decode ticks of 8 slots against the tp-split page pool (K2 per rank);
+    logits within atol 0.25, greedy ids exact under ``parity_7b``'s tie
+    rule or within ``SPEC_TIE_ATOL`` of the CPU maximum (counted).
+36. ``tp_7b``: the 32-layer int8-ffn model served by ``PagedLLMEngine``
+    behind REST three times (no mesh, a 1-rank mesh, tp = 2 on cuda:0):
+    the 1-rank ids EQUAL the no-mesh ids; each tp = 2 divergence from
+    tp = 1 at a near-tie of tp = 1's logits (counted); a 128-token prompt
+    prefilled by ring attention at tp = 2 EQUAL to a dense prefill; a
+    speculative tp = 2 engine returning every page.  TTFT/TPOT medians,
+    tokens/s, peak memory per mode and ``tp_span``: reported.
+37. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
     phases of prefix caching, batched and chunked prefill, preemption and
     checkpoints together; ``slice_3b_phases``: ``spec_7b`` and
     ``parity_spec_7b``; ``slice_4a_i_phases``: the ``wire_*`` phases;
@@ -329,21 +348,23 @@ Prints one JSON object per line:
     ``qos_resnet50``; ``slice_4b_4c_i_phases``: the four of 14-17;
     ``slice_4c_ii_phases``: ``llm_graphs_7b``; ``slice_4d_4e_phases``:
     25-26; ``slice_5_i_phases``: 27-28; ``slice_5_ii_phases``: 29;
-    ``slice_5b_i_phases``: 30-32; ``slice_5b_ii_phases``: 33-34).
-36. ``{"kernels": [...]}``: one entry per kernel with its launches in the
+    ``slice_5b_i_phases``: 30-32; ``slice_5b_ii_phases``: 33-34;
+    ``slice_6a_phases``: 35-36).
+38. ``{"kernels": [...]}``: one entry per kernel with its launches in the
     runs through entry points (``llm_json``, ``serve_7b``, ``grpc_7b``,
     ``features_7b``, ``spec_7b``, ``llm_graphs_7b``, ``checkpoint_7b``,
     ``plan_resnet50``,
     ``cache_resnet50``, ``canary``, ``wire_resnet50``,
     ``wire_llm``, ``workers``, ``qos_resnet50``, ``artifacts_resnet50``,
     ``device_plane_resnet50``, ``observe_7b``, ``observe_resnet50``,
-    ``lint``, ``gateway_7b``, ``loadtest_7b``, ``gateway_resnet50``,
+    ``lint``, ``gateway_7b``, ``loadtest_7b``, ``parity_tp_7b``,
+    ``tp_7b``, ``gateway_resnet50``,
     ``fleet_resnet50`` and ``operator_resnet50``, counted by the child
     processes where the kernels run there; K1 also
     ``resnet50_launches``: the int8 REST run), each phase's count beside,
     its error, times and bound (K2 also at its two long cases and the
-    shared-prefix case).
-37. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+    shared-prefix case; each kernel also its ``tp2_rank_cases``).
+39. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
@@ -415,6 +436,19 @@ def kernel_phase(torch, timer) -> dict:
                                  ("verify40", 40), ("extend64", 64),
                                  ("prefill128", 128))
                 for pn, K, N in proj_7b]
+    # slice 6a: each rank's shard at tp = 2 (w1 by column, w2 by row with
+    # its input quantized over the local 8192, the lm_head's vocabulary),
+    # at decode (8 slots), at the 128-token prefill bucket and at the
+    # prefill's one logit row
+    proj_tp2 = [("w1", 4096, 8192), ("w2", 8192, 4096),
+                ("lm_head", 4096, 16000)]
+    k1_cases += [(f"7b_tp2_rank_{stage}_{pn}", M, K, N, torch.bfloat16,
+                  False)
+                 for stage, M in (("decode", 8), ("prefill128", 128),
+                                  ("logit_row", 1))
+                 for pn, K, N in proj_tp2
+                 if stage != "logit_row" or pn == "lm_head"]
+    tp2 = {}  # the per-rank cases' lines, by kernel
     k1_cases += [
         # ragged edges: M not a multiple of 8 or 64, N not of 16 or 64, K
         # not of 64 or 128 (a partial chunk / k-tile), 9-16 rows (two
@@ -480,6 +514,8 @@ def kernel_phase(torch, timer) -> dict:
                            if M > 16 else None),
                 bound_ms=b_ms, bound_by=b_by)
             del wd, xq
+            if name.startswith("7b_tp2"):
+                tp2.setdefault("int8_matmul", {})[name] = line
             if main:
                 summary["int8_matmul"] = {
                     k: line[k] for k in ("ms", "plain_ms", "library_ms",
@@ -547,7 +583,12 @@ def kernel_phase(torch, timer) -> dict:
         del q, kp, vp, out, ref, arrivals
         return line
 
-    lines = {c.name: paged_case(c) for c in k2cases.CASES}
+    # slice 6a: one tp = 2 rank's share of the 7B decode tick (its 16 query
+    # heads over its 4 KV heads, the pool's pages of those heads)
+    tp2_k2 = k2cases.Case("7b_tp2_rank_decode", 8, 16, 4, 128, 96, 16,
+                          k2cases.SERVE_LENGTHS, "bfloat16", timed=True)
+    lines = {c.name: paged_case(c) for c in (*k2cases.CASES, tp2_k2)}
+    tp2["paged_attention"] = {tp2_k2.name: lines[tp2_k2.name]}
     edges = lines["partition_edges"]
     part = edges["pages_per_split"] * edges["shape"]["page_size"]
     if not {part, part + 1} <= set(edges["shape"]["lengths"]):
@@ -608,6 +649,8 @@ def kernel_phase(torch, timer) -> dict:
                     lambda: torch.nn.functional.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=causal)),
                 bound_ms=b_ms, bound_by=b_by)
+            if name.startswith("7b_tp2"):
+                tp2.setdefault("flash_attention", {})[name] = line
             if main:
                 summary["flash_attention"] = {
                     k_: line[k_] for k_ in ("ms", "plain_ms", "library_ms",
@@ -646,8 +689,17 @@ def kernel_phase(torch, timer) -> dict:
                    False),
         flash_case("llm_json_prefill64", 1, 64, 4, 4, 16, torch.float32,
                    False),
+        # slice 6a: one tp = 2 rank's heads of the 128-token prefill
+        flash_case("7b_tp2_rank_prefill128", 1, 128, 16, 4, 128,
+                   torch.bfloat16, False),
     ]
     summary["flash_attention"]["max_abs_err"] = max(ferrs)
+    keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err", "variant")
+    for kernel, cases in tp2.items():
+        summary[kernel]["tp2_rank_cases"] = {
+            name: {k: ln[k] for k in keys if k in ln}
+            for name, ln in cases.items()}
     return summary
 
 
@@ -2484,6 +2536,350 @@ def parity_spec_7b_phase(torch) -> None:
     if any(d > SPEC_TIE_ATOL for d in near):
         raise AssertionError(f"parity_spec_7b: a greedy id is {max(near)} "
                              "below the CPU maximum")
+
+
+# ----------------------------------------------------------------------
+# slice 6a: tensor-parallel serving, two tp ranks on the one card
+# ----------------------------------------------------------------------
+
+def _card_meshes(torch):
+    """The card's 1-rank and 2-rank tp meshes (both ranks on cuda:0) and
+    the CPU's 2-rank mesh."""
+    from seldon_core_tpu_torch.parallel.mesh import make_mesh
+
+    return (make_mesh(devices=["cuda:0"], tp=1),
+            make_mesh(devices=["cuda:0", "cuda:0"], tp=2),
+            make_mesh(devices=["cpu", "cpu"], tp=2))
+
+
+def parity_tp_7b_phase(torch) -> dict:
+    """The tensor-parallel kernel path at full width, 2 layers, int8
+    "ffn" (w1, w2 and the lm_head int8, attention in bf16), flash prefill,
+    on a tp = 2 mesh of two ranks on cuda:0, against the plain path on the
+    CPU at tp = 2 with the same weights.  8 prompts of 66..127 tokens
+    prefill one by one (bucket 128: K3 at B1 L128 H16/Hkv4 per rank, K1 on
+    each rank's w1 columns and w2 rows, the lm_head's vocabulary shard at
+    one row), then 4 decode ticks of the 8 slots against a tp-split page
+    pool (K2 at S8 H16/Hkv4 per rank, K1 at M 8).  Logits within
+    ``parity_7b``'s atol 0.25.  Greedy ids: the count under its tie rule
+    (the CPU logit at the card's id equals the CPU maximum) is printed, and
+    every other id must be a near-tie, its CPU logit within
+    ``SPEC_TIE_ATOL`` of the CPU maximum (``parity_spec_7b``'s rule: over
+    40 positions the exact rule does not hold for the card against the CPU
+    at tp = 1 either; the first run read 38 of 40 exact, as that phase's
+    first run did).  Returns the card run's launches."""
+    from seldon_core_tpu_torch.models.transformer import (
+        init_params_int8,
+        prefill,
+        shard_params,
+    )
+    from seldon_core_tpu_torch.runtime.paged import (
+        PagedConfig,
+        arrival_counters,
+        init_paged_cache,
+        insert_rows,
+        paged_decode_step,
+    )
+
+    cfg = _cfg_7b(2)
+    _, card_mesh, cpu_mesh = _card_meshes(torch)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    base = init_params_int8(gen, cfg, int8="ffn")
+    gpu_params = shard_params(base, card_mesh, cfg)
+    cpu_params = shard_params(_to_device(base, "cpu"), cpu_mesh, cfg)
+    del base
+    S, pps = 8, 9
+    paged = PagedConfig(n_pages=1 + S * pps, page_size=16)
+    arrivals = arrival_counters(S, cfg.n_heads, cfg.kv_heads, "cuda",
+                                mesh=card_mesh)
+    rng = torch.Generator().manual_seed(17)
+    lens = [66 + (61 * i) // 7 for i in range(S)]  # 66 .. 127
+    prompts = [torch.randint(1, 32000, (n,), generator=rng) for n in lens]
+    tables = torch.arange(1, 1 + S * pps, dtype=torch.int32).reshape(S, pps)
+
+    def run(params, mesh, device):
+        cache = init_paged_cache(cfg, paged, device=device, mesh=mesh)
+        first = []
+        with torch.no_grad():
+            for s, p in enumerate(prompts):
+                ids = torch.zeros((1, 128), dtype=torch.long)
+                ids[0, :len(p)] = p
+                logits, small = prefill(params, ids.to(device), cfg,
+                                        max_len=128, logit_pos=len(p) - 1,
+                                        mesh=mesh)
+                first.append(logits.float().cpu())
+                idx = torch.arange(len(p))
+                rows = tables[s][idx // 16].long() * 16 + idx % 16
+                insert_rows(cache, small, rows.to(device), true_len=len(p))
+        return torch.cat(first), cache
+
+    def deficits(card, cpu):
+        """CPU maximum minus the CPU logit at each of the card's ids."""
+        at = cpu.gather(-1, card.argmax(-1)[:, None])[:, 0]
+        return (cpu.max(-1).values - at).tolist()
+
+    # the CPU path launches nothing: the counts are the card run's
+    torch.cuda.synchronize()
+    reset_launches()
+    g_first, g_cache = run(gpu_params, card_mesh, "cuda")
+    c_first, c_cache = run(cpu_params, cpu_mesh, "cpu")
+    errs = [(g_first - c_first).abs().max().item()]
+    defs = [deficits(g_first, c_first)]
+    equal = [int((g_first.argmax(-1) == c_first.argmax(-1)).sum())]
+    tok = g_first.argmax(-1)
+    pos = torch.tensor(lens, dtype=torch.int32)
+    with torch.no_grad():
+        for _ in range(4):
+            gl, g_cache = paged_decode_step(
+                gpu_params, g_cache, tables.cuda(), pos.cuda(), tok.cuda(),
+                cfg, paged, arrivals, mesh=card_mesh)
+            gl = gl.float().cpu()
+            cl, c_cache = paged_decode_step(cpu_params, c_cache, tables, pos,
+                                            tok, cfg, paged, mesh=cpu_mesh)
+            errs.append((gl - cl).abs().max().item())
+            defs.append(deficits(gl, cl))
+            equal.append(int((gl.argmax(-1) == cl.argmax(-1)).sum()))
+            tok = gl.argmax(-1)  # both paths take the card's ids next
+            pos = pos + 1
+    launches = read_launches()
+    agree = [sum(d == 0.0 for d in step) for step in defs]
+    near = [d for step in defs for d in step if d > 0]
+    line = {"phase": "parity_tp_7b", "layers": 2, "tp": 2,
+            "mesh": "tp=2 on [cuda:0, cuda:0] vs tp=2 on [cpu, cpu]",
+            "model": "d4096 H32/Hkv8 ff16384 V32000 bf16 int8-ffn flash",
+            "per_rank": "H16/Hkv4, w1 4096x8192, w2 8192x4096, lm_head "
+                        "4096x16000",
+            "prompt_lens": lens, "ticks": 4,
+            "max_abs_err_prefill": errs[0], "max_abs_err_ticks": errs[1:],
+            "tolerance": "atol 0.25", "greedy_ids_agree": sum(agree),
+            "greedy_ids_total": S * 5, "agree_per_step": agree,
+            "greedy_ids_equal_index": sum(equal),
+            "near_tie_deficits": near,
+            "tie_rule": f"exact, or within {SPEC_TIE_ATOL} of the CPU "
+                        "maximum", "launches": launches, "card": CARD}
+    emit(line)
+    if max(errs) > 0.25:
+        raise AssertionError(f"parity_tp_7b: logits differ by {max(errs)}")
+    if any(d > SPEC_TIE_ATOL for d in near):
+        raise AssertionError(f"parity_tp_7b: a greedy id is {max(near)} "
+                             "below the CPU maximum")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"parity_tp_7b: {k} was not launched")
+    return launches
+
+
+TP_RING_PREFILL = 64  # tp_7b's ring engine: buckets of 64+ tokens
+
+
+def tp_7b_phase(torch) -> dict:
+    """Tensor-parallel serving at full depth: the 7B-class model (32
+    layers) with int8 "ffn" weights (each copy about 7.4 GB) made on the
+    card from a seeded generator, served by ``PagedLLMEngine``
+    (``serve_7b``'s 96 pages of 16, 8 slots, max_len 256) inside
+    ``LLMComponent`` behind the REST server.  ``serve_7b``'s 8 prompts x 16
+    tokens, three times: no mesh, a 1-rank mesh, and a tp = 2 mesh of two
+    ranks on cuda:0 (they run one after the other on its stream); each
+    engine serves the burst twice, the first capturing its programs, the
+    second measured and its ids equal to the first's.
+
+    Gates: the 1-rank ids EQUAL the no-mesh ids.  tp = 2 may leave them
+    (w2's input is quantized per row over each rank's hidden shard, as the
+    reference's own test expects): each request's first divergence must sit
+    at a near-tie of the 1-rank logits (top-2 gap <= ``SPEC_TIE_ATOL``,
+    ``spec_7b``'s rule); their count is reported.  One 128-token prompt
+    (2 x ``TP_RING_PREFILL``) prefills through ring attention at tp = 2
+    (``ring_prefill`` 64), its ids EQUAL to a dense (non-flash, float32
+    softmax as the ring's) prefill of the same tp = 2 weights.  A
+    speculative tp = 2 engine (``spec_7b``'s 2-layer draft placed on the
+    mesh, k_draft 3, 161 pages) serves the 8 prompts and returns every page.
+    On a machine of one card ``DemoLLM(tp=2)`` (whose mesh takes the first
+    two cards) raises ``MeshPlanError``, as the reference's does on one
+    chip.  Reported, not gated: TTFT/TPOT medians and tokens/s per mode,
+    peak memory, ``tp_span``.  Returns the launches of the runs."""
+    import dataclasses
+
+    from seldon_core_tpu_torch.models.transformer import (
+        init_params_int8,
+        prefill,
+        shard_params,
+    )
+    from seldon_core_tpu_torch.models.llm_demo import DemoLLM
+    from seldon_core_tpu_torch.parallel.mesh import MeshPlanError
+    from seldon_core_tpu_torch.runtime.llm import LLMComponent, PagedLLMEngine
+    from seldon_core_tpu_torch.runtime.paged import PagedConfig
+    from seldon_core_tpu_torch.serving.rest import RestServer
+
+    demo_tp2 = None
+    if torch.cuda.device_count() < 2:
+        try:
+            DemoLLM(tp=2, int8="ffn")
+        except MeshPlanError as e:
+            demo_tp2 = f"MeshPlanError: {e}"
+        else:
+            raise AssertionError("tp_7b: DemoLLM(tp=2) built on one card")
+    cfg = _cfg_7b(32)
+    mesh1, mesh2, _ = _card_meshes(torch)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    base = init_params_int8(gen, cfg, int8="ffn")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    weights = {"no_mesh": (base, None),
+               "tp1": (shard_params(base, mesh1, cfg), mesh1),
+               "tp2": (shard_params(base, mesh2, cfg), mesh2)}
+    rng = torch.Generator().manual_seed(7)
+    lens = [5 + (115 * i) // 7 for i in range(8)]  # serve_7b's prompts
+    prompts = [torch.randint(1, 32000, (n,), generator=rng).tolist()
+               for n in lens]
+    long_prompt = torch.randint(1, 32000, (2 * TP_RING_PREFILL,),
+                                generator=rng).tolist()
+
+    def serve(engine, ps, n_new=16):
+        comp = LLMComponent(engine, n_new=n_new)
+
+        async def run():
+            server = await RestServer(comp, host="127.0.0.1", port=0).start()
+            try:
+                code, body = await asyncio.to_thread(
+                    _post, server.port, {"jsonData": {"prompt_ids": [1, 2, 3],
+                                                      "n_new": 2}})
+                if code != 200:
+                    raise AssertionError(f"tp_7b warm-up: {code} {body}")
+                bodies = [{"jsonData": {"prompt_ids": p, "n_new": n_new}}
+                          for p in ps]
+                # a first burst captures each shape's programs; the
+                # second, measured, replays them
+                first = await _post_all(server.port, bodies)
+                engine.latency_log.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                t1 = time.perf_counter()
+                answers = await _post_all(server.port, bodies)
+                wall = time.perf_counter() - t1
+                torch.cuda.synchronize()
+                return first, answers, wall, read_launches()
+            finally:
+                await server.stop()
+
+        first, answers, wall, launches = asyncio.run(run())
+        def ids_of(burst):
+            return [b.get("jsonData", {}).get("ids") for _, b in burst]
+
+        if ids_of(first) != ids_of(answers):
+            raise AssertionError("tp_7b: a replayed burst's ids differ from "
+                                 "the capturing burst's")
+        ids = []
+        for (code, body), p in zip(answers, ps):
+            if code != 200:
+                raise AssertionError(f"tp_7b: HTTP {code}: {body}")
+            x = body["jsonData"]["ids"]
+            if len(x) != len(p) + n_new or x[:len(p)] != p:
+                raise AssertionError(f"tp_7b: bad answer {x}")
+            ids.append(x)
+        log = list(engine.latency_log)
+        stats = {"wall_s": wall,
+                 "ttft_ms_median": statistics.median(
+                     x["ttft_s"] for x in log) * 1e3,
+                 "tpot_ms_median": statistics.median(
+                     x["tpot_s"] for x in log if x["tpot_s"] is not None)
+                 * 1e3,
+                 "tokens_per_s": n_new * len(ps) / wall,
+                 "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                 "launches": launches}
+        return ids, stats
+
+    paged = PagedConfig(n_pages=96, page_size=16)
+    out = {"phase": "tp_7b",
+           "model": "L32 d4096 H32/Hkv8 ff16384 V32000 bf16 int8-ffn flash",
+           "engine": "PagedLLMEngine 96x16 pages, 8 slots, max_len 256",
+           "prompt_lens": lens, "n_new": 16, "weights_init_s": t_init,
+           "demo_llm_tp2_on_one_card": demo_tp2, "card": CARD}
+    ids_by, total = {}, {}
+    for mode, (params, mesh) in weights.items():
+        engine = PagedLLMEngine(params, cfg, paged, max_slots=8, max_len=256,
+                                mesh=mesh)
+        ids_by[mode], out[mode] = serve(engine, prompts)
+        total[mode] = out[mode]["launches"]
+        if engine.free_pages != paged.n_pages - 1:
+            raise AssertionError(f"tp_7b {mode}: pages not returned")
+        out[mode]["graphs"] = engine.program_stats()["graphs"]
+        if mode == "tp2":
+            out["tp_span"] = engine.tp_span()
+        engine.close()
+    if ids_by["tp1"] != ids_by["no_mesh"]:
+        emit(out)
+        raise AssertionError("tp_7b: the 1-rank mesh's ids differ from the "
+                             "no-mesh ids")
+    # tp = 2 against tp = 1: the first divergence at a near-tie only
+    near, firsts = [], []
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            one, two = ids_by["tp1"][i], ids_by["tp2"][i]
+            diff = [j for j in range(len(p), len(one)) if one[j] != two[j]]
+            firsts.append((diff[0] if diff else len(one)) - len(p))
+            if not diff:
+                continue
+            logits, _ = prefill(base, torch.tensor([one], device="cuda"),
+                                cfg, max_len=len(one))
+            top = logits[0, diff[0] - 1].topk(2).values.float().cpu()
+            gap = float(top[0] - top[1])
+            near.append({"request": i, "position": diff[0] - len(p),
+                         "tp1_top2_gap": gap})
+    out.update(tp2_tokens_equal_tp1_before_first_difference=firsts,
+               tp2_divergences=near, tp2_divergence_count=len(near),
+               tie_rule=f"tp1 top-2 gap <= {SPEC_TIE_ATOL}")
+    if any(d["tp1_top2_gap"] > SPEC_TIE_ATOL for d in near):
+        emit(out)
+        raise AssertionError(f"tp_7b: tp = 2 leaves tp = 1 away from a "
+                             f"near-tie: {near}")
+    p2 = weights["tp2"][0]
+    del weights
+    # ring prefill of one long prompt against a dense prefill, tp = 2
+    ring = PagedLLMEngine(p2, cfg, paged, max_slots=8, max_len=256,
+                          mesh=mesh2, ring_prefill=TP_RING_PREFILL)
+    if not ring._ring_eligible(len(long_prompt)):
+        raise AssertionError("tp_7b: the long prompt is not ring-eligible")
+    ring_ids, out["ring"] = serve(ring, [long_prompt])
+    out["ring"]["programs"] = sorted(ring.program_stats()["programs"])
+    ring.close()
+    if "ring_prefill" not in out["ring"]["programs"]:
+        raise AssertionError("tp_7b: no ring prefill program ran")
+    dense = PagedLLMEngine(p2, dataclasses.replace(cfg, use_flash=False),
+                           paged, max_slots=8, max_len=256, mesh=mesh2)
+    dense_ids, out["dense_reference"] = serve(dense, [long_prompt])
+    dense.close()
+    out["ring_prompt_len"] = len(long_prompt)
+    out["ring_ids_equal_dense"] = ring_ids == dense_ids
+    total["ring"] = out["ring"]["launches"]
+    if ring_ids != dense_ids:
+        emit(out)
+        raise AssertionError("tp_7b: ring prefill ids differ from dense")
+    # speculative tp = 2 with a small draft placed on the mesh
+    d_params, d_cfg = _draft_small(torch)
+    spec_paged = PagedConfig(n_pages=161, page_size=16)
+    spec = PagedLLMEngine(p2, cfg, spec_paged, max_slots=8, max_len=256,
+                          mesh=mesh2,
+                          draft_params=shard_params(d_params, mesh2, d_cfg),
+                          draft_cfg=d_cfg, k_draft=3)
+    _, out["spec"] = serve(spec, prompts)
+    out["spec"]["spec_stats"] = dict(spec.spec_stats)
+    out["spec"]["free_pages"] = spec.free_pages
+    spec.close()
+    total["spec"] = out["spec"]["launches"]
+    emit(out)
+    if out["spec"]["free_pages"] != spec_paged.n_pages - 1:
+        raise AssertionError(f"tp_7b: the speculative engine kept pages "
+                             f"({out['spec']['free_pages']} free)")
+    if out["spec"]["spec_stats"]["rounds"] < 1:
+        raise AssertionError("tp_7b: no speculative round ran")
+    for k, n in total["tp2"].items():
+        if n <= 0:
+            raise AssertionError(f"tp_7b tp2: {k} was not launched")
+    del p2, d_params, base
+    torch.cuda.empty_cache()
+    return {k: sum(t[k] for t in total.values()) for k in total["tp2"]}
 
 
 # ----------------------------------------------------------------------
@@ -7105,6 +7501,9 @@ def smoke() -> int:
     timed("parity_7b", parity_7b_phase, torch)
     timed("parity_features_7b", parity_features_7b_phase, torch)
     timed("parity_spec_7b", parity_spec_7b_phase, torch)
+    # slice 6a: tensor-parallel serving, two tp ranks on the one card
+    runs["parity_tp_7b"] = timed("parity_tp_7b", parity_tp_7b_phase, torch)
+    runs["tp_7b"] = timed("tp_7b", tp_7b_phase, torch)
     runs["checkpoint_7b"] = timed("checkpoint_7b", checkpoint_7b_phase,
                                   torch)
     resnet_k1 = timed("resnet50", resnet50_phase, torch)
@@ -7167,6 +7566,7 @@ def smoke() -> int:
           + seconds["gateway_resnet50"] + seconds["fleet_resnet50"],
           "slice_5b_ii_phases": seconds["loadtest_7b"]
           + seconds["operator_resnet50"],
+          "slice_6a_phases": seconds["parity_tp_7b"] + seconds["tp_7b"],
           "total": time.perf_counter() - t0})
     launches = {k: sum(r[k] for r in runs.values())
                 for k in runs["serve_7b"]}
@@ -7184,7 +7584,8 @@ def smoke() -> int:
             "shape": s["shape"], "variant": s.get("variant"), "card": CARD,
             **{k: s[k] for k in ("long_ms", "long_bound_ms", "one_long_ms",
                                  "one_long_bound_ms", "shared_prefix_ms",
-                                 "shared_prefix_bound_ms") if k in s},
+                                 "shared_prefix_bound_ms", "tp2_rank_cases")
+               if k in s},
             **({"resnet50_launches": resnet_k1} if name == "int8_matmul"
                else {})})
     emit({"kernels": entries})

@@ -40,6 +40,8 @@ import json
 import logging
 import random
 import time
+from email import policy as email_policy
+from email.parser import BytesParser
 from typing import Optional
 from urllib.parse import parse_qsl
 
@@ -158,15 +160,40 @@ _UNAUTHORIZED = {"error": "invalid_token",
 
 def _form(req: Request) -> dict:
     """The form fields of a token request, as aiohttp's ``request.post()``
-    reads them (urlencoded or no content type; any other type is no
-    form); the first value of a repeated field."""
-    ctype = req.headers.get("content-type", "").split(";")[0].strip()
+    reads them (urlencoded, multipart or no content type; any other type is
+    no form); the first value of a repeated field."""
+    raw = req.headers.get("content-type", "")
+    ctype = raw.split(";")[0].strip().lower()
+    out: dict = {}
+    if ctype == "multipart/form-data":
+        for k, v in _multipart_fields(raw, req.body):
+            out.setdefault(k, v)
+        return out
     if ctype not in ("", "application/x-www-form-urlencoded"):
         return {}
-    out: dict = {}
     for k, v in parse_qsl(req.body.rstrip().decode("utf-8", "replace"),
                           keep_blank_values=True):
         out.setdefault(k, v)
+    return out
+
+
+def _multipart_fields(content_type: str, body: bytes) -> list:
+    """``(name, value)`` of each named part of a ``multipart/form-data``
+    body (its boundary in ``content_type``), values decoded as text in the
+    part's charset (UTF-8 when it names none)."""
+    msg = BytesParser(policy=email_policy.default).parsebytes(
+        b"Content-Type: " + content_type.encode("latin-1", "replace")
+        + b"\r\n\r\n" + body)
+    if not msg.is_multipart():
+        return []
+    out = []
+    for part in msg.iter_parts():
+        name = part.get_param("name", header="content-disposition")
+        if name is None:
+            continue
+        payload = part.get_payload(decode=True) or b""
+        out.append((str(name), payload.decode(
+            part.get_content_charset() or "utf-8", "replace")))
     return out
 
 
@@ -360,6 +387,12 @@ class Gateway:
         if self._server is not None:
             await self._server.stop()
             self._server = None
+        # a pool probe still in flight would eject (and record the
+        # decision) after the gateway is gone: stop it first
+        probes = list(self._probe_tasks)
+        for task in probes:
+            task.cancel()
+        await asyncio.gather(*probes, return_exceptions=True)
         if self.health is not None:
             await self.health.aclose()
         if self.profiler is not None:

@@ -13,7 +13,9 @@ from seldon_core_tpu_torch.models.transformer import (
     init_params,
     quantize_attn_params,
     quantize_ffn_params,
+    shard_params,
 )
+from seldon_core_tpu_torch.parallel.mesh import make_mesh
 from seldon_core_tpu_torch.runtime.checkpoint import (
     load_transformer,
     resolve_model_uri,
@@ -41,8 +43,12 @@ class DemoLLM(LLMComponent):
     draws, so the port and the reference serve different ids for one seed
     (the tests convert the reference's params to compare like with like).
     ``auto_prefix_tokens`` < 0 means ``4 * max_seq`` (automatic prefix
-    caching on, as in the reference).  ``ring_prefill`` prefills dense at
-    tp = 1; ``tp > 1`` comes with slice 6 of the port.
+    caching on, as in the reference).  ``tp > 1`` serves tensor-parallel
+    over a mesh of ``tp`` ranks (``parallel.mesh.make_mesh``): the first
+    ``tp`` cards (refused when fewer are visible), or ``tp`` ranks on the
+    CPU with ``device="cpu"``; ``int8="full"`` stays single-device.
+    ``ring_prefill`` prefills long buckets sequence-parallel at tp > 1 and
+    dense at tp = 1.
     """
 
     def __init__(
@@ -72,16 +78,19 @@ class DemoLLM(LLMComponent):
         max_priority: int = -1,
         device: str = "cuda",
     ):
-        if tp > 1:
-            raise NotImplementedError(
-                "tensor-parallel serving (tp > 1) comes with slice 6 of the "
-                "port")
         if int8 not in ("none", "ffn", "full"):
             raise ValueError(f"int8 must be none, ffn or full, not {int8!r}")
         dev = resolve_device(device)
+        mesh = None
+        if tp > 1:
+            mesh = make_mesh(n_devices=tp, tp=tp, pp=1, device=dev)
+            if int8 == "full":
+                raise ValueError(
+                    "int8='full' (attention projections) is single-chip; "
+                    "use int8='ffn' with tp>1")
         if model_uri:
             params, cfg = load_transformer(resolve_model_uri(model_uri),
-                                           int8=int8, device=dev)
+                                           mesh=mesh, int8=int8, device=dev)
         else:
             cfg = TransformerConfig(
                 vocab_size=vocab_size, d_model=d_model, n_layers=n_layers,
@@ -91,14 +100,17 @@ class DemoLLM(LLMComponent):
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(seed))
             params = init_params(gen, cfg, device=dev)
+            if mesh is not None:
+                params = shard_params(params, mesh, cfg)
             if int8 in ("ffn", "full"):
-                params = quantize_ffn_params(params)
+                params = quantize_ffn_params(params, mesh=mesh)
             if int8 == "full":
                 params = quantize_attn_params(params)
         if auto_prefix_tokens < 0:
             # on by default, sized by the served model's sequence length
             auto_prefix_tokens = 4 * cfg.max_seq
-        common = dict(max_slots=max_slots, chunk_prefill=chunk_prefill,
+        common = dict(mesh=mesh, max_slots=max_slots,
+                      chunk_prefill=chunk_prefill,
                       auto_prefix_tokens=auto_prefix_tokens,
                       ring_prefill=ring_prefill,
                       batch_prefill_ms=batch_prefill_ms)

@@ -21,10 +21,23 @@ scale, then the cast); rotary embedding on concatenated (not interleaved)
 halves with angles in float32; tanh-approximated GELU (``jax.nn.gelu``'s
 default); masked scores -1e30; attention scores and softmax in float32.
 
-This slice covers one device: no mesh, MoE, ring attention or pipeline
-(those come with the multi-device slice), and no training step.
-:func:`decode_step` decodes against a slab cache (:func:`init_cache`),
-one token or a K-token chunk per row, writing the new K/V rows in place;
+Tensor parallelism (``mesh=``, a :class:`~..parallel.mesh.Mesh` with a
+"tp" axis) is the reference's Megatron pattern, run by one controller:
+:func:`shard_params` splits wq/wk/wv by heads, wo and w2 by rows, w1 and the
+lm_head by columns (:func:`param_specs`), each rank's piece a
+:class:`~..parallel.mesh.Shards` entry on its device.  The residual stream,
+the norms and the embedding live on rank 0's device; every rank runs its
+heads' attention (the flash kernel K3 under ``use_flash``) and its share of
+the FFN (the int8 kernel K1 on its w1 columns and w2 rows), and the
+row-parallel partials meet in :func:`~..parallel.mesh.psum` (float32, rank
+order).  The lm_head's vocabulary shards meet in an all-gather.  The KV
+caches split their head axis the same way.  ``cfg.attention == "ring"``
+prefills sequence-parallel instead: q/k/v move from heads to sequence
+shards (an all-to-all), ring attention runs over "tp", and the output moves
+back.  A dp axis splits the batch over groups of ranks that share devices;
+pp (the pipeline), MoE and the training step come with the training slice.
+:func:`decode_step` decodes against a slab cache (:func:`init_cache`), one
+token or a K-token chunk per row, writing the new K/V rows in place;
 :func:`generate` and :func:`speculative_generate` are the reference's
 one-request loops over it.
 """
@@ -41,15 +54,31 @@ from seldon_core_tpu_torch.ops.attention import flash_attention
 from seldon_core_tpu_torch.ops.quant import (
     QuantizedLinear,
     int8_matmul,
+    k_major,
     quantize_int8,
 )
-from seldon_core_tpu_torch.parallel.ring_attention import dense_attention
+from seldon_core_tpu_torch.parallel.mesh import (
+    Mesh,
+    Shards,
+    all_gather,
+    all_to_all,
+    named_sharding,
+    place,
+    pspec,
+    psum,
+    unshard,
+)
+from seldon_core_tpu_torch.parallel.ring_attention import (
+    dense_attention,
+    ring_attention,
+)
 
 __all__ = [
-    "TransformerConfig", "init_params", "init_params_int8",
-    "quantize_ffn_params", "quantize_attn_params", "rmsnorm", "rope",
-    "attention_block", "ffn_block", "prefill", "has_quantized_params",
-    "init_cache", "decode_step", "generate", "speculative_generate",
+    "TransformerConfig", "init_params", "init_params_int8", "param_specs",
+    "shard_params", "quantize_ffn_params", "quantize_attn_params",
+    "rmsnorm", "rope", "attention_block", "ffn_block", "prefill",
+    "has_quantized_params", "init_cache", "decode_step", "generate",
+    "speculative_generate",
 ]
 
 # float32 products on the card must stay float32, as the reference's do
@@ -71,6 +100,12 @@ class TransformerConfig:
     n_kv_heads: Optional[int] = None
     # flash-attention kernel (K3) on the prefill path instead of dense
     use_flash: bool = False
+    # "dense" (heads over tp) or "ring" (the sequence over tp: ring
+    # attention, parallel/ring_attention.py); ring needs a mesh with tp > 1
+    attention: str = "dense"
+    # ring attention's score tile bound: keys per inner step (None: the
+    # whole block a rank holds)
+    ring_kv_chunk: Optional[int] = None
 
     @property
     def d_head(self) -> int:
@@ -130,15 +165,24 @@ def _q8(w) -> dict:
 
 
 def init_params_int8(gen: torch.Generator, cfg: TransformerConfig,
-                     device=None) -> dict:
-    """int8 "full" params made layer by layer on ``device``: each layer's
-    float32 weights exist only while that layer is quantized, so the float32
-    master copy of a large model (21 GB at 7B) never exists whole.  Same
-    layout as ``quantize_attn_params(quantize_ffn_params(init_params(...)))``
-    with the embedding stored in ``cfg.dtype`` (the reference's 7B weight init,
-    ``bench.py`` ``_init_7b_int8``, does the same)."""
+                     device=None, int8: str = "full") -> dict:
+    """int8 params made layer by layer on ``device``: each layer's float32
+    weights exist only while that layer is quantized, so the float32 master
+    copy of a large model (21 GB at 7B) never exists whole.
+
+    - ``int8="full"``: the layout of
+      ``quantize_attn_params(quantize_ffn_params(init_params(...)))``;
+    - ``int8="ffn"``: the layout of ``quantize_ffn_params(init_params(...))``
+      with the attention projections stacked in ``cfg.dtype`` (the same
+      draws, reshaped).
+
+    The embedding is stored in ``cfg.dtype`` (the reference's 7B weight
+    init, ``bench.py`` ``_init_7b_int8``, does the same)."""
+    if int8 not in ("full", "ffn"):
+        raise ValueError(f"int8 must be full or ffn, not {int8!r}")
     device = gen.device if device is None else device
-    D, H, Dh, Fd = cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff
+    D, H, Dh, Fd, L = (cfg.d_model, cfg.n_heads, cfg.d_head, cfg.d_ff,
+                       cfg.n_layers)
     Hk = cfg.kv_heads
     s = D ** -0.5
     shapes = {
@@ -146,14 +190,23 @@ def init_params_int8(gen: torch.Generator, cfg: TransformerConfig,
         "wv": ((D, Hk * Dh), s), "wo": ((H * Dh, D), s),
         "w1": ((D, Fd), s), "w2": ((Fd, D), Fd ** -0.5),
     }
-    blocks = {name: {"values": [], "scales": []} for name in shapes}
-    for _ in range(cfg.n_layers):
+    stacked = {"wq": (D, H, Dh), "wk": (D, Hk, Dh), "wv": (D, Hk, Dh),
+               "wo": (H, Dh, D)} if int8 == "ffn" else {}
+    blocks: dict = {name: {"values": [], "scales": []} for name in shapes}
+    for name, shape in stacked.items():
+        blocks[name] = torch.empty((L, *shape), dtype=cfg.dtype,
+                                   device=device)
+    for i in range(L):
         for name, (shape, scale) in shapes.items():
-            q = _q8(_normal(gen, shape, scale, device))
+            w = _normal(gen, shape, scale, device)
+            if name in stacked:
+                blocks[name][i] = w.reshape(stacked[name])
+                continue
+            q = _q8(w)
             blocks[name]["values"].append(q["values"])
             blocks[name]["scales"].append(q["scales"])
-    blocks["ln1"] = torch.ones((cfg.n_layers, D), device=device)
-    blocks["ln2"] = torch.ones((cfg.n_layers, D), device=device)
+    blocks["ln1"] = torch.ones((L, D), device=device)
+    blocks["ln2"] = torch.ones((L, D), device=device)
     embed = _normal(gen, (cfg.vocab_size, D), s, device).to(cfg.dtype)
     return {
         "embed": embed,
@@ -163,18 +216,27 @@ def init_params_int8(gen: torch.Generator, cfg: TransformerConfig,
     }
 
 
-def quantize_ffn_params(params: dict) -> dict:
+def quantize_ffn_params(params: dict, mesh: Optional[Mesh] = None) -> dict:
     """Each block's w1/w2 and the lm_head to per-channel int8, unstacked
-    per layer."""
+    per layer.  Quantization is over the GLOBAL weight (per output column),
+    whether or not ``params`` is placed.  With ``mesh`` the int8 leaves are
+    placed tensor-parallel (:func:`shard_params`): w1 and its scales by
+    column, w2 by row with its scales whole on every rank, the lm_head by
+    column; a column's scale shards with it, so each rank's product is
+    exact."""
     out = dict(params)
     blocks = dict(params["blocks"])
     for name in ("w1", "w2"):
-        w = blocks[name]
+        w = unshard(blocks[name])
         qs = [quantize_int8(w[i]) for i in range(w.shape[0])]
         blocks[name] = {"values": [q.values for q in qs],
                         "scales": [q.scales for q in qs]}
     out["blocks"] = blocks
-    out["lm_head"] = _q8(params["lm_head"])
+    out["lm_head"] = _q8(unshard(params["lm_head"]))
+    if mesh is not None:
+        for name in ("w1", "w2"):
+            blocks[name] = _place_q8(blocks[name], mesh, name)
+        out["lm_head"] = _place_q8(out["lm_head"], mesh, "lm_head")
     return out
 
 
@@ -210,13 +272,132 @@ def has_quantized_params(params: dict) -> bool:
 
 
 def _layer_params(blocks: dict, i: int) -> dict:
-    """Layer ``i``: stacked leaves sliced on the layer dim, int8 per-layer
-    lists indexed."""
-    return {
-        k: ({"values": v["values"][i], "scales": v["scales"][i]}
-            if _is_q8(v) else v[i])
-        for k, v in blocks.items()
+    """Layer ``i``: stacked leaves sliced on the layer dim (each rank's
+    piece of a placed leaf), int8 per-layer lists indexed."""
+    def one(v):
+        if _is_q8(v):
+            return {"values": v["values"][i], "scales": v["scales"][i]}
+        if isinstance(v, Shards):
+            return Shards([t[i] for t in v],
+                          None if v.dim is None else v.dim - 1)
+        return v[i]
+
+    return {k: one(v) for k, v in blocks.items()}
+
+
+# ----------------------------------------------------------------------
+# tensor-parallel placement
+# ----------------------------------------------------------------------
+
+#: placement of the per-layer int8 leaves (values, scales): w1 and the
+#: lm_head by column with their scales, w2 by row with its scales whole
+Q8_SPECS = {"w1": (pspec(None, "tp"), pspec("tp")),
+            "w2": (pspec("tp", None), pspec(None)),
+            "lm_head": (pspec(None, "tp"), pspec("tp"))}
+
+
+def param_specs(cfg: TransformerConfig, pp: int = 1) -> dict:
+    """Placement spec per float leaf (Megatron): q/k/v heads and w1 columns
+    over "tp", wo and w2 rows over "tp", the lm_head's vocabulary over
+    "tp"; the stacked layer dim over "pp" when pipelining."""
+    b = "pp" if pp > 1 else None
+    block = {
+        "ln1": pspec(b, None),
+        "ln2": pspec(b, None),
+        "wq": pspec(b, None, "tp", None),
+        "wk": pspec(b, None, "tp", None),
+        "wv": pspec(b, None, "tp", None),
+        "wo": pspec(b, "tp", None, None),
+        "w1": pspec(b, None, "tp"),
+        "w2": pspec(b, "tp", None),
     }
+    return {"embed": pspec(None, None), "blocks": block, "ln_f": pspec(None),
+            "lm_head": pspec(None, "tp")}
+
+
+def _check_serving_mesh(mesh: Mesh, pp: int = 1) -> None:
+    if pp > 1 or mesh.axis_size("pp") > 1:
+        raise NotImplementedError(
+            "the pp pipeline comes with the training slice of the port; "
+            "serve over dp and tp")
+
+
+def _place_q8(leaf: dict, mesh: Mesh, name: str) -> dict:
+    """A global int8 leaf (per-layer lists, or one tensor for the lm_head)
+    placed by :data:`Q8_SPECS`; each rank's values stay K-major and a whole
+    scale vector is copied to every rank."""
+    vspec, sspec = Q8_SPECS[name]
+
+    def put(t, spec, layout=None):
+        t = unshard(t)
+        if "tp" not in spec:
+            return Shards([t.to(d) for d in mesh.axis_devices("tp")], None)
+        return place(t, named_sharding(mesh, *spec), layout=layout)
+
+    if isinstance(leaf["values"], list):
+        return {"values": [put(v, vspec, k_major) for v in leaf["values"]],
+                "scales": [put(v, sspec) for v in leaf["scales"]]}
+    return {"values": put(leaf["values"], vspec, k_major),
+            "scales": put(leaf["scales"], sspec)}
+
+
+def shard_params(params: dict, mesh: Mesh, cfg: TransformerConfig,
+                 pp: int = 1) -> dict:
+    """Place a param tree tensor-parallel over ``mesh``'s "tp" axis
+    (:func:`param_specs`): each split leaf becomes a :class:`Shards` of its
+    pieces, one per rank on that rank's device; the embedding and the norms
+    go to rank 0's device.  int8 w1/w2/lm_head leaves (quantized over the
+    global weight) take :data:`Q8_SPECS`, which equals quantizing the
+    placed float tree; int8 attention projections are refused
+    (single-device serving only).  wk/wv split their KV heads, so
+    ``cfg.kv_heads`` must divide by tp."""
+    _check_serving_mesh(mesh, pp)
+    tp = mesh.axis_size("tp")
+    if cfg.kv_heads % tp:
+        raise ValueError(
+            f"n_kv_heads {cfg.kv_heads} must be divisible by tp {tp}: wk/wv "
+            "shard their head dim over 'tp' (KV-head replication across tp "
+            "is not implemented — lower tp or raise n_kv_heads)")
+    specs = param_specs(cfg, pp)
+
+    def put(t, spec):
+        return place(unshard(t), named_sharding(mesh, *spec))
+
+    blocks = {}
+    for name, leaf in params["blocks"].items():
+        if _is_q8(leaf):
+            if name not in Q8_SPECS:
+                _check_q8_attn_single_chip({"wq": leaf}, mesh)
+            blocks[name] = _place_q8(leaf, mesh, name)
+        else:
+            blocks[name] = put(leaf, specs["blocks"][name])
+    lm = params["lm_head"]
+    return {
+        "embed": put(params["embed"], specs["embed"]),
+        "blocks": blocks,
+        "ln_f": put(params["ln_f"], specs["ln_f"]),
+        "lm_head": (_place_q8(lm, mesh, "lm_head") if _is_q8(lm)
+                    else put(lm, specs["lm_head"])),
+    }
+
+
+def _check_q8_attn_single_chip(p: dict, mesh) -> None:
+    if mesh is not None and _is_q8(p.get("wq")):
+        raise ValueError(
+            "int8 attention projections are single-chip serving only "
+            "(the pallas kernel cannot be partitioned by GSPMD; FFN/lm_head "
+            "tp-sharding goes through quantize_ffn_params(mesh=...))")
+
+
+def _part(leaf, r: int, dev):
+    """Rank ``r``'s piece of a placed leaf (float or int8) on ``dev``."""
+    if _is_q8(leaf):
+        return {"values": _part(leaf["values"], r, dev),
+                "scales": _part(leaf["scales"], r, dev)}
+    if not isinstance(leaf, Shards):
+        raise ValueError("params on a mesh must be placed first "
+                         "(shard_params / quantize_ffn_params(mesh=...))")
+    return leaf[r].to(dev)
 
 
 def _q8_matmul(x2, w, out_dtype):
@@ -276,10 +457,16 @@ def _expand_kv(kv, cfg: TransformerConfig):
 
 
 def attention_block(p, x, positions, cfg: TransformerConfig,
-                    return_kv: bool = False):
+                    return_kv: bool = False, mesh: Optional[Mesh] = None):
     """Causal self-attention.  ``return_kv`` also returns the post-rope K/V
     (at ``kv_heads``) for the KV cache.  With ``cfg.use_flash`` the flash
-    kernel reads the un-expanded K/V itself; the dense path expands first."""
+    kernel reads the un-expanded K/V itself; the dense path expands first.
+    With ``mesh`` (tensor-parallel, module docstring) the K/V returned are
+    :class:`Shards` split on their head axis."""
+    if mesh is not None:
+        return _over_dp(mesh, x.shape[0], lambda devs, rows: _tp_attention(
+            p, x[rows], positions[rows] if positions.shape[0] > 1
+            else positions, cfg, devs, return_kv), kv=return_kv)
     h = rmsnorm(x, p["ln1"])
     q = _attn_proj(h, p["wq"], cfg.n_heads, cfg.d_head, x.dtype)
     k = _attn_proj(h, p["wk"], cfg.kv_heads, cfg.d_head, x.dtype)
@@ -320,9 +507,14 @@ def _chunk_attention(q, kg, vg, positions):
     return attn.reshape(S, K, H, Dh)
 
 
-def ffn_block(p, x, cfg: TransformerConfig):
+def ffn_block(p, x, cfg: TransformerConfig, mesh: Optional[Mesh] = None):
     """Dense FFN with tanh GELU; int8 weights take the int8 kernel.  (The
-    reference also returns a MoE aux loss; this slice has no MoE.)"""
+    reference also returns a MoE aux loss; the port has no MoE yet.)  With
+    ``mesh``: each rank's w1 columns and w2 rows, the partials summed in
+    float32 (:func:`_tp_ffn`)."""
+    if mesh is not None:
+        return _over_dp(mesh, x.shape[0], lambda devs, rows: _tp_ffn(
+            p, x[rows], cfg, devs))
     h = rmsnorm(x, p["ln2"])
     if _is_q8(p["w1"]):
         B, L, D = h.shape
@@ -341,7 +533,11 @@ def _embed(params: dict, ids, cfg: TransformerConfig):
     return params["embed"][ids].to(cfg.dtype)
 
 
-def _vocab_proj(x, lm_head, cfg: TransformerConfig):
+def _vocab_proj(x, lm_head, cfg: TransformerConfig,
+                mesh: Optional[Mesh] = None):
+    if mesh is not None:
+        return _over_dp(mesh, x.shape[0], lambda devs, rows: _tp_vocab(
+            x[rows], lm_head, cfg, devs))
     if _is_q8(lm_head):
         B, L, D = x.shape
         return _q8_matmul(x.reshape(B * L, D), lm_head, cfg.dtype).reshape(
@@ -349,8 +545,140 @@ def _vocab_proj(x, lm_head, cfg: TransformerConfig):
     return torch.einsum("bld,dv->blv", x, lm_head.to(cfg.dtype))
 
 
+# ----------------------------------------------------------------------
+# tensor-parallel layers: one controller, each rank's share on its device
+# ----------------------------------------------------------------------
+
+def _over_dp(mesh: Mesh, B: int, fn, kv: bool = False):
+    """``fn(tp devices, rows)`` for each dp group's even share of the B
+    rows, the results concatenated on rows (on group 0's rank-0 device;
+    K/V :class:`Shards` rank by rank).  The groups must share their
+    devices: a dp axis over distinct devices is one engine per group."""
+    _check_serving_mesh(mesh)
+    dp = mesh.axis_size("dp")
+    devs = mesh.axis_devices("tp")
+    if dp == 1:
+        return fn(devs, slice(None))
+    if B % dp:
+        raise ValueError(f"batch {B} must divide by dp {dp}")
+    for d in range(1, dp):
+        if mesh.axis_devices("tp", dp=d) != devs:
+            raise NotImplementedError(
+                "a dp axis over distinct devices: serve one engine per dp "
+                "group")
+    n = B // dp
+    outs = [fn(devs, slice(d * n, (d + 1) * n)) for d in range(dp)]
+    if not kv:
+        return torch.cat(outs, dim=0)
+    xs = torch.cat([o[0] for o in outs], dim=0)
+    ks = Shards([torch.cat(parts, dim=0) for parts in zip(
+        *[o[1][0] for o in outs])], outs[0][1][0].dim)
+    vs = Shards([torch.cat(parts, dim=0) for parts in zip(
+        *[o[1][1] for o in outs])], outs[0][1][1].dim)
+    return xs, (ks, vs)
+
+
+def _rank_qkv(p, h, positions, cfg: TransformerConfig, devs: list):
+    """Each rank's post-rope q (B, L, H/tp, Dh) and k, v (B, L, Hkv/tp,
+    Dh) of its heads, on its device."""
+    tp = len(devs)
+    H, Hk, Dh = cfg.n_heads // tp, cfg.kv_heads // tp, cfg.d_head
+    out = []
+    for r, dev in enumerate(devs):
+        hr, pr = h.to(dev), positions.to(dev)
+        q = _attn_proj(hr, _part(p["wq"], r, dev), H, Dh, h.dtype)
+        k = _attn_proj(hr, _part(p["wk"], r, dev), Hk, Dh, h.dtype)
+        v = _attn_proj(hr, _part(p["wv"], r, dev), Hk, Dh, h.dtype)
+        out.append((rope(q, pr, cfg.rope_theta), rope(k, pr, cfg.rope_theta),
+                    v, pr))
+    return out
+
+
+def _tp_attn_out(p, x, attns: list, devs: list):
+    """``x`` plus the row-parallel output projection: each rank's heads
+    through its wo rows, the partials summed (:func:`psum`)."""
+    partials = [_attn_out(a.to(x.dtype), _part(p["wo"], r, dev), x.dtype)
+                for r, (a, dev) in enumerate(zip(attns, devs))]
+    return x + psum(partials)[0].to(x.device)
+
+
+def _tp_attention(p, x, positions, cfg: TransformerConfig, devs: list,
+                  return_kv: bool):
+    """The attention sublayer over ``devs`` (one dp group's tp ranks).
+    Dense: each rank attends over its heads (K3 under ``use_flash``).
+    Ring (``cfg.attention == "ring"``, tp > 1): q/k/v move from head to
+    sequence shards (all-to-all), ring attention runs over the ranks with
+    the K/V at kv_heads, and the output moves back to head shards; the K/V
+    for the cache stay head shards throughout."""
+    _check_q8_attn_single_chip(p, devs)
+    h = rmsnorm(x, p["ln1"].to(x.device))
+    qkv = _rank_qkv(p, h, positions, cfg, devs)
+    ks = Shards([k for _, k, _, _ in qkv], 2)
+    vs = Shards([v for _, _, v, _ in qkv], 2)
+    if cfg.attention == "ring" and len(devs) > 1:
+        # heads -> sequence: rank r holds every head of sequence block r
+        q_seq = all_to_all([q for q, _, _, _ in qkv], 1, 2)
+        k_seq = all_to_all(ks, 1, 2)
+        v_seq = all_to_all(vs, 1, 2)
+        out_seq = ring_attention(q_seq, k_seq, v_seq, causal=True,
+                                 kv_chunk=cfg.ring_kv_chunk,
+                                 n_rep=cfg.n_heads // cfg.kv_heads)
+        attns = all_to_all(out_seq, 2, 1)  # sequence -> heads
+    elif cfg.use_flash:
+        attns = [flash_attention(q, k, v, causal=True)
+                 for q, k, v, _ in qkv]
+    else:
+        attns = [dense_attention(q, _expand_kv(k, cfg), _expand_kv(v, cfg),
+                                 causal=True) for q, k, v, _ in qkv]
+    out = _tp_attn_out(p, x, attns, devs)
+    if return_kv:
+        return out, (ks, vs)
+    return out
+
+
+def _tp_ffn(p, x, cfg: TransformerConfig, devs: list):
+    """Each rank's w1 columns, GELU and w2 rows; the row-parallel partials
+    summed in float32 and cast (int8: K1 per rank, its w2 input quantized
+    per row over the rank's own hidden shard, as the reference's
+    ``_q8_ffn_local``)."""
+    h = rmsnorm(x, p["ln2"].to(x.device))
+    B, L, D = h.shape
+    partials = []
+    for r, dev in enumerate(devs):
+        hr = h.to(dev)
+        if _is_q8(p["w1"]):
+            h1 = _q8_matmul(hr.reshape(B * L, D), _part(p["w1"], r, dev),
+                            x.dtype)
+            h1 = F.gelu(h1, approximate="tanh")
+            partials.append(_q8_matmul(h1, _part(p["w2"], r, dev),
+                                       torch.float32))
+        else:
+            h1 = torch.einsum("bld,df->blf", hr,
+                              _part(p["w1"], r, dev).to(x.dtype))
+            h1 = F.gelu(h1, approximate="tanh")
+            partials.append(torch.einsum(
+                "blf,fd->bld", h1, _part(p["w2"], r, dev).to(x.dtype)))
+    out = psum(partials, dtype=x.dtype)[0].to(x.device)
+    return x + out.reshape(B, L, D)
+
+
+def _tp_vocab(x, lm_head, cfg: TransformerConfig, devs: list):
+    """Each rank's vocabulary columns, all-gathered on the last dim."""
+    B, L, D = x.shape
+    parts = []
+    for r, dev in enumerate(devs):
+        xr = x.to(dev)
+        w = _part(lm_head, r, dev)
+        if _is_q8(lm_head):
+            parts.append(_q8_matmul(xr.reshape(B * L, D), w,
+                                    cfg.dtype).reshape(B, L, -1))
+        else:
+            parts.append(torch.einsum("bld,dv->blv", xr, w.to(cfg.dtype)))
+    return all_gather(parts, dim=-1)[0].to(x.device)
+
+
 def prefill(params, input_ids, cfg: TransformerConfig, max_len: int,
-            logit_pos=None):
+            logit_pos=None, mesh: Optional[Mesh] = None):
     """One forward over the whole prompt that also returns its KV cache.
 
     Returns ``(logits, cache)`` with ``cache = {"k", "v": (layers, B,
@@ -359,6 +687,10 @@ def prefill(params, input_ids, cfg: TransformerConfig, max_len: int,
     row, or a (B,) tensor of per-row positions; ``None`` projects all
     positions (``[B, L, V]``).  Right-padding is exact under causal
     attention, so callers pass ``logit_pos = true_len - 1``.
+
+    With ``mesh`` the layers run tensor-parallel (sequence-parallel under
+    ``cfg.attention == "ring"``) and the cache's K/V are :class:`Shards`
+    split on their head axis, the layout of :func:`init_cache`'s.
     """
     B, L = input_ids.shape
     x = _embed(params, input_ids, cfg)
@@ -366,8 +698,9 @@ def prefill(params, input_ids, cfg: TransformerConfig, max_len: int,
     ks, vs = [], []
     for i in range(cfg.n_layers):
         p = _layer_params(params["blocks"], i)
-        x, (k, v) = attention_block(p, x, positions, cfg, return_kv=True)
-        x = ffn_block(p, x, cfg)
+        x, (k, v) = attention_block(p, x, positions, cfg, return_kv=True,
+                                    mesh=mesh)
+        x = ffn_block(p, x, cfg, mesh=mesh)
         ks.append(k)
         vs.append(v)
     x = rmsnorm(x, params["ln_f"])
@@ -377,16 +710,20 @@ def prefill(params, input_ids, cfg: TransformerConfig, max_len: int,
             x = x[:, int(lp)][:, None]
         else:
             x = x[torch.arange(B, device=x.device), lp.to(x.device)][:, None]
-        logits = _vocab_proj(x, params["lm_head"], cfg)[:, 0].float()
+        logits = _vocab_proj(x, params["lm_head"], cfg, mesh)[:, 0].float()
     else:
-        logits = _vocab_proj(x, params["lm_head"], cfg).float()
+        logits = _vocab_proj(x, params["lm_head"], cfg, mesh).float()
     pad = max_len - L
-    cache = {
+
+    def cache_of(layers):
         # (layers, B, max_len, Hkv, Dh): prompt K/V up front, zeros after
-        "k": F.pad(torch.stack(ks), (0, 0, 0, 0, 0, pad)),
-        "v": F.pad(torch.stack(vs), (0, 0, 0, 0, 0, pad)),
-        "pos": torch.full((B,), L, dtype=torch.int32, device=x.device),
-    }
+        if mesh is None:
+            return F.pad(torch.stack(layers), (0, 0, 0, 0, 0, pad))
+        return Shards([F.pad(torch.stack(parts), (0, 0, 0, 0, 0, pad))
+                       for parts in zip(*layers)], 3)
+
+    cache = {"k": cache_of(ks), "v": cache_of(vs),
+             "pos": torch.full((B,), L, dtype=torch.int32, device=x.device)}
     return logits, cache
 
 
@@ -395,17 +732,64 @@ def prefill(params, input_ids, cfg: TransformerConfig, max_len: int,
 # ----------------------------------------------------------------------
 
 def init_cache(cfg: TransformerConfig, batch: int,
-               max_len: Optional[int] = None, device=None) -> dict:
+               max_len: Optional[int] = None, device=None,
+               mesh: Optional[Mesh] = None) -> dict:
     """Slab KV cache ``{"k", "v": (layers, B, T, kv_heads, d_head), "pos":
-    (B,) int32}``; GQA keeps it at ``kv_heads``."""
+    (B,) int32}``; GQA keeps it at ``kv_heads``.  With ``mesh`` the K/V are
+    :class:`Shards` split on the KV-head axis over "tp" (each rank holds the
+    KV heads of its query heads) and ``pos`` is on rank 0's device;
+    ``cfg.kv_heads`` must divide by tp."""
     max_len = max_len or cfg.max_seq
-    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if mesh is None:
+        shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device)}
+    devs = mesh.axis_devices("tp")
+    tp = len(devs)
+    if cfg.kv_heads % tp:
+        raise ValueError(f"n_kv_heads {cfg.kv_heads} must divide by tp {tp}")
+    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads // tp, cfg.d_head)
+    return {name: Shards([torch.zeros(shape, dtype=cfg.dtype, device=d)
+                          for d in devs], 3) for name in ("k", "v")} | {
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=devs[0])}
 
 
-def decode_step(params, cache, token_ids, cfg: TransformerConfig):
+def _kv_rows(kv, rows) -> Shards:
+    """A placed K/V cache's rows (views, so writes reach the cache)."""
+    return Shards([t[:, rows] for t in kv], kv.dim)
+
+
+def _tp_decode(params, ck: Shards, cv: Shards, token_ids, pos,
+               cfg: TransformerConfig, devs: list):
+    """:func:`decode_step`'s layers over one dp group's tp ranks: each rank
+    writes its KV heads' new rows and attends over its heads."""
+    B, K = token_ids.shape
+    x = _embed(params, token_ids, cfg).to(devs[0])
+    positions = pos.to(x.device)[:, None] + torch.arange(
+        K, device=x.device)[None, :]
+    rows = torch.arange(B, device=x.device)[:, None]
+    for i in range(cfg.n_layers):
+        p = _layer_params(params["blocks"], i)
+        _check_q8_attn_single_chip(p, devs)
+        h = rmsnorm(x, p["ln1"].to(x.device))
+        attns = []
+        for r, (q, k, v, pr) in enumerate(_rank_qkv(p, h, positions, cfg,
+                                                     devs)):
+            kc, vc = ck[r][i], cv[r][i]  # (B, T, Hkv/tp, Dh) views
+            rr = rows.to(kc.device)
+            kc[rr, pr] = k.to(kc.dtype)
+            vc[rr, pr] = v.to(vc.dtype)
+            attns.append(_chunk_attention(q, kc, vc, pr))
+        x = _tp_attn_out(p, x, attns, devs)
+        x = _tp_ffn(p, x, cfg, devs)
+    x = rmsnorm(x, params["ln_f"].to(x.device))
+    return _tp_vocab(x, params["lm_head"], cfg, devs).float()
+
+
+def decode_step(params, cache, token_ids, cfg: TransformerConfig,
+                mesh: Optional[Mesh] = None):
     """Incremental decode against a slab cache.  ``token_ids`` (B,) gives
     logits (B, V); (B, K) runs a K-token chunk in one pass and gives (B, K,
     V).  Query j of row b sits at ``pos[b] + j`` and sees the cache rows
@@ -415,15 +799,23 @@ def decode_step(params, cache, token_ids, cfg: TransformerConfig):
     ``pos .. pos + K - 1`` (in place); the returned cache is the same
     tensors with ``pos + K``.  Rows past ``pos`` are masked and later
     overwritten, so rewinding is setting ``pos`` lower.  The caller keeps
-    ``pos + K <= T``."""
+    ``pos + K <= T``.  With ``mesh`` the cache is :func:`init_cache`'s
+    placed one and the layers run tensor-parallel."""
     single = token_ids.dim() == 1
     if single:
         token_ids = token_ids[:, None]
     B, K = token_ids.shape
-    T = cache["k"].shape[2]
+    T = (cache["k"][0] if mesh is not None else cache["k"]).shape[2]
     if K > T:
         raise ValueError(f"chunk of {K} tokens exceeds cache length {T}")
     pos = cache["pos"].to(token_ids.device).long()
+    if mesh is not None:
+        logits = _over_dp(mesh, B, lambda devs, rows: _tp_decode(
+            params, _kv_rows(cache["k"], rows), _kv_rows(cache["v"], rows),
+            token_ids[rows], pos[rows], cfg, devs))
+        out = {"k": cache["k"], "v": cache["v"],
+               "pos": (pos + K).to(torch.int32)}
+        return (logits[:, 0, :] if single else logits), out
     x = _embed(params, token_ids, cfg)  # (B, K, D)
     positions = pos[:, None] + torch.arange(K, device=x.device)[None, :]
     rows = torch.arange(B, device=x.device)[:, None]
@@ -454,16 +846,25 @@ def decode_step(params, cache, token_ids, cfg: TransformerConfig):
 # ----------------------------------------------------------------------
 
 def generate(params, prompt_ids, n_new: int, cfg: TransformerConfig,
-             temperature: float = 0.0, generator=None):
+             temperature: float = 0.0, generator=None,
+             mesh: Optional[Mesh] = None):
     """Prefill, then one :func:`decode_step` per token: greedy argmax, or
     with ``temperature`` > 0 a draw from ``softmax(logits / temperature)``
     with ``generator`` (a ``torch.Generator`` on the logits' device; the
     reference's ``jax.random`` draws cannot be replayed).  ``prompt_ids``
-    (B, L0); returns (B, L0 + n_new)."""
+    (B, L0); returns (B, L0 + n_new).  Under ``mesh`` the prompt runs token
+    by token through the tensor-parallel :func:`decode_step`, as the
+    reference's does."""
     B, L0 = prompt_ids.shape
     with torch.no_grad():
-        logits, cache = prefill(params, prompt_ids, cfg, max_len=L0 + n_new,
-                                logit_pos=L0 - 1)
+        if mesh is None:
+            logits, cache = prefill(params, prompt_ids, cfg,
+                                    max_len=L0 + n_new, logit_pos=L0 - 1)
+        else:
+            cache = init_cache(cfg, B, max_len=L0 + n_new, mesh=mesh)
+            for t in range(L0):
+                logits, cache = decode_step(params, cache, prompt_ids[:, t],
+                                            cfg, mesh=mesh)
         out = [prompt_ids]
         for t in range(n_new):
             if temperature > 0.0:
@@ -473,13 +874,14 @@ def generate(params, prompt_ids, n_new: int, cfg: TransformerConfig,
                 tok = torch.argmax(logits, dim=-1)
             out.append(tok[:, None].to(prompt_ids.dtype))
             if t < n_new - 1:
-                logits, cache = decode_step(params, cache, tok, cfg)
+                logits, cache = decode_step(params, cache, tok, cfg,
+                                            mesh=mesh)
         return torch.cat(out, dim=1)
 
 
 def speculative_generate(params, draft_params, prompt_ids, n_new: int,
                          cfg: TransformerConfig, draft_cfg: TransformerConfig,
-                         k_draft: int = 4):
+                         k_draft: int = 4, mesh: Optional[Mesh] = None):
     """Greedy speculative decoding of one request: the draft proposes
     ``k_draft`` tokens, the target scores them in ONE K-token
     :func:`decode_step`, and the longest agreeing prefix is kept plus the
@@ -491,6 +893,8 @@ def speculative_generate(params, draft_params, prompt_ids, n_new: int,
     acceptance the draft attends over d_{k-1}'s row, which it never wrote,
     and its acceptance decays.  The serving engines' draft makes k + 1
     steps and writes that row.
+
+    Under ``mesh`` both models run tensor-parallel (both placed on it).
 
     Returns ``(ids (1, L0 + n_new), stats)``, stats ``{"rounds",
     "accept_rate"}`` (accepted drafts per round over ``k_draft``)."""
@@ -504,9 +908,9 @@ def speculative_generate(params, draft_params, prompt_ids, n_new: int,
     dev = prompt_ids.device
     with torch.no_grad():
         t_logits, t_cache = prefill(params, prompt_ids, cfg, max_len=max_len,
-                                    logit_pos=L0 - 1)
+                                    logit_pos=L0 - 1, mesh=mesh)
         _, d_cache = prefill(draft_params, prompt_ids, draft_cfg,
-                             max_len=max_len, logit_pos=L0 - 1)
+                             max_len=max_len, logit_pos=L0 - 1, mesh=mesh)
         out = [int(torch.argmax(t_logits[0]))]
         rounds = accepted = 0
         while len(out) < n_new:
@@ -514,11 +918,12 @@ def speculative_generate(params, draft_params, prompt_ids, n_new: int,
             d_tokens = []
             for _ in range(k_draft):
                 dl, d_cache = decode_step(draft_params, d_cache, tok,
-                                          draft_cfg)
+                                          draft_cfg, mesh=mesh)
                 tok = torch.argmax(dl, dim=-1)
                 d_tokens.append(int(tok[0]))
             vtokens = torch.tensor([[out[-1]] + d_tokens], device=dev)
-            vlogits, t_cache = decode_step(params, t_cache, vtokens, cfg)
+            vlogits, t_cache = decode_step(params, t_cache, vtokens, cfg,
+                                           mesh=mesh)
             tgt = torch.argmax(vlogits[0], dim=-1).tolist()
             n_acc = 0
             while n_acc < k_draft and d_tokens[n_acc] == tgt[n_acc]:

@@ -1,20 +1,147 @@
-"""Dense attention (port of ``dense_attention`` in
+"""Ring attention and dense attention (port of
 ``seldon_core_tpu/parallel/ring_attention.py``).
 
-It is the plain version of the flash kernel and the non-flash prefill path.
-Ring attention itself (sequence parallelism over a mesh) belongs to the
-multi-device slice.
+Ring attention is exact attention over a sequence split across the ranks
+of a mesh axis: each rank keeps its queries' shard and the K/V blocks
+rotate around the ring (:func:`~.mesh.ppermute`) while every rank
+accumulates its queries' attention with an online softmax.  One process
+drives every rank (``parallel/mesh.py``), so a ring step runs each rank's
+update in turn, then rotates.  Accumulation is in float32 whatever the
+input dtype; masked keys contribute exactly zero.  Plain torch, as the
+reference's is plain XLA.
+
+:func:`dense_attention` is the plain version of the flash kernel and the
+non-flash prefill path.  The ring's gradient comes with training.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["dense_attention", "NEG_INF"]
+from seldon_core_tpu_torch.parallel.mesh import Mesh, Shards, ppermute
+
+__all__ = ["dense_attention", "ring_attention", "ring_attention_sharded",
+           "NEG_INF"]
 
 NEG_INF = -1e30
+
+
+def _block_scores(q, k, q_off: int, k_off: int, causal: bool, scale: float):
+    """Scaled scores ``(B, H, Lq, Lk)`` of a query block at global offset
+    ``q_off`` against a key block at ``k_off``, and the causal mask (None
+    when not causal)."""
+    s = torch.einsum("blhd,bmhd->bhlm", q, k) * scale
+    if not causal:
+        return s, None
+    q_pos = q_off + torch.arange(q.shape[1], device=q.device)
+    k_pos = k_off + torch.arange(k.shape[1], device=q.device)
+    mask = (q_pos[:, None] >= k_pos[None, :])[None, None]
+    return torch.where(mask, s, NEG_INF), mask
+
+
+def _rep(kv, n_rep: int):
+    """GQA: K/V to the full query-head count in float32, per step."""
+    kv = kv.float()
+    return kv if n_rep == 1 else kv.repeat_interleave(n_rep, dim=2)
+
+
+def _online_update(o, l, m, s, mask, vf):
+    """One online-softmax step over scores ``s`` (B, H, Lq, Lk)."""
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    if mask is not None:
+        # rows with no valid key yet keep m at NEG_INF, where exp(0) = 1
+        p = torch.where(mask, p, 0.0)
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    o = o * corr[..., None].transpose(1, 2) + torch.einsum(
+        "bhlm,bmhd->blhd", p, vf)
+    return o, l, m_new
+
+
+def ring_attention(q: Sequence[torch.Tensor], k: Sequence[torch.Tensor],
+                   v: Sequence[torch.Tensor], causal: bool = True,
+                   scale: Optional[float] = None,
+                   kv_chunk: Optional[int] = None, n_rep: int = 1) -> Shards:
+    """Attention over a sequence split in order over ``len(q)`` ranks:
+    ``q[r]``, ``k[r]``, ``v[r]`` are rank ``r``'s shard ``(B, L_local, H,
+    D)`` on its device.  Returns the output shards (a :class:`Shards` on
+    dim 1) in ``q``'s dtype.
+
+    ``kv_chunk`` bounds the score tile: each ring step then takes the K/V
+    block it holds in chunks of that many keys, with the same online
+    softmax, so a step holds at most ``(B, H, Lq, kv_chunk)`` scores.  It
+    must divide the local length; the result does not depend on it.
+
+    ``n_rep`` (GQA): ``k``/``v`` carry ``H / n_rep`` heads; they rotate at
+    that size and are broadcast to the full head count per step or
+    chunk."""
+    n = len(q)
+    B, Lq, H, D = q[0].shape
+    Lk = k[0].shape[1]
+    if n_rep > 1 and k[0].shape[2] * n_rep != H:
+        raise ValueError(
+            f"n_rep {n_rep} * kv heads {k[0].shape[2]} != q heads {H}")
+    if scale is None:
+        scale = D ** -0.5
+    if kv_chunk is not None and (kv_chunk <= 0 or Lk % kv_chunk):
+        raise ValueError(
+            f"kv_chunk {kv_chunk} must be positive and divide the local "
+            f"length {Lk}")
+    qf = [x.float() for x in q]
+    state = [(torch.zeros((B, Lq, H, D), device=x.device),
+              torch.zeros((B, H, Lq), device=x.device),
+              torch.full((B, H, Lq), NEG_INF, device=x.device)) for x in q]
+    kc, vc = list(k), list(v)
+    for t in range(n):
+        for r in range(n):
+            src = (r - t) % n  # the rank whose block rank r holds now
+            o, l, m = state[r]
+            step = Lk if kv_chunk is None or kv_chunk >= Lk else kv_chunk
+            for off in range(0, Lk, step):
+                # slice first, then upcast: a whole-block float32 copy would
+                # defeat the chunk's memory bound
+                kf = _rep(kc[r][:, off:off + step], n_rep)
+                vf = _rep(vc[r][:, off:off + step], n_rep)
+                s, mask = _block_scores(qf[r], kf, r * Lq, src * Lk + off,
+                                        causal, scale)
+                o, l, m = _online_update(o, l, m, s, mask, vf)
+            state[r] = (o, l, m)
+        # rotate the blocks one rank on (the last rotation restores owners)
+        kc, vc = ppermute(kc), ppermute(vc)
+    out = []
+    for x, (o, l, _) in zip(q, state):
+        l = torch.clamp(l, min=1e-30)
+        out.append((o / l[..., None].transpose(1, 2)).to(x.dtype))
+    return Shards(out, 1)
+
+
+def ring_attention_sharded(q, k, v, mesh: Mesh, axis: str = "tp",
+                           causal: bool = True,
+                           batch_axis: Optional[str] = "dp",
+                           kv_chunk: Optional[int] = None) -> torch.Tensor:
+    """Ring attention of global ``(B, L, H, D)`` q/k/v: L split over
+    ``axis`` (and B over ``batch_axis`` when the mesh has it, each batch
+    group running its own ring on its devices).  Returns the global output
+    on ``q``'s device."""
+    groups = (mesh.axis_size(batch_axis)
+              if batch_axis and batch_axis in mesh.axis_names else 1)
+    outs = []
+    for g, rows in enumerate(torch.chunk(torch.arange(q.shape[0]), groups)):
+        at = {batch_axis: g} if groups > 1 else {}
+        devs = mesh.axis_devices(axis, **at)
+        n = len(devs)
+
+        def split(x):
+            return [p.to(d) for p, d in zip(torch.chunk(x[rows], n, dim=1),
+                                            devs)]
+
+        o = ring_attention(split(q), split(k), split(v), causal=causal,
+                           kv_chunk=kv_chunk)
+        outs.append(torch.cat([p.to(q.device) for p in o], dim=1))
+    return torch.cat(outs, dim=0)
 
 
 def dense_attention(q, k, v, causal: bool = True,

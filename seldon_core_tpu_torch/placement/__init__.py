@@ -1,11 +1,12 @@
 """Placement plane: so far its annotations and their parser, the planner
 and the tensor-parallel rule table, which the admission lint reads
 (``analysis/graphlint.py`` GL12xx, ``analysis/tracelint.py`` GL1604 and
-GL1207), and the process-local registry the operator's
-``status.placement`` reads (``registry.py``; nothing publishes to it
-until the placement plane runs).  The mesh manager, the sharded executor
-and the admin surface of ``seldon_core_tpu/placement/`` come with a later
-slice."""
+GL1207), the process-local registry the operator's ``status.placement``
+reads (``registry.py``; nothing publishes to it until the placement plane
+runs), and the mesh manager (``meshes.py``: one Mesh per ``seldon.io/mesh``
+spec per process).  The sharded executor and the admin surface of
+``seldon_core_tpu/placement/`` (``plane.py``, ``http.py``,
+``layouts.build_shardings``) are not ported yet."""
 
 from seldon_core_tpu_torch.placement.config import (
     MESH_ANNOTATION,

@@ -306,14 +306,13 @@ def _transformer_config_dict(cfg) -> dict:
 
 def _transformer_config(d: dict):
     """The port's config from a saved one.  The reference's fields that
-    only its multi-device and training paths read (``seq_shard``,
-    ``ring_kv_chunk``, ``remat``, ``attention``, ``top_k``,
+    only its training paths read (``seq_shard``, ``remat``, ``top_k``,
     ``capacity_factor``) are dropped; a mixture of experts is refused."""
     from seldon_core_tpu_torch.models.transformer import TransformerConfig
 
     if int(d.get("n_experts") or 0) > 0:
         raise NotImplementedError(
-            "mixture-of-experts transformers come with slice 6 of the port")
+            "mixture-of-experts transformers come with slice 6c of the port")
     names = {f.name for f in dataclasses.fields(TransformerConfig)}
     kw = {k: v for k, v in d.items() if k in names}
     if "dtype" in kw:
@@ -374,36 +373,45 @@ def load_transformer(path: str, mesh=None, int8: str = "none", device=None):
       deterministically, so a loaded engine equals one quantized in
       process from the same weights; "none" / "as-saved" serve the stored
       dtype.
+    - ``mesh``: the tensor-parallel placement of ``shard_params`` (and of
+      ``quantize_ffn_params(mesh=)`` under int8 "ffn"), the placement a
+      seeded tp engine uses, so a restored tp engine serves as the one that
+      saved; the mesh brings its devices (``device`` is not read).
+      ``int8="full"`` is refused with a mesh: int8 attention projections
+      serve on one device.
     - A tree saved already quantized loads verbatim (``int8`` "none" or
-      "as-saved"), its int8 leaves put K-major.
-    - ``mesh`` (tensor-parallel placement) comes with slice 6.
+      "as-saved", no ``mesh``), its int8 leaves put K-major.
     """
     from seldon_core_tpu_torch.models.transformer import (
         has_quantized_params,
         quantize_attn_params,
         quantize_ffn_params,
+        shard_params,
     )
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "tensor-parallel placement (mesh) comes with slice 6 of the port")
     params, model_cfg = load_checkpoint(path)
     fam = model_cfg.get("family")
     if fam != "transformer":
         raise ValueError(f"{path!r} holds a {fam!r} model, not a transformer")
     cfg = _transformer_config(model_cfg)
     if has_quantized_params(params):
-        if int8 not in ("none", "as-saved"):
+        if int8 not in ("none", "as-saved") or mesh is not None:
             raise ValueError(
                 "checkpoint stores an already-quantized tree: it loads "
-                "verbatim only (int8='none') - save canonical weights to "
-                "re-target int8 at deployment time")
+                "verbatim only (int8='none', mesh=None) - save canonical "
+                "weights to re-target tp/int8 at deployment time")
         return _int8_k_major(_to(params, device)), cfg
     if int8 not in ("none", "as-saved", "ffn", "full"):
         raise ValueError(f"unknown int8 mode {int8!r}")
-    params = _to(params, device)
+    if int8 == "full" and mesh is not None:
+        raise ValueError("int8='full' is single-chip (see "
+                         "quantize_attn_params); use int8='ffn' with tp")
+    if mesh is not None:
+        params = shard_params(params, mesh, cfg)
+    else:
+        params = _to(params, device)
     if int8 in ("ffn", "full"):
-        params = quantize_ffn_params(params)
+        params = quantize_ffn_params(params, mesh=mesh)
     if int8 == "full":
         params = quantize_attn_params(params)
     return params, cfg

@@ -69,10 +69,22 @@ the rows past it are masked and later overwritten, so every cache carries
 ``k_draft + 1`` rows of headroom (per slot on the slab, per reservation in
 pages).
 
-Not in this slice: tensor-parallel serving (``mesh``, slice 6) raises
-``NotImplementedError`` naming its slice.  ``ring_prefill`` is accepted and
-ignored: sequence-parallel prefill needs a mesh, so at tp = 1 every bucket
-prefills dense, as the reference's does without one.
+**Tensor parallelism** (``mesh``, a :class:`~..parallel.mesh.Mesh` with a
+"tp" axis; the params placed on it by ``shard_params`` or
+``quantize_ffn_params(mesh=)``): every prefill, extend, tick and
+speculative round runs the tensor-parallel layers of
+``models/transformer.py``, the KV caches (the draft's too) split their
+KV-head axis over the ranks, and the engine's own logic (slots, sampling,
+speculation, prefix caching) is unchanged: logits and sampled ids live on
+rank 0's device.  Ranks that share one card run in one program, captured as
+one CUDA graph; a mesh whose ranks span several cards runs its programs
+eagerly (``program_stats()["graphs"]``, ``tp_span()["cudaGraphs"]``).
+``ring_prefill``: prompt buckets of at least that many tokens (and a
+multiple of tp) prefill sequence-parallel, ring attention over "tp"
+(:meth:`LLMEngine._ring_eligible`); their K/V come back split by KV head,
+the caches' layout.  Without a mesh (or at tp = 1) every bucket prefills
+dense, as the reference's does.  An engine serves over tp only: a dp axis
+is one engine per dp group.
 """
 
 from __future__ import annotations
@@ -80,6 +92,7 @@ from __future__ import annotations
 import asyncio
 import bisect
 import collections
+import dataclasses
 import logging
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -97,6 +110,7 @@ from seldon_core_tpu_torch.models.transformer import (
     init_cache,
     prefill,
 )
+from seldon_core_tpu_torch.parallel.mesh import Mesh, Shards, unshard
 from seldon_core_tpu_torch.runtime import programs
 from seldon_core_tpu_torch.runtime.component import SeldonComponentError
 from seldon_core_tpu_torch.runtime.paged import (
@@ -272,9 +286,12 @@ class _Slot:
     prompt: Any = None
 
 
-def _later_slice(feature: str, slice_: str):
-    raise NotImplementedError(f"{feature} comes with slice {slice_} of the "
-                              "port")
+def _each(fn, *xs):
+    """``fn`` on a K/V tensor, or rank by rank on a placed one
+    (:class:`Shards`, with the same ranks of the other arguments)."""
+    if isinstance(xs[0], Shards):
+        return xs[0].map(fn, *xs[1:])
+    return fn(*xs)
 
 
 class LLMEngine:
@@ -298,21 +315,31 @@ class LLMEngine:
         draft_cfg: Optional[TransformerConfig] = None,
         k_draft: int = 4,
         chunk_prefill: int = 0,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
         auto_prefix_tokens: int = 0,
         auto_prefix_granularity: int = 16,
         ring_prefill: int = 0,
         batch_prefill_ms: float = 0.0,
     ):
-        if mesh is not None:
-            _later_slice("tensor-parallel serving (mesh)", "6")
+        if mesh is not None and (mesh.axis_size("dp") > 1
+                                 or mesh.axis_size("pp") > 1):
+            raise ValueError(
+                f"an engine serves over tp only, not {mesh!r}: serve one "
+                "engine per dp group (pp comes with the training slice)")
         if (draft_params is None) != (draft_cfg is None):
             raise ValueError("draft_params and draft_cfg go together")
         if draft_params is not None and int(k_draft) < 1:
             raise ValueError(f"k_draft must be >= 1, not {k_draft}")
         self.params = params
         self.cfg = cfg
+        self.mesh = mesh
+        # the controller's device: rank 0's under a mesh
         self.device = params["embed"].device
+        # one CUDA graph cannot hold ranks on several cards
+        self._graphs_ok = mesh is None or len(mesh.distinct_devices) == 1
+        # prompt buckets of at least this many tokens prefill
+        # sequence-parallel over tp (_ring_eligible); 0 = off
+        self.ring_prefill = int(ring_prefill)
         self.max_slots = max_slots
         self.max_len = max_len or cfg.max_seq
         self.draft_params = draft_params
@@ -336,7 +363,7 @@ class LLMEngine:
         # the draft's cache is a slab in both engines
         self.draft_cache = None if draft_params is None else init_cache(
             draft_cfg, max_slots, max_len=self.max_len + self._headroom,
-            device=self.device)
+            device=self.device, mesh=mesh)
         self._slots: dict[int, _Slot] = {}
         self._free = list(range(max_slots))
         # slot admission queue: (-priority, seq, future), kept sorted
@@ -382,7 +409,7 @@ class LLMEngine:
 
     def _init_cache(self, cache_len: int):
         return init_cache(self.cfg, self.max_slots, max_len=cache_len,
-                          device=self.device)
+                          device=self.device, mesh=self.mesh)
 
     def close(self) -> None:
         """Stop the device worker thread (after its queued work)."""
@@ -408,24 +435,28 @@ class LLMEngine:
                         draft_path: Optional[str] = None, device=None,
                         **engine_kwargs):
         """Boot an engine from a checkpoint directory
-        (:mod:`.checkpoint`), int8 quantized at load; ``device`` defaults
-        to the card.  ``draft_path`` loads a second checkpoint as the
-        speculative draft, dense as it was saved.  Pass ``paged=`` through
-        ``engine_kwargs`` for :class:`PagedLLMEngine`."""
+        (:mod:`.checkpoint`), placed over ``mesh`` and int8 quantized at
+        load; ``device`` defaults to the card (a mesh brings its own
+        devices).  ``draft_path`` loads a second checkpoint as the
+        speculative draft, dense as it was saved (placed over ``mesh``
+        too).  Pass ``paged=`` through ``engine_kwargs`` for
+        :class:`PagedLLMEngine`."""
         from seldon_core_tpu_torch.device import resolve_device
         from seldon_core_tpu_torch.runtime.checkpoint import load_transformer
 
-        dev = resolve_device(device)
+        dev = (mesh.axis_devices("tp")[0] if mesh is not None
+               else resolve_device(device))
         params, cfg = load_transformer(path, mesh=mesh, int8=int8, device=dev)
         if draft_path is not None:
             dparams, dcfg = load_transformer(draft_path, mesh=mesh, device=dev)
             engine_kwargs.setdefault("draft_params", dparams)
             engine_kwargs.setdefault("draft_cfg", dcfg)
-        return cls(params, cfg, **engine_kwargs)
+        return cls(params, cfg, mesh=mesh, **engine_kwargs)
 
     def save_checkpoint(self, path: str) -> str:
-        """Export the engine's weights as a checkpoint.  int8 trees are
-        refused: save the canonical weights and quantize at load."""
+        """Export the engine's weights as a checkpoint (a placed tree as
+        its global tensors).  int8 trees are refused: save the canonical
+        weights and quantize at load."""
         from seldon_core_tpu_torch.runtime.checkpoint import save_transformer
 
         if has_quantized_params(self.params):
@@ -434,7 +465,50 @@ class LLMEngine:
                 "weights (save before quantizing, or via "
                 "checkpoint.save_transformer on the master tree) and "
                 "quantize at load with from_checkpoint(int8=...)")
-        return save_transformer(path, self.params, self.cfg)
+        params = {k: ({n: unshard(v) for n, v in t.items()}
+                      if isinstance(t, dict) else unshard(t))
+                  for k, t in self.params.items()}
+        return save_transformer(path, params, self.cfg)
+
+    def tp_span(self) -> Optional[dict]:
+        """This engine's tensor-parallel posture, in the placement plane's
+        tp-span vocabulary (``/admin/placement`` ``tpSpans``): the mesh
+        slice the weights partition over, their bytes and the bytes split
+        over "tp", and the per-rank share (split bytes / tp + the rest).
+        None off a mesh or at tp = 1.  ``cudaGraphs`` (port only): whether
+        its programs replay as CUDA graphs (not across several cards)."""
+        if self.mesh is None:
+            return None
+        tp = self.mesh.axis_size("tp")
+        if tp < 2:
+            return None
+        total = sharded = 0
+
+        def walk(x):
+            nonlocal total, sharded
+            if isinstance(x, dict):
+                for v in x.values():
+                    walk(v)
+            elif isinstance(x, Shards):
+                n = sum(t.nbytes for t in x) if x.dim is not None \
+                    else x[0].nbytes
+                total += n
+                sharded += n if x.dim is not None else 0
+            elif isinstance(x, (list, tuple)):
+                for v in x:
+                    walk(v)
+            elif isinstance(x, torch.Tensor):
+                total += x.nbytes
+
+        walk(self.params)
+        return {
+            "meshSlice": ",".join(f"{a}={n}" for a, n in
+                                  self.mesh.shape.items() if n > 1),
+            "paramBytes": total,
+            "shardedParamBytes": sharded,
+            "tpBytesPerDevice": sharded // tp + (total - sharded),
+            "cudaGraphs": self._graphs_ok,
+        }
 
     # -- programs --------------------------------------------------------
     def _program(self, name: str, build) -> programs.Program:
@@ -459,7 +533,8 @@ class LLMEngine:
         return self._graph_pool
 
     def _make(self, name: str, fn, **kw) -> programs.Program:
-        return programs.Program(name, fn, self.device, self._pool, **kw)
+        return programs.Program(name, fn, self.device, self._pool,
+                                graphs=self._graphs_ok, **kw)
 
     def program_stats(self) -> dict:
         """Per program: capture seconds per shape key (its latest capture),
@@ -476,16 +551,19 @@ class LLMEngine:
                 for name, p in self._programs.items()},
             "pool_bytes": (0 if self._graph_pool is None
                            else self._graph_pool.bytes()),
+            "graphs": self._graphs_ok,
         }
 
     def _prefill_program(self, name: str, params, cfg) -> programs.Program:
         """Prefill of (B, bucket) right-padded rows with one logit position
         per row, a (B,) tensor (an int would be a constant of the graph):
         ``(logits (B, V), k, v)``, each (layers, B, bucket, Hkv, Dh)."""
+        mesh = self.mesh
+
         def fn(key, ids, logit_pos):
             with torch.no_grad():
                 logits, small = prefill(params, ids, cfg, max_len=ids.shape[1],
-                                        logit_pos=logit_pos)
+                                        logit_pos=logit_pos, mesh=mesh)
             return logits, small["k"], small["v"]
 
         return self._make(name, fn, keep=(params,), owned_outputs=True,
@@ -496,14 +574,18 @@ class LLMEngine:
         row ``done`` ((1,) int32): the prefix padded into a fresh buffer of
         cap0 + bs rows, one K-token ``decode_step``, and the logits of the
         chunk's position ``last`` ((1,) int64)."""
-        params, cfg = self.params, self.cfg
+        params, cfg, mesh = self.params, self.cfg, self.mesh
 
         def fn(key, k, v, suffix, done, last):
             bs = suffix.shape[1]
+
+            def pad(t):
+                return F.pad(t, (0, 0, 0, 0, 0, bs))
+
             with torch.no_grad():
-                cache = {"k": F.pad(k, (0, 0, 0, 0, 0, bs)),
-                         "v": F.pad(v, (0, 0, 0, 0, 0, bs)), "pos": done}
-                logits, cache = decode_step(params, cache, suffix, cfg)
+                cache = {"k": _each(pad, k), "v": _each(pad, v), "pos": done}
+                logits, cache = decode_step(params, cache, suffix, cfg,
+                                            mesh=mesh)
                 return logits[0, last], cache["k"], cache["v"]
 
         return self._make("extend", fn, keep=(params,), owned_outputs=True,
@@ -512,13 +594,13 @@ class LLMEngine:
     def _tick_program(self) -> programs.Program:
         """One decode step of every slot against the slab at host positions
         (``pos`` a static input; ``self.cache`` is never rebound)."""
-        params, cfg, cache = self.params, self.cfg, self.cache
+        params, cfg, cache, mesh = self.params, self.cfg, self.cache, self.mesh
 
         def fn(key, tokens, pos):
             with torch.no_grad():
                 logits, _ = decode_step(
                     params, {"k": cache["k"], "v": cache["v"], "pos": pos},
-                    tokens, cfg)
+                    tokens, cfg, mesh=mesh)
             return logits
 
         return self._make("tick", fn, keep=(params, cache),
@@ -561,10 +643,30 @@ class LLMEngine:
         ``logit_pos``: one position for every row, or one per row."""
         B = ids.shape[0]
         lp = np.array(np.broadcast_to(np.asarray(logit_pos, np.int64), (B,)))
-        prog = self._program("prefill", lambda: self._prefill_program(
-            "prefill", self.params, self.cfg))
+        name, cfg = self._prefill_variant("prefill", self.cfg, ids.shape[1])
+        prog = self._program(name, lambda: self._prefill_program(
+            name, self.params, cfg))
         logits, k, v = prog(ids.shape, ids.astype(np.int64), lp)
         return logits, {"k": k, "v": v}
+
+    def _ring_eligible(self, bucket: int) -> bool:
+        """Whether a prompt bucket prefills sequence-parallel: at least
+        ``ring_prefill`` tokens, on a mesh with tp > 1, split evenly."""
+        if not self.ring_prefill or bucket < self.ring_prefill:
+            return False
+        if self.mesh is None:
+            return False
+        tp = self.mesh.axis_size("tp")
+        return tp > 1 and bucket % tp == 0
+
+    def _prefill_variant(self, name: str, cfg, bucket: int):
+        """The program name and config of a prefill of ``bucket`` tokens:
+        a ring-eligible bucket runs ring attention over "tp" (flash is a
+        per-rank whole-sequence kernel, what a long prompt must avoid)."""
+        if self._ring_eligible(bucket):
+            return ("ring_" + name, dataclasses.replace(
+                cfg, attention="ring", use_flash=False))
+        return name, cfg
 
     @staticmethod
     def _kv_of(src: dict):
@@ -572,7 +674,8 @@ class LLMEngine:
         first ``len`` rows, a registered entry or a 1-row cache its own."""
         if "src" in src:
             e, n = src["src"], src["len"]
-            return e["k"][:, :, :n], e["v"][:, :, :n]
+            return (_each(lambda t: t[:, :, :n], e["k"]),
+                    _each(lambda t: t[:, :, :n], e["v"]))
         return src["k"], src["v"]
 
     def _extend_job(self, src: dict, suffix: np.ndarray, done: int,
@@ -584,7 +687,8 @@ class LLMEngine:
         key (cap0, bs), :meth:`_extend_program`)."""
         k, v = self._kv_of(src)
         logits, k2, v2 = self._program("extend", self._extend_program)(
-            (k.shape[2], suffix.shape[1]), k, v, suffix.astype(np.int64),
+            ((k[0] if isinstance(k, Shards) else k).shape[2],
+             suffix.shape[1]), k, v, suffix.astype(np.int64),
             np.array([done], np.int32), np.array([last], np.int64))
         return logits, {"k": k2, "v": v2}
 
@@ -616,7 +720,10 @@ class LLMEngine:
 
     def _tick_device(self, state):
         """One decode tick of every slot (the tick program), host snapshot
-        in, sampled ids out."""
+        in, sampled ids out.  Under a mesh the logits are whole on rank 0's
+        device already (the vocabulary all-gather), so the reference's
+        ``_replicated`` (a GSPMD constraint that keeps a multi-process
+        mesh's fetched ids addressable) has no counterpart here."""
         dev = self.device
         logits = self._program("tick", self._tick_program)(
             self.max_slots, *self._tick_inputs(state))
@@ -631,8 +738,9 @@ class LLMEngine:
         """Copy a 1-row prefill cache's first ``true_len`` rows into slot
         ``slot`` of the slab (in place)."""
         for name in ("k", "v"):
-            self.cache[name][:, slot, :true_len] = \
-                small[name][:, 0, :true_len].to(self.cache[name].dtype)
+            _each(lambda c, s: c[:, slot, :true_len].copy_(
+                s[:, 0, :true_len].to(c.device, c.dtype)),
+                self.cache[name], small[name])
 
     def _insert_job(self, small, slot: int, L0: int):
         """A callable for the device worker that writes an admission's K/V
@@ -645,8 +753,10 @@ class LLMEngine:
         entries hold target state only, so the draft always prefills."""
         padded = np.zeros((1, _bucket(L0)), np.int64)
         padded[0, :L0] = host_ids[:L0]
-        prog = self._program("draft_prefill", lambda: self._prefill_program(
-            "draft_prefill", self.draft_params, self.draft_cfg))
+        name, cfg = self._prefill_variant("draft_prefill", self.draft_cfg,
+                                          padded.shape[1])
+        prog = self._program(name, lambda: self._prefill_program(
+            name, self.draft_params, cfg))
         _, k, v = prog(padded.shape, padded, np.array([L0 - 1], np.int64))
         return {"k": k, "v": v}
 
@@ -682,7 +792,7 @@ class LLMEngine:
         drafts, qs = [], []
         for j in range(self.k_draft + 1):
             dl, d_cache = decode_step(self.draft_params, d_cache, t,
-                                      self.draft_cfg)
+                                      self.draft_cfg, mesh=self.mesh)
             if j == self.k_draft:
                 break
             t = torch.argmax(dl, dim=-1)
@@ -699,7 +809,7 @@ class LLMEngine:
         at ``pos``, its K/V rows written into the slab."""
         logits, _ = decode_step(
             self.params, {"k": self.cache["k"], "v": self.cache["v"],
-                          "pos": pos}, vtokens, self.cfg)
+                          "pos": pos}, vtokens, self.cfg, mesh=self.mesh)
         return logits
 
     def _verify_emit(self, vlogits, drafts, qprobs, temps, top_k, top_p, u):
@@ -958,8 +1068,8 @@ class LLMEngine:
         for b, (_, _, first, f) in enumerate(batch):
             if not f.done():  # the caller may have gone meanwhile
                 f.set_result((logits[b:b + 1],
-                              {"k": small["k"][:, b:b + 1],
-                               "v": small["v"][:, b:b + 1]},
+                              {"k": _each(lambda t: t[:, b:b + 1], small["k"]),
+                               "v": _each(lambda t: t[:, b:b + 1], small["v"])},
                               None if first is None else toks[b]))
 
     # -- public ----------------------------------------------------------
@@ -1103,9 +1213,12 @@ class LLMEngine:
         self._note_prefix(slot, pref)
         await self._reserve_capacity(slot, L0, n_new, priority=priority,
                                      deadline=deadline)
-        # no bucket prefills sequence-parallel at tp = 1 (ring_prefill needs
-        # a mesh), so chunking is never overridden by it here
-        chunking = bool(self.chunk_prefill and L0 > self.chunk_prefill)
+        # a ring-eligible prompt prefills sequence-parallel (per-rank work
+        # L/tp): chunking it into small dense buckets would turn off the
+        # path the operator asked for, so the ring takes precedence
+        use_ring = self._ring_eligible(_bucket(L0))
+        chunking = bool(self.chunk_prefill and L0 > self.chunk_prefill
+                        and not use_ring)
         if pref is not None and pref["len"] == L0:
             # the whole prompt is a registered prefix: no model work (the
             # entry is read on the worker, after its prefill has filled it)
@@ -1130,7 +1243,7 @@ class LLMEngine:
                                              first)
         if chunking:
             return await self._chunked_prefill(host_ids, L0, first)
-        if self.batch_prefill_ms and priority <= 0:
+        if self.batch_prefill_ms and not use_ring and priority <= 0:
             # classes above 0 skip the window: they pay to avoid its wait
             return await self._batched_prefill(host_ids, L0, first)
         padded = np.zeros((1, _bucket(L0)), np.int64)
@@ -1156,11 +1269,14 @@ class LLMEngine:
                 insert()
                 if d_small is not None:
                     for name in ("k", "v"):
-                        self.draft_cache[name][:, slot, :L0] = \
-                            d_small[name][:, 0, :L0]
+                        _each(lambda c, s: c[:, slot, :L0].copy_(
+                            s[:, 0, :L0].to(c.device, c.dtype)),
+                            self.draft_cache[name], d_small[name])
                 if entry is not None:
-                    entry["k"] = small["k"][:, :, :L0].clone()
-                    entry["v"] = small["v"][:, :, :L0].clone()
+                    entry["k"] = _each(lambda t: t[:, :, :L0].clone(),
+                                       small["k"])
+                    entry["v"] = _each(lambda t: t[:, :, :L0].clone(),
+                                       small["v"])
 
         fut = self._on_device(job)
 
@@ -1468,6 +1584,10 @@ class PagedLLMEngine(LLMEngine):
     replaced prefix's pages return when their last user releases).  Only
     full pages are shared, so a slot never writes a shared page: its rows
     past the prefix live in its own pages.
+
+    With ``mesh`` the pool splits its KV-head axis over "tp" and each tick
+    launches K2 once per rank and layer, on that rank's KV and query heads
+    with its own merge counters.
     """
 
     def __init__(self, params: dict, cfg: TransformerConfig, paged,
@@ -1501,12 +1621,15 @@ class PagedLLMEngine(LLMEngine):
         self.prefix_stats.update(alias_hits=0, alias_pages_saved=0)
         # K2's merge counters of this engine's ticks, made before any
         # capture (a graph holds their address)
+        # (one set per tp rank under a mesh)
         self._arrivals = (arrival_counters(max_slots, cfg.n_heads,
-                                           cfg.kv_heads, self.device)
+                                           cfg.kv_heads, self.device,
+                                           mesh=self.mesh)
                           if self.device.type == "cuda" else None)
 
     def _init_cache(self, cache_len: int):
-        return init_paged_cache(self.cfg, self.paged_cfg, device=self.device)
+        return init_paged_cache(self.cfg, self.paged_cfg, device=self.device,
+                                mesh=self.mesh)
 
     def _tick_state(self, active: dict) -> dict:
         state = super()._tick_state(active)
@@ -1516,13 +1639,13 @@ class PagedLLMEngine(LLMEngine):
     def _tick_program(self) -> programs.Program:
         """One :func:`paged_decode_step` of every slot (K2 on the card)."""
         params, cfg, paged = self.params, self.cfg, self.paged_cfg
-        cache, arrivals = self.cache, self._arrivals
+        cache, arrivals, mesh = self.cache, self._arrivals, self.mesh
 
         def fn(key, tokens, pos, tables):
             with torch.no_grad():
                 logits, _ = paged_decode_step(params, cache, tables, pos,
                                               tokens, cfg=cfg, paged=paged,
-                                              arrivals=arrivals)
+                                              arrivals=arrivals, mesh=mesh)
             return logits
 
         return self._make("tick", fn, keep=(params, cache, arrivals),
@@ -1544,7 +1667,7 @@ class PagedLLMEngine(LLMEngine):
         """Verification against pages (:func:`paged_chunk_step`)."""
         logits, _ = paged_chunk_step(self.params, self.cache, tables, pos,
                                      vtokens, cfg=self.cfg,
-                                     paged=self.paged_cfg)
+                                     paged=self.paged_cfg, mesh=self.mesh)
         return logits
 
     def _rows_of(self, pages, start: int, end: int) -> torch.Tensor:

@@ -20,6 +20,13 @@ tensor launches kernel K2 (``csrc/paged_attention.cu``) or raises, a CPU
 tensor takes :func:`paged_attention_ref`.  K2 splits each slot's pages over
 several blocks (flash-decoding); :func:`paged_split_plan` says how, from
 static shapes only.
+
+With ``mesh`` (tensor parallelism, ``models/transformer.py``) the pool
+splits its KV-head axis over "tp": rank ``r`` holds the pages' rows of the
+KV heads its query heads read, a :class:`~..parallel.mesh.Shards` entry on
+its device, so each rank's decode attention (K2 on its KV and query heads,
+with its own merge counters) reads no other rank's pages.  Tables and
+positions stay host state, copied to every rank.
 """
 
 from __future__ import annotations
@@ -32,16 +39,23 @@ import torch
 from seldon_core_tpu_torch.models.transformer import (
     TransformerConfig,
     _attn_out,
-    _chunk_attention,
     _attn_proj,
+    _check_q8_attn_single_chip,
+    _chunk_attention,
     _embed,
     _layer_params,
+    _over_dp,
+    _rank_qkv,
+    _tp_attn_out,
+    _tp_ffn,
+    _tp_vocab,
     _vocab_proj,
     ffn_block,
     rmsnorm,
     rope,
 )
 from seldon_core_tpu_torch.ops import _build, launches
+from seldon_core_tpu_torch.parallel.mesh import Mesh, Shards
 
 __all__ = [
     "PagedConfig",
@@ -124,11 +138,23 @@ class PagedConfig:
 
 
 def init_paged_cache(cfg: TransformerConfig, paged: PagedConfig,
-                     device=None) -> dict:
-    shape = (cfg.n_layers, cfg.kv_heads, paged.n_pages, paged.page_size,
-             cfg.d_head)
-    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+                     device=None, mesh: Optional[Mesh] = None) -> dict:
+    """The pool ``{"k", "v": (layers, kv_heads, n_pages, page_size,
+    d_head)}``; with ``mesh``, :class:`Shards` split on the KV-head axis
+    over "tp" (``cfg.kv_heads`` must divide by tp)."""
+    if mesh is None:
+        shape = (cfg.n_layers, cfg.kv_heads, paged.n_pages, paged.page_size,
+                 cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    devs = mesh.axis_devices("tp")
+    tp = len(devs)
+    if cfg.kv_heads % tp:
+        raise ValueError(f"n_kv_heads {cfg.kv_heads} must divide by tp {tp}")
+    shape = (cfg.n_layers, cfg.kv_heads // tp, paged.n_pages,
+             paged.page_size, cfg.d_head)
+    return {name: Shards([torch.zeros(shape, dtype=cfg.dtype, device=d)
+                          for d in devs], 1) for name in ("k", "v")}
 
 
 def _gather_pages(pages, page_indices):
@@ -161,15 +187,24 @@ def _pairs(S: int, H: int, Hkv: int) -> int:
     return S * Hkv * -(-(H // Hkv) // _KERNEL_HEADS)
 
 
-def arrival_counters(S: int, H: int, Hkv: int, device) -> torch.Tensor:
+def arrival_counters(S: int, H: int, Hkv: int, device,
+                     mesh: Optional[Mesh] = None):
     """K2's merge counters for ``S`` slots of ``H`` query heads over ``Hkv``
     KV heads, at zero; each launch leaves them at zero.  Launches that
     share them must run in one stream order: an engine makes its own
     before it captures a graph (a graph holds their address), so that its
     ticks (on its one worker) never share them with another engine's (on
-    another thread and stream)."""
-    return torch.zeros((_pairs(S, H, Hkv),), dtype=torch.int32,
-                       device=device)
+    another thread and stream).  With ``mesh``: one set per tp rank, for its
+    local heads, on its device (:class:`Shards`), so that two ranks'
+    launches in one tick never share counters."""
+    if mesh is None:
+        return torch.zeros((_pairs(S, H, Hkv),), dtype=torch.int32,
+                           device=device)
+    devs = mesh.axis_devices("tp")
+    tp = len(devs)
+    return Shards([torch.zeros((_pairs(S, H // tp, Hkv // tp),),
+                               dtype=torch.int32, device=d) for d in devs],
+                  None)
 
 
 def paged_attention_cuda(q, k_pages, v_pages, lengths, page_indices,
@@ -257,7 +292,7 @@ def paged_attention(q, k_pages, v_pages, lengths, page_indices,
 
 def paged_decode_step(params, cache, tables, pos, tok,
                       cfg: TransformerConfig, paged: PagedConfig,
-                      arrivals: Optional[torch.Tensor] = None):
+                      arrivals=None, mesh: Optional[Mesh] = None):
     """One decode token per slot against the paged cache.
 
     - ``tables``: (S, pages_per_slot) int32 page ids (trash page 0 for
@@ -266,11 +301,18 @@ def paged_decode_step(params, cache, tables, pos, tok,
     - ``tok``: (S,) current token per slot
     - ``arrivals``: K2's merge counters (:func:`arrival_counters`; on the
       card when K2 splits)
+    - ``mesh``: tensor-parallel over "tp" (the pool and the arrivals placed
+      on it): each rank writes and attends over its own KV heads
 
     Writes each slot's new K/V row into its current page (in place) and
     returns ``(logits (S, V) float32, cache)``.
     """
     ps = paged.page_size
+    if mesh is not None:
+        logits = _over_dp(mesh, tok.shape[0], lambda devs, rows: _tp_paged(
+            params, cache, tables[rows], pos[rows], tok[rows][:, None], cfg,
+            ps, devs, arrivals))
+        return logits[:, 0, :], cache
     Hkv, Dh = cfg.kv_heads, cfg.d_head
     x = _embed(params, tok, cfg)[:, None, :]  # (S, 1, D)
     positions = pos[:, None]  # (S, 1)
@@ -300,21 +342,76 @@ def paged_decode_step(params, cache, tables, pos, tok,
     return logits[:, 0, :], cache
 
 
+def _tp_paged(params, cache, tables, pos, toks, cfg: TransformerConfig,
+              ps: int, devs: list, arrivals=None):
+    """The paged steps over one dp group's tp ranks: each slot's K new rows
+    ``pos .. pos + K - 1`` into rank r's pages of its KV heads, then rank
+    r's attention over its query heads: K2 for one query per slot (K = 1),
+    the plain chunk math over the gathered pages for a verify chunk.
+    Returns the logits (S, K, V) on rank 0's device."""
+    S, K = toks.shape
+    Dh = cfg.d_head
+    x = _embed(params, toks, cfg).to(devs[0])  # (S, K, D)
+    positions = (pos.to(x.device).long()[:, None]
+                 + torch.arange(K, device=x.device)[None, :])  # (S, K)
+    tables = tables.to(x.device)
+    page_of = torch.gather(tables.long(), 1, positions // ps)
+    rows = (page_of * ps + positions % ps).reshape(-1)  # (S*K,)
+    lengths = (pos.to(x.device) + 1).to(torch.int32)
+    per_rank = [(rows.to(d), tables.to(d), lengths.to(d)) for d in devs]
+    for i in range(cfg.n_layers):
+        p = _layer_params(params["blocks"], i)
+        _check_q8_attn_single_chip(p, devs)
+        h = rmsnorm(x, p["ln1"].to(x.device))
+        attns = []
+        for r, (q, k, v, pr) in enumerate(_rank_qkv(p, h, positions, cfg,
+                                                     devs)):
+            rr, tr, lr = per_rank[r]
+            kp, vp = cache["k"][r][i], cache["v"][r][i]
+            Hk = kp.shape[0]
+            # all S*K new rows into the pool (inactive slots' trash-page
+            # rows may collide: nobody attends over them, any winner)
+            kp.view(Hk, -1, Dh)[:, rr, :] = k.reshape(S * K, Hk, Dh).transpose(
+                0, 1).to(kp.dtype)
+            vp.view(Hk, -1, Dh)[:, rr, :] = v.reshape(S * K, Hk, Dh).transpose(
+                0, 1).to(vp.dtype)
+            if K == 1:
+                a = paged_attention(q[:, 0], kp, vp, lr, tr,
+                                    None if arrivals is None else arrivals[r])
+                attns.append(a[:, None])
+            else:
+                attns.append(_chunk_attention(q, _gather_pages(kp, tr),
+                                              _gather_pages(vp, tr), pr))
+        x = _tp_attn_out(p, x, attns, devs)
+        x = _tp_ffn(p, x, cfg, devs)
+    xf = rmsnorm(x, params["ln_f"].to(x.device))
+    return _tp_vocab(xf, params["lm_head"], cfg, devs).float()
+
+
 def paged_chunk_step(params, cache, tables, pos, toks,
-                     cfg: TransformerConfig, paged: PagedConfig):
+                     cfg: TransformerConfig, paged: PagedConfig,
+                     mesh: Optional[Mesh] = None):
     """A K-token chunk per slot against the paged cache: the multi-query
     step of speculative verification (each slot's k+1 tokens in one pass).
     Plain torch, as the reference's is plain XLA: the slot rows ``pos ..
     pos + K - 1`` are written into the slots' pages (in place), then the
     slab chunk math (:func:`_chunk_attention`) runs over a page-gathered
     (S, T, Hkv, Dh) view.  Rejection rewinds by lowering the host-owned
-    ``pos``: the stale rows are masked and later overwritten.
+    ``pos``: the stale rows are masked and later overwritten.  With
+    ``mesh``, each rank over its KV heads' pages.
 
     - ``toks``: (S, K); query j of slot s sits at ``pos[s] + j``
     Returns ``(logits (S, K, V) float32, cache)``.
     """
     S, K = toks.shape
     ps = paged.page_size
+    if mesh is not None:
+        if K == 1:
+            raise ValueError("paged_chunk_step takes K >= 2 tokens under a "
+                             "mesh; one token is paged_decode_step")
+        return _over_dp(mesh, S, lambda devs, rows: _tp_paged(
+            params, cache, tables[rows], pos[rows], toks[rows], cfg, ps,
+            devs)), cache
     Hkv, Dh = cfg.kv_heads, cfg.d_head
     x = _embed(params, toks, cfg)  # (S, K, D)
     positions = (pos.long()[:, None]
@@ -350,12 +447,20 @@ def paged_chunk_step(params, cache, tables, pos, toks,
 def insert_rows(cache, small, rows, true_len: int, start: int = 0):
     """Scatter a 1-row prefill cache's K/V rows ``start..true_len`` into the
     paged cache (in place) at flat rows ``rows`` ((true_len - start,),
-    page*ps+offset).  ``small`` k/v: (layers, 1, bucket, Hkv, Dh)."""
+    page*ps+offset).  ``small`` k/v: (layers, 1, bucket, Hkv, Dh).  A
+    placed pool (:class:`Shards` on its KV heads) takes a placed 1-row cache
+    (:class:`Shards` on its KV heads), rank by rank."""
+    if isinstance(cache["k"], Shards):
+        for r in range(len(cache["k"])):
+            insert_rows({n: cache[n][r] for n in ("k", "v")},
+                        {n: small[n][r] for n in ("k", "v")}, rows,
+                        true_len, start)
+        return cache
     L, Hkv, n_pages, ps, Dh = cache["k"].shape
-    rows = torch.as_tensor(rows, device=cache["k"].device).long()
+    rows = torch.as_tensor(rows).to(cache["k"].device).long()
     for name in ("k", "v"):
         flat = cache[name].view(L, Hkv, n_pages * ps, Dh)
         # (layers, 1, bucket, Hkv, Dh) -> (layers, Hkv, true_len - start, Dh)
         new = small[name][:, 0, start:true_len].transpose(1, 2)
-        flat[:, :, rows, :] = new.to(flat.dtype)
+        flat[:, :, rows, :] = new.to(flat.device, flat.dtype)
     return cache

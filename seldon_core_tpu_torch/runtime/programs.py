@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from seldon_core_tpu_torch.ops import launches
+from seldon_core_tpu_torch.parallel.mesh import Shards
 
 __all__ = ["eager", "gc_paused", "graphs_on", "GraphPool", "Captured",
            "capture", "bitwise_equal", "Program"]
@@ -221,7 +222,13 @@ class Program:
     - ``owned_outputs``: the caller keeps the outputs past the next call of
       the key, so a replay's are cloned;
     - ``retain_bytes``: the budget of the static inputs and outputs its
-      captured keys hold (module docstring); None: no budget.
+      captured keys hold (module docstring); None: no budget;
+    - ``graphs``: False runs it eagerly on the card too (a tensor-parallel
+      engine whose ranks span several cards: one graph cannot hold them).
+
+    An input or output may be a :class:`~..parallel.mesh.Shards` (a K/V
+    placed over a mesh's ranks): its static input holds one tensor per rank
+    on that rank's device.
 
     Counters: ``capture_s`` (seconds of each key's latest capture),
     ``captures``, ``replays`` (every replay, the first included),
@@ -232,8 +239,9 @@ class Program:
     def __init__(self, name: str, fn: Callable, device, pool_of: Callable,
                  *, keep: tuple = (), answered: Optional[Callable] = None,
                  owned_outputs: bool = False,
-                 retain_bytes: Optional[int] = None):
+                 retain_bytes: Optional[int] = None, graphs: bool = True):
         self.name = name
+        self.graphs = graphs
         self.fn = fn
         self.device = torch.device(device)
         self.keep = keep
@@ -259,7 +267,7 @@ class Program:
         """Stage ``host`` (numpy arrays, CPU tensors or tensors on the
         program's device) into ``key``'s static inputs and run."""
         static = self._stage(key, host)
-        if not graphs_on(self.device):
+        if not (self.graphs and graphs_on(self.device)):
             self.eager_runs += 1
             return self.fn(key, *static)
         g = self._graphs.pop(key, None)
@@ -271,21 +279,25 @@ class Program:
             out = g.replay()
         self.replays += 1
         if self._owned:
-            out = tuple(t.clone() for t in out)
+            out = tuple(_clone(t) for t in out)
         return out
 
     def _stage(self, key, host) -> tuple:
         static = self._static.get(key)
         if static is None:
-            static = tuple(torch.empty(tuple(x.shape), dtype=_torch_dtype(x),
-                                       device=self.device) for x in host)
+            static = tuple(
+                Shards([torch.empty_like(p) for p in x], x.dim)
+                if isinstance(x, Shards) else
+                torch.empty(tuple(x.shape), dtype=_torch_dtype(x),
+                            device=self.device) for x in host)
             self._static[key] = static
         pinned = self.device.type == "cuda"
         staging = self._staging.get(key)
         if pinned:
             if staging is None:
                 staging = self._staging[key] = (
-                    [None if isinstance(x, torch.Tensor) and x.is_cuda
+                    [None if isinstance(x, Shards) or (
+                        isinstance(x, torch.Tensor) and x.is_cuda)
                      else torch.empty(tuple(x.shape), dtype=_torch_dtype(x),
                                       pin_memory=True) for x in host],
                     torch.cuda.Event())
@@ -293,6 +305,10 @@ class Program:
                 # the previous call's copies out of the pinned buffers
                 staging[1].synchronize()
         for i, (dst, src) in enumerate(zip(static, host)):
+            if isinstance(src, Shards):
+                for d, s_ in zip(dst, src):
+                    d.copy_(s_)
+                continue
             if isinstance(src, torch.Tensor) and src.device == self.device:
                 dst.copy_(src)
                 continue
@@ -323,7 +339,7 @@ class Program:
         g = capture(run, static, self._pool_of(), f"program {self.name!r}",
                     f"key {key}", select=select)
         self._graphs[key] = g
-        self._held[key] = _nbytes((*static, *_tensors(g.outputs)))
+        self._held[key] = _nbytes(_tensors((static, g.outputs)))
         self.capture_s[key] = time.perf_counter() - t0
         self.captures += 1
         self._evict()
@@ -340,6 +356,13 @@ class Program:
             for d in (self._graphs, self._held, self._static, self._staging):
                 d.pop(old, None)
             self.evicted += 1
+
+
+def _clone(x):
+    """A tensor's clone, or a :class:`Shards`' rank by rank."""
+    if isinstance(x, Shards):
+        return x.map(torch.clone)
+    return x.clone()
 
 
 def _tensors(x) -> list:

@@ -22,7 +22,9 @@ Environment, as the reference's: ``PREDICTIVE_UNIT_SERVICE_PORT``,
 ``PREDICTIVE_UNIT_PARAMETERS``, ``PREDICTIVE_UNIT_ID`` (the component's
 name: a router's feedback reads its branch from ``meta.routing`` under
 it), ``SERVICE_TYPE``, ``PERSISTENCE``, ``PUSH_FREQUENCY``.
-``--persistence 1`` restores the component's state at boot, pushes it
+Pod annotations come from the downward-API file ``/etc/podinfo/annotations``
+(``key="value"`` lines, :func:`load_annotations`); ``GRPC`` honours
+``seldon.io/grpc-max-message-size`` there.  ``--persistence 1`` restores the component's state at boot, pushes it
 every ``--push-frequency`` seconds and once more at exit (SIGTERM too),
 under the key ``persistence_<SELDON_DEPLOYMENT_ID>_<PREDICTOR_ID>_<name>``
 in the store of ``runtime.persistence.store_from_env``.
@@ -43,10 +45,12 @@ from seldon_core_tpu_torch.graph.spec import _coerce_param
 from seldon_core_tpu_torch.runtime.component import load_component
 from seldon_core_tpu_torch.utils.metrics import EngineMetrics, MetricsRegistry
 
-__all__ = ["parse_parameters", "build_parser", "maybe_start_custom_service",
-           "main"]
+__all__ = ["parse_parameters", "load_annotations", "build_parser",
+           "maybe_start_custom_service", "main"]
 
 logger = logging.getLogger(__name__)
+
+ANNOTATIONS_FILE = "/etc/podinfo/annotations"
 
 
 def parse_parameters(raw: Optional[str]) -> dict:
@@ -56,6 +60,22 @@ def parse_parameters(raw: Optional[str]) -> dict:
     return {p["name"]: _coerce_param(p.get("value"), p.get("type", "STRING"),
                                      "parameters", p["name"])
             for p in json.loads(raw)}
+
+
+def load_annotations(path: str = ANNOTATIONS_FILE) -> dict:
+    """Downward-API annotations file: ``key="value"`` lines (a missing file
+    is no annotations)."""
+    ann = {}
+    if not os.path.exists(path):
+        return ann
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or "=" not in line:
+                continue
+            k, _, v = line.partition("=")
+            ann[k] = v.strip().strip('"')
+    return ann
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -135,6 +155,7 @@ def _start_persistence(handle, push_frequency: float):
 def main(argv: Optional[list] = None) -> None:
     args = build_parser().parse_args(argv)
     device = str(resolve_device(args.device))
+    annotations = load_annotations()
     handle = load_component(args.interface_name,
                             parse_parameters(args.parameters),
                             service_type=args.service_type, device=device)
@@ -164,7 +185,8 @@ def main(argv: Optional[list] = None) -> None:
         )
 
         asyncio.run(serve_grpc_component(handle, host=args.host,
-                                         port=args.port))
+                                         port=args.port,
+                                         annotations=annotations))
         return
 
     async def serve():

@@ -61,11 +61,13 @@ class FakeClock:
 
 
 @pytest.fixture(autouse=True)
-def _clean():
+def _clean(monkeypatch):
     for reg in (jregistry, tregistry):
         reg.clear()
+    # a fresh process-default decision ring per test in both packages, so
+    # no test reads another's records (or its late ones)
     for ob in (jobserve, tobserve):
-        ob.decision_audit().clear()
+        monkeypatch.setattr(ob, "_DEFAULT_AUDIT", ob.DecisionAudit())
     yield
     for reg in (jregistry, tregistry):
         reg.clear()

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 from aiohttp import web
 
+from seldon_core_tpu.fleet import observe as jobserve
 from seldon_core_tpu.gateway import app as japp
 from seldon_core_tpu.gateway import oauth as joauth
 from seldon_core_tpu.gateway.store import DeploymentRecord as JRecord
@@ -40,6 +41,8 @@ from seldon_core_tpu.gateway.store import DeploymentStore as JStore
 from seldon_core_tpu.messages import SeldonMessage as JMessage
 from seldon_core_tpu.messages import Status as JStatus
 from seldon_core_tpu.serving.rest import build_app as jbuild_app
+from seldon_core_tpu_torch.fleet import observe as tobserve
+from seldon_core_tpu_torch.fleet.pool import ReplicaPool as TPool
 from seldon_core_tpu_torch.gateway import app as tapp
 from seldon_core_tpu_torch.gateway import oauth as toauth
 from seldon_core_tpu_torch.gateway.store import DeploymentRecord as TRecord
@@ -60,6 +63,24 @@ def _run(coro, timeout: float = TIMEOUT):
 
 def basic_auth(key: str, secret: str) -> str:
     return "Basic " + base64.b64encode(f"{key}:{secret}".encode()).decode()
+
+
+def _multipart(fields: dict) -> tuple:
+    """A ``multipart/form-data`` body of ``fields`` and its content type."""
+    boundary = "sck-form-boundary"
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; '
+             f'name="{k}"\r\n\r\n{v}\r\n' for k, v in fields.items()]
+    body = ("".join(parts) + f"--{boundary}--\r\n").encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+@pytest.fixture(autouse=True)
+def _fresh_decision_rings(monkeypatch):
+    """Each test records into its own process-default decision ring, in
+    both packages: another test's leftovers cannot reach
+    ``/admin/fleet/decisions``."""
+    for ob in (jobserve, tobserve):
+        monkeypatch.setattr(ob, "_DEFAULT_AUDIT", ob.DecisionAudit())
 
 
 # ---- one fake engine, written once per package -----------------------------
@@ -304,6 +325,11 @@ def test_error_bodies_equal(case):
     ("grant_type=password&client_id=key1&client_secret=sec1", None, 400),
     ("grant_type=client_credentials&client_id=nobody&client_secret=x",
      None, 401),
+    # the same fields as multipart/form-data (aiohttp's request.post())
+    ({"grant_type": "client_credentials", "client_id": "key1",
+      "client_secret": "sec1"}, None, 200),
+    ({"grant_type": "client_credentials", "client_id": "key1",
+      "client_secret": "WRONG"}, None, 401),
 ])
 def test_token_endpoint_as_the_reference(form, auth, want):
     async def go():
@@ -311,10 +337,13 @@ def test_token_endpoint_as_the_reference(form, auth, want):
             out = []
             for base in (s.jurl, s.turl):
                 h = {"Content-Type": "application/x-www-form-urlencoded"}
+                body = form.encode() if isinstance(form, str) else None
+                if body is None:
+                    body, h["Content-Type"] = _multipart(form)
                 if auth:
                     h["Authorization"] = auth
                 st, _, body = await s.http.request(
-                    "POST", base + "/oauth/token", form.encode(), h)
+                    "POST", base + "/oauth/token", body, h)
                 d = json.loads(body)
                 d.pop("access_token", None)  # random per issue
                 out.append((st, d))
@@ -343,6 +372,33 @@ def test_admin_bodies_without_planes_equal():
                         path.startswith("/admin") else j[2]) == \
                     (t[0], json.loads(t[2]) if t[0] != 200 or
                      path.startswith("/admin") else t[2]), path
+
+    _run(go())
+
+
+def test_gateway_close_stops_its_pool_probes():
+    """A health probe in flight when the gateway closes must not eject its
+    replica (and record the decision) afterwards."""
+    async def go():
+        held = []
+
+        def accept(reader, writer):
+            held.append(writer)  # connected, and never answered
+
+        member = await asyncio.start_server(accept, "127.0.0.1", 0)
+        port = member.sockets[0].getsockname()[1]
+        gw = tapp.Gateway(TStore())
+        pool = TPool("probe-leak", members=[f"http://127.0.0.1:{port}"])
+        task = asyncio.get_running_loop().create_task(gw._pool_probe(pool))
+        gw._probe_tasks.add(task)
+        await asyncio.sleep(0.2)
+        await gw.close()
+        await asyncio.sleep(2.5)  # past the probe's own 2 s timeout
+        for w in held:
+            w.close()
+        member.close()
+        assert tobserve.decision_audit().query(deployment="probe-leak") == []
+        assert task.done()
 
     _run(go())
 

@@ -12,7 +12,9 @@ profiling planes, and the static-analysis plane lints an example clean,
 with those packages blocked, and the gateway issues a token and forwards
 one prediction to an engine without them.  The operator compiles and
 reconciles an example and renders the charts with ``yaml`` blocked too,
-and the tools draw a contract's request and judge a replay.  A second probe imports the
+and the tools draw a contract's request and judge a replay, and a 2-rank
+CPU mesh runs ring attention and a tensor-parallel prefill.  A second
+probe imports the
 gRPC modules and serves a gRPC call, and forwards one through the
 gateway's gRPC handler with its ``oauth_token``, still without jax or the
 JAX package.
@@ -206,6 +208,28 @@ with open("examples/contracts/iris.json") as f:
         2, rng=np.random.default_rng(0))
 assert req["data"]["tensor"]["shape"] == [2, 4]
 assert compare_responses(b'{"a": 1}', b'{"a":1}')[0]
+# tensor parallelism without jax: a 2-rank CPU mesh, ring attention against
+# dense, and a tp=2 prefill's logits against the unsharded one
+from seldon_core_tpu_torch.models import transformer as tf
+from seldon_core_tpu_torch.parallel import (
+    dense_attention, make_mesh, ring_attention_sharded)
+from seldon_core_tpu_torch.placement.meshes import mesh_for
+from seldon_core_tpu_torch.placement.config import PlacementConfig
+mesh = make_mesh(n_devices=2, tp=2, device="cpu")
+assert mesh_for(PlacementConfig(enabled=True, tp=2), device="cpu").shape == \
+    mesh.shape
+g = torch.Generator().manual_seed(0)
+q, k, v = (torch.randn((1, 8, 2, 4), generator=g) for _ in range(3))
+assert torch.allclose(ring_attention_sharded(q, k, v, mesh),
+                      dense_attention(q, k, v), atol=1e-5)
+cfg = tf.TransformerConfig(vocab_size=16, d_model=16, n_layers=1, n_heads=2,
+                           d_ff=32, max_seq=8, dtype=torch.float32)
+params = tf.init_params(torch.Generator().manual_seed(1), cfg)
+ids = torch.arange(8)[None] % 16
+one, _ = tf.prefill(params, ids, cfg, max_len=8)
+two, _ = tf.prefill(tf.shard_params(params, mesh, cfg), ids, cfg, max_len=8,
+                    mesh=mesh)
+assert torch.allclose(one, two, atol=1e-5)
 blocked = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("aiohttp", "grpc", "ml_dtypes",
                                         "yaml")
@@ -320,6 +344,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "seldon_core_tpu_torch.messages", "seldon_core_tpu_torch.ops._build",
         "seldon_core_tpu_torch.ops.quant", "seldon_core_tpu_torch.ops.attention",
         "seldon_core_tpu_torch.parallel.ring_attention",
+        "seldon_core_tpu_torch.parallel.mesh",
+        "seldon_core_tpu_torch.placement.meshes",
         "seldon_core_tpu_torch.models.transformer",
         "seldon_core_tpu_torch.models.llm_demo",
         "seldon_core_tpu_torch.runtime.paged",

@@ -23,6 +23,7 @@ from seldon_core_tpu.runtime import llm as jllm
 from seldon_core_tpu.runtime import paged as jpaged
 from seldon_core_tpu_torch import convert
 from seldon_core_tpu_torch.models import transformer as ttf
+from seldon_core_tpu_torch.parallel.mesh import make_mesh
 from seldon_core_tpu_torch.runtime import llm as tllm
 from seldon_core_tpu_torch.runtime import paged as tpaged
 
@@ -194,8 +195,9 @@ def test_seeded_sampling_is_reproducible_and_in_vocab():
 
 def test_later_slice_knobs_raise():
     """Every engine knob of the reference serves at tp = 1, speculative
-    decoding included (its greedy ids are the plain engine's); only a mesh
-    (slice 6) raises."""
+    decoding included (its greedy ids are the plain engine's); a mesh with a
+    dp axis raises (an engine serves over tp; tensor-parallel engines are
+    held to the reference in tests/test_torch_tp_engine.py)."""
     _, tp = _params("none")
     paged = tpaged.PagedConfig(17, 4)
     for kw in ({"chunk_prefill": 8}, {"auto_prefix_tokens": 64},
@@ -212,5 +214,6 @@ def test_later_slice_knobs_raise():
             out.numpy(), np.asarray(jtf.generate(_BASE, jnp.asarray(p)[None],
                                                  n, JCFG)))
         assert eng.spec_stats["rounds"] >= 1
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            cls(tp, TCFG, *args, max_len=32, mesh=object())
+        with pytest.raises(ValueError, match="tp only"):
+            cls(tp, TCFG, *args, max_len=32,
+                mesh=make_mesh(n_devices=2, tp=1, device="cpu"))

@@ -765,8 +765,8 @@ def test_demo_llm_defaults_are_the_reference_defaults():
     assert type(paged.engine) is tllm.PagedLLMEngine
     assert slab.engine._auto_budget == paged.engine._auto_budget == 256
     assert DemoLLM(auto_prefix_tokens=0, **kw).engine._auto_budget == 0
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        DemoLLM(tp=2, **kw)
+    with pytest.raises(ValueError, match="int8='full'"):
+        DemoLLM(tp=2, int8="full", **kw)
     msg = SeldonMessage(json_data={"prompt_ids": list(range(3, 23))})
 
     async def both():
