@@ -33,7 +33,9 @@ Prints one JSON object per line:
    rank's w1 columns (4096x8192), w2 rows (8192x4096) and lm_head
    vocabulary (4096x16000) at M 8, 128 and the one logit row; K2 at S8
    H16/Hkv4; K3 at B1 L128 H16/Hkv4; each held to its plain version and
-   timed as the rows above.
+   timed as the rows above.  Slice 6b's dp = 2 rank of the int8 ResNet50
+   (``resnet_dp2_rank_*``): K1 at the stage-1 1x1 conv of 32 images
+   (100352x64x64) and at the head of 32 and 4 rows.
 4. ``llm_json``: boots the local runner on the port's copy of
    ``examples/graphs/llm.json`` (automatic prefix caching on) in process,
    POSTs two waves of three greedy requests, the second sharing 32-token
@@ -340,7 +342,21 @@ Prints one JSON object per line:
     prefilled by ring attention at tp = 2 EQUAL to a dense prefill; a
     speculative tp = 2 engine returning every page.  TTFT/TPOT medians,
     tokens/s, peak memory per mode and ``tp_span``: reported.
-37. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
+37. ``placement_resnet50`` (after ``tp_7b``): the placement plane.  The
+    int8 ResNet50 fused behind a ``PlacementPlane`` at dp = 2 over
+    ``[cuda:0, cuda:0]`` (batching on, a fresh artifact store) answers
+    batches of 1, 8 and 64 bitwise equal to the unsharded fused plan and
+    to the walk; the probe's and every bucket's verdict, K1 launches of
+    one sharded forward (2 x 37) and one unsharded (37), and p50 of
+    sequential requests sharded against unsharded: reported.  The MNIST
+    classifier at tp = 2 and dp = 2,tp = 2 over ranks of cuda:0: ids
+    EQUAL fused and walk, ``tpBytesPerDevice`` measured from the pieces;
+    ``MNISTMLP`` at tp = 2 verified or disarmed, answers equal.  The
+    engine's ``/admin/placement`` 200 over REST, the placement probe's
+    device bytes, a warm engine taking the stored sharded buckets at
+    boot; ``iris.json`` with ``seldon.io/mesh: dp=2`` on one card: its
+    plane disabled with the warning, 404, the unsharded answers.
+38. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
     phases of prefix caching, batched and chunked prefill, preemption and
     checkpoints together; ``slice_3b_phases``: ``spec_7b`` and
     ``parity_spec_7b``; ``slice_4a_i_phases``: the ``wire_*`` phases;
@@ -349,8 +365,8 @@ Prints one JSON object per line:
     ``slice_4c_ii_phases``: ``llm_graphs_7b``; ``slice_4d_4e_phases``:
     25-26; ``slice_5_i_phases``: 27-28; ``slice_5_ii_phases``: 29;
     ``slice_5b_i_phases``: 30-32; ``slice_5b_ii_phases``: 33-34;
-    ``slice_6a_phases``: 35-36).
-38. ``{"kernels": [...]}``: one entry per kernel with its launches in the
+    ``slice_6a_phases``: 35-36; ``slice_6b_phases``: 37).
+39. ``{"kernels": [...]}``: one entry per kernel with its launches in the
     runs through entry points (``llm_json``, ``serve_7b``, ``grpc_7b``,
     ``features_7b``, ``spec_7b``, ``llm_graphs_7b``, ``checkpoint_7b``,
     ``plan_resnet50``,
@@ -358,13 +374,14 @@ Prints one JSON object per line:
     ``wire_llm``, ``workers``, ``qos_resnet50``, ``artifacts_resnet50``,
     ``device_plane_resnet50``, ``observe_7b``, ``observe_resnet50``,
     ``lint``, ``gateway_7b``, ``loadtest_7b``, ``parity_tp_7b``,
-    ``tp_7b``, ``gateway_resnet50``,
+    ``tp_7b``, ``placement_resnet50``, ``gateway_resnet50``,
     ``fleet_resnet50`` and ``operator_resnet50``, counted by the child
     processes where the kernels run there; K1 also
     ``resnet50_launches``: the int8 REST run), each phase's count beside,
     its error, times and bound (K2 also at its two long cases and the
-    shared-prefix case; each kernel also its ``tp2_rank_cases``).
-39. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+    shared-prefix case; each kernel also its ``tp2_rank_cases``, K1 its
+    ``dp2_rank_cases``: one dp = 2 rank's row blocks of the int8 ResNet50).
+40. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
@@ -523,7 +540,8 @@ def kernel_phase(torch, timer) -> dict:
                 summary["int8_matmul"]["shape"] = f"{name} {M}x{K}x{N}"
         emit(line)
         del x, w
-    errs += resnet_k1_cases(torch, timer, gen, sms)
+    rn_errs, dp2 = resnet_k1_cases(torch, timer, gen, sms)
+    errs += rn_errs
     summary["int8_matmul"]["max_abs_err"] = max(errs)
 
     # K2 ------------------------------------------------------------------
@@ -700,6 +718,9 @@ def kernel_phase(torch, timer) -> dict:
         summary[kernel]["tp2_rank_cases"] = {
             name: {k: ln[k] for k in keys if k in ln}
             for name, ln in cases.items()}
+    summary["int8_matmul"]["dp2_rank_cases"] = {
+        name: {k: ln[k] for k in keys + ("quantize_ms", "product_ms")
+               if k in ln} for name, ln in dp2.items()}
     return summary
 
 
@@ -734,10 +755,24 @@ def _device_ms_by_kernel(torch, fn, reps: int) -> dict:
 
 #: idle time inside a profiled window before ``fn()`` and after its work
 PROFILE_PAD_S = 0.05
-#: per profiled window: µs from the window's start to its first device
-#: record (the pad plus the launch; less would mean the card's clock
-#: stands behind the host's)
+#: per profiled window: µs from the window's start to the first device
+#: record of the work (the pad, the sentinels and the launch; less would
+#: mean the card's clock stands behind the host's)
 PROFILE_FIRST_US: list = []
+#: per profiled window: its device records' first start and last end (µs
+#: from the window's start), their span and count, the CUDA events' ms
+#: around ``fn()`` on the card, each kernel name's record starts, and how
+#: many of its sentinels the profiler saw.  A record lost at an edge of the
+#: window shortens the records' span against the events'; one lost inside
+#: leaves a gap between two starts.
+PROFILE_WINDOWS: list = []
+#: spin kernels (``torch.cuda._sleep``, about 0.1 ms each on an H100)
+#: queued after the pad and before ``fn()``: a window that loses its first
+#: device records loses these, not ``fn()``'s (PR 17's proof run lost the
+#: first 23 records of an int8 ResNet50 replay 55 ms into its window, 5 ms
+#: past the pad, and ``plan_resnet50`` saw 36 of 37 K1 passes)
+PROFILE_SENTINELS = 128
+PROFILE_SENTINEL_CYCLES = 200_000
 
 
 def _kernels_run(torch, fn) -> dict:
@@ -747,23 +782,63 @@ def _kernels_run(torch, fn) -> dict:
     window's host-clock bounds, so the window opens and closes
     ``PROFILE_PAD_S`` away from the work: with ``fn()`` launched at once
     after the start, a replay of the int8 ResNet50 bucket on an H100 once
-    showed 36 of its 37 quantize passes."""
+    showed 36 of its 37 quantize passes, and once more with the pads, its
+    first records lost: ``PROFILE_SENTINELS`` spin kernels now run ahead of
+    ``fn()`` inside the window and are left out of the counts, and
+    ``PROFILE_WINDOWS`` keeps where each window's records fell."""
     torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
+        for _ in range(PROFILE_SENTINELS):
+            torch.cuda._sleep(PROFILE_SENTINEL_CYCLES)
+        ev0.record()
         fn()
+        ev1.record()
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
     seen: dict = {}
-    first = math.inf
+    starts: dict = {}
+    sentinels = 0
+    first, last = math.inf, -math.inf
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            seen[e.name] = seen.get(e.name, 0) + 1
-            first = min(first, e.time_range.start)
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if "spin_kernel" in e.name:
+            sentinels += 1
+            continue
+        seen[e.name] = seen.get(e.name, 0) + 1
+        starts.setdefault(e.name, []).append(e.time_range.start)
+        first = min(first, e.time_range.start)
+        last = max(last, e.time_range.end)
     PROFILE_FIRST_US.append(first)
+    PROFILE_WINDOWS.append({
+        "first_us": first, "last_us": last, "span_us": last - first,
+        "events_ms": ev0.elapsed_time(ev1), "records": sum(seen.values()),
+        "sentinels_seen": sentinels,
+        "starts_us": {k: sorted(v) for k, v in starts.items()}})
     return seen
+
+
+def _window_report(window: dict, name_part: str) -> dict:
+    """A profiled window's bounds against the events', and the records
+    of the kernels whose names hold ``name_part``: their count, first and
+    last start, and the widest gap between two starts."""
+    st = sorted(t for k, v in window["starts_us"].items()
+                if name_part in k for t in v)
+    gaps = [b - a for a, b in zip(st, st[1:])]
+    return {**{k: window[k] for k in ("first_us", "last_us", "span_us",
+                                      "events_ms", "records",
+                                      "sentinels_seen")},
+            name_part: {"records": len(st),
+                        "first_start_us": st[0] if st else None,
+                        "last_start_us": st[-1] if st else None,
+                        "widest_gap_us": max(gaps, default=None),
+                        "median_gap_us": (statistics.median(gaps)
+                                          if gaps else None)}}
 
 
 def _k1_split(by_name: dict) -> dict:
@@ -774,20 +849,27 @@ def _k1_split(by_name: dict) -> dict:
     return {"quantize_ms": quant, "product_ms": prod}
 
 
-def resnet_k1_cases(torch, timer, gen, sms) -> list:
+def resnet_k1_cases(torch, timer, gen, sms) -> tuple:
     """K1 at every ResNet50 1x1 shape at batch 64 (bf16 rows) and at the
     head at batch 8 and 64 (float32 rows): bitwise against the plain
     version, timed beside its bound, ``torch._int_mm`` on the same int8
     operands and the dequantized bf16 ``torch.matmul``.  At the largest-M
     shapes the profiler splits the time into the quantize pass and the
-    product."""
+    product.  Also one dp = 2 rank's row block (``placement_resnet50``):
+    the stage-1 1x1 conv at 32 images and the head at 32 and 4 rows.
+    Returns the errors and the dp = 2 rank cases' lines."""
     from seldon_core_tpu_torch.ops import quant
 
     cases = [(f"resnet_b64_{r}x{k}x{n}", 64 * r, k, n, torch.bfloat16)
              for r, k, n in RESNET_1X1]
     cases += [("resnet_head_b8", 8, 2048, 1000, torch.float32),
               ("resnet_head_b64", 64, 2048, 1000, torch.float32)]
-    errs = []
+    # slice 6b: a dp = 2 rank's half of the batches of 64 and of 8
+    cases += [("resnet_dp2_rank_b32_3136x64x64", 32 * 3136, 64, 64,
+               torch.bfloat16),
+              ("resnet_dp2_rank_head_b32", 32, 2048, 1000, torch.float32),
+              ("resnet_dp2_rank_head_b4", 4, 2048, 1000, torch.float32)]
+    errs, dp2 = [], {}
     for name, M, K, N, dt in cases:
         x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
         w = quant.quantize_int8(
@@ -826,13 +908,15 @@ def resnet_k1_cases(torch, timer, gen, sms) -> list:
             int_mm_ms=(timer(lambda: torch._int_mm(xq, w.values))
                        if M > 16 else None),
             bound_ms=b_ms, bound_by=b_by)
-        if M == 64 * 3136:
+        if M in (64 * 3136, 32 * 3136):
             line.update(_k1_split(_device_ms_by_kernel(
                 torch, lambda: quant.int8_matmul_cuda(x, w.values, w.scales,
                                                       dt), 10)))
+        if name.startswith("resnet_dp2_rank"):
+            dp2[name] = line
         emit(line)
         del x, w, wd, xq
-    return errs
+    return errs, dp2
 
 
 # ----------------------------------------------------------------------
@@ -2227,6 +2311,7 @@ def llm_graphs_7b_phase(torch, params) -> dict:
         line = {"launches_counted": counted, "kernels_profiled": seen_k,
                 "device_kernels_profiled": sum(seen.values()),
                 "first_device_record_us": PROFILE_FIRST_US[-1],
+                "sentinels_seen": PROFILE_WINDOWS[-1]["sentinels_seen"],
                 "expected": want}
         out.setdefault("replays_profiled", {})[label] = line
         if not (counted["int8_matmul"] == seen_k["k1_quantize"]
@@ -2880,6 +2965,351 @@ def tp_7b_phase(torch) -> dict:
     del p2, d_params, base
     torch.cuda.empty_cache()
     return {k: sum(t[k] for t in total.values()) for k in total["tp2"]}
+
+
+# ----------------------------------------------------------------------
+# slice 6b: the placement plane
+# ----------------------------------------------------------------------
+
+#: batch sizes of ``placement_resnet50`` (batch 1 pads to 2 under dp = 2)
+PLACEMENT_BATCHES = (1, 8, 64)
+#: sequential requests per engine and batch size in its p50
+PLACEMENT_REPS = 10
+
+
+def _same_payload(a, b) -> bool:
+    """``_same_answer`` less the ``artifact-source`` tag, which only an
+    engine with an artifact plane stamps."""
+    for m in (a, b):
+        m.meta.tags.pop("artifact-source", None)
+    return _same_answer(a, b)
+
+
+def _mnist_on_mesh(torch, model: str, n_devices: int, tp: int,
+                   device: str) -> dict:
+    """``model`` (``mlp:...``, seeded weights on ``device``) fused behind a
+    placement plane over ``n_devices`` ranks of ``device`` at ``tp``, an
+    unsharded fused engine and a walk over the same component: batches of
+    2, 4 and 8 rows, every answer bitwise equal across the three."""
+    import numpy as np
+
+    from seldon_core_tpu_torch.graph.engine import GraphEngine
+    from seldon_core_tpu_torch.operator.local import resolve_component
+    from seldon_core_tpu_torch.parallel.mesh import make_mesh
+    from seldon_core_tpu_torch.placement import (
+        PlacementConfig,
+        PlacementPlane,
+    )
+
+    spec = {"name": "clf", "type": "MODEL", "parameters": [{
+        "name": "model_class", "type": "STRING",
+        "value": f"seldon_core_tpu_torch.models.{model}"}]}
+    comps: dict = {}
+
+    def resolve(u):
+        if u.name not in comps:
+            comps[u.name] = resolve_component(
+                u, {"seldon.io/batching": "false"}, device)
+        return comps[u.name]
+
+    plane = PlacementPlane(
+        PlacementConfig(enabled=True, dp=n_devices // tp, tp=tp),
+        mesh=make_mesh(devices=[device] * n_devices, tp=tp))
+    sharded = GraphEngine(spec, resolver=resolve, name="p",
+                          plan_mode="fused", placement=plane)
+    fused = GraphEngine(spec, resolver=resolve, name="p", plan_mode="fused")
+    walk = GraphEngine(spec, resolver=resolve, name="p")
+    seg = sharded.plan.segments[0]
+    equal = {}
+    for n in (2, 4, 8):
+        x = np.random.RandomState(n).uniform(size=(n, 784)).astype(
+            np.float32)
+        a, b, c = (asyncio.run(e.predict(_pinned(x)))
+                   for e in (sharded, fused, walk))
+        equal[n] = _same_answer(a, b) and _same_answer(a, c)
+    return {"mesh": plane.mesh_shape(), "shard_parity": seg.shard_parity,
+            "sharded_segments": plane.sharded_segments,
+            "buckets": {"x".join(map(str, k[0])): v["parity"]
+                        for k, v in seg.shard_cost_by_bucket.items()},
+            "sharded_calls": seg.n_sharded_calls,
+            "equal_fused_and_walk": equal,
+            "shardedParamBytes": seg.tp_sharded_param_bytes,
+            "tpBytesPerDevice": seg.tp_bytes_per_device,
+            "describe": seg.describe()}
+
+
+def placement_resnet50_phase(torch) -> dict:
+    """The placement plane on the one card.
+
+    (1) The int8 ResNet50 of ``resnet50-int8.json`` (BASELINE config 3,
+    full width, ``wire_resnet``'s seeds) fused with batching on, behind an
+    explicit ``PlacementPlane`` at dp = 2 over ``[cuda:0, cuda:0]`` and a
+    fresh artifact store, beside the unsharded fused ``LocalDeployment``
+    and a walk over the same components.  Batches of 1 (padded to 2 by
+    ``shard_rows``), 8 and 64: every answer bitwise equal across the three.
+    Reported: the probe's and each bucket's verdict, K1 launches of one
+    sharded forward (2 x 37: each rank's row block) against one unsharded
+    (37), and p50 ms of ``PLACEMENT_REPS`` sequential requests per batch
+    size, unsharded / sharded / sharded / unsharded (the split's overhead
+    on one card, not dp's gain).  (2) ``MNISTMLPClassifier`` at tp = 2 and
+    dp = 2,tp = 2 over 2 and 4 ranks of cuda:0: ids EQUAL fused and walk at
+    batches 2, 4 and 8, ``tpBytesPerDevice`` measured from the pieces;
+    ``MNISTMLP`` at tp = 2 verified, or disarmed with answers still equal.
+    (3) The engine's ``/admin/placement`` over REST answers 200 with every
+    segment; the placement probe reads ``torch.cuda.memory_stats``; a
+    second engine on the store captures the published sharded buckets at
+    boot and answers EQUAL without a live capture.  (4) A
+    ``LocalDeployment`` of ``iris.json`` with ``seldon.io/mesh: dp=2`` on
+    the one card disables its plane with the warning, answers 404 at
+    ``/admin/placement`` and serves the unsharded plan's answers.  Returns
+    the launches of (1)'s requests."""
+    import logging
+    import tempfile
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.artifacts import ArtifactConfig, ArtifactPlane
+    from seldon_core_tpu_torch.graph.engine import GraphEngine
+    from seldon_core_tpu_torch.graph.spec import load_deployment
+    from seldon_core_tpu_torch.health import placement_probe
+    from seldon_core_tpu_torch.operator.local import (
+        LocalDeployment,
+        _batcher_config,
+    )
+    from seldon_core_tpu_torch.parallel.mesh import make_mesh
+    from seldon_core_tpu_torch.placement import (
+        PlacementPlane,
+        placement_config_from_annotations,
+    )
+    from seldon_core_tpu_torch.serving.rest import RestServer
+    from seldon_core_tpu_torch.utils.metrics import MetricsRegistry
+
+    out = {"phase": "placement_resnet50", "card": CARD}
+    d = _resnet_graph(True, {"seldon.io/graph-plan": "fused"})
+    graph, ann = d["spec"]["predictors"][0]["graph"], d["spec"]["annotations"]
+    t0 = time.perf_counter()
+    local = LocalDeployment(load_deployment(d), seed=0)
+    fused = local.engine
+    out["boot_s"] = time.perf_counter() - t0
+    useg = fused.plan.segments[0]
+    # two ranks of the card (of the CPU in a rehearsal without one)
+    rank = "cuda:0" if useg.device.type == "cuda" else "cpu"
+    row = tuple(fused.node_impl("resnet").handle.user.input_shape)
+    rng = np.random.default_rng(17)
+    batches = {b: rng.integers(0, 256, (b,) + row).astype(np.float32)
+               for b in PLACEMENT_BATCHES}
+
+    def bucket(rows: int) -> str:
+        return "x".join(map(str, (rows,) + row))
+
+    walk = GraphEngine(graph, name="main",
+                       resolver=lambda u, e=fused: e.node_impl(u.name))
+    cfg = placement_config_from_annotations({"seldon.io/mesh": "dp=2"})
+    mesh = make_mesh(devices=[rank, rank], tp=1)
+    store = tempfile.TemporaryDirectory(prefix="placement-store-")
+
+    def sharded_engine():
+        plane = PlacementPlane(cfg, mesh=mesh, deployment="placement")
+        art = ArtifactPlane(ArtifactConfig(enabled=True, store=store.name))
+        eng = GraphEngine(graph, name="main",
+                          resolver=lambda u, e=fused: e.node_impl(u.name),
+                          plan_mode="fused", plan_batcher=_batcher_config(ann),
+                          placement=plane, artifacts=art)
+        return eng, plane, art
+
+    t0 = time.perf_counter()
+    sharded, plane, art = sharded_engine()
+    out["arm_s"] = time.perf_counter() - t0
+    seg = sharded.plan.segments[0]
+    out["shard_parity"] = seg.shard_parity
+    out["sharded_segments"] = list(plane.sharded_segments)
+    out["shard_rows"] = seg.batcher.config.shard_rows
+
+    reset_launches()
+    equal, first = {}, {}
+    for b, x in batches.items():
+        a = asyncio.run(sharded.predict(_pinned(x)))
+        first[b] = a
+        b_, c_ = (asyncio.run(e.predict(_pinned(x))) for e in (fused, walk))
+        equal[b] = _same_payload(a, b_) and _same_payload(a, c_)
+    launches = read_launches()
+    out["equal_unsharded_and_walk"] = equal
+    out["bucket_parity"] = {"x".join(map(str, k[0])): v["parity"]
+                            for k, v in seg.shard_cost_by_bucket.items()}
+    out["sharded_calls"] = seg.n_sharded_calls
+    out["k1_launches_requests"] = launches["int8_matmul"]
+
+    # K1 per forward of each bucket: a verified one replays both ranks'
+    # blocks, a failed one the unsharded forward; and one eager sharded run
+    def k1_of(fn, x) -> int:
+        fn(x)  # a bucket's first sight captures it: count a replay
+        torch.cuda.synchronize()
+        reset_launches()
+        fn(x)
+        torch.cuda.synchronize()
+        return read_launches()["int8_matmul"]
+
+    xs = {rows: torch.from_numpy(np.repeat(batches[1], rows, axis=0)
+                                 if rows == 2 else batches[rows]).to(
+        useg.device) for rows in (2, 8, 64)}
+    out["k1_per_forward"] = {bucket(r): {"sharded": k1_of(seg, x),
+                                         "unsharded": k1_of(useg, x)}
+                             for r, x in xs.items()}
+    with torch.inference_mode():
+        out["k1_per_forward"]["sharded_eager"] = k1_of(seg._run_sharded,
+                                                       xs[8])
+
+    # p50 of sequential requests, unsharded / sharded / sharded / unsharded
+    async def p50(eng, x):
+        ms = []
+        for _ in range(PLACEMENT_REPS):
+            t = time.perf_counter()
+            await eng.predict(_pinned(x))
+            ms.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ms)
+
+    out["p50_ms"] = {
+        str(b): {mode: asyncio.run(p50(eng, x)) for mode, eng in (
+            ("unsharded", fused), ("sharded", sharded),
+            ("sharded_again", sharded), ("unsharded_again", fused))}
+        for b, x in batches.items()}
+    out["p50_note"] = ("host ms per request through the engine (batcher "
+                       "window, H2D, forward, D2H); sequential; the "
+                       "sharded engine pads batch 1 to 2 rows")
+
+    # (3) the surfaces: REST, the probe, a warm engine from the store
+    async def admin(eng):
+        srv = await RestServer(eng, host="127.0.0.1", port=0).start()
+        try:
+            loop = asyncio.get_running_loop()
+            return await loop.run_in_executor(None, _get, srv.port,
+                                              "/admin/placement")
+        finally:
+            await srv.stop()
+
+    st, body = asyncio.run(admin(sharded))
+    body = json.loads(body)
+    out["admin_placement"] = {
+        "status": st, "segments": [s["segment"] for s in body["segments"]],
+        "shardedSegments": body.get("shardedSegments"),
+        "shardedDispatches": body.get("shardedDispatches"),
+        "devicesVisible": body.get("devicesVisible")}
+    reg = MetricsRegistry()
+    sample = placement_probe(plane, metrics=reg)()
+    allocated = (torch.cuda.memory_stats(rank)["allocated_bytes.all.current"]
+                 if rank != "cpu" else 0)
+    out["probe"] = {**sample, "allocated_bytes_now": allocated,
+                    "gauge_rendered":
+                        'seldon_runtime_placement_device_bytes{device="0"}'
+                        in reg.render()}
+    out["artifacts_cold"] = {k: art.snapshot()[k] for k in (
+        "published", "liveCompiles", "parityFailures")}
+    t0 = time.perf_counter()
+    warm, _, warm_art = sharded_engine()
+    out["warm_boot_s"] = time.perf_counter() - t0
+    wseg = warm.plan.segments[0]
+    out["warm_shard_hydrated"] = sorted("x".join(map(str, k[0]))
+                                        for k in wseg.shard_hydrated)
+    verified = [b for b, v in out["bucket_parity"].items() if v == "verified"]
+    warm_equal = {}
+    for b, x in batches.items():
+        warm_equal[b] = _same_payload(
+            asyncio.run(warm.predict(_pinned(x))), first[b])
+    out["warm_equal"] = warm_equal
+    out["artifacts_warm"] = {k: warm_art.snapshot()[k] for k in (
+        "hydrated", "liveCompiles")}
+
+    # (2) the MNIST classifier over tp spans of cuda:0
+    out["mnist"] = {
+        "clf_tp2": _mnist_on_mesh(torch, "mlp:MNISTMLPClassifier", 2, 2,
+                                  rank),
+        "clf_dp2tp2": _mnist_on_mesh(torch, "mlp:MNISTMLPClassifier", 4, 2,
+                                     rank),
+        "mlp_tp2": _mnist_on_mesh(torch, "mlp:MNISTMLP", 2, 2, rank)}
+
+    # (4) the refusal path: dp = 2 wants two cards
+    iris = json.loads((ROOT / "seldon_core_tpu_torch" / "examples"
+                       / "iris.json").read_text())
+    iris["spec"].setdefault("annotations", {}).update(
+        {"seldon.io/graph-plan": "fused"})
+    warned = []
+
+    class _Catch(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    catch = _Catch(level=logging.WARNING)
+    logger = logging.getLogger("seldon_core_tpu_torch.operator.local")
+    logger.addHandler(catch)
+    try:
+        meshed = json.loads(json.dumps(iris))
+        meshed["spec"]["annotations"]["seldon.io/mesh"] = "dp=2"
+        refused = LocalDeployment(load_deployment(meshed), seed=0)
+    finally:
+        logger.removeHandler(catch)
+    plain = LocalDeployment(load_deployment(iris), seed=0)
+    xi = np.random.RandomState(0).uniform(size=(8, 4)).astype(np.float32)
+    st404, _ = asyncio.run(admin(refused))
+    out["refusal"] = {
+        "plane": refused.placement is not None, "status": st404,
+        "warning": [w for w in warned if "placement plane disabled" in w],
+        "equal_unsharded": _same_answer(
+            asyncio.run(refused.predict(_pinned(xi))),
+            asyncio.run(plain.predict(_pinned(xi))))}
+    emit(out)
+
+    mn = out["mnist"]
+    problems = []
+    if not all(equal.values()) or not all(warm_equal.values()):
+        problems.append("an answer differs")
+    if out["shard_parity"] not in ("verified", "failed"):
+        problems.append(f"probe verdict {out['shard_parity']}")
+    if out["shard_parity"] == "verified" and (
+            set(out["bucket_parity"]) != {bucket(2), bucket(8),
+                                          bucket(64)}):
+        problems.append(f"buckets gated: {out['bucket_parity']}")
+    if out["shard_rows"] != (2 if out["shard_parity"] == "verified" else 1):
+        problems.append(f"shard_rows {out['shard_rows']}")
+    for r in (2, 8, 64):
+        want = 2 * 37 if out["bucket_parity"].get(bucket(r)) == \
+            "verified" else 37
+        if out["k1_per_forward"][bucket(r)] != {"sharded": want,
+                                                "unsharded": 37}:
+            problems.append(f"K1 per forward {out['k1_per_forward']}")
+    if out["k1_per_forward"]["sharded_eager"] != 2 * 37:
+        problems.append("an eager sharded forward is not 2 x 37 K1")
+    if out["k1_launches_requests"] <= 0:
+        problems.append("no K1 launch")
+    if st != 200 or out["admin_placement"]["segments"] != [seg.name]:
+        problems.append(f"/admin/placement {st}")
+    if not (sample["placement_devices"] == 2.0
+            and sample["placement_device_bytes_max"] > 0
+            and out["probe"]["gauge_rendered"]):  # device "0": the card
+        problems.append(f"probe {sample}")
+    if verified and (out["warm_shard_hydrated"] != sorted(verified)
+                     or out["artifacts_warm"]["liveCompiles"] != 0):
+        problems.append("the warm engine did not take the stored buckets")
+    for name in ("clf_tp2", "clf_dp2tp2"):
+        m = mn[name]
+        if not (m["shard_parity"] == "verified"
+                and all(m["equal_fused_and_walk"].values())
+                and m["tpBytesPerDevice"] == m["shardedParamBytes"] // 2
+                and m["tpBytesPerDevice"] > 0):
+            problems.append(f"{name}: {m}")
+    if not all(mn["mlp_tp2"]["equal_fused_and_walk"].values()):
+        problems.append("mlp_tp2 answers differ")
+    if mn["mlp_tp2"]["shard_parity"] not in ("verified", "failed"):
+        problems.append(f"mlp_tp2 {mn['mlp_tp2']['shard_parity']}")
+    r = out["refusal"]
+    if r["plane"] or r["status"] != 404 or not r["warning"] \
+            or not r["equal_unsharded"]:
+        problems.append(f"refusal {r}")
+    if problems:
+        raise AssertionError(f"placement_resnet50: {problems}")
+    store.cleanup()
+    del local, fused, walk, sharded, warm, seg, useg, wseg, xs
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ----------------------------------------------------------------------
@@ -4728,6 +5158,9 @@ def plan_resnet50_phase(torch) -> dict:
                                   if "int8_gemm" in k or "int8_gemv" in k)}
         out["k1_kernels_profiled_one_replay"] = seen_k1
         out["profile_first_device_record_us"] = PROFILE_FIRST_US[-1]
+        # where the window's records fell against the replay's own span
+        out["profile_window"] = _window_report(PROFILE_WINDOWS[-1],
+                                               "quant_rows")
         out["device_kernels_profiled_one_replay"] = sum(seen.values())
         if not (ok and equal64 and equal16 == PLAN_IMAGES and calls64 == 1
                 and calls16 == batches16 and k1_64 == want
@@ -7504,6 +7937,9 @@ def smoke() -> int:
     # slice 6a: tensor-parallel serving, two tp ranks on the one card
     runs["parity_tp_7b"] = timed("parity_tp_7b", parity_tp_7b_phase, torch)
     runs["tp_7b"] = timed("tp_7b", tp_7b_phase, torch)
+    # slice 6b: the placement plane, dp and tp ranks on the one card
+    runs["placement_resnet50"] = timed("placement_resnet50",
+                                       placement_resnet50_phase, torch)
     runs["checkpoint_7b"] = timed("checkpoint_7b", checkpoint_7b_phase,
                                   torch)
     resnet_k1 = timed("resnet50", resnet50_phase, torch)
@@ -7567,6 +8003,7 @@ def smoke() -> int:
           "slice_5b_ii_phases": seconds["loadtest_7b"]
           + seconds["operator_resnet50"],
           "slice_6a_phases": seconds["parity_tp_7b"] + seconds["tp_7b"],
+          "slice_6b_phases": seconds["placement_resnet50"],
           "total": time.perf_counter() - t0})
     launches = {k: sum(r[k] for r in runs.values())
                 for k in runs["serve_7b"]}
@@ -7584,7 +8021,8 @@ def smoke() -> int:
             "shape": s["shape"], "variant": s.get("variant"), "card": CARD,
             **{k: s[k] for k in ("long_ms", "long_bound_ms", "one_long_ms",
                                  "one_long_bound_ms", "shared_prefix_ms",
-                                 "shared_prefix_bound_ms", "tp2_rank_cases")
+                                 "shared_prefix_bound_ms", "tp2_rank_cases",
+                                 "dp2_rank_cases")
                if k in s},
             **({"resnet50_launches": resnet_k1} if name == "int8_matmul"
                else {})})

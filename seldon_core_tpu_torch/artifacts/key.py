@@ -10,8 +10,9 @@ answer:
   of every parameter tensor's bytes (a weight rollout re-fingerprints the
   segment).  Taken once per segment when the plan is attached.
 - **bucket shape x dtype**: ``FusedSegment.bucket_key``.
-- **mesh spec** and **sharding slice**: the reference's fields, kept (""
-  on one card until the placement plane is ported).
+- **mesh spec** and **sharding slice**: the reference's fields: the
+  placement plane's ``seldon.io/mesh`` spec ("" without one) and, for a
+  sharded bucket, the segment's armed mesh slice.
 - **runtime identity** (the reference's jaxlib version): the torch
   version, ``torch.version.cuda``, cuDNN's version, the device's name, its
   SM count and the kernel library's ``source_hash()``.  The SM count is in

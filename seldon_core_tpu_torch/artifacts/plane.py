@@ -30,6 +30,14 @@ The reference's operations map so:
 - **publish**: every live capture (first sight, or the boot warm-up when
   ``precompile`` is on) is replayed on its probe input and recorded.
 
+A segment armed by the placement plane (``graph/plan.py``
+``enable_sharding``) has sharded buckets too, each one graph of every
+rank's work: their records carry the armed mesh slice as ``sharding``
+(``"dp=2"``, ``"tp=2"``, ``"dp=2,tp=2"``), are published only once the
+bucket's parity gate passed, and are captured at boot only into a segment
+armed on the same slice (:meth:`ArtifactPlane.load_shard_bucket`,
+:meth:`ArtifactPlane.publish_shard_bucket`).
+
 Buckets exist only where graphs are captured (``programs.graphs_on``: the
 card).  On the CPU a segment runs eagerly, and the plane hydrates and
 publishes nothing.
@@ -197,6 +205,7 @@ class ArtifactPlane:
 
     def _hydrate_segment(self, seg) -> int:
         fp = self._fingerprint(seg)
+        armed = seg.shard_slice if seg.shard_ranks_share_device else ""
         n = 0
         for sc in self.store.sidecars(fp):
             try:
@@ -206,35 +215,57 @@ class ArtifactPlane:
                 sharding = str(sc.get("sharding", "") or "")
             except (TypeError, ValueError):
                 continue  # not a record of this format
-            if key != self._key(fp, shape, dtype, sharding) or sharding:
+            if key != self._key(fp, shape, dtype, sharding):
                 # another mesh, runtime or format vintage: not ours
                 continue
+            if sharding and sharding != armed:
+                # a sharded bucket goes only to a segment armed on its
+                # slice (the placement plane arms before the hydration)
+                continue
+            bucket = seg.bucket_for(shape, dtype)
             with seg._capture_lock:
-                if seg.bucket_for(shape, dtype) in seg._buckets:
+                if (seg._shard_buckets.get(bucket) is not None
+                        if sharding else bucket in seg._buckets):
                     continue
                 t0 = time.perf_counter()
                 got = self._capture_stored(seg, fp, key, shape, dtype,
-                                           sc.get("probeDigest"))
+                                           sc.get("probeDigest"),
+                                           sharded=bool(sharding))
                 if got is None:
                     continue
                 wall_ms = (time.perf_counter() - t0) * 1000.0
-                bucket = seg.bucket_for(shape, dtype)
-                cost = {**dict(sc.get("cost") or {}),
-                        **seg.bucket_cost(bucket)}
-                cost["source"] = "aot-cache"
-                cost["hydrate_ms"] = round(wall_ms, 3)
-                seg.hydrated.add(bucket)
-                seg.cost_by_bucket[seg.bucket_wire(bucket)] = cost
+                self._note_stored(seg, bucket, got, wall_ms,
+                                  dict(sc.get("cost") or {}),
+                                  sharded=bool(sharding))
             n += 1
-            self.note_hydrated(seg, bucket, wall_ms)
+            self.note_hydrated(seg, bucket, wall_ms, sharded=bool(sharding))
         return n
 
+    def _note_stored(self, seg, bucket: tuple, captured, wall_ms: float,
+                     stored_cost: dict, sharded: bool) -> None:
+        """A bucket captured from the store (the caller holds the
+        segment's capture lock): its map entry, provenance and cost."""
+        wire = seg.bucket_wire(bucket)
+        cost = {**stored_cost, "source": "aot-cache",
+                "hydrate_ms": round(wall_ms, 3)}
+        if sharded:
+            # published only after its gate passed
+            cost.update(parity="verified", meshSlice=seg.shard_slice)
+            seg._shard_buckets[bucket] = captured
+            seg.shard_hydrated.add(bucket)
+            seg.shard_cost_by_bucket[wire] = cost
+        else:
+            cost.update(seg.bucket_cost(bucket))
+            seg.hydrated.add(bucket)
+            seg.cost_by_bucket[wire] = cost
+
     def _capture_stored(self, seg, fp: str, key: str, shape, dtype: str,
-                        published: Optional[str]):
-        """Capture a stored bucket on its probe input (the caller holds
-        the segment's capture lock) and hold the probe's digest to the
-        record's and, when given, the sidecar's.  The capture, or None:
-        a miss, or a quarantined record (then nothing stays captured)."""
+                        published: Optional[str], sharded: bool = False):
+        """Capture a stored bucket (a sharded one when ``sharded``) on its
+        probe input (the caller holds the segment's capture lock) and hold
+        the probe's digest to the record's and, when given, the
+        sidecar's.  The capture, or None: a miss, or a quarantined record
+        (then nothing stays captured)."""
         blob = self.store.get(fp, key)
         if blob is None:
             return None
@@ -248,80 +279,107 @@ class ArtifactPlane:
             self._quarantine(seg, fp, key, "deserialize")
             return None
         bucket = seg.bucket_for(shape, dtype)
-        b = seg._capture_bucket(bucket, probe)
+        if sharded:
+            b, _ = seg._capture_shard_bucket(bucket, probe)
+        else:
+            b = seg._capture_bucket(bucket, probe)
         got = probe_digest(b.outputs)
         if got != want or (published is not None and got != published):
-            seg.drop_bucket(bucket)
+            (seg.drop_shard_bucket if sharded else seg.drop_bucket)(bucket)
             self._quarantine(seg, fp, key, "parity")
             return None
         return b
 
-    def note_hydrated(self, seg, bucket: tuple, wall_ms: float) -> None:
+    def note_hydrated(self, seg, bucket: tuple, wall_ms: float,
+                      sharded: bool = False) -> None:
         """Counters and the capture-ledger row (``source="aot-cache"``,
-        never a live capture) of one bucket captured from the store."""
+        never a live capture) of one bucket captured from the store; a
+        sharded one under the segment's mesh-slice label."""
         with self._lock:
             self.hydrated += 1
-        seg.note_ledger(bucket, wall_ms, "aot-cache")
+        seg.note_ledger(bucket, wall_ms, "aot-cache", sharded=sharded)
         if self.metrics is not None:
             try:
-                self.metrics.counter_inc(_HYDRATIONS_COUNTER,
-                                         {"segment": seg.label})
+                self.metrics.counter_inc(
+                    _HYDRATIONS_COUNTER,
+                    {"segment": seg.shard_label() if sharded else seg.label})
             except Exception:
                 pass
 
     # -- request-path hooks (FusedSegment._capture) -----------------------
-    def load_bucket(self, seg, bucket: tuple):
+    def load_bucket(self, seg, bucket: tuple, sharding: str = ""):
         """A bucket not captured at boot, seen on the request path: capture
         it from the store (under the segment's capture lock) when a record
-        holds it, probe-checked.  The capture, or None (a miss, a
-        quarantined record); never raises."""
+        holds it, probe-checked; a sharded one when ``sharding`` (the
+        segment's armed mesh slice) is given.  The capture, or None (a
+        miss, a quarantined record); never raises."""
+        label = seg.shard_label() if sharding else seg.label
         try:
             fp = self._fingerprint(seg)
             shape, dtype = seg.bucket_wire(bucket)
-            key = self._key(fp, shape, dtype)
+            key = self._key(fp, shape, dtype, sharding)
             if self.store.get(fp, key) is None:
                 with self._lock:
                     self.misses += 1
                 if self.metrics is not None:
                     self.metrics.counter_inc(_MISSES_COUNTER,
-                                             {"segment": seg.label})
+                                             {"segment": label})
                 return None
             t0 = time.perf_counter()
-            b = self._capture_stored(seg, fp, key, shape, dtype, None)
+            b = self._capture_stored(seg, fp, key, shape, dtype, None,
+                                     sharded=bool(sharding))
             if b is None:
                 return None
             wall_ms = (time.perf_counter() - t0) * 1e3
-            seg.hydrated.add(bucket)
-            seg.cost_by_bucket[seg.bucket_wire(bucket)] = {
-                **seg.bucket_cost(bucket), "source": "aot-cache",
-                "hydrate_ms": round(wall_ms, 3)}
-            self.note_hydrated(seg, bucket, wall_ms)
+            self._note_stored(seg, bucket, b, wall_ms, {},
+                              sharded=bool(sharding))
+            self.note_hydrated(seg, bucket, wall_ms, sharded=bool(sharding))
             return b
         except Exception:
             logger.debug("artifact load failed for segment %s bucket %s",
-                         seg.label, bucket, exc_info=True)
+                         label, bucket, exc_info=True)
             return None
+
+    def load_shard_bucket(self, seg, bucket: tuple):
+        """The store's record of a SHARDED bucket, keyed by the segment's
+        armed mesh slice, so a dp capture never goes to a tp arming (or
+        the reverse).  A hit skips the live capture and the bucket gate:
+        only buckets that passed it are published."""
+        if not seg.shard_slice:
+            return None
+        return self.load_bucket(seg, bucket, sharding=seg.shard_slice)
 
     def note_live_compile(self, seg, bucket: tuple) -> None:
         """A bucket captured live in this process."""
         with self._lock:
             self.live_compiles += 1
 
+    def publish_shard_bucket(self, seg, bucket: tuple, captured,
+                             capture_s: float) -> bool:
+        """Publish a SHARDED bucket's capture under the segment's mesh
+        slice; called only once the bucket's parity gate passed."""
+        if not seg.shard_slice:
+            return False
+        return self.publish_bucket(seg, bucket, captured, capture_s,
+                                   sharding=seg.shard_slice)
+
     def publish_bucket(self, seg, bucket: tuple, captured,
-                       capture_s: float) -> bool:
+                       capture_s: float, sharding: str = "") -> bool:
         """Replay a live capture on its probe input and record it in the
-        store.  True when the probe replayed (the static outputs then hold
-        the probe's answer); never raises."""
+        store (under ``sharding``, a sharded bucket's mesh slice).  True
+        when the probe replayed (the static outputs then hold the probe's
+        answer); never raises."""
         if not self.config.publish:
             return False
+        label = seg.shard_label() if sharding else seg.label
         try:
             fp = self._fingerprint(seg)
             shape, dtype = seg.bucket_wire(bucket)
-            key = self._key(fp, shape, dtype)
+            key = self._key(fp, shape, dtype, sharding)
             probe = probe_input(key, shape, _torch_dtype(dtype), seg.device)
         except Exception:
             logger.warning("artifact probe failed for segment %s bucket %s",
-                           seg.label, bucket, exc_info=True)
+                           label, bucket, exc_info=True)
             return False
         try:
             captured.inputs[0].copy_(probe)
@@ -329,7 +387,7 @@ class ArtifactPlane:
         except Exception:
             # the static buffers may hold the probe now: the caller replays
             logger.warning("artifact probe failed for segment %s bucket %s",
-                           seg.label, bucket, exc_info=True)
+                           label, bucket, exc_info=True)
             return True
         try:
             cost = {"capture_s": capture_s}
@@ -337,16 +395,17 @@ class ArtifactPlane:
                                "probeDigest": digest}).encode()
             self.store.put(fp, key, blob, {
                 "key": key,
-                "segment": seg.label,
+                "segment": label,
                 "segmentFingerprint": fp,
                 "bucketShape": list(shape),
                 "dtype": dtype,
                 "meshSpec": self.mesh_spec,
-                "sharding": "",
+                "sharding": sharding,
                 "runtimeIdentity": self.runtime,
                 "formatVersion": FORMAT_VERSION,
                 # every capture holds its first replay bitwise to an
-                # eager run (programs.capture) before it is published
+                # eager run (programs.capture) before it is published, and
+                # a sharded one passed its bucket gate too
                 "parity": "verified",
                 "probeDigest": digest,
                 "captureSeconds": capture_s,
@@ -358,12 +417,12 @@ class ArtifactPlane:
                 self.published += 1
             if self.metrics is not None:
                 self.metrics.counter_inc(_PUBLISHES_COUNTER,
-                                         {"segment": seg.label})
+                                         {"segment": label})
             self._export_store_gauges()
         except Exception:
             # a read-only store, a full disk: live-only serving
             logger.debug("artifact publish failed for segment %s bucket %s",
-                         seg.label, bucket, exc_info=True)
+                         label, bucket, exc_info=True)
         return True
 
     def _quarantine(self, seg, fp: str, key: str, why: str) -> None:
@@ -530,6 +589,18 @@ class ArtifactPlane:
                     "fingerprint": self._fingerprint(seg),
                     "buckets": buckets,
                 }
+                shard_buckets = {}
+                for (shape, dtype), cost in list(
+                        seg.shard_cost_by_bucket.items()):
+                    label = "x".join(str(d) for d in shape) + f":{dtype}"
+                    shard_buckets[label] = {
+                        "source": cost.get("source", "live"),
+                        **{k: cost[k] for k in
+                           ("compile_ms", "hydrate_ms", "parity",
+                            "meshSlice") if k in cost},
+                    }
+                if shard_buckets:
+                    entry["shardBuckets"] = shard_buckets
                 entry["stored"] = len(self.store.sidecars(
                     entry["fingerprint"]))
                 segments.append(entry)

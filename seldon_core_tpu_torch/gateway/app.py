@@ -123,14 +123,6 @@ SESSION_HEADER = "X-Seldon-Session"
 # reference session's ClientTimeout(total=30))
 FORWARD_TIMEOUT_S = 30.0
 
-_PLACEMENT_DISABLED = {
-    "error": "placement plane disabled",
-    "hint": 'enable with annotation seldon.io/mesh: "dp=4" (or '
-            '"dp=2,tp=2"); pin segments with seldon.io/placement: '
-            '"segment=device,..."',
-}
-
-
 def _decorrelated_backoff(rng: random.Random, base_s: float, prev_s: float,
                           cap_s: float = RETRY_BACKOFF_CAP_S) -> float:
     """Decorrelated-jitter backoff (Exponential Backoff And Jitter, AWS
@@ -1197,11 +1189,16 @@ class Gateway:
         return _json_response(payload, status)
 
     async def _handle_placement(self, req: Request) -> Response:
-        """The reference's 404 body while no placement plane is handed
-        in (the placement plane lives in the engines)."""
-        if self.placement is None:
-            return _json_response(_PLACEMENT_DISABLED, 404)
-        return _json_response(self.placement.describe())
+        """``/admin/placement`` over the plane handed in (``placement=``),
+        the 404 body without one."""
+        from seldon_core_tpu_torch.placement.http import placement_body
+
+        try:
+            status, payload = placement_body(self.placement, req.query)
+        except ValueError:
+            return _json_response(
+                {"error": "numeric query parameter expected"}, 400)
+        return _json_response(payload, status)
 
     def _all_pools(self) -> dict:
         """Every pooled deployment; pools materialize lazily on first

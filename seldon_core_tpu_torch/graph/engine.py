@@ -78,7 +78,12 @@ captures into its ledger, and each request's share of every segment
 batch's counted cost is attributed to it (``flags.flops`` in its flight
 record).
 
-The placement plane comes with the multi-device slice of the port.  A
+The placement plane (``placement``, a ``placement.PlacementPlane``) is
+attached to the plan after the profiling plane and before the artifact
+plane: it arms the sharded executor on every segment that passes its
+gate (``graph/plan.py``), its mesh spec keys the artifact store, flight
+records carry ``flags["mesh"]``, and segment spans ``mesh`` and
+``sharded``.  A
 remote node (``serving.client.RemoteComponent``, ``serving.grpc_api.
 GrpcComponentClient``) has the same method surface as a local one, async.
 """
@@ -197,7 +202,8 @@ class GraphEngine:
                  device_plane: Optional[Any] = None,
                  tracer: Optional[Any] = None,
                  health: Optional[Any] = None,
-                 profiler: Optional[Any] = None):
+                 profiler: Optional[Any] = None,
+                 placement: Optional[Any] = None):
         self.name = name
         self.metrics = metrics_sink
         self.tracer = tracer if tracer is not None else NULL_TRACER
@@ -237,11 +243,20 @@ class GraphEngine:
         if profiler is not None and self.plan is not None:
             for seg in self.plan.segments:
                 seg.compile_watch = profiler.compile
+        # the placement plane arms the sharded executor (its gates' first
+        # runs land on the ledger, so after the profiling plane); before
+        # the artifact plane, whose keys carry the mesh spec and whose
+        # stored sharded buckets go only to a segment armed on their slice
+        self.placement = placement
+        if placement is not None and self.plan is not None:
+            placement.attach_plan(self.plan)
         # the artifact plane captures every stored bucket of the plan's
         # segments now, before any traffic (a walk has nothing to store)
         self.artifacts = artifacts if self.plan is not None else None
         if self.artifacts is not None:
-            self.artifacts.attach_plan(self.plan)
+            self.artifacts.attach_plan(
+                self.plan, mesh_spec=(placement.config.spec()
+                                      if placement is not None else ""))
             self.artifacts.hydrate_plan(self.plan)
         self.device_plane = device_plane
         self.cache = cache
@@ -620,6 +635,9 @@ class GraphEngine:
                 "degraded": meta.tags.get(DEGRADED_TAG, False),
                 "mode": "fused" if self.plan is not None else "walk",
             }
+            if self.placement is not None:
+                # the topology that served the request
+                flags["mesh"] = self.placement.mesh_shape()
             if self.artifacts is not None:
                 flags["artifactSource"] = self.artifacts.source_tag()
             if meta.routing:
@@ -844,6 +862,9 @@ class GraphEngine:
                     dispatch_count=seg.n_calls,
                     compile_cache_hit=calls_before > 0,
                     members=",".join(s.name for s in seg.members))
+                if self.placement is not None:
+                    sp.attributes.update(mesh=self.placement.mesh_shape(),
+                                         sharded=seg.shard_rows > 1)
             if self.profiler is not None:
                 # this request's rows x the bucket's per-row cost: the
                 # shares of a coalesced batch sum to the bucket's total

@@ -86,11 +86,33 @@ bucket: ``source="live"`` with the capture's wall time (on the CPU, the
 counted first run's), ``"aot-cache"`` for a bucket captured at boot from
 the artifact store.
 
-Not ported here: the sharded executor (ROADMAP.md, slice 6).
+**The sharded executor** (:meth:`FusedSegment.enable_sharding`, armed by
+the placement plane, ``placement/plane.py``).  The reference hands
+``jax.jit`` in- and out-shardings and lets XLA split rows and weights; here
+both splits are explicit.  **dp**: a batch whose rows divide the mesh's dp
+size splits into equal row blocks, and dp rank ``r`` runs the segment's own
+stages (:meth:`FusedSegment._run_tree`) on its block, on its device, with
+the params placed there (no copy where ranks share a device); the outputs
+are concatenated on the entry device.  **tp**: every member leaf covered by
+the declared ``tp_param_specs`` or the rule table (``placement/layouts.py``
+:func:`resolve_layout`) is held as per-rank pieces (``placement/tp.py``
+:class:`TpLeaf`), whose products run piece by piece.  A sharded answer is
+served only where it is bitwise the unsharded one, through the
+reference's two-tier gate: at arming, a probe of ``2 * dp`` rows from the
+entry signature (``RandomState(0)``) runs sharded and unsharded
+(``shard_parity``: ``verified``, ``unprobed`` or ``failed``, which disarms);
+then the first sharded call of each bucket runs both on the live input, and
+a bucket that differs serves unsharded from then on (its ``parity``
+``failed`` in ``shard_cost_by_bucket``).  Only a mismatch retires a bucket:
+an exception raised by a stage or a kernel on the sharded path propagates.
+On the card, a bucket whose ranks share one device is captured as one
+CUDA graph holding every rank's work (the rank loop runs inside the
+capture); ranks on distinct devices run eagerly on each call.
 """
 
 from __future__ import annotations
 
+import contextvars
 import logging
 import threading
 import time
@@ -123,6 +145,14 @@ PURE_FN_ATTR = {
 
 #: names that are the segment's input names, whatever they are
 _IN = object()
+#: a sharded bucket not seen yet / one that runs its ranks eagerly
+_UNSEEN = object()
+_EAGER = object()
+
+#: the device of the dp rank whose row block the stages are running on (a
+#: stage moves its input there instead of to its component's device)
+_RANK_DEVICE: contextvars.ContextVar = contextvars.ContextVar(
+    "plan_rank_device", default=None)
 
 
 # ---------------------------------------------------------------------------
@@ -241,7 +271,10 @@ def extract_stage(node: Any) -> Optional[_Stage]:
 
     pure = getattr(user, PURE_FN_ATTR[kind], None)
     if callable(pure):
-        to_dev = handle._to_device
+        def to_dev(x, _h=handle):
+            dev = _RANK_DEVICE.get()
+            return _h._to_device(x) if dev is None else x.to(dev)
+
         if _positional_arity(pure) >= 2:
             if not hasattr(user, "params"):
                 return None
@@ -341,6 +374,26 @@ class FusedSegment:
         self.cost_by_bucket: dict = {}
         self.compile_watch = None
         self._counted: dict = {}
+        # the sharded executor (enable_sharding): per dp rank its device
+        # and its params (tp-covered leaves as TpLeaf pieces); ``_params``
+        # stays the unsharded reference the gates and the unsharded path
+        # use.  A bucket maps to its capture, _EAGER, or None (its gate
+        # failed: it serves unsharded)
+        self._shard_mesh = None
+        self._shard_ranks: Optional[list] = None
+        self._shard_buckets: dict = {}
+        self.shard_rows = 1          # a sharded batch is a multiple of this
+        self.shard_tp = 1            # tp group size the weights shard over
+        self.shard_slice = ""        # mesh slice ("dp=2,tp=2"); "" unarmed
+        self.shard_slug = ""         # ledger/artifact tag ("dp2tp2")
+        self.tp_sharded_param_bytes = 0
+        self.tp_layouts: dict = {}   # member -> {param path -> axes}
+        self.n_sharded_calls = 0
+        self.shard_cost_by_bucket: dict = {}
+        self.shard_hydrated: set = set()
+        self.shard_capture_s: dict = {}
+        self._on_sharded_dispatch = None
+        self.shard_parity = None     # "verified" | "unprobed" | "failed"
         # prediction-cache eligibility: every member is a pure tensor fn by
         # construction, so the segment caches unless a member opted out or
         # declared itself non-deterministic (graph/engine.py consults this)
@@ -366,11 +419,13 @@ class FusedSegment:
             self.meta_events.append(
                 MetaEvent("merge", st.name, handle=st.handle))
 
-    def _run_tree(self, t: _SegTree, x, names):
+    def _run_tree(self, t: _SegTree, x, names, params=None):
         """The stages in walk order, eagerly: ``(y, names)``, the names
-        as the walk would resolve them from input names ``names``."""
+        as the walk would resolve them from input names ``names``;
+        ``params`` (a dp rank's) in place of the segment's own."""
+        params = self._params if params is None else params
         st = t.stage
-        p = self._params[st.name]
+        p = params[st.name]
         down, down_names = x, names
         if st.kind in ("MODEL", "TRANSFORMER"):
             down = st.fn(p, x)
@@ -381,7 +436,8 @@ class FusedSegment:
         if not t.children:
             return down, down_names
         # OUTPUT_TRANSFORMER/COMBINER descend as-is (walk order step 1)
-        outs = [self._run_tree(c, down, down_names) for c in t.children]
+        outs = [self._run_tree(c, down, down_names, params)
+                for c in t.children]
         if st.kind == "COMBINER":
             y = st.fn(p, [o[0] for o in outs])
             return y, st.out_names(tuple(y.shape), outs[0][1])
@@ -400,6 +456,14 @@ class FusedSegment:
     def __call__(self, x):
         self.n_calls += 1
         xt = self._entry._to_device(x)  # the walk's host conversion
+        if (self._shard_ranks is not None and isinstance(xt, torch.Tensor)
+                and xt.dim() >= 1 and xt.shape[0] >= self.shard_rows
+                and xt.shape[0] % self.shard_rows == 0):
+            # the rows divide the dp axis: one sharded call, unless this
+            # bucket's gate found its sharded answer differs
+            y = self._sharded_call(xt)
+            if y is not None:
+                return y
         if isinstance(xt, torch.Tensor) and programs.graphs_on(xt.device):
             return self._replay(xt)
         key = self.bucket_key(xt)
@@ -526,18 +590,21 @@ class FusedSegment:
         return {**self._counted.get(key, {}),
                 "peak_hbm_bytes": float(self.pool_bytes())}
 
-    def note_ledger(self, key: tuple, wall_ms: float, source: str) -> None:
+    def note_ledger(self, key: tuple, wall_ms: float, source: str,
+                    sharded: bool = False) -> None:
         """One capture-ledger row for bucket ``key`` (``source`` "live" or
         "aot-cache"), labelled as the reference labels a bucket
-        (``"1x784:float32"``); never raises."""
+        (``"1x784:float32"``), a sharded one under :meth:`shard_label`;
+        never raises."""
         watch = self.compile_watch
         if watch is None:
             return
         try:
             shape, dtype = self.bucket_wire(key)
-            cost = self.cost_by_bucket.get((shape, dtype), {})
+            cost = (self.shard_cost_by_bucket if sharded
+                    else self.cost_by_bucket).get((shape, dtype), {})
             watch.note_compile(
-                self.label,
+                self.shard_label() if sharded else self.label,
                 bucket="x".join(str(d) for d in shape) + f":{dtype}",
                 wall_ms=wall_ms,
                 flops=cost.get("flops", 0.0),
@@ -610,12 +677,293 @@ class FusedSegment:
         """Device bytes the segment's graph pool holds (0 on the CPU)."""
         return 0 if self._pool is None else self._pool.bytes()
 
+    # -- sharded execution (the placement plane) -------------------------
+    def enable_sharding(self, mesh, on_dispatch=None, tp_param_specs=None,
+                        probe=None) -> bool:
+        """Arm the sharded executor on ``mesh`` (module docstring).
+
+        ``tp_param_specs`` maps member name -> {param key -> axes}, the
+        signature registry's declared layouts, which win over the rule
+        table; covered leaves are placed as per-rank pieces HERE, so each
+        tp rank holds its share from the first call on.  A pure-tp mesh
+        (dp = 1) arms on weights alone and splits no rows.  ``probe`` (an
+        example batch whose rows divide dp) runs sharded and unsharded and
+        must agree bitwise, else the segment disarms and returns False;
+        without one it arms ``unprobed``.  Also False when no axis has
+        anything to split.  An exception raised by the probe propagates."""
+        from seldon_core_tpu_torch.placement import layouts
+
+        dp, tp = mesh.axis_size("dp"), mesh.axis_size("tp")
+        member_layouts: dict = {}
+        tp_bytes = 0
+        if tp > 1:
+            for st in self.members:
+                layout = layouts.resolve_layout(
+                    st.params, declared=(tp_param_specs or {}).get(st.name),
+                    tp=tp)
+                if layout:
+                    member_layouts[st.name] = layout
+                    tp_bytes += layouts.tp_param_bytes(st.params, layout)
+        if dp < 2 and not member_layouts:
+            return False
+        # one placement per distinct tp group: dp ranks that share their
+        # devices share their params
+        placed: dict = {}
+        ranks = []
+        for r in range(dp):
+            group = tuple(mesh.axis_devices("tp", dp=r))
+            if group not in placed:
+                placed[group] = {
+                    name: layouts.place_params(
+                        mesh, p, member_layouts.get(name, {}), dp=r)
+                    for name, p in self._params.items()}
+            ranks.append((group[0], placed[group]))
+        self._shard_mesh = mesh
+        self._shard_ranks = ranks
+        self._shard_buckets = {}
+        self.shard_rows = dp
+        self.shard_tp = tp if member_layouts else 1
+        axes = [("dp", dp)] if dp > 1 else []
+        if member_layouts:
+            axes.append(("tp", tp))
+        self.shard_slice = ",".join(f"{a}={n}" for a, n in axes)
+        self.shard_slug = "".join(f"{a}{n}" for a, n in axes)
+        self.tp_sharded_param_bytes = tp_bytes
+        self.tp_layouts = member_layouts
+        self._on_sharded_dispatch = on_dispatch
+        if probe is None:
+            self.shard_parity = "unprobed"
+            return True
+        if self._probe_parity(probe):
+            self.shard_parity = "verified"
+            return True
+        self._shard_mesh = None
+        self._shard_ranks = None
+        self.shard_rows = 1
+        self.shard_tp = 1
+        self.shard_slice = ""
+        self.shard_slug = ""
+        self.tp_sharded_param_bytes = 0
+        self.tp_layouts = {}
+        self._on_sharded_dispatch = None
+        self.shard_parity = "failed"
+        return False
+
+    @property
+    def shard_ranks_share_device(self) -> bool:
+        """Whether every rank of the armed mesh is on one device (its
+        sharded buckets are then captured on the card)."""
+        return (self._shard_mesh is not None
+                and len(self._shard_mesh.distinct_devices) == 1)
+
+    @property
+    def tp_bytes_per_device(self) -> int:
+        """Bytes of the covered leaves' pieces the fullest tp rank holds,
+        measured from the pieces' storage (0 without a tp span)."""
+        from seldon_core_tpu_torch.placement.layouts import iter_param_leaves
+        from seldon_core_tpu_torch.placement.tp import TpLeaf, rank_bytes
+
+        if not self.tp_layouts or self._shard_ranks is None:
+            return 0
+        per = [0] * self.shard_tp
+        params = self._shard_ranks[0][1]
+        for name in self.tp_layouts:
+            for _, leaf in iter_param_leaves(params[name]):
+                if isinstance(leaf, TpLeaf):
+                    for r, n in enumerate(rank_bytes(leaf)):
+                        per[r] += n
+        return max(per)
+
+    def rank_param_bytes(self) -> list:
+        """Per rank of the armed mesh (in its flat order), the bytes of the
+        params that rank holds: its piece of every tp-covered leaf, and
+        every other leaf whole."""
+        from seldon_core_tpu_torch.placement.layouts import iter_param_leaves
+        from seldon_core_tpu_torch.placement.tp import TpLeaf
+
+        if self._shard_ranks is None:
+            return []
+        tp = self._shard_mesh.axis_size("tp")
+        out = []
+        for r in range(self._shard_mesh.devices.size):
+            _, params = self._shard_ranks[r // (tp * self._shard_mesh
+                                                .axis_size("pp"))]
+            n = 0
+            for _, leaf in iter_param_leaves(params):
+                if isinstance(leaf, TpLeaf):
+                    n += leaf.parts[r % tp].untyped_storage().nbytes()
+                elif isinstance(leaf, torch.nn.Module):
+                    n += sum(t.nbytes for t in leaf.state_dict().values())
+                elif isinstance(leaf, torch.Tensor):
+                    n += leaf.nbytes
+            out.append(int(n))
+        return out
+
+    def _run_sharded(self, x: torch.Tensor) -> torch.Tensor:
+        """Every dp rank's row block through the stages on its device with
+        its params, one rank after another; the outputs concatenated on
+        ``x``'s device."""
+        outs = []
+        for (dev, params), blk in zip(self._shard_ranks,
+                                      torch.chunk(x, self.shard_rows)):
+            token = _RANK_DEVICE.set(dev)
+            try:
+                y, _ = self._run_tree(self.tree, blk.to(dev), _IN, params)
+            finally:
+                _RANK_DEVICE.reset(token)
+            outs.append(y)
+        if len(outs) == 1:
+            return outs[0].to(x.device)
+        return torch.cat([y.to(x.device) for y in outs], dim=0)
+
+    def _probe_parity(self, probe) -> bool:
+        """Bitwise-compare the sharded and unsharded runs of ``probe``."""
+        xt = self._entry._to_device(probe)
+        with torch.inference_mode():
+            ref, _ = self._run_tree(self.tree, xt, _IN)
+            got = self._run_sharded(xt)
+        return programs.bitwise_equal(ref, got)
+
+    def _sharded_call(self, xt: torch.Tensor):
+        """One sharded call, or None when this bucket serves unsharded
+        (its gate failed)."""
+        key = self.bucket_key(xt)
+        entry = self._shard_buckets.get(key, _UNSEEN)
+        y = None
+        if entry is _UNSEEN:
+            entry, y = self._shard_bucket(key, xt)
+        if entry is None:
+            return None
+        if y is not None:
+            pass  # the gate's sharded answer to this input
+        elif entry is _EAGER:
+            with torch.inference_mode():
+                y = self._run_sharded(xt)
+        else:
+            entry.inputs[0].copy_(xt)
+            y = entry.replay().clone()
+            self.n_replays += 1
+        self.n_sharded_calls += 1
+        cb = self._on_sharded_dispatch
+        if cb is not None:
+            try:
+                cb(self.name, int(xt.shape[0]))
+            except Exception:
+                logger.debug("segment %s: sharded-dispatch callback failed",
+                             self.label, exc_info=True)
+        return y
+
+    def _shard_bucket(self, key: tuple, xt: torch.Tensor) -> tuple:
+        """The first sharded call of bucket ``key``: ``(entry, answer)``.
+
+        From the artifact store when a record of this mesh slice matches
+        (published only after its gate passed): ``(capture, None)``.  Else
+        the bucket gate: the unsharded eager run and the sharded run (on
+        the card with one device, its capture) of ``xt`` must agree
+        bitwise.  Agreed: ``(capture or _EAGER, the sharded answer)``,
+        published to the store.  Differed: ``(None, None)``, and the
+        bucket serves unsharded from then on."""
+        art = self.artifacts
+        wire = self.bucket_wire(key)
+        graphs = programs.graphs_on(xt.device) and \
+            self.shard_ranks_share_device
+        with self._capture_lock:
+            hit = self._shard_buckets.get(key, _UNSEEN)
+            if hit is not _UNSEEN:
+                return hit, None
+            if art is not None and graphs:
+                b = art.load_shard_bucket(self, key)
+                if b is not None:
+                    self._shard_buckets[key] = b
+                    return b, None
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                ref, names = self._run_tree(self.tree, xt, _IN)
+            self._names.setdefault((key[0][1:], wire[1]), names)
+            if graphs:
+                b, counted = self._capture_shard_bucket(key, xt)
+                got = b.outputs.clone()
+            else:
+                b = _EAGER
+                with torch.inference_mode(), CostCount() as count:
+                    got = self._run_sharded(xt)
+                counted = count.summary()
+            ok = programs.bitwise_equal(ref, got)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            cost = {**counted, "compile_ms": round(wall_ms, 3),
+                    "parity": "verified" if ok else "failed",
+                    "source": "live"}
+            if self.shard_slice:
+                cost["meshSlice"] = self.shard_slice
+            self.shard_cost_by_bucket[wire] = cost
+            self._shard_buckets[key] = b if ok else None
+        self.note_ledger(key, wall_ms, "live", sharded=True)
+        if not ok:
+            logger.info("segment %s: sharded bucket %s differs from the "
+                        "unsharded answer; it serves unsharded",
+                        self.label, key)
+            return None, None
+        if art is not None and graphs:
+            art.note_live_compile(self, key)
+            art.publish_shard_bucket(self, key, b, self.shard_capture_s[key])
+        return b, got
+
+    def _capture_shard_bucket(self, key: tuple, x: torch.Tensor) -> tuple:
+        """Capture sharded bucket ``key`` on input ``x`` (the caller holds
+        the capture lock): :func:`programs.capture` of the whole rank loop
+        in the segment's pool.  ``(capture, counted cost)``."""
+        t0 = time.perf_counter()
+        if self._pool is None:
+            self._pool = programs.GraphPool(x.device)
+        counted = []
+
+        def run(x):
+            with torch.inference_mode():
+                if counted:
+                    return self._run_sharded(x)
+                with CostCount() as count:
+                    y = self._run_sharded(x)
+                counted.append(count.summary())
+                return y
+
+        b = programs.capture(run, (x.clone(),), self._pool,
+                             f"segment {self.label!r}",
+                             f"sharded bucket {key} ({self.shard_slice})")
+        self.shard_capture_s[key] = time.perf_counter() - t0
+        return b, {**counted[0], "peak_hbm_bytes": float(self.pool_bytes())}
+
+    def drop_shard_bucket(self, key: tuple) -> None:
+        """Forget a sharded bucket (its next call runs its gate again)."""
+        self._shard_buckets.pop(key, None)
+        self.shard_capture_s.pop(key, None)
+
+    def shard_label(self) -> str:
+        """Ledger label of the sharded program: the mesh-slice tag keeps
+        its rows apart from the unsharded ones (``clf@dp4``, ``clf@tp2``,
+        ``clf@dp2tp2``)."""
+        return f"{self.label}@{self.shard_slug or f'dp{self.shard_rows}'}"
+
     def describe(self) -> dict:
-        return {
+        out = {
             "root": self.name,
             "members": [s.name for s in self.members],
             "n_nodes": len(self.members),
         }
+        if self._shard_ranks is not None:
+            out["shardRows"] = self.shard_rows
+            if self.shard_tp > 1:
+                out["tpSpan"] = {
+                    "meshSlice": self.shard_slice,
+                    "shardedParamBytes": int(self.tp_sharded_param_bytes),
+                    "tpBytesPerDevice": self.tp_bytes_per_device,
+                    "params": {m: sorted(lay)
+                               for m, lay in self.tp_layouts.items()},
+                }
+            if not self.shard_ranks_share_device:
+                out["shardRanksEager"] = True
+        if self.shard_parity is not None:
+            out["shardParity"] = self.shard_parity
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -730,6 +1078,8 @@ class GraphPlan:
         else:
             sizes = {1}
         return all(((b,) + tuple(row.shape), dtype) in seg._buckets
+                   or seg._shard_buckets.get(((b,) + tuple(row.shape), dtype))
+                   not in (None, _EAGER)
                    for b in sizes)
 
 

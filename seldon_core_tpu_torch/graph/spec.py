@@ -32,7 +32,8 @@ __all__ = ["UNIT_TYPES", "BUILTIN_IMPLEMENTATIONS", "GraphValidationError",
            "parse_graph", "validate_graph", "Predictor", "Deployment",
            "check_plan_mode", "graph_plan_mode", "prediction_cache_config",
            "artifact_config", "device_plane_config", "trace_config",
-           "health_config", "profile_config", "load_deployment"]
+           "health_config", "profile_config", "placement_config",
+           "load_deployment"]
 
 UNIT_TYPES = ("MODEL", "ROUTER", "COMBINER", "TRANSFORMER",
               "OUTPUT_TRANSFORMER")
@@ -348,6 +349,20 @@ def profile_config(ann: dict, name: str):
         raise DeploymentValidationError(str(e)) from None
 
 
+def placement_config(ann: dict, name: str):
+    """``seldon.io/mesh`` / ``seldon.io/placement`` as a
+    ``placement.PlacementConfig`` (``enabled`` False without a mesh); an
+    invalid value raises with the reference admission's message."""
+    from seldon_core_tpu_torch.placement.config import (
+        placement_config_from_annotations,
+    )
+
+    try:
+        return placement_config_from_annotations(ann, name)
+    except ValueError as e:
+        raise DeploymentValidationError(str(e)) from None
+
+
 def load_deployment(src) -> Deployment:
     """A SeldonDeployment from a dict, a JSON string or a file path."""
     if isinstance(src, dict):
@@ -384,5 +399,6 @@ def load_deployment(src) -> Deployment:
         trace_config(pred.annotations, f"{name}/{pname}")
         health_config(pred.annotations, f"{name}/{pname}")
         profile_config(pred.annotations, f"{name}/{pname}")
+        placement_config(pred.annotations, f"{name}/{pname}")
         predictors.append(pred)
     return Deployment(name=name, predictors=predictors)

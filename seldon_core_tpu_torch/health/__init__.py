@@ -5,8 +5,8 @@ counterpart to sampled tracing.  Three pillars, one subsystem:
    a per-process async sampler snapshotting device memory
    (``torch.cuda.memory_stats``), fused-segment dispatch counters,
    batcher queues, prediction-cache bytes, admission posture, the
-   device-tensor registry, the device and artifact planes and event-loop
-   lag into bounded timelines — exported as ``seldon_runtime_*`` gauges
+   device-tensor registry, the device, artifact and placement planes and
+   event-loop lag into bounded timelines — exported as ``seldon_runtime_*`` gauges
    and queryable at ``/admin/introspect``.
 2. **Flight recorder** (:mod:`~seldon_core_tpu_torch.health.flightrecorder`):
    a bounded ring of per-request records captured *unconditionally*
@@ -51,6 +51,7 @@ from seldon_core_tpu_torch.health.introspect import (
     device_memory_probe,
     device_registry_probe,
     engine_probe,
+    placement_probe,
     profile_probe,
     qos_probe,
 )
@@ -83,6 +84,7 @@ __all__ = [
     "device_memory_probe",
     "device_registry_probe",
     "engine_probe",
+    "placement_probe",
     "profile_probe",
     "qos_probe",
     "HealthPlane",

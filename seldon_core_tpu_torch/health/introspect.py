@@ -21,7 +21,8 @@ Each sample lands in a bounded in-memory timeline (queryable at
 in the shared metrics exposition.  Probes are plain callables returning
 ``{key: number}``; a probe that raises is counted and skipped — sampling
 must never take the serving path down with it.  The placement probe
-comes with the multi-device slice of the port.
+(:func:`placement_probe`) samples the mesh: its size, the sharded segments
+and dispatches, and the bytes each device holds.
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ __all__ = [
     "qos_probe",
     "profile_probe",
     "device_registry_probe",
+    "placement_probe",
+    "PLACEMENT_DEVICE_BYTES_GAUGE",
 ]
 
 #: sample key → exported gauge name (every name is in the analytics
@@ -70,6 +73,11 @@ GAUGES = {
     "shed_level": "seldon_runtime_shed_level",
     "device_registry_entries": "seldon_runtime_device_registry_entries",
     "device_registry_bytes": "seldon_runtime_device_registry_bytes",
+    "placement_devices": "seldon_runtime_placement_devices",
+    "placement_segments_sharded": "seldon_runtime_placement_segments_sharded",
+    "placement_sharded_dispatches":
+        "seldon_runtime_placement_sharded_dispatches",
+    "placement_device_bytes_max": "seldon_runtime_placement_device_bytes_max",
     "artifact_store_entries": "seldon_artifact_store_entries",
     "artifact_store_bytes": "seldon_artifact_store_bytes",
     "artifact_hydrated": "seldon_artifact_hydrated",
@@ -201,6 +209,61 @@ def profile_probe(profiler) -> Callable[[], dict]:
                 profiler.attribution.occupancy_estimate(),
             "compiles_total": float(compile_stats.get("compiles", 0)),
             "recompile_storm": 1.0 if profiler.storm_segments() else 0.0,
+        }
+
+    return probe
+
+
+#: the labeled per-device gauge the placement probe sets itself (the flat
+#: GAUGES table cannot carry a ``device`` label)
+PLACEMENT_DEVICE_BYTES_GAUGE = "seldon_runtime_placement_device_bytes"
+
+
+def placement_probe(placement, metrics=None) -> Callable[[], dict]:
+    """The placement plane's posture (``placement/plane.py``): mesh size,
+    the segments serving sharded, the sharded-dispatch count, and the
+    bytes each device holds, in the labeled
+    ``seldon_runtime_placement_device_bytes{device=...}`` gauge.
+
+    On a card the bytes are ``allocated_bytes.all.current`` of
+    ``torch.cuda.memory_stats`` of each distinct CUDA device of the mesh,
+    labeled with its index (ranks that share a card share one reading).
+    The CPU has no allocator statistics, so there each rank's bytes are
+    those of the params it holds for the sharded segments (its tp pieces
+    and its replicated leaves), labeled with the rank's ordinal.  The
+    reference attributes ``jax.live_arrays`` to its devices instead."""
+    import torch
+
+    def probe() -> dict:
+        devices = list(placement.mesh.devices.flat)
+        per_dev: dict = {}
+        cuda = [d for d in placement.mesh.distinct_devices
+                if d.type == "cuda"]
+        if cuda:
+            for d in cuda:
+                stats = torch.cuda.memory_stats(d)
+                per_dev[str(d.index if d.index is not None else 0)] = float(
+                    stats.get("allocated_bytes.all.current", 0) or 0)
+        else:
+            per_dev = {str(r): 0.0 for r in range(len(devices))}
+            for seg in placement.armed_segments():
+                for r, n in enumerate(seg.rank_param_bytes()):
+                    per_dev[str(r)] = per_dev.get(str(r), 0.0) + float(n)
+        if metrics is not None:
+            try:
+                for dev, b in per_dev.items():
+                    metrics.gauge_set(PLACEMENT_DEVICE_BYTES_GAUGE, b,
+                                      {"device": dev})
+            except Exception:
+                pass
+        return {
+            "placement_devices": float(len(devices)),
+            "placement_segments_sharded":
+                float(len(placement.sharded_segments)),
+            "placement_sharded_dispatches":
+                float(placement.n_sharded_dispatches),
+            "placement_device_bytes_max":
+                max(per_dev.values(), default=0.0),
         }
 
     return probe

@@ -61,8 +61,8 @@ class ModelSignature:
     mesh's ``dp`` axis.  ``tp_param_specs`` optionally maps parameter keys
     to partition axis tuples (e.g. ``{"0/w": (None, "tp")}``) so large
     weight matrices shard over the ``tp`` axis.  The admission lint's
-    placement, residency and trace passes read both; the sharded executor
-    that acts on them comes with the placement slice.
+    placement, residency and trace passes read both, and the placement
+    plane's sharded executor acts on them (``graph/plan.py``).
     """
 
     input_shape: Optional[Shape] = None

@@ -51,6 +51,12 @@ loads from the store when it holds it (else it is built and published),
 every stored bucket is captured at boot, held to its probe digest, and
 ``seldon.io/artifact-precompile`` (default true) warms every derivable
 bucket at boot; ``/admin/artifacts`` reports it.
+``seldon.io/mesh`` (``"dp=2"``, ``"tp=2"``, ``"dp=2,tp=2"``) turns on
+the placement plane (``placement/``) on the predictor's device kind: the
+mesh (repeats of the CPU with ``--device cpu``, distinct cards on the
+card, where a mesh wider than the visible cards disables the plane with a
+warning), the segment-to-device plan, the sharded executor on fused
+segments; ``/admin/placement`` and ``status.placement`` report it.
 ``seldon.io/device-plane: "true"`` (``-remote``: auto, loopback, shm,
 off) turns on the device plane (``runtime/device_plane.py``): remote REST
 nodes negotiate ``deviceRef`` per peer, meta-only routers route without
@@ -126,6 +132,7 @@ from seldon_core_tpu_torch.graph.spec import (
     graph_plan_mode,
     health_config,
     load_deployment,
+    placement_config,
     prediction_cache_config,
     profile_config,
     trace_config,
@@ -273,6 +280,34 @@ def _tracer_from_config(ann: dict, name: str):
                                           slow_ms=cfg.slow_ms, sink=sink))
 
 
+def _placement_capacity(ann: dict, n_devices: int) -> Optional[int]:
+    """Per-device memory capacity in bytes: the GL3xx budget
+    (``seldon.io/tpu-hbm-gb``, else chips x the card's memory) split across
+    the mesh.  None when no budget is declared: the planner then reports
+    loads without an over-capacity verdict."""
+    from seldon_core_tpu_torch.analysis.graphlint import (
+        CHIPS_ANNOTATION,
+        HBM_BUDGET_ANNOTATION,
+        HBM_PER_CHIP_GB,
+    )
+
+    def _num(v):
+        try:
+            return float(v)
+        except (TypeError, ValueError):
+            return None
+
+    budget_gb = _num(ann.get(HBM_BUDGET_ANNOTATION))
+    if budget_gb is None:
+        chips = _num(ann.get(CHIPS_ANNOTATION))
+        if not chips or chips <= 0:
+            return None
+        budget_gb = chips * HBM_PER_CHIP_GB
+    if budget_gb <= 0:
+        return None
+    return int(budget_gb * (1 << 30) / max(1, n_devices))
+
+
 class LocalPredictor:
     """One predictor's live graph: its engine with its own QoS, batchers,
     plan, cache and observability planes (``metrics`` is the
@@ -324,6 +359,26 @@ class LocalPredictor:
             if self.health is not None:
                 # a capture storm degrades the health verdict
                 self.health.profiler = self.profiler
+        # the placement plane: the mesh of seldon.io/mesh on the
+        # predictor's device kind, the segment-to-device plan, the sharded
+        # executor on shardable fused segments.  A mesh this host cannot
+        # build (admission checks GL1202 against the admission host's
+        # devices) disables the plane with a warning: single-device serving
+        self.placement = None
+        placement_cfg = placement_config(ann, where)
+        if placement_cfg.enabled:
+            from seldon_core_tpu_torch.parallel.mesh import MeshPlanError
+            from seldon_core_tpu_torch.placement import PlacementPlane
+
+            try:
+                self.placement = PlacementPlane(
+                    placement_cfg, metrics=metrics.registry,
+                    deployment=dep.name, device=device,
+                    capacity_bytes=_placement_capacity(
+                        ann, placement_cfg.n_devices))
+            except (MeshPlanError, ValueError) as e:
+                logger.warning(
+                    "placement plane disabled (mesh unavailable): %s", e)
         art_cfg = artifact_config(ann, where)
         self.artifacts = None
         if art_cfg is not None and art_cfg.enabled and plan_mode == "fused":
@@ -355,7 +410,7 @@ class LocalPredictor:
             cache_version=str(ann.get("seldon.io/spec-hash", "")),
             artifacts=self.artifacts, device_plane=self.device_plane,
             tracer=_tracer_from_config(ann, where), health=self.health,
-            profiler=self.profiler,
+            profiler=self.profiler, placement=self.placement,
             resolver=lambda u: wrap(resolve_component(
                 u, ann, device, qos=self.qos, metrics=metrics.registry,
                 device_plane=self.device_plane)))
@@ -387,14 +442,14 @@ class LocalPredictor:
         """Point the introspection sampler at this predictor's runtime
         objects: device memory, the engine's segments, the batchers, the
         cache, admission, the device-tensor registry and the device,
-        artifact and profiling planes.  (The placement probe comes with
-        the multi-device slice.)"""
+        artifact, placement and profiling planes."""
         from seldon_core_tpu_torch.health import (
             batcher_probe,
             cache_probe,
             device_memory_probe,
             device_registry_probe,
             engine_probe,
+            placement_probe,
             profile_probe,
             qos_probe,
         )
@@ -411,6 +466,9 @@ class LocalPredictor:
             sampler.add_probe("qos", qos_probe(self.qos))
         if self.profiler is not None:
             sampler.add_probe("profile", profile_probe(self.profiler))
+        if self.placement is not None:
+            sampler.add_probe("placement", placement_probe(
+                self.placement, metrics=self.metrics.registry))
         if self.artifacts is not None:
             sampler.add_probe("artifacts", self.artifacts.probe())
         if self.device_plane is not None:
@@ -490,6 +548,18 @@ class LocalDeployment:
                     for p in preds if p.health is not None]}
 
             health_publish(dep.name, _health_snapshot)
+        if publish_status and any(p.placement is not None
+                                  for p in self.predictors):
+            from seldon_core_tpu_torch.placement import (
+                publish as placement_publish,
+            )
+
+            def _placement_snapshot(preds=self.predictors):
+                return {"predictors": [
+                    {"name": p.spec.name, **p.placement.snapshot()}
+                    for p in preds if p.placement is not None]}
+
+            placement_publish(dep.name, _placement_snapshot)
         self._rng = random.Random(seed)
         weights = [max(p.spec.replicas, 0) * max(p.spec.traffic, 0)
                    for p in self.predictors]
@@ -504,6 +574,15 @@ class LocalDeployment:
         for p in self.predictors:
             if p.artifacts is not None:
                 return p.artifacts
+        return None
+
+    @property
+    def placement(self):
+        """The first predictor's placement plane that is on (what
+        ``/admin/placement`` reads), or None."""
+        for p in self.predictors:
+            if p.placement is not None:
+                return p.placement
         return None
 
     @property
@@ -885,6 +964,9 @@ class LocalFleet:
         )
         from seldon_core_tpu_torch.fleet import publish as fleet_publish
         from seldon_core_tpu_torch.health import publish as health_publish
+        from seldon_core_tpu_torch.placement import (
+            publish as placement_publish,
+        )
 
         dep = self.spec.name
         fleet_publish(dep, self.snapshot)
@@ -896,6 +978,8 @@ class LocalFleet:
             publish(dep, lambda: self._plane_status("qos"))
         if any(p.health is not None for p in sample):
             health_publish(dep, lambda: self._plane_status("health"))
+        if any(p.placement is not None for p in sample):
+            placement_publish(dep, lambda: self._plane_status("placement"))
         if any(p.artifacts is not None for p in sample):
             artifacts_publish(dep, lambda: self._plane_status("artifacts"))
 
@@ -907,6 +991,9 @@ class LocalFleet:
         from seldon_core_tpu_torch.health import (
             unpublish as health_unpublish,
         )
+        from seldon_core_tpu_torch.placement import (
+            unpublish as placement_unpublish,
+        )
         from seldon_core_tpu_torch.qos.registry import (
             unpublish as qos_unpublish,
         )
@@ -915,6 +1002,7 @@ class LocalFleet:
         fleet_unpublish(dep)
         qos_unpublish(dep)
         health_unpublish(dep)
+        placement_unpublish(dep)
         artifacts_unpublish(dep)
 
 

@@ -242,14 +242,15 @@ class Shards(list):
         return Shards([fn(*xs) for xs in zip(self, *others)], self.dim)
 
 
-def place(x: torch.Tensor, sharding: NamedSharding, layout=None):
+def place(x: torch.Tensor, sharding: NamedSharding, layout=None, **at):
     """``x`` placed as ``sharding`` says over "tp": a :class:`Shards` of the
     pieces along the dim the spec gives "tp" (even splits only), or ``x`` on
     the axis's first device when the spec does not name it.
     ``layout`` (a function of a tensor) is applied to each piece, for
-    example ``ops.quant.k_major``."""
+    example ``ops.quant.k_major``; ``at`` gives the other axes'
+    coordinates of the "tp" group (0 where not given)."""
     spec, axis = sharding.spec, "tp"
-    devs = sharding.mesh.axis_devices(axis)
+    devs = sharding.mesh.axis_devices(axis, **at)
     n = len(devs)
     layout = layout or (lambda t: t)
     if axis not in spec:

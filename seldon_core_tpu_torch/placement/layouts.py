@@ -26,10 +26,12 @@ are walked with ``/``-joined path keys (``"0/w"`` for a list of layer
 dicts) — the same convention the GL16xx trace-lint uses, so lint and
 runtime agree on which param a spec names.
 
-Port of ``seldon_core_tpu/placement/layouts.py`` without
-``build_shardings``: sharding the params over a device mesh comes with the
-tensor-parallel slice; the rule table and its checks are what the
-admission lint reads (GL1207).
+Port of ``seldon_core_tpu/placement/layouts.py``.  The rule table and its
+checks are what the admission lint reads (GL1207); :func:`build_shardings`
+names each leaf's placement over the port's mesh
+(``parallel/mesh.py`` ``NamedSharding``), and :func:`place_params` applies
+it: a covered leaf becomes a ``placement/tp.py`` :class:`TpLeaf` of
+per-rank pieces, the rest stays whole on the tp group's first device.
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ __all__ = [
     "resolve_layout",
     "tp_param_bytes",
     "check_divisibility",
+    "build_shardings",
+    "place_params",
 ]
 
 
@@ -194,3 +198,68 @@ def check_divisibility(param_dims: dict, tp: int,
             if a == "tp" and shape[i] % tp:
                 bad.append((pkey, i, int(shape[i])))
     return bad
+
+
+def _map_leaves(params, fn, prefix: str = ""):
+    """``params`` with every leaf replaced by ``fn(path_key, leaf)``, the
+    containers' kinds kept."""
+    if isinstance(params, dict):
+        return {k: _map_leaves(v, fn, f"{prefix}{k}/")
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        seq = [_map_leaves(v, fn, f"{prefix}{i}/")
+               for i, v in enumerate(params)]
+        if hasattr(params, "_fields"):  # a NamedTuple (QuantizedLinear)
+            return type(params)(*seq)
+        return type(params)(seq) if isinstance(params, tuple) else seq
+    if params is None:
+        return None
+    return fn(prefix[:-1] if prefix else "", params)
+
+
+def build_shardings(mesh, params, layout: dict):
+    """A sharding tree matching ``params``: the port's ``NamedSharding``
+    with the layout's spec for covered leaves, replicated (the empty spec)
+    for the rest."""
+    from seldon_core_tpu_torch.parallel.mesh import named_sharding
+
+    repl = named_sharding(mesh)
+    return _map_leaves(params, lambda pkey, _leaf: (
+        named_sharding(mesh, *layout[pkey]) if pkey in layout else repl))
+
+
+def _owned(t):
+    """``t`` in storage of its own (a piece split along dim 0 is a view of
+    the whole leaf's)."""
+    return t.clone() if t.untyped_storage().nbytes() > t.nbytes else t
+
+
+def place_params(mesh, params, layout: dict, dp: int = 0):
+    """``params`` placed on the tp group of dp rank ``dp``: every covered
+    leaf a :class:`~seldon_core_tpu_torch.placement.tp.TpLeaf` of its
+    pieces on the group's devices, every other tensor on the group's first
+    device (no copy where it is there already)."""
+    import copy
+
+    import torch
+
+    from seldon_core_tpu_torch.parallel.mesh import place
+    from seldon_core_tpu_torch.placement.tp import TpLeaf
+
+    shardings = build_shardings(mesh, params, layout)
+    flat = dict(iter_param_leaves(shardings))
+    first = mesh.axis_devices("tp", dp=dp)[0]
+
+    def put(pkey, leaf):
+        if pkey in layout:
+            return TpLeaf(place(leaf, flat[pkey], layout=_owned, dp=dp))
+        if isinstance(leaf, torch.Tensor):
+            return leaf.to(first)
+        if isinstance(leaf, torch.nn.Module):
+            dev = next(leaf.parameters(), torch.empty(0)).device
+            same = dev.type == first.type and (dev.index or 0) == (
+                first.index or 0)  # "cuda" is the current card
+            return leaf if same else copy.deepcopy(leaf).to(first)
+        return leaf
+
+    return _map_leaves(params, put)

@@ -102,6 +102,11 @@ class BatcherConfig:
     max_queue_rows: Optional[int] = None
     shed_after_ms: float = 0.0    # 0 -> never
     max_inflight: int = 4         # host mode only; 0 -> unbounded
+    # sharded execution (the placement plane): every dispatched batch is
+    # padded to a multiple of this row count, so a fused segment armed on a
+    # dp axis splits it evenly; 1 -> off.  The plane sets it to the mesh's
+    # dp size when it arms the segment this batcher feeds.
+    shard_rows: int = 1
 
 
 @dataclass
@@ -172,17 +177,24 @@ class DynamicBatcher:
         self._batch_seq = 0
 
     def bucket_for(self, rows: int) -> int:
+        bucket = self.buckets[-1]
         for b in self.buckets:
             if rows <= b:
-                return b
-        return self.buckets[-1]
+                bucket = b
+                break
+        # shard_rows: up to a multiple of the dp span (ordinary pad rows,
+        # sliced off on delivery)
+        sr = max(1, int(self.config.shard_rows or 1))
+        if bucket % sr:
+            bucket = ((bucket + sr - 1) // sr) * sr
+        return bucket
 
     def warmup(self, example_row: Any) -> None:
         """Run ``fn`` once at every bucket size and wait for it, so the
         first-use costs of each batch shape (on the card: cuDNN's choice of
         algorithm, the allocator's first blocks) come before traffic."""
         row = np.asarray(example_row)
-        for b in self.buckets:
+        for b in sorted({self.bucket_for(b) for b in self.buckets}):
             out, _ = self.fn(np.array(np.broadcast_to(row, (b,) + row.shape)))
             _fetch_host(out)
 

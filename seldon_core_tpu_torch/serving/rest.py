@@ -56,6 +56,8 @@ headers bind its QoS context.  ``GET /trace`` lists recent span trees
 filtered view (``?status= ?min_ms= ?drill= ?trace_id= ?replica=``), 404
 without a tracer.  ``GET /admin/introspect``, ``/admin/flightrecorder`` and
 ``/admin/health`` read the health plane (``health/http.py``);
+``/admin/placement`` (``?meshes=1``) the placement plane
+(``placement/http.py``);
 ``/admin/profile``, ``/admin/profile/capture``, ``/admin/profile/compile``
 and ``/admin/profile/capacity`` the profiling plane (``profiling/
 http.py``); each answers 404 with an enable hint when its plane is off
@@ -607,8 +609,8 @@ class EngineServer:
 
     def _admin(self, body_fn, plane_attr: str):
         """An ``/admin/*`` route over the engine's ``plane_attr`` plane
-        (``health`` or ``profiler``): 404 with the hint when it is off, 400
-        for a malformed number."""
+        (``health``, ``profiler`` or ``placement``): 404 with the hint when
+        it is off, 400 for a malformed number."""
         async def handler(req: Request) -> Response:
             try:
                 status, payload = body_fn(
@@ -626,6 +628,7 @@ class EngineServer:
             health_body,
             introspect_body,
         )
+        from seldon_core_tpu_torch.placement.http import placement_body
         from seldon_core_tpu_torch.profiling.http import (
             capacity_body,
             capture_body,
@@ -656,7 +659,8 @@ class EngineServer:
                 ("/admin/profile", profile_body, "profiler"),
                 ("/admin/profile/capture", capture_body, "profiler"),
                 ("/admin/profile/compile", compile_body, "profiler"),
-                ("/admin/profile/capacity", capacity_body, "profiler")):
+                ("/admin/profile/capacity", capacity_body, "profiler"),
+                ("/admin/placement", placement_body, "placement")):
             server.add_route("GET", path, self._admin(fn, attr))
         server.add_route("GET", "/seldon.json", _openapi("engine"))
 

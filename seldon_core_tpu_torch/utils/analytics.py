@@ -5,9 +5,8 @@ analytics.py``).
 The catalog is CODE — the single source the dashboard, the alerts and the
 docs are generated from, so a metric rename cannot silently orphan its
 panels.  It lists every metric the port emits and nothing else: the
-placement plane's metrics come with its slice, and the reference's
-compile-cache metrics have no counterpart (the port keeps no compile
-cache).
+reference's compile-cache metrics have no counterpart (the port keeps no
+compile cache).
 """
 
 from __future__ import annotations
@@ -563,6 +562,82 @@ CATALOG: tuple[MetricInfo, ...] = (
         "donated to the consumer and freed from the registry)",
         (),
     ),
+    # -- placement plane (placement/): device meshes, segment placement by
+    #    device bytes, dp- and tp-sharded fused-segment execution --------
+    MetricInfo(
+        "seldon_placement_dispatches_total", "counter",
+        "Per-rank executions from sharded fused-segment dispatches (each "
+        "sharded dispatch runs rows/dp on every rank of the dp span; the "
+        "device label is the rank's ordinal in the mesh)",
+        ("deployment", "device"),
+    ),
+    MetricInfo(
+        "seldon_placement_sharded_dispatches_total", "counter",
+        "Fused-segment dispatches served by the sharded executor "
+        "(compare to seldon_batcher_batches_total for sharding coverage; "
+        "a parity-failed bucket serves unsharded and does not count here)",
+        ("deployment", "segment"),
+    ),
+    MetricInfo(
+        "seldon_placement_segments", "gauge",
+        "Fused segments under placement management for this deployment",
+        ("deployment",),
+    ),
+    MetricInfo(
+        "seldon_placement_device_hbm_bytes", "gauge",
+        "Planner-estimated device memory load per device (static "
+        "signature bytes, sharpened by the capture ledger's graph-pool "
+        "peaks once buckets are captured; the /admin/placement "
+        "deviceHbmBytes map)",
+        ("deployment", "device"),
+    ),
+    MetricInfo(
+        "seldon_placement_tp_spans", "gauge",
+        "Fused segments planned as tensor-parallel spans: their "
+        "layout-covered weights shard over the mesh's tp axis instead "
+        "of replicating (the /admin/placement tpSpans list)",
+        ("deployment",),
+    ),
+    MetricInfo(
+        "seldon_placement_tp_bytes_per_device", "gauge",
+        "Per-device memory share of one tp-span segment: layout-covered "
+        "weight bytes divided by tp plus the replicated remainder, the "
+        "number that turns an infeasible segment (GL1204 at tp=1) into a "
+        "feasible plan",
+        ("deployment", "segment"),
+    ),
+    MetricInfo(
+        "seldon_runtime_placement_devices", "gauge",
+        "Mesh size seen by the placement plane at sample time "
+        "(introspection sampler placement probe)",
+        ("probe",),
+    ),
+    MetricInfo(
+        "seldon_runtime_placement_segments_sharded", "gauge",
+        "Segments currently serving through the sharded executor at "
+        "sample time",
+        ("probe",),
+    ),
+    MetricInfo(
+        "seldon_runtime_placement_sharded_dispatches", "gauge",
+        "Cumulative sharded dispatches at sample time (sampler twin of "
+        "seldon_placement_sharded_dispatches_total)",
+        ("probe",),
+    ),
+    MetricInfo(
+        "seldon_runtime_placement_device_bytes_max", "gauge",
+        "Largest per-device byte count across the mesh at sample time "
+        "(skew indicator; per-device detail in "
+        "seldon_runtime_placement_device_bytes)",
+        ("probe",),
+    ),
+    MetricInfo(
+        "seldon_runtime_placement_device_bytes", "gauge",
+        "Bytes per mesh device at sample time (the CUDA allocator's "
+        "allocated bytes of each card; on the CPU, the params each rank "
+        "holds)",
+        ("device",),
+    ),
     # -- artifact plane (artifacts/): a record per captured bucket and the
     # kernel library in a content-addressed store, for warm boots
     MetricInfo(
@@ -1081,6 +1156,15 @@ def grafana_dashboard() -> dict:
                ["max(seldon_fleet_obs_verdict) by (deployment)",
                 "max(seldon_fleet_obs_unreachable) by (deployment)"],
                y=96, x=12),
+        _panel(27, "Placement: tp spans + sharded dispatch rate",
+               ["sum(seldon_placement_tp_spans) by (deployment)",
+                "sum(rate(seldon_placement_sharded_dispatches_total[5m])) "
+                "by (deployment, segment)"], y=104, x=0),
+        _panel(28, "Placement: per-device memory (tp-span share)",
+               ["max(seldon_placement_device_hbm_bytes) "
+                "by (deployment, device)",
+                "max(seldon_placement_tp_bytes_per_device) "
+                "by (deployment, segment)"], y=104, x=12, unit="bytes"),
     ]
     return {
         "title": "Seldon Core TPU (PyTorch/CUDA port) — Prediction "

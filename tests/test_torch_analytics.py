@@ -5,9 +5,9 @@ The catalog lists every metric name the port's source emits (a grep of
 ``"seldon_..."`` literals over ``seldon_core_tpu_torch/``) and nothing
 else; dashboard panels and alert rules name only catalogued metrics; each
 metric the two packages share keeps the reference's kind and labels; the
-metrics the port leaves out are exactly the gateway's, the fleet's, the
-placement plane's (their slices are not ported) and the XLA compile
-cache's (no counterpart).  The exposition stays scrapeable and the CLI's
+metrics the port leaves out are exactly the gateway's and the fleet's
+(their slices are not ported) and the XLA compile cache's (no
+counterpart).  The exposition stays scrapeable and the CLI's
 artifacts parse.
 """
 
@@ -62,9 +62,7 @@ def test_shared_metrics_keep_the_reference_kind_and_labels():
             assert (m.kind, m.labels) == (ref[name].kind, ref[name].labels), \
                 name
     left_out = set(ref) - set(catalog())
-    assert all(n.startswith(("seldon_fleet_", "seldon_placement_",
-                             "seldon_runtime_placement_",
-                             "seldon_compile_cache_"))
+    assert all(n.startswith(("seldon_fleet_", "seldon_compile_cache_"))
                or n in ("seldon_api_server_ingress_seconds",
                         "seldon_api_gateway_retries_total")
                for n in left_out), left_out

@@ -230,6 +230,21 @@ one, _ = tf.prefill(params, ids, cfg, max_len=8)
 two, _ = tf.prefill(tf.shard_params(params, mesh, cfg), ids, cfg, max_len=8,
                     mesh=mesh)
 assert torch.allclose(one, two, atol=1e-5)
+# the placement plane without jax: iris fused at dp=2 on the CPU serves a
+# sharded batch, and /admin/placement reports it
+from seldon_core_tpu_torch.graph.engine import GraphEngine
+from seldon_core_tpu_torch.operator.local import resolve_component
+from seldon_core_tpu_torch.placement import PlacementPlane, placement_body
+from seldon_core_tpu_torch.placement.tp import TpLeaf
+plane = PlacementPlane(PlacementConfig(enabled=True, dp=2), device="cpu")
+eng = GraphEngine({"name": "clf", "type": "MODEL", "parameters": [
+    {"name": "model_class", "type": "STRING",
+     "value": "seldon_core_tpu_torch.models.iris:IrisClassifier"}]},
+    resolver=lambda u: resolve_component(u, {}, "cpu"), name="p",
+    plan_mode="fused", placement=plane)
+asyncio.run(eng.predict(SeldonMessage.from_ndarray(np.ones((4, 4)))))
+assert plane.sharded_segments == ["clf"] and plane.n_sharded_dispatches == 1
+assert placement_body(plane, {})[0] == 200
 blocked = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("aiohttp", "grpc", "ml_dtypes",
                                         "yaml")
@@ -447,6 +462,9 @@ def test_port_imports_without_jax_or_the_jax_package():
         "seldon_core_tpu_torch.placement.config",
         "seldon_core_tpu_torch.placement.layouts",
         "seldon_core_tpu_torch.placement.planner",
+        "seldon_core_tpu_torch.placement.plane",
+        "seldon_core_tpu_torch.placement.http",
+        "seldon_core_tpu_torch.placement.tp",
         "seldon_core_tpu_torch.models.traceable",
         "seldon_core_tpu_torch.operator.spec",
         "seldon_core_tpu_torch.operator.crd_schema",

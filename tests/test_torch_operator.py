@@ -365,8 +365,6 @@ def test_yaml_reader_refuses_what_it_does_not_cover():
 COMPILE_CACHE_SERIES = ("seldon_compile_cache_enabled",
                         "seldon_compile_cache_hits",
                         "seldon_compile_cache_misses")
-#: the placement plane's series come with its slice (not yet ported)
-PLACEMENT_PREFIXES = ("seldon_placement_", "seldon_runtime_placement_")
 
 
 def _analytics_configmaps() -> tuple:
@@ -385,8 +383,7 @@ def _analytics_configmaps() -> tuple:
 
 
 def _ported(expr: str) -> bool:
-    return not any(s in expr for s in COMPILE_CACHE_SERIES) and not any(
-        p in expr for p in PLACEMENT_PREFIXES)
+    return not any(s in expr for s in COMPILE_CACHE_SERIES)
 
 
 def test_analytics_configmaps_match_the_port_generators():
@@ -394,8 +391,7 @@ def test_analytics_configmaps_match_the_port_generators():
     the port's generators: the scrape config is EQUAL; every alert rule is
     the port's with EQUAL expression, duration and labels (the recompile
     storm's summary names CUDA-graph captures, not XLA compiles); every
-    dashboard query is the port's, less the three compile-cache series
-    and the placement plane's."""
+    dashboard query is the port's, less the three compile-cache series."""
     scrape, alerts, dash = _analytics_configmaps()
     assert scrape == analytics.prometheus_config()
     ours = {r["alert"]: r for g in analytics.alert_rules()["groups"]
@@ -410,7 +406,7 @@ def test_analytics_configmaps_match_the_port_generators():
     chart_exprs = [t["expr"] for p in dash["panels"] for t in p["targets"]]
     ported = [e for e in chart_exprs if _ported(e)]
     left_out = sorted(set(chart_exprs) - set(ported))
-    assert all(any(s in e for s in COMPILE_CACHE_SERIES + PLACEMENT_PREFIXES)
+    assert all(any(s in e for s in COMPILE_CACHE_SERIES)
                for e in left_out) and any(
         COMPILE_CACHE_SERIES[0] in e for e in left_out)
     port_exprs = {t["expr"] for p in analytics.grafana_dashboard()["panels"]
