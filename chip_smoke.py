@@ -356,7 +356,41 @@ Prints one JSON object per line:
     device bytes, a warm engine taking the stored sharded buckets at
     boot; ``iris.json`` with ``seldon.io/mesh: dp=2`` on one card: its
     plane disabled with the warning, 404, the unsharded answers.
-38. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
+38. ``train_moe`` (after ``placement_resnet50``): training at full width.
+    The reference's default ``TransformerConfig`` (vocabulary 32000,
+    d_model 512, 8 layers of 8 heads of 64, d_ff 2048) with 4 experts,
+    top-2, capacity factor 2.0, ``use_flash``, bf16 activations and float32
+    master params, seeded on cuda:0; 10 ``make_train_step`` AdamW steps at
+    lr 1e-3 on fresh seeded batches of 8 x 512 tokens (drawn from the first
+    1000 ids, a distribution the steps can learn): every loss finite,
+    the last below the first, K3 launched 8 x 10 times (one forward a
+    step; its backward is the dense recompute).  wq/wk/wv gradients
+    non-zero and equal to a ``use_flash=False`` step's in relative L2 norm
+    within 1e-3 with float32 activations.  With bf16 activations the two
+    forwards round differently and the discrete routing carries that on,
+    so the flash gradients are held to a witness measured here on three
+    batches: two other correct bf16 attentions, the plain version and
+    torch's SDPA, read against each other.  The flash gap must stay within
+    twice the witness's largest (relative L2 and the largest element's
+    error over the largest element, each); a control, SDPA without its
+    causal mask, must land above that limit, or the gate could not tell
+    a fault.  The share of top-k expert ids that differ from the plain
+    forward's is reported beside each.  Step ms, tokens/s, the peak memory
+    and what the steps added to what earlier phases hold.  Then a
+    checkpoint saved and loaded, and 16 greedy tokens through the MoE
+    ``decode_step``: ids EQUAL the in-memory params'.
+39. ``train_mesh``: (a) both of the reference's training dryrun lines
+    (``dryrun.py``) on 8 ranks of cuda:0 with the port's seeded weights,
+    each loss within 1e-4 of the same step with no mesh; (b) mesh(dp=2,
+    pp=2, tp=2) at ``train_moe``'s widths with 2 layers in float32 against
+    the unsharded step on the card (``lm_loss`` with aux weight 0, as the
+    pipeline carries no aux, and the step's AdamW): loss within 1e-4,
+    updated params within 1e-6
+    wherever the gradient is at least 1e-6 in magnitude; (c) one step of 2
+    layers in float32 on the card against the same step on the CPU with the
+    plain versions: loss within 1e-4, each gradient within 1e-3 of the
+    leaf's largest.  K3's launches counted exactly.
+40. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
     phases of prefix caching, batched and chunked prefill, preemption and
     checkpoints together; ``slice_3b_phases``: ``spec_7b`` and
     ``parity_spec_7b``; ``slice_4a_i_phases``: the ``wire_*`` phases;
@@ -365,8 +399,9 @@ Prints one JSON object per line:
     ``slice_4c_ii_phases``: ``llm_graphs_7b``; ``slice_4d_4e_phases``:
     25-26; ``slice_5_i_phases``: 27-28; ``slice_5_ii_phases``: 29;
     ``slice_5b_i_phases``: 30-32; ``slice_5b_ii_phases``: 33-34;
-    ``slice_6a_phases``: 35-36; ``slice_6b_phases``: 37).
-39. ``{"kernels": [...]}``: one entry per kernel with its launches in the
+    ``slice_6a_phases``: 35-36; ``slice_6b_phases``: 37;
+    ``slice_6c_phases``: 38-39).
+41. ``{"kernels": [...]}``: one entry per kernel with its launches in the
     runs through entry points (``llm_json``, ``serve_7b``, ``grpc_7b``,
     ``features_7b``, ``spec_7b``, ``llm_graphs_7b``, ``checkpoint_7b``,
     ``plan_resnet50``,
@@ -374,14 +409,21 @@ Prints one JSON object per line:
     ``wire_llm``, ``workers``, ``qos_resnet50``, ``artifacts_resnet50``,
     ``device_plane_resnet50``, ``observe_7b``, ``observe_resnet50``,
     ``lint``, ``gateway_7b``, ``loadtest_7b``, ``parity_tp_7b``,
-    ``tp_7b``, ``placement_resnet50``, ``gateway_resnet50``,
+    ``tp_7b``, ``placement_resnet50``, ``train_moe``, ``train_mesh``,
+    ``gateway_resnet50``,
     ``fleet_resnet50`` and ``operator_resnet50``, counted by the child
     processes where the kernels run there; K1 also
     ``resnet50_launches``: the int8 REST run), each phase's count beside,
     its error, times and bound (K2 also at its two long cases and the
     shared-prefix case; each kernel also its ``tp2_rank_cases``, K1 its
-    ``dp2_rank_cases``: one dp = 2 rank's row blocks of the int8 ResNet50).
-40. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+    ``dp2_rank_cases``: one dp = 2 rank's row blocks of the int8 ResNet50;
+    K3 its ``train_cases``: the autograd Function at the training shape,
+    B 8 x L 512 H 8 D 64 bf16, and at the dryrun's, B 4 x L 16 H 4 D 16
+    float32, its forward held to the plain version, its q/k/v gradients
+    bitwise equal to autograd through the plain version, the forward's
+    and the backward's ms beside the forward's bound and SDPA's forward
+    and backward).
+42. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
@@ -429,6 +471,80 @@ def bound(bytes_moved: float, ops: float, kind: str) -> tuple[float, str]:
 # ----------------------------------------------------------------------
 # kernels against their plain versions
 # ----------------------------------------------------------------------
+
+def flash_train_case(torch, timer, gen, name, B, L, H, Hkv, D, dt) -> dict:
+    """K3 through ``flash_attention``'s autograd Function against autograd
+    through its plain version on the same inputs and output gradient: the
+    forward within K3's tolerance (bf16 2e-2, float32 1e-5), the q/k/v
+    gradients BITWISE equal (the backward is the plain version's recompute).
+    Times over cold L2: the Function's forward (K3), its backward (the
+    dense recompute), the plain forward and forward + backward, and SDPA's
+    forward and forward + backward on GQA-expanded K/V; the forward's bound
+    and the backward's (recomputing the scores and the four products of
+    attention's gradient over the causal pairs, 10 D operations a pair;
+    q, k, v, dO read, dq, dk, dv written)."""
+    from seldon_core_tpu_torch.ops import attention
+
+    def rnd(h):
+        return torch.randn((B, L, h, D), generator=gen, device="cuda").to(dt)
+
+    q0, k0, v0, g = rnd(H), rnd(Hkv), rnd(Hkv), rnd(H)
+
+    def leaves():
+        return [t.clone().requires_grad_() for t in (q0, k0, v0)]
+
+    qa, ka, va = leaves()
+    out = attention.flash_attention(qa, ka, va, causal=True)
+    out.backward(g)
+    qb, kb, vb = leaves()
+    ref = attention.flash_attention_ref(qb, kb, vb, causal=True)
+    ref.backward(g)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = 2e-2 if dt == torch.bfloat16 else 1e-5
+    bitwise = [bool(torch.equal(a.grad, b.grad))
+               for a, b in ((qa, qb), (ka, kb), (va, vb))]
+    line = {"phase": "kernel", "kernel": "flash_attention",
+            "case": f"train_{name}", "variant": attention.flash_variant(dt, D),
+            "shape": [B, L, H, Hkv, D], "dtype": str(dt).split(".")[-1],
+            "max_abs_err": err, "tolerance": f"atol {tol}",
+            "grads_bitwise_equal_plain": bitwise, "card": CARD}
+    if not (err <= tol and all(bitwise)):
+        emit(line)
+        raise AssertionError(f"flash_attention train {name}: {line}")
+    isz = q0.element_size()
+    pairs = L * (L + 1) / 2
+    kind = "bf16" if dt == torch.bfloat16 else "f32"
+    b_ms, b_by = bound((2 * q0.numel() + 2 * k0.numel()) * isz,
+                       4.0 * B * H * D * pairs, kind)
+    bb_ms, bb_by = bound((3 * q0.numel() + 4 * k0.numel()) * isz,
+                         10.0 * B * H * D * pairs, kind)
+    n_rep = H // Hkv
+    qt = q0.transpose(1, 2).detach().requires_grad_()
+    kt = k0.repeat_interleave(n_rep, 2).transpose(1, 2).detach() \
+        .requires_grad_()
+    vt = v0.repeat_interleave(n_rep, 2).transpose(1, 2).detach() \
+        .requires_grad_()
+    gt = g.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    held = attention.flash_attention(qa, ka, va, causal=True)
+    line.update(
+        ms=timer(lambda: attention.flash_attention(qa, ka, va, causal=True)),
+        bwd_ms=timer(lambda: held.backward(g, retain_graph=True)),
+        plain_ms=timer(lambda: attention.flash_attention_ref(
+            qb, kb, vb, causal=True), reps=5),
+        plain_fwd_bwd_ms=timer(lambda: attention.flash_attention_ref(
+            qb, kb, vb, causal=True).backward(g), reps=5),
+        library_ms=timer(lambda: sdpa(qt, kt, vt, is_causal=True)),
+        library_fwd_bwd_ms=timer(lambda: sdpa(qt, kt, vt, is_causal=True)
+                                 .backward(gt)),
+        bound_ms=b_ms, bound_by=b_by, bwd_bound_ms=bb_ms, bwd_bound_by=bb_by)
+    emit(line)
+    return {k: line[k] for k in (
+        "shape", "dtype", "variant", "max_abs_err", "ms", "bwd_ms",
+        "plain_ms", "plain_fwd_bwd_ms", "library_ms", "library_fwd_bwd_ms",
+        "bound_ms", "bound_by", "bwd_bound_ms", "bwd_bound_by")}
+
 
 def kernel_phase(torch, timer) -> dict:
     """Returns the summary entry per kernel (times at the main-path shape,
@@ -712,6 +828,13 @@ def kernel_phase(torch, timer) -> dict:
                    torch.bfloat16, False),
     ]
     summary["flash_attention"]["max_abs_err"] = max(ferrs)
+    # slice 6c: K3 under autograd (``ops/attention.py`` FlashAttention),
+    # at the training shape and at the dryrun's
+    summary["flash_attention"]["train_cases"] = {
+        name: flash_train_case(torch, timer, gen, name, *shape)
+        for name, shape in (
+            ("train_b8_l512", (8, 512, 8, 8, 64, torch.bfloat16)),
+            ("dryrun_b4_l16", (4, 16, 4, 4, 16, torch.float32)))}
     keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
             "max_abs_err", "variant")
     for kernel, cases in tp2.items():
@@ -7836,6 +7959,349 @@ def ptxas_report(log: str) -> list:
     return rows
 
 
+# ----------------------------------------------------------------------
+# slice 6c: training
+# ----------------------------------------------------------------------
+
+TRAIN_STEPS = 10
+
+
+def _train_cfg(torch, **kw):
+    """The reference's default ``TransformerConfig`` widths with 4 experts,
+    top-2, capacity factor 2.0, ``use_flash`` and bf16 activations."""
+    from seldon_core_tpu_torch.models.transformer import TransformerConfig
+
+    base = dict(vocab_size=32000, d_model=512, n_layers=8, n_heads=8,
+                d_ff=2048, max_seq=2048, n_experts=4, top_k=2,
+                capacity_factor=2.0, use_flash=True, dtype=torch.bfloat16)
+    return TransformerConfig(**{**base, **kw})
+
+
+def _train_batch(torch, gen, B, L, vocab):
+    """``B`` rows of ``L`` tokens (and their next tokens as targets) drawn
+    uniformly from the first ``vocab // 32`` ids: a distribution a few
+    steps can learn (its entropy ln 1000 = 6.9 against the initial loss
+    near ln 32000 = 10.4), so fresh batches show the loss fall."""
+    ids = torch.randint(0, vocab // 32, (B, L + 1), generator=gen,
+                        device="cuda")
+    return {"input_ids": ids[:, :-1], "targets": ids[:, 1:]}
+
+
+def _clone_tree(tree, device=None):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v, device) for k, v in tree.items()}
+    return tree.detach().clone().to(device or tree.device)
+
+
+def _grad_tree(tree):
+    """A param tree's gradients, placed pieces unsharded."""
+    from seldon_core_tpu_torch.parallel.mesh import Shards, unshard
+
+    if isinstance(tree, dict):
+        return {k: _grad_tree(v) for k, v in tree.items()}
+    if isinstance(tree, Shards):
+        return unshard(Shards([_grad_tree(t) for t in tree], tree.dim,
+                              tree.axis))
+    return tree.grad
+
+
+def _sdpa(torch, causal_mask=True):
+    """Attention through ``torch.nn.functional.scaled_dot_product_attention``
+    in ``flash_attention``'s layout; ``causal_mask=False`` drops the mask
+    whatever the caller asks (the gate's control)."""
+    F = torch.nn.functional
+
+    def attn(q, k, v, causal=True):
+        g = q.shape[2] // k.shape[2]
+        k, v = (t.repeat_interleave(g, dim=2) for t in (k, v))
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal and causal_mask).transpose(1, 2)
+
+    return attn
+
+
+@contextlib.contextmanager
+def _patched(module, name, value):
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def _train_grad_check(torch, params, batches, cfg) -> dict:
+    """The flash kernel under autograd (module docstring, phase 38):
+    wq/wk/wv gradients of ``lm_loss`` through K3 against the plain
+    version's, in float32 on ``batches[0]`` and in bf16 on every batch
+    beside the SDPA witness and the unmasked control."""
+    import dataclasses
+
+    import seldon_core_tpu_torch.models.transformer as tr
+    import seldon_core_tpu_torch.parallel.moe as moe
+    from seldon_core_tpu_torch.models.transformer import lm_loss, param_leaves
+
+    names = ("wq", "wk", "wv")
+
+    def grads(batch, dtype, flash, attn=None):
+        ids = []
+        route = moe.moe_route
+
+        def record(*a, **kw):
+            r = route(*a, **kw)
+            ids.append(r["gate_idx"])
+            return r
+
+        for t in param_leaves(params):
+            t.grad = None
+            t.requires_grad_(True)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_patched(moe, "moe_route", record))
+            if attn is not None:
+                stack.enter_context(_patched(tr, "flash_attention", attn))
+            lm_loss(params, batch, dataclasses.replace(
+                cfg, use_flash=flash, dtype=dtype)).backward()
+        return ({n: params["blocks"][n].grad.clone() for n in names},
+                torch.cat([i.flatten() for i in ids]))
+
+    def gap(a, b):
+        return {n: {"rel_l2": ((a[0][n] - b[0][n]).norm()
+                               / b[0][n].norm()).item(),
+                    "max_err_over_max": ((a[0][n] - b[0][n]).abs().max()
+                                         / b[0][n].abs().max()).item()}
+                for n in names} | {
+            "topk_ids_differing": (a[1] != b[1]).float().mean().item()}
+
+    out = {}
+    flash, dense = (grads(batches[0], torch.float32, f) for f in (True,
+                                                                   False))
+    out["float32"] = gap(flash, dense) | {"tolerance": "rel_l2 1e-3"}
+    bad = [n for n in names if not (flash[0][n].abs().sum().item() > 0
+                                    and out["float32"][n]["rel_l2"] <= 1e-3)]
+    if bad:
+        raise AssertionError(f"train_moe float32 gradients of {bad}: {out}")
+    out["bfloat16"] = []
+    for batch in batches:
+        dense = grads(batch, torch.bfloat16, False)
+        flash = grads(batch, torch.bfloat16, True)
+        out["bfloat16"].append({
+            "flash": gap(flash, dense),
+            "witness_sdpa": gap(grads(batch, torch.bfloat16, True,
+                                      _sdpa(torch)), dense),
+            "control_unmasked": gap(grads(batch, torch.bfloat16, True,
+                                          _sdpa(torch, False)), dense),
+            "flash_abs_sum": {n: flash[0][n].abs().sum().item()
+                              for n in names}})
+    for t in param_leaves(params):
+        t.grad = None
+    limit = {m: 2 * max(r["witness_sdpa"][n][m] for r in out["bfloat16"]
+                        for n in names)
+             for m in ("rel_l2", "max_err_over_max")}
+    out["bfloat16_limit"] = limit
+    for r in out["bfloat16"]:
+        for n in names:
+            for m, lim in limit.items():
+                if not r["control_unmasked"][n][m] > lim:
+                    raise AssertionError(
+                        f"train_moe: the bf16 gate cannot tell the control "
+                        f"({n} {m}): {out}")
+                if not (r["flash_abs_sum"][n] > 0 and r["flash"][n][m] <= lim):
+                    raise AssertionError(
+                        f"train_moe bf16 gradient of {n} ({m}): {out}")
+    return out
+
+
+def train_moe_phase(torch) -> dict:
+    """The MoE transformer trained at full width on the card (module
+    docstring, phase 38).  Returns the launches of the ten steps."""
+    import shutil
+
+    from seldon_core_tpu_torch.models.transformer import (
+        generate,
+        init_params,
+        make_train_step,
+    )
+    from seldon_core_tpu_torch.runtime.checkpoint import (
+        load_transformer,
+        save_transformer,
+    )
+
+    cfg = _train_cfg(torch)
+    params = init_params(torch.Generator(device="cuda").manual_seed(61),
+                         cfg)
+    data = torch.Generator(device="cuda").manual_seed(62)
+    B, L = 8, 512
+    batches = [_train_batch(torch, data, B, L, cfg.vocab_size)
+               for _ in range(TRAIN_STEPS)]
+
+    grad_check = _train_grad_check(torch, params, batches[:3], cfg)
+    init_opt, step = make_train_step(cfg, learning_rate=1e-3)
+    opt = init_opt(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()  # what earlier phases still hold
+    reset_launches()
+    losses, step_s = [], []
+    for batch in batches:
+        t = time.perf_counter()
+        params, opt, loss = step(params, opt, batch)
+        losses.append(float(loss))  # waits for the step
+        step_s.append(time.perf_counter() - t)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and launches["flash_attention"] == cfg.n_layers * TRAIN_STEPS):
+        raise AssertionError(f"train_moe: losses {losses}, {launches}")
+    step_ms = statistics.median(step_s[1:]) * 1e3
+
+    path = ROOT / "build" / "train_moe"
+    shutil.rmtree(path, ignore_errors=True)
+    save_transformer(str(path), params, cfg)
+    loaded, lcfg = load_transformer(str(path), device="cuda")
+    shutil.rmtree(path)
+    prompt = batches[0]["input_ids"][:2, :16]
+    ids = generate(params, prompt, 16, cfg)
+    ids_loaded = generate(loaded, prompt, 16, lcfg)
+    if lcfg != cfg or not torch.equal(ids, ids_loaded):
+        raise AssertionError("train_moe: the loaded checkpoint decodes "
+                             "other ids")
+    emit({"phase": "train_moe", "card": CARD,
+          "model": "vocab 32000, d_model 512, 8 layers x 8 heads of 64, "
+                   "d_ff 2048, 4 experts top-2 cf 2.0, flash, bf16 "
+                   "activations, float32 params, AdamW lr 1e-3",
+          "batch": [B, L], "steps": TRAIN_STEPS, "losses": losses,
+          "step_ms_median": step_ms, "step_ms": [x * 1e3 for x in step_s],
+          "tokens_per_s": B * L / (step_ms / 1e3),
+          "peak_memory_bytes": peak, "allocated_before_bytes": before,
+          "peak_over_before_bytes": peak - before,
+          "grads_flash_vs_dense": grad_check,
+          "checkpoint_decode_ids_equal": True, "launches": launches})
+    return launches
+
+
+def _plain_step(torch, params, batch, cfg, aux_weight):
+    """One AdamW step with no mesh: ``make_train_step``'s optimizer over
+    ``lm_loss`` with ``aux_weight`` (0 for the loss a pipelined step takes,
+    which carries no aux).  Returns ``(loss before the step, params)``;
+    the gradients stay on the leaves."""
+    from seldon_core_tpu_torch.models.transformer import (
+        lm_loss,
+        make_train_step,
+    )
+
+    init_opt, _ = make_train_step(cfg)
+    opt = init_opt(params)
+    loss = lm_loss(params, batch, cfg, aux_weight=aux_weight)
+    loss.backward()
+    opt.step()
+    return float(loss.detach()), params
+
+
+def train_mesh_phase(torch) -> dict:
+    """Training over meshes of ranks of cuda:0 (module docstring, phase
+    39).  Returns the launches of (a)-(c)."""
+    from seldon_core_tpu_torch.dryrun import (
+        TRAINING_PLANS,
+        dryrun_batch,
+        dryrun_config,
+        dryrun_training,
+    )
+    from seldon_core_tpu_torch.models.transformer import (
+        init_params,
+        lm_loss,
+        make_train_step,
+        param_leaves,
+        shard_params,
+    )
+    from seldon_core_tpu_torch.parallel.mesh import make_mesh, plan_mesh
+
+    out = {"phase": "train_mesh", "card": CARD}
+    torch.cuda.synchronize()
+    reset_launches()
+    # (a) the reference's two training dryrun lines
+    out["dryrun"] = []
+    for kw in TRAINING_PLANS:
+        plan = plan_mesh(8, **kw)
+        line, loss, _ = dryrun_training(plan, "cuda")
+        cfg = dryrun_config(plan)
+        loss_one, _ = _plain_step(
+            torch, init_params(torch.Generator(device="cuda").manual_seed(0),
+                               cfg),
+            dryrun_batch(plan, cfg, "cuda"), cfg,
+            aux_weight=0.0 if plan.pp > 1 else 0.01)
+        out["dryrun"].append({"line": line, "loss": loss,
+                              "no_mesh_loss": loss_one})
+        if not abs(loss - loss_one) <= 1e-4:
+            raise AssertionError(f"train_mesh (a): {out['dryrun']}")
+    # (b) mesh(dp=2, pp=2, tp=2) at full width, 2 layers, float32
+    plan = plan_mesh(8, tp=2, pp=2)
+    cfg = _train_cfg(torch, n_layers=2, dtype=torch.float32)
+    base = init_params(torch.Generator(device="cuda").manual_seed(63), cfg)
+    batch = _train_batch(torch, torch.Generator(device="cuda").manual_seed(
+        64), 8, 512, cfg.vocab_size)
+    mesh = make_mesh(plan, devices=["cuda:0"] * plan.n_devices)
+    placed = shard_params(_clone_tree(base), mesh, cfg, pp=2)
+    init_opt, step = make_train_step(cfg, mesh=mesh, pp=2, n_microbatches=2)
+    t = time.perf_counter()
+    placed, _, loss_sh = step(placed, init_opt(placed), batch)
+    loss_sh = float(loss_sh)
+    sharded_s = time.perf_counter() - t
+    t = time.perf_counter()
+    loss_one, one = _plain_step(torch, _clone_tree(base), batch, cfg,
+                                aux_weight=0.0)
+    one_s = time.perf_counter() - t
+    from seldon_core_tpu_torch.parallel.mesh import unshard
+
+    def unshard_tree(tree):
+        if isinstance(tree, dict):
+            return {k: unshard_tree(v) for k, v in tree.items()}
+        return unshard(tree)
+
+    p_err = 0.0
+    for a, b, g in zip(param_leaves(unshard_tree(placed)), param_leaves(one),
+                       param_leaves(_grad_tree(one))):
+        sure = g.abs() >= 1e-6
+        p_err = max(p_err, (a.detach() - b.detach())[sure].abs().max().item())
+    out["pp2_dp2_tp2"] = {"loss": loss_sh, "unsharded_loss": loss_one,
+                          "param_max_err": p_err, "sharded_s": sharded_s,
+                          "unsharded_s": one_s}
+    if not (abs(loss_sh - loss_one) <= 1e-4 and p_err <= 1e-6):
+        raise AssertionError(f"train_mesh (b): {out['pp2_dp2_tp2']}")
+    del placed, one, base
+    # (c) one step of 2 layers in float32: the card against the CPU
+    cfg = _train_cfg(torch, n_layers=2, dtype=torch.float32)
+    card = init_params(torch.Generator(device="cuda").manual_seed(65), cfg)
+    host = _clone_tree(card, "cpu")
+    batch = _train_batch(torch, torch.Generator(device="cuda").manual_seed(
+        66), 2, 256, cfg.vocab_size)
+    hbatch = {k: v.cpu() for k, v in batch.items()}
+    res = {}
+    for name, params, b in (("card", card, batch), ("cpu", host, hbatch)):
+        for t in param_leaves(params):
+            t.requires_grad_(True)
+        loss = lm_loss(params, b, cfg)
+        loss.backward()
+        res[name] = (loss.item(), param_leaves(_grad_tree(params)))
+    g_err = max(((a.cpu() - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(res["card"][1], res["cpu"][1]))
+    out["card_vs_cpu"] = {"loss": res["card"][0], "cpu_loss": res["cpu"][0],
+                          "grad_max_err_over_max": g_err}
+    if not (abs(res["card"][0] - res["cpu"][0]) <= 1e-4 and g_err <= 1e-3):
+        raise AssertionError(f"train_mesh (c): {out['card_vs_cpu']}")
+    launches = read_launches()
+    # K3 per forward: plan (a)1 4 layers x 2 microbatches x dp 2 x tp 2 and
+    # its unsharded step's 4; (b) 2 stages x 1 layer x 2 x 2 x 2 and 2;
+    # (c) 2 (ring attention in (a)2 launches none)
+    want = 32 + 4 + 16 + 2 + 2
+    out["launches"] = launches
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"train_mesh: K3 launched "
+                             f"{launches['flash_attention']}, not {want}")
+    emit(out)
+    return launches
+
+
 _SUMMARY_META = {
     "int8_matmul": ("seldon_core_tpu_torch/csrc/int8_matmul.cu",
                     "seldon_core_tpu/ops/quant.py:52"),
@@ -7940,6 +8406,9 @@ def smoke() -> int:
     # slice 6b: the placement plane, dp and tp ranks on the one card
     runs["placement_resnet50"] = timed("placement_resnet50",
                                        placement_resnet50_phase, torch)
+    # slice 6c: training, one card and 8 ranks of it
+    runs["train_moe"] = timed("train_moe", train_moe_phase, torch)
+    runs["train_mesh"] = timed("train_mesh", train_mesh_phase, torch)
     runs["checkpoint_7b"] = timed("checkpoint_7b", checkpoint_7b_phase,
                                   torch)
     resnet_k1 = timed("resnet50", resnet50_phase, torch)
@@ -8004,6 +8473,7 @@ def smoke() -> int:
           + seconds["operator_resnet50"],
           "slice_6a_phases": seconds["parity_tp_7b"] + seconds["tp_7b"],
           "slice_6b_phases": seconds["placement_resnet50"],
+          "slice_6c_phases": seconds["train_moe"] + seconds["train_mesh"],
           "total": time.perf_counter() - t0})
     launches = {k: sum(r[k] for r in runs.values())
                 for k in runs["serve_7b"]}
@@ -8022,7 +8492,7 @@ def smoke() -> int:
             **{k: s[k] for k in ("long_ms", "long_bound_ms", "one_long_ms",
                                  "one_long_bound_ms", "shared_prefix_ms",
                                  "shared_prefix_bound_ms", "tp2_rank_cases",
-                                 "dp2_rank_cases")
+                                 "dp2_rank_cases", "train_cases")
                if k in s},
             **({"resnet50_launches": resnet_k1} if name == "int8_matmul"
                else {})})

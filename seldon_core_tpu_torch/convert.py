@@ -11,7 +11,9 @@ shape but are stored K-major (``ops.quant.k_major``), the layout the int8
 kernel reads.  With ``mesh`` (and the model's config) it places them
 tensor-parallel as ``models.transformer.shard_params`` does: a reference
 tree sharded over its mesh (float or int8 FFN leaves, as ``jax.device_get``
-gives them, global arrays) arrives split the same way over the port's.  The MLP's list of ``{"w", "b"}`` and the iris classifier's
+gives them, global arrays) arrives split the same way over the port's,
+a MoE's ``router``/``w_in``/``w_out`` and the layer stack's pipeline stages
+(``pp``) included.  The MLP's list of ``{"w", "b"}`` and the iris classifier's
 ``{"w", "b"}`` have the port's layout already, so it converts them too.
 
 :func:`resnet_from_jax` loads the reference's flax ResNet variables
@@ -46,13 +48,13 @@ def to_torch(a, device=None) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_jax(tree, device=None, mesh=None, cfg=None):
+def params_from_jax(tree, device=None, mesh=None, cfg=None, pp: int = 1):
     if mesh is not None:
         from seldon_core_tpu_torch.models.transformer import shard_params
 
         if cfg is None:
             raise ValueError("placing over a mesh needs the model's cfg")
-        return shard_params(params_from_jax(tree, device), mesh, cfg)
+        return shard_params(params_from_jax(tree, device), mesh, cfg, pp=pp)
     if isinstance(tree, dict):
         out = {k: params_from_jax(v, device) for k, v in tree.items()}
         if "values" in out and "scales" in out:  # an int8 leaf

@@ -34,12 +34,31 @@ order).  The lm_head's vocabulary shards meet in an all-gather.  The KV
 caches split their head axis the same way.  ``cfg.attention == "ring"``
 prefills sequence-parallel instead: q/k/v move from heads to sequence
 shards (an all-to-all), ring attention runs over "tp", and the output moves
-back.  A dp axis splits the batch over groups of ranks that share devices;
-pp (the pipeline), MoE and the training step come with the training slice.
+back.  A dp axis splits the batch over groups of ranks that share devices.
 :func:`decode_step` decodes against a slab cache (:func:`init_cache`), one
 token or a K-token chunk per row, writing the new K/V rows in place;
 :func:`generate` and :func:`speculative_generate` are the reference's
 one-request loops over it.
+
+Mixture of experts (``cfg.n_experts > 0``): each block's FFN is
+``blocks["moe"]`` (``router`` (L, D, E), ``w_in`` (L, E, D, F), ``w_out``
+(L, E, F, D); ``parallel/moe.py``), routed over every token of the call;
+:func:`ffn_block` returns the block's output and its aux loss, as the
+reference's does, on every path (serving included).
+
+Training: :func:`forward` (logits in float32 and the summed MoE aux),
+:func:`lm_loss` and :func:`make_train_step` (AdamW, params updated in
+place).  Under a mesh :func:`forward` runs the reference's layout with one
+controller: the batch over "dp" groups, heads and ``d_ff`` over "tp" (ring
+attention over "tp" under ``attention="ring"``), experts over "dp", and with
+``cfg.seq_shard`` the residual stream and the norms as sequence shards over
+"tp" between blocks (an all-gather before the column-parallel products,
+the row-parallel partials summed in float32 and split back).  ``pp > 1``
+runs the layer stack's stages through the GPipe schedule
+(``parallel/pipeline.py``).  A leaf replicated over ranks is one tensor,
+copied to each rank inside the forward, so autograd sums its gradient over
+the ranks: that sum is the data-parallel all-reduce.  The flash kernel is
+differentiable (``ops/attention.py`` ``FlashAttention``).
 """
 
 from __future__ import annotations
@@ -49,6 +68,7 @@ from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from seldon_core_tpu_torch.ops.attention import flash_attention
 from seldon_core_tpu_torch.ops.quant import (
@@ -66,8 +86,15 @@ from seldon_core_tpu_torch.parallel.mesh import (
     place,
     pspec,
     psum,
+    psum_scatter,
     unshard,
 )
+from seldon_core_tpu_torch.parallel.moe import (
+    MoEConfig,
+    moe_forward,
+    moe_param_specs,
+)
+from seldon_core_tpu_torch.parallel.pipeline import pipeline_apply
 from seldon_core_tpu_torch.parallel.ring_attention import (
     dense_attention,
     ring_attention,
@@ -76,7 +103,8 @@ from seldon_core_tpu_torch.parallel.ring_attention import (
 __all__ = [
     "TransformerConfig", "init_params", "init_params_int8", "param_specs",
     "shard_params", "quantize_ffn_params", "quantize_attn_params",
-    "rmsnorm", "rope", "attention_block", "ffn_block", "prefill",
+    "rmsnorm", "rope", "attention_block", "ffn_block", "block_fn",
+    "forward", "lm_loss", "make_train_step", "param_leaves", "prefill",
     "has_quantized_params", "init_cache", "decode_step", "generate",
     "speculative_generate",
 ]
@@ -94,6 +122,9 @@ class TransformerConfig:
     n_heads: int = 8
     d_ff: int = 2048
     max_seq: int = 2048
+    n_experts: int = 0          # 0: dense FFN; > 0: MoE in every layer
+    top_k: int = 2
+    capacity_factor: float = 2.0
     rope_theta: float = 10000.0
     dtype: Any = torch.bfloat16  # activation dtype
     # grouped-query attention: K/V heads (None = n_heads, plain MHA)
@@ -106,6 +137,11 @@ class TransformerConfig:
     # ring attention's score tile bound: keys per inner step (None: the
     # whole block a rank holds)
     ring_kv_chunk: Optional[int] = None
+    # Megatron sequence parallelism under a mesh: the residual stream and
+    # the norms as sequence shards over "tp" between blocks
+    seq_shard: bool = True
+    # recompute each block in the backward (torch.utils.checkpoint)
+    remat: bool = False
 
     @property
     def d_head(self) -> int:
@@ -119,6 +155,12 @@ class TransformerConfig:
                 f"n_heads {self.n_heads} must be a multiple of n_kv_heads {h}"
             )
         return h
+
+    def moe_cfg(self) -> MoEConfig:
+        return MoEConfig(n_experts=self.n_experts, top_k=self.top_k,
+                         capacity_factor=self.capacity_factor,
+                         d_model=self.d_model, d_ff=self.d_ff,
+                         expert_axis="dp")
 
 
 # ----------------------------------------------------------------------
@@ -148,9 +190,17 @@ def init_params(gen: torch.Generator, cfg: TransformerConfig,
         "wk": _normal(gen, (L, D, Hk, Dh), s, device),
         "wv": _normal(gen, (L, D, Hk, Dh), s, device),
         "wo": _normal(gen, (L, H, Dh, D), s, device),
-        "w1": _normal(gen, (L, D, Fd), s, device),
-        "w2": _normal(gen, (L, Fd, D), Fd ** -0.5, device),
     }
+    if cfg.n_experts > 0:
+        E = cfg.n_experts
+        blocks["moe"] = {
+            "router": _normal(gen, (L, D, E), s, device),
+            "w_in": _normal(gen, (L, E, D, Fd), s, device),
+            "w_out": _normal(gen, (L, E, Fd, D), Fd ** -0.5, device),
+        }
+    else:
+        blocks["w1"] = _normal(gen, (L, D, Fd), s, device)
+        blocks["w2"] = _normal(gen, (L, Fd, D), Fd ** -0.5, device)
     return {
         "embed": _normal(gen, (cfg.vocab_size, D), s, device),
         "blocks": blocks,
@@ -226,7 +276,8 @@ def quantize_ffn_params(params: dict, mesh: Optional[Mesh] = None) -> dict:
     exact."""
     out = dict(params)
     blocks = dict(params["blocks"])
-    for name in ("w1", "w2"):
+    ffn = ("w1", "w2") if "w1" in blocks else ()  # a MoE keeps its experts
+    for name in ffn:
         w = unshard(blocks[name])
         qs = [quantize_int8(w[i]) for i in range(w.shape[0])]
         blocks[name] = {"values": [q.values for q in qs],
@@ -234,7 +285,7 @@ def quantize_ffn_params(params: dict, mesh: Optional[Mesh] = None) -> dict:
     out["blocks"] = blocks
     out["lm_head"] = _q8(unshard(params["lm_head"]))
     if mesh is not None:
-        for name in ("w1", "w2"):
+        for name in ffn:
             blocks[name] = _place_q8(blocks[name], mesh, name)
         out["lm_head"] = _place_q8(out["lm_head"], mesh, "lm_head")
     return out
@@ -264,6 +315,15 @@ def _is_q8(w) -> bool:
     return isinstance(w, dict) and "values" in w and "scales" in w
 
 
+def _check_q8_pipeline(params: dict, pp: int) -> None:
+    """int8 leaves are per-layer lists, which pipeline stages cannot split:
+    refused up front under pp, as the reference does."""
+    if pp > 1 and has_quantized_params(params):
+        raise ValueError(
+            "int8-quantized params cannot ride the pp pipeline (per-layer "
+            "unstacked tuples are not scannable); use pp=1")
+
+
 def has_quantized_params(params: dict) -> bool:
     """Whether a param tree carries int8 leaves (in its blocks or the
     lm_head): the checkpoint export refusal and the verbatim load path."""
@@ -273,13 +333,20 @@ def has_quantized_params(params: dict) -> bool:
 
 def _layer_params(blocks: dict, i: int) -> dict:
     """Layer ``i``: stacked leaves sliced on the layer dim (each rank's
-    piece of a placed leaf), int8 per-layer lists indexed."""
+    piece of a placed leaf, nested pieces included), int8 per-layer lists
+    indexed.  A tree split over pipeline stages takes its stage first
+    (``parallel/pipeline.py`` ``stage_slice``)."""
     def one(v):
         if _is_q8(v):
             return {"values": v["values"][i], "scales": v["scales"][i]}
+        if isinstance(v, dict):
+            return {k: one(t) for k, t in v.items()}
         if isinstance(v, Shards):
-            return Shards([t[i] for t in v],
-                          None if v.dim is None else v.dim - 1)
+            if v.axis == "pp":
+                raise ValueError("a tree placed over pipeline stages: take "
+                                 "its stage first (forward with pp)")
+            return Shards([one(t) for t in v],
+                          None if v.dim is None else v.dim - 1, v.axis)
         return v[i]
 
     return {k: one(v) for k, v in blocks.items()}
@@ -299,7 +366,9 @@ Q8_SPECS = {"w1": (pspec(None, "tp"), pspec("tp")),
 def param_specs(cfg: TransformerConfig, pp: int = 1) -> dict:
     """Placement spec per float leaf (Megatron): q/k/v heads and w1 columns
     over "tp", wo and w2 rows over "tp", the lm_head's vocabulary over
-    "tp"; the stacked layer dim over "pp" when pipelining."""
+    "tp"; MoE experts over "dp" and their ``d_ff`` over "tp"
+    (``moe_param_specs``); the stacked layer dim over "pp" when
+    pipelining."""
     b = "pp" if pp > 1 else None
     block = {
         "ln1": pspec(b, None),
@@ -308,18 +377,22 @@ def param_specs(cfg: TransformerConfig, pp: int = 1) -> dict:
         "wk": pspec(b, None, "tp", None),
         "wv": pspec(b, None, "tp", None),
         "wo": pspec(b, "tp", None, None),
-        "w1": pspec(b, None, "tp"),
-        "w2": pspec(b, "tp", None),
     }
+    if cfg.n_experts > 0:
+        block["moe"] = {k: pspec(b, *sp) for k, sp in
+                        moe_param_specs(cfg.moe_cfg()).items()}
+    else:
+        block["w1"] = pspec(b, None, "tp")
+        block["w2"] = pspec(b, "tp", None)
     return {"embed": pspec(None, None), "blocks": block, "ln_f": pspec(None),
             "lm_head": pspec(None, "tp")}
 
 
-def _check_serving_mesh(mesh: Mesh, pp: int = 1) -> None:
-    if pp > 1 or mesh.axis_size("pp") > 1:
+def _check_serving_mesh(mesh: Mesh) -> None:
+    if mesh.axis_size("pp") > 1:
         raise NotImplementedError(
-            "the pp pipeline comes with the training slice of the port; "
-            "serve over dp and tp")
+            "the pp pipeline runs in forward and training only "
+            "(forward(..., pp=) / make_train_step); serve over dp and tp")
 
 
 def _place_q8(leaf: dict, mesh: Mesh, name: str) -> dict:
@@ -343,15 +416,18 @@ def _place_q8(leaf: dict, mesh: Mesh, name: str) -> dict:
 
 def shard_params(params: dict, mesh: Mesh, cfg: TransformerConfig,
                  pp: int = 1) -> dict:
-    """Place a param tree tensor-parallel over ``mesh``'s "tp" axis
-    (:func:`param_specs`): each split leaf becomes a :class:`Shards` of its
-    pieces, one per rank on that rank's device; the embedding and the norms
-    go to rank 0's device.  int8 w1/w2/lm_head leaves (quantized over the
-    global weight) take :data:`Q8_SPECS`, which equals quantizing the
-    placed float tree; int8 attention projections are refused
-    (single-device serving only).  wk/wv split their KV heads, so
-    ``cfg.kv_heads`` must divide by tp."""
-    _check_serving_mesh(mesh, pp)
+    """Place a param tree over ``mesh`` (:func:`param_specs`): each split
+    leaf becomes a :class:`Shards` of its pieces, one per rank on that
+    rank's device (nested for several axes: the layer stack's stages over
+    "pp" when ``pp > 1``, MoE experts over "dp", heads, columns or rows over
+    "tp"); a replicated leaf (the embedding, the norms, the router) is one
+    tensor on the first device of its group.  Every piece owns its storage.
+    int8 w1/w2/lm_head leaves (quantized over the global weight) take
+    :data:`Q8_SPECS`, which equals quantizing the placed float tree; int8
+    attention projections are refused (single-device serving only), and
+    int8 leaves under pp.  wk/wv split their KV heads, so ``cfg.kv_heads``
+    must divide by tp."""
+    _check_q8_pipeline(params, pp)
     tp = mesh.axis_size("tp")
     if cfg.kv_heads % tp:
         raise ValueError(
@@ -369,6 +445,9 @@ def shard_params(params: dict, mesh: Mesh, cfg: TransformerConfig,
             if name not in Q8_SPECS:
                 _check_q8_attn_single_chip({"wq": leaf}, mesh)
             blocks[name] = _place_q8(leaf, mesh, name)
+        elif isinstance(leaf, dict):  # the MoE's leaves
+            blocks[name] = {k: put(v, specs["blocks"][name][k])
+                            for k, v in leaf.items()}
         else:
             blocks[name] = put(leaf, specs["blocks"][name])
     lm = params["lm_head"]
@@ -507,24 +586,48 @@ def _chunk_attention(q, kg, vg, positions):
     return attn.reshape(S, K, H, Dh)
 
 
+def _moe_ffn(p, x, cfg: TransformerConfig):
+    """The MoE FFN over every token of ``x`` (B, L, D) on one device:
+    routing over all B * L of them, the experts' weights cast to the
+    activation dtype (the reference's).  Under a mesh: :func:`_mesh_moe`."""
+    h = rmsnorm(x, p["ln2"])
+    B, L, D = h.shape
+    y, aux = moe_forward(p["moe"], h.reshape(B * L, D), cfg.moe_cfg())
+    return x + y.reshape(B, L, D), aux
+
+
 def ffn_block(p, x, cfg: TransformerConfig, mesh: Optional[Mesh] = None):
-    """Dense FFN with tanh GELU; int8 weights take the int8 kernel.  (The
-    reference also returns a MoE aux loss; the port has no MoE yet.)  With
-    ``mesh``: each rank's w1 columns and w2 rows, the partials summed in
-    float32 (:func:`_tp_ffn`)."""
+    """The FFN sublayer; returns ``(x + ffn, aux)``.  A MoE block
+    (``p["moe"]``) returns its load-balancing aux loss, routed over every
+    token of the call (a decode step's rows, empty slots included); the
+    dense FFN (tanh GELU; int8 weights take the int8 kernel) returns aux
+    0.0.  With ``mesh``: the dense FFN's w1 columns and w2 rows per rank,
+    the partials summed in float32 (:func:`_tp_ffn`); the MoE's experts on
+    their dp groups' ranks (:func:`_mesh_moe`)."""
     if mesh is not None:
+        if "moe" in p:
+            xs, aux = _mesh_moe(p, [x], cfg, _groups(mesh))
+            return xs[0], aux
         return _over_dp(mesh, x.shape[0], lambda devs, rows: _tp_ffn(
-            p, x[rows], cfg, devs))
+            p, x[rows], cfg, devs)), 0.0
+    if "moe" in p:
+        return _moe_ffn(p, x, cfg)
     h = rmsnorm(x, p["ln2"])
     if _is_q8(p["w1"]):
         B, L, D = h.shape
         h1 = _q8_matmul(h.reshape(B * L, D), p["w1"], x.dtype)
         h1 = F.gelu(h1, approximate="tanh")
         out = _q8_matmul(h1, p["w2"], x.dtype).reshape(B, L, D)
-        return x + out
+        return x + out, 0.0
     h1 = torch.einsum("bld,df->blf", h, p["w1"].to(x.dtype))
     h1 = F.gelu(h1, approximate="tanh")
-    return x + torch.einsum("blf,fd->bld", h1, p["w2"].to(x.dtype))
+    return x + torch.einsum("blf,fd->bld", h1, p["w2"].to(x.dtype)), 0.0
+
+
+def block_fn(p, x, positions, cfg: TransformerConfig):
+    """One block on one device: ``(x, aux)``."""
+    x = attention_block(p, x, positions, cfg)
+    return ffn_block(p, x, cfg)
 
 
 def _embed(params: dict, ids, cfg: TransformerConfig):
@@ -549,16 +652,15 @@ def _vocab_proj(x, lm_head, cfg: TransformerConfig,
 # tensor-parallel layers: one controller, each rank's share on its device
 # ----------------------------------------------------------------------
 
-def _over_dp(mesh: Mesh, B: int, fn, kv: bool = False):
-    """``fn(tp devices, rows)`` for each dp group's even share of the B
-    rows, the results concatenated on rows (on group 0's rank-0 device;
-    K/V :class:`Shards` rank by rank).  The groups must share their
-    devices: a dp axis over distinct devices is one engine per group."""
+def _dp_rows(mesh: Mesh, B: int) -> tuple:
+    """The serving mesh's dp groups: each group's tp devices and its even
+    share of the B rows (a slice).  The groups must share their devices: a
+    dp axis over distinct devices is one engine per group."""
     _check_serving_mesh(mesh)
     dp = mesh.axis_size("dp")
     devs = mesh.axis_devices("tp")
     if dp == 1:
-        return fn(devs, slice(None))
+        return [devs], [slice(None)]
     if B % dp:
         raise ValueError(f"batch {B} must divide by dp {dp}")
     for d in range(1, dp):
@@ -567,7 +669,16 @@ def _over_dp(mesh: Mesh, B: int, fn, kv: bool = False):
                 "a dp axis over distinct devices: serve one engine per dp "
                 "group")
     n = B // dp
-    outs = [fn(devs, slice(d * n, (d + 1) * n)) for d in range(dp)]
+    return [devs] * dp, [slice(d * n, (d + 1) * n) for d in range(dp)]
+
+
+def _over_dp(mesh: Mesh, B: int, fn, kv: bool = False):
+    """``fn(tp devices, rows)`` for each dp group (:func:`_dp_rows`), the
+    results concatenated on rows (on group 0's rank-0 device; K/V
+    :class:`Shards` rank by rank)."""
+    outs = [fn(devs, rows) for devs, rows in zip(*_dp_rows(mesh, B))]
+    if len(outs) == 1:
+        return outs[0]
     if not kv:
         return torch.cat(outs, dim=0)
     xs = torch.cat([o[0] for o in outs], dim=0)
@@ -578,88 +689,125 @@ def _over_dp(mesh: Mesh, B: int, fn, kv: bool = False):
     return xs, (ks, vs)
 
 
+def _norm_gather(xg, scale, devs: list) -> list:
+    """One dp group's residual normed and whole on every tp rank: sequence
+    shards (a list) are normed shard by shard and all-gathered on the
+    sequence; a whole residual is normed once and copied."""
+    if isinstance(xg, list):
+        return all_gather([rmsnorm(x, scale.to(x.device)) for x in xg],
+                          dim=1)
+    h = rmsnorm(xg, scale.to(xg.device))
+    return [h.to(d) for d in devs]
+
+
+def _add_partials(xg, partials: list):
+    """The residual plus the row-parallel partials' float32 sum, split back
+    onto the sequence shards (reduce-scatter) or added whole."""
+    if isinstance(xg, list):
+        return [x + piece for x, piece in zip(
+            xg, psum_scatter(partials, dim=1, dtype=xg[0].dtype))]
+    return xg + psum(partials, dtype=xg.dtype)[0].to(xg.device)
+
+
 def _rank_qkv(p, h, positions, cfg: TransformerConfig, devs: list):
     """Each rank's post-rope q (B, L, H/tp, Dh) and k, v (B, L, Hkv/tp,
-    Dh) of its heads, on its device."""
+    Dh) of its heads, on its device.  ``h`` is one tensor, or one per rank
+    (an all-gather's)."""
     tp = len(devs)
     H, Hk, Dh = cfg.n_heads // tp, cfg.kv_heads // tp, cfg.d_head
     out = []
     for r, dev in enumerate(devs):
-        hr, pr = h.to(dev), positions.to(dev)
-        q = _attn_proj(hr, _part(p["wq"], r, dev), H, Dh, h.dtype)
-        k = _attn_proj(hr, _part(p["wk"], r, dev), Hk, Dh, h.dtype)
-        v = _attn_proj(hr, _part(p["wv"], r, dev), Hk, Dh, h.dtype)
+        hr = (h[r] if isinstance(h, list) else h).to(dev)
+        pr = positions.to(dev)
+        q = _attn_proj(hr, _part(p["wq"], r, dev), H, Dh, hr.dtype)
+        k = _attn_proj(hr, _part(p["wk"], r, dev), Hk, Dh, hr.dtype)
+        v = _attn_proj(hr, _part(p["wv"], r, dev), Hk, Dh, hr.dtype)
         out.append((rope(q, pr, cfg.rope_theta), rope(k, pr, cfg.rope_theta),
                     v, pr))
     return out
 
 
 def _tp_attn_out(p, x, attns: list, devs: list):
-    """``x`` plus the row-parallel output projection: each rank's heads
-    through its wo rows, the partials summed (:func:`psum`)."""
-    partials = [_attn_out(a.to(x.dtype), _part(p["wo"], r, dev), x.dtype)
-                for r, (a, dev) in enumerate(zip(attns, devs))]
-    return x + psum(partials)[0].to(x.device)
+    """``x`` (a tensor, or its sequence shards) plus the row-parallel output
+    projection: each rank's heads through its wo rows, the partials summed
+    (:func:`_add_partials`)."""
+    dt = (x[0] if isinstance(x, list) else x).dtype
+    return _add_partials(x, [
+        _attn_out(a.to(dt), _part(p["wo"], r, dev), dt)
+        for r, (a, dev) in enumerate(zip(attns, devs))])
+
+
+def _rank_attention(qkv: list, cfg: TransformerConfig, devs: list) -> list:
+    """Each rank's attention over its heads (K3 under ``use_flash``), or
+    under ``cfg.attention == "ring"`` (tp > 1): q/k/v from head to sequence
+    shards (all-to-all), ring attention over the ranks with the K/V at
+    kv_heads, and the output back to head shards."""
+    if cfg.attention == "ring" and len(devs) > 1:
+        # heads -> sequence: rank r holds every head of sequence block r
+        q_seq = all_to_all([q for q, _, _, _ in qkv], 1, 2)
+        k_seq = all_to_all([k for _, k, _, _ in qkv], 1, 2)
+        v_seq = all_to_all([v for _, _, v, _ in qkv], 1, 2)
+        out_seq = ring_attention(q_seq, k_seq, v_seq, causal=True,
+                                 kv_chunk=cfg.ring_kv_chunk,
+                                 n_rep=cfg.n_heads // cfg.kv_heads)
+        return all_to_all(out_seq, 2, 1)  # sequence -> heads
+    if cfg.use_flash:
+        return [flash_attention(q, k, v, causal=True) for q, k, v, _ in qkv]
+    return [dense_attention(q, _expand_kv(k, cfg), _expand_kv(v, cfg),
+                            causal=True) for q, k, v, _ in qkv]
 
 
 def _tp_attention(p, x, positions, cfg: TransformerConfig, devs: list,
                   return_kv: bool):
-    """The attention sublayer over ``devs`` (one dp group's tp ranks).
+    """The attention sublayer over ``devs`` (one dp group's tp ranks);
+    ``x`` is one tensor on the first rank, or its sequence shards, one a
+    rank (Megatron sequence parallelism: normed shard by shard, gathered,
+    the output reduce-scattered back).
     Dense: each rank attends over its heads (K3 under ``use_flash``).
     Ring (``cfg.attention == "ring"``, tp > 1): q/k/v move from head to
     sequence shards (all-to-all), ring attention runs over the ranks with
     the K/V at kv_heads, and the output moves back to head shards; the K/V
     for the cache stay head shards throughout."""
     _check_q8_attn_single_chip(p, devs)
-    h = rmsnorm(x, p["ln1"].to(x.device))
-    qkv = _rank_qkv(p, h, positions, cfg, devs)
+    qkv = _rank_qkv(p, _norm_gather(x, p["ln1"], devs), positions, cfg, devs)
     ks = Shards([k for _, k, _, _ in qkv], 2)
     vs = Shards([v for _, _, v, _ in qkv], 2)
-    if cfg.attention == "ring" and len(devs) > 1:
-        # heads -> sequence: rank r holds every head of sequence block r
-        q_seq = all_to_all([q for q, _, _, _ in qkv], 1, 2)
-        k_seq = all_to_all(ks, 1, 2)
-        v_seq = all_to_all(vs, 1, 2)
-        out_seq = ring_attention(q_seq, k_seq, v_seq, causal=True,
-                                 kv_chunk=cfg.ring_kv_chunk,
-                                 n_rep=cfg.n_heads // cfg.kv_heads)
-        attns = all_to_all(out_seq, 2, 1)  # sequence -> heads
-    elif cfg.use_flash:
-        attns = [flash_attention(q, k, v, causal=True)
-                 for q, k, v, _ in qkv]
-    else:
-        attns = [dense_attention(q, _expand_kv(k, cfg), _expand_kv(v, cfg),
-                                 causal=True) for q, k, v, _ in qkv]
-    out = _tp_attn_out(p, x, attns, devs)
+    out = _tp_attn_out(p, x, _rank_attention(qkv, cfg, devs), devs)
     if return_kv:
         return out, (ks, vs)
     return out
 
 
-def _tp_ffn(p, x, cfg: TransformerConfig, devs: list):
-    """Each rank's w1 columns, GELU and w2 rows; the row-parallel partials
-    summed in float32 and cast (int8: K1 per rank, its w2 input quantized
-    per row over the rank's own hidden shard, as the reference's
-    ``_q8_ffn_local``)."""
-    h = rmsnorm(x, p["ln2"].to(x.device))
-    B, L, D = h.shape
+def _ffn_partials(p, h, cfg: TransformerConfig, devs: list) -> list:
+    """Each rank's w1 columns, GELU and w2 rows: the row-parallel partials
+    (int8: K1 per rank, its w2 input quantized per row over the rank's own
+    hidden shard, as the reference's ``_q8_ffn_local``, partials in
+    float32).  ``h`` is one tensor, or one per rank."""
+    B, L, D = (h[0] if isinstance(h, list) else h).shape
     partials = []
     for r, dev in enumerate(devs):
-        hr = h.to(dev)
+        hr = (h[r] if isinstance(h, list) else h).to(dev)
         if _is_q8(p["w1"]):
             h1 = _q8_matmul(hr.reshape(B * L, D), _part(p["w1"], r, dev),
-                            x.dtype)
+                            hr.dtype)
             h1 = F.gelu(h1, approximate="tanh")
             partials.append(_q8_matmul(h1, _part(p["w2"], r, dev),
-                                       torch.float32))
+                                       torch.float32).reshape(B, L, D))
         else:
             h1 = torch.einsum("bld,df->blf", hr,
-                              _part(p["w1"], r, dev).to(x.dtype))
+                              _part(p["w1"], r, dev).to(hr.dtype))
             h1 = F.gelu(h1, approximate="tanh")
             partials.append(torch.einsum(
-                "blf,fd->bld", h1, _part(p["w2"], r, dev).to(x.dtype)))
-    out = psum(partials, dtype=x.dtype)[0].to(x.device)
-    return x + out.reshape(B, L, D)
+                "blf,fd->bld", h1, _part(p["w2"], r, dev).to(hr.dtype)))
+    return partials
+
+
+def _tp_ffn(p, x, cfg: TransformerConfig, devs: list):
+    """The dense FFN sublayer over one dp group's tp ranks (``x`` as
+    :func:`_tp_attention` takes it): the row-parallel partials summed in
+    float32 and cast."""
+    return _add_partials(x, _ffn_partials(
+        p, _norm_gather(x, p["ln2"], devs), cfg, devs))
 
 
 def _tp_vocab(x, lm_head, cfg: TransformerConfig, devs: list):
@@ -677,6 +825,219 @@ def _tp_vocab(x, lm_head, cfg: TransformerConfig, devs: list):
     return all_gather(parts, dim=-1)[0].to(x.device)
 
 
+# ----------------------------------------------------------------------
+# training: the forward over a mesh, the loss, the train step
+# ----------------------------------------------------------------------
+
+def _groups(mesh: Mesh, stage: int = 0) -> list:
+    """The tp devices of each dp group at pipeline stage ``stage``."""
+    return [mesh.axis_devices("tp", dp=g, pp=stage)
+            for g in range(mesh.axis_size("dp"))]
+
+
+def _mesh_moe(p, xs: list, cfg: TransformerConfig, groups: list):
+    """The MoE sublayer over every dp group's rows at once (the reference's
+    routing covers the global batch): the groups' normed rows meet on the
+    first device, the experts run on their groups' ranks, and each group
+    takes its rows of the output back (its sequence shards)."""
+    dev0 = groups[0][0]
+    scale = p["ln2"]
+    hs = []
+    for xg in xs:
+        if isinstance(xg, list):
+            hs.append(torch.cat([rmsnorm(x, scale.to(x.device)).to(dev0)
+                                 for x in xg], dim=1))
+        else:
+            hs.append(rmsnorm(xg, scale.to(xg.device)).to(dev0))
+    h = torch.cat(hs, dim=0)
+    B, L, D = h.shape
+    y, aux = moe_forward(p["moe"], h.reshape(B * L, D), cfg.moe_cfg(),
+                         groups=groups)
+    ys = torch.chunk(y.reshape(B, L, D), len(xs), dim=0)
+    out = []
+    for xg, yg in zip(xs, ys):
+        if isinstance(xg, list):
+            out.append([x + c.to(x.device) for x, c in
+                        zip(xg, torch.chunk(yg, len(xg), dim=1))])
+        else:
+            out.append(xg + yg.to(xg.device))
+    return out, aux
+
+
+def _mesh_ffn(p, xs: list, cfg: TransformerConfig, groups: list):
+    """The FFN sublayer over every dp group's rows ``xs``: ``(xs, aux)``.
+    A MoE routes every group's rows together (:func:`_mesh_moe`); the dense
+    FFN runs group by group (:func:`_tp_ffn`)."""
+    if "moe" in p:
+        return _mesh_moe(p, xs, cfg, groups)
+    return [_tp_ffn(p, xg, cfg, devs) for xg, devs in zip(xs, groups)], 0.0
+
+
+def _mesh_block(p, xs: list, positions, cfg: TransformerConfig,
+                groups: list):
+    """One block over every dp group: ``(xs, aux)``."""
+    return _mesh_ffn(p, [_tp_attention(p, xg, positions, cfg, devs, False)
+                         for xg, devs in zip(xs, groups)], cfg, groups)
+
+
+def _mesh_layers(blocks: dict, x, positions, cfg: TransformerConfig,
+                 mesh: Mesh, stage: int = 0):
+    """The layers of ``blocks`` over stage ``stage``'s ranks: ``x`` (B, L,
+    D) split over the dp groups (and over each group's tp ranks on the
+    sequence under ``cfg.seq_shard``), every layer run, the result
+    gathered back onto the stage's first device.  Returns ``(x, aux)``."""
+    groups = _groups(mesh, stage)
+    dp, tp = len(groups), len(groups[0])
+    B, L, _ = x.shape
+    if B % dp:
+        raise ValueError(f"batch {B} must divide by dp {dp}")
+    sp = cfg.seq_shard and tp > 1
+    if sp and L % tp:
+        raise ValueError(f"sequence {L} must divide by tp {tp} under "
+                         "seq_shard")
+    xs = []
+    for xg, devs in zip(torch.chunk(x, dp, dim=0), groups):
+        xs.append([c.to(d) for c, d in zip(torch.chunk(xg, tp, dim=1), devs)]
+                  if sp else xg.to(devs[0]))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(blocks["ln1"].shape[0]):  # the stage's layers
+        p = _layer_params(blocks, i)
+
+        def block(xs, p=p):
+            return _mesh_block(p, xs, positions, cfg, groups)
+
+        xs, a = (torch.utils.checkpoint.checkpoint(block, xs,
+                                                   use_reentrant=False)
+                 if cfg.remat else block(xs))
+        aux = aux + a
+    dev0 = groups[0][0]
+    return torch.cat([torch.cat([t.to(dev0) for t in xg], dim=1) if sp
+                      else xg.to(dev0) for xg in xs], dim=0), aux
+
+
+def _mesh_vocab(x, lm_head, cfg: TransformerConfig, mesh: Mesh):
+    """The vocabulary projection per dp group, each rank's columns
+    all-gathered."""
+    groups = _groups(mesh)
+    return torch.cat([_tp_vocab(xg, lm_head, cfg, devs) for xg, devs in
+                      zip(torch.chunk(x, len(groups), dim=0), groups)],
+                     dim=0)
+
+
+def forward(params: dict, input_ids, cfg: TransformerConfig,
+            mesh: Optional[Mesh] = None, pp: int = 1,
+            n_microbatches: int = 1):
+    """Logits ``[B, L, V]`` in float32 and the MoE aux loss summed over
+    the layers (0 for a dense model, and 0 when pp > 1: the pipeline
+    carries activations only, as the reference's).
+
+    Without ``mesh`` the layers run on the params' device (int8 leaves
+    included).  With ``mesh`` (params placed by :func:`shard_params` with
+    the same ``pp``) the module docstring's layout; ``pp > 1`` runs the
+    stages through the GPipe schedule with ``n_microbatches``.  Under
+    ``cfg.remat`` each block is recomputed in the backward."""
+    _check_q8_pipeline(params, pp)
+    ids = torch.as_tensor(input_ids)
+    x = _embed(params, ids.to(params["embed"].device), cfg)
+    B, L = ids.shape
+    positions = torch.arange(L, device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mesh is None:
+        for i in range(cfg.n_layers):
+            p = _layer_params(params["blocks"], i)
+
+            def block(x, p=p):
+                return block_fn(p, x, positions, cfg)
+
+            x, a = (torch.utils.checkpoint.checkpoint(block, x,
+                                                      use_reentrant=False)
+                    if cfg.remat else block(x))
+            aux = aux + a
+        x = rmsnorm(x, params["ln_f"])
+        return _vocab_proj(x, params["lm_head"], cfg).float(), aux
+    if pp > 1:
+        if cfg.attention == "ring":
+            raise ValueError(
+                "attention='ring' cannot run inside the pp pipeline (nested "
+                "manual shard_map is unsupported by Shardy); use "
+                "seq_shard=True with attention='dense', or pp=1")
+
+        def stage(p_local, act, s):
+            # the stage drops its aux (the reference's ``y, _ = block_fn``)
+            return _mesh_layers(p_local, act, positions.to(act.device), cfg,
+                                mesh, s)[0]
+
+        x = pipeline_apply(stage, params["blocks"], x, mesh,
+                           n_microbatches=n_microbatches)
+    else:
+        x, aux = _mesh_layers(params["blocks"], x, positions, cfg, mesh)
+    x = rmsnorm(x, params["ln_f"].to(x.device))
+    return _mesh_vocab(x, params["lm_head"], cfg, mesh).float(), aux
+
+
+def lm_loss(params, batch: dict, cfg: TransformerConfig,
+            mesh: Optional[Mesh] = None, pp: int = 1,
+            n_microbatches: int = 1, aux_weight: float = 0.01):
+    """Next-token cross-entropy: ``batch`` holds ``input_ids`` [B, L],
+    ``targets`` [B, L] and optionally ``mask`` [B, L] (1 = a real token).
+    The log-softmax in float32, each target's log-probability, the mean
+    over the masked tokens of the whole batch (over ``max(mask.sum(),
+    1)``), plus ``aux_weight * aux``."""
+    logits, aux = forward(params, batch["input_ids"], cfg, mesh, pp,
+                          n_microbatches)
+    logp = torch.log_softmax(logits, dim=-1)
+    tgt = torch.as_tensor(batch["targets"]).to(logp.device).long()
+    nll = -logp.gather(-1, tgt[..., None])[..., 0]
+    mask = batch.get("mask")
+    mask = (torch.ones_like(nll) if mask is None
+            else torch.as_tensor(mask).to(nll.device, nll.dtype))
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + aux_weight * aux.to(loss.device)
+
+
+def param_leaves(tree) -> list:
+    """Every tensor of a param tree (placed pieces included), in a fixed
+    order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in param_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in param_leaves(v)]
+    return []
+
+
+def make_train_step(cfg: TransformerConfig, mesh: Optional[Mesh] = None,
+                    pp: int = 1, n_microbatches: int = 1,
+                    learning_rate: float = 1e-3):
+    """Returns ``(init_opt, step)``.  ``init_opt(params)`` makes every leaf
+    require grad and returns ``torch.optim.AdamW`` over them with optax
+    ``adamw``'s defaults and the reference's decay (betas (0.9, 0.999),
+    eps 1e-8, weight decay 0.01 on every leaf).  ``step(params, opt_state,
+    batch)`` returns ``(params, opt_state, loss)``: the loss before the
+    update (``jax.value_and_grad``'s), params updated in place (the
+    reference donates them)."""
+    def init_opt(params):
+        leaves = param_leaves(params)
+        for t in leaves:
+            if not t.is_floating_point():
+                raise ValueError("int8-quantized params cannot train")
+            t.requires_grad_(True)
+        return torch.optim.AdamW(leaves, lr=learning_rate,
+                                 betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=0.01)
+
+    def step(params, opt_state, batch):
+        opt_state.zero_grad(set_to_none=True)
+        with torch.inference_mode(False), torch.enable_grad():
+            loss = lm_loss(params, batch, cfg, mesh, pp, n_microbatches)
+            loss.backward()
+        opt_state.step()
+        return params, opt_state, loss.detach()
+
+    return init_opt, step
+
+
 def prefill(params, input_ids, cfg: TransformerConfig, max_len: int,
             logit_pos=None, mesh: Optional[Mesh] = None):
     """One forward over the whole prompt that also returns its KV cache.
@@ -692,6 +1053,8 @@ def prefill(params, input_ids, cfg: TransformerConfig, max_len: int,
     ``cfg.attention == "ring"``) and the cache's K/V are :class:`Shards`
     split on their head axis, the layout of :func:`init_cache`'s.
     """
+    if mesh is not None:
+        _check_serving_mesh(mesh)
     B, L = input_ids.shape
     x = _embed(params, input_ids, cfg)
     positions = torch.arange(L, device=x.device)[None, :]
@@ -700,7 +1063,7 @@ def prefill(params, input_ids, cfg: TransformerConfig, max_len: int,
         p = _layer_params(params["blocks"], i)
         x, (k, v) = attention_block(p, x, positions, cfg, return_kv=True,
                                     mesh=mesh)
-        x = ffn_block(p, x, cfg, mesh=mesh)
+        x, _ = ffn_block(p, x, cfg, mesh=mesh)
         ks.append(k)
         vs.append(v)
     x = rmsnorm(x, params["ln_f"])
@@ -761,31 +1124,48 @@ def _kv_rows(kv, rows) -> Shards:
     return Shards([t[:, rows] for t in kv], kv.dim)
 
 
-def _tp_decode(params, ck: Shards, cv: Shards, token_ids, pos,
-               cfg: TransformerConfig, devs: list):
-    """:func:`decode_step`'s layers over one dp group's tp ranks: each rank
-    writes its KV heads' new rows and attends over its heads."""
+def _tp_decode(params, cache, token_ids, pos, cfg: TransformerConfig,
+               mesh: Mesh):
+    """:func:`decode_step`'s layers over the mesh, layer by layer over
+    every dp group: each group's tp ranks write their KV heads' new rows
+    and attend over their heads; the FFN takes every group's rows at once
+    (:func:`_mesh_ffn`: a MoE routes every row of the call)."""
     B, K = token_ids.shape
-    x = _embed(params, token_ids, cfg).to(devs[0])
-    positions = pos.to(x.device)[:, None] + torch.arange(
-        K, device=x.device)[None, :]
-    rows = torch.arange(B, device=x.device)[:, None]
+    groups, parts = _dp_rows(mesh, B)
+    xs, steps = [], []
+    for devs, rows in zip(groups, parts):
+        x = _embed(params, token_ids[rows], cfg).to(devs[0])
+        positions = pos[rows].to(x.device)[:, None] + torch.arange(
+            K, device=x.device)[None, :]
+        xs.append(x)
+        steps.append((_kv_rows(cache["k"], rows), _kv_rows(cache["v"], rows),
+                      positions,
+                      torch.arange(x.shape[0], device=x.device)[:, None]))
     for i in range(cfg.n_layers):
         p = _layer_params(params["blocks"], i)
-        _check_q8_attn_single_chip(p, devs)
-        h = rmsnorm(x, p["ln1"].to(x.device))
-        attns = []
-        for r, (q, k, v, pr) in enumerate(_rank_qkv(p, h, positions, cfg,
-                                                     devs)):
-            kc, vc = ck[r][i], cv[r][i]  # (B, T, Hkv/tp, Dh) views
-            rr = rows.to(kc.device)
-            kc[rr, pr] = k.to(kc.dtype)
-            vc[rr, pr] = v.to(vc.dtype)
-            attns.append(_chunk_attention(q, kc, vc, pr))
-        x = _tp_attn_out(p, x, attns, devs)
-        x = _tp_ffn(p, x, cfg, devs)
-    x = rmsnorm(x, params["ln_f"].to(x.device))
-    return _tp_vocab(x, params["lm_head"], cfg, devs).float()
+        for g, (devs, (ck, cv, positions, rows)) in enumerate(zip(groups,
+                                                                   steps)):
+            _check_q8_attn_single_chip(p, devs)
+            h = rmsnorm(xs[g], p["ln1"].to(xs[g].device))
+            attns = []
+            for r, (q, k, v, pr) in enumerate(_rank_qkv(p, h, positions, cfg,
+                                                         devs)):
+                kc, vc = ck[r][i], cv[r][i]  # (B, T, Hkv/tp, Dh) views
+                rr = rows.to(kc.device)
+                kc[rr, pr] = k.to(kc.dtype)
+                vc[rr, pr] = v.to(vc.dtype)
+                attns.append(_chunk_attention(q, kc, vc, pr))
+            xs[g] = _tp_attn_out(p, xs[g], attns, devs)
+        xs, _ = _mesh_ffn(p, xs, cfg, groups)
+    return _tp_logits(params, xs, cfg, groups)
+
+
+def _tp_logits(params, xs: list, cfg: TransformerConfig, groups: list):
+    """The final norm and the vocabulary projection of every dp group's
+    rows, concatenated on rows in float32."""
+    return torch.cat([_tp_vocab(rmsnorm(x, params["ln_f"].to(x.device)),
+                                params["lm_head"], cfg, devs).float()
+                      for x, devs in zip(xs, groups)], dim=0)
 
 
 def decode_step(params, cache, token_ids, cfg: TransformerConfig,
@@ -810,9 +1190,7 @@ def decode_step(params, cache, token_ids, cfg: TransformerConfig,
         raise ValueError(f"chunk of {K} tokens exceeds cache length {T}")
     pos = cache["pos"].to(token_ids.device).long()
     if mesh is not None:
-        logits = _over_dp(mesh, B, lambda devs, rows: _tp_decode(
-            params, _kv_rows(cache["k"], rows), _kv_rows(cache["v"], rows),
-            token_ids[rows], pos[rows], cfg, devs))
+        logits = _tp_decode(params, cache, token_ids, pos, cfg, mesh)
         out = {"k": cache["k"], "v": cache["v"],
                "pos": (pos + K).to(torch.int32)}
         return (logits[:, 0, :] if single else logits), out
@@ -833,7 +1211,7 @@ def decode_step(params, cache, token_ids, cfg: TransformerConfig,
         vc[rows, positions] = v.to(vc.dtype)
         attn = _chunk_attention(q, kc, vc, positions)
         x = x + _attn_out(attn, p["wo"], x.dtype)
-        x = ffn_block(p, x, cfg)
+        x, _ = ffn_block(p, x, cfg)
     x = rmsnorm(x, params["ln_f"])
     logits = _vocab_proj(x, params["lm_head"], cfg).float()
     out = {"k": cache["k"], "v": cache["v"],

@@ -1,8 +1,13 @@
-"""Flash attention forward (port of ``seldon_core_tpu/ops/attention.py``).
+"""Flash attention (port of ``seldon_core_tpu/ops/attention.py``).
 
 :func:`flash_attention` dispatches on the device of ``q``: a CUDA tensor
 launches kernel K3 (``csrc/flash_attention.cu``, :func:`flash_attention_cuda`)
 or raises; a CPU tensor takes the plain version :func:`flash_attention_ref`.
+Both go through one ``torch.autograd.Function`` (:class:`FlashAttention`),
+whose backward is the reference's (``_flash_blhd_bwd``): the vjp of dense
+attention recomputed on the saved q, k, v, the GQA expansion included.  The
+kernel itself writes into a fresh tensor from C, which autograd cannot see
+into; the Function is what gives wq/wk/wv their gradients.
 
 Layout is the flagship transformer's ``(batch, seq, heads, d_head)``.  K/V
 may carry fewer heads than q (grouped-query attention, ``H % Hkv == 0``):
@@ -12,9 +17,8 @@ reference's numbers, which expands before its kernel.
 
 The kernel covers every sequence length (masked edges), so nothing here
 calls the reference's block fitting (:func:`_fit_block`); it is kept, with
-the reference's name and rule, so a reader finds its counterpart.  Forward
-only: the dense-recompute backward comes
-with the training slice.
+the reference's name and rule, so a reader finds its counterpart.  There
+is no backward kernel, as the reference has none.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from seldon_core_tpu_torch.ops import _build, cost, launches
 from seldon_core_tpu_torch.parallel.ring_attention import dense_attention
 
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_cuda",
-           "flash_variant", "MMA_HEAD_DIMS", "NEG_INF"]
+           "flash_variant", "FlashAttention", "MMA_HEAD_DIMS", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -100,20 +104,42 @@ def flash_attention_cuda(q, k, v, causal: bool = True,
 launches.register("flash_attention", flash_attention_cuda)
 
 
-def flash_attention(q, k, v, causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Flash attention on ``(batch, seq, heads, d_head)`` tensors.  A
-    cost count (``ops/cost.py``) takes the reference kernel's
-    ``pl.CostEstimate`` for the call: ``4·BH·L²·D`` FLOPs and
-    ``4·BH·L·D·itemsize`` bytes, BH = batch x heads."""
-    B, L, H, D = q.shape
-    with cost.kernel(4 * B * H * L * L * D,
-                     4 * B * H * L * D * q.element_size()):
+class FlashAttention(torch.autograd.Function):
+    """K3 forward (its plain version on the CPU), dense-recompute backward:
+    the gradient of :func:`flash_attention_ref` at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
         if q.is_cuda:
             return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                         v.contiguous(), causal=causal,
                                         scale=scale)
         return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+            out = flash_attention_ref(qd, kd, vd, causal=ctx.causal,
+                                      scale=ctx.scale)
+            gq, gk, gv = torch.autograd.grad(out, (qd, kd, vd), g)
+        return gq, gk, gv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention on ``(batch, seq, heads, d_head)`` tensors,
+    differentiable (:class:`FlashAttention`).  A cost count
+    (``ops/cost.py``) takes the reference kernel's ``pl.CostEstimate`` for
+    the call: ``4·BH·L²·D`` FLOPs and ``4·BH·L·D·itemsize`` bytes, BH =
+    batch x heads."""
+    B, L, H, D = q.shape
+    with cost.kernel(4 * B * H * L * L * D,
+                     4 * B * H * L * D * q.element_size()):
+        return FlashAttention.apply(q, k, v, causal, scale)
 
 
 def _fit_block(L: int, want: int) -> Optional[int]:

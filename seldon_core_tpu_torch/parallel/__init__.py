@@ -1,6 +1,6 @@
-"""Parallelism primitives: mesh planning, the mesh's collectives and ring
-attention (port of ``seldon_core_tpu/parallel/``).  The MoE dispatch and
-the pipeline schedule come with the training slice."""
+"""Parallelism primitives: mesh planning and the mesh's collectives, plus
+the three sharded building blocks, the pipeline schedule, the MoE dispatch
+and ring attention (port of ``seldon_core_tpu/parallel/``)."""
 
 from seldon_core_tpu_torch.parallel.mesh import (
     AXIS_ORDER,
@@ -18,8 +18,20 @@ from seldon_core_tpu_torch.parallel.mesh import (
     ppermute,
     pspec,
     psum,
+    psum_scatter,
     single_axis_mesh,
     unshard,
+)
+from seldon_core_tpu_torch.parallel.moe import (
+    MoEConfig,
+    init_moe_params,
+    moe_capacity,
+    moe_forward,
+    moe_param_specs,
+)
+from seldon_core_tpu_torch.parallel.pipeline import (
+    pipeline_apply,
+    stack_stage_params,
 )
 from seldon_core_tpu_torch.parallel.ring_attention import (
     dense_attention,
@@ -32,20 +44,28 @@ __all__ = [
     "Mesh",
     "MeshPlan",
     "MeshPlanError",
+    "MoEConfig",
     "NamedSharding",
     "Shards",
     "all_gather",
     "all_to_all",
     "dense_attention",
+    "init_moe_params",
     "make_mesh",
+    "moe_capacity",
+    "moe_forward",
+    "moe_param_specs",
     "named_sharding",
+    "pipeline_apply",
     "place",
     "plan_mesh",
     "ppermute",
     "pspec",
     "psum",
+    "psum_scatter",
     "ring_attention",
     "ring_attention_sharded",
     "single_axis_mesh",
+    "stack_stage_params",
     "unshard",
 ]

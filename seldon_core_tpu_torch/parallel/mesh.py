@@ -12,14 +12,22 @@ card, which run one after the other on its stream.
 
 A tensor split over a mesh axis is a :class:`Shards`: one tensor per rank of
 the axis, on that rank's device, the pieces of the global tensor along
-``dim`` (or whole copies when ``dim`` is None).  :func:`pspec` and
-:func:`named_sharding` name the split as the reference's ``PartitionSpec``
-and ``NamedSharding`` do; :func:`place` applies it.
+``dim`` (or whole copies when ``dim`` is None).  A tensor split over several
+axes nests them, "pp" outermost, then "dp", then "tp" (a pipelined expert
+weight: its stages, each stage's expert groups, each group's tp pieces).
+:func:`pspec` and :func:`named_sharding` name the split as the reference's
+``PartitionSpec`` and ``NamedSharding`` do; :func:`place` applies it.  Every
+placed piece owns its storage, so each is a leaf an optimizer can update in
+place; a leaf the spec replicates stays ONE tensor (on the first device of
+its group), and whoever computes with it on another rank copies it there
+with ``.to()``, so autograd sums that rank's gradient into the one leaf.
 
 The collectives act on the ranks of one axis, in rank order:
 
 - :func:`psum`: the partials summed in float32 on rank 0's device, in rank
   order, cast, and copied back to every rank's device;
+- :func:`psum_scatter`: the same sum split along a dim, rank ``r`` keeping
+  piece ``r`` (Megatron's reduce-scatter back to sequence shards);
 - :func:`all_gather`: the pieces concatenated on rank 0's device, copied back;
 - :func:`ppermute`: a ring shift, rank ``r`` receiving rank ``r - 1``'s;
 - :func:`all_to_all`: each rank's tensor split in ``n`` along ``split_dim``,
@@ -42,8 +50,8 @@ import torch
 __all__ = [
     "AXIS_ORDER", "Mesh", "MeshPlan", "MeshPlanError", "NamedSharding",
     "Shards", "all_gather", "all_to_all", "make_mesh", "named_sharding",
-    "place", "plan_mesh", "ppermute", "psum", "pspec", "single_axis_mesh",
-    "unshard",
+    "place", "plan_mesh", "ppermute", "psum", "psum_scatter", "pspec",
+    "single_axis_mesh", "unshard",
 ]
 
 AXIS_ORDER = ("dp", "pp", "tp")
@@ -228,67 +236,113 @@ def named_sharding(mesh: Mesh, *axes) -> NamedSharding:
 
 
 class Shards(list):
-    """One tensor per rank of a mesh axis, rank ``r``'s on that rank's
-    device: the pieces of a global tensor split evenly along ``dim``, or
-    whole copies when ``dim`` is None."""
+    """One tensor per rank of mesh axis ``axis``, rank ``r``'s on that
+    rank's device: the pieces of a global tensor split evenly along
+    ``dim``, or whole copies when ``dim`` is None.  A piece may itself be a
+    :class:`Shards` over an inner axis (module docstring)."""
 
-    def __init__(self, parts, dim: Optional[int]):
+    def __init__(self, parts, dim: Optional[int], axis: str = "tp"):
         super().__init__(parts)
         self.dim = dim
+        self.axis = axis
 
     def map(self, fn, *others) -> "Shards":
         """``fn`` on each rank's tensor (and the same rank of ``others``),
-        keeping ``dim``."""
-        return Shards([fn(*xs) for xs in zip(self, *others)], self.dim)
+        keeping ``dim`` and ``axis``."""
+        return Shards([fn(*xs) for xs in zip(self, *others)], self.dim,
+                      self.axis)
+
+
+def _owned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in storage of its own (a chunk along dim 0 is a view of the
+    whole tensor's)."""
+    return t.clone() if t.untyped_storage().nbytes() > t.nbytes else t
+
+
+#: the nesting order of a tensor split over several axes, outermost first
+NEST_ORDER = ("pp", "dp", "tp")
 
 
 def place(x: torch.Tensor, sharding: NamedSharding, layout=None, **at):
-    """``x`` placed as ``sharding`` says over "tp": a :class:`Shards` of the
-    pieces along the dim the spec gives "tp" (even splits only), or ``x`` on
-    the axis's first device when the spec does not name it.
-    ``layout`` (a function of a tensor) is applied to each piece, for
-    example ``ops.quant.k_major``; ``at`` gives the other axes'
-    coordinates of the "tp" group (0 where not given)."""
-    spec, axis = sharding.spec, "tp"
-    devs = sharding.mesh.axis_devices(axis, **at)
-    n = len(devs)
+    """``x`` placed as ``sharding`` says: for each axis the spec names, in
+    :data:`NEST_ORDER`, a :class:`Shards` of the pieces along that axis's
+    dim (even splits only), each piece placed over the remaining axes at
+    its coordinate; ``x`` on the group's first device when the spec names
+    no axis.  ``layout`` (a function of a tensor) is applied to each
+    piece, for example ``ops.quant.k_major``; ``at`` gives the coordinates
+    of the axes the spec does not name (0 where not given).  Every piece
+    owns its storage."""
+    spec, mesh = sharding.spec, sharding.mesh
     layout = layout or (lambda t: t)
-    if axis not in spec:
-        return layout(x.to(devs[0]))
-    dim = spec.index(axis)
-    if x.shape[dim] % n:
-        raise MeshPlanError(
-            f"dim {dim} of size {x.shape[dim]} does not split over {axis}={n}")
-    return Shards([layout(p.to(d).contiguous())
-                   for p, d in zip(torch.chunk(x, n, dim=dim), devs)], dim)
+    for axis in NEST_ORDER:
+        if axis not in spec:
+            continue
+        dim = spec.index(axis)
+        n = mesh.axis_size(axis)
+        if x.shape[dim] % n:
+            raise MeshPlanError(f"dim {dim} of size {x.shape[dim]} does not "
+                                f"split over {axis}={n}")
+        if axis == "tp":
+            devs = mesh.axis_devices(axis, **at)
+            return Shards([layout(_owned(p.to(d).contiguous()))
+                           for p, d in zip(torch.chunk(x, n, dim=dim), devs)],
+                          dim)
+        rest = NamedSharding(mesh, tuple(None if a == axis else a
+                                         for a in spec))
+        return Shards([place(p, rest, layout, **{**at, axis: i})
+                       for i, p in enumerate(torch.chunk(x, n, dim=dim))],
+                      dim, axis)
+    return layout(_owned(x.to(mesh.axis_devices("tp", **at)[0])))
+
+
+def _first(x):
+    return _first(x[0]) if isinstance(x, Shards) else x
 
 
 def unshard(x, device=None) -> torch.Tensor:
-    """The global tensor of ``x`` on ``device`` (rank 0's by default); a
-    plain tensor is returned as it is (moved to ``device`` when given)."""
+    """The global tensor of ``x`` on ``device`` (its first piece's by
+    default), nested :class:`Shards` included; a plain tensor is returned as
+    it is (moved to ``device`` when given)."""
     if not isinstance(x, Shards):
         return x if device is None else x.to(device)
-    device = x[0].device if device is None else device
+    device = _first(x).device if device is None else device
     if x.dim is None:
-        return x[0].to(device)
-    return torch.cat([p.to(device) for p in x], dim=x.dim)
+        return unshard(x[0], device)
+    return torch.cat([unshard(p, device) for p in x], dim=x.dim)
 
 
 # ----------------------------------------------------------------------
 # collectives over one axis (a Shards' ranks, in order)
 # ----------------------------------------------------------------------
 
+def _sum_f32(parts: Sequence[torch.Tensor], dtype=None) -> torch.Tensor:
+    """The partials summed in float32 on rank 0's device, in rank order,
+    cast to ``dtype`` (the partials' by default)."""
+    dev0 = parts[0].device
+    total = parts[0].float()
+    for p in parts[1:]:
+        total = total + p.to(dev0).float()
+    return total.to(parts[0].dtype if dtype is None else dtype)
+
+
 def psum(parts: Sequence[torch.Tensor], dtype=None) -> Shards:
     """The sum of every rank's partial, in float32 on rank 0's device, in
     rank order, cast to ``dtype`` (the partials' by default) and copied back
     to each rank's device."""
-    dev0 = parts[0].device
-    dtype = parts[0].dtype if dtype is None else dtype
-    total = parts[0].float()
-    for p in parts[1:]:
-        total = total + p.to(dev0).float()
-    total = total.to(dtype)
+    total = _sum_f32(parts, dtype)
     return Shards([total.to(p.device) for p in parts], None)
+
+
+def psum_scatter(parts: Sequence[torch.Tensor], dim: int,
+                 dtype=None) -> list:
+    """:func:`psum`'s sum (float32 on rank 0's device, in rank order, cast)
+    split in ``len(parts)`` even pieces along ``dim``: rank ``r`` receives
+    piece ``r`` on its own device."""
+    pieces = torch.chunk(_sum_f32(parts, dtype), len(parts), dim=dim)
+    if len(pieces) != len(parts):
+        raise ValueError(f"psum_scatter: dim {dim} does not split in "
+                         f"{len(parts)}")
+    return [c.to(p.device) for c, p in zip(pieces, parts)]
 
 
 def all_gather(parts: Sequence[torch.Tensor], dim: int) -> Shards:

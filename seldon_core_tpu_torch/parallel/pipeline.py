@@ -1,0 +1,102 @@
+"""Pipeline parallelism: the GPipe microbatch schedule over a mesh axis
+(port of ``seldon_core_tpu/parallel/pipeline.py``).
+
+The layer stack is split into ``pp`` stages whose parameters carry a
+leading stage dim split over the "pp" axis.  One controller runs the
+schedule the reference compiles into one SPMD program: at tick ``t`` stage
+``s`` takes microbatch ``t - s`` on its devices, and its output moves on to
+stage ``s + 1`` with a ``.to()`` (the reference's ``ppermute``).  The
+reference's bubble ticks compute values it masks away; here they compute
+nothing.  Every step is an out-of-place torch op, so autograd runs back
+through the schedule and the same code trains.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from seldon_core_tpu_torch.parallel.mesh import Mesh, Shards
+
+__all__ = ["pipeline_apply", "stack_stage_params", "stage_slice"]
+
+
+def stage_slice(tree: Any, stage: int, n_stages: int, axis: str = "pp"):
+    """Stage ``stage``'s part of ``tree``: a leaf split over ``axis`` (a
+    :class:`Shards` of stage pieces) gives its piece; any other leaf (a
+    tensor, or a :class:`Shards` over another axis) its slice of the
+    leading dim, which must divide by ``n_stages``."""
+    if isinstance(tree, dict):
+        return {k: stage_slice(v, stage, n_stages, axis)
+                for k, v in tree.items()}
+    if isinstance(tree, Shards):
+        if tree.axis == axis:
+            return tree[stage]
+        return Shards([stage_slice(t, stage, n_stages, axis) for t in tree],
+                      tree.dim, tree.axis)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(stage_slice(t, stage, n_stages, axis)
+                          for t in tree)
+    n = tree.shape[0]
+    if n % n_stages:
+        raise ValueError(f"leading dim {n} does not split over "
+                         f"{axis}={n_stages}")
+    per = n // n_stages
+    return tree[stage * per:(stage + 1) * per]
+
+
+def pipeline_apply(stage_fn: Callable, stage_params: Any, x: torch.Tensor,
+                   mesh: Mesh, n_microbatches: int, axis: str = "pp"
+                   ) -> torch.Tensor:
+    """Run ``x`` through the ``pp`` stages of ``mesh``'s ``axis``.
+
+    - ``stage_params``: a tree whose leaves have a leading stage dim split
+      over ``axis`` (:func:`stage_slice`); stage ``s`` receives its slice.
+    - ``stage_fn(local_params, act, s)`` applies stage ``s``'s layers (the
+      reference's ``stage_fn(local_params, act)`` with the stage index, so
+      the function can place its work on that stage's devices).
+    - ``x``: [batch, ...]; the batch must divide by ``n_microbatches``;
+      microbatch ``i`` is rows ``[i * mb, (i + 1) * mb)``.
+
+    Returns the last stage's [batch, ...] output on ``x``'s device.  With
+    pp = 1 the whole stack is applied at once (the reference's degenerate
+    path)."""
+    pp = mesh.axis_size(axis)
+    if pp == 1:
+        whole = stage_slice(stage_params, 0, 1, axis)
+        return stage_fn(whole, x, 0)
+    B = x.shape[0]
+    if B % n_microbatches:
+        raise ValueError(f"batch {B} does not divide in {n_microbatches} "
+                         "microbatches")
+    mb = B // n_microbatches
+    devs = mesh.axis_devices(axis)
+    local = [stage_slice(stage_params, s, pp, axis) for s in range(pp)]
+    carry = [None] * pp  # what each stage hands on at the end of a tick
+    outs = [None] * n_microbatches
+    for t in range(n_microbatches + pp - 1):
+        handed = [None] * pp
+        for s in range(pp):
+            i = t - s
+            if not 0 <= i < n_microbatches:
+                continue  # a bubble: the reference masks its result away
+            act = x[i * mb:(i + 1) * mb] if s == 0 else carry[s - 1]
+            act = act.to(devs[s])
+            out = stage_fn(local[s], act, s)
+            if s == pp - 1:
+                outs[i] = out
+            else:
+                handed[s] = out
+        carry = handed
+    return torch.cat([o.to(x.device) for o in outs], dim=0)
+
+
+def stack_stage_params(per_stage: list) -> Any:
+    """Stack a list of per-stage trees into one tree with a leading stage
+    dim (the layout :func:`pipeline_apply` expects)."""
+    first = per_stage[0]
+    if isinstance(first, dict):
+        return {k: stack_stage_params([p[k] for p in per_stage])
+                for k in first}
+    return torch.stack([torch.as_tensor(p) for p in per_stage])

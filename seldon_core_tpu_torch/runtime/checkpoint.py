@@ -305,14 +305,10 @@ def _transformer_config_dict(cfg) -> dict:
 
 
 def _transformer_config(d: dict):
-    """The port's config from a saved one.  The reference's fields that
-    only its training paths read (``seq_shard``, ``remat``, ``top_k``,
-    ``capacity_factor``) are dropped; a mixture of experts is refused."""
+    """The port's config from a saved one (the reference's fields, MoE
+    ones included, all kept)."""
     from seldon_core_tpu_torch.models.transformer import TransformerConfig
 
-    if int(d.get("n_experts") or 0) > 0:
-        raise NotImplementedError(
-            "mixture-of-experts transformers come with slice 6c of the port")
     names = {f.name for f in dataclasses.fields(TransformerConfig)}
     kw = {k: v for k, v in d.items() if k in names}
     if "dtype" in kw:

@@ -325,7 +325,7 @@ class LLMEngine:
                                  or mesh.axis_size("pp") > 1):
             raise ValueError(
                 f"an engine serves over tp only, not {mesh!r}: serve one "
-                "engine per dp group (pp comes with the training slice)")
+                "engine per dp group (pp runs in forward and training only)")
         if (draft_params is None) != (draft_cfg is None):
             raise ValueError("draft_params and draft_cfg go together")
         if draft_params is not None and int(k_draft) < 1:

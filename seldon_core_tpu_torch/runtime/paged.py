@@ -43,12 +43,12 @@ from seldon_core_tpu_torch.models.transformer import (
     _check_q8_attn_single_chip,
     _chunk_attention,
     _embed,
+    _dp_rows,
     _layer_params,
-    _over_dp,
+    _mesh_ffn,
     _rank_qkv,
     _tp_attn_out,
-    _tp_ffn,
-    _tp_vocab,
+    _tp_logits,
     _vocab_proj,
     ffn_block,
     rmsnorm,
@@ -309,9 +309,8 @@ def paged_decode_step(params, cache, tables, pos, tok,
     """
     ps = paged.page_size
     if mesh is not None:
-        logits = _over_dp(mesh, tok.shape[0], lambda devs, rows: _tp_paged(
-            params, cache, tables[rows], pos[rows], tok[rows][:, None], cfg,
-            ps, devs, arrivals))
+        logits = _tp_paged(params, cache, tables, pos, tok[:, None], cfg,
+                           ps, mesh, arrivals)
         return logits[:, 0, :], cache
     Hkv, Dh = cfg.kv_heads, cfg.d_head
     x = _embed(params, tok, cfg)[:, None, :]  # (S, 1, D)
@@ -335,7 +334,7 @@ def paged_decode_step(params, cache, tables, pos, tok,
         vp.view(Hkv, -1, Dh)[:, row, :] = v[:, 0].transpose(0, 1)
         attn = paged_attention(q[:, 0], kp, vp, lengths, tables, arrivals)
         x = x + _attn_out(attn[:, None].to(x.dtype), p["wo"], x.dtype)
-        x = ffn_block(p, x, cfg)
+        x, _ = ffn_block(p, x, cfg)
 
     xf = rmsnorm(x, params["ln_f"])
     logits = _vocab_proj(xf, params["lm_head"], cfg).float()
@@ -343,49 +342,59 @@ def paged_decode_step(params, cache, tables, pos, tok,
 
 
 def _tp_paged(params, cache, tables, pos, toks, cfg: TransformerConfig,
-              ps: int, devs: list, arrivals=None):
-    """The paged steps over one dp group's tp ranks: each slot's K new rows
-    ``pos .. pos + K - 1`` into rank r's pages of its KV heads, then rank
-    r's attention over its query heads: K2 for one query per slot (K = 1),
-    the plain chunk math over the gathered pages for a verify chunk.
-    Returns the logits (S, K, V) on rank 0's device."""
+              ps: int, mesh: Mesh, arrivals=None):
+    """The paged steps over the mesh, layer by layer over every dp group:
+    each slot's K new rows ``pos .. pos + K - 1`` into rank r's pages of
+    its KV heads, then rank r's attention over its query heads (K2 for one
+    query per slot (K = 1), the plain chunk math over the gathered pages
+    for a verify chunk); the FFN takes every group's rows at once
+    (``_mesh_ffn``: a MoE routes every slot of the call).  Returns the
+    logits (S, K, V) on rank 0's device."""
     S, K = toks.shape
     Dh = cfg.d_head
-    x = _embed(params, toks, cfg).to(devs[0])  # (S, K, D)
-    positions = (pos.to(x.device).long()[:, None]
-                 + torch.arange(K, device=x.device)[None, :])  # (S, K)
-    tables = tables.to(x.device)
-    page_of = torch.gather(tables.long(), 1, positions // ps)
-    rows = (page_of * ps + positions % ps).reshape(-1)  # (S*K,)
-    lengths = (pos.to(x.device) + 1).to(torch.int32)
-    per_rank = [(rows.to(d), tables.to(d), lengths.to(d)) for d in devs]
+    groups, parts = _dp_rows(mesh, S)
+    xs, steps = [], []
+    for devs, slots in zip(groups, parts):
+        x = _embed(params, toks[slots], cfg).to(devs[0])  # (S/dp, K, D)
+        positions = (pos[slots].to(x.device).long()[:, None]
+                     + torch.arange(K, device=x.device)[None, :])
+        tbl = tables[slots].to(x.device)
+        page_of = torch.gather(tbl.long(), 1, positions // ps)
+        rows = (page_of * ps + positions % ps).reshape(-1)  # (S/dp*K,)
+        lengths = (pos[slots].to(x.device) + 1).to(torch.int32)
+        xs.append(x)
+        steps.append((positions, [(rows.to(d), tbl.to(d), lengths.to(d))
+                                  for d in devs]))
     for i in range(cfg.n_layers):
         p = _layer_params(params["blocks"], i)
-        _check_q8_attn_single_chip(p, devs)
-        h = rmsnorm(x, p["ln1"].to(x.device))
-        attns = []
-        for r, (q, k, v, pr) in enumerate(_rank_qkv(p, h, positions, cfg,
-                                                     devs)):
-            rr, tr, lr = per_rank[r]
-            kp, vp = cache["k"][r][i], cache["v"][r][i]
-            Hk = kp.shape[0]
-            # all S*K new rows into the pool (inactive slots' trash-page
-            # rows may collide: nobody attends over them, any winner)
-            kp.view(Hk, -1, Dh)[:, rr, :] = k.reshape(S * K, Hk, Dh).transpose(
-                0, 1).to(kp.dtype)
-            vp.view(Hk, -1, Dh)[:, rr, :] = v.reshape(S * K, Hk, Dh).transpose(
-                0, 1).to(vp.dtype)
-            if K == 1:
-                a = paged_attention(q[:, 0], kp, vp, lr, tr,
-                                    None if arrivals is None else arrivals[r])
-                attns.append(a[:, None])
-            else:
-                attns.append(_chunk_attention(q, _gather_pages(kp, tr),
-                                              _gather_pages(vp, tr), pr))
-        x = _tp_attn_out(p, x, attns, devs)
-        x = _tp_ffn(p, x, cfg, devs)
-    xf = rmsnorm(x, params["ln_f"].to(x.device))
-    return _tp_vocab(xf, params["lm_head"], cfg, devs).float()
+        for g, (devs, (positions, per_rank)) in enumerate(zip(groups, steps)):
+            _check_q8_attn_single_chip(p, devs)
+            h = rmsnorm(xs[g], p["ln1"].to(xs[g].device))
+            n = h.shape[0]
+            attns = []
+            for r, (q, k, v, pr) in enumerate(_rank_qkv(p, h, positions, cfg,
+                                                         devs)):
+                rr, tr, lr = per_rank[r]
+                kp, vp = cache["k"][r][i], cache["v"][r][i]
+                Hk = kp.shape[0]
+                # all the group's new rows into the pool (inactive slots'
+                # trash-page rows may collide: nobody attends over them,
+                # any winner)
+                kp.view(Hk, -1, Dh)[:, rr, :] = k.reshape(
+                    n * K, Hk, Dh).transpose(0, 1).to(kp.dtype)
+                vp.view(Hk, -1, Dh)[:, rr, :] = v.reshape(
+                    n * K, Hk, Dh).transpose(0, 1).to(vp.dtype)
+                if K == 1:
+                    a = paged_attention(
+                        q[:, 0], kp, vp, lr, tr,
+                        None if arrivals is None else arrivals[r])
+                    attns.append(a[:, None])
+                else:
+                    attns.append(_chunk_attention(q, _gather_pages(kp, tr),
+                                                  _gather_pages(vp, tr), pr))
+            xs[g] = _tp_attn_out(p, xs[g], attns, devs)
+        xs, _ = _mesh_ffn(p, xs, cfg, groups)
+    return _tp_logits(params, xs, cfg, groups)
 
 
 def paged_chunk_step(params, cache, tables, pos, toks,
@@ -409,9 +418,8 @@ def paged_chunk_step(params, cache, tables, pos, toks,
         if K == 1:
             raise ValueError("paged_chunk_step takes K >= 2 tokens under a "
                              "mesh; one token is paged_decode_step")
-        return _over_dp(mesh, S, lambda devs, rows: _tp_paged(
-            params, cache, tables[rows], pos[rows], toks[rows], cfg, ps,
-            devs)), cache
+        return _tp_paged(params, cache, tables, pos, toks, cfg, ps,
+                         mesh), cache
     Hkv, Dh = cfg.kv_heads, cfg.d_head
     x = _embed(params, toks, cfg)  # (S, K, D)
     positions = (pos.long()[:, None]
@@ -437,7 +445,7 @@ def paged_chunk_step(params, cache, tables, pos, toks,
         attn = _chunk_attention(q, _gather_pages(kp, tables),
                                 _gather_pages(vp, tables), positions)
         x = x + _attn_out(attn, p["wo"], x.dtype)
-        x = ffn_block(p, x, cfg)
+        x, _ = ffn_block(p, x, cfg)
 
     xf = rmsnorm(x, params["ln_f"])
     logits = _vocab_proj(xf, params["lm_head"], cfg).float()

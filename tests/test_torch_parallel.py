@@ -260,3 +260,57 @@ class TestRingChunking:
                                  [torch.zeros(1, 8, 2, 4)] * 2, kv_chunk=3)
         with pytest.raises(ValueError, match="divide"):
             self._port(3, *(torch.zeros(2, 32, 2, 8) for _ in range(3)))
+
+
+# ---- gradients through the ring (the training slice) -----------------------
+
+@pytest.mark.parametrize("kv_chunk", [None, 2])
+def test_ring_attention_gradients_match_dense(kv_chunk):
+    """``tests/test_parallel.py:92`` and ``:280``: the gradients of a loss
+    through the port's ring (4 ranks, unchunked and in chunks of 2 keys)
+    against those through dense attention, and against the reference's
+    ``jax.grad`` through its ring on 4 of conftest's devices, at the
+    reference's 2e-4."""
+    from jax.sharding import PartitionSpec as P
+
+    (jq, jk, jv), (q, k, v) = _qkv(2, 16, 2, 8, seed=5)
+    w = np.random.default_rng(6).standard_normal((2, 16, 2, 8)).astype(
+        np.float32)
+
+    def grads(fn):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        (fn(*ts) * torch.from_numpy(w)).sum().backward()
+        return [t.grad.numpy() for t in ts]
+
+    def ring(q, k, v):
+        split = [torch.chunk(x, 4, dim=1) for x in (q, k, v)]
+        out = tring.ring_attention(*[list(s) for s in split], causal=True,
+                                   kv_chunk=kv_chunk)
+        return torch.cat(list(out), dim=1)
+
+    got = grads(ring)
+    dense = grads(lambda q, k, v: tring.dense_attention(q, k, v))
+    jm = jmesh.make_mesh(n_devices=8, tp=4, pp=1)
+    spec = P(None, "tp", None, None)
+
+    def jloss(q, k, v):
+        fn = jax.shard_map(
+            functools.partial(jring.ring_attention, axis_name="tp",
+                              causal=True, kv_chunk=kv_chunk),
+            mesh=jm, in_specs=(spec, spec, spec), out_specs=spec,
+            check_vma=False)
+        return (fn(q, k, v) * w).sum()
+
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(jq, jk, jv)
+    for g, d, j in zip(got, dense, want):
+        assert np.isfinite(g).all()
+        np.testing.assert_allclose(g, d, atol=2e-4)
+        np.testing.assert_allclose(g, np.asarray(j), atol=2e-4)
+
+
+def test_parallel_exports_cover_the_reference():
+    """Every name the reference's ``parallel`` package exports, the port's
+    does too (the pipeline and the MoE since the training slice)."""
+    from seldon_core_tpu import parallel as jparallel
+
+    assert set(jparallel.__all__) <= set(tparallel.__all__)

@@ -206,9 +206,13 @@ def test_int8_attention_refused_under_a_mesh(base):
     tfull = params_from_jax(_host(jfull))
     with pytest.raises(ValueError, match="single-chip"):
         T.shard_params(tfull, tm, TTINY)
-    # the pipeline comes with training
+    # a tree placed over pipeline stages trains (forward with pp); the
+    # serving paths refuse its mesh
+    pm = make_mesh(n_devices=4, tp=2, pp=2, device="cpu")
+    staged = T.shard_params(params_from_jax(_host(base)), pm, TTINY, pp=2)
     with pytest.raises(NotImplementedError, match="training"):
-        T.shard_params(params_from_jax(_host(base)), tm, TTINY, pp=2)
+        T.prefill(staged, torch.zeros((2, 4), dtype=torch.long), TTINY,
+                  max_len=8, mesh=pm)
 
 
 def test_serving_dryrun_as_the_reference():
