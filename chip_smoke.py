@@ -390,7 +390,37 @@ Prints one JSON object per line:
     layers in float32 on the card against the same step on the CPU with the
     plain versions: loss within 1e-4, each gradient within 1e-3 of the
     leaf's largest.  K3's launches counted exactly.
-40. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
+40. ``multihost_dryrun`` (after ``train_mesh``): ``runtime/multihost.py``
+    ``run_multihost_dryrun(n_hosts=2, devices_per_host=2, device="cuda")``:
+    two OS processes join one gloo group through the env the port's
+    operator compiles, each holding two tp ranks on cuda:0 (tp = 4 across
+    the processes), and serve the reference's float32 configs through
+    ``LLMEngine`` and the speculative ring-prefill prefix-aliasing
+    ``PagedLLMEngine``; every assertion of the CPU run holds (ids equal in
+    both processes and to the plain one-device decode, spec rounds, pinned
+    pages returned, one sampled request equal in both), and the phase
+    prints the reference's two multi-host lines (``dryrun_multichip OK:
+    multihost ...``).  Its workers' launches are counted in them.
+41. ``multihost_7b``: the 32-layer 7B-width int8-ffn model (``tp_7b``'s
+    weights, seed 6, flash prefill) served by two processes with the
+    operator's env (``NUM_TPU_HOSTS=2``, ``TPU_WORKER_ID`` 0 and 1, the
+    coordinator on a free loopback port), one tp rank each on cuda:0
+    (``chip_smoke.py --multihost-child``), by ``PagedLLMEngine``
+    (``serve_7b``'s 96 pages of 16, 8 slots, max_len 256) on 4 of
+    ``serve_7b``'s prompts (21, 54, 87 and 120 tokens) at 16 new tokens,
+    one after another.  First the parent serves the same requests through
+    the single-controller tp = 2 on [cuda:0, cuda:0] (programs eager, as
+    the children's must be) and frees its memory.  Gates: every request's
+    ids EQUAL the single-controller's and EQUAL between the processes, and
+    K1, K2 and K3 launched in the children (their counts, written by each
+    child, are the phase's).  Reported: each prompt's prefill logits in
+    both processes against the single controller's (bitwise, the largest
+    difference), TTFT/TPOT medians beside the single controller's and
+    ``tp_7b``'s, and each decode tick's share in the collectives (CUDA
+    events around each exchange over the tick's host time).  Each child
+    must end within ``MULTIHOST_DEADLINE_S``; a failing or hung child
+    fails the phase, both are stopped.
+42. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
     phases of prefix caching, batched and chunked prefill, preemption and
     checkpoints together; ``slice_3b_phases``: ``spec_7b`` and
     ``parity_spec_7b``; ``slice_4a_i_phases``: the ``wire_*`` phases;
@@ -400,8 +430,8 @@ Prints one JSON object per line:
     25-26; ``slice_5_i_phases``: 27-28; ``slice_5_ii_phases``: 29;
     ``slice_5b_i_phases``: 30-32; ``slice_5b_ii_phases``: 33-34;
     ``slice_6a_phases``: 35-36; ``slice_6b_phases``: 37;
-    ``slice_6c_phases``: 38-39).
-41. ``{"kernels": [...]}``: one entry per kernel with its launches in the
+    ``slice_6c_phases``: 38-39; ``slice_6d_phases``: 40-41).
+43. ``{"kernels": [...]}``: one entry per kernel with its launches in the
     runs through entry points (``llm_json``, ``serve_7b``, ``grpc_7b``,
     ``features_7b``, ``spec_7b``, ``llm_graphs_7b``, ``checkpoint_7b``,
     ``plan_resnet50``,
@@ -410,7 +440,7 @@ Prints one JSON object per line:
     ``device_plane_resnet50``, ``observe_7b``, ``observe_resnet50``,
     ``lint``, ``gateway_7b``, ``loadtest_7b``, ``parity_tp_7b``,
     ``tp_7b``, ``placement_resnet50``, ``train_moe``, ``train_mesh``,
-    ``gateway_resnet50``,
+    ``multihost_dryrun``, ``multihost_7b``, ``gateway_resnet50``,
     ``fleet_resnet50`` and ``operator_resnet50``, counted by the child
     processes where the kernels run there; K1 also
     ``resnet50_launches``: the int8 REST run), each phase's count beside,
@@ -423,7 +453,7 @@ Prints one JSON object per line:
     bitwise equal to autograd through the plain version, the forward's
     and the backward's ms beside the forward's bound and SDPA's forward
     and backward).
-42. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+44. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
@@ -1096,6 +1126,8 @@ def read_launches() -> dict:
 LLM_JSON: dict = {}
 #: serve_7b's prompts and REST ids: grpc_7b holds the gRPC tiers to them
 SERVE_7B: dict = {}
+#: tp_7b's tp = 2 figures: multihost_7b reports beside them
+TP_7B: dict = {}
 
 
 def llm_json_phase(torch) -> dict:
@@ -3015,6 +3047,7 @@ def tp_7b_phase(torch) -> dict:
         out[mode]["graphs"] = engine.program_stats()["graphs"]
         if mode == "tp2":
             out["tp_span"] = engine.tp_span()
+            TP_7B.update(out[mode])
         engine.close()
     if ids_by["tp1"] != ids_by["no_mesh"]:
         emit(out)
@@ -7253,7 +7286,11 @@ def fleet_resnet50_phase(torch) -> dict:
                 auth[policy] = {"Authorization": f"Bearer {tok}"}
 
             def check(answers, idx, what):
-                bad = [a[0] for a in answers if a[0] != 200]
+                # each failure with its seconds, replica and body: what
+                # ran out (a 504's reason says which budget)
+                bad = [(a[0], a[3], a[1].get("x-seldon-replica"),
+                        a[2][:300].decode("utf-8", "replace"))
+                       for a in answers if a[0] != 200]
                 if bad:
                     raise AssertionError(f"fleet_resnet50 {what}: {bad[:3]}")
                 n = sum(json.loads(a[2])["data"] == want[i]
@@ -8302,6 +8339,265 @@ def train_mesh_phase(torch) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# slice 6d: multi-host
+# ----------------------------------------------------------------------
+
+#: how long each multi-host phase's processes may take, start to end
+MULTIHOST_DEADLINE_S = 240.0
+#: multihost_7b's requests: serve_7b's prompts 1, 3, 5 and 7 (21, 54, 87
+#: and 120 tokens)
+MULTIHOST_PICK = (1, 3, 5, 7)
+MULTIHOST_DIR = ROOT / "build" / "multihost_7b"
+
+
+def multihost_dryrun_phase(torch) -> dict:
+    """Phase 40 (module docstring).  Returns the workers' launches."""
+    from seldon_core_tpu_torch.dryrun import multihost_lines
+    from seldon_core_tpu_torch.runtime.multihost import run_multihost_dryrun
+
+    t0 = time.perf_counter()
+    r = run_multihost_dryrun(n_hosts=2, devices_per_host=2,
+                             timeout=MULTIHOST_DEADLINE_S, device="cuda")
+    wall = time.perf_counter() - t0
+    lines = multihost_lines(r)
+    for line in lines:
+        print(f"dryrun_multichip OK: {line}", flush=True)
+    emit({"phase": "multihost_dryrun", "lines": lines,
+          "mesh": "tp=4: 2 processes x 2 ranks on cuda:0, gloo",
+          **{k: r[k] for k in ("n_hosts", "global_devices", "tokens",
+                               "paged_tokens", "sampled_tokens",
+                               "paged_requests", "spec_rounds",
+                               "pinned_pages")},
+          "fleet_healthy": r["fleet"]["healthy"], "wall_s": wall,
+          "launches": r["launches"], "card": CARD})
+    return {k: r["launches"].get(k, 0) for k in _counters()}
+
+
+def _serve_7b_prompts(torch) -> list:
+    """``serve_7b``'s (and ``tp_7b``'s) 8 prompts, 5 .. 120 tokens, from
+    their seed."""
+    rng = torch.Generator().manual_seed(7)
+    lens = [5 + (115 * i) // 7 for i in range(8)]
+    return [torch.randint(1, 32000, (n,), generator=rng).tolist()
+            for n in lens]
+
+
+def _multihost_serve(torch, engine, prompts: list, mesh, cfg) -> tuple:
+    """A warm-up request, then each prompt at 16 new tokens one after
+    another through ``engine.generate``: ids, TTFT/TPOT medians, launches,
+    and per decode tick its host ms and the collectives' ms in it (CUDA
+    events, ``parallel/mesh.py`` ``transport_stats``); then each prompt's
+    prefill logits (1, V) in float32 (not counted in the launches)."""
+    from seldon_core_tpu_torch.models.transformer import prefill
+    from seldon_core_tpu_torch.parallel import mesh as M
+
+    ticks = []
+    plain_tick = engine._tick_device
+
+    def timed_tick(state):
+        torch.cuda.synchronize()
+        s0 = M.transport_stats()
+        t = time.perf_counter()
+        out = plain_tick(state)  # the sampled ids, on the host
+        ms = (time.perf_counter() - t) * 1e3
+        s1 = M.transport_stats()
+        ticks.append((ms, s1["device_ms"] - s0["device_ms"],
+                      s1["calls"] - s0["calls"]))
+        return out
+
+    engine._tick_device = timed_tick
+
+    async def run():
+        await engine.generate([1, 2, 3], 2)  # first-use costs stay out
+        engine.latency_log.clear()
+        ticks.clear()
+        M.reset_transport_stats()
+        reset_launches()
+        t = time.perf_counter()
+        ids = [(await engine.generate(p, 16))[0].tolist() for p in prompts]
+        return ids, time.perf_counter() - t, read_launches()
+
+    ids, wall, launches = asyncio.run(run())
+    moved = M.transport_stats()
+    log = list(engine.latency_log)
+    logits = []
+    with torch.no_grad():
+        for p in prompts:
+            lg, _ = prefill(engine.params,
+                            torch.tensor([p], device=engine.device), cfg,
+                            max_len=len(p), logit_pos=len(p) - 1, mesh=mesh)
+            logits.append(lg.float().cpu())
+    tick_ms = sum(t[0] for t in ticks)
+    coll_ms = sum(t[1] for t in ticks)
+    return {"ids": ids, "wall_s": wall, "launches": launches,
+            "ttft_ms_median": statistics.median(
+                x["ttft_s"] for x in log) * 1e3,
+            "tpot_ms_median": statistics.median(
+                x["tpot_s"] for x in log if x["tpot_s"] is not None) * 1e3,
+            "ticks": len(ticks), "tick_ms_median": statistics.median(
+                t[0] for t in ticks),
+            "collective_ms_per_tick": coll_ms / max(len(ticks), 1),
+            "collective_share_of_tick": coll_ms / tick_ms if tick_ms else 0.0,
+            "exchanges_per_tick": (ticks[0][2] if ticks else 0),
+            "exchanges": moved["calls"], "exchanged_bytes": moved["bytes"],
+            "exchange_host_s": moved["host_s"]}, torch.cat(logits)
+
+
+def _multihost_7b_engine(torch, mesh):
+    """``tp_7b``'s weights (seed 6) placed over ``mesh``, in
+    ``serve_7b``'s paged engine."""
+    from seldon_core_tpu_torch.models.transformer import (
+        init_params_int8,
+        shard_params,
+    )
+    from seldon_core_tpu_torch.runtime.llm import PagedLLMEngine
+    from seldon_core_tpu_torch.runtime.paged import PagedConfig
+
+    cfg = _cfg_7b(32)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    base = init_params_int8(gen, cfg, int8="ffn")
+    params = shard_params(base, mesh, cfg)
+    del base
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = PagedLLMEngine(params, cfg, PagedConfig(n_pages=96,
+                                                     page_size=16),
+                            max_slots=8, max_len=256, mesh=mesh)
+    return engine, cfg, init_s
+
+
+def multihost_child_main(argv: list) -> int:
+    """``chip_smoke.py --multihost-child OUT``: one process of
+    ``multihost_7b``: join the slice from the operator's env, hold one tp
+    rank on cuda:0, serve the phase's requests, and write the result to
+    OUT (JSON) and the prefill logits beside it (``.pt``)."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from seldon_core_tpu_torch.parallel.mesh import process_mesh
+    from seldon_core_tpu_torch.runtime.multihost import (
+        maybe_initialize_distributed,
+    )
+
+    out = Path(argv[0])
+    if not maybe_initialize_distributed():
+        raise SystemExit("multihost child: no multi-host env")
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    mesh = process_mesh([torch.device("cuda", 0)])
+    engine, cfg, init_s = _multihost_7b_engine(torch, mesh)
+    prompts = [_serve_7b_prompts(torch)[i] for i in MULTIHOST_PICK]
+    res, logits = _multihost_serve(torch, engine, prompts, mesh, cfg)
+    res.update(rank=dist.get_rank(), weights_init_s=init_s,
+               tp_span=engine.tp_span(), free_pages=engine.free_pages,
+               graphs=engine.program_stats()["graphs"],
+               peak_device_bytes=torch.cuda.max_memory_allocated())
+    engine.close()
+    torch.save(logits, out.with_suffix(".pt"))
+    out.write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def multihost_7b_phase(torch) -> dict:
+    """Phase 41 (module docstring).  Returns the children's launches."""
+    from seldon_core_tpu_torch.runtime import multihost, programs
+
+    _, mesh2, _ = _card_meshes(torch)
+    prompts = [_serve_7b_prompts(torch)[i] for i in MULTIHOST_PICK]
+    engine, cfg, init_s = _multihost_7b_engine(torch, mesh2)
+    with programs.eager():
+        single, single_logits = _multihost_serve(torch, engine, prompts,
+                                                 mesh2, cfg)
+    engine.close()
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    MULTIHOST_DIR.mkdir(parents=True, exist_ok=True)
+    outs = [MULTIHOST_DIR / f"child{i}.json" for i in range(2)]
+    for o in outs:
+        o.unlink(missing_ok=True)
+    port = _free_port()
+    t0 = time.perf_counter()
+    kids = [Child([sys.executable, str(ROOT / "chip_smoke.py"),
+                   "--multihost-child", str(o)],
+                  {multihost.ENV_NUM_HOSTS: "2",
+                   multihost.ENV_WORKER_ID: str(i),
+                   multihost.ENV_COORDINATOR: f"127.0.0.1:{port}"},
+                  f"multihost-{i}") for i, o in enumerate(outs)]
+    try:
+        deadline = time.monotonic() + MULTIHOST_DEADLINE_S
+        while any(k.proc.poll() is None for k in kids):
+            for k in kids:
+                if k.proc.poll() not in (None, 0):
+                    raise AssertionError(
+                        f"multihost_7b: {k.label} exited rc "
+                        f"{k.proc.returncode}: {k.tail()}")
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"multihost_7b: the processes did not end within "
+                    f"{MULTIHOST_DEADLINE_S} s: "
+                    + " | ".join(k.tail(10) for k in kids))
+            time.sleep(0.1)
+        for k in kids:
+            if k.proc.returncode != 0:
+                raise AssertionError(f"multihost_7b: {k.label} exited rc "
+                                     f"{k.proc.returncode}: {k.tail()}")
+    finally:
+        for k in kids:
+            k.stop()
+    children_s = time.perf_counter() - t0
+    res = [json.loads(o.read_text()) for o in outs]
+    logits = [torch.load(o.with_suffix(".pt")) for o in outs]
+    diffs = [float((lg - single_logits).abs().max()) for lg in logits]
+    launches = {k: sum(r["launches"][k] for r in res)
+                for k in single["launches"]}
+    keep = ("ttft_ms_median", "tpot_ms_median", "tick_ms_median",
+            "collective_ms_per_tick", "collective_share_of_tick",
+            "exchanges_per_tick", "exchanges", "exchanged_bytes",
+            "exchange_host_s", "ticks", "wall_s", "launches")
+    line = {
+        "phase": "multihost_7b",
+        "model": "L32 d4096 H32/Hkv8 ff16384 V32000 bf16 int8-ffn flash",
+        "engine": "PagedLLMEngine 96x16 pages, 8 slots, max_len 256",
+        "mesh": "tp=2: 2 processes x 1 rank on cuda:0, gloo; against the "
+                "single controller's tp=2 on [cuda:0, cuda:0], programs "
+                "eager in both",
+        "prompt_lens": [len(p) for p in prompts], "n_new": 16,
+        "ids_equal_single_controller": [r["ids"] == single["ids"]
+                                        for r in res],
+        "ids_equal_between_processes": res[0]["ids"] == res[1]["ids"],
+        "prefill_logits_bitwise_equal": [bool(torch.equal(
+            lg, single_logits)) for lg in logits],
+        "prefill_logits_max_abs_diff": diffs,
+        "processes": [{k: r[k] for k in keep + ("rank", "weights_init_s",
+                                                "free_pages", "graphs",
+                                                "peak_device_bytes",
+                                                "tp_span")} for r in res],
+        "single_controller": {k: single[k] for k in keep},
+        "tp_7b_tp2_graphs": {k: TP_7B.get(k) for k in
+                             ("ttft_ms_median", "tpot_ms_median")},
+        "weights_init_s": init_s, "children_s": children_s,
+        "launches": launches, "card": CARD}
+    emit(line)
+    for r in res:
+        if r["ids"] != single["ids"]:
+            raise AssertionError(
+                f"multihost_7b: process {r['rank']}'s ids differ from the "
+                f"single controller's: {r['ids']} against {single['ids']}")
+    if res[0]["ids"] != res[1]["ids"]:
+        raise AssertionError("multihost_7b: the processes' ids differ")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"multihost_7b: {k} was not launched in the "
+                                 "children")
+    return launches
+
+
 _SUMMARY_META = {
     "int8_matmul": ("seldon_core_tpu_torch/csrc/int8_matmul.cu",
                     "seldon_core_tpu/ops/quant.py:52"),
@@ -8317,6 +8613,8 @@ def main() -> int:
         return component_child_main(sys.argv[2:])
     if sys.argv[1:2] == ["--runner-child"]:
         return runner_child_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--multihost-child"]:
+        return multihost_child_main(sys.argv[2:])
     try:
         return smoke()
     finally:
@@ -8409,6 +8707,10 @@ def smoke() -> int:
     # slice 6c: training, one card and 8 ranks of it
     runs["train_moe"] = timed("train_moe", train_moe_phase, torch)
     runs["train_mesh"] = timed("train_mesh", train_mesh_phase, torch)
+    # slice 6d: multi-host, two processes joined over gloo on the one card
+    runs["multihost_dryrun"] = timed("multihost_dryrun",
+                                     multihost_dryrun_phase, torch)
+    runs["multihost_7b"] = timed("multihost_7b", multihost_7b_phase, torch)
     runs["checkpoint_7b"] = timed("checkpoint_7b", checkpoint_7b_phase,
                                   torch)
     resnet_k1 = timed("resnet50", resnet50_phase, torch)
@@ -8474,6 +8776,8 @@ def smoke() -> int:
           "slice_6a_phases": seconds["parity_tp_7b"] + seconds["tp_7b"],
           "slice_6b_phases": seconds["placement_resnet50"],
           "slice_6c_phases": seconds["train_moe"] + seconds["train_mesh"],
+          "slice_6d_phases": seconds["multihost_dryrun"]
+          + seconds["multihost_7b"],
           "total": time.perf_counter() - t0})
     launches = {k: sum(r[k] for r in runs.values())
                 for k in runs["serve_7b"]}

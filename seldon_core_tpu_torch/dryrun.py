@@ -11,7 +11,12 @@ The batch is ``max(4, 2 * dp)`` rows of 16 tokens.  Given the reference's
 params (converted) and its batch, the summary line equals the reference's
 letter for letter; without them the weights and the data are seeded here.
 
-Run both of the reference's training lines::
+The reference's two multi-host lines come from
+``runtime/multihost.py`` ``run_multihost_dryrun`` (two processes of
+``n_devices // 2`` ranks each), in the reference's words
+(:func:`multihost_lines`).
+
+Run both of the reference's training lines and its two multi-host lines::
 
     python -m seldon_core_tpu_torch.dryrun [--device cpu]
 """
@@ -33,7 +38,7 @@ from seldon_core_tpu_torch.models.transformer import (
 from seldon_core_tpu_torch.parallel.mesh import MeshPlan, make_mesh, plan_mesh
 
 __all__ = ["dryrun_config", "dryrun_batch", "dryrun_training",
-           "TRAINING_PLANS"]
+           "multihost_lines", "TRAINING_PLANS"]
 
 #: the reference's two training plans on 8 devices (``dryrun_multichip``)
 TRAINING_PLANS = (dict(tp=2, pp=2), dict(tp=4, pp=1))
@@ -92,6 +97,23 @@ def dryrun_training(plan: MeshPlan, device="cuda",
     return line, loss, params
 
 
+def multihost_lines(r: dict) -> list:
+    """The reference's two multi-host summary lines of a
+    ``run_multihost_dryrun`` result, word for word (its wording names the
+    reference's backend)."""
+    return [
+        "multihost 2-process jax.distributed "
+        f"LLMEngine tp={r['global_devices']} spanning processes, "
+        "byte-identical to single-device decode ok",
+        "multihost 2-process PagedLLMEngine "
+        f"paged-KV x spec x ring-prefill x prefix-aliasing tp="
+        f"{r['global_devices']} spanning processes: "
+        f"{r['paged_requests']} requests byte-identical to plain decode, "
+        f"{r['spec_rounds']} spec rounds, {r['pinned_pages']} shared "
+        "pages pinned+returned per rank ok",
+    ]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
@@ -101,6 +123,13 @@ def main(argv=None) -> int:
         line, _, _ = dryrun_training(plan_mesh(args.n_devices, **kw),
                                      args.device)
         print(f"dryrun_training OK: {line}", flush=True)
+    from seldon_core_tpu_torch.runtime.multihost import run_multihost_dryrun
+
+    r = run_multihost_dryrun(n_hosts=2,
+                             devices_per_host=max(1, args.n_devices // 2),
+                             device=args.device)
+    for line in multihost_lines(r):
+        print(f"dryrun_multichip OK: {line}", flush=True)
     return 0
 
 

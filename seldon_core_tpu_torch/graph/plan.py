@@ -691,8 +691,10 @@ class FusedSegment:
         must agree bitwise, else the segment disarms and returns False;
         without one it arms ``unprobed``.  Also False when no axis has
         anything to split.  An exception raised by the probe propagates."""
+        from seldon_core_tpu_torch.parallel.mesh import check_one_process
         from seldon_core_tpu_torch.placement import layouts
 
+        check_one_process(mesh, "a sharded fused segment (enable_sharding)")
         dp, tp = mesh.axis_size("dp"), mesh.axis_size("tp")
         member_layouts: dict = {}
         tp_bytes = 0

@@ -35,6 +35,12 @@ caches split their head axis the same way.  ``cfg.attention == "ring"``
 prefills sequence-parallel instead: q/k/v move from heads to sequence
 shards (an all-to-all), ring attention runs over "tp", and the output moves
 back.  A dp axis splits the batch over groups of ranks that share devices.
+Over a mesh whose ranks span processes (``parallel/mesh.py``
+``process_mesh``) each process runs only its own ranks' share
+(``rank_map``), the residual stream lives on each process's first local
+device, and the collectives cross processes; serving runs so (prefill,
+decode, the engines), while training, the MoE and the pipeline refuse such
+a mesh by name.
 :func:`decode_step` decodes against a slab cache (:func:`init_cache`), one
 token or a K-token chunk per row, writing the new K/V rows in place;
 :func:`generate` and :func:`speculative_generate` are the reference's
@@ -82,11 +88,14 @@ from seldon_core_tpu_torch.parallel.mesh import (
     Shards,
     all_gather,
     all_to_all,
+    check_one_process,
+    first_device,
     named_sharding,
     place,
     pspec,
     psum,
     psum_scatter,
+    rank_map,
     unshard,
 )
 from seldon_core_tpu_torch.parallel.moe import (
@@ -345,7 +354,7 @@ def _layer_params(blocks: dict, i: int) -> dict:
             if v.axis == "pp":
                 raise ValueError("a tree placed over pipeline stages: take "
                                  "its stage first (forward with pp)")
-            return Shards([one(t) for t in v],
+            return Shards([None if t is None else one(t) for t in v],
                           None if v.dim is None else v.dim - 1, v.axis)
         return v[i]
 
@@ -404,7 +413,8 @@ def _place_q8(leaf: dict, mesh: Mesh, name: str) -> dict:
     def put(t, spec, layout=None):
         t = unshard(t)
         if "tp" not in spec:
-            return Shards([t.to(d) for d in mesh.axis_devices("tp")], None)
+            return Shards([None if d is None else t.to(d)
+                           for d in mesh.axis_devices("tp")], None)
         return place(t, named_sharding(mesh, *spec), layout=layout)
 
     if isinstance(leaf["values"], list):
@@ -697,7 +707,7 @@ def _norm_gather(xg, scale, devs: list) -> list:
         return all_gather([rmsnorm(x, scale.to(x.device)) for x in xg],
                           dim=1)
     h = rmsnorm(xg, scale.to(xg.device))
-    return [h.to(d) for d in devs]
+    return [None if d is None else h.to(d) for d in devs]
 
 
 def _add_partials(xg, partials: list):
@@ -706,25 +716,31 @@ def _add_partials(xg, partials: list):
     if isinstance(xg, list):
         return [x + piece for x, piece in zip(
             xg, psum_scatter(partials, dim=1, dtype=xg[0].dtype))]
-    return xg + psum(partials, dtype=xg.dtype)[0].to(xg.device)
+    return xg + psum(partials, dtype=xg.dtype).first.to(xg.device)
 
 
 def _rank_qkv(p, h, positions, cfg: TransformerConfig, devs: list):
     """Each rank's post-rope q (B, L, H/tp, Dh) and k, v (B, L, Hkv/tp,
-    Dh) of its heads, on its device.  ``h`` is one tensor, or one per rank
-    (an all-gather's)."""
+    Dh) of its heads, on its device (``None`` at another process's
+    ranks).  ``h`` is one tensor, or one per rank (an all-gather's)."""
     tp = len(devs)
     H, Hk, Dh = cfg.n_heads // tp, cfg.kv_heads // tp, cfg.d_head
-    out = []
-    for r, dev in enumerate(devs):
+
+    def one(r, dev):
         hr = (h[r] if isinstance(h, list) else h).to(dev)
         pr = positions.to(dev)
         q = _attn_proj(hr, _part(p["wq"], r, dev), H, Dh, hr.dtype)
         k = _attn_proj(hr, _part(p["wk"], r, dev), Hk, Dh, hr.dtype)
         v = _attn_proj(hr, _part(p["wv"], r, dev), Hk, Dh, hr.dtype)
-        out.append((rope(q, pr, cfg.rope_theta), rope(k, pr, cfg.rope_theta),
-                    v, pr))
-    return out
+        return (rope(q, pr, cfg.rope_theta), rope(k, pr, cfg.rope_theta),
+                v, pr)
+
+    return rank_map(one, devs)
+
+
+def _field(per_rank: list, i: int) -> list:
+    """Item ``i`` of each rank's tuple (``None`` stays ``None``)."""
+    return [None if t is None else t[i] for t in per_rank]
 
 
 def _tp_attn_out(p, x, attns: list, devs: list):
@@ -732,9 +748,9 @@ def _tp_attn_out(p, x, attns: list, devs: list):
     projection: each rank's heads through its wo rows, the partials summed
     (:func:`_add_partials`)."""
     dt = (x[0] if isinstance(x, list) else x).dtype
-    return _add_partials(x, [
-        _attn_out(a.to(dt), _part(p["wo"], r, dev), dt)
-        for r, (a, dev) in enumerate(zip(attns, devs))])
+    return _add_partials(x, rank_map(
+        lambda r, dev, a: _attn_out(a.to(dt), _part(p["wo"], r, dev), dt),
+        devs, attns))
 
 
 def _rank_attention(qkv: list, cfg: TransformerConfig, devs: list) -> list:
@@ -744,17 +760,20 @@ def _rank_attention(qkv: list, cfg: TransformerConfig, devs: list) -> list:
     kv_heads, and the output back to head shards."""
     if cfg.attention == "ring" and len(devs) > 1:
         # heads -> sequence: rank r holds every head of sequence block r
-        q_seq = all_to_all([q for q, _, _, _ in qkv], 1, 2)
-        k_seq = all_to_all([k for _, k, _, _ in qkv], 1, 2)
-        v_seq = all_to_all([v for _, _, v, _ in qkv], 1, 2)
+        q_seq = all_to_all(_field(qkv, 0), 1, 2)
+        k_seq = all_to_all(_field(qkv, 1), 1, 2)
+        v_seq = all_to_all(_field(qkv, 2), 1, 2)
         out_seq = ring_attention(q_seq, k_seq, v_seq, causal=True,
                                  kv_chunk=cfg.ring_kv_chunk,
                                  n_rep=cfg.n_heads // cfg.kv_heads)
         return all_to_all(out_seq, 2, 1)  # sequence -> heads
     if cfg.use_flash:
-        return [flash_attention(q, k, v, causal=True) for q, k, v, _ in qkv]
-    return [dense_attention(q, _expand_kv(k, cfg), _expand_kv(v, cfg),
-                            causal=True) for q, k, v, _ in qkv]
+        return rank_map(lambda r, d, t: flash_attention(t[0], t[1], t[2],
+                                                        causal=True),
+                        devs, qkv)
+    return rank_map(lambda r, d, t: dense_attention(
+        t[0], _expand_kv(t[1], cfg), _expand_kv(t[2], cfg), causal=True),
+        devs, qkv)
 
 
 def _tp_attention(p, x, positions, cfg: TransformerConfig, devs: list,
@@ -770,8 +789,8 @@ def _tp_attention(p, x, positions, cfg: TransformerConfig, devs: list,
     for the cache stay head shards throughout."""
     _check_q8_attn_single_chip(p, devs)
     qkv = _rank_qkv(p, _norm_gather(x, p["ln1"], devs), positions, cfg, devs)
-    ks = Shards([k for _, k, _, _ in qkv], 2)
-    vs = Shards([v for _, _, v, _ in qkv], 2)
+    ks = Shards(_field(qkv, 1), 2)
+    vs = Shards(_field(qkv, 2), 2)
     out = _tp_attn_out(p, x, _rank_attention(qkv, cfg, devs), devs)
     if return_kv:
         return out, (ks, vs)
@@ -783,23 +802,24 @@ def _ffn_partials(p, h, cfg: TransformerConfig, devs: list) -> list:
     (int8: K1 per rank, its w2 input quantized per row over the rank's own
     hidden shard, as the reference's ``_q8_ffn_local``, partials in
     float32).  ``h`` is one tensor, or one per rank."""
-    B, L, D = (h[0] if isinstance(h, list) else h).shape
-    partials = []
-    for r, dev in enumerate(devs):
+    B, L, D = next(t for t in h if t is not None).shape \
+        if isinstance(h, list) else h.shape
+
+    def one(r, dev):
         hr = (h[r] if isinstance(h, list) else h).to(dev)
         if _is_q8(p["w1"]):
             h1 = _q8_matmul(hr.reshape(B * L, D), _part(p["w1"], r, dev),
                             hr.dtype)
             h1 = F.gelu(h1, approximate="tanh")
-            partials.append(_q8_matmul(h1, _part(p["w2"], r, dev),
-                                       torch.float32).reshape(B, L, D))
-        else:
-            h1 = torch.einsum("bld,df->blf", hr,
-                              _part(p["w1"], r, dev).to(hr.dtype))
-            h1 = F.gelu(h1, approximate="tanh")
-            partials.append(torch.einsum(
-                "blf,fd->bld", h1, _part(p["w2"], r, dev).to(hr.dtype)))
-    return partials
+            return _q8_matmul(h1, _part(p["w2"], r, dev),
+                              torch.float32).reshape(B, L, D)
+        h1 = torch.einsum("bld,df->blf", hr,
+                          _part(p["w1"], r, dev).to(hr.dtype))
+        h1 = F.gelu(h1, approximate="tanh")
+        return torch.einsum("blf,fd->bld", h1,
+                            _part(p["w2"], r, dev).to(hr.dtype))
+
+    return rank_map(one, devs)
 
 
 def _tp_ffn(p, x, cfg: TransformerConfig, devs: list):
@@ -813,16 +833,16 @@ def _tp_ffn(p, x, cfg: TransformerConfig, devs: list):
 def _tp_vocab(x, lm_head, cfg: TransformerConfig, devs: list):
     """Each rank's vocabulary columns, all-gathered on the last dim."""
     B, L, D = x.shape
-    parts = []
-    for r, dev in enumerate(devs):
+
+    def one(r, dev):
         xr = x.to(dev)
         w = _part(lm_head, r, dev)
         if _is_q8(lm_head):
-            parts.append(_q8_matmul(xr.reshape(B * L, D), w,
-                                    cfg.dtype).reshape(B, L, -1))
-        else:
-            parts.append(torch.einsum("bld,dv->blv", xr, w.to(cfg.dtype)))
-    return all_gather(parts, dim=-1)[0].to(x.device)
+            return _q8_matmul(xr.reshape(B * L, D), w,
+                              cfg.dtype).reshape(B, L, -1)
+        return torch.einsum("bld,dv->blv", xr, w.to(cfg.dtype))
+
+    return all_gather(rank_map(one, devs), dim=-1).first.to(x.device)
 
 
 # ----------------------------------------------------------------------
@@ -840,6 +860,7 @@ def _mesh_moe(p, xs: list, cfg: TransformerConfig, groups: list):
     routing covers the global batch): the groups' normed rows meet on the
     first device, the experts run on their groups' ranks, and each group
     takes its rows of the output back (its sequence shards)."""
+    check_one_process(groups, "the mixture of experts")
     dev0 = groups[0][0]
     scale = p["ln2"]
     hs = []
@@ -936,6 +957,7 @@ def forward(params: dict, input_ids, cfg: TransformerConfig,
     the same ``pp``) the module docstring's layout; ``pp > 1`` runs the
     stages through the GPipe schedule with ``n_microbatches``.  Under
     ``cfg.remat`` each block is recomputed in the backward."""
+    check_one_process(mesh, "training (forward)")
     _check_q8_pipeline(params, pp)
     ids = torch.as_tensor(input_ids)
     x = _embed(params, ids.to(params["embed"].device), cfg)
@@ -1017,6 +1039,8 @@ def make_train_step(cfg: TransformerConfig, mesh: Optional[Mesh] = None,
     batch)`` returns ``(params, opt_state, loss)``: the loss before the
     update (``jax.value_and_grad``'s), params updated in place (the
     reference donates them)."""
+    check_one_process(mesh, "training (make_train_step)")
+
     def init_opt(params):
         leaves = param_leaves(params)
         for t in leaves:
@@ -1082,7 +1106,8 @@ def prefill(params, input_ids, cfg: TransformerConfig, max_len: int,
         # (layers, B, max_len, Hkv, Dh): prompt K/V up front, zeros after
         if mesh is None:
             return F.pad(torch.stack(layers), (0, 0, 0, 0, 0, pad))
-        return Shards([F.pad(torch.stack(parts), (0, 0, 0, 0, 0, pad))
+        return Shards([None if parts[0] is None else
+                       F.pad(torch.stack(parts), (0, 0, 0, 0, 0, pad))
                        for parts in zip(*layers)], 3)
 
     cache = {"k": cache_of(ks), "v": cache_of(vs),
@@ -1114,14 +1139,16 @@ def init_cache(cfg: TransformerConfig, batch: int,
     if cfg.kv_heads % tp:
         raise ValueError(f"n_kv_heads {cfg.kv_heads} must divide by tp {tp}")
     shape = (cfg.n_layers, batch, max_len, cfg.kv_heads // tp, cfg.d_head)
-    return {name: Shards([torch.zeros(shape, dtype=cfg.dtype, device=d)
+    return {name: Shards([None if d is None else
+                          torch.zeros(shape, dtype=cfg.dtype, device=d)
                           for d in devs], 3) for name in ("k", "v")} | {
-        "pos": torch.zeros((batch,), dtype=torch.int32, device=devs[0])}
+        "pos": torch.zeros((batch,), dtype=torch.int32,
+                           device=first_device(devs))}
 
 
 def _kv_rows(kv, rows) -> Shards:
     """A placed K/V cache's rows (views, so writes reach the cache)."""
-    return Shards([t[:, rows] for t in kv], kv.dim)
+    return kv.map(lambda t: t[:, rows])
 
 
 def _tp_decode(params, cache, token_ids, pos, cfg: TransformerConfig,
@@ -1134,7 +1161,7 @@ def _tp_decode(params, cache, token_ids, pos, cfg: TransformerConfig,
     groups, parts = _dp_rows(mesh, B)
     xs, steps = [], []
     for devs, rows in zip(groups, parts):
-        x = _embed(params, token_ids[rows], cfg).to(devs[0])
+        x = _embed(params, token_ids[rows], cfg).to(first_device(devs))
         positions = pos[rows].to(x.device)[:, None] + torch.arange(
             K, device=x.device)[None, :]
         xs.append(x)
@@ -1147,14 +1174,17 @@ def _tp_decode(params, cache, token_ids, pos, cfg: TransformerConfig,
                                                                    steps)):
             _check_q8_attn_single_chip(p, devs)
             h = rmsnorm(xs[g], p["ln1"].to(xs[g].device))
-            attns = []
-            for r, (q, k, v, pr) in enumerate(_rank_qkv(p, h, positions, cfg,
-                                                         devs)):
+
+            def attend(r, dev, qkv, ck=ck, cv=cv, rows=rows):
+                q, k, v, pr = qkv
                 kc, vc = ck[r][i], cv[r][i]  # (B, T, Hkv/tp, Dh) views
                 rr = rows.to(kc.device)
                 kc[rr, pr] = k.to(kc.dtype)
                 vc[rr, pr] = v.to(vc.dtype)
-                attns.append(_chunk_attention(q, kc, vc, pr))
+                return _chunk_attention(q, kc, vc, pr)
+
+            attns = rank_map(attend, devs,
+                             _rank_qkv(p, h, positions, cfg, devs))
             xs[g] = _tp_attn_out(p, xs[g], attns, devs)
         xs, _ = _mesh_ffn(p, xs, cfg, groups)
     return _tp_logits(params, xs, cfg, groups)
@@ -1185,7 +1215,7 @@ def decode_step(params, cache, token_ids, cfg: TransformerConfig,
     if single:
         token_ids = token_ids[:, None]
     B, K = token_ids.shape
-    T = (cache["k"][0] if mesh is not None else cache["k"]).shape[2]
+    T = (cache["k"].first if mesh is not None else cache["k"]).shape[2]
     if K > T:
         raise ValueError(f"chunk of {K} tokens exceeds cache length {T}")
     pos = cache["pos"].to(token_ids.device).long()

@@ -39,6 +39,14 @@ from seldon_core_tpu_torch.operator.spec import (
     SeldonDeployment,
     validate_deployment,
 )
+# the multi-host env contract, defined once in runtime/multihost.py (the
+# runtime half that parses it): the manifests carry what it reads
+from seldon_core_tpu_torch.runtime.multihost import (
+    COORDINATOR_PORT,
+    ENV_COORDINATOR,
+    ENV_NUM_HOSTS,
+    ENV_WORKER_ID,
+)
 
 ENGINE_PORT = 8000
 GRPC_PORT = 5001
@@ -71,16 +79,10 @@ def model_initializer_image() -> str:
 
 
 # devices per node: an H100 host holds 8.  Predictors needing more span
-# hosts as a StatefulSet per replica (the multi-host env contract below).
+# hosts as a StatefulSet per replica (the multi-host env contract above).
 GPUS_PER_HOST = 8
 GPU_RESOURCE = "nvidia.com/gpu"
 GPU_NODE_SELECTOR = {"cloud.google.com/gke-accelerator": "nvidia-h100-80gb"}
-# the multi-host env contract: the reference's names and coordinator port,
-# so a multi-host runtime reads the same env the manifests carry
-ENV_NUM_HOSTS = "NUM_TPU_HOSTS"
-ENV_WORKER_ID = "TPU_WORKER_ID"
-ENV_COORDINATOR = "TPU_COORDINATOR_ADDRESS"
-COORDINATOR_PORT = 8476
 
 
 def _int_ann(ann: dict, key: str, default: int) -> int:

@@ -1093,6 +1093,13 @@ def engine_main(argv: Optional[list] = None) -> None:
 
         index = fork_workers(args.workers)
         _say(f"worker {index} (pid {os.getpid()})")
+    # a multi-host slice's pods join its process group before anything
+    # touches the card (the operator's env; nothing single-host)
+    from seldon_core_tpu_torch.runtime.multihost import (
+        maybe_initialize_distributed,
+    )
+
+    maybe_initialize_distributed()
 
     async def run():
         server, local = await serve(graph, port=args.port,

@@ -35,12 +35,28 @@ The collectives act on the ranks of one axis, in rank order:
   ``concat_dim`` (the sequence-to-heads move of ring prefill).
 
 A copy to the device a tensor is already on is no copy (``Tensor.to``).
-Several processes (multi-host) would back the same functions with
-``torch.distributed``; this module has none.
+
+**A mesh over several processes** (multi-host, ``runtime/multihost.py``):
+:func:`process_mesh` builds the global mesh of a ``torch.distributed``
+process group, its ranks in process order as ``jax.devices()`` orders them
+(process ``p`` of ``k`` local ranks owns ranks ``p*k .. p*k+k-1``).  A rank
+that another process owns has no device here: ``None`` in ``devices``
+(:attr:`Mesh.spans_processes`).  Every per-rank list (a :class:`Shards`
+included) then holds ``None`` at those ranks, and :func:`rank_map` runs a
+rank's work only where this process holds the rank.  The collectives keep
+their arithmetic: each first gathers every rank's tensor in its own dtype
+(:func:`_exchange`, exact bytes staged through host memory over the group,
+gloo), then every process computes what the single controller computes
+(a sum in float32 in rank order) on its first local device, for its own
+ranks.  So an answer does not depend on how the ranks fall over
+processes.  The scope is the reference's multi-host proof: a tp axis across
+processes, dp = pp = 1 across them; :func:`check_one_process` refuses the
+rest by name.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -49,9 +65,11 @@ import torch
 
 __all__ = [
     "AXIS_ORDER", "Mesh", "MeshPlan", "MeshPlanError", "NamedSharding",
-    "Shards", "all_gather", "all_to_all", "make_mesh", "named_sharding",
-    "place", "plan_mesh", "ppermute", "psum", "psum_scatter", "pspec",
-    "single_axis_mesh", "unshard",
+    "Shards", "all_gather", "all_to_all", "check_one_process",
+    "first_device", "make_mesh", "named_sharding", "place", "plan_mesh",
+    "ppermute", "process_mesh", "psum", "psum_scatter", "pspec", "rank_map",
+    "reset_transport_stats", "single_axis_mesh", "transport_stats",
+    "unshard",
 ]
 
 AXIS_ORDER = ("dp", "pp", "tp")
@@ -117,7 +135,8 @@ class Mesh:
         src = np.asarray(devices, dtype=object)
         arr = np.empty(src.shape, dtype=object)
         for idx in np.ndindex(arr.shape):
-            arr[idx] = torch.device(src[idx])
+            # None: a rank another process owns (process_mesh)
+            arr[idx] = None if src[idx] is None else torch.device(src[idx])
         if arr.ndim != len(axis_names):
             raise MeshPlanError(f"devices of shape {arr.shape} for axes "
                                 f"{tuple(axis_names)}")
@@ -142,16 +161,66 @@ class Mesh:
 
     @property
     def distinct_devices(self) -> list:
-        """Each device of the mesh once, in first-seen order."""
+        """Each device of this process's ranks once, in first-seen order."""
         out = []
         for d in self.devices.flat:
-            if d not in out:
+            if d is not None and d not in out:
                 out.append(d)
         return out
 
+    @property
+    def n_processes(self) -> int:
+        """How many processes hold the mesh's ranks (as many each)."""
+        local = int(sum(d is not None for d in self.devices.flat))
+        return self.devices.size // local if local else 1
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether other processes own some of the ranks
+        (:func:`process_mesh`)."""
+        return any(d is None for d in self.devices.flat)
+
     def __repr__(self) -> str:
         axes = ",".join(f"{a}={n}" for a, n in self.shape.items())
-        return f"Mesh({axes}; {[str(d) for d in self.distinct_devices]})"
+        local = [str(d) for d in self.distinct_devices]
+        if self.spans_processes:
+            n = int(sum(d is not None for d in self.devices.flat))
+            return (f"Mesh({axes}; {n} of {self.devices.size} ranks in this "
+                    f"process on {local})")
+        return f"Mesh({axes}; {local})"
+
+
+def check_one_process(where, what: str) -> None:
+    """Refuse ``what`` over ranks that span processes (``where``: a mesh,
+    or a list of devices or of device lists): only the tensor-parallel
+    serving path runs across processes (the reference's multi-host
+    proof)."""
+    if where is None:
+        return
+    devs = where.devices if isinstance(where, Mesh) else np.asarray(
+        where, dtype=object)
+    if any(d is None for d in devs.flat):
+        raise MeshPlanError(
+            f"{what} does not run over ranks that span processes "
+            f"({where!r}): across processes only tensor-parallel serving "
+            "runs (prefill, decode, the engines)")
+
+
+def first_device(devs: Sequence) -> torch.device:
+    """The first device of ``devs`` that this process holds."""
+    for d in devs:
+        if d is not None:
+            return d
+    raise MeshPlanError("this process holds none of the ranks")
+
+
+def rank_map(fn, devs: Sequence, *per_rank: Sequence) -> list:
+    """``fn(r, devs[r], *(x[r] for x in per_rank))`` for each rank ``r``
+    this process holds, in rank order; ``None`` at every other process's
+    ranks.  The per-rank loops of the model code run through it, so a
+    process computes only its own ranks."""
+    return [None if d is None else fn(r, d, *(x[r] for x in per_rank))
+            for r, d in enumerate(devs)]
 
 
 def _default_devices(n: int, device) -> list:
@@ -190,7 +259,7 @@ def make_mesh(plan: Optional[MeshPlan] = None,
             raise MeshPlanError(
                 f"plan wants {plan.n_devices} devices, have {n}")
         devices = _default_devices(n, device)
-    devices = [torch.device(d) for d in devices]
+    devices = [None if d is None else torch.device(d) for d in devices]
     if n_devices is not None:
         devices = devices[:n_devices]
     if plan is None:
@@ -201,6 +270,32 @@ def make_mesh(plan: Optional[MeshPlan] = None,
     arr = np.empty((len(devices),), dtype=object)
     arr[:] = devices
     return Mesh(arr.reshape(plan.dp, plan.pp, plan.tp), AXIS_ORDER)
+
+
+def process_mesh(local_devices: Sequence) -> Mesh:
+    """The global mesh of the ``torch.distributed`` process group (joined
+    first: ``runtime/multihost.py``), every rank on "tp" (dp = pp = 1
+    across processes): every process gives its own ``local_devices`` (a
+    device may repeat), all processes as many, and the ranks go in process
+    order, process ``p`` owning ranks ``p*k .. p*k+k-1``.  The other
+    processes' ranks are ``None`` here."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        raise MeshPlanError("process_mesh needs a joined process group "
+                            "(runtime/multihost.py "
+                            "maybe_initialize_distributed)")
+    local = [torch.device(d) for d in local_devices]
+    world, me = dist.get_world_size(), dist.get_rank()
+    counts = [torch.zeros(1, dtype=torch.int64) for _ in range(world)]
+    dist.all_gather(counts, torch.tensor([len(local)], dtype=torch.int64))
+    if any(int(c) != len(local) for c in counts):
+        raise MeshPlanError(
+            f"processes hold different numbers of ranks "
+            f"{[int(c) for c in counts]}: every process gives as many")
+    k = len(local)
+    devices = [None] * (me * k) + local + [None] * ((world - me - 1) * k)
+    return make_mesh(MeshPlan(tp=len(devices)), devices=devices)
 
 
 def single_axis_mesh(axis: str = "sp", n_devices: int = 1,
@@ -248,9 +343,18 @@ class Shards(list):
 
     def map(self, fn, *others) -> "Shards":
         """``fn`` on each rank's tensor (and the same rank of ``others``),
-        keeping ``dim`` and ``axis``."""
-        return Shards([fn(*xs) for xs in zip(self, *others)], self.dim,
-                      self.axis)
+        keeping ``dim`` and ``axis``; ``None`` stays at another process's
+        ranks."""
+        return Shards([None if xs[0] is None else fn(*xs)
+                       for xs in zip(self, *others)], self.dim, self.axis)
+
+    @property
+    def first(self):
+        """The first piece this process holds (rank 0's in one process)."""
+        for t in self:
+            if t is not None:
+                return t
+        raise MeshPlanError("this process holds none of the ranks")
 
 
 def _owned(t: torch.Tensor) -> torch.Tensor:
@@ -284,7 +388,8 @@ def place(x: torch.Tensor, sharding: NamedSharding, layout=None, **at):
                                 f"split over {axis}={n}")
         if axis == "tp":
             devs = mesh.axis_devices(axis, **at)
-            return Shards([layout(_owned(p.to(d).contiguous()))
+            return Shards([None if d is None
+                           else layout(_owned(p.to(d).contiguous()))
                            for p, d in zip(torch.chunk(x, n, dim=dim), devs)],
                           dim)
         rest = NamedSharding(mesh, tuple(None if a == axis else a
@@ -292,23 +397,112 @@ def place(x: torch.Tensor, sharding: NamedSharding, layout=None, **at):
         return Shards([place(p, rest, layout, **{**at, axis: i})
                        for i, p in enumerate(torch.chunk(x, n, dim=dim))],
                       dim, axis)
-    return layout(_owned(x.to(mesh.axis_devices("tp", **at)[0])))
+    return layout(_owned(x.to(first_device(mesh.axis_devices("tp", **at)))))
 
 
 def _first(x):
-    return _first(x[0]) if isinstance(x, Shards) else x
+    return _first(x.first) if isinstance(x, Shards) else x
 
 
 def unshard(x, device=None) -> torch.Tensor:
     """The global tensor of ``x`` on ``device`` (its first piece's by
     default), nested :class:`Shards` included; a plain tensor is returned as
-    it is (moved to ``device`` when given)."""
+    it is (moved to ``device`` when given).  Pieces other processes hold
+    are gathered from them (a collective: every process calls it)."""
     if not isinstance(x, Shards):
         return x if device is None else x.to(device)
     device = _first(x).device if device is None else device
     if x.dim is None:
-        return unshard(x[0], device)
-    return torch.cat([unshard(p, device) for p in x], dim=x.dim)
+        return unshard(x.first, device)
+    parts = [None if p is None else unshard(p, device) for p in x]
+    return torch.cat([p.to(device) for p in _exchange(parts)], dim=x.dim)
+
+
+# ----------------------------------------------------------------------
+# the transport between processes
+# ----------------------------------------------------------------------
+
+_STATS = {"calls": 0, "bytes": 0, "host_s": 0.0, "device_ms": 0.0}
+_PENDING: list = []  # (start, end) CUDA events not yet added up
+
+
+def _fold_events(wait: bool = False) -> None:
+    """Add the elapsed time of finished event pairs to ``device_ms``."""
+    keep = []
+    for a, b in _PENDING:
+        if wait:
+            b.synchronize()
+        if b.query():
+            _STATS["device_ms"] += a.elapsed_time(b)
+        else:
+            keep.append((a, b))
+    _PENDING[:] = keep
+
+
+def transport_stats() -> dict:
+    """What :func:`_exchange` moved between processes since the last reset:
+    ``calls``, ``bytes`` sent by this process, ``host_s`` (host clock around
+    each exchange; its copy out first waits for the device's earlier work)
+    and ``device_ms`` (CUDA events on the stream around each exchange on
+    the card, from the copy out to the copy back: the stream waits for the
+    exchange in between)."""
+    _fold_events(wait=True)
+    return dict(_STATS)
+
+
+def reset_transport_stats() -> None:
+    _fold_events(wait=True)
+    _STATS.update(calls=0, bytes=0, host_s=0.0, device_ms=0.0)
+    _PENDING.clear()
+
+
+def _exchange(parts: Sequence) -> list:
+    """Every rank's tensor of ``parts`` (this process's ranks given, ``None``
+    at the others'), in rank order: the local ones as they are, each other
+    one received from its process, on the first local tensor's device.
+    All ranks' tensors share a shape and dtype.  The bytes go as they are
+    through host memory over the default process group (``all_gather`` of
+    every process's stacked ranks; gloo), so nothing is rounded on the way.
+    A list with no ``None`` is returned as it is (one process)."""
+    if all(p is not None for p in parts):
+        return list(parts)
+    import torch.distributed as dist
+
+    mine = [(r, p) for r, p in enumerate(parts) if p is not None]
+    world, me, k = dist.get_world_size(), dist.get_rank(), len(mine)
+    if len(parts) != world * k or [r for r, _ in mine] != list(
+            range(me * k, me * k + k)):
+        raise MeshPlanError(
+            f"process {me} of {world} holds ranks {[r for r, _ in mine]} "
+            f"of {len(parts)}: a collective spans every process, k ranks "
+            "each, in process order")
+    first = mine[0][1]
+    shape, dtype, dev = first.shape, first.dtype, first.device
+    out = list(parts)
+    cuda = dev.type == "cuda"
+    if cuda:
+        _fold_events()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    send = torch.stack([p.to("cpu") for _, p in mine]).reshape(-1).view(
+        torch.uint8)
+    bufs = [torch.empty_like(send) for _ in range(world)]
+    dist.all_gather(bufs, send)
+    for q in range(world):
+        if q == me:
+            continue
+        got = bufs[q].view(dtype).reshape(k, *shape).to(dev)
+        for j in range(k):
+            out[q * k + j] = got[j]
+    if cuda:
+        end.record()
+        _PENDING.append((start, end))
+    _STATS["host_s"] += time.perf_counter() - t0
+    _STATS["calls"] += 1
+    _STATS["bytes"] += send.numel()
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -316,21 +510,25 @@ def unshard(x, device=None) -> torch.Tensor:
 # ----------------------------------------------------------------------
 
 def _sum_f32(parts: Sequence[torch.Tensor], dtype=None) -> torch.Tensor:
-    """The partials summed in float32 on rank 0's device, in rank order,
-    cast to ``dtype`` (the partials' by default)."""
-    dev0 = parts[0].device
-    total = parts[0].float()
-    for p in parts[1:]:
+    """The partials summed in float32 on rank 0's device (the first local
+    device where other processes hold ranks), in rank order, cast to
+    ``dtype`` (the partials' by default)."""
+    full = _exchange(parts)
+    dev0 = full[0].device
+    total = full[0].float()
+    for p in full[1:]:
         total = total + p.to(dev0).float()
-    return total.to(parts[0].dtype if dtype is None else dtype)
+    return total.to(full[0].dtype if dtype is None else dtype)
 
 
 def psum(parts: Sequence[torch.Tensor], dtype=None) -> Shards:
     """The sum of every rank's partial, in float32 on rank 0's device, in
     rank order, cast to ``dtype`` (the partials' by default) and copied back
-    to each rank's device."""
+    to each rank's device (``None`` at other processes' ranks: each process
+    sums the gathered partials itself, in the same order)."""
     total = _sum_f32(parts, dtype)
-    return Shards([total.to(p.device) for p in parts], None)
+    return Shards([None if p is None else total.to(p.device)
+                   for p in parts], None)
 
 
 def psum_scatter(parts: Sequence[torch.Tensor], dim: int,
@@ -342,22 +540,28 @@ def psum_scatter(parts: Sequence[torch.Tensor], dim: int,
     if len(pieces) != len(parts):
         raise ValueError(f"psum_scatter: dim {dim} does not split in "
                          f"{len(parts)}")
-    return [c.to(p.device) for c, p in zip(pieces, parts)]
+    return [None if p is None else c.to(p.device)
+            for c, p in zip(pieces, parts)]
 
 
 def all_gather(parts: Sequence[torch.Tensor], dim: int) -> Shards:
-    """Every rank's piece concatenated along ``dim`` on rank 0's device, and
-    copied back to each rank's device."""
-    dev0 = parts[0].device
-    whole = torch.cat([p.to(dev0) for p in parts], dim=dim)
-    return Shards([whole.to(p.device) for p in parts], None)
+    """Every rank's piece concatenated along ``dim`` on rank 0's device (the
+    first local one across processes), and copied back to each rank's
+    device."""
+    full = _exchange(parts)
+    dev0 = full[0].device
+    whole = torch.cat([p.to(dev0) for p in full], dim=dim)
+    return Shards([None if p is None else whole.to(p.device)
+                   for p in parts], None)
 
 
 def ppermute(parts: Sequence[torch.Tensor]) -> list:
     """A ring shift by one: rank ``r`` receives rank ``r - 1``'s tensor
     (rank 0 the last rank's), on its own device."""
     n = len(parts)
-    return [parts[(r - 1) % n].to(parts[r].device) for r in range(n)]
+    full = _exchange(parts)
+    return [None if parts[r] is None else full[(r - 1) % n].to(parts[r].device)
+            for r in range(n)]
 
 
 def all_to_all(parts: Sequence[torch.Tensor], split_dim: int,
@@ -366,8 +570,9 @@ def all_to_all(parts: Sequence[torch.Tensor], split_dim: int,
     rank ``r`` receives piece ``r`` of every rank, concatenated in rank
     order along ``concat_dim``, on its own device."""
     n = len(parts)
-    pieces = [torch.chunk(p, n, dim=split_dim) for p in parts]
+    pieces = [torch.chunk(p, n, dim=split_dim) for p in _exchange(parts)]
     if any(len(ps) != n for ps in pieces):
         raise ValueError(f"all_to_all: dim {split_dim} does not split in {n}")
-    return [torch.cat([pieces[s][r].to(parts[r].device) for s in range(n)],
+    return [None if parts[r] is None else
+            torch.cat([pieces[s][r].to(parts[r].device) for s in range(n)],
                       dim=concat_dim) for r in range(n)]

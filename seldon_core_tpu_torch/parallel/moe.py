@@ -33,7 +33,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from seldon_core_tpu_torch.parallel.mesh import Mesh, Shards, pspec, psum
+from seldon_core_tpu_torch.parallel.mesh import (
+    Mesh,
+    Shards,
+    check_one_process,
+    pspec,
+    psum,
+)
 
 __all__ = ["MoEConfig", "init_moe_params", "moe_param_specs", "moe_capacity",
            "moe_route", "moe_forward", "moe_forward_dense_reference"]
@@ -154,6 +160,8 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig,
     their ranks (``groups``, each expert group's tp devices, names them
     directly: a pipeline stage's, say; ``mesh`` gives :func:`moe_groups`
     of its first stage)."""
+    check_one_process(mesh if groups is None else groups,
+                      "the mixture of experts (moe_forward)")
     E, K = cfg.n_experts, cfg.top_k
     dt = x.dtype
     r = moe_route(x, params["router"], cfg)

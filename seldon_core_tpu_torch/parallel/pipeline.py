@@ -17,7 +17,7 @@ from typing import Any, Callable
 
 import torch
 
-from seldon_core_tpu_torch.parallel.mesh import Mesh, Shards
+from seldon_core_tpu_torch.parallel.mesh import Mesh, Shards, check_one_process
 
 __all__ = ["pipeline_apply", "stack_stage_params", "stage_slice"]
 
@@ -62,6 +62,7 @@ def pipeline_apply(stage_fn: Callable, stage_params: Any, x: torch.Tensor,
     Returns the last stage's [batch, ...] output on ``x``'s device.  With
     pp = 1 the whole stack is applied at once (the reference's degenerate
     path)."""
+    check_one_process(mesh, "the pp pipeline (pipeline_apply)")
     pp = mesh.axis_size(axis)
     if pp == 1:
         whole = stage_slice(stage_params, 0, 1, axis)

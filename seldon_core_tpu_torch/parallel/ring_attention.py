@@ -6,7 +6,9 @@ of a mesh axis: each rank keeps its queries' shard and the K/V blocks
 rotate around the ring (:func:`~.mesh.ppermute`) while every rank
 accumulates its queries' attention with an online softmax.  One process
 drives every rank (``parallel/mesh.py``), so a ring step runs each rank's
-update in turn, then rotates.  Accumulation is in float32 whatever the
+update in turn, then rotates; over a mesh that spans processes each process
+updates its own ranks (``None`` at the others') and the rotation crosses
+processes.  Accumulation is in float32 whatever the
 input dtype; masked keys contribute exactly zero.  Plain torch, as the
 reference's is plain XLA.
 
@@ -20,7 +22,12 @@ from typing import Optional, Sequence
 
 import torch
 
-from seldon_core_tpu_torch.parallel.mesh import Mesh, Shards, ppermute
+from seldon_core_tpu_torch.parallel.mesh import (
+    Mesh,
+    Shards,
+    check_one_process,
+    ppermute,
+)
 
 __all__ = ["dense_attention", "ring_attention", "ring_attention_sharded",
            "NEG_INF"]
@@ -79,24 +86,28 @@ def ring_attention(q: Sequence[torch.Tensor], k: Sequence[torch.Tensor],
     that size and are broadcast to the full head count per step or
     chunk."""
     n = len(q)
-    B, Lq, H, D = q[0].shape
-    Lk = k[0].shape[1]
-    if n_rep > 1 and k[0].shape[2] * n_rep != H:
+    q0, k0 = (next(x for x in xs if x is not None) for xs in (q, k))
+    B, Lq, H, D = q0.shape
+    Lk = k0.shape[1]
+    if n_rep > 1 and k0.shape[2] * n_rep != H:
         raise ValueError(
-            f"n_rep {n_rep} * kv heads {k[0].shape[2]} != q heads {H}")
+            f"n_rep {n_rep} * kv heads {k0.shape[2]} != q heads {H}")
     if scale is None:
         scale = D ** -0.5
     if kv_chunk is not None and (kv_chunk <= 0 or Lk % kv_chunk):
         raise ValueError(
             f"kv_chunk {kv_chunk} must be positive and divide the local "
             f"length {Lk}")
-    qf = [x.float() for x in q]
-    state = [(torch.zeros((B, Lq, H, D), device=x.device),
+    qf = [None if x is None else x.float() for x in q]
+    state = [None if x is None else
+             (torch.zeros((B, Lq, H, D), device=x.device),
               torch.zeros((B, H, Lq), device=x.device),
               torch.full((B, H, Lq), NEG_INF, device=x.device)) for x in q]
     kc, vc = list(k), list(v)
     for t in range(n):
         for r in range(n):
+            if q[r] is None:  # another process's rank
+                continue
             src = (r - t) % n  # the rank whose block rank r holds now
             o, l, m = state[r]
             step = Lk if kv_chunk is None or kv_chunk >= Lk else kv_chunk
@@ -112,7 +123,11 @@ def ring_attention(q: Sequence[torch.Tensor], k: Sequence[torch.Tensor],
         # rotate the blocks one rank on (the last rotation restores owners)
         kc, vc = ppermute(kc), ppermute(vc)
     out = []
-    for x, (o, l, _) in zip(q, state):
+    for x, st in zip(q, state):
+        if x is None:
+            out.append(None)
+            continue
+        o, l, _ = st
         l = torch.clamp(l, min=1e-30)
         out.append((o / l[..., None].transpose(1, 2)).to(x.dtype))
     return Shards(out, 1)
@@ -126,6 +141,7 @@ def ring_attention_sharded(q, k, v, mesh: Mesh, axis: str = "tp",
     ``axis`` (and B over ``batch_axis`` when the mesh has it, each batch
     group running its own ring on its devices).  Returns the global output
     on ``q``'s device."""
+    check_one_process(mesh, "ring_attention_sharded")
     groups = (mesh.axis_size(batch_axis)
               if batch_axis and batch_axis in mesh.axis_names else 1)
     outs = []

@@ -163,13 +163,17 @@ class PlacementPlane:
         self.metrics = metrics
         self.deployment = deployment
         self.capacity_bytes = capacity_bytes
+        from seldon_core_tpu_torch.parallel.mesh import (
+            MeshPlanError,
+            check_one_process,
+        )
+
         if mesh is None:
             mesh = mesh_for(config, device=device)
         elif dict(mesh.shape) != config.axis_sizes():
-            from seldon_core_tpu_torch.parallel.mesh import MeshPlanError
-
             raise MeshPlanError(f"mesh {mesh!r} is not the spec "
                                 f"{config.spec()!r}")
+        check_one_process(mesh, "the placement plane's sharded segments")
         self.mesh = mesh
         self._plan_lock = threading.Lock()
         self._graph_plan = None

@@ -85,6 +85,18 @@ multiple of tp) prefill sequence-parallel, ring attention over "tp"
 the caches' layout.  Without a mesh (or at tp = 1) every bucket prefills
 dense, as the reference's does.  An engine serves over tp only: a dp axis
 is one engine per dp group.
+
+**Across processes** (a mesh from ``parallel/mesh.py`` ``process_mesh``,
+the processes joined by ``runtime/multihost.py``): every process runs an
+engine over the same global mesh and computes only its own ranks; the
+collectives cross processes.  Each keeps the whole host-side state (slots,
+page tables, prefix refcounts) and samples from the same gathered logits,
+so a seeded sampler draws the same ids in every process.  Requests must
+enter every process in the same order, one after another (the reference's
+multi-host worker does so): each collective waits for the same collective
+in every other process.  The programs run eagerly: a CUDA graph cannot
+hold a transfer between processes (``tp_span()["cudaGraphs"]`` False,
+``tp_span()["processes"]``).
 """
 
 from __future__ import annotations
@@ -110,7 +122,12 @@ from seldon_core_tpu_torch.models.transformer import (
     init_cache,
     prefill,
 )
-from seldon_core_tpu_torch.parallel.mesh import Mesh, Shards, unshard
+from seldon_core_tpu_torch.parallel.mesh import (
+    Mesh,
+    Shards,
+    first_device,
+    unshard,
+)
 from seldon_core_tpu_torch.runtime import programs
 from seldon_core_tpu_torch.runtime.component import SeldonComponentError
 from seldon_core_tpu_torch.runtime.paged import (
@@ -333,10 +350,13 @@ class LLMEngine:
         self.params = params
         self.cfg = cfg
         self.mesh = mesh
-        # the controller's device: rank 0's under a mesh
+        # the controller's device: rank 0's under a mesh (this process's
+        # first under a mesh that spans processes)
         self.device = params["embed"].device
-        # one CUDA graph cannot hold ranks on several cards
-        self._graphs_ok = mesh is None or len(mesh.distinct_devices) == 1
+        # one CUDA graph cannot hold ranks on several cards, nor a transfer
+        # between processes
+        self._graphs_ok = mesh is None or (
+            not mesh.spans_processes and len(mesh.distinct_devices) == 1)
         # prompt buckets of at least this many tokens prefill
         # sequence-parallel over tp (_ring_eligible); 0 = off
         self.ring_prefill = int(ring_prefill)
@@ -444,7 +464,7 @@ class LLMEngine:
         from seldon_core_tpu_torch.device import resolve_device
         from seldon_core_tpu_torch.runtime.checkpoint import load_transformer
 
-        dev = (mesh.axis_devices("tp")[0] if mesh is not None
+        dev = (first_device(mesh.axis_devices("tp")) if mesh is not None
                else resolve_device(device))
         params, cfg = load_transformer(path, mesh=mesh, int8=int8, device=dev)
         if draft_path is not None:
@@ -476,7 +496,9 @@ class LLMEngine:
         slice the weights partition over, their bytes and the bytes split
         over "tp", and the per-rank share (split bytes / tp + the rest).
         None off a mesh or at tp = 1.  ``cudaGraphs`` (port only): whether
-        its programs replay as CUDA graphs (not across several cards)."""
+        its programs replay as CUDA graphs (not across several cards, nor
+        across processes); ``processes`` (port only): how many processes
+        the mesh spans."""
         if self.mesh is None:
             return None
         tp = self.mesh.axis_size("tp")
@@ -490,8 +512,8 @@ class LLMEngine:
                 for v in x.values():
                     walk(v)
             elif isinstance(x, Shards):
-                n = sum(t.nbytes for t in x) if x.dim is not None \
-                    else x[0].nbytes
+                # every piece of a split is the same size (even splits)
+                n = x.first.nbytes * (len(x) if x.dim is not None else 1)
                 total += n
                 sharded += n if x.dim is not None else 0
             elif isinstance(x, (list, tuple)):
@@ -508,6 +530,7 @@ class LLMEngine:
             "shardedParamBytes": sharded,
             "tpBytesPerDevice": sharded // tp + (total - sharded),
             "cudaGraphs": self._graphs_ok,
+            "processes": self.mesh.n_processes,
         }
 
     # -- programs --------------------------------------------------------
@@ -687,7 +710,7 @@ class LLMEngine:
         key (cap0, bs), :meth:`_extend_program`)."""
         k, v = self._kv_of(src)
         logits, k2, v2 = self._program("extend", self._extend_program)(
-            ((k[0] if isinstance(k, Shards) else k).shape[2],
+            ((k.first if isinstance(k, Shards) else k).shape[2],
              suffix.shape[1]), k, v, suffix.astype(np.int64),
             np.array([done], np.int32), np.array([last], np.int64))
         return logits, {"k": k2, "v": v2}

@@ -26,7 +26,9 @@ splits its KV-head axis over "tp": rank ``r`` holds the pages' rows of the
 KV heads its query heads read, a :class:`~..parallel.mesh.Shards` entry on
 its device, so each rank's decode attention (K2 on its KV and query heads,
 with its own merge counters) reads no other rank's pages.  Tables and
-positions stay host state, copied to every rank.
+positions stay host state, copied to every rank.  Over a mesh whose ranks
+span processes each process holds its own ranks' pages and counters
+(``None`` at the others') and keeps the same host state.
 """
 
 from __future__ import annotations
@@ -55,7 +57,12 @@ from seldon_core_tpu_torch.models.transformer import (
     rope,
 )
 from seldon_core_tpu_torch.ops import _build, launches
-from seldon_core_tpu_torch.parallel.mesh import Mesh, Shards
+from seldon_core_tpu_torch.parallel.mesh import (
+    Mesh,
+    Shards,
+    first_device,
+    rank_map,
+)
 
 __all__ = [
     "PagedConfig",
@@ -153,7 +160,8 @@ def init_paged_cache(cfg: TransformerConfig, paged: PagedConfig,
         raise ValueError(f"n_kv_heads {cfg.kv_heads} must divide by tp {tp}")
     shape = (cfg.n_layers, cfg.kv_heads // tp, paged.n_pages,
              paged.page_size, cfg.d_head)
-    return {name: Shards([torch.zeros(shape, dtype=cfg.dtype, device=d)
+    return {name: Shards([None if d is None else
+                          torch.zeros(shape, dtype=cfg.dtype, device=d)
                           for d in devs], 1) for name in ("k", "v")}
 
 
@@ -202,7 +210,8 @@ def arrival_counters(S: int, H: int, Hkv: int, device,
                            device=device)
     devs = mesh.axis_devices("tp")
     tp = len(devs)
-    return Shards([torch.zeros((_pairs(S, H // tp, Hkv // tp),),
+    return Shards([None if d is None else
+                   torch.zeros((_pairs(S, H // tp, Hkv // tp),),
                                dtype=torch.int32, device=d) for d in devs],
                   None)
 
@@ -349,13 +358,15 @@ def _tp_paged(params, cache, tables, pos, toks, cfg: TransformerConfig,
     query per slot (K = 1), the plain chunk math over the gathered pages
     for a verify chunk); the FFN takes every group's rows at once
     (``_mesh_ffn``: a MoE routes every slot of the call).  Returns the
-    logits (S, K, V) on rank 0's device."""
+    logits (S, K, V) on rank 0's device (the first local one across
+    processes)."""
     S, K = toks.shape
     Dh = cfg.d_head
     groups, parts = _dp_rows(mesh, S)
     xs, steps = [], []
     for devs, slots in zip(groups, parts):
-        x = _embed(params, toks[slots], cfg).to(devs[0])  # (S/dp, K, D)
+        x = _embed(params, toks[slots], cfg).to(
+            first_device(devs))  # (S/dp, K, D)
         positions = (pos[slots].to(x.device).long()[:, None]
                      + torch.arange(K, device=x.device)[None, :])
         tbl = tables[slots].to(x.device)
@@ -363,7 +374,8 @@ def _tp_paged(params, cache, tables, pos, toks, cfg: TransformerConfig,
         rows = (page_of * ps + positions % ps).reshape(-1)  # (S/dp*K,)
         lengths = (pos[slots].to(x.device) + 1).to(torch.int32)
         xs.append(x)
-        steps.append((positions, [(rows.to(d), tbl.to(d), lengths.to(d))
+        steps.append((positions, [None if d is None else
+                                  (rows.to(d), tbl.to(d), lengths.to(d))
                                   for d in devs]))
     for i in range(cfg.n_layers):
         p = _layer_params(params["blocks"], i)
@@ -371,9 +383,9 @@ def _tp_paged(params, cache, tables, pos, toks, cfg: TransformerConfig,
             _check_q8_attn_single_chip(p, devs)
             h = rmsnorm(xs[g], p["ln1"].to(xs[g].device))
             n = h.shape[0]
-            attns = []
-            for r, (q, k, v, pr) in enumerate(_rank_qkv(p, h, positions, cfg,
-                                                         devs)):
+
+            def attend(r, dev, qkv, per_rank=per_rank):
+                q, k, v, pr = qkv
                 rr, tr, lr = per_rank[r]
                 kp, vp = cache["k"][r][i], cache["v"][r][i]
                 Hk = kp.shape[0]
@@ -388,10 +400,12 @@ def _tp_paged(params, cache, tables, pos, toks, cfg: TransformerConfig,
                     a = paged_attention(
                         q[:, 0], kp, vp, lr, tr,
                         None if arrivals is None else arrivals[r])
-                    attns.append(a[:, None])
-                else:
-                    attns.append(_chunk_attention(q, _gather_pages(kp, tr),
-                                                  _gather_pages(vp, tr), pr))
+                    return a[:, None]
+                return _chunk_attention(q, _gather_pages(kp, tr),
+                                        _gather_pages(vp, tr), pr)
+
+            attns = rank_map(attend, devs,
+                             _rank_qkv(p, h, positions, cfg, devs))
             xs[g] = _tp_attn_out(p, xs[g], attns, devs)
         xs, _ = _mesh_ffn(p, xs, cfg, groups)
     return _tp_logits(params, xs, cfg, groups)
@@ -460,6 +474,8 @@ def insert_rows(cache, small, rows, true_len: int, start: int = 0):
     (:class:`Shards` on its KV heads), rank by rank."""
     if isinstance(cache["k"], Shards):
         for r in range(len(cache["k"])):
+            if cache["k"][r] is None:  # another process's rank
+                continue
             insert_rows({n: cache[n][r] for n in ("k", "v")},
                         {n: small[n][r] for n in ("k", "v")}, rows,
                         true_len, start)

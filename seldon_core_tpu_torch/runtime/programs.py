@@ -286,7 +286,7 @@ class Program:
         static = self._static.get(key)
         if static is None:
             static = tuple(
-                Shards([torch.empty_like(p) for p in x], x.dim)
+                x.map(torch.empty_like)
                 if isinstance(x, Shards) else
                 torch.empty(tuple(x.shape), dtype=_torch_dtype(x),
                             device=self.device) for x in host)
@@ -307,7 +307,8 @@ class Program:
         for i, (dst, src) in enumerate(zip(static, host)):
             if isinstance(src, Shards):
                 for d, s_ in zip(dst, src):
-                    d.copy_(s_)
+                    if d is not None:  # None: another process's rank
+                        d.copy_(s_)
                 continue
             if isinstance(src, torch.Tensor) and src.device == self.device:
                 dst.copy_(src)

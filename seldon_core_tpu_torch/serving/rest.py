@@ -848,7 +848,8 @@ class RestServer:
 
     async def stop(self, drain_s: float = 0.0) -> None:
         """Stop accepting and close every connection.  With ``drain_s``
-        the requests in hand (a stream included) first run to their answer
+        the requests in hand (a stream included; a request is in hand from
+        its headers on, its body still arriving) first run to their answer
         for up to that long, as aiohttp's graceful shutdown lets them; idle
         keep-alive connections close at once either way."""
         if self._server is not None:
@@ -893,15 +894,17 @@ class RestServer:
                     await _respond(writer, Response(
                         413, _err_json(413, "body too large")), close=True)
                     break
-                body = await reader.readexactly(n) if n else b""
-                close = (headers.get("connection", "").lower() == "close"
-                         or version == "HTTP/1.0")
-                req = Request(method, target, headers, body, self)
-                # a stream's response ends with the connection, and so
-                # does every answer of a server that is stopping
-                close = close or self.is_stream(req) or self._closing
+                # in hand from its headers on, as aiohttp counts a request:
+                # a stop drains it while its body still arrives
                 self._busy.add(writer)
                 try:
+                    body = await reader.readexactly(n) if n else b""
+                    close = (headers.get("connection", "").lower() == "close"
+                             or version == "HTTP/1.0")
+                    req = Request(method, target, headers, body, self)
+                    # a stream's response ends with the connection, and so
+                    # does every answer of a server that is stopping
+                    close = close or self.is_stream(req) or self._closing
                     out = await self.dispatch(req)
                     if isinstance(out, EventStream):
                         await _send_stream(reader, writer, out)

@@ -420,3 +420,47 @@ def test_warm_respawn_answers_as_the_cold_replica(tmp_path):
             await fl.stop()
 
     _run(go())
+
+
+def test_a_kill_drains_a_request_whose_body_is_still_arriving():
+    """A replica's kill (``LocalFleet.kill``: ``RestServer.stop(drain_s)``)
+    lets every request in hand finish, and a request is in hand from its
+    headers on, as the reference's aiohttp server counts it (its handler,
+    and ``_request_in_progress``, start once the headers are parsed; the
+    reference's kill is ``runner.cleanup()``'s graceful shutdown).  A
+    large body (the fleet drill's 800 KB binTensor images) still arriving
+    when the kill starts is read and answered, not cut (the gateway would
+    answer that request 503: the engine may have read it)."""
+    from seldon_core_tpu_torch.serving.rest import Response, RestServer
+
+    body = b"x" * 200_000
+
+    async def echo(req):
+        return Response(200, json.dumps({"n": len(req.body)}).encode())
+
+    async def go():
+        srv = RestServer(host="127.0.0.1", port=0)
+        srv.add_route("POST", "/echo", echo)
+        await srv.start()
+        reader, writer = await asyncio.open_connection("127.0.0.1", srv.port)
+        try:
+            writer.write(b"POST /echo HTTP/1.1\r\nHost: t\r\nContent-Length: "
+                         + str(len(body)).encode() + b"\r\n\r\n"
+                         + body[:1000])
+            await writer.drain()
+            await asyncio.sleep(0.2)  # the server holds the headers
+            stopping = asyncio.ensure_future(srv.stop(drain_s=10.0))
+            await asyncio.sleep(0.2)
+            writer.write(body[1000:])
+            await writer.drain()
+            status = await asyncio.wait_for(reader.readline(), 10)
+            rest = await asyncio.wait_for(reader.read(), 10)
+            await stopping
+            return status, rest
+        finally:
+            writer.close()
+
+    status, rest = asyncio.run(go())
+    assert status.startswith(b"HTTP/1.1 200"), status
+    assert rest.endswith(json.dumps({"n": len(body)}).encode())
+    assert b"connection: close" in rest.lower()

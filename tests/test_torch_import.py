@@ -13,7 +13,9 @@ with those packages blocked, and the gateway issues a token and forwards
 one prediction to an engine without them.  The operator compiles and
 reconciles an example and renders the charts with ``yaml`` blocked too,
 and the tools draw a contract's request and judge a replay, and a 2-rank
-CPU mesh runs ring attention and a tensor-parallel prefill.  A second
+CPU mesh runs ring attention and a tensor-parallel prefill; the multi-host
+module checks the operator's env contract and a process-spanning mesh is
+refused by training.  A second
 probe imports the
 gRPC modules and serves a gRPC call, and forwards one through the
 gateway's gRPC handler with its ``oauth_token``, still without jax or the
@@ -230,6 +232,19 @@ one, _ = tf.prefill(params, ids, cfg, max_len=8)
 two, _ = tf.prefill(tf.shard_params(params, mesh, cfg), ids, cfg, max_len=8,
                     mesh=mesh)
 assert torch.allclose(one, two, atol=1e-5)
+# the multi-host slice without jax: the operator's env contract through the
+# port's compile, a single-host no-op, and a process-spanning mesh refused
+# by training
+from seldon_core_tpu_torch.parallel.mesh import MeshPlanError
+from seldon_core_tpu_torch.runtime import multihost
+multihost._statefulset_env_names(2)
+assert multihost.maybe_initialize_distributed() is False
+spanning = make_mesh(devices=["cpu", None], tp=2)
+try:
+    tf.forward(params, ids, cfg, mesh=spanning)
+    raise AssertionError("training ran over a process-spanning mesh")
+except MeshPlanError:
+    pass
 # the placement plane without jax: iris fused at dp=2 on the CPU serves a
 # sharded batch, and /admin/placement reports it
 from seldon_core_tpu_torch.graph.engine import GraphEngine
@@ -365,6 +380,7 @@ def test_port_imports_without_jax_or_the_jax_package():
         "seldon_core_tpu_torch.models.llm_demo",
         "seldon_core_tpu_torch.runtime.paged",
         "seldon_core_tpu_torch.runtime.llm",
+        "seldon_core_tpu_torch.runtime.multihost",
         "seldon_core_tpu_torch.runtime.checkpoint",
         "seldon_core_tpu_torch.runtime.component",
         "seldon_core_tpu_torch.runtime.persistence",

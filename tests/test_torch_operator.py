@@ -227,8 +227,11 @@ def test_topology_is_dropped_on_the_gpu():
 
 
 def test_multihost_env_contract_is_the_reference_names():
-    assert (pcompile.ENV_NUM_HOSTS, pcompile.ENV_WORKER_ID,
-            pcompile.ENV_COORDINATOR, pcompile.COORDINATOR_PORT) == (
+    # one home for the names: the runtime module that parses them
+    from seldon_core_tpu_torch.runtime import multihost
+
+    assert (multihost.ENV_NUM_HOSTS, multihost.ENV_WORKER_ID,
+            multihost.ENV_COORDINATOR, multihost.COORDINATOR_PORT) == (
         "NUM_TPU_HOSTS", "TPU_WORKER_ID", "TPU_COORDINATOR_ADDRESS", 8476)
 
 

@@ -490,14 +490,27 @@ def test_moe_serving_over_a_tp_mesh_matches_the_reference(dp):
 
 def test_dryrun_cli_prints_both_lines(capsys):
     """``python -m seldon_core_tpu_torch.dryrun --device cpu``: both of the
-    reference's training lines, seeded here, in its wording."""
+    reference's training lines, seeded here, in its wording, then its two
+    multi-host lines (two processes of 4 ranks: tp = 8)."""
+    import re
+
     from seldon_core_tpu_torch import dryrun
 
     assert dryrun.main(["--device", "cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert [ln.rsplit("loss=", 1)[0] for ln in lines] == [
+    train, multihost = lines[:2], lines[2:]
+    assert [ln.rsplit("loss=", 1)[0] for ln in train] == [
         "dryrun_training OK: mesh(dp=2,pp=2,tp=2) attention=dense "
         "sp=megatron experts=2 ",
         "dryrun_training OK: mesh(dp=2,pp=1,tp=4) attention=ring sp=ring "
         "experts=2 "]
-    assert all(np.isfinite(float(ln.rsplit("=", 1)[1])) for ln in lines)
+    assert all(np.isfinite(float(ln.rsplit("=", 1)[1])) for ln in train)
+    assert multihost[0] == (
+        "dryrun_multichip OK: multihost 2-process jax.distributed LLMEngine "
+        "tp=8 spanning processes, byte-identical to single-device decode ok")
+    assert re.fullmatch(
+        r"dryrun_multichip OK: multihost 2-process PagedLLMEngine paged-KV x "
+        r"spec x ring-prefill x prefix-aliasing tp=8 spanning processes: 3 "
+        r"requests byte-identical to plain decode, [1-9][0-9]* spec rounds, "
+        r"4 shared pages pinned\+returned per rank ok", multihost[1])
+    assert len(multihost) == 2
