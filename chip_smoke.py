@@ -420,7 +420,33 @@ Prints one JSON object per line:
     events around each exchange over the tick's host time).  Each child
     must end within ``MULTIHOST_DEADLINE_S``; a failing or hung child
     fails the phase, both are stopped.
-42. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
+42. ``multihost_train_dryrun`` (after ``multihost_7b``): ``runtime/
+    multihost.py`` ``run_multihost_training(..., device="cuda")`` at 2
+    processes x 4 ranks and at 4 x 2, all on cuda:0: the reference's two
+    training plans (the dryrun's seeded weights and batch) over
+    ``process_mesh(..., plan=)``, so dp crosses the boundary at 2 x 4 and
+    pp (the dense plan) or tp (the ring plan) at 4 x 2.  Gates: every
+    process prints the line ``train_mesh`` (a)'s single controller
+    printed, its loss within 1e-6 of the single controller's, and every
+    leaf several processes keep bitwise the same in each of them after the
+    step; K3 launched 32 times a layout in the workers (the dense plan's
+    4 layers x 2 microbatches x dp 2 x tp 2).  Reported: each process's
+    step seconds.
+43. ``multihost_train_moe``: ``train_moe``'s model and batches (seeds 61,
+    62; full width, 8 x 512, 10 AdamW steps at lr 1e-3) at dp = 2 over two
+    processes with the operator's env, one rank each on cuda:0
+    (``chip_smoke.py --multihost-train-child``): the experts' moves and the
+    gradient sums cross the boundary.  Held against the single
+    controller's dp = 2 on [cuda:0, cuda:0] with the same seeds, run twice
+    first.  Gates: each step's loss within 1e-3 relative of the single
+    controller's, or within twice the single controller's own gap between
+    its two runs where that is larger; every replicated leaf bitwise equal
+    between the processes after step 10; losses finite and falling; K3
+    launched 8 x 10 times in each child (one a layer a rank a forward).
+    Reported: step ms medians in the processes and for the single
+    controller, the moves' CUDA-event ms over a step's host ms
+    (``transport_stats``), a step's moves, peak memory.
+44. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
     phases of prefix caching, batched and chunked prefill, preemption and
     checkpoints together; ``slice_3b_phases``: ``spec_7b`` and
     ``parity_spec_7b``; ``slice_4a_i_phases``: the ``wire_*`` phases;
@@ -430,8 +456,9 @@ Prints one JSON object per line:
     25-26; ``slice_5_i_phases``: 27-28; ``slice_5_ii_phases``: 29;
     ``slice_5b_i_phases``: 30-32; ``slice_5b_ii_phases``: 33-34;
     ``slice_6a_phases``: 35-36; ``slice_6b_phases``: 37;
-    ``slice_6c_phases``: 38-39; ``slice_6d_phases``: 40-41).
-43. ``{"kernels": [...]}``: one entry per kernel with its launches in the
+    ``slice_6c_phases``: 38-39; ``slice_6d_phases``: 40-41;
+    ``slice_6e_phases``: 42-43).
+45. ``{"kernels": [...]}``: one entry per kernel with its launches in the
     runs through entry points (``llm_json``, ``serve_7b``, ``grpc_7b``,
     ``features_7b``, ``spec_7b``, ``llm_graphs_7b``, ``checkpoint_7b``,
     ``plan_resnet50``,
@@ -440,7 +467,8 @@ Prints one JSON object per line:
     ``device_plane_resnet50``, ``observe_7b``, ``observe_resnet50``,
     ``lint``, ``gateway_7b``, ``loadtest_7b``, ``parity_tp_7b``,
     ``tp_7b``, ``placement_resnet50``, ``train_moe``, ``train_mesh``,
-    ``multihost_dryrun``, ``multihost_7b``, ``gateway_resnet50``,
+    ``multihost_dryrun``, ``multihost_7b``, ``multihost_train_dryrun``,
+    ``multihost_train_moe``, ``gateway_resnet50``,
     ``fleet_resnet50`` and ``operator_resnet50``, counted by the child
     processes where the kernels run there; K1 also
     ``resnet50_launches``: the int8 REST run), each phase's count beside,
@@ -453,7 +481,7 @@ Prints one JSON object per line:
     bitwise equal to autograd through the plain version, the forward's
     and the backward's ms beside the forward's bound and SDPA's forward
     and backward).
-44. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+46. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
@@ -8243,6 +8271,7 @@ def train_mesh_phase(torch) -> dict:
         dryrun_batch,
         dryrun_config,
         dryrun_training,
+        plan_label,
     )
     from seldon_core_tpu_torch.models.transformer import (
         init_params,
@@ -8269,6 +8298,7 @@ def train_mesh_phase(torch) -> dict:
             aux_weight=0.0 if plan.pp > 1 else 0.01)
         out["dryrun"].append({"line": line, "loss": loss,
                               "no_mesh_loss": loss_one})
+        TRAIN_MESH[plan_label(plan)] = {"line": line, "loss": loss}
         if not abs(loss - loss_one) <= 1e-4:
             raise AssertionError(f"train_mesh (a): {out['dryrun']}")
     # (b) mesh(dp=2, pp=2, tp=2) at full width, 2 layers, float32
@@ -8502,9 +8532,51 @@ def multihost_child_main(argv: list) -> int:
     return 0
 
 
+def _run_multihost_children(phase: str, flag: str, out_dir: Path,
+                            n: int = 2) -> list:
+    """``n`` processes of this script (``flag OUT``) joined through the
+    operator's env on a free loopback port; every one must end with rc 0
+    within ``MULTIHOST_DEADLINE_S`` (a failing or hung one fails the phase;
+    all are stopped).  Returns their OUT paths."""
+    from seldon_core_tpu_torch.runtime import multihost
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    outs = [out_dir / f"child{i}.json" for i in range(n)]
+    for o in outs:
+        o.unlink(missing_ok=True)
+    port = _free_port()
+    kids = [Child([sys.executable, str(ROOT / "chip_smoke.py"), flag, str(o)],
+                  {multihost.ENV_NUM_HOSTS: str(n),
+                   multihost.ENV_WORKER_ID: str(i),
+                   multihost.ENV_COORDINATOR: f"127.0.0.1:{port}"},
+                  f"{phase}-{i}") for i, o in enumerate(outs)]
+    try:
+        deadline = time.monotonic() + MULTIHOST_DEADLINE_S
+        while any(k.proc.poll() is None for k in kids):
+            for k in kids:
+                if k.proc.poll() not in (None, 0):
+                    raise AssertionError(
+                        f"{phase}: {k.label} exited rc "
+                        f"{k.proc.returncode}: {k.tail()}")
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"{phase}: the processes did not end within "
+                    f"{MULTIHOST_DEADLINE_S} s: "
+                    + " | ".join(k.tail(10) for k in kids))
+            time.sleep(0.1)
+        for k in kids:
+            if k.proc.returncode != 0:
+                raise AssertionError(f"{phase}: {k.label} exited rc "
+                                     f"{k.proc.returncode}: {k.tail()}")
+    finally:
+        for k in kids:
+            k.stop()
+    return outs
+
+
 def multihost_7b_phase(torch) -> dict:
     """Phase 41 (module docstring).  Returns the children's launches."""
-    from seldon_core_tpu_torch.runtime import multihost, programs
+    from seldon_core_tpu_torch.runtime import programs
 
     _, mesh2, _ = _card_meshes(torch)
     prompts = [_serve_7b_prompts(torch)[i] for i in MULTIHOST_PICK]
@@ -8517,39 +8589,9 @@ def multihost_7b_phase(torch) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
 
-    MULTIHOST_DIR.mkdir(parents=True, exist_ok=True)
-    outs = [MULTIHOST_DIR / f"child{i}.json" for i in range(2)]
-    for o in outs:
-        o.unlink(missing_ok=True)
-    port = _free_port()
     t0 = time.perf_counter()
-    kids = [Child([sys.executable, str(ROOT / "chip_smoke.py"),
-                   "--multihost-child", str(o)],
-                  {multihost.ENV_NUM_HOSTS: "2",
-                   multihost.ENV_WORKER_ID: str(i),
-                   multihost.ENV_COORDINATOR: f"127.0.0.1:{port}"},
-                  f"multihost-{i}") for i, o in enumerate(outs)]
-    try:
-        deadline = time.monotonic() + MULTIHOST_DEADLINE_S
-        while any(k.proc.poll() is None for k in kids):
-            for k in kids:
-                if k.proc.poll() not in (None, 0):
-                    raise AssertionError(
-                        f"multihost_7b: {k.label} exited rc "
-                        f"{k.proc.returncode}: {k.tail()}")
-            if time.monotonic() > deadline:
-                raise AssertionError(
-                    f"multihost_7b: the processes did not end within "
-                    f"{MULTIHOST_DEADLINE_S} s: "
-                    + " | ".join(k.tail(10) for k in kids))
-            time.sleep(0.1)
-        for k in kids:
-            if k.proc.returncode != 0:
-                raise AssertionError(f"multihost_7b: {k.label} exited rc "
-                                     f"{k.proc.returncode}: {k.tail()}")
-    finally:
-        for k in kids:
-            k.stop()
+    outs = _run_multihost_children("multihost_7b", "--multihost-child",
+                                   MULTIHOST_DIR)
     children_s = time.perf_counter() - t0
     res = [json.loads(o.read_text()) for o in outs]
     logits = [torch.load(o.with_suffix(".pt")) for o in outs]
@@ -8598,6 +8640,199 @@ def multihost_7b_phase(torch) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# slice 6e: training across processes
+# ----------------------------------------------------------------------
+
+#: train_mesh (a)'s single-controller lines and losses, by plan label
+TRAIN_MESH: dict = {}
+MULTIHOST_TRAIN_DIR = ROOT / "build" / "multihost_train_moe"
+#: multihost_train_dryrun's layouts: processes x ranks of cuda:0
+TRAIN_LAYOUTS = ((2, 4), (4, 2))
+
+
+def multihost_train_dryrun_phase(torch) -> dict:
+    """Phase 42 (module docstring).  Returns the workers' launches."""
+    from seldon_core_tpu_torch.runtime.multihost import (
+        run_multihost_training,
+    )
+
+    out = {"phase": "multihost_train_dryrun", "card": CARD, "layouts": []}
+    launches = {k: 0 for k in _counters()}
+    for hosts, per in TRAIN_LAYOUTS:
+        t0 = time.perf_counter()
+        r = run_multihost_training(hosts, per, timeout=MULTIHOST_DEADLINE_S,
+                                   device="cuda")
+        wall = time.perf_counter() - t0
+        rows = []
+        for p in r["plans"]:
+            single = TRAIN_MESH[p["plan"]]
+            rows.append({**{k: p[k] for k in ("plan", "line", "loss",
+                                             "step_s", "shared_leaves",
+                                             "launches")},
+                         "single_controller_line": single["line"],
+                         "single_controller_loss": single["loss"],
+                         "loss_diff": abs(p["loss"] - single["loss"])})
+            print(f"dryrun_training OK ({hosts} processes x {per} ranks): "
+                  f"{p['line']}", flush=True)
+            for k, n in p["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+        out["layouts"].append({"processes": hosts, "ranks_each": per,
+                               "wall_s": wall, "plans": rows})
+    emit(out)
+    for lay in out["layouts"]:
+        for row in lay["plans"]:
+            if not (row["line"] == row["single_controller_line"]
+                    and row["loss_diff"] <= 1e-6):
+                raise AssertionError(f"multihost_train_dryrun: {row}")
+    # K3: the dense plan's 4 layers x 2 microbatches x dp 2 x tp 2 a layout
+    # (the ring plan launches none)
+    want = 32 * len(TRAIN_LAYOUTS)
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"multihost_train_dryrun: K3 launched "
+                             f"{launches['flash_attention']}, not {want}")
+    return launches
+
+
+def _moe_train_steps(torch, mesh) -> tuple:
+    """``train_moe``'s model (seed 61) and batches (seed 62) placed over
+    ``mesh``: ``TRAIN_STEPS`` AdamW steps.  Returns ``(result, params)``:
+    the losses, each step's host ms (the loss read waits for it), the
+    moves between processes a step (``transport_stats``), the launches."""
+    from seldon_core_tpu_torch.models.transformer import (
+        init_params,
+        make_train_step,
+        shard_params,
+    )
+    from seldon_core_tpu_torch.parallel.mesh import (
+        reset_transport_stats,
+        transport_stats,
+    )
+
+    cfg = _train_cfg(torch)
+    data = torch.Generator(device="cuda").manual_seed(62)
+    batches = [_train_batch(torch, data, 8, 512, cfg.vocab_size)
+               for _ in range(TRAIN_STEPS)]
+    params = shard_params(init_params(
+        torch.Generator(device="cuda").manual_seed(61), cfg), mesh, cfg)
+    init_opt, step = make_train_step(cfg, mesh=mesh, learning_rate=1e-3)
+    opt = init_opt(params)
+    torch.cuda.synchronize()
+    reset_launches()
+    reset_transport_stats()
+    losses, step_ms, moved = [], [], []
+    for batch in batches:
+        s0 = transport_stats()
+        t = time.perf_counter()
+        params, opt, loss = step(params, opt, batch)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        s1 = transport_stats()
+        moved.append({k: s1[k] - s0[k] for k in s1})
+    return {"losses": losses, "step_ms": step_ms, "moved": moved,
+            "launches": read_launches(),
+            "peak_device_bytes": torch.cuda.max_memory_allocated()}, params
+
+
+def multihost_train_child_main(argv: list) -> int:
+    """``chip_smoke.py --multihost-train-child OUT``: one process of
+    ``multihost_train_moe``: join the slice from the operator's env, hold
+    one dp rank on cuda:0, run the steps, check the replicated leaves
+    against the other process's, and write the result to OUT (JSON)."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from seldon_core_tpu_torch.parallel.mesh import (
+        MeshPlan,
+        process_mesh,
+        replicas_agree,
+    )
+    from seldon_core_tpu_torch.runtime.multihost import (
+        maybe_initialize_distributed,
+    )
+
+    out = Path(argv[0])
+    if not maybe_initialize_distributed():
+        raise SystemExit("multihost train child: no multi-host env")
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    mesh = process_mesh([torch.device("cuda", 0)], plan=MeshPlan(dp=2))
+    res, params = _moe_train_steps(torch, mesh)
+    res.update(rank=dist.get_rank(), replicas=replicas_agree(params, mesh))
+    out.write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def multihost_train_moe_phase(torch) -> dict:
+    """Phase 43 (module docstring).  Returns the children's launches."""
+    from seldon_core_tpu_torch.parallel.mesh import MeshPlan, make_mesh
+
+    single = []
+    for _ in range(2):  # twice: the single controller's own run-to-run gap
+        mesh = make_mesh(MeshPlan(dp=2), devices=["cuda:0"] * 2)
+        res, params = _moe_train_steps(torch, mesh)
+        single.append(res)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outs = _run_multihost_children("multihost_train_moe",
+                                   "--multihost-train-child",
+                                   MULTIHOST_TRAIN_DIR)
+    children_s = time.perf_counter() - t0
+    res = [json.loads(o.read_text()) for o in outs]
+    ref = single[0]["losses"]
+    gap = [abs(a - b) for a, b in zip(ref, single[1]["losses"])]
+    limit = [max(1e-3 * abs(r), 2 * g) for r, g in zip(ref, gap)]
+    diffs = [[abs(a - b) for a, b in zip(r["losses"], ref)] for r in res]
+    per_step = [statistics.median(r["step_ms"][1:]) for r in res]
+    launches = {k: sum(r["launches"][k] for r in res)
+                for k in res[0]["launches"]}
+    share = []
+    for r in res:
+        dev = sum(m["device_ms"] for m in r["moved"][1:])
+        share.append(dev / sum(r["step_ms"][1:]))
+    line = {
+        "phase": "multihost_train_moe", "card": CARD,
+        "model": "vocab 32000, d_model 512, 8 layers x 8 heads of 64, d_ff "
+                 "2048, 4 experts top-2 cf 2.0, flash, bf16 activations, "
+                 "float32 params, AdamW lr 1e-3",
+        "mesh": "dp=2: 2 processes x 1 rank on cuda:0, gloo; against the "
+                "single controller's dp=2 on [cuda:0, cuda:0], twice",
+        "batch": [8, 512], "steps": TRAIN_STEPS,
+        "losses": [r["losses"] for r in res],
+        "single_controller_losses": [s["losses"] for s in single],
+        "single_controller_gap": gap, "limit": limit, "loss_diffs": diffs,
+        "losses_bitwise_single_controller": [r["losses"] == ref
+                                             for r in res],
+        "replicas": [r["replicas"] for r in res],
+        "step_ms_median": per_step,
+        "single_controller_step_ms_median": [
+            statistics.median(s["step_ms"][1:]) for s in single],
+        "transfer_device_ms_share_of_step": share,
+        "moved_per_step": res[0]["moved"][1],
+        "peak_device_bytes": [r["peak_device_bytes"] for r in res],
+        "children_s": children_s, "launches": launches}
+    emit(line)
+    for r, d in zip(res, diffs):
+        if not all(x <= lim for x, lim in zip(d, limit)):
+            raise AssertionError(f"multihost_train_moe: process {r['rank']} "
+                                 f"losses {r['losses']} against {ref}")
+        if not (r["replicas"]["equal"] and r["replicas"]["leaves"] > 0):
+            raise AssertionError(f"multihost_train_moe: process {r['rank']}'s "
+                                 f"replicated leaves differ: {r['replicas']}")
+        if not (all(math.isfinite(x) for x in r["losses"])
+                and r["losses"][-1] < r["losses"][0]):
+            raise AssertionError(f"multihost_train_moe: losses {r['losses']}")
+        # K3: one launch a layer a rank a forward (one rank a process)
+        if r["launches"]["flash_attention"] != 8 * TRAIN_STEPS:
+            raise AssertionError(f"multihost_train_moe: K3 launched "
+                                 f"{r['launches']} in process {r['rank']}")
+    return launches
+
+
 _SUMMARY_META = {
     "int8_matmul": ("seldon_core_tpu_torch/csrc/int8_matmul.cu",
                     "seldon_core_tpu/ops/quant.py:52"),
@@ -8615,6 +8850,8 @@ def main() -> int:
         return runner_child_main(sys.argv[2:])
     if sys.argv[1:2] == ["--multihost-child"]:
         return multihost_child_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--multihost-train-child"]:
+        return multihost_train_child_main(sys.argv[2:])
     try:
         return smoke()
     finally:
@@ -8711,6 +8948,11 @@ def smoke() -> int:
     runs["multihost_dryrun"] = timed("multihost_dryrun",
                                      multihost_dryrun_phase, torch)
     runs["multihost_7b"] = timed("multihost_7b", multihost_7b_phase, torch)
+    # slice 6e: training across processes joined over gloo on the one card
+    runs["multihost_train_dryrun"] = timed(
+        "multihost_train_dryrun", multihost_train_dryrun_phase, torch)
+    runs["multihost_train_moe"] = timed("multihost_train_moe",
+                                        multihost_train_moe_phase, torch)
     runs["checkpoint_7b"] = timed("checkpoint_7b", checkpoint_7b_phase,
                                   torch)
     resnet_k1 = timed("resnet50", resnet50_phase, torch)
@@ -8778,6 +9020,8 @@ def smoke() -> int:
           "slice_6c_phases": seconds["train_moe"] + seconds["train_mesh"],
           "slice_6d_phases": seconds["multihost_dryrun"]
           + seconds["multihost_7b"],
+          "slice_6e_phases": seconds["multihost_train_dryrun"]
+          + seconds["multihost_train_moe"],
           "total": time.perf_counter() - t0})
     launches = {k: sum(r[k] for r in runs.values())
                 for k in runs["serve_7b"]}

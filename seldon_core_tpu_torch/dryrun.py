@@ -14,7 +14,10 @@ letter for letter; without them the weights and the data are seeded here.
 The reference's two multi-host lines come from
 ``runtime/multihost.py`` ``run_multihost_dryrun`` (two processes of
 ``n_devices // 2`` ranks each), in the reference's words
-(:func:`multihost_lines`).
+(:func:`multihost_lines`).  The same training step runs over a mesh whose
+ranks span processes (``dryrun_training(..., mesh=process_mesh(...))``;
+``runtime/multihost.py`` ``run_multihost_training`` spawns them) and
+prints the same line.
 
 Run both of the reference's training lines and its two multi-host lines::
 
@@ -35,10 +38,15 @@ from seldon_core_tpu_torch.models.transformer import (
     make_train_step,
     shard_params,
 )
-from seldon_core_tpu_torch.parallel.mesh import MeshPlan, make_mesh, plan_mesh
+from seldon_core_tpu_torch.parallel.mesh import (
+    Mesh,
+    MeshPlan,
+    make_mesh,
+    plan_mesh,
+)
 
 __all__ = ["dryrun_config", "dryrun_batch", "dryrun_training",
-           "multihost_lines", "TRAINING_PLANS"]
+           "multihost_lines", "plan_label", "TRAINING_PLANS"]
 
 #: the reference's two training plans on 8 devices (``dryrun_multichip``)
 TRAINING_PLANS = (dict(tp=2, pp=2), dict(tp=4, pp=1))
@@ -65,14 +73,23 @@ def dryrun_batch(plan: MeshPlan, cfg: TransformerConfig, device,
             "mask": torch.ones((B, L), dtype=torch.float32, device=device)}
 
 
+def plan_label(plan: MeshPlan) -> str:
+    return f"dp{plan.dp}pp{plan.pp}tp{plan.tp}"
+
+
 def dryrun_training(plan: MeshPlan, device="cuda",
                     params: Optional[dict] = None,
-                    batch: Optional[dict] = None) -> tuple:
+                    batch: Optional[dict] = None,
+                    mesh: Optional[Mesh] = None) -> tuple:
     """One AdamW step of :func:`dryrun_config`'s model over ``plan``, every
-    rank on ``device``.  ``params`` (an unplaced float tree, e.g. converted
-    from the reference's) and ``batch`` default to seeded ones (weights
-    from seed 0, data from seed 1).  Returns ``(summary line, loss, params
-    after the step)``."""
+    rank on ``device``, or over ``mesh`` (the plan's shape, e.g. a
+    ``process_mesh`` whose ranks span processes: every process calls it
+    with the same params and batch).  ``params`` (an unplaced float tree,
+    e.g. converted from the reference's) and ``batch`` default to seeded
+    ones (weights from seed 0, data from seed 1).  Returns ``(summary line,
+    loss, params after the step)``: this process's placed pieces."""
+    if mesh is not None:
+        device = mesh.first_local_device
     device = torch.device(device)
     cfg = dryrun_config(plan)
     if params is None:
@@ -80,7 +97,8 @@ def dryrun_training(plan: MeshPlan, device="cuda",
                              cfg)
     if batch is None:
         batch = dryrun_batch(plan, cfg, device)
-    mesh = make_mesh(plan, devices=[device] * plan.n_devices)
+    if mesh is None:
+        mesh = make_mesh(plan, devices=[device] * plan.n_devices)
     params = shard_params(params, mesh, cfg, pp=plan.pp)
     init_opt, step = make_train_step(
         cfg, mesh=mesh, pp=plan.pp,

@@ -37,10 +37,10 @@ shards (an all-to-all), ring attention runs over "tp", and the output moves
 back.  A dp axis splits the batch over groups of ranks that share devices.
 Over a mesh whose ranks span processes (``parallel/mesh.py``
 ``process_mesh``) each process runs only its own ranks' share
-(``rank_map``), the residual stream lives on each process's first local
-device, and the collectives cross processes; serving runs so (prefill,
-decode, the engines), while training, the MoE and the pipeline refuse such
-a mesh by name.
+(``rank_map``) and the collectives cross processes.  Serving (prefill,
+decode, the engines) keeps the residual stream in every process that holds
+a rank of its dp group, on its first local device; a dp group another
+process holds is computed there and its rows shared after each sublayer.
 :func:`decode_step` decodes against a slab cache (:func:`init_cache`), one
 token or a K-token chunk per row, writing the new K/V rows in place;
 :func:`generate` and :func:`speculative_generate` are the reference's
@@ -65,12 +65,28 @@ runs the layer stack's stages through the GPipe schedule
 copied to each rank inside the forward, so autograd sums its gradient over
 the ranks: that sum is the data-parallel all-reduce.  The flash kernel is
 differentiable (``ops/attention.py`` ``FlashAttention``).
+
+The training forward keeps every value where the single controller keeps
+it, on one rank: the embedding, each stage's input and output, the MoE's
+routing over the global batch, the logits and the loss on the stage's (or
+the mesh's) first rank, the sequence shards and the heads on their ranks.
+Every move between ranks is a ``parallel/mesh.py`` move (``scatter``,
+``gather``, the collectives), so over a mesh whose dp, pp and tp axes
+cross processes each process computes its own ranks' values, the moves
+cross processes both ways under autograd, and a leaf that several ranks
+use reaches each through its own view (``rank_views``), its gradient the
+sum of theirs in rank order, whichever processes keep copies.  The
+loss is computed on the first rank and handed to every process
+(``share``), so each process reports the same loss and its backward runs
+the whole step's backward.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Optional
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -85,17 +101,24 @@ from seldon_core_tpu_torch.ops.quant import (
 )
 from seldon_core_tpu_torch.parallel.mesh import (
     Mesh,
+    MeshPlanError,
+    Ranks,
     Shards,
     all_gather,
     all_to_all,
-    check_one_process,
+    exchange_tape,
     first_device,
+    gather,
     named_sharding,
     place,
     pspec,
     psum,
     psum_scatter,
+    RankViews,
     rank_map,
+    rank_views,
+    scatter,
+    share,
     unshard,
 )
 from seldon_core_tpu_torch.parallel.moe import (
@@ -356,7 +379,9 @@ def _layer_params(blocks: dict, i: int) -> dict:
                                  "its stage first (forward with pp)")
             return Shards([None if t is None else one(t) for t in v],
                           None if v.dim is None else v.dim - 1, v.axis)
-        return v[i]
+        if isinstance(v, RankViews):
+            return v.map(lambda t: t[i])
+        return None if v is None else v[i]
 
     return {k: one(v) for k, v in blocks.items()}
 
@@ -413,8 +438,9 @@ def _place_q8(leaf: dict, mesh: Mesh, name: str) -> dict:
     def put(t, spec, layout=None):
         t = unshard(t)
         if "tp" not in spec:
-            return Shards([None if d is None else t.to(d)
-                           for d in mesh.axis_devices("tp")], None)
+            return Shards([None if d is None else t.to(d) for d in (
+                mesh.holder_device(tp=r)
+                for r in range(mesh.axis_size("tp")))], None)
         return place(t, named_sharding(mesh, *spec), layout=layout)
 
     if isinstance(leaf["values"], list):
@@ -478,15 +504,25 @@ def _check_q8_attn_single_chip(p: dict, mesh) -> None:
             "tp-sharding goes through quantize_ffn_params(mesh=...))")
 
 
-def _part(leaf, r: int, dev):
-    """Rank ``r``'s piece of a placed leaf (float or int8) on ``dev``."""
+def _use(leaf, rank: int, dev):
+    """Mesh rank ``rank``'s copy of a leaf on ``dev``: through its own view
+    when the leaf has per-rank views (``parallel/mesh.py`` ``rank_views``,
+    the training forward's)."""
+    if isinstance(leaf, RankViews):
+        leaf = leaf.at(rank)
+    return leaf.to(dev)
+
+
+def _part(leaf, r: int, dev, rank: Optional[int] = None):
+    """Piece ``r`` (the tp rank's) of a placed leaf (float or int8) on
+    ``dev``, as mesh rank ``rank`` uses it."""
     if _is_q8(leaf):
         return {"values": _part(leaf["values"], r, dev),
                 "scales": _part(leaf["scales"], r, dev)}
     if not isinstance(leaf, Shards):
         raise ValueError("params on a mesh must be placed first "
                          "(shard_params / quantize_ffn_params(mesh=...))")
-    return leaf[r].to(dev)
+    return _use(leaf[r], rank, dev)
 
 
 def _q8_matmul(x2, w, out_dtype):
@@ -662,61 +698,98 @@ def _vocab_proj(x, lm_head, cfg: TransformerConfig,
 # tensor-parallel layers: one controller, each rank's share on its device
 # ----------------------------------------------------------------------
 
+def _held(devs) -> bool:
+    """Whether this process holds a rank of ``devs``."""
+    return any(d is not None for d in devs)
+
+
 def _dp_rows(mesh: Mesh, B: int) -> tuple:
-    """The serving mesh's dp groups: each group's tp devices and its even
-    share of the B rows (a slice).  The groups must share their devices: a
-    dp axis over distinct devices is one engine per group."""
+    """The serving mesh's dp groups: each group's tp devices (a
+    :class:`Ranks`) and its even share of the B rows (a slice).  In one
+    process the groups must share their devices (a dp axis over distinct
+    devices is one engine per group); across processes each process
+    computes the groups it holds a rank of."""
     _check_serving_mesh(mesh)
     dp = mesh.axis_size("dp")
-    devs = mesh.axis_devices("tp")
     if dp == 1:
-        return [devs], [slice(None)]
+        return [mesh.axis_devices("tp")], [slice(None)]
     if B % dp:
         raise ValueError(f"batch {B} must divide by dp {dp}")
-    for d in range(1, dp):
-        if mesh.axis_devices("tp", dp=d) != devs:
-            raise NotImplementedError(
-                "a dp axis over distinct devices: serve one engine per dp "
-                "group")
+    groups = [mesh.axis_devices("tp", dp=d) for d in range(dp)]
+    if not mesh.spans_processes and any(list(g) != list(groups[0])
+                                        for g in groups):
+        raise NotImplementedError(
+            "a dp axis over distinct devices: serve one engine per dp "
+            "group")
     n = B // dp
-    return [devs] * dp, [slice(d * n, (d + 1) * n) for d in range(dp)]
+    return groups, [slice(d * n, (d + 1) * n) for d in range(dp)]
+
+
+def _everywhere(outs: list, groups: list) -> list:
+    """Each dp group's output (``None`` for a group this process holds no
+    rank of) in every process: across processes each group's comes from
+    the process of its first rank (one group: every process has it)."""
+    mesh = groups[0].mesh
+    if not mesh.spans_processes or len(groups) == 1:
+        return outs
+    return gather(outs, Ranks.of(mesh, [g.ids[0] for g in groups]), None,
+                  list, None)
 
 
 def _over_dp(mesh: Mesh, B: int, fn, kv: bool = False):
-    """``fn(tp devices, rows)`` for each dp group (:func:`_dp_rows`), the
-    results concatenated on rows (on group 0's rank-0 device; K/V
-    :class:`Shards` rank by rank)."""
-    outs = [fn(devs, rows) for devs, rows in zip(*_dp_rows(mesh, B))]
+    """``fn(tp devices, rows)`` for each dp group (:func:`_dp_rows`) this
+    process holds, the results concatenated on rows (on its first local
+    device; K/V :class:`Shards` rank by rank, across processes with zeros
+    in the rows of a group another process computes)."""
+    groups, rows = _dp_rows(mesh, B)
+    outs = [fn(devs, r) if _held(devs) else None
+            for devs, r in zip(groups, rows)]
     if len(outs) == 1:
         return outs[0]
     if not kv:
-        return torch.cat(outs, dim=0)
-    xs = torch.cat([o[0] for o in outs], dim=0)
-    ks = Shards([torch.cat(parts, dim=0) for parts in zip(
-        *[o[1][0] for o in outs])], outs[0][1][0].dim)
-    vs = Shards([torch.cat(parts, dim=0) for parts in zip(
-        *[o[1][1] for o in outs])], outs[0][1][1].dim)
-    return xs, (ks, vs)
+        return torch.cat(_everywhere(outs, groups), dim=0)
+    xs = torch.cat(_everywhere([None if o is None else o[0] for o in outs],
+                               groups), dim=0)
+
+    def rows_of(j):  # K (j = 0) or V (1) of every group, tp rank by rank
+        per = [None if o is None else o[1][j] for o in outs]
+        parts = []
+        for t in range(len(groups[0])):
+            mine = [s[t] for s in per if s is not None and s[t] is not None]
+            parts.append(None if not mine else torch.cat(
+                [s[t] if s is not None and s[t] is not None
+                 else torch.zeros_like(mine[0]) for s in per], dim=0))
+        return Shards(parts, next(s for s in per if s is not None).dim)
+
+    return xs, (rows_of(0), rows_of(1))
 
 
-def _norm_gather(xg, scale, devs: list) -> list:
+def _norm_gather(xg, scale, devs: Ranks, src: Optional[int] = None) -> list:
     """One dp group's residual normed and whole on every tp rank: sequence
     shards (a list) are normed shard by shard and all-gathered on the
-    sequence; a whole residual is normed once and copied."""
+    sequence; a whole residual is normed once and copied (from rank
+    ``src``, the one that holds it, when given; else every process holding
+    a rank of the group holds it)."""
     if isinstance(xg, list):
-        return all_gather([rmsnorm(x, scale.to(x.device)) for x in xg],
-                          dim=1)
-    h = rmsnorm(xg, scale.to(xg.device))
+        return all_gather([None if x is None else rmsnorm(x, _use(
+            scale, i, x.device)) for x, i in zip(xg, devs.ids)], dim=1,
+            ranks=devs)
+    if src is not None:
+        h = None if xg is None else rmsnorm(xg, _use(scale, src, xg.device))
+        return scatter(h, src, devs, lambda h: [(slice(None),)] * len(devs))
+    h = rmsnorm(xg, _use(scale, devs.ids[0], xg.device))
     return [None if d is None else h.to(d) for d in devs]
 
 
-def _add_partials(xg, partials: list):
-    """The residual plus the row-parallel partials' float32 sum, split back
-    onto the sequence shards (reduce-scatter) or added whole."""
+def _add_partials(xg, partials: list, devs: Ranks, dtype):
+    """The residual plus the row-parallel partials' float32 sum (cast to
+    ``dtype``), split back onto the sequence shards (reduce-scatter) or
+    added whole (where this process holds the residual)."""
     if isinstance(xg, list):
-        return [x + piece for x, piece in zip(
-            xg, psum_scatter(partials, dim=1, dtype=xg[0].dtype))]
-    return xg + psum(partials, dtype=xg.dtype).first.to(xg.device)
+        return [None if x is None else x + piece for x, piece in zip(
+            xg, psum_scatter(partials, dim=1, dtype=dtype, ranks=devs))]
+    total = psum(partials, dtype=dtype, ranks=devs)
+    return None if xg is None else xg + total.first.to(xg.device)
 
 
 def _rank_qkv(p, h, positions, cfg: TransformerConfig, devs: list):
@@ -729,9 +802,10 @@ def _rank_qkv(p, h, positions, cfg: TransformerConfig, devs: list):
     def one(r, dev):
         hr = (h[r] if isinstance(h, list) else h).to(dev)
         pr = positions.to(dev)
-        q = _attn_proj(hr, _part(p["wq"], r, dev), H, Dh, hr.dtype)
-        k = _attn_proj(hr, _part(p["wk"], r, dev), Hk, Dh, hr.dtype)
-        v = _attn_proj(hr, _part(p["wv"], r, dev), Hk, Dh, hr.dtype)
+        i = devs.ids[r]
+        q = _attn_proj(hr, _part(p["wq"], r, dev, i), H, Dh, hr.dtype)
+        k = _attn_proj(hr, _part(p["wk"], r, dev, i), Hk, Dh, hr.dtype)
+        v = _attn_proj(hr, _part(p["wv"], r, dev, i), Hk, Dh, hr.dtype)
         return (rope(q, pr, cfg.rope_theta), rope(k, pr, cfg.rope_theta),
                 v, pr)
 
@@ -743,30 +817,31 @@ def _field(per_rank: list, i: int) -> list:
     return [None if t is None else t[i] for t in per_rank]
 
 
-def _tp_attn_out(p, x, attns: list, devs: list):
+def _tp_attn_out(p, x, attns: list, devs: Ranks, dtype):
     """``x`` (a tensor, or its sequence shards) plus the row-parallel output
     projection: each rank's heads through its wo rows, the partials summed
-    (:func:`_add_partials`)."""
-    dt = (x[0] if isinstance(x, list) else x).dtype
+    (:func:`_add_partials`) in ``dtype``, the residual's."""
     return _add_partials(x, rank_map(
-        lambda r, dev, a: _attn_out(a.to(dt), _part(p["wo"], r, dev), dt),
-        devs, attns))
+        lambda r, dev, a: _attn_out(a.to(dtype), _part(
+            p["wo"], r, dev, devs.ids[r]), dtype),
+        devs, attns), devs, dtype)
 
 
-def _rank_attention(qkv: list, cfg: TransformerConfig, devs: list) -> list:
+def _rank_attention(qkv: list, cfg: TransformerConfig, devs: Ranks) -> list:
     """Each rank's attention over its heads (K3 under ``use_flash``), or
     under ``cfg.attention == "ring"`` (tp > 1): q/k/v from head to sequence
     shards (all-to-all), ring attention over the ranks with the K/V at
     kv_heads, and the output back to head shards."""
     if cfg.attention == "ring" and len(devs) > 1:
         # heads -> sequence: rank r holds every head of sequence block r
-        q_seq = all_to_all(_field(qkv, 0), 1, 2)
-        k_seq = all_to_all(_field(qkv, 1), 1, 2)
-        v_seq = all_to_all(_field(qkv, 2), 1, 2)
+        q_seq = all_to_all(_field(qkv, 0), 1, 2, ranks=devs)
+        k_seq = all_to_all(_field(qkv, 1), 1, 2, ranks=devs)
+        v_seq = all_to_all(_field(qkv, 2), 1, 2, ranks=devs)
         out_seq = ring_attention(q_seq, k_seq, v_seq, causal=True,
                                  kv_chunk=cfg.ring_kv_chunk,
-                                 n_rep=cfg.n_heads // cfg.kv_heads)
-        return all_to_all(out_seq, 2, 1)  # sequence -> heads
+                                 n_rep=cfg.n_heads // cfg.kv_heads,
+                                 ranks=devs)
+        return all_to_all(out_seq, 2, 1, ranks=devs)  # sequence -> heads
     if cfg.use_flash:
         return rank_map(lambda r, d, t: flash_attention(t[0], t[1], t[2],
                                                         causal=True),
@@ -776,22 +851,27 @@ def _rank_attention(qkv: list, cfg: TransformerConfig, devs: list) -> list:
         devs, qkv)
 
 
-def _tp_attention(p, x, positions, cfg: TransformerConfig, devs: list,
-                  return_kv: bool):
+def _tp_attention(p, x, positions, cfg: TransformerConfig, devs: Ranks,
+                  return_kv: bool, on_first_rank: bool = False):
     """The attention sublayer over ``devs`` (one dp group's tp ranks);
-    ``x`` is one tensor on the first rank, or its sequence shards, one a
-    rank (Megatron sequence parallelism: normed shard by shard, gathered,
-    the output reduce-scattered back).
+    ``x`` is one tensor, or its sequence shards, one a rank (Megatron
+    sequence parallelism: normed shard by shard, gathered, the output
+    reduce-scattered back).  A whole ``x`` is held by every process that
+    holds a rank of the group, or with ``on_first_rank`` by the group's
+    first rank only (the training forward's layout).
     Dense: each rank attends over its heads (K3 under ``use_flash``).
     Ring (``cfg.attention == "ring"``, tp > 1): q/k/v move from head to
     sequence shards (all-to-all), ring attention runs over the ranks with
     the K/V at kv_heads, and the output moves back to head shards; the K/V
     for the cache stay head shards throughout."""
     _check_q8_attn_single_chip(p, devs)
-    qkv = _rank_qkv(p, _norm_gather(x, p["ln1"], devs), positions, cfg, devs)
+    src = devs.ids[0] if on_first_rank and not isinstance(x, list) else None
+    qkv = _rank_qkv(p, _norm_gather(x, p["ln1"], devs, src), positions, cfg,
+                    devs)
     ks = Shards(_field(qkv, 1), 2)
     vs = Shards(_field(qkv, 2), 2)
-    out = _tp_attn_out(p, x, _rank_attention(qkv, cfg, devs), devs)
+    out = _tp_attn_out(p, x, _rank_attention(qkv, cfg, devs), devs,
+                       cfg.dtype)
     if return_kv:
         return out, (ks, vs)
     return out
@@ -802,47 +882,47 @@ def _ffn_partials(p, h, cfg: TransformerConfig, devs: list) -> list:
     (int8: K1 per rank, its w2 input quantized per row over the rank's own
     hidden shard, as the reference's ``_q8_ffn_local``, partials in
     float32).  ``h`` is one tensor, or one per rank."""
-    B, L, D = next(t for t in h if t is not None).shape \
-        if isinstance(h, list) else h.shape
 
     def one(r, dev):
         hr = (h[r] if isinstance(h, list) else h).to(dev)
+        B, L, D = hr.shape
+        w1 = _part(p["w1"], r, dev, devs.ids[r])
+        w2 = _part(p["w2"], r, dev, devs.ids[r])
         if _is_q8(p["w1"]):
-            h1 = _q8_matmul(hr.reshape(B * L, D), _part(p["w1"], r, dev),
-                            hr.dtype)
+            h1 = _q8_matmul(hr.reshape(B * L, D), w1, hr.dtype)
             h1 = F.gelu(h1, approximate="tanh")
-            return _q8_matmul(h1, _part(p["w2"], r, dev),
-                              torch.float32).reshape(B, L, D)
-        h1 = torch.einsum("bld,df->blf", hr,
-                          _part(p["w1"], r, dev).to(hr.dtype))
+            return _q8_matmul(h1, w2, torch.float32).reshape(B, L, D)
+        h1 = torch.einsum("bld,df->blf", hr, w1.to(hr.dtype))
         h1 = F.gelu(h1, approximate="tanh")
-        return torch.einsum("blf,fd->bld", h1,
-                            _part(p["w2"], r, dev).to(hr.dtype))
+        return torch.einsum("blf,fd->bld", h1, w2.to(hr.dtype))
 
     return rank_map(one, devs)
 
 
-def _tp_ffn(p, x, cfg: TransformerConfig, devs: list):
+def _tp_ffn(p, x, cfg: TransformerConfig, devs: Ranks,
+            on_first_rank: bool = False):
     """The dense FFN sublayer over one dp group's tp ranks (``x`` as
     :func:`_tp_attention` takes it): the row-parallel partials summed in
     float32 and cast."""
+    src = devs.ids[0] if on_first_rank and not isinstance(x, list) else None
     return _add_partials(x, _ffn_partials(
-        p, _norm_gather(x, p["ln2"], devs), cfg, devs))
+        p, _norm_gather(x, p["ln2"], devs, src), cfg, devs), devs, cfg.dtype)
 
 
-def _tp_vocab(x, lm_head, cfg: TransformerConfig, devs: list):
+def _vocab_rank(xr, w, q8: bool, cfg: TransformerConfig):
+    """One rank's vocabulary columns of ``xr`` (B, L, D)."""
+    if q8:
+        B, L, D = xr.shape
+        return _q8_matmul(xr.reshape(B * L, D), w, cfg.dtype).reshape(
+            B, L, -1)
+    return torch.einsum("bld,dv->blv", xr, w.to(cfg.dtype))
+
+
+def _tp_vocab(x, lm_head, cfg: TransformerConfig, devs: Ranks):
     """Each rank's vocabulary columns, all-gathered on the last dim."""
-    B, L, D = x.shape
-
-    def one(r, dev):
-        xr = x.to(dev)
-        w = _part(lm_head, r, dev)
-        if _is_q8(lm_head):
-            return _q8_matmul(xr.reshape(B * L, D), w,
-                              cfg.dtype).reshape(B, L, -1)
-        return torch.einsum("bld,dv->blv", xr, w.to(cfg.dtype))
-
-    return all_gather(rank_map(one, devs), dim=-1).first.to(x.device)
+    return all_gather(rank_map(lambda r, dev: _vocab_rank(
+        x.to(dev), _part(lm_head, r, dev, devs.ids[r]), _is_q8(lm_head),
+        cfg), devs), dim=-1, ranks=devs).first.to(x.device)
 
 
 # ----------------------------------------------------------------------
@@ -850,99 +930,257 @@ def _tp_vocab(x, lm_head, cfg: TransformerConfig, devs: list):
 # ----------------------------------------------------------------------
 
 def _groups(mesh: Mesh, stage: int = 0) -> list:
-    """The tp devices of each dp group at pipeline stage ``stage``."""
+    """The tp devices (a :class:`Ranks`) of each dp group at pipeline stage
+    ``stage``."""
     return [mesh.axis_devices("tp", dp=g, pp=stage)
             for g in range(mesh.axis_size("dp"))]
 
 
-def _mesh_moe(p, xs: list, cfg: TransformerConfig, groups: list):
+def _row_layout(groups: list, sp: bool) -> tuple:
+    """Where a (B, L, D) activation of one stage lives between its layers:
+    ``(ranks, index, combine, split)``.  Under sequence sharding each dp
+    group's rows split over its tp ranks on the sequence (one piece a
+    rank, in rank order), else each group's rows whole on its first rank;
+    ``index(x)`` gives each piece's slice of the whole, ``combine`` puts
+    the pieces back together, ``split`` is its inverse."""
+    dp, tp = len(groups), len(groups[0])
+    if sp:
+        ranks = [i for g in groups for i in g.ids]
+
+        def index(x):
+            n, l = x.shape[0] // dp, x.shape[1] // tp
+            return [(slice(g * n, (g + 1) * n), slice(t * l, (t + 1) * l))
+                    for g in range(dp) for t in range(tp)]
+
+        def combine(ps):
+            return torch.cat([torch.cat(ps[g * tp:(g + 1) * tp], dim=1)
+                              for g in range(dp)], dim=0)
+
+        def split(y):
+            return [c for yg in torch.chunk(y, dp, dim=0)
+                    for c in torch.chunk(yg, tp, dim=1)]
+    else:
+        ranks = [g.ids[0] for g in groups]
+
+        def index(x):
+            n = x.shape[0] // dp
+            return [(slice(g * n, (g + 1) * n),) for g in range(dp)]
+
+        def combine(ps):
+            return torch.cat(ps, dim=0)
+
+        def split(y):
+            return list(torch.chunk(y, dp, dim=0))
+    return Ranks.of(groups[0].mesh, ranks), index, combine, split
+
+
+def _mesh_moe(p, xs: list, cfg: TransformerConfig, groups: list,
+              root: Optional[int] = None):
     """The MoE sublayer over every dp group's rows at once (the reference's
-    routing covers the global batch): the groups' normed rows meet on the
-    first device, the experts run on their groups' ranks, and each group
-    takes its rows of the output back (its sequence shards)."""
-    check_one_process(groups, "the mixture of experts")
-    dev0 = groups[0][0]
+    routing covers the global batch): the groups' normed rows meet in one
+    place, the experts run on their groups' ranks, and each group takes
+    its rows of the output back.
+
+    - ``root`` given (the training forward): ``xs`` holds each group's
+      sequence shards, or its rows on its first rank; the rows meet at rank
+      ``root``, which routes them, and go back to their ranks; the aux loss
+      is ``root``'s (``None`` in other processes).
+    - ``root=None`` (serving): every process that holds a rank of a group
+      holds its rows (``None`` for another process's group); every process
+      routes every row.  ``[x]`` (one entry, every row) skips the meeting."""
     scale = p["ln2"]
-    hs = []
-    for xg in xs:
-        if isinstance(xg, list):
-            hs.append(torch.cat([rmsnorm(x, scale.to(x.device)).to(dev0)
-                                 for x in xg], dim=1))
-        else:
-            hs.append(rmsnorm(xg, scale.to(xg.device)).to(dev0))
-    h = torch.cat(hs, dim=0)
-    B, L, D = h.shape
-    y, aux = moe_forward(p["moe"], h.reshape(B * L, D), cfg.moe_cfg(),
-                         groups=groups)
-    ys = torch.chunk(y.reshape(B, L, D), len(xs), dim=0)
-    out = []
-    for xg, yg in zip(xs, ys):
-        if isinstance(xg, list):
-            out.append([x + c.to(x.device) for x, c in
-                        zip(xg, torch.chunk(yg, len(xg), dim=1))])
-        else:
-            out.append(xg + yg.to(xg.device))
+    mesh = groups[0].mesh
+    if root is None and len(xs) == 1:  # every row, in every process
+        x = xs[0]
+        h = rmsnorm(x, _use(scale, groups[0].ids[0], x.device))
+        B, L, D = h.shape
+        y, aux = moe_forward(p["moe"], h.reshape(B * L, D), cfg.moe_cfg(),
+                             groups=groups, root=None)
+        return [x + y.reshape(B, L, D).to(x.device)], aux
+    sp = isinstance(xs[0], list)
+    ranks, index, combine, split = _row_layout(groups, sp)
+    flat = [x for xg in xs for x in xg] if sp else list(xs)
+    normed = [None if x is None else rmsnorm(x, _use(scale, i, x.device))
+              for x, i in zip(flat, ranks.ids)]
+    h = gather(normed, ranks, root, combine, split)
+    hf = None
+    if h is not None:
+        B, L, D = h.shape
+        hf = h.reshape(B * L, D)
+    y, aux = moe_forward(p["moe"], hf, cfg.moe_cfg(), groups=groups,
+                         root=root, dtype=cfg.dtype)
+    if y is not None:
+        y = y.reshape(B, L, D)
+    if root is None:
+        ys = torch.chunk(y, len(xs), dim=0)
+        return [None if xg is None else xg + yg.to(xg.device)
+                for xg, yg in zip(xs, ys)], aux
+    back = scatter(y, root, ranks, index)
+    out = [None if x is None else x + b for x, b in zip(flat, back)]
+    tp = len(groups[0])
+    if sp:
+        out = [out[g * tp:(g + 1) * tp] for g in range(len(groups))]
     return out, aux
 
 
-def _mesh_ffn(p, xs: list, cfg: TransformerConfig, groups: list):
+def _mesh_ffn(p, xs: list, cfg: TransformerConfig, groups: list,
+              root: Optional[int] = None):
     """The FFN sublayer over every dp group's rows ``xs``: ``(xs, aux)``.
     A MoE routes every group's rows together (:func:`_mesh_moe`); the dense
-    FFN runs group by group (:func:`_tp_ffn`)."""
+    FFN runs group by group (:func:`_tp_ffn`; with ``root`` a whole
+    group's rows sit on its first rank)."""
     if "moe" in p:
-        return _mesh_moe(p, xs, cfg, groups)
-    return [_tp_ffn(p, xg, cfg, devs) for xg, devs in zip(xs, groups)], 0.0
+        return _mesh_moe(p, xs, cfg, groups, root)
+    return [_tp_ffn(p, xg, cfg, devs, on_first_rank=root is not None)
+            if _held(devs) else xg for xg, devs in zip(xs, groups)], 0.0
 
 
 def _mesh_block(p, xs: list, positions, cfg: TransformerConfig,
-                groups: list):
-    """One block over every dp group: ``(xs, aux)``."""
-    return _mesh_ffn(p, [_tp_attention(p, xg, positions, cfg, devs, False)
-                         for xg, devs in zip(xs, groups)], cfg, groups)
+                groups: list, root: int):
+    """One block over every dp group (the training layout): ``(xs, aux)``."""
+    xs = [_tp_attention(p, xg, positions, cfg, devs, False,
+                        on_first_rank=True) if _held(devs) else xg
+          for xg, devs in zip(xs, groups)]
+    return _mesh_ffn(p, xs, cfg, groups, root)
 
 
 def _mesh_layers(blocks: dict, x, positions, cfg: TransformerConfig,
-                 mesh: Mesh, stage: int = 0):
-    """The layers of ``blocks`` over stage ``stage``'s ranks: ``x`` (B, L,
-    D) split over the dp groups (and over each group's tp ranks on the
-    sequence under ``cfg.seq_shard``), every layer run, the result
-    gathered back onto the stage's first device.  Returns ``(x, aux)``."""
+                 mesh: Mesh, stage: int = 0, n_layers: Optional[int] = None):
+    """The ``n_layers`` layers of ``blocks`` (the stage's) over stage
+    ``stage``'s ranks: ``x`` (B, L, D), on the stage's first rank (``None``
+    in other processes), split over the dp groups (and over each group's
+    tp ranks on the sequence under ``cfg.seq_shard``), every layer run,
+    the result gathered back onto that rank.  Returns ``(x, aux)`` there
+    (``(None, None)`` in other processes)."""
     groups = _groups(mesh, stage)
+    root = groups[0].ids[0]
     dp, tp = len(groups), len(groups[0])
-    B, L, _ = x.shape
-    if B % dp:
-        raise ValueError(f"batch {B} must divide by dp {dp}")
     sp = cfg.seq_shard and tp > 1
-    if sp and L % tp:
-        raise ValueError(f"sequence {L} must divide by tp {tp} under "
-                         "seq_shard")
-    xs = []
-    for xg, devs in zip(torch.chunk(x, dp, dim=0), groups):
-        xs.append([c.to(d) for c, d in zip(torch.chunk(xg, tp, dim=1), devs)]
-                  if sp else xg.to(devs[0]))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(blocks["ln1"].shape[0]):  # the stage's layers
+    aux = None
+    if x is not None:
+        B, L, _ = x.shape
+        if B % dp:
+            raise ValueError(f"batch {B} must divide by dp {dp}")
+        if sp and L % tp:
+            raise ValueError(f"sequence {L} must divide by tp {tp} under "
+                             "seq_shard")
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ranks, index, combine, split = _row_layout(groups, sp)
+    pieces = scatter(x, root, ranks, index)
+    xs = [pieces[g * tp:(g + 1) * tp] for g in range(dp)] if sp else pieces
+    for i in range(cfg.n_layers if n_layers is None else n_layers):
         p = _layer_params(blocks, i)
 
         def block(xs, p=p):
-            return _mesh_block(p, xs, positions, cfg, groups)
+            return _mesh_block(p, xs, positions, cfg, groups, root)
 
         xs, a = (torch.utils.checkpoint.checkpoint(block, xs,
                                                    use_reentrant=False)
                  if cfg.remat else block(xs))
-        aux = aux + a
-    dev0 = groups[0][0]
-    return torch.cat([torch.cat([t.to(dev0) for t in xg], dim=1) if sp
-                      else xg.to(dev0) for xg in xs], dim=0), aux
+        if aux is not None:
+            aux = aux + a
+    flat = [t for xg in xs for t in xg] if sp else xs
+    return gather(flat, ranks, root, combine, split), aux
 
 
 def _mesh_vocab(x, lm_head, cfg: TransformerConfig, mesh: Mesh):
-    """The vocabulary projection per dp group, each rank's columns
-    all-gathered."""
+    """The vocabulary projection of ``x`` (on the mesh's first rank) per dp
+    group: each group's rows copied to its tp ranks, each rank's columns
+    all-gathered, the groups' logits back on the first rank."""
     groups = _groups(mesh)
-    return torch.cat([_tp_vocab(xg, lm_head, cfg, devs) for xg, devs in
-                      zip(torch.chunk(x, len(groups), dim=0), groups)],
-                     dim=0)
+    root = groups[0].ids[0]
+    dp = len(groups)
+    ranks = Ranks.of(mesh, [i for g in groups for i in g.ids])
+
+    def index(x):
+        n = x.shape[0] // dp
+        return [(slice(g * n, (g + 1) * n),)
+                for g, devs in enumerate(groups) for _ in devs]
+
+    xr = scatter(x, root, ranks, index)
+    firsts, at = [], 0
+    for devs in groups:
+        mine = xr[at:at + len(devs)]
+        at += len(devs)
+        if not _held(devs):
+            firsts.append(None)
+            continue
+        logits = all_gather(rank_map(lambda r, dev, xg: _vocab_rank(
+            xg, _part(lm_head, r, dev, devs.ids[r]), _is_q8(lm_head), cfg),
+            devs, mine), dim=-1, ranks=devs)
+        firsts.append(logits[0])
+    return gather(firsts, Ranks.of(mesh, [g.ids[0] for g in groups]), root,
+                  lambda ps: torch.cat(ps, dim=0),
+                  lambda y: list(torch.chunk(y, dp, dim=0)))
+
+
+def _check_mesh_shapes(ids, cfg: TransformerConfig, mesh: Mesh, pp: int,
+                       n_microbatches: int) -> None:
+    """The batch splits the forward needs, checked in every process (the
+    first rank alone holds the activations)."""
+    B, L = ids.shape
+    dp, tp = mesh.axis_size("dp"), mesh.axis_size("tp")
+    rows = B
+    if pp > 1:
+        if B % n_microbatches:
+            raise ValueError(f"batch {B} does not divide in "
+                             f"{n_microbatches} microbatches")
+        rows = B // n_microbatches
+    if rows % dp:
+        raise ValueError(f"batch {rows} must divide by dp {dp}")
+    if cfg.seq_shard and tp > 1 and L % tp:
+        raise ValueError(f"sequence {L} must divide by tp {tp} under "
+                         "seq_shard")
+
+
+def _mesh_forward(params: dict, ids, cfg: TransformerConfig, mesh: Mesh,
+                  pp: int, n_microbatches: int):
+    """:func:`forward` over a mesh: ``(logits float32, aux)`` on the mesh's
+    first rank, ``(None, None)`` in other processes."""
+    if pp > 1 and cfg.attention == "ring":
+        raise ValueError(
+            "attention='ring' cannot run inside the pp pipeline (nested "
+            "manual shard_map is unsupported by Shardy); use "
+            "seq_shard=True with attention='dense', or pp=1")
+    _check_mesh_shapes(ids, cfg, mesh, pp, n_microbatches)
+    root = 0
+    x = None
+    if mesh.owner(root) == mesh.me:
+        emb = _use(params["embed"], root, mesh.device_of(root))
+        x = emb[ids.to(emb.device)].to(cfg.dtype)  # _embed's
+    positions = torch.arange(ids.shape[1],
+                             device=mesh.first_local_device)[None, :]
+    if pp > 1:
+        per_stage = cfg.n_layers // pp
+
+        def stage(p_local, act, s):
+            # the stage drops its aux (the reference's ``y, _ = block_fn``)
+            return _mesh_layers(p_local, act, positions, cfg, mesh, s,
+                                per_stage)[0]
+
+        x = pipeline_apply(stage, params["blocks"], x, mesh,
+                           n_microbatches=n_microbatches)
+        aux = None if x is None else torch.zeros(
+            (), dtype=torch.float32, device=x.device)
+    else:
+        x, aux = _mesh_layers(params["blocks"], x, positions, cfg, mesh)
+    if x is not None:
+        x = rmsnorm(x, _use(params["ln_f"], root, x.device))
+    logits = _mesh_vocab(x, params["lm_head"], cfg, mesh)
+    return (None if logits is None else logits.float()), aux
+
+
+@contextlib.contextmanager
+def _on_mesh(mesh: Mesh, cfg: TransformerConfig):
+    """A forward over ``mesh``: across processes, under autograd, the
+    moves' token (``exchange_tape``)."""
+    if mesh.spans_processes and cfg.remat:
+        raise MeshPlanError(
+            "cfg.remat over ranks that span processes: a block's recompute "
+            "would repeat its moves between processes inside the backward; "
+            "train without remat there")
+    with exchange_tape(mesh) as tape:
+        yield tape
 
 
 def forward(params: dict, input_ids, cfg: TransformerConfig,
@@ -956,15 +1194,15 @@ def forward(params: dict, input_ids, cfg: TransformerConfig,
     included).  With ``mesh`` (params placed by :func:`shard_params` with
     the same ``pp``) the module docstring's layout; ``pp > 1`` runs the
     stages through the GPipe schedule with ``n_microbatches``.  Under
-    ``cfg.remat`` each block is recomputed in the backward."""
-    check_one_process(mesh, "training (forward)")
+    ``cfg.remat`` each block is recomputed in the backward (in one
+    process).  Over a mesh that spans processes every process calls it
+    and gets the logits and the aux."""
     _check_q8_pipeline(params, pp)
     ids = torch.as_tensor(input_ids)
-    x = _embed(params, ids.to(params["embed"].device), cfg)
-    B, L = ids.shape
-    positions = torch.arange(L, device=x.device)[None, :]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mesh is None:
+        x = _embed(params, ids.to(params["embed"].device), cfg)
+        positions = torch.arange(ids.shape[1], device=x.device)[None, :]
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_layers):
             p = _layer_params(params["blocks"], i)
 
@@ -977,36 +1215,17 @@ def forward(params: dict, input_ids, cfg: TransformerConfig,
             aux = aux + a
         x = rmsnorm(x, params["ln_f"])
         return _vocab_proj(x, params["lm_head"], cfg).float(), aux
-    if pp > 1:
-        if cfg.attention == "ring":
-            raise ValueError(
-                "attention='ring' cannot run inside the pp pipeline (nested "
-                "manual shard_map is unsupported by Shardy); use "
-                "seq_shard=True with attention='dense', or pp=1")
-
-        def stage(p_local, act, s):
-            # the stage drops its aux (the reference's ``y, _ = block_fn``)
-            return _mesh_layers(p_local, act, positions.to(act.device), cfg,
-                                mesh, s)[0]
-
-        x = pipeline_apply(stage, params["blocks"], x, mesh,
-                           n_microbatches=n_microbatches)
-    else:
-        x, aux = _mesh_layers(params["blocks"], x, positions, cfg, mesh)
-    x = rmsnorm(x, params["ln_f"].to(x.device))
-    return _mesh_vocab(x, params["lm_head"], cfg, mesh).float(), aux
+    with _on_mesh(mesh, cfg) as tape:
+        logits, aux = _mesh_forward(rank_views(params, mesh), ids, cfg,
+                                    mesh, pp, n_microbatches)
+        if mesh.spans_processes:
+            logits, aux = share(logits, 0, mesh), share(aux, 0, mesh)
+            if tape is not None:
+                logits, aux = tape.close(logits), tape.close(aux)
+    return logits, aux
 
 
-def lm_loss(params, batch: dict, cfg: TransformerConfig,
-            mesh: Optional[Mesh] = None, pp: int = 1,
-            n_microbatches: int = 1, aux_weight: float = 0.01):
-    """Next-token cross-entropy: ``batch`` holds ``input_ids`` [B, L],
-    ``targets`` [B, L] and optionally ``mask`` [B, L] (1 = a real token).
-    The log-softmax in float32, each target's log-probability, the mean
-    over the masked tokens of the whole batch (over ``max(mask.sum(),
-    1)``), plus ``aux_weight * aux``."""
-    logits, aux = forward(params, batch["input_ids"], cfg, mesh, pp,
-                          n_microbatches)
+def _next_token_loss(logits, aux, batch: dict, aux_weight: float):
     logp = torch.log_softmax(logits, dim=-1)
     tgt = torch.as_tensor(batch["targets"]).to(logp.device).long()
     nll = -logp.gather(-1, tgt[..., None])[..., 0]
@@ -1017,9 +1236,35 @@ def lm_loss(params, batch: dict, cfg: TransformerConfig,
     return loss + aux_weight * aux.to(loss.device)
 
 
+def lm_loss(params, batch: dict, cfg: TransformerConfig,
+            mesh: Optional[Mesh] = None, pp: int = 1,
+            n_microbatches: int = 1, aux_weight: float = 0.01):
+    """Next-token cross-entropy: ``batch`` holds ``input_ids`` [B, L],
+    ``targets`` [B, L] and optionally ``mask`` [B, L] (1 = a real token).
+    The log-softmax in float32, each target's log-probability, the mean
+    over the masked tokens of the whole batch (over ``max(mask.sum(),
+    1)``), plus ``aux_weight * aux``.  Over a mesh that spans processes the
+    loss is computed on the mesh's first rank and every process gets it;
+    a backward from it in every process is the step's backward (the
+    gradient of a leaf several processes keep summed over them)."""
+    if mesh is None or not mesh.spans_processes:
+        logits, aux = forward(params, batch["input_ids"], cfg, mesh, pp,
+                              n_microbatches)
+        return _next_token_loss(logits, aux, batch, aux_weight)
+    _check_q8_pipeline(params, pp)
+    with _on_mesh(mesh, cfg) as tape:
+        logits, aux = _mesh_forward(
+            rank_views(params, mesh), torch.as_tensor(batch["input_ids"]),
+            cfg, mesh, pp, n_microbatches)
+        loss = None if logits is None else _next_token_loss(
+            logits, aux, batch, aux_weight)
+        loss = share(loss, 0, mesh)
+        return loss if tape is None else tape.close(loss)
+
+
 def param_leaves(tree) -> list:
-    """Every tensor of a param tree (placed pieces included), in a fixed
-    order."""
+    """Every tensor of a param tree (placed pieces included; this
+    process's, across processes), in a fixed order."""
     if isinstance(tree, torch.Tensor):
         return [tree]
     if isinstance(tree, dict):
@@ -1038,8 +1283,9 @@ def make_train_step(cfg: TransformerConfig, mesh: Optional[Mesh] = None,
     eps 1e-8, weight decay 0.01 on every leaf).  ``step(params, opt_state,
     batch)`` returns ``(params, opt_state, loss)``: the loss before the
     update (``jax.value_and_grad``'s), params updated in place (the
-    reference donates them)."""
-    check_one_process(mesh, "training (make_train_step)")
+    reference donates them).  Over a mesh that spans processes every
+    process runs the step on the leaves it keeps; a leaf several of them
+    keep takes the same gradient, so the same update, in each."""
 
     def init_opt(params):
         leaves = param_leaves(params)
@@ -1134,8 +1380,9 @@ def init_cache(cfg: TransformerConfig, batch: int,
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
                 "pos": torch.zeros((batch,), dtype=torch.int32,
                                    device=device)}
-    devs = mesh.axis_devices("tp")
-    tp = len(devs)
+    tp = mesh.axis_size("tp")
+    # tp rank t's cache on the first rank with tp = t this process holds
+    devs = [mesh.holder_device(tp=t) for t in range(tp)]
     if cfg.kv_heads % tp:
         raise ValueError(f"n_kv_heads {cfg.kv_heads} must divide by tp {tp}")
     shape = (cfg.n_layers, batch, max_len, cfg.kv_heads // tp, cfg.d_head)
@@ -1161,6 +1408,10 @@ def _tp_decode(params, cache, token_ids, pos, cfg: TransformerConfig,
     groups, parts = _dp_rows(mesh, B)
     xs, steps = [], []
     for devs, rows in zip(groups, parts):
+        if not _held(devs):  # another process's dp group
+            xs.append(None)
+            steps.append(None)
+            continue
         x = _embed(params, token_ids[rows], cfg).to(first_device(devs))
         positions = pos[rows].to(x.device)[:, None] + torch.arange(
             K, device=x.device)[None, :]
@@ -1170,8 +1421,10 @@ def _tp_decode(params, cache, token_ids, pos, cfg: TransformerConfig,
                       torch.arange(x.shape[0], device=x.device)[:, None]))
     for i in range(cfg.n_layers):
         p = _layer_params(params["blocks"], i)
-        for g, (devs, (ck, cv, positions, rows)) in enumerate(zip(groups,
-                                                                   steps)):
+        for g, (devs, step) in enumerate(zip(groups, steps)):
+            if step is None:
+                continue
+            ck, cv, positions, rows = step
             _check_q8_attn_single_chip(p, devs)
             h = rmsnorm(xs[g], p["ln1"].to(xs[g].device))
 
@@ -1185,17 +1438,19 @@ def _tp_decode(params, cache, token_ids, pos, cfg: TransformerConfig,
 
             attns = rank_map(attend, devs,
                              _rank_qkv(p, h, positions, cfg, devs))
-            xs[g] = _tp_attn_out(p, xs[g], attns, devs)
+            xs[g] = _tp_attn_out(p, xs[g], attns, devs, cfg.dtype)
         xs, _ = _mesh_ffn(p, xs, cfg, groups)
     return _tp_logits(params, xs, cfg, groups)
 
 
 def _tp_logits(params, xs: list, cfg: TransformerConfig, groups: list):
     """The final norm and the vocabulary projection of every dp group's
-    rows, concatenated on rows in float32."""
-    return torch.cat([_tp_vocab(rmsnorm(x, params["ln_f"].to(x.device)),
-                                params["lm_head"], cfg, devs).float()
-                      for x, devs in zip(xs, groups)], dim=0)
+    rows, concatenated on rows in float32 (across processes each group's
+    from the process that computes it, in every process)."""
+    return torch.cat(_everywhere(
+        [None if x is None else _tp_vocab(
+            rmsnorm(x, params["ln_f"].to(x.device)), params["lm_head"], cfg,
+            devs).float() for x, devs in zip(xs, groups)], groups), dim=0)
 
 
 def decode_step(params, cache, token_ids, cfg: TransformerConfig,

@@ -18,11 +18,16 @@ here).  Routing is discrete and copied exactly:
 Under a mesh (:func:`moe_forward` with ``mesh=``) the experts are split over
 "dp" and each expert's ``d_ff`` over "tp" (:func:`moe_param_specs`), as the
 reference's sharding annotations ask: routing, dispatch and combine run
-over every token of the call on the first device, each expert group's
-buffers go to its ranks, each rank computes its ``d_ff`` share, and the
-row-parallel partials meet in :func:`~.mesh.psum` (float32, rank order).
-Routing never splits per dp group: the reference's GSPMD routes the global
-batch.
+over every token of the call on one rank (the first), each expert group's
+buffers go to its ranks (:func:`~.mesh.scatter`), each rank computes its
+``d_ff`` share, the row-parallel partials meet in :func:`~.mesh.psum`
+(float32, rank order), and each group's output goes back to the routing
+rank (:func:`~.mesh.gather`).  Routing never splits per dp group: the
+reference's GSPMD routes the global batch.  Over a mesh whose ranks span
+processes the expert groups may lie in other processes; the moves cross
+them, both ways under autograd.  With ``root=None`` every process holds
+the tokens and routes them all (serving), and every process gets the
+output.
 """
 
 from __future__ import annotations
@@ -35,10 +40,14 @@ import torch.nn.functional as F
 
 from seldon_core_tpu_torch.parallel.mesh import (
     Mesh,
+    RankViews,
+    Ranks,
     Shards,
-    check_one_process,
+    gather,
     pspec,
     psum,
+    rank_map,
+    scatter,
 )
 
 __all__ = ["MoEConfig", "init_moe_params", "moe_param_specs", "moe_capacity",
@@ -122,25 +131,40 @@ def _expert_ffn(xe, w_in, w_out):
     return torch.einsum("ecf,efd->ecd", h, w_out)
 
 
-def _experts_on_mesh(xe, w_in, w_out, groups: list, dtype):
+def _experts_on_mesh(xe, w_in, w_out, groups: list, dtype, n_experts: int,
+                     root: Optional[int]):
     """The expert buffers ``xe`` [E, C, D] through experts split over the
     expert groups (``w_in``/``w_out``: one piece per group, each a
-    :class:`Shards` over its group's tp ranks ``groups[g]``): each rank its
-    ``d_ff`` share, the partials summed in float32 in rank order."""
+    :class:`Shards` over its group's tp ranks ``groups[g]``, a
+    :class:`~.mesh.Ranks`): each group's buffers copied from rank ``root``
+    (which holds ``xe``; ``None``: every process holds it) to its ranks,
+    each rank its ``d_ff`` share, the partials summed in float32 in rank
+    order, each group's sum back at ``root`` (``None``: in every
+    process)."""
     if not (isinstance(w_in, Shards) and len(w_in) == len(groups)):
         raise ValueError("MoE weights on a mesh must be placed first "
                          "(moe_param_specs over the mesh's dp and tp)")
-    n_e = xe.shape[0] // len(groups)
-    ye = []
+    mesh = groups[0].mesh
+    n_e = n_experts // len(groups)
+    ranks = Ranks.of(mesh, [i for g in groups for i in g.ids])
+    bufs = scatter(xe, root, ranks, lambda xe: [
+        (slice(g * n_e, (g + 1) * n_e),)
+        for g, devs in enumerate(groups) for _ in devs])
+    firsts, at = [], 0
     for g, devs in enumerate(groups):
+        mine = bufs[at:at + len(devs)]
+        at += len(devs)
+        if not any(d is not None for d in devs):
+            firsts.append(None)
+            continue
         wi, wo = w_in[g], w_out[g]
-        partials = []
-        for r, dev in enumerate(devs):
-            partials.append(_expert_ffn(xe[g * n_e:(g + 1) * n_e].to(dev),
-                                        wi[r].to(dev, dtype),
-                                        wo[r].to(dev, dtype)))
-        ye.append(psum(partials, dtype)[0].to(xe.device))
-    return torch.cat(ye, dim=0)
+        partials = rank_map(lambda r, dev, b: _expert_ffn(
+            b.to(dev), wi[r].to(dev, dtype), wo[r].to(dev, dtype)),
+            devs, mine)
+        firsts.append(psum(partials, dtype, ranks=devs)[0])
+    return gather(firsts, Ranks.of(mesh, [g.ids[0] for g in groups]), root,
+                  lambda ps: torch.cat(ps, dim=0),
+                  lambda y: list(torch.chunk(y, len(groups), dim=0)))
 
 
 def moe_groups(mesh: Mesh, cfg: MoEConfig) -> list:
@@ -152,19 +176,47 @@ def moe_groups(mesh: Mesh, cfg: MoEConfig) -> list:
             for g in range(n)]
 
 
-def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig,
-                mesh: Optional[Mesh] = None, groups: Optional[list] = None):
+_FIRST = object()  # moe_forward's default root: the groups' first rank
+
+
+def moe_forward(params: dict, x: Optional[torch.Tensor], cfg: MoEConfig,
+                mesh: Optional[Mesh] = None, groups: Optional[list] = None,
+                root=_FIRST, dtype=None):
     """``x`` [T, D] (flattened tokens).  Returns ``(y [T, D] in x's dtype,
     aux float32 scalar)``.  Without a mesh the weights are tensors; with
     one they are placed by :func:`moe_param_specs` and the experts run on
     their ranks (``groups``, each expert group's tp devices, names them
     directly: a pipeline stage's, say; ``mesh`` gives :func:`moe_groups`
-    of its first stage)."""
-    check_one_process(mesh if groups is None else groups,
-                      "the mixture of experts (moe_forward)")
+    of its first stage).
+
+    ``root`` is the rank that holds ``x``, routes it and gets the output
+    (by default the first rank of the groups in one process, and ``None``
+    over a mesh that spans processes): every process calls the function,
+    those other than ``root``'s with ``x=None`` and ``dtype`` (the tokens'
+    dtype) and get ``(None, None)``.  ``root=None``: every process holds
+    the same ``x``, routes it and gets the output (no gradient crosses
+    processes)."""
+    if mesh is None and groups is None:
+        return _moe_tokens(params, x, cfg, None, None)
+    if groups is None:
+        groups = moe_groups(mesh, cfg)
+    if root is _FIRST:
+        root = None if groups[0].mesh.spans_processes else groups[0].ids[0]
+    if x is None:  # another process routes: take part in the moves
+        _experts_on_mesh(None, params["w_in"], params["w_out"], groups,
+                         dtype, cfg.n_experts, root)
+        return None, None
+    return _moe_tokens(params, x, cfg, groups, root)
+
+
+def _moe_tokens(params: dict, x: torch.Tensor, cfg: MoEConfig, groups,
+                root):
     E, K = cfg.n_experts, cfg.top_k
     dt = x.dtype
-    r = moe_route(x, params["router"], cfg)
+    router = params["router"]
+    if isinstance(router, RankViews):  # the routing rank's view
+        router = router.at(root)
+    r = moe_route(x, router, cfg)
     C = r["capacity"]
     kept = r["kept"]
     # one-hot of the kept slots; a dropped one is an all-zero row (the
@@ -176,14 +228,12 @@ def moe_forward(params: dict, x: torch.Tensor, cfg: MoEConfig,
     comb = torch.einsum("tk,tke,tkc->tec", r["gate_vals"].to(dt), onehot,
                         slot_oh)
     xe = torch.einsum("tec,td->ecd", disp, x)                # [E, C, D]
-    if mesh is None and groups is None:
+    if groups is None:
         ye = _expert_ffn(xe, params["w_in"].to(x.device, dt),
                          params["w_out"].to(x.device, dt))
     else:
-        if groups is None:
-            groups = moe_groups(mesh, cfg)
         ye = _experts_on_mesh(xe, params["w_in"], params["w_out"], groups,
-                              dt)
+                              dt, E, root).to(x.device)
     y = torch.einsum("tec,ecd->td", comb, ye)
     me = r["probs"].mean(0)
     ce = r["onehot"][:, 0, :].float().mean(0)  # top-1 assignment share

@@ -8,12 +8,13 @@ accumulates its queries' attention with an online softmax.  One process
 drives every rank (``parallel/mesh.py``), so a ring step runs each rank's
 update in turn, then rotates; over a mesh that spans processes each process
 updates its own ranks (``None`` at the others') and the rotation crosses
-processes.  Accumulation is in float32 whatever the
-input dtype; masked keys contribute exactly zero.  Plain torch, as the
-reference's is plain XLA.
+processes, both ways under autograd (the transpose of a shift is the
+shift back).  Accumulation is in float32 whatever the input dtype; masked
+keys contribute exactly zero.  Plain torch, as the reference's is plain
+XLA, so autograd gives the ring's gradient.
 
 :func:`dense_attention` is the plain version of the flash kernel and the
-non-flash prefill path.  The ring's gradient comes with training.
+non-flash prefill path.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ import torch
 
 from seldon_core_tpu_torch.parallel.mesh import (
     Mesh,
+    Ranks,
     Shards,
-    check_one_process,
+    gather,
     ppermute,
 )
 
@@ -71,7 +73,8 @@ def _online_update(o, l, m, s, mask, vf):
 def ring_attention(q: Sequence[torch.Tensor], k: Sequence[torch.Tensor],
                    v: Sequence[torch.Tensor], causal: bool = True,
                    scale: Optional[float] = None,
-                   kv_chunk: Optional[int] = None, n_rep: int = 1) -> Shards:
+                   kv_chunk: Optional[int] = None, n_rep: int = 1,
+                   ranks: Optional[Ranks] = None) -> Shards:
     """Attention over a sequence split in order over ``len(q)`` ranks:
     ``q[r]``, ``k[r]``, ``v[r]`` are rank ``r``'s shard ``(B, L_local, H,
     D)`` on its device.  Returns the output shards (a :class:`Shards` on
@@ -84,8 +87,11 @@ def ring_attention(q: Sequence[torch.Tensor], k: Sequence[torch.Tensor],
 
     ``n_rep`` (GQA): ``k``/``v`` carry ``H / n_rep`` heads; they rotate at
     that size and are broadcast to the full head count per step or
-    chunk."""
+    chunk.  ``ranks`` names the shards' ranks (``parallel/mesh.py``
+    ``ppermute``)."""
     n = len(q)
+    if all(x is None for x in q):  # none of the ring's ranks is here
+        return Shards([None] * n, 1)
     q0, k0 = (next(x for x in xs if x is not None) for xs in (q, k))
     B, Lq, H, D = q0.shape
     Lk = k0.shape[1]
@@ -121,7 +127,7 @@ def ring_attention(q: Sequence[torch.Tensor], k: Sequence[torch.Tensor],
                 o, l, m = _online_update(o, l, m, s, mask, vf)
             state[r] = (o, l, m)
         # rotate the blocks one rank on (the last rotation restores owners)
-        kc, vc = ppermute(kc), ppermute(vc)
+        kc, vc = ppermute(kc, ranks=ranks), ppermute(vc, ranks=ranks)
     out = []
     for x, st in zip(q, state):
         if x is None:
@@ -140,8 +146,9 @@ def ring_attention_sharded(q, k, v, mesh: Mesh, axis: str = "tp",
     """Ring attention of global ``(B, L, H, D)`` q/k/v: L split over
     ``axis`` (and B over ``batch_axis`` when the mesh has it, each batch
     group running its own ring on its devices).  Returns the global output
-    on ``q``'s device."""
-    check_one_process(mesh, "ring_attention_sharded")
+    on ``q``'s device.  Over a mesh whose ranks span processes every
+    process gives the same q/k/v and gets the whole output (each rank's
+    shard from its process); no gradient crosses processes there."""
     groups = (mesh.axis_size(batch_axis)
               if batch_axis and batch_axis in mesh.axis_names else 1)
     outs = []
@@ -151,12 +158,13 @@ def ring_attention_sharded(q, k, v, mesh: Mesh, axis: str = "tp",
         n = len(devs)
 
         def split(x):
-            return [p.to(d) for p, d in zip(torch.chunk(x[rows], n, dim=1),
-                                            devs)]
+            return [None if d is None else p.to(d) for p, d in zip(
+                torch.chunk(x[rows], n, dim=1), devs)]
 
         o = ring_attention(split(q), split(k), split(v), causal=causal,
-                           kv_chunk=kv_chunk)
-        outs.append(torch.cat([p.to(q.device) for p in o], dim=1))
+                           kv_chunk=kv_chunk, ranks=devs)
+        outs.append(gather(list(o), devs, None,
+                           lambda ps: torch.cat(ps, dim=1), None).to(q.device))
     return torch.cat(outs, dim=0)
 
 

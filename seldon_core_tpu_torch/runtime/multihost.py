@@ -21,10 +21,14 @@ read the same manifests).
 
 :func:`run_multihost_dryrun` proves the path: OS processes join through the
 env the real operator compiles, and an ``LLMEngine`` and a
-``PagedLLMEngine`` serve with tp spanning the process boundary.  Run it::
+``PagedLLMEngine`` serve with tp spanning the process boundary.
+:func:`run_multihost_training` runs the reference's training dryrun plans
+the same way, over a mesh whose dp, pp and tp axes may each cross the
+boundary (``process_mesh(..., plan=)``), and every process prints the
+plans' lines.  Run them::
 
     python -m seldon_core_tpu_torch.runtime.multihost [--device cpu]
-        [--hosts 2] [--devices-per-host 4]
+        [--hosts 2] [--devices-per-host 4] [--mode serve|train]
 
 On one card every process's ranks share it (``cuda:0``) over gloo: the
 NCCL backend refuses two ranks of one communicator on one card.
@@ -48,7 +52,9 @@ __all__ = [
     "multihost_env",
     "maybe_initialize_distributed",
     "run_multihost_dryrun",
+    "run_multihost_training",
     "write_dryrun_inputs",
+    "write_training_inputs",
 ]
 
 # The operator/runtime env contract, defined ONCE here: operator/compile.py
@@ -230,26 +236,12 @@ def _dryrun_configs(n_ranks: int):
     return cfg, dcfg
 
 
-def run_multihost_dryrun(n_hosts: int = 2, devices_per_host: int = 4,
-                         timeout: float = 600.0, device="cuda",
-                         params: Optional[str] = None) -> dict:
-    """Spawn ``n_hosts`` OS PROCESSES through the operator's StatefulSet
-    env contract, join them into one gloo process group, and run a
-    tensor-parallel ``LLMEngine`` and ``PagedLLMEngine`` over the GLOBAL
-    mesh (``devices_per_host`` ranks a process, all on ``device``: repeats
-    of the CPU, or of ``cuda:0``): tp spans the process boundary, so every
-    tick's partial sums and gathers cross processes.  Each worker also runs
-    the plain single-device decode as a reference and asserts
-    byte-identical output.  ``params`` (:func:`write_dryrun_inputs`) gives
-    the workers their weights and prompts; without it they draw seeded
-    ones from ``torch.Generator``.
-
-    Returns {"n_hosts", "global_devices", "tokens", "paged_requests",
-    "spec_rounds", "pinned_pages", "fleet"} as the reference does, and
-    (port only) "paged_tokens" (the paged engine's ids), "sampled_tokens"
-    (one sampled request, equal in every process) and "launches" (the
-    kernels' launches summed over the workers); raises with the failing worker's log, every worker killed,
-    on failure or past one shared ``timeout``."""
+def _spawn_workers(n_hosts: int, args: list, timeout: float) -> list:
+    """``n_hosts`` OS processes of this module's CLI (``args``), joined
+    through the operator's StatefulSet env contract on a free port; each
+    one's last JSON line, parsed, with ``"port"`` added.  Raises with the
+    failing worker's log, every worker killed, on failure or past one
+    shared ``timeout``."""
     import json
     import subprocess
     import sys
@@ -258,13 +250,9 @@ def run_multihost_dryrun(n_hosts: int = 2, devices_per_host: int = 4,
 
     from seldon_core_tpu_torch.serving.workers import pick_free_port
 
-    _statefulset_env_names(n_hosts)
     port = pick_free_port()
     cmd = [sys.executable, "-m", "seldon_core_tpu_torch.runtime.multihost",
-           "--dryrun-worker", "--devices-per-host", str(devices_per_host),
-           "--device", str(device)]
-    if params is not None:
-        cmd += ["--params", os.path.abspath(params)]
+           *args]
     procs, logs = [], []
     for i in range(n_hosts):
         env = dict(os.environ)
@@ -319,7 +307,38 @@ def run_multihost_dryrun(n_hosts: int = 2, devices_per_host: int = 4,
     results = []
     for out in outs:
         line = [ln for ln in out.splitlines() if ln.startswith("{")][-1]
-        results.append(json.loads(line))
+        results.append({**json.loads(line), "port": port})
+    return results
+
+
+def run_multihost_dryrun(n_hosts: int = 2, devices_per_host: int = 4,
+                         timeout: float = 600.0, device="cuda",
+                         params: Optional[str] = None) -> dict:
+    """Spawn ``n_hosts`` OS PROCESSES through the operator's StatefulSet
+    env contract, join them into one gloo process group, and run a
+    tensor-parallel ``LLMEngine`` and ``PagedLLMEngine`` over the GLOBAL
+    mesh (``devices_per_host`` ranks a process, all on ``device``: repeats
+    of the CPU, or of ``cuda:0``): tp spans the process boundary, so every
+    tick's partial sums and gathers cross processes.  Each worker also runs
+    the plain single-device decode as a reference and asserts
+    byte-identical output.  ``params`` (:func:`write_dryrun_inputs`) gives
+    the workers their weights and prompts; without it they draw seeded
+    ones from ``torch.Generator``.
+
+    Returns {"n_hosts", "global_devices", "tokens", "paged_requests",
+    "spec_rounds", "pinned_pages", "fleet"} as the reference does, and
+    (port only) "paged_tokens" (the paged engine's ids), "sampled_tokens"
+    (one sampled request, equal in every process) and "launches" (the
+    kernels' launches summed over the workers); raises with the failing
+    worker's log, every worker killed, on failure or past one shared
+    ``timeout``."""
+    _statefulset_env_names(n_hosts)
+    args = ["--dryrun-worker", "--devices-per-host", str(devices_per_host),
+            "--device", str(device)]
+    if params is not None:
+        args += ["--params", os.path.abspath(params)]
+    results = _spawn_workers(n_hosts, args, timeout)
+    port = results[0]["port"]
     toks = [r["tokens"] for r in results]
     assert all(t == toks[0] for t in toks), (
         f"ranks disagree on generated tokens: {toks}"
@@ -515,6 +534,163 @@ def _dryrun_worker(devices_per_host: int, device, params_path=None) -> None:
     dist.destroy_process_group()
 
 
+def _parse_plan(label: str):
+    """A :class:`MeshPlan` from ``dp2pp2tp2``."""
+    import re
+
+    from seldon_core_tpu_torch.parallel.mesh import MeshPlan
+
+    m = re.fullmatch(r"dp(\d+)pp(\d+)tp(\d+)", label)
+    if m is None:
+        raise ValueError(f"a plan is dp<n>pp<n>tp<n>, not {label!r}")
+    return MeshPlan(*(int(g) for g in m.groups()))
+
+
+def write_training_inputs(path: str, inputs: dict) -> str:
+    """An npz of the training dryrun's inputs: ``inputs`` maps a plan's
+    label (``dryrun.plan_label``) to ``(params, batch)``, an unplaced float
+    tree of ``dryrun_config(plan)`` and a batch dict, for the workers to
+    train instead of their own seeded draws (a CPU test hands them the
+    reference's converted weights and batch so)."""
+    import numpy as np
+
+    arrays = {}
+    for label, (params, batch) in inputs.items():
+        arrays.update(_flat(params, f"{label}/params/"))
+        for k, v in batch.items():
+            arrays[f"{label}/batch/{k}"] = np.asarray(
+                v.cpu() if hasattr(v, "cpu") else v)
+    np.savez(path, **arrays)
+    return path
+
+
+def _train_worker(devices_per_host: int, device, plans: list,
+                  inputs_path=None, out_dir=None) -> None:
+    """One slice worker of the training dryrun: join through the env
+    contract, then for each plan one AdamW step of the dryrun model over
+    ``process_mesh(..., plan=)`` (dp, pp and tp may each cross the process
+    boundary), and print one JSON line: each plan's summary line, loss,
+    step seconds, whether every leaf several processes keep is bitwise the
+    same in each of them, and the kernels' launches here.  ``out_dir``
+    gets this process's pieces and their gradients after the step
+    (``w<process>.npz``, keyed by plan and ``parallel/mesh.py``
+    ``leaf_items``)."""
+    import json
+    import time
+
+    import numpy as np
+    import torch
+
+    assert maybe_initialize_distributed(), "contract env missing"
+    import torch.distributed as dist
+
+    from seldon_core_tpu_torch.dryrun import dryrun_training, plan_label
+    from seldon_core_tpu_torch.ops import launches as kernel_launches
+    from seldon_core_tpu_torch.parallel.mesh import (
+        leaf_items,
+        process_mesh,
+        replicas_agree,
+    )
+
+    dev = _local_device(device)
+    if dev.type == "cpu":
+        # the processes share the host's cores
+        torch.set_num_threads(2)
+    arrays = {}
+    if inputs_path is not None:
+        with np.load(inputs_path) as z:
+            arrays = {k: z[k] for k in z.files}
+    results, saved = [], {}
+    for plan in plans:
+        label = plan_label(plan)
+        mesh = process_mesh([dev] * devices_per_host, plan=plan)
+        params = batch = None
+        if f"{label}/batch/input_ids" in arrays:
+            params = _to(_unflat(arrays, f"{label}/params/"), dev)
+            batch = {k: torch.from_numpy(arrays[f"{label}/batch/{k}"]).to(dev)
+                     for k in ("input_ids", "targets", "mask")}
+        for fn in kernel_launches._kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        line, loss, placed = dryrun_training(plan, dev, params=params,
+                                             batch=batch, mesh=mesh)
+        step_s = time.perf_counter() - t0
+        agree = replicas_agree(placed, mesh)
+        results.append({
+            "plan": label, "line": line, "loss": loss, "step_s": step_s,
+            "replicas": agree,
+            "launches": {name: fn.launches
+                         for name, fn in kernel_launches._kernels.items()}})
+        for key, t in leaf_items(placed, label):
+            saved[f"param/{key}"] = t.detach().cpu().numpy()
+            if t.grad is not None:
+                saved[f"grad/{key}"] = t.grad.cpu().numpy()
+    if out_dir is not None:
+        np.savez(os.path.join(out_dir, f"w{dist.get_rank()}.npz"), **saved)
+    print(json.dumps({"process": dist.get_rank(),
+                      "global_devices": dist.get_world_size()
+                      * devices_per_host,
+                      "local_devices": devices_per_host,
+                      "plans": results}), flush=True)
+    dist.destroy_process_group()
+
+
+def run_multihost_training(n_hosts: int = 2, devices_per_host: int = 4,
+                           timeout: float = 600.0, device="cuda",
+                           plans=None, inputs: Optional[str] = None) -> dict:
+    """Spawn ``n_hosts`` OS processes through the operator's StatefulSet
+    env contract, join them, and run the training dryrun (``dryrun.py``
+    ``dryrun_training``) for each plan (``MeshPlan``s; by default the
+    reference's two, ``dryrun.TRAINING_PLANS``, on every rank) over the
+    global mesh of ``devices_per_host`` ranks a process on ``device``.
+    ``inputs`` (:func:`write_training_inputs`) gives the params and batch
+    per plan.
+
+    Returns ``{"n_hosts", "global_devices", "plans": [{"plan", "line",
+    "loss", "step_s" (each process's), "launches" (summed)}],
+    "processes"}`` after asserting that every process printed the same
+    lines and losses and that every leaf several processes keep is
+    bitwise the same in each of them."""
+    from seldon_core_tpu_torch.dryrun import TRAINING_PLANS, plan_label
+    from seldon_core_tpu_torch.parallel.mesh import plan_mesh
+
+    _statefulset_env_names(n_hosts)
+    n = n_hosts * devices_per_host
+    if plans is None:
+        plans = [plan_mesh(n, **kw) for kw in TRAINING_PLANS]
+    args = ["--dryrun-worker", "--mode", "train",
+            "--devices-per-host", str(devices_per_host),
+            "--device", str(device),
+            "--plans", ",".join(plan_label(p) for p in plans)]
+    if inputs is not None:
+        args += ["--params", os.path.abspath(inputs)]
+    results = sorted(_spawn_workers(n_hosts, args, timeout),
+                     key=lambda r: r["process"])
+    per_plan = []
+    for i, plan in enumerate(plans):
+        rows = [r["plans"][i] for r in results]
+        lines = [r["line"] for r in rows]
+        assert all(ln == lines[0] for ln in lines), (
+            f"processes print different lines: {lines}")
+        losses = [r["loss"] for r in rows]
+        assert all(x == losses[0] for x in losses), (
+            f"processes hold different losses: {losses}")
+        assert all(r["replicas"]["equal"] for r in rows), (
+            f"replicated leaves differ between processes: {rows}")
+        launches: dict = {}
+        for r in rows:
+            for k, c in r["launches"].items():
+                launches[k] = launches.get(k, 0) + c
+        per_plan.append({"plan": plan_label(plan), "line": lines[0],
+                         "loss": losses[0],
+                         "step_s": [r["step_s"] for r in rows],
+                         "shared_leaves": [r["replicas"]["leaves"]
+                                           for r in rows],
+                         "launches": launches})
+    return {"n_hosts": n_hosts, "global_devices": n, "plans": per_plan,
+            "processes": results}
+
+
 def _to(tree: dict, dev) -> dict:
     return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
             for k, v in tree.items()}
@@ -531,10 +707,27 @@ def main(argv=None) -> int:
     ap.add_argument("--devices-per-host", type=int, default=4)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--params", default=None,
-                    help="an npz of write_dryrun_inputs")
+                    help="an npz of write_dryrun_inputs (serve) or "
+                         "write_training_inputs (train)")
+    ap.add_argument("--mode", choices=("serve", "train"), default="serve",
+                    help="the engines' dryrun, or the training dryrun")
+    ap.add_argument("--plans", default=None,
+                    help="train: plans as dp2pp2tp2,dp2pp1tp4 (default: "
+                         "the reference's two on every rank)")
     args = ap.parse_args(argv)
-    if args.dryrun_worker:
+    plans = (None if args.plans is None
+             else [_parse_plan(x) for x in args.plans.split(",")])
+    if args.dryrun_worker and args.mode == "train":
+        _train_worker(args.devices_per_host, args.device, plans,
+                      args.params)
+    elif args.dryrun_worker:
         _dryrun_worker(args.devices_per_host, args.device, args.params)
+    elif args.mode == "train":
+        r = run_multihost_training(args.hosts, args.devices_per_host,
+                                   device=args.device, plans=plans,
+                                   inputs=args.params)
+        print(json.dumps({k: v for k, v in r.items()  # noqa: T201
+                          if k != "processes"}))
     else:
         print(json.dumps(run_multihost_dryrun(  # noqa: T201
             args.hosts, args.devices_per_host, device=args.device,

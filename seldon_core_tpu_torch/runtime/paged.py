@@ -406,7 +406,7 @@ def _tp_paged(params, cache, tables, pos, toks, cfg: TransformerConfig,
 
             attns = rank_map(attend, devs,
                              _rank_qkv(p, h, positions, cfg, devs))
-            xs[g] = _tp_attn_out(p, xs[g], attns, devs)
+            xs[g] = _tp_attn_out(p, xs[g], attns, devs, cfg.dtype)
         xs, _ = _mesh_ffn(p, xs, cfg, groups)
     return _tp_logits(params, xs, cfg, groups)
 

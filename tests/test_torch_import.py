@@ -15,7 +15,7 @@ reconciles an example and renders the charts with ``yaml`` blocked too,
 and the tools draw a contract's request and judge a replay, and a 2-rank
 CPU mesh runs ring attention and a tensor-parallel prefill; the multi-host
 module checks the operator's env contract and a process-spanning mesh is
-refused by training.  A second
+refused by the placement plane's sharded segments.  A second
 probe imports the
 gRPC modules and serves a gRPC call, and forwards one through the
 gateway's gRPC handler with its ``oauth_token``, still without jax or the
@@ -234,15 +234,16 @@ two, _ = tf.prefill(tf.shard_params(params, mesh, cfg), ids, cfg, max_len=8,
 assert torch.allclose(one, two, atol=1e-5)
 # the multi-host slice without jax: the operator's env contract through the
 # port's compile, a single-host no-op, and a process-spanning mesh refused
-# by training
+# by the placement plane's sharded segments
+from seldon_core_tpu_torch.graph.plan import FusedSegment
 from seldon_core_tpu_torch.parallel.mesh import MeshPlanError
 from seldon_core_tpu_torch.runtime import multihost
 multihost._statefulset_env_names(2)
 assert multihost.maybe_initialize_distributed() is False
 spanning = make_mesh(devices=["cpu", None], tp=2)
 try:
-    tf.forward(params, ids, cfg, mesh=spanning)
-    raise AssertionError("training ran over a process-spanning mesh")
+    FusedSegment.enable_sharding(None, spanning)
+    raise AssertionError("a segment sharded over a process-spanning mesh")
 except MeshPlanError:
     pass
 # the placement plane without jax: iris fused at dp=2 on the CPU serves a

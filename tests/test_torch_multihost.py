@@ -16,8 +16,9 @@ reference's ``seldon_core_tpu/runtime/multihost.py`` on the CPU.
   same size (run beside it), its two summary lines the reference's letter
   for letter, and one sampled request draws the same ids in both processes;
 - ``engine_main`` joins the slice before it serves;
-- a mesh whose ranks span processes is refused by name where only the
-  tensor-parallel serving path runs across processes.
+- the placement plane's sharded segments refuse a mesh whose ranks span
+  processes, by name (training, the MoE, the pipeline and ring attention
+  run across processes: ``tests/test_torch_multihost_train.py``).
 
 Every spawning test runs its processes under a deadline of its own on free
 ports; the pytest process never joins a process group.  Run this file as a
@@ -237,38 +238,19 @@ def test_a_mesh_that_spans_processes_without_a_group():
 
 
 # ----------------------------------------------------------------------
-# refusals: only tensor-parallel serving runs across processes
+# refusals: the placement plane's sharded segments stay in one process
 # ----------------------------------------------------------------------
 
 def _refusals():
-    from seldon_core_tpu_torch.models import transformer as TT
-    from seldon_core_tpu_torch.parallel.moe import MoEConfig, moe_forward
-    from seldon_core_tpu_torch.parallel.pipeline import pipeline_apply
-    from seldon_core_tpu_torch.parallel.ring_attention import (
-        ring_attention_sharded,
-    )
+    from seldon_core_tpu_torch.graph.plan import FusedSegment
     from seldon_core_tpu_torch.placement.config import PlacementConfig
     from seldon_core_tpu_torch.placement.plane import PlacementPlane
 
-    cfg = TT.TransformerConfig(vocab_size=16, d_model=8, n_layers=1,
-                               n_heads=4, d_ff=16, max_seq=8)
-    ids = torch.zeros((1, 4), dtype=torch.long)
-    x = torch.zeros((2, 4, 4, 2))
     return {
-        "forward": lambda m: TT.forward({}, ids, cfg, mesh=m),
-        "lm_loss": lambda m: TT.lm_loss({}, {"input_ids": ids}, cfg, mesh=m),
-        "make_train_step": lambda m: TT.make_train_step(cfg, mesh=m),
-        "moe_serving": lambda m: TT.ffn_block(
-            {"moe": {}}, torch.zeros((1, 2, 8)), cfg, mesh=m),
-        "moe_forward": lambda m: moe_forward(
-            {}, torch.zeros((4, 8)), MoEConfig(n_experts=2, d_model=8,
-                                               d_ff=16), mesh=m),
-        "pipeline_apply": lambda m: pipeline_apply(
-            lambda p, a, s: a, {}, torch.zeros((2, 8)), m, 1),
-        "ring_attention_sharded": lambda m: ring_attention_sharded(
-            x, x, x, m),
         "placement_plane": lambda m: PlacementPlane(
             PlacementConfig(enabled=True, tp=4), mesh=m),
+        # the refusal comes first: no segment is needed to reach it
+        "enable_sharding": lambda m: FusedSegment.enable_sharding(None, m),
     }
 
 
