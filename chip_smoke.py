@@ -422,7 +422,8 @@ Prints one JSON object per line:
     fails the phase, both are stopped.
 42. ``multihost_train_dryrun`` (after ``multihost_7b``): ``runtime/
     multihost.py`` ``run_multihost_training(..., device="cuda")`` at 2
-    processes x 4 ranks and at 4 x 2, all on cuda:0: the reference's two
+    processes x 4 ranks and at 4 x 2 (both layouts at once, their six
+    processes sharing cuda:0), all on cuda:0: the reference's two
     training plans (the dryrun's seeded weights and batch) over
     ``process_mesh(..., plan=)``, so dp crosses the boundary at 2 x 4 and
     pp (the dense plan) or tp (the ring plan) at 4 x 2.  Gates: every
@@ -431,7 +432,7 @@ Prints one JSON object per line:
     leaf several processes keep bitwise the same in each of them after the
     step; K3 launched 32 times a layout in the workers (the dense plan's
     4 layers x 2 microbatches x dp 2 x tp 2).  Reported: each process's
-    step seconds.
+    step seconds (each layout's with the other's beside it on the card).
 43. ``multihost_train_moe``: ``train_moe``'s model and batches (seeds 61,
     62; full width, 8 x 512, 10 AdamW steps at lr 1e-3) at dp = 2 over two
     processes with the operator's env, one rank each on cuda:0
@@ -446,7 +447,36 @@ Prints one JSON object per line:
     Reported: step ms medians in the processes and for the single
     controller, the moves' CUDA-event ms over a step's host ms
     (``transport_stats``), a step's moves, peak memory.
-44. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
+44. ``native_load_ceiling``: ``bench.py`` ``bench_wire_ceiling``'s two runs
+    on the port: ``NativeHttpServer`` answering a static body (no Python
+    on either side of a request), driven by ``native.run_native_load``:
+    REST with 32 connections, h2c gRPC with 8 x 16 streams, 1.5 s each;
+    errors must be 0.  Requests/s and latency percentiles are printed with
+    the card and ``os.cpu_count()``: the load generator and the server
+    share the host's cores, so these are host figures.
+45. ``native_load_engine``: ``bench_rest_socket_native``'s and
+    ``bench_grpc_socket_native``'s setups: a SIMPLE_MODEL ``GraphEngine``
+    behind ``NativeRestServer`` (32 connections) and ``NativeGrpcServer``
+    (8 x 8 streams), the load generator in an executor while the servers'
+    loop runs in the script, 3 s each; errors must be 0.
+46. ``native_load_llm``: ``llm.json`` (DemoLLM, int8 "full", 65 pages of
+    16, GQA 4/2) booted by the local runner, its routes behind the native
+    REST tier, 3 s of ``run_native_load`` with 4 connections and one
+    greedy body (a 40-token prompt, ``n_new`` 8), Python POSTs of the
+    body: one before, three spread over the window (the load keeping the
+    engine's 4 slots live) and one after: errors 0, every answer's ids
+    EQUAL the CPU plain path's (the same engine and knobs), each in-window
+    POST sent inside the window, K1 and K2 launched in the window (their
+    counts are the phase's launches).
+47. ``save_model``: ``MNISTMLP`` and ``ResNet50Model`` (BASELINE config 3:
+    224 x 224 x 3, 1000 classes, bf16; seed 11) exported by
+    ``python -m seldon_core_tpu_torch.tools save-model`` in two child
+    processes on the card at once; each export booted through
+    ``model_uri`` in a fresh component on cuda: its leaves bitwise equal
+    to the same seeded instance built in the script, and on 8 seeded
+    inputs (one batch) the booted component's answers bitwise equal to
+    that instance's.  Export and boot seconds, file bytes: reported.
+48. ``seconds``: wall time of every phase (``slice_3a_phases``: the three
     phases of prefix caching, batched and chunked prefill, preemption and
     checkpoints together; ``slice_3b_phases``: ``spec_7b`` and
     ``parity_spec_7b``; ``slice_4a_i_phases``: the ``wire_*`` phases;
@@ -457,8 +487,8 @@ Prints one JSON object per line:
     ``slice_5b_i_phases``: 30-32; ``slice_5b_ii_phases``: 33-34;
     ``slice_6a_phases``: 35-36; ``slice_6b_phases``: 37;
     ``slice_6c_phases``: 38-39; ``slice_6d_phases``: 40-41;
-    ``slice_6e_phases``: 42-43).
-45. ``{"kernels": [...]}``: one entry per kernel with its launches in the
+    ``slice_6e_phases``: 42-43; ``slice_7_phases``: 44-47).
+49. ``{"kernels": [...]}``: one entry per kernel with its launches in the
     runs through entry points (``llm_json``, ``serve_7b``, ``grpc_7b``,
     ``features_7b``, ``spec_7b``, ``llm_graphs_7b``, ``checkpoint_7b``,
     ``plan_resnet50``,
@@ -468,7 +498,7 @@ Prints one JSON object per line:
     ``lint``, ``gateway_7b``, ``loadtest_7b``, ``parity_tp_7b``,
     ``tp_7b``, ``placement_resnet50``, ``train_moe``, ``train_mesh``,
     ``multihost_dryrun``, ``multihost_7b``, ``multihost_train_dryrun``,
-    ``multihost_train_moe``, ``gateway_resnet50``,
+    ``multihost_train_moe``, ``native_load_llm``, ``gateway_resnet50``,
     ``fleet_resnet50`` and ``operator_resnet50``, counted by the child
     processes where the kernels run there; K1 also
     ``resnet50_launches``: the int8 REST run), each phase's count beside,
@@ -481,7 +511,7 @@ Prints one JSON object per line:
     bitwise equal to autograd through the plain version, the forward's
     and the backward's ms beside the forward's bound and SDPA's forward
     and backward).
-46. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+50. Last: ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failed check raises: the script exits non-zero without the ``ok``
 line.  Without a card, or run outside a checkout of the repository, it
@@ -8657,13 +8687,22 @@ def multihost_train_dryrun_phase(torch) -> dict:
         run_multihost_training,
     )
 
-    out = {"phase": "multihost_train_dryrun", "card": CARD, "layouts": []}
+    out = {"phase": "multihost_train_dryrun", "card": CARD,
+           "layouts_at_once": len(TRAIN_LAYOUTS), "layouts": []}
     launches = {k: 0 for k in _counters()}
-    for hosts, per in TRAIN_LAYOUTS:
+
+    def layout(hosts, per):
         t0 = time.perf_counter()
         r = run_multihost_training(hosts, per, timeout=MULTIHOST_DEADLINE_S,
                                    device="cuda")
-        wall = time.perf_counter() - t0
+        return r, time.perf_counter() - t0
+
+    # both layouts at once: each run spends most of its wall time in its
+    # processes' start and first step
+    with concurrent.futures.ThreadPoolExecutor(len(TRAIN_LAYOUTS)) as pool:
+        runs = [pool.submit(layout, *lay) for lay in TRAIN_LAYOUTS]
+        done = [f.result() for f in runs]
+    for (hosts, per), (r, wall) in zip(TRAIN_LAYOUTS, done):
         rows = []
         for p in r["plans"]:
             single = TRAIN_MESH[p["plan"]]
@@ -8833,6 +8872,284 @@ def multihost_train_moe_phase(torch) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# slice 7: the native load generator and weight export
+# ----------------------------------------------------------------------
+
+NATIVE_BODY = {"data": {"names": ["a", "b"], "ndarray": [[1.0, 2.0]]}}
+SAVE_MODEL_DIR = ROOT / "build" / "save_model"
+SAVE_MODEL_INPUTS = 8
+
+
+def _host_line(res: dict) -> dict:
+    """A load run's figures with what they were measured on: the load
+    generator and the server share the host's cores."""
+    import os
+
+    return {**res, "card": CARD, "cpu_count": os.cpu_count()}
+
+
+def _load_ok(what: str, res: dict) -> None:
+    if res["errors"] != 0 or res["requests"] == 0:
+        raise AssertionError(f"{what}: {res}")
+
+
+def _grpc_body() -> bytes:
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.proto.convert import message_to_proto
+
+    return message_to_proto(SeldonMessage.from_dict(NATIVE_BODY)) \
+        .SerializeToString()
+
+
+def native_load_ceiling_phase() -> None:
+    """``bench.py`` ``bench_wire_ceiling``'s two runs on the port: a static
+    answer from ``NativeHttpServer`` (no Python on either side of a
+    request), REST with 32 connections and h2c gRPC with 8 x 16 streams,
+    1.5 s each; errors must be 0."""
+    from seldon_core_tpu_torch.native import NativeHttpServer, run_native_load
+
+    body = json.dumps(NATIVE_BODY).encode()
+    out = {}
+    for mode, status, answer, conns, streams in (
+            ("rest", 200, body, 32, 1), ("grpc", 0, _grpc_body(), 8, 16)):
+        srv = NativeHttpServer(submit=None, http2=mode == "grpc").start()
+        try:
+            srv.set_static_response(status, answer)
+            out[mode] = run_native_load(
+                mode, "127.0.0.1", srv.port, "/p" if mode == "rest" else "/x",
+                answer, conns, streams, 1.5, 0.2)
+        finally:
+            srv.stop()
+    emit(_host_line({"phase": "native_load_ceiling", **out}))
+    for mode, res in out.items():
+        _load_ok(f"native_load_ceiling {mode}", res)
+
+
+def native_load_engine_phase() -> None:
+    """``bench.py`` ``bench_rest_socket_native`` and
+    ``bench_grpc_socket_native`` on the port: a SIMPLE_MODEL
+    ``GraphEngine`` behind ``NativeRestServer`` (32 connections) and
+    ``NativeGrpcServer`` (8 x 8 streams), ``run_native_load`` in an
+    executor while the servers' loop runs here, 3 s each; errors must be
+    0."""
+    from seldon_core_tpu_torch.graph.engine import GraphEngine
+    from seldon_core_tpu_torch.native import run_native_load
+    from seldon_core_tpu_torch.serving.native_http import (
+        NativeGrpcServer,
+        NativeRestServer,
+    )
+
+    async def run(server, *load) -> dict:
+        port = await server.start()
+        try:
+            loop = asyncio.get_running_loop()
+            return await loop.run_in_executor(
+                None, lambda: run_native_load(load[0], "127.0.0.1", port,
+                                              *load[1:]))
+        finally:
+            await server.stop()
+
+    spec = {"name": "m", "implementation": "SIMPLE_MODEL"}
+    out = {"rest": asyncio.run(run(
+        NativeRestServer(engine=GraphEngine(spec), bind="127.0.0.1"),
+        "rest", "/api/v0.1/predictions", json.dumps(NATIVE_BODY).encode(),
+        32, 1, 3.0, 0.3))}
+    out["grpc"] = asyncio.run(run(
+        NativeGrpcServer(deployment=GraphEngine(spec), bind="127.0.0.1"),
+        "grpc", "/seldon.tpu.Seldon/Predict", _grpc_body(), 8, 8, 3.0, 0.3))
+    emit(_host_line({"phase": "native_load_engine", **out}))
+    for mode, res in out.items():
+        _load_ok(f"native_load_engine {mode}", res)
+
+
+#: Python POSTs sent inside ``native_load_llm``'s window, spread over it
+NATIVE_LLM_IN_WINDOW = 3
+
+
+def _posts_in_window(port: int, body: dict, n: int, t0: float,
+                     warmup_s: float, seconds: float) -> list:
+    """``n`` POSTs of ``body``, one after another, each sent at its own
+    point of the load's measured window (``t0`` its ``time.monotonic()``
+    start, ``warmup_s`` then ``seconds``): ``(code, answer, sent_s,
+    answered_s)``, seconds from ``t0``."""
+    out = []
+    for i in range(n):
+        at = t0 + warmup_s + (i + 0.5) * seconds / n
+        time.sleep(max(0.0, at - time.monotonic()))
+        sent = time.monotonic() - t0
+        code, answer = _post(port, body)
+        out.append((code, answer, sent, time.monotonic() - t0))
+    return out
+
+
+def native_load_llm_phase(torch) -> dict:
+    """``llm.json`` (the main path: DemoLLM, int8 "full", 65 pages of 16,
+    GQA 4/2) booted by the local runner, its routes behind the native REST
+    tier, driven by ``run_native_load`` for 3 s with 4 connections and one
+    greedy body; one Python POST of the same body before the run, one
+    after, and ``NATIVE_LLM_IN_WINDOW`` inside the window, where the load's
+    4 connections keep the engine's slots live.  Gates: errors 0; every
+    answer's ids EQUAL the CPU plain path's for the same engine and knobs,
+    and each in-window POST sent inside the window; K1 and K2 launched in
+    the window.  Returns the window's launches."""
+    import random
+
+    from seldon_core_tpu_torch.native import run_native_load
+    from seldon_core_tpu_torch.operator.local import serve
+    from seldon_core_tpu_torch.runtime.llm import PagedLLMEngine
+    from seldon_core_tpu_torch.serving.native_http import NativeRestServer
+
+    rng = random.Random(21)
+    prompt = [rng.randrange(1, 256) for _ in range(40)]
+    body = {"jsonData": {"prompt_ids": prompt, "n_new": 8}}
+    graph = ROOT / "seldon_core_tpu_torch" / "examples" / "llm.json"
+
+    async def run():
+        server, local = await serve(str(graph), port=0, host="127.0.0.1")
+        native = NativeRestServer(rest=server, bind="127.0.0.1")
+        port = await native.start()
+        try:
+            before = (await _in_threads(_post, [(port, body)]))[0]
+            reset_launches()
+            loop = asyncio.get_running_loop()
+            t0 = time.monotonic()
+            res, (during,) = await asyncio.gather(
+                loop.run_in_executor(None, lambda: run_native_load(
+                    "rest", "127.0.0.1", port, "/api/v0.1/predictions",
+                    json.dumps(body).encode(), 4, 1, 3.0, 0.3)),
+                _in_threads(_posts_in_window, [(
+                    port, body, NATIVE_LLM_IN_WINDOW, t0, 0.3, 3.0)]))
+            launches = read_launches()
+            after = (await _in_threads(_post, [(port, body)]))[0]
+            return before, after, during, res, launches, local
+        finally:
+            await native.stop()
+            await server.stop()
+
+    before, after, during, res, launches, local = asyncio.run(run())
+    engine = local.engine.node_impl("llm").user.engine
+    cpu = PagedLLMEngine(_to_device(engine.params, "cpu"), engine.cfg,
+                         engine.paged_cfg, max_slots=engine.max_slots,
+                         auto_prefix_tokens=engine._auto_budget)
+    want = asyncio.run(cpu.generate(prompt, 8))[0].tolist()
+    cpu.close()
+    engine.close()
+    answers = [before, *((c, b) for c, b, _, _ in during), after]
+    ids = [b["jsonData"]["ids"] if code == 200 else (code, b)
+           for code, b in answers]
+    sent = [(round(a, 3), round(b, 3)) for _, _, a, b in during]
+    emit(_host_line({"phase": "native_load_llm", **res,
+                     "prompt_len": len(prompt), "n_new": 8,
+                     "ids_equal": [i == want for i in ids],
+                     "in_window_sent_answered_s": sent,
+                     "launches_in_window": launches}))
+    _load_ok("native_load_llm", res)
+    if not all(i == want for i in ids):
+        raise AssertionError(f"native_load_llm: ids {ids} (before, "
+                             f"{NATIVE_LLM_IN_WINDOW} in the window, after), "
+                             f"CPU plain path {want}")
+    if not all(0.3 <= a < 3.3 for a, _ in sent):
+        raise AssertionError(f"native_load_llm: in-window POSTs sent at "
+                             f"{sent} s, outside the window 0.3-3.3 s")
+    if launches["int8_matmul"] == 0 or launches["paged_attention"] == 0:
+        raise AssertionError(f"native_load_llm: kernels not launched in "
+                             f"the window {launches}")
+    return launches
+
+
+def save_model_phase(torch) -> None:
+    """``MNISTMLP`` and ``ResNet50Model`` (BASELINE config 3: 224 x 224 x
+    3, 1000 classes, bf16, seeded) exported by the port's ``save-model``
+    CLI in child processes on the card, both at once; each export booted
+    through ``model_uri`` in a fresh component on cuda.  Gates: the
+    export's leaves bitwise equal to the same seeded instance built here
+    (the child's weights), and on 8 seeded inputs the booted component's
+    answers bitwise equal to that instance's."""
+    import shutil
+
+    import numpy as np
+
+    from seldon_core_tpu_torch.convert import resnet_to_jax
+    from seldon_core_tpu_torch.messages import SeldonMessage
+    from seldon_core_tpu_torch.models.mlp import MNISTMLP
+    from seldon_core_tpu_torch.models.resnet import ResNet50Model
+    from seldon_core_tpu_torch.runtime.checkpoint import load_checkpoint
+    from seldon_core_tpu_torch.runtime.component import ComponentHandle
+
+    shutil.rmtree(SAVE_MODEL_DIR, ignore_errors=True)
+    models = {"mlp": (MNISTMLP, (SAVE_MODEL_INPUTS, 784)),
+              "resnet": (ResNet50Model, (SAVE_MODEL_INPUTS, 224, 224, 3))}
+    t0 = time.perf_counter()
+    children = {
+        name: Child([sys.executable, "-m", "seldon_core_tpu_torch.tools",
+                     "save-model",
+                     f"{cls.__module__}:{cls.__name__}",
+                     str(SAVE_MODEL_DIR / name), "--param", "seed=11"],
+                    label=f"save-model {name}")
+        for name, (cls, _) in models.items()}
+    export_s = {}
+    try:
+        for name, child in children.items():
+            child.wait_for(str(SAVE_MODEL_DIR / name), timeout=300)
+            if child.proc.wait(timeout=60) != 0:
+                raise AssertionError(f"save-model {name}: rc "
+                                     f"{child.proc.returncode}: "
+                                     f"{child.tail()}")
+            export_s[name] = time.perf_counter() - t0
+    finally:
+        for child in children.values():
+            child.stop()
+    out = {}
+    rng = np.random.default_rng(11)
+    for name, (cls, shape) in models.items():
+        path = str(SAVE_MODEL_DIR / name)
+        mine = cls(seed=11, device="cuda")
+        tree, meta = load_checkpoint(path)
+        want = resnet_to_jax(mine.module) if name == "resnet" else \
+            [{k: v.cpu() for k, v in layer.items()} for layer in mine.params]
+        same_leaves = _same_tree(tree, want)
+        t = time.perf_counter()
+        booted = cls(model_uri=path, device="cuda")
+        boot_s = time.perf_counter() - t
+        x = rng.uniform(0, 255 if name == "resnet" else 1, shape) \
+            .astype(np.float32)
+        a, b = [ComponentHandle(m, name=name).predict(
+            SeldonMessage.from_ndarray(x)) for m in (mine, booted)]
+        out[name] = {"leaves_equal": same_leaves, "family": meta["family"],
+                     "bytes": sum(f.stat().st_size for f in
+                                  (SAVE_MODEL_DIR / name).iterdir()),
+                     "export_s": export_s[name], "boot_s": boot_s,
+                     "answers_bitwise_equal": _same_answer(a, b),
+                     "answer_shape": list(a.host_data().shape),
+                     "top1": a.host_data().argmax(-1).tolist()}
+        del mine, booted
+    shutil.rmtree(SAVE_MODEL_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit({"phase": "save_model", **out, "card": CARD})
+    for name, r in out.items():
+        if not (r["leaves_equal"] and r["answers_bitwise_equal"]
+                and r["family"] == ("mlp" if name == "mlp" else "resnet")):
+            raise AssertionError(f"save_model {name}: {r}")
+
+
+def _same_tree(a, b) -> bool:
+    """Two trees of tensors with the same structure, dtypes, shapes and
+    bytes."""
+    import torch
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and \
+            all(_same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and \
+            all(_same_tree(x, y) for x, y in zip(a, b))
+    a, b = a.cpu().contiguous(), b.cpu().contiguous()
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.view(-1).view(torch.uint8).equal(
+                b.view(-1).view(torch.uint8)))
+
+
 _SUMMARY_META = {
     "int8_matmul": ("seldon_core_tpu_torch/csrc/int8_matmul.cu",
                     "seldon_core_tpu/ops/quant.py:52"),
@@ -8994,6 +9311,13 @@ def smoke() -> int:
     # own compiled manifest, driven by the port's tools
     runs["operator_resnet50"] = timed("operator_resnet50",
                                       operator_resnet50_phase, torch)
+    # slice 7: the native load generator, at its ceiling, over an engine
+    # and over the main path; weight export through the CLI
+    timed("native_load_ceiling", native_load_ceiling_phase)
+    timed("native_load_engine", native_load_engine_phase)
+    runs["native_load_llm"] = timed("native_load_llm",
+                                    native_load_llm_phase, torch)
+    timed("save_model", save_model_phase, torch)
     slice_3a = sum(seconds[k] for k in ("features_7b", "parity_features_7b",
                                         "checkpoint_7b"))
     slice_3b = seconds["spec_7b"] + seconds["parity_spec_7b"]
@@ -9022,6 +9346,9 @@ def smoke() -> int:
           + seconds["multihost_7b"],
           "slice_6e_phases": seconds["multihost_train_dryrun"]
           + seconds["multihost_train_moe"],
+          "slice_7_phases": sum(seconds[k] for k in (
+              "native_load_ceiling", "native_load_engine",
+              "native_load_llm", "save_model")),
           "total": time.perf_counter() - t0})
     launches = {k: sum(r[k] for r in runs.values())
                 for k in runs["serve_7b"]}

@@ -17,10 +17,13 @@ a MoE's ``router``/``w_in``/``w_out`` and the layer stack's pipeline stages
 ``{"w", "b"}`` have the port's layout already, so it converts them too.
 
 :func:`resnet_from_jax` loads the reference's flax ResNet variables
-(``params`` and ``batch_stats``) into a port ``ResNet``, and
+(``params`` and ``batch_stats``) into a port ``ResNet``,
+:func:`resnet_to_jax` is its inverse (what the port's ``ResNet50Model``
+exports), and
 :func:`resnet_int8_from_jax` turns the reference's folded int8 ResNet
 weights (``models/resnet_int8.py convert_params``) into the port's.  Conv
-kernels go from flax's HWIO to torch's OIHW, stored channels_last.
+kernels go from flax's HWIO to torch's OIHW, stored channels_last, and
+back.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch
 from seldon_core_tpu_torch.ops.quant import QuantizedLinear, k_major
 
 __all__ = ["params_from_jax", "to_torch", "resnet_from_jax",
-           "resnet_int8_from_jax"]
+           "resnet_to_jax", "resnet_int8_from_jax"]
 
 
 def to_torch(a, device=None) -> torch.Tensor:
@@ -104,6 +107,41 @@ def resnet_from_jax(variables, module):
         module.head_w.copy_(to_torch(p["Dense_0"]["kernel"]))
         module.head_b.copy_(to_torch(p["Dense_0"]["bias"]))
     return module
+
+
+def resnet_to_jax(module) -> dict:
+    """The flax variables (``params`` and ``batch_stats``) of the port
+    ``module``, the exact inverse of :func:`resnet_from_jax`: HWIO conv
+    kernels, flax's names, each leaf a contiguous CPU tensor in the dtype
+    the module keeps it in (convs and the BN scale and bias in the serving
+    dtype, the head and the BN statistics in float32)."""
+    def host(t):
+        return t.detach().cpu().contiguous()
+
+    def conv(src):
+        return {"kernel": host(src.weight.permute(2, 3, 1, 0))}
+
+    def bn(src):
+        return ({"bias": host(src.bias), "scale": host(src.scale)},
+                {"mean": host(src.mean), "var": host(src.var)})
+
+    params, stats = {}, {}
+    params["Conv_0"] = conv(module.stem)
+    params["BatchNorm_0"], stats["BatchNorm_0"] = bn(module.stem_bn)
+    for i, blk in enumerate(module.blocks):
+        bp, bs = {}, {}
+        for j, (c, n) in enumerate(((blk.conv0, blk.bn0),
+                                    (blk.conv1, blk.bn1),
+                                    (blk.conv2, blk.bn2))):
+            bp[f"Conv_{j}"] = conv(c)
+            bp[f"BatchNorm_{j}"], bs[f"BatchNorm_{j}"] = bn(n)
+        if blk.proj is not None:
+            bp["proj"] = conv(blk.proj)
+            bp["proj_bn"], bs["proj_bn"] = bn(blk.proj_bn)
+        params[f"Bottleneck_{i}"], stats[f"Bottleneck_{i}"] = bp, bs
+    params["Dense_0"] = {"bias": host(module.head_b),
+                         "kernel": host(module.head_w)}
+    return {"params": params, "batch_stats": stats}
 
 
 def resnet_int8_from_jax(weights, device=None) -> dict:

@@ -65,6 +65,7 @@ from seldon_core_tpu_torch.gateway.oauth import (
 from seldon_core_tpu_torch.gateway.store import DeploymentStore
 from seldon_core_tpu_torch.qos import (
     AdmissionController,
+    AdmissionShedError,
     QosContext,
     qos_from_annotations,
     qos_from_headers,
@@ -644,10 +645,13 @@ class Gateway:
                                               qctx, hops=hops)
         priority = qctx.priority if qctx is not None else "normal"
         if not admission.try_acquire(priority):
-            return 429, _failure_body(
-                429, f"shed at gateway admission (priority {priority}, "
-                     f"concurrency limit {admission.limit}); retry after "
-                     f"{admission.retry_after_s():.1f}s", "ADMISSION_SHED")
+            retry_s = admission.retry_after_s()
+            shed = AdmissionShedError(
+                f"shed at gateway admission (priority {priority}, "
+                f"concurrency limit {admission.limit}); retry after "
+                f"{retry_s:.1f}s", retry_s)
+            return shed.status_code, _failure_body(
+                shed.status_code, str(shed), shed.reason)
         t0 = time.perf_counter()
         ok = False
         try:

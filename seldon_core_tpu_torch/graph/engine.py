@@ -91,7 +91,6 @@ GrpcComponentClient``) has the same method surface as a local one, async.
 from __future__ import annotations
 
 import asyncio
-import inspect
 import logging
 import os
 import time
@@ -118,6 +117,7 @@ from seldon_core_tpu_torch.messages import (
     Status,
     new_puid,
 )
+from seldon_core_tpu_torch.qos.admission import AdmissionShedError
 from seldon_core_tpu_torch.qos.context import (
     DEGRADED_TAG,
     current_qos,
@@ -130,6 +130,7 @@ from seldon_core_tpu_torch.runtime.component import (
     ComponentHandle,
     SeldonComponentError,
 )
+from seldon_core_tpu_torch.utils import maybe_await as _maybe_await
 from seldon_core_tpu_torch.utils.tracing import (
     NULL_TRACER,
     TRACE_ID_TAG,
@@ -143,14 +144,6 @@ from seldon_core_tpu_torch.utils.tracing import (
 __all__ = ["GraphEngine"]
 
 logger = logging.getLogger(__name__)
-
-
-async def _maybe_await(x: Any) -> Any:
-    """Components may be sync (ComponentHandle) or async (BatchedModel,
-    LLMComponent) with the same method surface."""
-    if inspect.isawaitable(x):
-        return await x
-    return x
 
 
 class _Node:
@@ -360,6 +353,11 @@ class GraphEngine:
         if admission is not None:
             pri = qctx.priority if qctx is not None else "normal"
             if not admission.try_acquire(pri):
+                retry_s = admission.retry_after_s()
+                shed = AdmissionShedError(
+                    f"shed at admission (priority {pri}, concurrency limit "
+                    f"{admission.limit}); retry after {retry_s:.1f}s",
+                    retry_s)
                 if self.tracer.enabled:
                     # a shed request still gets a (tiny) trace, its root
                     # span carrying the reason; the error status keeps it
@@ -367,15 +365,12 @@ class GraphEngine:
                     with trace_scope(tctx), self.tracer.trace(
                             meta.puid, graph=self.name,
                             **self._replica_attr()) as root:
-                        root.status = "ERROR: ADMISSION_SHED"
-                        root.add_event("shed", reason="ADMISSION_SHED",
+                        root.status = f"ERROR: {shed.reason}"
+                        root.add_event("shed", reason=shed.reason,
                                        priority=pri, limit=admission.limit)
                 return self._flight_done(SeldonMessage(
-                    status=Status.failure(
-                        429, f"shed at admission (priority {pri}, "
-                        f"concurrency limit {admission.limit}); retry "
-                        f"after {admission.retry_after_s():.1f}s",
-                        "ADMISSION_SHED"), meta=meta),
+                    status=Status.failure(shed.status_code, str(shed),
+                                          shed.reason), meta=meta),
                     meta, ht0, htoken, shed=True, ptoken=ptoken)
         t0 = time.perf_counter()
         ok = False
@@ -948,6 +943,27 @@ class GraphEngine:
             deliver = callable(getattr(node.impl, "send_feedback", None))
         if deliver:
             await _maybe_await(node.impl.send_feedback(fb))
+
+    # ------------------------------------------------------------------
+    # sync calls, for tools and tests
+    # ------------------------------------------------------------------
+    def predict_sync(self, request: SeldonMessage) -> SeldonMessage:
+        return _run_sync(self.predict(request))
+
+    def send_feedback_sync(self, fb: Feedback) -> SeldonMessage:
+        return _run_sync(self.send_feedback(fb))
+
+
+def _run_sync(coro):
+    """``coro``'s result on a loop of its own; refused (and closed) when
+    the caller is inside a running loop, whose thread it would block."""
+    try:
+        asyncio.get_running_loop()
+    except RuntimeError:
+        return asyncio.run(coro)
+    coro.close()
+    raise RuntimeError(
+        "predict_sync called from within an event loop; use await")
 
 
 def _private(data: Any) -> Any:

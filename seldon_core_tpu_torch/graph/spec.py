@@ -363,15 +363,31 @@ def placement_config(ann: dict, name: str):
         raise DeploymentValidationError(str(e)) from None
 
 
+def _read_deployment_file(path) -> dict:
+    """A deployment file's mapping: JSON, else YAML as ``utils/yamlite.py``
+    reads it."""
+    from seldon_core_tpu_torch.utils import yamlite
+
+    with open(path) as f:
+        text = f.read()
+    try:
+        d = json.loads(text)
+    except ValueError:
+        d = yamlite.safe_load(text)
+    if not isinstance(d, dict):
+        raise ValueError(f"{path}: not a JSON or YAML mapping")
+    return d
+
+
 def load_deployment(src) -> Deployment:
-    """A SeldonDeployment from a dict, a JSON string or a file path."""
+    """A SeldonDeployment from a dict, a JSON string or the path of a JSON
+    or YAML file."""
     if isinstance(src, dict):
         d = src
     elif isinstance(src, str) and src.lstrip().startswith("{"):
         d = json.loads(src)
     else:
-        with open(src) as f:
-            d = json.load(f)
+        d = _read_deployment_file(src)
     meta = d.get("metadata", {})
     spec = d.get("spec", d)
     name = spec.get("name") or meta.get("name", "")

@@ -354,6 +354,17 @@ class SeldonMessage:
     def from_json(cls, s: Union[str, bytes]) -> "SeldonMessage":
         return cls.from_dict(json.loads(s))
 
+    @classmethod
+    def parse(cls, s: Union[str, bytes, dict, "SeldonMessage"]
+              ) -> "SeldonMessage":
+        """A message from JSON text or bytes, a dict, or a message (returned
+        as it is)."""
+        if isinstance(s, SeldonMessage):
+            return s
+        if isinstance(s, dict):
+            return cls.from_dict(s)
+        return cls.from_json(s)
+
 
 @dataclass
 class Feedback:

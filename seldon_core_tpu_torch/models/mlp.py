@@ -5,7 +5,8 @@ Seeded weights come from a ``torch.Generator`` on the model's device
 (``randn / sqrt(fan_in)``, zero biases), so for one seed they differ from
 the reference's ``jax.random`` draw; ``params=`` takes given weights (a
 list of ``{"w": (m, n), "b": (n,)}``, the reference's layout), and
-``model_uri`` a checkpoint of them (``runtime/checkpoint.py``).
+``model_uri`` a checkpoint of them (``runtime/checkpoint.py``), which
+:meth:`MNISTMLP.save_checkpoint` writes as the reference's does.
 """
 
 from __future__ import annotations
@@ -72,6 +73,16 @@ class MNISTMLP:
 
     def tags(self):
         return {"model": "mnist-mlp"}
+
+    def save_checkpoint(self, path: str) -> str:
+        """Export the layer list as a ``model_uri`` checkpoint
+        (``{"family": "mlp"}``), the reference's file for the same
+        weights."""
+        from seldon_core_tpu_torch.runtime.checkpoint import export_checkpoint
+
+        host = [{k: v.detach().cpu() for k, v in layer.items()}
+                for layer in self.params]
+        return export_checkpoint(path, host, {"family": "mlp"})
 
 
 class MNISTMLPClassifier(MNISTMLP):

@@ -179,6 +179,7 @@ class ResNet50Model:
     ``module=`` serves a given :class:`ResNet` (weights already in place,
     for example converted from the reference with
     ``convert.resnet_from_jax``) instead of a seeded ResNet50.
+    :meth:`save_checkpoint` exports it for ``model_uri``.
     """
 
     def __init__(self, seed: int = 0, num_classes: int = 1000,
@@ -222,3 +223,14 @@ class ResNet50Model:
 
     def tags(self):
         return {"model": "resnet50", "image_size": self.image_size}
+
+    def save_checkpoint(self, path: str) -> str:
+        """Export the module as the reference's flax variables (``params``
+        and ``batch_stats``, ``convert.resnet_to_jax``): a ``model_uri``
+        checkpoint (``{"family": "resnet"}``) that this class and the
+        reference's serve."""
+        from seldon_core_tpu_torch.convert import resnet_to_jax
+        from seldon_core_tpu_torch.runtime.checkpoint import export_checkpoint
+
+        return export_checkpoint(path, resnet_to_jax(self.module),
+                                 {"family": "resnet"})

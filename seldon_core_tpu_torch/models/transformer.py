@@ -134,7 +134,8 @@ from seldon_core_tpu_torch.parallel.ring_attention import (
 
 __all__ = [
     "TransformerConfig", "init_params", "init_params_int8", "param_specs",
-    "shard_params", "quantize_ffn_params", "quantize_attn_params",
+    "shard_params", "cast_params", "quantize_ffn_params",
+    "quantize_attn_params",
     "rmsnorm", "rope", "attention_block", "ffn_block", "block_fn",
     "forward", "lm_loss", "make_train_step", "param_leaves", "prefill",
     "has_quantized_params", "init_cache", "decode_step", "generate",
@@ -296,6 +297,21 @@ def init_params_int8(gen: torch.Generator, cfg: TransformerConfig,
         "ln_f": torch.ones((D,), device=device),
         "lm_head": _q8(_normal(gen, (D, cfg.vocab_size), s, device)),
     }
+
+
+def cast_params(params, dtype=torch.bfloat16):
+    """Master params cast to the serving dtype once: a new tree with every
+    tensor in ``dtype`` (one already in it is shared, not copied);
+    ``params`` is left as it was.  The forward casts per use, which costs
+    nothing when the weights are already in the activations' dtype and
+    reads the float32 copy every step otherwise."""
+    if isinstance(params, torch.Tensor):
+        return params.to(dtype)
+    if isinstance(params, dict):
+        return {k: cast_params(v, dtype) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(cast_params(v, dtype) for v in params)
+    return params
 
 
 def quantize_ffn_params(params: dict, mesh: Optional[Mesh] = None) -> dict:

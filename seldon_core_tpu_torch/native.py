@@ -6,7 +6,8 @@
 - :class:`FramedServer`: the epoll TCP server of the framed protocol;
 - :class:`NativeHttpServer`: the epoll HTTP/1.1 server (REST) behind
   ``serving/native_http.py``;
-- :class:`NativeBatchQueue`: the deadline and bucket batching queue.
+- :class:`NativeBatchQueue`: the deadline and bucket batching queue;
+- :func:`run_native_load`: the closed-loop REST or h2c gRPC load generator.
 
 The library is built at first use, never at import: ``g++`` compiles each
 source of ``native/`` with the flags of ``native/Makefile`` (one process
@@ -46,6 +47,7 @@ __all__ = [
     "NativeBatchQueue",
     "FramedServer",
     "NativeHttpServer",
+    "run_native_load",
     "MSG_PREDICT",
     "MSG_RESPONSE",
     "MSG_FEEDBACK",
@@ -133,6 +135,21 @@ _HTTP_SUBMIT = C.CFUNCTYPE(
     C.c_uint64,
     C.c_void_p,
 )
+
+
+class _LoadResult(C.Structure):
+    """``sn_load_result`` of ``native/seldon_native.h``, field for field."""
+
+    _fields_ = [
+        ("requests", C.c_uint64),
+        ("errors", C.c_uint64),
+        ("seconds", C.c_double),
+        ("req_per_s", C.c_double),
+        ("p50_ms", C.c_double),
+        ("p90_ms", C.c_double),
+        ("p99_ms", C.c_double),
+        ("mean_ms", C.c_double),
+    ]
 
 
 _lib: Optional[C.CDLL] = None
@@ -301,7 +318,12 @@ def _bind(lib: C.CDLL) -> None:
     lib.sn_http_set_static_response.argtypes = [
         C.c_void_p, C.c_int, C.c_char_p, C.c_uint64,
     ]
-
+    lib.sn_loadgen_run.restype = C.c_int
+    lib.sn_loadgen_run.argtypes = [
+        C.c_int, C.c_char_p, C.c_uint16, C.c_char_p, u8p, C.c_uint64,
+        C.c_uint32, C.c_uint32, C.c_double, C.c_double,
+        C.POINTER(_LoadResult),
+    ]
 
 
 class Frame:
@@ -642,3 +664,50 @@ class NativeHttpServer:
 
     def __exit__(self, *exc) -> None:
         self.stop()
+
+
+def run_native_load(
+    mode: str,
+    host: str,
+    port: int,
+    path: str,
+    body: bytes,
+    connections: int = 16,
+    streams_per_conn: int = 8,
+    seconds: float = 3.0,
+    warmup_s: float = 0.3,
+) -> dict:
+    """A closed-loop load run over real sockets, requests built and answers
+    parsed in C; blocks for ``warmup_s + seconds`` with the GIL released
+    (a ``ctypes.CDLL`` call), so an asyncio server in this process keeps
+    serving meanwhile.
+
+    ``mode``: ``"rest"`` (HTTP/1.1 POST of ``body``) or ``"grpc"`` (h2c
+    unary; ``body`` is the serialized request protobuf, framed on the
+    wire).  ``streams_per_conn`` concurrent streams per connection (h2
+    only).  Returns the measured window's ``requests``, ``errors`` (non-2xx,
+    grpc-status != 0 or a transport error), ``seconds``, ``req_per_s`` and
+    ``latency_ms`` {p50, p90, p99, mean}.  Raises if the library cannot be
+    built or the run fails."""
+    m = {"rest": 0, "grpc": 1}[mode]
+    lib = load()
+    res = _LoadResult()
+    buf = (C.c_uint8 * max(len(body), 1)).from_buffer_copy(body or b"\0")
+    rc = lib.sn_loadgen_run(
+        m, host.encode(), port, path.encode(), buf, len(body),
+        connections, streams_per_conn, seconds, warmup_s, C.byref(res),
+    )
+    if rc != 0:
+        raise RuntimeError(f"loadgen failed (code {rc})")
+    return {
+        "requests": res.requests,
+        "errors": res.errors,
+        "seconds": round(res.seconds, 3),
+        "req_per_s": round(res.req_per_s, 1),
+        "latency_ms": {
+            "p50": round(res.p50_ms, 3),
+            "p90": round(res.p90_ms, 3),
+            "p99": round(res.p99_ms, 3),
+            "mean": round(res.mean_ms, 3),
+        },
+    }

@@ -150,8 +150,8 @@ logger = logging.getLogger(__name__)
 KILL_DRAIN_S = 30.0
 
 __all__ = ["resolve_component", "qos_config", "LocalPredictor",
-           "LocalDeployment", "LocalFleet", "serve", "build_parser",
-           "engine_main"]
+           "LocalDeployment", "LocalFleet", "load_deployment_file", "serve",
+           "build_parser", "engine_main"]
 
 
 def _batching_enabled(ann: dict) -> bool:
@@ -1004,6 +1004,12 @@ class LocalFleet:
         health_unpublish(dep)
         placement_unpublish(dep)
         artifacts_unpublish(dep)
+
+
+def load_deployment_file(path: str) -> Deployment:
+    """The deployment in a JSON or YAML file: what :class:`LocalDeployment`
+    boots from (``graph.spec.load_deployment`` reads the file)."""
+    return load_deployment(path)
 
 
 async def serve(graph, port: int = 8000, host: str = "0.0.0.0",

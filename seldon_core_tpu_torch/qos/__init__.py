@@ -4,7 +4,10 @@ ride every hop and bound the walk and the batcher's queue, circuit breakers
 around remote nodes, and the ``seldon.io/qos-fallback`` subgraph.
 """
 
-from seldon_core_tpu_torch.qos.admission import AdmissionController
+from seldon_core_tpu_torch.qos.admission import (
+    AdmissionController,
+    AdmissionShedError,
+)
 from seldon_core_tpu_torch.qos.breaker import (
     BreakerOpenError,
     BreakerWrapper,
@@ -29,11 +32,11 @@ from seldon_core_tpu_torch.qos.policy import (
     QosConfig,
     qos_from_annotations,
 )
-from seldon_core_tpu_torch.qos.registry import publish, snapshot
+from seldon_core_tpu_torch.qos.registry import publish, snapshot, unpublish
 
-__all__ = ["AdmissionController", "BreakerOpenError",
+__all__ = ["AdmissionController", "AdmissionShedError", "BreakerOpenError",
            "BreakerWrapper", "CircuitBreaker", "DEADLINE_HEADER",
            "DEADLINE_TAG", "PRIORITIES", "PRIORITY_HEADER", "PRIORITY_TAG",
            "Deadline", "QosContext", "EngineQos", "QosConfig", "current_qos",
            "qos_from_annotations", "qos_from_headers", "qos_from_meta",
-           "qos_scope", "stamp_meta", "publish", "snapshot"]
+           "qos_scope", "stamp_meta", "publish", "snapshot", "unpublish"]

@@ -16,8 +16,20 @@ import threading
 from dataclasses import dataclass
 
 from seldon_core_tpu_torch.qos.context import DEFAULT_PRIORITY, priority_rank
+from seldon_core_tpu_torch.runtime.component import SeldonComponentError
 
-__all__ = ["AdmissionConfig", "AdmissionController", "PRIORITY_FRACTION"]
+__all__ = ["AdmissionConfig", "AdmissionController", "AdmissionShedError",
+           "PRIORITY_FRACTION"]
+
+
+class AdmissionShedError(SeldonComponentError):
+    """A request refused at admission: HTTP 429 ``ADMISSION_SHED``, with a
+    ``Retry-After`` hint.  The engine's and the gateway's shed answers take
+    their status from it."""
+
+    def __init__(self, message: str, retry_after_s: float = 1.0):
+        super().__init__(message, status_code=429, reason="ADMISSION_SHED")
+        self.retry_after_s = retry_after_s
 
 #: the fraction of the current limit each priority class may hold
 PRIORITY_FRACTION = {"low": 0.5, "normal": 0.9, "high": 1.0}

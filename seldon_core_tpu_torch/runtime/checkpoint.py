@@ -35,6 +35,7 @@ import torch
 
 __all__ = [
     "save_checkpoint",
+    "export_checkpoint",
     "load_checkpoint",
     "save_transformer",
     "load_transformer",
@@ -265,6 +266,25 @@ def save_checkpoint(path: str, tree: Any, model_config: Optional[dict] = None,
         os.fsync(f.fileno())
     os.replace(tmp, os.path.join(path, CONFIG_FILE))
     return path
+
+
+def _jax_order(tree: Any) -> Any:
+    """``tree`` with every dict's keys sorted, as jax's tree functions
+    rebuild a tree."""
+    if isinstance(tree, dict):
+        return {k: _jax_order(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_jax_order(v) for v in tree)
+    return tree
+
+
+def export_checkpoint(path: str, tree: Any,
+                      model_config: Optional[dict] = None) -> str:
+    """Write a model's weights as the reference's ``save_checkpoint`` method
+    writes them: its tree has been rebuilt by jax, so every dict's keys are
+    sorted and the skeleton is in that order.  Every model's export goes
+    through here."""
+    return save_checkpoint(path, _jax_order(tree), model_config)
 
 
 def load_checkpoint(path: str) -> tuple[Any, dict]:

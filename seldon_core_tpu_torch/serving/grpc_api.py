@@ -35,7 +35,6 @@ import grpc
 import grpc.aio
 import numpy as np
 
-from seldon_core_tpu_torch.graph.engine import _maybe_await
 from seldon_core_tpu_torch.messages import Feedback, SeldonMessage, Status
 from seldon_core_tpu_torch.proto import prediction_pb2 as pb
 from seldon_core_tpu_torch.proto.convert import (
@@ -45,6 +44,7 @@ from seldon_core_tpu_torch.proto.convert import (
     message_to_proto,
 )
 from seldon_core_tpu_torch.runtime.component import SeldonComponentError
+from seldon_core_tpu_torch.utils import maybe_await as _maybe_await
 
 __all__ = ["SERVICE_METHODS", "STREAMING_METHODS", "grpc_options",
            "component_service_handlers", "seldon_service_handler",

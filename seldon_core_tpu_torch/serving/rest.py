@@ -77,7 +77,6 @@ from urllib.parse import parse_qs
 
 import numpy as np
 
-from seldon_core_tpu_torch.graph.engine import _maybe_await
 from seldon_core_tpu_torch.messages import Feedback, SeldonMessage, Status
 from seldon_core_tpu_torch.qos.context import qos_from_headers, qos_scope
 from seldon_core_tpu_torch.runtime.component import (
@@ -94,6 +93,7 @@ from seldon_core_tpu_torch.serving.bodies import (
     BodyParser,
     payload_json,
 )
+from seldon_core_tpu_torch.utils import maybe_await as _maybe_await
 from seldon_core_tpu_torch.utils.metrics import EngineMetrics
 from seldon_core_tpu_torch.utils.tracing import (
     trace_from_headers,

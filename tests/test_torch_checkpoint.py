@@ -407,3 +407,155 @@ def test_local_deployment_serves_a_checkpoint_graph(tmp_path):
     local.engine.node_impl("llm").user.engine.close()
     writer.engine.close()
     assert a == b and len(a) == 9
+
+
+# ---- weight export: the port writes, the reference serves ----------------
+
+def _randomize_bn(module, seed: int) -> None:
+    """Seeded BatchNorm scales, biases and statistics (a seeded ResNet's are
+    1, 0, 0, 1, and 0 for each bottleneck's last scale), so that the
+    export's every leaf moves the answer."""
+    from seldon_core_tpu_torch.models.resnet import _BatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, _BatchNorm):
+                c = m.scale.shape[0]
+                for name, lo, hi in (("scale", 0.5, 1.5), ("bias", -0.1, 0.1),
+                                     ("mean", -0.1, 0.1), ("var", 0.5, 1.5)):
+                    v = torch.rand(c, generator=gen) * (hi - lo) + lo
+                    getattr(m, name).copy_(v)
+
+
+def _read_file(path):
+    tensors, meta = tck.read_safetensors(str(path / "model.safetensors"))
+    return {k: (str(t.dtype), tuple(t.shape),
+                t.contiguous().view(torch.uint8).numpy().tobytes()
+                if t.numel() else b"")
+            for k, t in tensors.items()}, meta
+
+
+def test_port_mlp_export_serves_in_the_reference(tmp_path):
+    """float32: atol 1e-5 on probabilities, argmax EQUAL."""
+    from seldon_core_tpu.models.mlp import MNISTMLP as JMLP
+    from seldon_core_tpu_torch.models.mlp import MNISTMLP
+
+    writer = MNISTMLP(seed=5, hidden=16, device="cpu")
+    assert writer.save_checkpoint(str(tmp_path / "ck")) == str(tmp_path / "ck")
+    reader = JMLP(model_uri=str(tmp_path / "ck"))
+    _bitwise_equal(writer.params, reader.params)
+    x = np.random.default_rng(2).normal(size=(8, 784)).astype(np.float32)
+    want = writer.predict_fn(writer.params, torch.from_numpy(x)).numpy()
+    got = np.asarray(reader.predict_fn(reader.params, x))
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-5),
+                                        ("bfloat16", 2e-2)])
+def test_port_resnet_export_serves_in_the_reference(tmp_path, dtype, atol):
+    """The port's ResNet50Model (the reference test's small shape, random
+    BN) exported and served by the reference's: the flax variables in its
+    storage dtypes, probabilities within the dtype's tolerance, argmax
+    EQUAL."""
+    from seldon_core_tpu.models.resnet import ResNet50Model as JResNet
+    from seldon_core_tpu_torch.models.resnet import ResNet50Model
+
+    writer = ResNet50Model(seed=4, num_classes=10, image_size=32,
+                           dtype=dtype, device="cpu")
+    _randomize_bn(writer.module, 14)
+    writer.save_checkpoint(str(tmp_path / "ck"))
+    reader = JResNet(model_uri=str(tmp_path / "ck"), num_classes=10,
+                     image_size=32, dtype=dtype)
+    host = jax.tree.map(np.asarray, reader.params)
+    serving = ml_dtypes.bfloat16 if dtype == "bfloat16" else np.float32
+    assert host["params"]["Conv_0"]["kernel"].shape == (7, 7, 3, 64)
+    assert host["params"]["Conv_0"]["kernel"].dtype == serving
+    assert host["params"]["Bottleneck_0"]["proj_bn"]["scale"].dtype == serving
+    assert host["params"]["Dense_0"]["kernel"].dtype == np.float32
+    assert host["batch_stats"]["BatchNorm_0"]["var"].dtype == np.float32
+    # unit-scale images, as the reference's own model_uri test draws them:
+    # 0..255 pixels through 16 bottlenecks of seeded weights saturate the
+    # softmax, where one ulp of a logit moves a probability by 0.5
+    x = np.random.default_rng(3).normal(size=(8, 32, 32, 3)).astype(
+        np.float32)
+    with torch.inference_mode():
+        want = writer.predict_fn(writer.params, torch.from_numpy(x)).numpy()
+    got = np.asarray(reader.predict_fn(reader.params, x))
+    np.testing.assert_allclose(got, want, atol=atol)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.parametrize("model", ["mlp", "resnet"])
+def test_reference_export_read_and_written_back_is_the_same_file(tmp_path,
+                                                                 model):
+    """Reference file -> port -> file: the same tensor names, dtypes,
+    shapes and bytes, and the same metadata (skeleton and family)."""
+    from seldon_core_tpu.models.mlp import MNISTMLP as JMLP
+    from seldon_core_tpu.models.resnet import ResNet50Model as JResNet
+    from seldon_core_tpu_torch.models.mlp import MNISTMLP
+    from seldon_core_tpu_torch.models.resnet import ResNet50Model
+
+    if model == "mlp":
+        JMLP(seed=1, hidden=16).save_checkpoint(str(tmp_path / "ref"))
+        port = MNISTMLP(model_uri=str(tmp_path / "ref"), device="cpu")
+    else:
+        JResNet(seed=1, num_classes=10, image_size=32).save_checkpoint(
+            str(tmp_path / "ref"))
+        port = ResNet50Model(model_uri=str(tmp_path / "ref"), num_classes=10,
+                             image_size=32, device="cpu")
+    port.save_checkpoint(str(tmp_path / "port"))
+    ref_leaves, ref_meta = _read_file(tmp_path / "ref")
+    port_leaves, port_meta = _read_file(tmp_path / "port")
+    assert port_leaves == ref_leaves
+    assert port_meta == ref_meta
+    assert json.loads(port_meta["seldon.checkpoint"])["model"] == \
+        {"family": model}
+
+
+@pytest.mark.parametrize("cls,params", [
+    ("seldon_core_tpu_torch.models.mlp:MNISTMLP",
+     ["seed=5", "hidden=16"]),
+    ("seldon_core_tpu_torch.models.resnet:ResNet50Model",
+     ["seed=5", "num_classes=10", "image_size=32"])])
+def test_save_model_cli_exports_the_port_models(tmp_path, capsys, cls,
+                                                params):
+    from seldon_core_tpu_torch.tools.__main__ import main
+
+    out = str(tmp_path / "ck")
+    argv = ["save-model", cls, out, "--device", "cpu"]
+    for p in params:
+        argv += ["--param", p]
+    assert main(argv) == 0
+    assert capsys.readouterr().out.strip() == out
+    _, meta = tck.load_checkpoint(out)
+    assert meta == {"family": "mlp" if "mlp" in cls else "resnet"}
+    mod_name, _, cls_name = cls.partition(":")
+    import importlib
+
+    kw = dict(p.split("=") for p in params)
+    kw = {k: int(v) for k, v in kw.items() if k != "seed"}
+    klass = getattr(importlib.import_module(mod_name), cls_name)
+    a = klass(seed=5, device="cpu", **kw)
+    b = klass(model_uri=out, device="cpu", **kw)
+    _bitwise_equal(_export_tree(a), _export_tree(b))
+
+
+def _export_tree(m):
+    return convert.resnet_to_jax(m.module) if hasattr(m, "module") \
+        else m.params
+
+
+def test_family_cross_check_refuses_a_port_mlp_export(tmp_path):
+    from seldon_core_tpu.models.resnet import ResNet50Model as JResNet
+    from seldon_core_tpu_torch.models.mlp import MNISTMLP
+    from seldon_core_tpu_torch.models.resnet import ResNet50Model
+
+    MNISTMLP(seed=0, hidden=16, device="cpu").save_checkpoint(
+        str(tmp_path / "m"))
+    with pytest.raises(ValueError, match="not resnet"):
+        ResNet50Model(model_uri=str(tmp_path / "m"), num_classes=10,
+                      image_size=32, device="cpu")
+    with pytest.raises(ValueError, match="not resnet"):
+        JResNet(model_uri=str(tmp_path / "m"), num_classes=10, image_size=32)
