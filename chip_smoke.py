@@ -1134,6 +1134,25 @@ def resnet_k1_cases(torch, timer, gen, sms) -> tuple:
 # serving phases
 # ----------------------------------------------------------------------
 
+def _latencies(engine, since: float) -> list:
+    """``engine``'s requests that arrived since ``since``
+    (``time.perf_counter()``) and ended ok, from its request records
+    (``utils/tracing.py``): per request ``ttft_s`` (arrival to first token),
+    ``tokens`` and ``tpot_s`` (per later token; None for one token), host
+    clock."""
+    from seldon_core_tpu_torch.utils.tracing import request_records
+
+    recs = request_records(since)
+    if recs is None:
+        raise RuntimeError("the request ring no longer holds every request "
+                           "since the mark")
+    return [{"ttft_s": r.t_first - r.t_arrive, "tokens": r.tokens,
+             "tpot_s": ((r.t_done - r.t_first) / (r.tokens - 1)
+                        if r.tokens > 1 else None)}
+            for r in recs
+            if r.engine == engine.engine_id and r.outcome == "ok"]
+
+
 def _post(port: int, body: dict, headers: dict = None
           ) -> tuple[int, dict]:
     req = urllib.request.Request(
@@ -1348,16 +1367,15 @@ def serve_7b_phase(torch) -> tuple:
                                                   "n_new": 2}})
             if code != 200:
                 raise AssertionError(f"serve_7b warm-up: {code} {body}")
-            engine.latency_log.clear()
             reset_launches()
             t1 = time.perf_counter()
             answers = await _post_all(server.port, bodies)
             wall = time.perf_counter() - t1
-            return answers, wall, read_launches()
+            return answers, wall, read_launches(), t1
         finally:
             await server.stop()
 
-    answers, wall, launches = asyncio.run(run())
+    answers, wall, launches, since = asyncio.run(run())
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     for (code, body), p in zip(answers, prompts):
@@ -1372,7 +1390,7 @@ def serve_7b_phase(torch) -> tuple:
                              f"({engine.free_pages} free)")
     SERVE_7B.update(prompts=prompts,
                     ids=[body["jsonData"]["ids"] for _, body in answers])
-    log = list(engine.latency_log)
+    log = _latencies(engine, since)
     engine.close()
     out = {"phase": "serve_7b",
            "model": "L32 d4096 H32/Hkv8 ff16384 V32000 bf16 int8-full flash",
@@ -1463,7 +1481,6 @@ def grpc_7b_phase(torch, params) -> dict:
             warm = await client.predict(_json_msg([1, 2, 3], 2))
             if warm.status.status != "SUCCESS":
                 raise AssertionError(f"grpc_7b warm-up: {warm.to_dict()}")
-            engine.latency_log.clear()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_launches()
@@ -1487,16 +1504,17 @@ def grpc_7b_phase(torch, params) -> dict:
                 await asyncio.sleep(0.01)
             freed = (len(engine._slots), engine.free_pages,
                      time.monotonic() - t3)
-            return preds, streams, (t1 - t0, t2 - t1), launches, held, freed
+            return (preds, streams, (t1 - t0, t2 - t1), launches, held,
+                    freed, t0)
         finally:
             await channel.close()
             await client.close()
             await server.stop()
 
-    preds, streams, walls, launches, held, freed = asyncio.run(run())
+    preds, streams, walls, launches, held, freed, since = asyncio.run(run())
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    log = [x for x in engine.latency_log]
+    log = _latencies(engine, since)
     engine.close()
     pred_ids = [p.json_data["ids"] if p.status.status == "SUCCESS" else
                 p.status.to_dict() for p in preds]
@@ -1732,11 +1750,11 @@ def features_7b_phase(torch, params) -> dict:
             reset_launches()
             t_phase = time.perf_counter()
             # (a) automatic prefix hits
-            engine.latency_log.clear()
+            since = time.perf_counter()
             a0 = check(await _post_all(port, [body(first)]), [first], 16,
                        "a")
-            ttft_first = engine.latency_log[-1]["ttft_s"]
-            engine.latency_log.clear()
+            ttft_first = _latencies(engine, since)[-1]["ttft_s"]
+            since = time.perf_counter()
             s0 = dict(engine.prefix_stats)
             peak["pages"] = 0
             a_ids = check(await _post_all(port, [body(p) for p in hits]),
@@ -1749,13 +1767,13 @@ def features_7b_phase(torch, params) -> dict:
                     "auto_tokens_reused"] - s0["auto_tokens_reused"],
                 "ttft_ms_first": ttft_first * 1e3,
                 "ttft_ms_median_hits": statistics.median(
-                    x["ttft_s"] for x in engine.latency_log) * 1e3,
+                    x["ttft_s"] for x in _latencies(engine, since)) * 1e3,
                 "peak_pages_in_use": peak["pages"]}
             returned("a")
             # (b) a registered prefix: its 12 full pages aliased
             engine.clear_prefixes()
             engine.register_prefix(prefix)
-            engine.latency_log.clear()
+            since = time.perf_counter()
             peak["pages"] = 0
             s0 = dict(engine.prefix_stats)
             check(await _post_all(port, [body(p) for p in hits_b]), hits_b,
@@ -1767,7 +1785,7 @@ def features_7b_phase(torch, params) -> dict:
                 "peak_pages_in_use": peak["pages"],
                 "peak_pages_in_use_a": out["a"]["peak_pages_in_use"],
                 "ttft_ms_median": statistics.median(
-                    x["ttft_s"] for x in engine.latency_log) * 1e3}
+                    x["ttft_s"] for x in _latencies(engine, since)) * 1e3}
             returned("b")
             # (c) decode streams while a long prompt admits
             out["c"] = {}
@@ -1815,7 +1833,7 @@ def features_7b_phase(torch, params) -> dict:
                 burst = [_rand_ids(torch, rng, 16 + (112 * i) // 7)
                          for i in range(8)]
                 s0 = dict(engine.prefill_batch_stats)
-                engine.latency_log.clear()
+                since = time.perf_counter()
                 check(await _post_all(port, [body(p) for p in burst]),
                       burst, 16, "d")
                 out["d"][f"window_{window:g}ms"] = {
@@ -1824,14 +1842,14 @@ def features_7b_phase(torch, params) -> dict:
                     "requests": engine.prefill_batch_stats["requests"]
                     - s0["requests"],
                     "ttft_ms_median": statistics.median(
-                        x["ttft_s"] for x in engine.latency_log) * 1e3}
+                        x["ttft_s"] for x in _latencies(engine, since)) * 1e3}
                 returned("d")
             engine.chunk_prefill, engine.batch_prefill_ms = 64, 5.0
             # (e) priority preemption
             lows = [_rand_ids(torch, rng, 32) for _ in range(8)]
             highs = [_rand_ids(torch, rng, 32) for _ in range(2)]
             s0 = dict(engine.preempt_stats)
-            engine.latency_log.clear()
+            since = time.perf_counter()
             low_task = asyncio.get_running_loop().create_task(
                 _post_all(port, [body(p, 64) for p in lows]))
             t_fill = time.perf_counter()
@@ -1853,10 +1871,10 @@ def features_7b_phase(torch, params) -> dict:
             out["e"] = {
                 "preempted": pre, "resumed": res,
                 "ttft_ms_priority1": [x["ttft_s"] * 1e3
-                                      for x in engine.latency_log
+                                      for x in _latencies(engine, since)
                                       if x["tokens"] == 16],
                 "ttft_ms_median_priority0": statistics.median(
-                    x["ttft_s"] for x in engine.latency_log
+                    x["ttft_s"] for x in _latencies(engine, since)
                     if x["tokens"] == 64) * 1e3}
             returned("e")
             out["seconds"] = time.perf_counter() - t_phase
@@ -2235,7 +2253,6 @@ def spec_7b_phase(torch, params) -> dict:
                         route)
                     if code != 200:
                         raise AssertionError(f"spec_7b warm-up: {res}")
-                engine.latency_log.clear()
                 s0 = dict(engine.spec_stats)
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -2250,11 +2267,12 @@ def spec_7b_phase(torch, params) -> dict:
                 again = await _in_threads(call, [
                     (server.port, b, "predictions")
                     for b, r in zip(bodies, routes) if r == "stream"])
-                return answers, again, wall, launches, peak, stats
+                return answers, again, wall, launches, peak, stats, t0
             finally:
                 await server.stop()
 
-        answers, again, wall, launches, peak, stats = asyncio.run(run())
+        answers, again, wall, launches, peak, stats, since = asyncio.run(
+            run())
         for code, res in answers + again:
             if code != 200:
                 raise AssertionError(f"spec_7b {name}: HTTP {code}: {res}")
@@ -2271,7 +2289,7 @@ def spec_7b_phase(torch, params) -> dict:
             if len(x) != len(p) + n_new or x[:len(p)] != p or \
                     not all(0 <= t < 32000 for t in x):
                 raise AssertionError(f"spec_7b {name}: bad ids {x}")
-        log = list(engine.latency_log)
+        log = _latencies(engine, since)
         engine.close()
         ids_by[name] = ids
         total[name] = launches
@@ -2342,7 +2360,7 @@ def _llm_burst(torch, engine, bodies: list, n_new: int) -> tuple:
     warm-up burst (first-use costs and, with graphs, the captures of every
     shape the traffic needs) and the measured burst.  Returns the measured
     ids, the warm-up's ids and the measured burst's TTFT and TPOT medians
-    (engine latency log, host clock), tokens/s and wall seconds."""
+    (the engine's request records, host clock), tokens/s and wall seconds."""
     from seldon_core_tpu_torch.runtime.llm import LLMComponent
     from seldon_core_tpu_torch.serving.rest import RestServer
 
@@ -2352,18 +2370,17 @@ def _llm_burst(torch, engine, bodies: list, n_new: int) -> tuple:
         server = await RestServer(comp, host="127.0.0.1", port=0).start()
         try:
             warm = await _post_all(server.port, bodies)
-            engine.latency_log.clear()
             t0 = time.perf_counter()
             answers = await _post_all(server.port, bodies)
-            return warm, answers, time.perf_counter() - t0
+            return warm, answers, time.perf_counter() - t0, t0
         finally:
             await server.stop()
 
-    warm, answers, wall = asyncio.run(run())
+    warm, answers, wall, since = asyncio.run(run())
     for code, body in warm + answers:
         if code != 200:
             raise AssertionError(f"llm_graphs_7b: HTTP {code}: {body}")
-    log = list(engine.latency_log)
+    log = _latencies(engine, since)
     return ([b["jsonData"]["ids"] for _, b in answers],
             [b["jsonData"]["ids"] for _, b in warm],
             {"ttft_ms_median": statistics.median(
@@ -3049,7 +3066,6 @@ def tp_7b_phase(torch) -> dict:
                 # a first burst captures each shape's programs; the
                 # second, measured, replays them
                 first = await _post_all(server.port, bodies)
-                engine.latency_log.clear()
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 reset_launches()
@@ -3057,11 +3073,11 @@ def tp_7b_phase(torch) -> dict:
                 answers = await _post_all(server.port, bodies)
                 wall = time.perf_counter() - t1
                 torch.cuda.synchronize()
-                return first, answers, wall, read_launches()
+                return first, answers, wall, read_launches(), t1
             finally:
                 await server.stop()
 
-        first, answers, wall, launches = asyncio.run(run())
+        first, answers, wall, launches, since = asyncio.run(run())
         def ids_of(burst):
             return [b.get("jsonData", {}).get("ids") for _, b in burst]
 
@@ -3076,7 +3092,7 @@ def tp_7b_phase(torch) -> dict:
             if len(x) != len(p) + n_new or x[:len(p)] != p:
                 raise AssertionError(f"tp_7b: bad answer {x}")
             ids.append(x)
-        log = list(engine.latency_log)
+        log = _latencies(engine, since)
         stats = {"wall_s": wall,
                  "ttft_ms_median": statistics.median(
                      x["ttft_s"] for x in log) * 1e3,
@@ -6272,12 +6288,11 @@ def observe_7b_phase(torch, params) -> dict:
             ids_of(await burst(server.port, bodies), "warm-up")
             bursts = []
             for i in range(OBSERVE_BURSTS):
-                engine.latency_log.clear()
                 parents = tps(0xA0 + 16 * turn + i) if planes else None
                 t0 = time.perf_counter()
                 answers = await burst(server.port, bodies, parents)
                 wall = time.perf_counter() - t0
-                log = list(engine.latency_log)
+                log = _latencies(engine, t0)
                 if ids_of(answers, "burst") != want:
                     mode = "on" if planes else "off"
                     failed.append(f"ids with planes {mode} differ from "
@@ -6909,7 +6924,6 @@ def gateway_7b_phase(torch, params) -> dict:
             res["no_token"] = {"status": code, "body": json.loads(raw)}
             if code != 401:
                 failed.append(f"no token answered {code}")
-            engine.latency_log.clear()
             t0 = time.perf_counter()
             answers = await _in_threads(_gw_post, [
                 (gport, "/api/v0.1/predictions", b, auth) for b in bodies])
@@ -7507,7 +7521,7 @@ def loadtest_7b_phase(torch, params) -> dict:
     every recorded greedy id sequence (REST bodies, each stream's last
     event) equal to ``serve_7b``'s for that prompt, and K1, K2 and K3
     launched.  Reported: requests, req/s, p50/p95 latency, the streams'
-    TTFT/TPOT medians and tokens/s beside ``serve_7b``'s ``latency_log``
+    TTFT/TPOT medians and tokens/s beside ``serve_7b``'s engine latencies
     medians.  Returns the launches."""
     from seldon_core_tpu_torch.operator.local import serve
     from seldon_core_tpu_torch.tools.loadtest import (
@@ -8470,17 +8484,16 @@ def _multihost_serve(torch, engine, prompts: list, mesh, cfg) -> tuple:
 
     async def run():
         await engine.generate([1, 2, 3], 2)  # first-use costs stay out
-        engine.latency_log.clear()
         ticks.clear()
         M.reset_transport_stats()
         reset_launches()
         t = time.perf_counter()
         ids = [(await engine.generate(p, 16))[0].tolist() for p in prompts]
-        return ids, time.perf_counter() - t, read_launches()
+        return ids, time.perf_counter() - t, read_launches(), t
 
-    ids, wall, launches = asyncio.run(run())
+    ids, wall, launches, since = asyncio.run(run())
     moved = M.transport_stats()
-    log = list(engine.latency_log)
+    log = _latencies(engine, since)
     logits = []
     with torch.no_grad():
         for p in prompts:

@@ -43,6 +43,15 @@ reference's immutable arrays, caches here are written in place, so every
 kept prefix entry owns its storage (a clone), and an extend pads its
 prefix into a fresh buffer before writing the suffix.
 
+**Records** (:mod:`..utils.tracing`): every job on the worker leaves a
+:class:`~..utils.tracing.JobRecord` (its kind and shape key, host times,
+on the card its span on the stream and the idle before it from a CUDA
+event pair read without a sync) and every request a
+:class:`~..utils.tracing.RequestRecord` (its waits, prefill jobs, first
+token and end), in process-wide rings; inside an enabled tracer's span a
+request's phases become its child spans, and inside a ``device_profile``
+window each job is a ``llm.<kind>(<key>)`` range on the timeline.
+
 **Programs** (:mod:`.programs`): the model work of a tick, a prefill of
 (rows, bucket), an extend of (prefix rows, suffix bucket) and a
 speculative round each runs as a program, the counterpart of the
@@ -105,6 +114,7 @@ import asyncio
 import bisect
 import collections
 import dataclasses
+import itertools
 import logging
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -137,6 +147,16 @@ from seldon_core_tpu_torch.runtime.paged import (
     insert_rows,
     paged_chunk_step,
     paged_decode_step,
+)
+from seldon_core_tpu_torch.utils.tracing import (
+    JOBS,
+    REQUESTS,
+    JobRecord,
+    RequestRecord,
+    add_request_spans,
+    current_span,
+    profile_annotation,
+    profiler_active,
 )
 
 __all__ = ["LLMEngine", "PagedLLMEngine", "LLMComponent",
@@ -286,6 +306,57 @@ def rejection_verify(pprobs, qprobs, drafts, tgt_greedy, temps, uniforms):
 
 _DONE = object()  # end-of-stream sentinel on a slot's token queue
 
+_ENGINE_IDS = itertools.count(1)
+
+
+class _DeviceClock:
+    """Each job's span on one device worker's stream: a CUDA event pair
+    recorded as the job starts and after it returns, from a pool, read
+    once the job's end event has completed (``query()``), never by a sync:
+    by the next tick while the card runs its launches, before the tick
+    waits for its ids, or once 64 pairs wait.  The previous job's end
+    event gives the idle before the next job.  Used on the worker thread
+    (and by ``close`` once it has stopped)."""
+
+    #: pairs left waiting before a job's end reads them itself
+    PENDING = 64
+
+    def __init__(self, device):
+        self.device = device
+        self._stream = None  # the worker's current stream, at its first job
+        self._free: list = []
+        # (record, start, end, the previous job's end), oldest first
+        self._pending: collections.deque = collections.deque()
+        self._last_end = None
+
+    def mark(self):
+        """An event recorded now on the worker's stream."""
+        if self._stream is None:
+            self._stream = torch.cuda.current_stream(self.device)
+        ev = (self._free.pop() if self._free
+              else torch.cuda.Event(enable_timing=True))
+        ev.record(self._stream)
+        return ev
+
+    def end(self, rec: JobRecord, start) -> None:
+        """``rec``'s job ended: its pair is read once ``end`` completes."""
+        end = self.mark()
+        self._pending.append((rec, start, end, self._last_end))
+        self._last_end = end
+        if len(self._pending) > self.PENDING:
+            self.poll()
+
+    def poll(self) -> None:
+        """Read every pending pair whose end has completed, in order, and
+        return the events no later job reads to the pool."""
+        while self._pending and self._pending[0][2].query():
+            rec, start, end, prev = self._pending.popleft()
+            rec.device_ms = start.elapsed_time(end)
+            if prev is not None:
+                rec.gap_ms = prev.elapsed_time(start)
+                self._free.append(prev)
+            self._free.append(start)
+
 
 @dataclass
 class _Slot:
@@ -392,9 +463,8 @@ class LLMEngine:
         self.preempt_stats = {"preempted": 0, "resumed": 0, "shed": 0}
         # strong refs to in-flight resumes (the loop holds tasks weakly)
         self._resume_tasks: set = set()
-        # per finished request: seconds to first token (from arrival) and
-        # per later token, host clock; the latest 1024 requests
-        self.latency_log: collections.deque = collections.deque(maxlen=1024)
+        # names this engine's job and request records
+        self.engine_id = next(_ENGINE_IDS)
         self._tick_task: Optional[asyncio.Task] = None
         # host mirrors of per-slot state, snapshotted into each tick
         self._tokens = np.zeros((max_slots,), np.int64)
@@ -421,6 +491,8 @@ class LLMEngine:
         # the ONE thread that runs device work, in submission order
         self._device_worker = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="llm-device")
+        self._clock = (_DeviceClock(self.device)
+                       if self.device.type == "cuda" else None)
         # device programs by name, built at first use, and what they were
         # built over (_program)
         self._programs: dict[str, programs.Program] = {}
@@ -434,20 +506,61 @@ class LLMEngine:
     def close(self) -> None:
         """Stop the device worker thread (after its queued work)."""
         self._device_worker.shutdown(wait=True)
+        if self._clock is not None:
+            self._clock.poll()
 
-    def _on_device(self, fn, *args):
-        """Queue ``fn(*args)`` on the device worker; an awaitable future."""
+    def _job(self, kind: str, key=None, req: Optional[RequestRecord] = None,
+             **fields) -> JobRecord:
+        """A new job's record (``fields``: its rows, context, tokens,
+        padded), entered in the job ring and in ``req``'s prefill jobs."""
+        rec = JobRecord(kind, self.engine_id, time.perf_counter(), key,
+                        **fields)
+        JOBS.add(rec)
+        if req is not None:
+            req.jobs.append(rec)
+        return rec
+
+    def _captures(self) -> int:
+        return sum(p.captures for p in self._programs.values())
+
+    def _timed(self, fn, rec: JobRecord):
+        """``fn`` as the worker runs it: ``rec``'s start and end, its event
+        pair on the card, whether it captured, and its range in a
+        ``device_profile`` window."""
+        clock = self._clock
+
+        def run(*args):
+            n = self._captures()
+            rec.t_start = time.perf_counter()
+            start = clock.mark() if clock is not None else None
+            try:
+                if not profiler_active():
+                    return fn(*args)
+                with profile_annotation(rec.label):
+                    return fn(*args)
+            finally:
+                if clock is not None:
+                    clock.end(rec, start)
+                rec.t_end = time.perf_counter()
+                rec.captured = self._captures() != n
+
+        return run
+
+    def _on_device(self, fn, *args, rec: JobRecord):
+        """Queue ``fn(*args)`` on the device worker; an awaitable future.
+        ``rec``: its record (:meth:`_job`)."""
         return asyncio.get_running_loop().run_in_executor(
-            self._device_worker, fn, *args)
+            self._device_worker, self._timed(fn, rec), *args)
 
-    def _device_job(self, fn, what: str) -> None:
+    def _device_job(self, fn, what: str, rec: JobRecord) -> None:
         """Queue ``fn()`` on the device worker from any thread, without
         waiting for it; a failure is logged."""
         def done(f):
             if not f.cancelled() and f.exception() is not None:
                 logger.error("%s failed: %r", what, f.exception())
 
-        self._device_worker.submit(fn).add_done_callback(done)
+        self._device_worker.submit(self._timed(fn, rec)).add_done_callback(
+            done)
 
     # -- checkpoints -----------------------------------------------------
     @classmethod
@@ -755,7 +868,14 @@ class LLMEngine:
                 logits, torch.from_numpy(state["temps"]).to(dev),
                 torch.from_numpy(state["top_k"]).to(dev),
                 torch.from_numpy(state["top_p"]).to(dev), state["gens"])
+            self._read_clock()
             return toks.cpu().numpy()
+
+    def _read_clock(self) -> None:
+        """Read the finished jobs' device times while the card runs a
+        tick's launches, off the path the tick's answer waits on."""
+        if self._clock is not None:
+            self._clock.poll()
 
     def _insert_slab(self, small, slot: int, true_len: int) -> None:
         """Copy a 1-row prefill cache's first ``true_len`` rows into slot
@@ -863,8 +983,9 @@ class LLMEngine:
         # the paged engine's tables come last, as in the tick's inputs
         out = self._program("spec", self._spec_program)(
             sampled, state["tokens"], state["pos"], state["temps"],
-            state["top_k"], state["top_p"], u,
-            *self._tick_inputs(state)[2:]).cpu().numpy()
+            state["top_k"], state["top_p"], u, *self._tick_inputs(state)[2:])
+        self._read_clock()
+        out = out.cpu().numpy()
         return out[:, :-1], out[:, -1]
 
     # -- prefix caching --------------------------------------------------
@@ -893,7 +1014,8 @@ class LLMEngine:
             entry["k"], entry["v"] = small["k"], small["v"]
 
         self._prefixes[ids] = entry
-        self._device_job(job, "prefix prefill")
+        self._device_job(job, "prefix prefill", self._prefill_record(
+            padded.shape, len(ids), None))
 
     def clear_prefixes(self) -> None:
         """Drop every cached prefix, registered and automatic."""
@@ -958,7 +1080,8 @@ class LLMEngine:
         return best[1] if best is not None else None
 
     # -- prefill variants ------------------------------------------------
-    async def _chunked_prefill(self, host_ids, L0: int, first):
+    async def _chunked_prefill(self, host_ids, L0: int, first,
+                               req: RequestRecord):
         """Prefill in ``chunk_prefill``-token pieces, each its own device
         job with an event-loop yield before it, so decode ticks interleave.
         Returns the last position's logits, the 1-row cache and the first
@@ -966,13 +1089,17 @@ class LLMEngine:
         n = min(self.chunk_prefill, L0)
         padded = np.zeros((1, _bucket(n)), np.int64)
         padded[0, :n] = host_ids[:n]
+        rec = self._prefill_record(padded.shape, n, req)
         if n == L0:
             return await self._on_device(
-                self._then_first(self._prefill_rows, first), padded, n - 1)
-        _, small = await self._on_device(self._prefill_rows, padded, n - 1)
-        return await self._extend_chunks(small, n, host_ids, L0, first)
+                self._then_first(self._prefill_rows, first), padded, n - 1,
+                rec=rec)
+        _, small = await self._on_device(self._prefill_rows, padded, n - 1,
+                                         rec=rec)
+        return await self._extend_chunks(small, n, host_ids, L0, first, req)
 
-    async def _extend_chunks(self, src, done: int, host_ids, L0: int, first):
+    async def _extend_chunks(self, src, done: int, host_ids, L0: int, first,
+                             req: RequestRecord):
         """Extend a 1-row cache or prefix source (``done`` tokens processed)
         to the whole prompt in ``chunk_prefill``-token chunks; also the
         long-suffix path after a prefix hit."""
@@ -982,13 +1109,39 @@ class LLMEngine:
             n = min(C, L0 - done)
             chunk = np.zeros((1, _bucket(n)), np.int64)
             chunk[0, :n] = host_ids[done:done + n]
+            rec = self._extend_record(src, chunk, n, req)
             if done + n == L0:
                 return await self._on_device(
                     self._then_first(self._extend_job, first), src, chunk,
-                    done, n - 1)
+                    done, n - 1, rec=rec)
             _, src = await self._on_device(self._extend_job, src, chunk, done,
-                                           n - 1)
+                                           n - 1, rec=rec)
             done += n
+
+    def _prefill_record(self, shape, tokens: int,
+                        req: Optional[RequestRecord]) -> JobRecord:
+        """The record of a prefill of ``shape`` (rows, bucket) holding
+        ``tokens`` true tokens, one of ``req``'s prefill jobs."""
+        rows, bucket = shape
+        if req is not None:
+            req.bucket = bucket
+        return self._job("prefill", (rows, bucket), req, tokens=tokens,
+                         padded=rows * bucket)
+
+    def _extend_record(self, src: dict, chunk, tokens: int,
+                       req: RequestRecord) -> JobRecord:
+        """The record of an extend of ``src``'s K/V by ``chunk`` (its
+        program's key: the prefix's rows, the chunk's bucket)."""
+        bs = chunk.shape[1]
+        if "src" in src:
+            rows = src["len"]
+        elif src.get("k") is None:  # a registered prefix still prefilling
+            rows = _bucket(src["len"])
+        else:
+            k = src["k"]
+            rows = (k.first if isinstance(k, Shards) else k).shape[2]
+        req.bucket = bs
+        return self._job("extend", (rows, bs), req, tokens=tokens, padded=bs)
 
     def _pf_wake(self) -> asyncio.Event:
         """The batched window's early-flush event, made on the running
@@ -998,13 +1151,14 @@ class LLMEngine:
             self._pf_event = (loop, asyncio.Event())
         return self._pf_event[1]
 
-    async def _batched_prefill(self, host_ids, L0: int, first):
+    async def _batched_prefill(self, host_ids, L0: int, first,
+                               req: RequestRecord):
         """Join the current window; its flusher runs ONE prefill for the
         group and hands each caller its own row: ``(logits [1, V], 1-row
         cache, first token)``, like the solo path."""
         loop = asyncio.get_running_loop()
         fut: asyncio.Future = loop.create_future()
-        self._pf_queue.append((host_ids, L0, first, fut))
+        self._pf_queue.append((host_ids, L0, first, req, fut))
         if len(self._pf_queue) >= self.max_slots:
             # every member holds a slot: the group cannot grow
             self._pf_wake().set()
@@ -1066,7 +1220,7 @@ class LLMEngine:
         while Bp < B:
             Bp *= 2
         ids = np.zeros((Bp, bucket), np.int64)
-        for b, (h, L, _, _) in enumerate(batch):
+        for b, (h, L, *_) in enumerate(batch):
             ids[b, :L] = h[:L]
         ids[B:] = ids[0]
         pos = np.asarray([item[1] - 1 for item in batch] + [0] * (Bp - B),
@@ -1085,10 +1239,15 @@ class LLMEngine:
                     [f[3] for f in firsts])
                 return logits, small, toks.tolist()
 
-        logits, small, toks = await self._on_device(job)
+        rec = self._prefill_record((Bp, bucket),
+                                   sum(item[1] for item in batch), None)
+        for item in batch:
+            item[3].jobs.append(rec)
+            item[3].bucket = bucket
+        logits, small, toks = await self._on_device(job, rec=rec)
         self.prefill_batch_stats["groups"] += 1
         self.prefill_batch_stats["requests"] += B
-        for b, (_, _, first, f) in enumerate(batch):
+        for b, (_, _, first, _, f) in enumerate(batch):
             if not f.done():  # the caller may have gone meanwhile
                 f.set_result((logits[b:b + 1],
                               {"k": _each(lambda t: t[:, b:b + 1], small["k"]),
@@ -1140,65 +1299,84 @@ class LLMEngine:
             None if admit_timeout is None
             else asyncio.get_running_loop().time() + float(admit_timeout)
         )
-        slot = await self._acquire_slot(priority=priority, deadline=deadline)
+        req = RequestRecord(self.engine_id, t_arrive, L0)
+        REQUESTS.add(req)
+        st = None
         try:
-            gen = None
-            if temperature > 0:
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(int(seed))
-            # the first token is drawn on the worker right after the last
-            # logits; the insert comes later, so a tick in flight meanwhile
-            # cannot see the slot
-            _, small, first_tok, d_small = await self._prefill_into_slot(
-                slot, host_ids, L0, n_new, priority=priority,
-                deadline=deadline,
-                first=(float(temperature), int(top_k), float(top_p), gen))
-            self._temps[slot] = float(temperature)
-            self._topk[slot] = int(top_k)
-            self._topp[slot] = float(top_p)
-            st = _Slot(queue=asyncio.Queue(), remaining=n_new, tokens=[],
-                       stop=frozenset(int(t) for t in stop_tokens),
-                       priority=int(priority), seq=self._next_seq(),
-                       slot=slot, prompt=host_ids)
-            # no awaits from here to the registration below
-            self._gens[slot] = gen
-            self._gen_state[slot] = None if gen is None else gen.get_state()
-            self._finalize_admission(slot, st, small, d_small, L0, host_ids)
-        except BaseException:
-            self._release_slot(slot)
+            slot = await self._acquire_slot(priority=priority,
+                                            deadline=deadline)
+            req.t_slot = time.perf_counter()
+            try:
+                gen = None
+                if temperature > 0:
+                    gen = torch.Generator(device=self.device)
+                    gen.manual_seed(int(seed))
+                # the first token is drawn on the worker right after the
+                # last logits; the insert comes later, so a tick in flight
+                # meanwhile cannot see the slot
+                _, small, first_tok, d_small = await self._prefill_into_slot(
+                    slot, host_ids, L0, n_new, priority=priority,
+                    deadline=deadline,
+                    first=(float(temperature), int(top_k), float(top_p), gen),
+                    req=req)
+                self._temps[slot] = float(temperature)
+                self._topk[slot] = int(top_k)
+                self._topp[slot] = float(top_p)
+                st = _Slot(queue=asyncio.Queue(), remaining=n_new, tokens=[],
+                           stop=frozenset(int(t) for t in stop_tokens),
+                           priority=int(priority), seq=self._next_seq(),
+                           slot=slot, prompt=host_ids)
+                # no awaits from here to the registration below
+                self._gens[slot] = gen
+                self._gen_state[slot] = (None if gen is None
+                                         else gen.get_state())
+                self._finalize_admission(slot, st, small, d_small, L0,
+                                         host_ids)
+            except BaseException:
+                self._release_slot(slot)
+                raise
+            self._slots[slot] = st
+            req.t_first = time.perf_counter()
+            self._emit(slot, st, first_tok)
+            if slot in self._slots:  # not already finished by stop/n_new=1
+                self._ensure_ticking()
+                self._recheck_preemption()
+            try:
+                while True:
+                    item = await st.queue.get()
+                    if item is _DONE:
+                        req.outcome = "ok"
+                        return
+                    if isinstance(item, BaseException):
+                        raise item
+                    yield item
+            finally:
+                # the consumer walked away (or finished): ``st.slot``, not
+                # the local, since a resume may have moved the request
+                st.cancelled = True
+                if self._slots.get(st.slot) is st:
+                    self._finish(st.slot, st)
+        except AdmissionDeadlineError:
+            req.outcome = "shed"
             raise
-        self._slots[slot] = st
-        t_first = time.perf_counter()
-        self._emit(slot, st, first_tok)
-        if slot in self._slots:  # not already finished by stop/n_new=1
-            self._ensure_ticking()
-            self._recheck_preemption()
-        try:
-            while True:
-                item = await st.queue.get()
-                if item is _DONE:
-                    n = len(st.tokens)
-                    self.latency_log.append({
-                        "ttft_s": t_first - t_arrive, "tokens": n,
-                        "tpot_s": ((time.perf_counter() - t_first) / (n - 1)
-                                   if n > 1 else None),
-                    })
-                    return
-                if isinstance(item, BaseException):
-                    raise item
-                yield item
+        except (GeneratorExit, asyncio.CancelledError):
+            req.outcome = "cancelled"
+            raise
+        except BaseException:
+            req.outcome = "error"
+            raise
         finally:
-            # the consumer walked away (or finished): ``st.slot``, not the
-            # local, since a resume may have moved the request
-            st.cancelled = True
-            if self._slots.get(st.slot) is st:
-                self._finish(st.slot, st)
+            req.t_done = time.perf_counter()
+            req.tokens = 0 if st is None else len(st.tokens)
+            parent = current_span()
+            if parent is not None:
+                add_request_spans(parent, req)
 
     # -- admission internals ---------------------------------------------
     async def _prefill_into_slot(self, slot: int, host_ids, L0: int,
                                  n_new: int, *, priority: int = 0,
                                  deadline: Optional[float] = None,
-                                 first=None):
+                                 first=None, req: RequestRecord):
         """Admission tail shared by :meth:`stream` and a preemption resume
         (:meth:`_readmit`): prefix resolution, capacity reservation and the
         prefill variant, then the draft's prefill of the whole prompt when
@@ -1206,18 +1384,22 @@ class LLMEngine:
         first token, the draft's 1-row cache or None)``, the token drawn as
         ``first`` says (:meth:`_sample_first`; None for a resume); the
         caller then calls :meth:`_finalize_admission` with no await between
-        it and the slot's registration."""
+        it and the slot's registration.  ``req``: the request's record (a
+        resume's own, outside the ring)."""
         logits, small, tok = await self._target_prefill(
             slot, host_ids, L0, n_new, priority=priority, deadline=deadline,
-            first=first)
+            first=first, req=req)
         d_small = None
         if self.draft_params is not None:
-            d_small = await self._on_device(self._draft_prefill, host_ids, L0)
+            b = _bucket(L0)
+            d_small = await self._on_device(
+                self._draft_prefill, host_ids, L0, rec=self._job(
+                    "draft_prefill", (1, b), tokens=L0, padded=b))
         return logits, small, tok, d_small
 
     async def _target_prefill(self, slot: int, host_ids, L0: int, n_new: int,
                               *, priority: int, deadline: Optional[float],
-                              first):
+                              first, req: RequestRecord):
         # prefixes are matched AFTER the slot is held (one may have been
         # registered meanwhile) and BEFORE the reservation, so the paged
         # engine reserves only the pages the prefix does not cover
@@ -1236,6 +1418,7 @@ class LLMEngine:
         self._note_prefix(slot, pref)
         await self._reserve_capacity(slot, L0, n_new, priority=priority,
                                      deadline=deadline)
+        req.t_reserved = time.perf_counter()
         # a ring-eligible prompt prefills sequence-parallel (per-rank work
         # L/tp): chunking it into small dense buckets would turn off the
         # path the operator asked for, so the ring takes precedence
@@ -1249,7 +1432,9 @@ class LLMEngine:
                 return (pref["logits"], {"k": pref["k"], "v": pref["v"]},
                         self._sample_first(pref["logits"], first))
 
-            return await self._on_device(hit)
+            req.variant = "prefix"
+            return await self._on_device(hit, rec=self._job("prefix_hit",
+                                                            req=req))
         if pref is not None and not (
                 chunking and L0 - pref["len"] > self.chunk_prefill):
             # the prefix's K/V from the cache; only the suffix runs, one
@@ -1257,22 +1442,28 @@ class LLMEngine:
             Lp, Ls = pref["len"], L0 - pref["len"]
             suffix = np.zeros((1, _bucket(Ls)), np.int64)
             suffix[0, :Ls] = host_ids[Lp:]
+            req.variant = "extend"
             return await self._on_device(
                 self._then_first(self._extend_job, first), pref, suffix, Lp,
-                Ls - 1)
+                Ls - 1, rec=self._extend_record(pref, suffix, Ls, req))
         if pref is not None:
             # a long suffix after a prefix hit is chunked too
+            req.variant = "chunked"
             return await self._extend_chunks(pref, pref["len"], host_ids, L0,
-                                             first)
+                                             first, req)
         if chunking:
-            return await self._chunked_prefill(host_ids, L0, first)
+            req.variant = "chunked"
+            return await self._chunked_prefill(host_ids, L0, first, req)
         if self.batch_prefill_ms and not use_ring and priority <= 0:
             # classes above 0 skip the window: they pay to avoid its wait
-            return await self._batched_prefill(host_ids, L0, first)
+            req.variant = "batched"
+            return await self._batched_prefill(host_ids, L0, first, req)
         padded = np.zeros((1, _bucket(L0)), np.int64)
         padded[0, :L0] = host_ids
+        req.variant = "solo"
         return await self._on_device(
-            self._then_first(self._prefill_rows, first), padded, L0 - 1)
+            self._then_first(self._prefill_rows, first), padded, L0 - 1,
+            rec=self._prefill_record(padded.shape, L0, req))
 
     def _finalize_admission(self, slot: int, st: _Slot, small, d_small,
                             L0: int, host_ids, store_auto: bool = True
@@ -1301,7 +1492,7 @@ class LLMEngine:
                     entry["v"] = _each(lambda t: t[:, :, :L0].clone(),
                                        small["v"])
 
-        fut = self._on_device(job)
+        fut = self._on_device(job, rec=self._job("insert", L0))
 
         def done(f, st=st):
             if not f.cancelled() and f.exception() is not None:
@@ -1458,9 +1649,12 @@ class LLMEngine:
             admitted = False
             try:
                 if not st.cancelled:
-                    # remaining + 1 keeps the original reservation's rows
+                    # remaining + 1 keeps the original reservation's rows;
+                    # the request's record keeps its first admission
                     _, small, _, d_small = await self._prefill_into_slot(
-                        slot, ctx, L1, st.remaining + 1, priority=st.priority)
+                        slot, ctx, L1, st.remaining + 1, priority=st.priority,
+                        req=RequestRecord(self.engine_id, time.perf_counter(),
+                                          L1))
                     self._temps[slot] = temp
                     self._topk[slot] = top_k
                     self._topp[slot] = top_p
@@ -1533,7 +1727,8 @@ class LLMEngine:
         # token
         active = dict(self._slots)
         state = self._tick_state(active)
-        host_toks = await self._on_device(self._tick_device, state)
+        rec = self._tick_job("tick", state, active)
+        host_toks = await self._on_device(self._tick_device, state, rec=rec)
         for slot, st in active.items():
             if self._slots.get(slot) is not st:
                 continue  # freed (and possibly re-occupied) mid-tick
@@ -1550,7 +1745,8 @@ class LLMEngine:
         mid-chunk (stop token, ``n_new``) drops the rest."""
         active = dict(self._slots)
         state = self._tick_state(active)
-        toks, n_emit = await self._on_device(self._spec_device, state)
+        rec = self._tick_job("spec", state, active)
+        toks, n_emit = await self._on_device(self._spec_device, state, rec=rec)
         k = self.k_draft
         self.spec_stats["rounds"] += 1
         for slot, st in active.items():
@@ -1569,6 +1765,13 @@ class LLMEngine:
                     break  # finished mid-chunk; the slot is released
             else:
                 self._pos[slot] = pos0 + n
+
+    def _tick_job(self, kind: str, state: dict, active: dict) -> JobRecord:
+        """A tick's record: its active rows and the context tokens they
+        attend (each row's position + 1)."""
+        rows = list(active)
+        return self._job(kind, rows=len(rows),
+                         context=int(state["pos"][rows].sum()) + len(rows))
 
     async def _tick_loop(self) -> None:
         tick = (self._plain_tick if self.draft_params is None
@@ -1744,7 +1947,8 @@ class PagedLLMEngine(LLMEngine):
         # queued behind the entry's prefill, which fills entry["k"/"v"]
         self._device_job(lambda: insert_rows(
             self.cache, {"k": entry["k"], "v": entry["v"]},
-            rows.to(self.device), true_len=full * ps), "prefix page write")
+            rows.to(self.device), true_len=full * ps), "prefix page write",
+            self._job("insert", full * ps))
         entry["shared_pages"] = pages
         entry["refs"] = 0
 

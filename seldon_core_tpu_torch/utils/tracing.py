@@ -17,7 +17,23 @@ windows (port of ``seldon_core_tpu/utils/tracing.py``).
   :func:`profile_annotation` opens ``torch.profiler.record_function`` and
   an NVTX range inside an open window, so device timelines line up with
   spans;
-- export: JSON dict per trace (the ``/trace`` engine endpoint).
+- export: JSON dict per trace (the ``/trace`` engine endpoint);
+- the LLM engines' records (:class:`JobRecord`, :class:`RequestRecord`):
+  one per device job and one per request, always on, in two bounded
+  process-wide rings (:func:`job_records`, :func:`request_records`), stamped
+  on ``time.perf_counter()``; :func:`add_request_spans` makes a request's
+  spans from its record.
+
+One clock: spans, span events and records read ``time.perf_counter``;
+span stamps are its nanoseconds plus :data:`EPOCH_OFFSET_NS`, taken once
+per process, so they read as Unix-epoch nanoseconds (what OTLP and
+``/trace`` export, and what ``torch.profiler``'s events are stamped in)
+and :func:`epoch_ns` maps a record's time onto them.  On Linux
+``perf_counter`` is ``CLOCK_MONOTONIC``, which NTP slews at the wall
+clock's rate, so the offset holds until the wall clock is stepped (by
+hand, by a time daemon's step, at a leap second); after a step
+the exported stamps are off from other processes' by the step, until the
+process restarts.
 
 Trace IDs derive from the puid exactly as the reference derives them
 (:meth:`Tracer.new_context`), so one puid names one trace in both packages.
@@ -27,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import itertools
 import json
 import logging
 import os
@@ -48,6 +65,7 @@ __all__ = [
     "profiler_active",
     "warm_device_profile",
     "profile_annotation",
+    "all_threads_config",
     "NULL_TRACER",
     "TraceContext",
     "current_trace",
@@ -77,6 +95,17 @@ __all__ = [
     "SLOW_MS_ANNOTATION",
     "TRACING_ANNOTATION",
     "TRACING_MAX_ANNOTATION",
+    "EPOCH_OFFSET_NS",
+    "now_ns",
+    "epoch_ns",
+    "JobRecord",
+    "RequestRecord",
+    "RecordRing",
+    "JOBS",
+    "REQUESTS",
+    "job_records",
+    "request_records",
+    "add_request_spans",
 ]
 
 # -- wire / tag channel names ------------------------------------------------
@@ -290,6 +319,37 @@ def stamp_trace_meta(meta, ctx: Optional[TraceContext]) -> None:
         meta.tags[TRACE_STATE_TAG] = _format_tracestate(ctx.state)
 
 
+# -- the one clock ------------------------------------------------------------
+def _epoch_offset_ns() -> int:
+    """``time.time_ns() - time.perf_counter_ns()`` from the tightest of a
+    few paired reads."""
+    best = None
+    for _ in range(16):
+        a = time.perf_counter_ns()
+        wall = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, wall - (a + b) // 2)
+    return best[1]
+
+
+#: added to ``time.perf_counter_ns()`` it gives Unix-epoch nanoseconds;
+#: taken once, when this module is imported
+EPOCH_OFFSET_NS = _epoch_offset_ns()
+
+
+def now_ns() -> int:
+    """Now, in the spans' nanoseconds (Unix epoch, from the monotonic
+    ``perf_counter``)."""
+    return time.perf_counter_ns() + EPOCH_OFFSET_NS
+
+
+def epoch_ns(t: float) -> int:
+    """A ``time.perf_counter()`` reading in the spans' nanoseconds, which
+    are also ``torch.profiler``'s event stamps."""
+    return round(t * 1e9) + EPOCH_OFFSET_NS
+
+
 # -- spans -------------------------------------------------------------------
 @dataclass
 class Span:
@@ -313,7 +373,7 @@ class Span:
     def add_event(self, name: str, **attributes) -> None:
         self.events.append({
             "name": name,
-            "time_ns": time.time_ns(),
+            "time_ns": now_ns(),
             "attributes": dict(attributes),
         })
 
@@ -647,7 +707,7 @@ class Tracer:
             yield _DUMMY
             return
         sp = Span(name=name, kind=kind, attributes=dict(attributes),
-                  start_ns=time.time_ns(), span_id=new_span_id())
+                  start_ns=now_ns(), span_id=new_span_id())
         parent = _current_span.get()
         ctx = _current_ctx.get()
         if parent is not None:
@@ -671,7 +731,7 @@ class Tracer:
             sp.status = f"ERROR: {type(e).__name__}"
             raise
         finally:
-            sp.end_ns = time.time_ns()
+            sp.end_ns = now_ns()
             if ctx_token is not None:
                 _current_ctx.reset(ctx_token)
             _current_span.reset(token)
@@ -740,6 +800,186 @@ class Tracer:
 _DUMMY = Span(name="disabled")
 
 NULL_TRACER = Tracer(enabled=False)
+
+
+# -- the LLM engines' job and request records --------------------------------
+_IDS = itertools.count(1)
+
+
+@dataclass(slots=True, eq=False)
+class JobRecord:
+    """One device job of an LLM engine (its worker thread runs one at a
+    time, in submission order).  Times are ``time.perf_counter()``
+    seconds; the device fields are None off the card, and until the
+    engine has read them (at its next tick, once the job's end event has
+    completed).
+
+    - ``kind``: ``tick``, ``spec``, ``prefill``, ``extend``, ``insert``,
+      ``draft_prefill`` or ``prefix_hit``; ``key`` its program's
+      shape key where it has one: (rows, bucket) of a prefill, (prefix
+      rows, suffix bucket) of an extend, the true length of an insert
+    - ``captured``: a program captured a CUDA graph in this job
+    - ``device_ms``: the job's span on the worker's stream, between two
+      CUDA events recorded as the job starts and after it returns: its
+      device work and whatever idle the host leaves inside the job (input
+      uploads, launches, the sync that reads its answer), so not the
+      card's busy time; ``gap_ms``: the stream's span from the previous
+      job's end event to this job's start event, the idle between jobs
+    - ``rows``, ``context``: a tick's active rows and the context tokens
+      they attend (each row's position + 1: the work of kernel K2)
+    - ``tokens``, ``padded``: a prefill's or extend's true and padded
+      tokens (rows x bucket)
+    """
+
+    kind: str
+    engine: int
+    t_submit: float
+    key: Any = None
+    id: int = field(default_factory=lambda: next(_IDS))
+    t_start: Optional[float] = None
+    t_end: Optional[float] = None
+    captured: bool = False
+    device_ms: Optional[float] = None
+    gap_ms: Optional[float] = None
+    rows: Optional[int] = None
+    context: Optional[int] = None
+    tokens: Optional[int] = None
+    padded: Optional[int] = None
+
+    @property
+    def t(self) -> float:
+        """The time the job ring orders and selects by: its start, or its
+        submission while it waits."""
+        return self.t_submit if self.t_start is None else self.t_start
+
+    @property
+    def label(self) -> str:
+        """Its name on a profiler's timeline: ``llm.<kind>(<key>)``, or
+        ``llm.<kind>`` for a job with no key."""
+        key = self.key
+        if key is None:
+            return f"llm.{self.kind}"
+        if not isinstance(key, tuple):
+            key = f"({key})"
+        return f"llm.{self.kind}{key}"
+
+
+@dataclass(slots=True, eq=False)
+class RequestRecord:
+    """One request to an LLM engine, from its arrival in ``stream`` to its
+    end (``time.perf_counter()`` seconds; None where it never got there).
+
+    - ``t_slot``: a slot held; ``t_reserved``: its KV pages held (the slab
+      engine reserves none: then as soon as the slot is held)
+    - ``jobs``: the :class:`JobRecord` of each job that ran its prefill at
+      admission (a preempted request's re-prefill is not among them)
+    - ``t_first``: its first token emitted; ``t_done``: its stream ended
+    - ``bucket``: the padded row length of its (last) prefill job: the
+      prompt's bucket, or the suffix's after a prefix hit (None where no
+      prefill ran); ``variant``: ``solo``, ``batched``, ``prefix`` (the
+      whole prompt a registered prefix), ``extend`` (a prefix hit, the
+      suffix run) or ``chunked``
+    - ``outcome``: ``ok``, ``shed`` (an admission deadline), ``cancelled``
+      (the consumer walked away) or ``error``
+    """
+
+    engine: int
+    t_arrive: float
+    prompt: int
+    id: int = field(default_factory=lambda: next(_IDS))
+    t_slot: Optional[float] = None
+    t_reserved: Optional[float] = None
+    jobs: list = field(default_factory=list)
+    t_first: Optional[float] = None
+    t_done: Optional[float] = None
+    bucket: Optional[int] = None
+    variant: Optional[str] = None
+    tokens: int = 0
+    outcome: Optional[str] = None
+
+    @property
+    def t(self) -> float:
+        return self.t_arrive
+
+
+class RecordRing:
+    """A bounded ring of records (each with a time ``t``) in the order they
+    were made.  A reader asking from a time the ring may have dropped
+    records at or after gets None, not a part."""
+
+    def __init__(self, size: int):
+        self.size = int(size)
+        self._items: deque = deque()
+        self._lost: Optional[float] = None  # the latest t of a dropped record
+        self._lock = threading.Lock()
+
+    def add(self, rec) -> None:
+        with self._lock:
+            if len(self._items) >= self.size:
+                t = self._items.popleft().t
+                self._lost = t if self._lost is None else max(self._lost, t)
+            self._items.append(rec)
+
+    def between(self, t0: float = float("-inf"),
+                t1: float = float("inf")) -> Optional[list]:
+        """The records with ``t0 <= t < t1``; None when the ring no longer
+        holds all of them."""
+        with self._lock:
+            if self._lost is not None and self._lost >= t0:
+                return None
+            items = list(self._items)
+        return [r for r in items if t0 <= r.t < t1]
+
+
+#: every LLM engine's job records (a 51 s window of 64-row decode holds
+#: about 3000 jobs) and request records, process-wide, so that a reader
+#: still reaches them once the engine is closed
+JOBS = RecordRing(1 << 15)
+REQUESTS = RecordRing(1 << 13)
+
+
+def job_records(t0: float = float("-inf"),
+                t1: float = float("inf")) -> Optional[list]:
+    """The job records of every engine started (waiting: submitted) in
+    ``[t0, t1)`` of ``time.perf_counter()``; None when the ring no longer
+    holds them all."""
+    return JOBS.between(t0, t1)
+
+
+def request_records(t0: float = float("-inf"),
+                    t1: float = float("inf")) -> Optional[list]:
+    """The request records of every engine that arrived in ``[t0, t1)``;
+    None when the ring no longer holds them all."""
+    return REQUESTS.between(t0, t1)
+
+
+def _child(parent: Span, name: str, t0: Optional[float],
+           t1: Optional[float], **attributes) -> None:
+    if t0 is None or t1 is None:
+        return
+    parent.children.append(Span(
+        name=name, kind="llm", start_ns=epoch_ns(t0), end_ns=epoch_ns(t1),
+        attributes={k: v for k, v in attributes.items() if v is not None},
+        trace_id=parent.trace_id, span_id=new_span_id(),
+        parent_span_id=parent.span_id))
+
+
+def add_request_spans(parent: Span, req: RequestRecord) -> None:
+    """``req``'s phases as children of ``parent``: ``llm.slot_wait``,
+    ``llm.page_wait``, ``llm.prefill_queued`` (its first prefill job's
+    submission to its start), ``llm.prefill`` (the prefill jobs' first
+    start to their last end) and ``llm.decode`` (first token to the
+    stream's end); a phase the request never reached is left out."""
+    _child(parent, "llm.slot_wait", req.t_arrive, req.t_slot)
+    _child(parent, "llm.page_wait", req.t_slot, req.t_reserved)
+    if req.jobs:
+        first, last = req.jobs[0], req.jobs[-1]
+        times = [j.device_ms for j in req.jobs]
+        _child(parent, "llm.prefill_queued", first.t_submit, first.t_start)
+        _child(parent, "llm.prefill", first.t_start, last.t_end,
+               variant=req.variant, bucket=req.bucket, tokens=req.prompt,
+               device_ms=None if None in times else sum(times))
+    _child(parent, "llm.decode", req.t_first, req.t_done, tokens=req.tokens)
 
 
 # -- annotation config (admission-validated; see graphlint GL9xx) ------------
@@ -816,6 +1056,7 @@ _profile_active = False
 
 
 def profiler_active() -> bool:
+    """Whether a :func:`device_profile` window is open."""
     return _profile_active
 
 
@@ -825,8 +1066,10 @@ def profile_annotation(name: str):
     :func:`device_profile` window is open (``torch.profiler.
     record_function`` plus an NVTX range when a card is visible); a free
     no-op otherwise (a module flag, no torch call on the hot path).  The
-    NVTX range is a start/end pair, not a push/pop, so ranges of
-    coroutines that interleave across ``await`` stay apart."""
+    window records the ranges of every thread where torch can
+    (:func:`all_threads_config`).  The NVTX range is a start/end pair, not
+    a push/pop, so ranges of coroutines that interleave across ``await``
+    stay apart."""
     if not _profile_active:
         yield
         return
@@ -867,6 +1110,18 @@ def warm_device_profile() -> None:
         _warmed = True
 
 
+def all_threads_config():
+    """``torch.profiler``'s configuration that records the host ranges of
+    every thread, not only the one that starts the session; None where
+    the installed torch has no such setting."""
+    import torch
+
+    try:
+        return torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        return None
+
+
 class _ProfilerSession:
     """One ``torch.profiler`` session on a thread of its own.
 
@@ -876,7 +1131,9 @@ class _ProfilerSession:
     the one that opened it.  The session thread starts the profiler, waits
     for :meth:`close`, stops it and writes the Chrome trace.  CUDA activity
     (CUPTI) is recorded for the whole process either way; host-side ranges
-    are recorded on the session's own thread only."""
+    of every thread (the LLM engines' device workers, the event loop's
+    segments) where torch can (:func:`all_threads_config`), else of the
+    session's own thread only."""
 
     def __init__(self, logdir: str):
         self.logdir = logdir
@@ -893,7 +1150,8 @@ class _ProfilerSession:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():
             activities.append(torch.profiler.ProfilerActivity.CUDA)
-        prof = torch.profiler.profile(activities=activities)
+        prof = torch.profiler.profile(activities=activities,
+                                      experimental_config=all_threads_config())
         try:
             prof.start()
         except BaseException as e:

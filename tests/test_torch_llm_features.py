@@ -364,10 +364,12 @@ def test_prefix_entries_own_their_storage(kind):
 
     async def run():
         await eng.generate(a, 1)
-        await eng._on_device(lambda: None)  # the insert job has run
+        # the insert job has run
+        await eng._on_device(lambda: None, rec=eng._job("test"))
         e = eng._auto_entries[0]
         eng.register_prefix(pre)
-        await eng._on_device(lambda: None)  # the prefix's prefill has run
+        # the prefix's prefill has run
+        await eng._on_device(lambda: None, rec=eng._job("test"))
         r = eng._prefixes[tuple(int(t) for t in pre)]
         before = [x.clone() for x in (e["k"], e["v"], r["k"], r["v"])]
         # the same slot decodes on, then is recycled and re-filled
@@ -376,7 +378,7 @@ def test_prefix_entries_own_their_storage(kind):
         for suffix in (_prompt(5, 94), _prompt(9, 95)):
             await eng.generate(np.concatenate([pre, suffix]), 6)
         await eng.generate(pre, 6)
-        await eng._on_device(lambda: None)
+        await eng._on_device(lambda: None, rec=eng._job("test"))
         return e, r, before
 
     e, r, before = asyncio.run(run())

@@ -143,7 +143,8 @@ def test_extend_job_with_a_tensor_last_is_unchanged(int8):
 def _gate(eng):
     """Hold the engine's device worker until the returned event is set."""
     ev = threading.Event()
-    eng._device_job(lambda: ev.wait(30), "test gate")
+    eng._device_job(lambda: ev.wait(30), "test gate",
+                    eng._job("test"))
     return ev
 
 
@@ -399,7 +400,8 @@ def test_aliased_admissions_in_forced_orders_equal_the_reference(order):
             first.append(await fb)
         elif order == "b_admits_between_a_insert_and_first_tick":
             eng.register_prefix(_PRE)
-            await eng._on_device(lambda: None)  # prefix written
+            # prefix written
+            await eng._on_device(lambda: None, rec=eng._job("test"))
             a, b = eng.stream(_FA, 12), eng.stream(_FB, 12)
             fa = asyncio.ensure_future(a.__anext__())
             fb = asyncio.ensure_future(b.__anext__())
